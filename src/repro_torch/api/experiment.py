@@ -1,0 +1,250 @@
+"""The ``Experiment`` facade of the port: the paper system's serving path.
+
+  >>> exp = Experiment.from_config(system="paper", classes=1_020_250,
+  ...                              feat_dim=512)          # on "cuda"
+  >>> exp.serve(batch=64)                                  # greedy ids
+  >>> exp.serve(batch=64, top_k=5, return_scores=True)     # (ids, scores)
+
+The port of the JAX package's ``api/experiment.py`` for the slices landed
+so far: ``serve`` (greedy and top-k, through the serving engine or on
+explicit inputs), ``serving_engine``, ``evaluate`` and ``weights_version``.
+``fit`` and the zoo system come with later slices (ROADMAP.md queue A).
+
+Entry points run on the card: ``device=None`` means ``"cuda"``, and with no
+GPU present they raise rather than fall back to the CPU. Pass
+``device="cpu"`` to run on the CPU, as the tests do. fp32 products stay
+fp32 (TF32 is switched off), as in the JAX reference.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import dist
+from repro_torch.configs.base import (HeadConfig, ModelConfig, TrainConfig,
+                                      effective_vocab)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``"cuda"``; a CUDA device without a GPU raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: repro_torch runs on the GPU unless the "
+                "caller passes device='cpu'")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def _validate_serve_args(n_classes: int, batch: Optional[int],
+                         top_k: Optional[int]):
+    """Reject bad serving knobs with a clear error."""
+    if batch is not None and batch <= 0:
+        raise ValueError(
+            f"serve batch must be a positive query count, got {batch}")
+    if top_k is not None and not 0 < top_k <= n_classes:
+        raise ValueError(
+            f"top_k must be in [1, num_classes={n_classes}], got {top_k} "
+            f"(retrieval cannot return more classes than exist)")
+
+
+def paper_model_config(trunk: str = "feats", classes: int = 4096,
+                       feat_dim: int = 64) -> ModelConfig:
+    """The paper system's trunk config (only the ``feats`` trunk is
+    ported)."""
+    if trunk == "feats":
+        return ModelConfig(name="paper-feats", family="feats", n_layers=0,
+                           d_model=feat_dim, n_heads=0, n_kv_heads=0,
+                           d_ff=0, vocab_size=classes, dtype="float32")
+    if trunk == "cnn":
+        raise NotImplementedError(
+            "the cnn trunk is not ported to torch yet (ROADMAP.md queue A)")
+    raise ValueError(f"unknown paper trunk {trunk!r}")
+
+
+class Experiment:
+    """Facade over one configured system."""
+
+    @staticmethod
+    def from_config(*, system: str = "paper", **kw) -> "Experiment":
+        if system == "paper":
+            return PaperExperiment(**kw)
+        if system == "zoo":
+            raise NotImplementedError(
+                "the zoo system is not ported to torch yet (ROADMAP.md "
+                "queue A)")
+        raise ValueError(f"unknown system {system!r} (paper | zoo)")
+
+    def fit(self, steps: int, **kw):
+        raise NotImplementedError
+
+    def evaluate(self, inputs=None) -> float:
+        raise NotImplementedError
+
+    def serve(self, *args, **kw):
+        raise NotImplementedError
+
+    def serving_engine(self, *, top_k: Optional[int] = None, **kw):
+        """A ``repro_torch.serving.ServingEngine`` over this experiment's
+        head: ``submit()`` of single queries, coalesced into padded
+        micro-batches, optional hot-query score cache."""
+        from repro_torch.serving import ServingEngine
+        _validate_serve_args(effective_vocab(self.model_cfg), None, top_k)
+        return ServingEngine.for_experiment(self, top_k=top_k, **kw)
+
+
+class PaperExperiment(Experiment):
+    """The paper's system with a pluggable softmax head, on a ring of
+    ``repro_torch.dist.world_size()`` members (one without a process
+    group). Each member holds its row block of the head."""
+
+    def __init__(self, *, model: Optional[ModelConfig] = None,
+                 head: Optional[HeadConfig] = None,
+                 train: Optional[TrainConfig] = None,
+                 trunk: str = "feats", classes: int = 4096,
+                 feat_dim: int = 64, batch: int = 64,
+                 data_fn: Optional[Callable[[int, int], dict]] = None,
+                 seed: int = 0, device=None):
+        from repro_torch.api.heads import make_head
+        from repro_torch.train import hybrid
+
+        self.device = resolve_device(device)
+        self.model_cfg = model or paper_model_config(trunk, classes, feat_dim)
+        self.head_cfg = head or HeadConfig()
+        self.train_cfg = train or TrainConfig(optimizer="sgd")
+        self.batch = batch
+        self.head = make_head(self.model_cfg, self.head_cfg)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.state = hybrid.init_state(
+            gen, self.model_cfg, self.head_cfg, self.train_cfg,
+            dist.world_size(), rank=dist.rank(), device=self.device,
+            head=self.head)
+        self.loads = 0       # bumped on every load_state (serving-cache probe)
+        self.data_fn = data_fn or self._default_data_fn()
+        self._serve_step = None
+        self._eval_step = None
+        self._topk_steps: dict = {}
+        self._engines: dict = {}
+
+    def _default_data_fn(self):
+        from repro_torch.data.synthetic import (ClassificationStream,
+                                                sku_feature_batch)
+        stream = ClassificationStream(self.model_cfg.vocab_size,
+                                      self.model_cfg.d_model,
+                                      device=self.device)
+        return lambda t, b: sku_feature_batch(t, b, stream)
+
+    @property
+    def weights_version(self):
+        """Serving-cache invalidation probe: moves whenever the served
+        weights can have changed (every weight load and every step)."""
+        return (self.loads, int(self.state.step))
+
+    def load_state(self, state) -> None:
+        """Install a ``HybridState`` (for example weights carried over from
+        the JAX package by ``repro_torch.interop``); the counterpart of a
+        checkpoint restore until checkpoints are ported."""
+        self.state = state
+        self.loads += 1
+
+    def fit(self, steps: int, **kw):
+        raise NotImplementedError(
+            "training is not ported to torch yet (ROADMAP.md queue A.3)")
+
+    def _to_device(self, inputs: dict) -> dict:
+        return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                                   else v).to(self.device)
+                for k, v in inputs.items()}
+
+    def evaluate(self, inputs=None, *, eval_batch: Optional[int] = None
+                 ) -> float:
+        """Deploy-style top-1 accuracy (§4.5 nearest class weight)."""
+        from repro_torch.train import hybrid
+        if inputs is None:
+            inputs = self.data_fn(10**6, eval_batch or 4 * self.batch)
+        if self._eval_step is None:
+            self._eval_step = hybrid.make_eval_step(
+                self.model_cfg, self.head_cfg, head=self.head)
+        return self._eval_step(self.state, self._to_device(inputs))
+
+    def serve(self, inputs=None, *, batch: Optional[int] = None,
+              top_k: Optional[int] = None, return_scores: bool = False,
+              index: Optional[str] = None, nprobe: Optional[int] = None,
+              telemetry=None):
+        """Deploy-style retrieval (§4.5): nearest-class predictions for a
+        batch of inputs.
+
+        Greedy mode (default) returns [b] class ids. ``top_k=k`` returns
+        ids [b, k] (descending), or (ids, scores) with ``return_scores``.
+        Without explicit ``inputs`` the call is routed through the
+        serving engine (per-query submit -> one padded micro-batch ->
+        batched serve step); explicit ``inputs`` run the single-shot step
+        (the batch must then divide the ring). ``index="ivf"`` is not
+        ported yet."""
+        from repro_torch.telemetry import NULL_TRACER
+        from repro_torch.train import hybrid
+
+        _validate_serve_args(effective_vocab(self.model_cfg), batch, top_k)
+        if index not in (None, "none", "ivf"):
+            raise ValueError(f"unknown serving index {index!r}; "
+                             f"expected 'none' or 'ivf'")
+        if index == "ivf" and top_k is None:
+            raise ValueError("index='ivf' serves top-k retrieval; "
+                             "pass top_k=...")
+        if index == "ivf" or nprobe is not None:
+            raise NotImplementedError(
+                "the IVF serving index is not ported to torch yet "
+                "(ROADMAP.md queue A.2)")
+        if inputs is None:
+            return self._serve_via_engine(batch or self.batch, top_k,
+                                          return_scores, telemetry=telemetry)
+        tr = telemetry or NULL_TRACER
+        inputs = self._to_device(inputs)
+        if top_k is not None:
+            if top_k not in self._topk_steps:
+                self._topk_steps[top_k] = hybrid.make_topk_serve_step(
+                    self.model_cfg, self.head_cfg, top_k, head=self.head)
+            with tr.span("serve.compute"):
+                vals, ids = self._topk_steps[top_k](self.state, inputs)
+                ids, vals = ids.cpu().numpy(), vals.cpu().numpy()
+            return (ids, vals) if return_scores else ids
+        if self._serve_step is None:
+            self._serve_step = hybrid.make_serve_step(
+                self.model_cfg, self.head_cfg, head=self.head)
+        with tr.span("serve.compute"):
+            return self._serve_step(self.state, inputs).cpu().numpy()
+
+    def _serve_via_engine(self, batch: int, top_k: Optional[int],
+                          return_scores: bool, *, telemetry=None):
+        """Batched serving through the engine: one engine per (top_k,
+        batch), all queries submitted then drained as one micro-batch. No
+        cache on this path (a synchronous call wants fresh scores)."""
+        key = (top_k, batch)
+        eng = self._engines.get(key)
+        if eng is None:
+            # max_batch >= 2 keeps a 1-query call on the batched shapes
+            eng = self.serving_engine(top_k=top_k, max_batch=max(batch, 2),
+                                      max_wait_ms=0.0, cache=None)
+            self._engines[key] = eng
+        if telemetry is not None:
+            eng.telemetry = telemetry
+        inputs = self.data_fn(10**6, batch)
+        qkey = next(k for k in inputs if k != "labels")
+        q = inputs[qkey]
+        queries = (q.cpu().numpy() if torch.is_tensor(q) else np.asarray(q))
+        for i in range(batch):
+            eng.submit(queries[i])
+        done = sorted(eng.drain(), key=lambda r: r.rid)
+        if len(done) != batch:
+            raise RuntimeError(f"engine returned {len(done)} of {batch}")
+        ids = np.stack([r.ids for r in done])
+        if top_k is None:
+            return ids.astype(np.int32)
+        if return_scores:
+            return ids, np.stack([r.scores for r in done])
+        return ids

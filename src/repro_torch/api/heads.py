@@ -1,0 +1,119 @@
+"""Softmax-head strategies: the port of the state and serve parts of the JAX
+package's ``api/heads.py``.
+
+A head owns its parameters and auxiliary state (``HeadState``) and its
+distributed prediction body ``eval_logits_local``. Heads register by name
+(``register_head``); ``make_head`` builds one from a ``HeadConfig``. Only
+``full`` is ported so far; the other five are named in ``KNOWN_HEADS`` so
+that configs naming them parse, and ``make_head`` refuses them until their
+slice lands (ROADMAP.md queue A).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import HeadConfig, ModelConfig, effective_vocab
+from repro_torch.core.sharded_softmax import (_normalize, serve_argmax_local,
+                                              serve_logits_local)
+
+KNOWN_HEADS = ("full", "knn", "selective", "mach", "sampled", "csoft")
+
+
+class HeadState(NamedTuple):
+    """``params`` are trained by the outer optimizer; ``aux`` is head-owned
+    non-trainable state (graphs, hash tables, ...)."""
+    params: Any
+    aux: Any
+
+
+class SoftmaxHead:
+    """Base strategy. Subclasses are stateless objects bound to configs;
+    all tensor state lives in the ``HeadState`` they create."""
+
+    name = "?"
+    # True when the trainable params ARE the [V, D] class-weight matrix
+    params_are_class_weights = True
+
+    def __init__(self, model_cfg: ModelConfig, head_cfg: HeadConfig):
+        self.model_cfg = model_cfg
+        self.head_cfg = head_cfg
+        self.n_classes = model_cfg.vocab_size
+        self.d = model_cfg.d_model
+        # padded-vocab masking: labels < n_valid always
+        self.n_valid = (effective_vocab(model_cfg)
+                        if model_cfg.real_vocab_size else 0)
+        self.backend = head_cfg.backend
+
+    def init(self, generator: torch.Generator, n_dev: int, *, rank: int,
+             device) -> HeadState:
+        """This ring member's state: its row block of the params."""
+        raise NotImplementedError
+
+    def eval_logits_local(self, f_all, params, aux):
+        """Deploy-style prediction (§4.5 retrieval). Returns (pred [b]
+        global class ids, local scores or None)."""
+        raise NotImplementedError
+
+    def _init_w(self, generator: torch.Generator, n_dev: int, rank: int,
+                device, block_rows: int = 1 << 16):
+        """Rows [rank*V/n, (rank+1)*V/n) of a W [V, D] ~ N(0, 1/D). The
+        whole matrix is drawn in fixed row blocks from ``generator`` and
+        each member keeps its own rows, so W does not depend on the ring
+        size and no member ever holds more than its block plus one draw."""
+        if self.n_classes % n_dev:
+            raise ValueError(f"{self.n_classes} classes do not divide a ring "
+                             f"of {n_dev}")
+        v_loc = self.n_classes // n_dev
+        lo, hi = rank * v_loc, (rank + 1) * v_loc
+        out = torch.empty((v_loc, self.d), device=device, dtype=torch.float32)
+        for start in range(0, self.n_classes, block_rows):
+            stop = min(start + block_rows, self.n_classes)
+            blk = torch.randn((stop - start, self.d), generator=generator,
+                              device=device)
+            a, b = max(start, lo), min(stop, hi)
+            if a < b:
+                out[a - lo:b - lo] = blk[a - start:b - start]
+        return out.div_(math.sqrt(self.d))
+
+
+HEAD_REGISTRY: dict = {}
+
+
+def register_head(name: str):
+    def deco(cls):
+        cls.name = name
+        HEAD_REGISTRY[name] = cls
+        return cls
+    return deco
+
+
+def make_head(model_cfg: ModelConfig, head_cfg: HeadConfig) -> SoftmaxHead:
+    cls = HEAD_REGISTRY.get(head_cfg.softmax_impl)
+    if cls is None:
+        raise NotImplementedError(
+            f"the {head_cfg.softmax_impl!r} head is not ported to torch yet "
+            f"(ported: {sorted(HEAD_REGISTRY)}; see ROADMAP.md queue A)")
+    return cls(model_cfg, head_cfg)
+
+
+@register_head("full")
+class FullSoftmaxHead(SoftmaxHead):
+    """W [V, D] row-sharded; exact distributed softmax (§3.1)."""
+
+    def init(self, generator, n_dev, *, rank, device) -> HeadState:
+        return HeadState(params=self._init_w(generator, n_dev, rank, device),
+                         aux=())
+
+    def eval_logits_local(self, f_all, params, aux):
+        f = f_all.float()
+        w = params.float()
+        if self.head_cfg.cosine_scale > 0:
+            # §4.5 retrieval equivalence holds for the normalized objective
+            f, w = _normalize(f), _normalize(w)
+        if self.backend == "kernel":
+            # streaming (max, argmax) stats — no [b, V_loc] scores on the card
+            return serve_argmax_local(f, w, n_valid=self.n_valid)
+        return serve_logits_local(f, w, n_valid=self.n_valid)

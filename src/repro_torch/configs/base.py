@@ -1,0 +1,184 @@
+"""Config dataclasses of the port, field for field those of the JAX
+package's ``configs/base.py``, so one dict drives both packages.
+
+The one difference is the vocabulary of ``HeadConfig.backend`` and
+``DGCConfig.backend``: ``"ref"`` (plain torch ops) or ``"kernel"`` (the
+hand-written CUDA kernels), where the JAX package says ``"pallas"``.
+``repro_torch.interop.head_config_from_dict`` maps the one onto the other.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import Optional
+
+BACKENDS = ("ref", "kernel")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int
+    router_aux_coef: float = 0.01
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 64
+    n_groups: int = 1
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | encdec | vlm | cnn | feats
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    activation: str = "swiglu"
+    norm: str = "rmsnorm"
+    norm_eps: float = 1e-6
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    sliding_window: Optional[int] = None
+    tie_embeddings: bool = True
+    n_enc_layers: int = 0
+    enc_seq: int = 0
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    # vocab padding: when the vocab does not divide the ring, W rows are
+    # padded and the padded logits masked
+    real_vocab_size: Optional[int] = None
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    def with_sliding_window(self, window: int = 4096) -> "ModelConfig":
+        return replace(self, sliding_window=window)
+
+
+@dataclass(frozen=True)
+class HeadConfig:
+    """The hybrid-parallel extreme-classification head.
+
+    ``softmax_impl`` names a registered ``repro_torch.api.heads`` strategy;
+    ``backend`` is ``"ref"`` (dense torch ops) or ``"kernel"`` (the
+    hand-written CUDA kernels in ``repro_torch.kernels``). The
+    ``pallas_block_*`` names are kept so one config dict drives both
+    packages."""
+    softmax_impl: str = "full"     # full|knn|selective|mach|sampled|csoft
+    backend: str = "kernel"        # ref (torch ops) | kernel (CUDA kernels)
+    pallas_block_v: int = 512
+    pallas_block_a: int = 128
+    cosine_scale: float = 16.0     # normalized-logit scale (§3.2.1); 0 = raw
+    knn_k: int = 16
+    knn_kprime: int = 32
+    active_frac: float = 0.10
+    rebuild_every: int = 0
+    knn_pad_random: bool = True
+    selective_n_hash: int = 4
+    selective_n_bits: int = 8
+    selective_cap: int = 32
+    mach_b: int = 64
+    mach_r: int = 4
+    sampled_n: int = 2048
+    sampled_dist: str = "uniform"
+    sampled_seed: int = 17
+    csoft_b: int = 64
+    csoft_r: int = 4
+    csoft_agg: str = "min"
+    label_smoothing: float = 0.0
+    z_loss: float = 0.0
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"backend must be 'ref' or 'kernel', got {self.backend!r}")
+        if self.sampled_dist not in ("uniform", "log_uniform"):
+            raise ValueError(
+                f"sampled_dist must be 'uniform' or 'log_uniform', got "
+                f"{self.sampled_dist!r}")
+        if self.csoft_agg not in ("min", "mean"):
+            raise ValueError(
+                f"csoft_agg must be 'min' or 'mean', got {self.csoft_agg!r}")
+        from repro_torch.api.heads import KNOWN_HEADS
+        if self.softmax_impl not in KNOWN_HEADS:
+            raise ValueError(
+                f"unknown softmax_impl {self.softmax_impl!r}; known heads: "
+                f"{sorted(KNOWN_HEADS)}")
+
+
+@dataclass(frozen=True)
+class FCCSConfig:
+    """Fast continuous convergence strategy (paper §3.4)."""
+    eta0: float = 0.4
+    t_warm: int = 100
+    b0: int = 4096
+    b_min: int = 4096
+    b_max: int = 262144
+    t_ini: int = 100
+    t_final: int = 2000
+
+
+@dataclass(frozen=True)
+class DGCConfig:
+    """Layer-wise top-k gradient sparsification (paper §3.3.2 / DGC)."""
+    enabled: bool = False
+    sparsity: float = 0.999
+    momentum: float = 0.9
+    factor_masking: bool = True
+    chunk: int = 2048
+    group_bytes: int = 1 << 22
+    backend: str = "ref"           # ref | kernel (kernels.ops.topk_dc)
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"DGC backend must be 'ref' or 'kernel', got "
+                f"{self.backend!r}")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "lars"
+    weight_decay: float = 1e-4
+    momentum: float = 0.9
+    micro_batch: int = 0
+    grad_accum: int = 1
+    loss_scale: float = 0.0
+    fccs: FCCSConfig = field(default_factory=FCCSConfig)
+    dgc: DGCConfig = field(default_factory=DGCConfig)
+    seed: int = 0
+    steps: int = 200
+
+
+def pad_vocab(cfg: ModelConfig, multiple: int = 128) -> ModelConfig:
+    """Pad vocab to a multiple (ring divisibility). Labels stay below
+    real_vocab_size; padded logits are masked."""
+    if cfg.vocab_size % multiple == 0:
+        return cfg
+    padded = -(-cfg.vocab_size // multiple) * multiple
+    return replace(cfg, vocab_size=padded,
+                   real_vocab_size=cfg.real_vocab_size or cfg.vocab_size)
+
+
+def effective_vocab(cfg: ModelConfig) -> int:
+    return cfg.real_vocab_size or cfg.vocab_size

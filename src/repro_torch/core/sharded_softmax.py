@@ -1,0 +1,145 @@
+"""Hybrid-parallel serving bodies over a row-sharded class matrix (paper
+§3.1, §4.5): the port of the serve half of the JAX package's
+``core/sharded_softmax.py``.
+
+W [N, D] is split by class rows across the ring; each member scores its own
+block and the results combine with small collectives (``repro_torch.dist``)
+— the counterparts of JAX's shard_map bodies. Every body takes
+``backend="ref" | "kernel"``: ``ref`` is dense torch ops, ``kernel`` runs
+the local selection through the hand-written kernels
+(``repro_torch.kernels.ops``).
+
+The training bodies (``full_softmax_local`` and its completions) come with
+the training slice; the IVF bodies with the serving-index slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import dist
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+_INT32_MAX = 2**31 - 1
+
+
+def _normalize(x):
+    xf = x.float()
+    return (xf / (torch.linalg.vector_norm(xf, dim=-1, keepdim=True)
+                  + 1e-12)).to(x.dtype)
+
+
+def _shard_limit(v_start: int, v_loc: int, n_valid: int) -> int:
+    """Valid-column count of this shard: masks vocab padding inside the
+    kernels. n_valid == 0 means no padding."""
+    if not n_valid:
+        return v_loc
+    return max(0, min(n_valid - v_start, v_loc))
+
+
+def _combine_argmax(vmax, gid):
+    """One winner per row across the ring: lowest shard index among ties.
+    vmax [b] local best value, gid [b] its global class id."""
+    gmax = dist.pmax(vmax)
+    shard = dist.flat_axis_index()
+    is_best = vmax >= gmax
+    winner = dist.pmin(torch.where(
+        is_best, torch.full_like(gid, shard, dtype=torch.int32),
+        torch.full_like(gid, _INT32_MAX, dtype=torch.int32)))
+    mine = is_best & (winner == shard)
+    return dist.psum(torch.where(mine, gid.to(torch.int32), 0)).to(
+        torch.int32)
+
+
+def serve_argmax_local(f_loc, w_loc, *, n_valid: int = 0):
+    """Kernel-backend greedy decode: distributed argmax class ids without
+    materialising the [b, V_loc] scores — the streaming kernel's (max,
+    argmax) stats plus one pmax/pmin/psum combine. Counterpart of
+    ``serve_logits_local``."""
+    v_loc = w_loc.shape[0]
+    v_start = dist.flat_axis_index() * v_loc
+    limit = _shard_limit(v_start, v_loc, n_valid)
+    b = f_loc.shape[0]
+    y_none = torch.full((b,), -1, dtype=torch.int32, device=f_loc.device)
+    m, _, _, amax = ops.ce_shard_stats(f_loc.float(), w_loc.float(), y_none,
+                                       limit, 1.0)
+    gid = v_start + amax.clamp_min(0)
+    vmax = torch.where(amax >= 0, m, float("-inf"))
+    return _combine_argmax(vmax, gid), None
+
+
+def serve_logits_local(f_loc, w_loc, *, n_valid: int = 0):
+    """Local logits [b, V_loc] + distributed argmax class ids: each shard
+    proposes (best value, global id), combined over the ring."""
+    logits = f_loc @ w_loc.to(f_loc.dtype).T
+    v_loc = w_loc.shape[0]
+    v_start = dist.flat_axis_index() * v_loc
+    if n_valid:
+        col = v_start + torch.arange(v_loc, device=logits.device)
+        logits = torch.where((col < n_valid)[None, :], logits, NEG_INF)
+    amax = logits.argmax(dim=-1)
+    vmax = logits.gather(1, amax[:, None])[:, 0]
+    gid = v_start + amax.to(torch.int32)
+    return _combine_argmax(vmax, gid), logits
+
+
+def _merge_topk_ring(vals, gids, k: int):
+    """Merge per-shard top-k candidates into the global top-k: one
+    all-gather over the ring, then a small [b, P*k] stable top-k (ties to
+    the lowest shard, then the lowest slot). Returns (vals [b, k] desc,
+    gids [b, k]), the same on every member."""
+    all_v = dist.all_gather(vals, dim=0, tiled=False)      # [P, b, k]
+    all_g = dist.all_gather(gids, dim=0, tiled=False)
+    b = vals.shape[0]
+    flat_v = all_v.movedim(0, 1).reshape(b, -1)            # [b, P*k]
+    flat_g = all_g.movedim(0, 1).reshape(b, -1)
+    top_v, pos = ops.topk_stable(flat_v, k)
+    return top_v, flat_g.gather(1, pos.long())
+
+
+def serve_topk_local(f_loc, w_loc, k: int, *, n_valid: int = 0,
+                     backend: str = "ref", chunk: int = 2048):
+    """Top-k retrieval with scores. Each shard scores its class block
+    ([b, V_loc] — serving's product is the scores), selects its local top-k
+    per row (``ref``: a stable sort; ``kernel``: the divide-and-conquer
+    stage-1 kernel via ``ops.topk_rows``), then one all-gather merges the
+    P*k survivors. Returns (vals [b,k] desc, gids [b,k] int32)."""
+    logits = f_loc @ w_loc.to(f_loc.dtype).T
+    v_loc = w_loc.shape[0]
+    v_start = dist.flat_axis_index() * v_loc
+    if n_valid:
+        col = v_start + torch.arange(v_loc, device=logits.device)
+        logits = torch.where((col < n_valid)[None, :], logits, NEG_INF)
+    kk = min(k, v_loc)
+    if backend == "kernel":
+        vals, idx = ops.topk_rows(logits, kk, chunk=chunk)
+    else:
+        vals, idx = ops.topk_stable(logits, kk)
+    gids = v_start + idx.to(torch.int32)
+    if kk < k:  # more slots than local classes: pad before the merge
+        pad = k - kk
+        vals = torch.nn.functional.pad(vals, (0, pad), value=float("-inf"))
+        gids = torch.nn.functional.pad(gids, (0, pad), value=-1)
+    return _merge_topk_ring(vals, gids, k)
+
+
+def mask_padded_rows(x, n_queries: int, fill):
+    """Serving-tier padding mask: rows >= ``n_queries`` of a fixed-shape
+    micro-batch are coalescer padding, not real queries — force them to
+    ``fill``. Works for [b] and [b, k] outputs."""
+    b = x.shape[0]
+    keep = (torch.arange(b, device=x.device) < n_queries).reshape(
+        (b,) + (1,) * (x.dim() - 1))
+    return torch.where(keep, x, torch.full_like(x, fill))
+
+
+def serve_topk_batched_local(f_loc, w_loc, k: int, n_queries: int, *,
+                             n_valid: int = 0, backend: str = "ref",
+                             chunk: int = 2048):
+    """Multi-query serving entry point: ``f_loc`` is a padded micro-batch
+    [b_pad, D], the same on every member, with only the first ``n_queries``
+    rows real. Padded rows come back as (-inf, -1)."""
+    vals, gids = serve_topk_local(f_loc, w_loc, k, n_valid=n_valid,
+                                  backend=backend, chunk=chunk)
+    return (mask_padded_rows(vals, n_queries, float("-inf")),
+            mask_padded_rows(gids, n_queries, -1))

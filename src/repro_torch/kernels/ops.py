@@ -1,0 +1,72 @@
+"""Public wrappers around the kernels: the port of the JAX package's
+``kernels/ops.py`` for this slice (forward-only ``ce_shard_stats``,
+row-wise and flat divide-and-conquer top-k).
+
+Stage 2 of the top-k merge is ``topk_stable``: a stable descending sort,
+so ties go to the lowest position exactly as ``lax.top_k`` does
+(``torch.topk`` does not promise that).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ce_softmax as _ce
+from repro_torch.kernels import topk_dc as _dc
+
+
+def topk_stable(x, k: int):
+    """Top-k along the last axis, values descending, ties to the lowest
+    index. Returns (vals, int32 positions)."""
+    vals, pos = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], pos[..., :k].to(torch.int32)
+
+
+def topk_dc(x, k: int, *, chunk: int = 2048):
+    """Exact top-k of a flat tensor by chunked two-stage selection.
+    Returns (vals [k] desc, ids [k] int32 into x)."""
+    n = x.shape[0]
+    x = x.float()
+    if n <= chunk:
+        return topk_stable(x, min(k, n))
+    kk = min(k, chunk)
+    sub_v, sub_i = _dc.stage1_topk(x[None, :], kk, chunk=chunk)   # stage 1
+    base = (torch.arange(sub_v.shape[0], device=x.device,
+                         dtype=torch.int32) * chunk)[:, None]
+    flat_v = sub_v.reshape(-1)
+    flat_i = (sub_i + base).reshape(-1)
+    vals, pos = topk_stable(flat_v, min(k, flat_v.shape[0]))      # stage 2
+    return vals, flat_i[pos.long()]
+
+
+def topk_rows(x, k: int, *, chunk: int = 2048):
+    """Row-wise exact top-k of x [B, N] through the stage-1 kernel: each
+    row is cut into chunks, per-chunk top-k runs on the kernel, and a small
+    stage 2 merges the survivors. Returns (vals [B, k] desc, ids [B, k]
+    int32 column indices). Powers the top-k serving path."""
+    b, n = x.shape
+    x = x.float()
+    kk = min(k, n)
+    if n <= chunk:
+        return _dc.stage1_topk(x, kk)
+    nch = -(-n // chunk)
+    kc = min(kk, chunk)
+    sub_v, sub_i = _dc.stage1_topk(x, kc, chunk=chunk)   # ragged tail masked
+    base = (torch.arange(nch, device=x.device, dtype=torch.int32)
+            * chunk)[None, :, None]
+    flat_v = sub_v.reshape(b, nch * kc)
+    flat_i = (sub_i.reshape(b, nch, kc) + base).reshape(b, nch * kc)
+    vals, pos = topk_stable(flat_v, kk)
+    return vals, flat_i.gather(1, pos.long())
+
+
+def ce_shard_stats(f, w, y, limit, scale: float = 1.0):
+    """Streaming online-softmax stats of f [B,D] against the class shard
+    w [V,D]: per-row (m, z, corr, amax). y [B] are LOCAL ids (-1 / out of
+    range = label not owned by this shard); ``limit`` masks columns
+    >= limit (vocab padding). The [B, V] logit tensor never exists on the
+    card. Forward only: the backward kernel lands with the training slice."""
+    if torch.is_grad_enabled() and (f.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "ce_shard_stats has no backward yet (the training slice, "
+            "ROADMAP.md queue A.3)")
+    return _ce.ce_forward(f, w, y, limit=limit, scale=scale)

@@ -1,0 +1,88 @@
+"""Stage 1 of divide-and-conquer top-k (paper Fig. 5): per-chunk top-k.
+
+``stage1_topk`` is the port of the Pallas TPU kernel
+``src/repro/kernels/topk_dc.py`` ``stage1_topk`` / ``_stage1_kernel``. On a
+CUDA tensor it launches the hand-written kernel in ``csrc/topk_stage1.cu``
+(one warp per chunk, the chunk held in registers, k shuffle-argmax sweeps);
+on a CPU tensor it runs ``stage1_topk_plain``, the TPU kernel's k
+max-extraction sweeps in plain torch ops.
+
+Bound on an H100 SXM at the serving shapes (top-5 over [64, 1,020,250]
+logits, chunks of 2,048): reading the 0.26 GB of logits once, about 78 us
+at 3.35 TB/s — bound by bytes; the kernel reads each value once, coalesced,
+and does the k sweeps in registers.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+LAUNCHES = 0          # kernel launches (one per stage1_topk call on the card)
+MAX_CHUNK = 2048      # the CUDA kernel keeps a chunk in 64 registers a lane
+
+
+def stage1_topk_plain(x, k: int, chunk=None):
+    """x [M, N] -> per-chunk (vals [M*nch, k] desc, idx [M*nch, k] int32
+    in-chunk indices), chunks of ``chunk`` columns (default N), the ragged
+    tail padded with -inf. k sweeps, each taking the first maximum and
+    overwriting it with -inf, as the TPU kernel does."""
+    m, n = x.shape
+    chunk = chunk or n
+    pad = (-n) % chunk
+    xs = x.float()
+    if pad:
+        xs = torch.nn.functional.pad(xs, (0, pad), value=float("-inf"))
+    xs = xs.reshape(-1, chunk).clone()
+    col = torch.arange(chunk, device=x.device)
+    vals = torch.empty((xs.shape[0], k), device=x.device, dtype=torch.float32)
+    idx = torch.empty((xs.shape[0], k), device=x.device, dtype=torch.int32)
+    for i in range(k):
+        am = xs.argmax(dim=1)
+        vals[:, i] = xs.gather(1, am[:, None])[:, 0]
+        idx[:, i] = am.to(torch.int32)
+        xs = torch.where(col[None, :] == am[:, None], float("-inf"), xs)
+    return vals, idx
+
+
+def _lib():
+    fn = build.library("topk_stage1").topk_stage1_launch
+    if not fn.argtypes:
+        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 3)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def stage1_topk(x, k: int, *, chunk=None):
+    """x [M, N] float32 -> (vals [M*nch, k] float32 desc, idx [M*nch, k]
+    int32 in-chunk indices) over chunks of ``chunk`` columns (default N;
+    nch = ceil(N / chunk)). Ties go to the lowest index."""
+    global LAUNCHES
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise TypeError(f"stage1_topk takes a 2-D float32 tensor, got "
+                        f"{x.dtype} {tuple(x.shape)}")
+    m, n = x.shape
+    chunk = chunk or n
+    if not 1 <= k <= chunk:
+        raise ValueError(f"k={k} must be in [1, chunk={chunk}]")
+    if x.device.type == "cpu":
+        return stage1_topk_plain(x, k, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"stage1_topk: tensor on {x.device}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"the CUDA stage1_topk takes chunk <= {MAX_CHUNK}, "
+                         f"got {chunk}")
+    if x.stride(1) != 1:
+        raise ValueError("stage1_topk: rows must be contiguous")
+    rows = m * (-(-n // chunk))
+    vals = torch.empty((rows, k), device=x.device, dtype=torch.float32)
+    idx = torch.empty((rows, k), device=x.device, dtype=torch.int32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib()(x.data_ptr(), m, x.stride(0), n, chunk, k, vals.data_ptr(),
+                 idx.data_ptr(), stream)
+    build.check(err, "stage1_topk")
+    LAUNCHES += 1
+    return vals, idx

@@ -1,0 +1,183 @@
+"""Serving launcher of the port — a thin argparse shim over
+``repro_torch.api.Experiment``, with the flags and validation of the JAX
+package's ``repro.launch.serve`` for the paper system.
+
+The paper deploys the trained class matrix as a retrieval index (§4.5 —
+nearest class weight); ``Experiment.serve`` is that lookup. ``--replay
+SECONDS`` switches onto the serving tier instead: single feature queries
+from a bursty Zipfian synthetic trace go to a ``ServingEngine`` (request
+coalescing into padded micro-batches, ``--max-wait-ms`` flush deadline,
+optional ``--cache N`` LRU score cache), and the run reports p50/p95/p99
+latency, QPS, batch occupancy and cache hit rate.
+
+It runs on the card (``--device cuda``, the default) in one process: a
+ring of one. ``--system zoo``, ``--index ivf`` and heads other than
+``full`` are not ported yet and exit with an argparse error naming
+ROADMAP.md.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --system paper \\
+      --classes 1020250 --feat-dim 512 --topk 5 --batch 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --system paper \\
+      --classes 4096 --topk 5 --replay 1.0 --cache 512 --max-wait-ms 2
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+_NOT_PORTED = "is not ported to torch yet (see ROADMAP.md queue A)"
+
+
+def _run_replay(exp, args, telemetry=None) -> int:
+    """Trace-driven serving through the engine."""
+    import numpy as np
+
+    from repro_torch.serving import (ScoreCache, TraceConfig, VirtualClock,
+                                     generate_trace, latency_stats,
+                                     make_query_pool, replay_trace)
+
+    tcfg = TraceConfig(duration=args.replay)
+    times, qids = generate_trace(tcfg)
+    pool = make_query_pool(args.classes, args.feat_dim, tcfg.pool,
+                           device=exp.device)
+    cache = ScoreCache(args.cache) if args.cache else None
+    clock = VirtualClock()
+    eng = exp.serving_engine(
+        top_k=args.topk or None, max_batch=args.batch,
+        max_wait_ms=args.max_wait_ms, cache=cache, clock=clock.now,
+        telemetry=telemetry)
+    eng.warmup(pool[0])
+    done = replay_trace(eng, clock, times, qids, pool)
+    lat = latency_stats(done)
+    st = eng.stats()
+    span = max(r.t_done for r in done) - min(r.t_submit for r in done)
+    if telemetry is not None:
+        # the replay summary, one JSONL row under --metrics-out
+        telemetry.log_metrics({
+            "replay_s": args.replay, **lat, "qps": lat["n"] / max(span, 1e-9),
+            "n_batches": st["n_batches"],
+            "mean_batch_occupancy": st["mean_batch_occupancy"],
+            "cache_hit_rate": st["cache_hit_rate"]})
+    print(f"[serve] replayed {lat['n']} requests over {args.replay:.1f}s "
+          f"of trace ({args.head} head, top-{args.topk or 1}, "
+          f"{args.backend} on {exp.device}): "
+          f"p50={lat['p50_ms']:.2f}ms p95={lat['p95_ms']:.2f}ms "
+          f"p99={lat['p99_ms']:.2f}ms qps={lat['n'] / max(span, 1e-9):.1f}")
+    print(f"[serve] batches={st['n_batches']} "
+          f"occupancy={st['mean_batch_occupancy']:.2f} "
+          f"cache_hit_rate={st['cache_hit_rate']:.2f}")
+    print("[serve] first result ids:", np.atleast_1d(done[0].ids).tolist())
+    return 0
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--system", choices=["paper", "zoo"], default="paper")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to serve on (cuda | cpu)")
+    p.add_argument("--classes", type=int, default=4096)
+    p.add_argument("--feat-dim", type=int, default=64)
+    p.add_argument("--head",
+                   choices=["full", "knn", "selective", "mach", "sampled",
+                            "csoft"],
+                   default="full")
+    p.add_argument("--topk", type=int, default=0,
+                   help="return the k best classes per query with scores "
+                        "(0 = greedy argmax)")
+    p.add_argument("--index", choices=["none", "ivf"], default="none",
+                   help="top-k serving index ('ivf' is not ported yet)")
+    p.add_argument("--nprobe", type=int, default=0,
+                   help="--index ivf: centroids probed per shard")
+    p.add_argument("--backend", choices=["ref", "kernel"], default="kernel",
+                   help="head hot-path compute backend: plain torch ops or "
+                        "the hand-written CUDA kernels")
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--replay", type=float, default=0.0, metavar="SECONDS",
+                   help="replay a bursty Zipfian synthetic trace of this "
+                        "many (virtual) seconds through the serving "
+                        "engine instead of a one-shot batch")
+    p.add_argument("--cache", type=int, default=0, metavar="N",
+                   help="LRU hot-query score-cache capacity for --replay "
+                        "(0 = no cache)")
+    p.add_argument("--max-wait-ms", type=float, default=2.0,
+                   help="coalescer flush deadline: max time a queued query "
+                        "waits for batch-mates before a partial "
+                        "micro-batch is cut")
+    p.add_argument("--trace-out", default="", metavar="PATH",
+                   help="write a Chrome-trace/Perfetto JSON of the serving "
+                        "spans")
+    p.add_argument("--metrics-out", default="", metavar="PATH",
+                   help="append serving metrics as JSONL")
+    args = p.parse_args(argv)
+
+    if args.batch <= 0:
+        p.error(f"--batch must be a positive query count, got {args.batch}")
+    if args.topk < 0:
+        p.error(f"--topk must be >= 0, got {args.topk}")
+    if args.system == "paper" and args.topk > args.classes:
+        p.error(f"--topk {args.topk} exceeds --classes {args.classes}: "
+                f"retrieval cannot return more classes than exist")
+    if args.index == "ivf" and not args.topk:
+        p.error("--index ivf serves top-k retrieval; pass --topk K")
+    if args.nprobe < 0:
+        p.error(f"--nprobe must be >= 0, got {args.nprobe}")
+    if args.nprobe and args.index != "ivf":
+        p.error("--nprobe only applies with --index ivf")
+    if args.cache < 0:
+        p.error(f"--cache must be >= 0, got {args.cache}")
+    if args.max_wait_ms < 0:
+        p.error(f"--max-wait-ms must be >= 0, got {args.max_wait_ms}")
+    if args.system == "zoo":
+        p.error(f"--system zoo {_NOT_PORTED}")
+    if args.index == "ivf":
+        p.error(f"--index ivf {_NOT_PORTED}")
+    if args.head != "full":
+        p.error(f"--head {args.head} {_NOT_PORTED}")
+
+    from repro_torch.telemetry import Tracer
+
+    tr = Tracer(metrics_path=args.metrics_out or None)
+    try:
+        return _serve(args, tr)
+    finally:
+        if args.trace_out:
+            tr.write_chrome_trace(args.trace_out)
+            print(f"[telemetry] trace -> {args.trace_out}")
+        tr.close()
+
+
+def _serve(args, tr) -> int:
+    from repro_torch.api import Experiment
+    from repro_torch.configs.base import HeadConfig
+
+    def compute_ms() -> float:
+        """Engine-measured compute wall-clock (ms) of this run's
+        serve.compute spans."""
+        return tr.span_stats("serve.compute")["total_s"] * 1e3
+
+    exp = Experiment.from_config(
+        system="paper", classes=args.classes, feat_dim=args.feat_dim,
+        batch=args.batch, device=args.device,
+        head=HeadConfig(softmax_impl=args.head, backend=args.backend))
+    if args.replay > 0:
+        return _run_replay(exp, args, telemetry=tr)
+    if args.topk:
+        ids, scores = exp.serve(batch=args.batch, top_k=args.topk,
+                                return_scores=True, telemetry=tr)
+        print(f"[serve] {args.head}-head top-{args.topk} retrieval over "
+              f"{args.classes} classes ({args.backend} on {exp.device}): "
+              f"{ids.shape[0]} queries in {compute_ms():.1f} ms")
+        print("[serve] first query ids:   ", ids[0].tolist())
+        print("[serve] first query scores:",
+              [round(float(s), 3) for s in scores[0]])
+        return 0
+    preds = exp.serve(batch=args.batch, telemetry=tr)
+    print(f"[serve] {args.head}-head retrieval over {args.classes} classes "
+          f"({args.backend} on {exp.device}): {preds.shape[0]} queries in "
+          f"{compute_ms():.1f} ms")
+    print("[serve] first predictions:", preds[:8].tolist())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

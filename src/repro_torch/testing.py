@@ -1,0 +1,101 @@
+"""Parity workers: what each member of a ring runs when the port is held
+against the JAX package on the same numpy arrays.
+
+``repro_torch.dist.spawn_ring`` re-imports a worker by name in fresh
+processes, so workers live here rather than in test files. Each takes
+numpy arrays and plain dicts (the GLOBAL class matrix; every member keeps
+its own row block) and returns numpy arrays, so the caller can compare
+them with the JAX package's shard_map results directly. Both run on the
+CPU.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import dist
+from repro_torch.core import sharded_softmax as ss
+
+BACKENDS = ("ref", "kernel")
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _my_rows(w: np.ndarray) -> torch.Tensor:
+    n = w.shape[0] // dist.world_size()
+    r = dist.rank()
+    return torch.from_numpy(np.ascontiguousarray(w[r * n:(r + 1) * n]))
+
+
+def serve_bodies(f: np.ndarray, w: np.ndarray, *, k: int, n_queries: int,
+                 n_valid: int = 0, chunk: int = 2048) -> dict:
+    """Every serve body of ``core.sharded_softmax`` on this member's rows
+    of ``w``, with the queries ``f`` on every member. ``logits`` is the
+    [b, V] matrix gathered over the ring."""
+    ft, wt = torch.from_numpy(f), _my_rows(w)
+    out = {"argmax": _np(ss.serve_argmax_local(ft, wt, n_valid=n_valid)[0])}
+    ids, logits = ss.serve_logits_local(ft, wt, n_valid=n_valid)
+    out["logits_ids"] = _np(ids)
+    out["logits"] = _np(dist.all_gather(logits, dim=1))
+    for b in BACKENDS:
+        vals, gids = ss.serve_topk_local(ft, wt, k, n_valid=n_valid,
+                                         backend=b, chunk=chunk)
+        out[f"topk_{b}"] = (_np(vals), _np(gids))
+        vals, gids = ss.serve_topk_batched_local(
+            ft, wt, k, n_queries, n_valid=n_valid, backend=b, chunk=chunk)
+        out[f"batched_{b}"] = (_np(vals), _np(gids))
+    return out
+
+
+def paper_serve(head_cfg: dict, w: np.ndarray, inputs: np.ndarray,
+                queries: np.ndarray, *, top_k: int) -> dict:
+    """A CPU ``PaperExperiment`` on this member, serving the JAX package's
+    class matrix ``w`` (carried over by ``interop``): greedy and top-k on
+    explicit ``inputs``, then the same through the serving engine for
+    ``queries`` submitted one by one."""
+    from repro_torch import interop
+    from repro_torch.api import Experiment
+
+    cfg = interop.head_config_from_dict(head_cfg)
+    v, d = w.shape
+    exp = Experiment.from_config(system="paper", classes=v, feat_dim=d,
+                                 batch=inputs.shape[0], head=cfg,
+                                 device="cpu")
+    exp.load_state(interop.paper_state_from_numpy(
+        {}, w, rank=dist.rank(), world_size=dist.world_size(),
+        device="cpu"))
+    out = {"greedy": exp.serve({"features": inputs})}
+    out["topk_ids"], out["topk_scores"] = exp.serve(
+        {"features": inputs}, top_k=top_k, return_scores=True)
+    for key, k in (("engine_greedy", None), ("engine_topk", top_k)):
+        eng = exp.serving_engine(top_k=k, max_batch=8)
+        for q in queries:
+            eng.submit(q)
+        done = sorted(eng.drain(), key=lambda r: r.rid)
+        out[key] = np.stack([r.ids for r in done])
+        if k is not None:
+            out[key + "_scores"] = np.stack([r.scores for r in done])
+        out[key + "_buckets"] = sorted({r.bucket for r in done})
+    return out
+
+
+def collectives() -> dict:
+    """Each collective of ``dist`` on rank-dependent tensors."""
+    r = dist.rank()
+    x = torch.tensor([r, 10 - r], dtype=torch.float32)
+    return {"rank": r, "world_size": dist.world_size(),
+            "axis_index": dist.flat_axis_index(),
+            "pmax": _np(dist.pmax(x)), "pmin": _np(dist.pmin(x)),
+            "psum": _np(dist.psum(x)),
+            "gather_tiled": _np(dist.all_gather(x[None], dim=0)),
+            "gather_stacked": _np(dist.all_gather(x, dim=1, tiled=False))}
+
+
+def run_all(cases: list) -> list:
+    """Run ``(worker name, args, kwargs)`` cases in order on this member,
+    so one spawned ring serves a whole group of tests."""
+    workers = {"serve_bodies": serve_bodies, "paper_serve": paper_serve,
+               "collectives": collectives}
+    return [workers[name](*args, **kwargs) for name, args, kwargs in cases]

@@ -1,0 +1,179 @@
+"""The paper's hybrid-parallel layout (§3.1), serve and eval steps: the port
+of the deploy half of the JAX package's ``train/hybrid.py``.
+
+Every member of the ring (``repro_torch.dist``) is a data-parallel replica
+of the feature extractor AND one row block of the class matrix. A step
+function here is what one member runs; with a process group of P members
+every member calls it with the same arguments (the global batch), exactly
+as a JAX shard_map body sees one device's shard of them. The train step
+comes with the training slice.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch import dist
+from repro_torch.api.heads import HeadState, SoftmaxHead, make_head
+from repro_torch.configs.base import HeadConfig, ModelConfig, TrainConfig
+from repro_torch.core.sharded_softmax import (_normalize, mask_padded_rows,
+                                              serve_topk_batched_local,
+                                              serve_topk_local)
+
+
+class HybridState(NamedTuple):
+    fe_params: dict        # replicated
+    head_params: Any       # this member's row block of the head params
+    head_aux: Any
+    opt_state: Any         # None until the training slice
+    dgc: Any               # None until the training slice
+    step: int
+
+    @property
+    def w_head(self):
+        """The [V/P, D] class-weight block, for heads whose params are one
+        tensor."""
+        return self.head_params
+
+
+def init_state(generator: torch.Generator, model_cfg: ModelConfig,
+               head_cfg: HeadConfig, train_cfg: TrainConfig, n_dev: int, *,
+               rank: int = 0, device, head: Optional[SoftmaxHead] = None
+               ) -> HybridState:
+    """Fresh state of ring member ``rank`` of ``n_dev``: empty FE params for
+    the ``feats`` trunk, and this member's rows of the head."""
+    if model_cfg.family != "feats":
+        raise NotImplementedError(
+            f"the {model_cfg.family!r} trunk is not ported to torch yet "
+            f"(see ROADMAP.md queue A)")
+    head = head or make_head(model_cfg, head_cfg)
+    hs = head.init(generator, n_dev, rank=rank, device=device)
+    return HybridState({}, hs.params, hs.aux, None, None, 0)
+
+
+def _features(model_cfg: ModelConfig, fe_params, inputs: dict):
+    """Label-free FE forward: flat [t, D] features."""
+    if model_cfg.family != "feats":
+        raise NotImplementedError(
+            f"the {model_cfg.family!r} trunk is not ported to torch yet")
+    return inputs["features"].to(getattr(torch, model_cfg.dtype))
+
+
+def _local_rows(x):
+    """This member's slice of a global batch (the data-parallel split;
+    the batch must divide the ring, as on the JAX mesh)."""
+    p, r = dist.world_size(), dist.rank()
+    if x.shape[0] % p:
+        raise ValueError(f"batch {x.shape[0]} does not divide the ring of {p}")
+    n = x.shape[0] // p
+    return x[r * n:(r + 1) * n]
+
+
+def _gathered_features(model_cfg, fe_params, inputs):
+    f = _features(model_cfg, fe_params,
+                  {k: _local_rows(v) for k, v in inputs.items()})
+    return dist.all_gather(f, dim=0, tiled=True)
+
+
+def make_eval_step(model_cfg: ModelConfig, head_cfg: HeadConfig, *,
+                   head: Optional[SoftmaxHead] = None):
+    """(state, inputs) -> distributed top-1 accuracy (float) with the head's
+    own deploy-style prediction (nearest class weight, §4.5)."""
+    head = head or make_head(model_cfg, head_cfg)
+
+    @torch.inference_mode()
+    def step(state: HybridState, inputs: dict) -> float:
+        f_all = _gathered_features(model_cfg, state.fe_params, inputs)
+        y_all = dist.all_gather(_local_rows(inputs["labels"]), dim=0)
+        pred, _ = head.eval_logits_local(f_all, state.head_params,
+                                         state.head_aux)
+        return float((pred.long() == y_all.long()).float().mean())
+
+    return step
+
+
+def make_serve_step(model_cfg: ModelConfig, head_cfg: HeadConfig, *,
+                    head: Optional[SoftmaxHead] = None):
+    """Deploy-style retrieval (§4.5): (state, inputs) -> [b] predicted
+    global class ids (int32). Any "labels" key is ignored."""
+    head = head or make_head(model_cfg, head_cfg)
+
+    @torch.inference_mode()
+    def step(state: HybridState, inputs: dict):
+        inputs = {k: v for k, v in inputs.items() if k != "labels"}
+        f_all = _gathered_features(model_cfg, state.fe_params, inputs)
+        pred, _ = head.eval_logits_local(f_all, state.head_params,
+                                         state.head_aux)
+        return pred.to(torch.int32)
+
+    return step
+
+
+def _require_class_weights(head: SoftmaxHead):
+    if not head.params_are_class_weights:
+        raise NotImplementedError(
+            f"top-k serving retrieves against the [V, D] class matrix, "
+            f"which the {head.name!r} head does not train; use a W-head")
+
+
+def _normalized(head_cfg, f, w):
+    f, w = f.float(), w.float()
+    if head_cfg.cosine_scale > 0:
+        f, w = _normalize(f), _normalize(w)
+    return f, w
+
+
+def make_topk_serve_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
+                         top_k: int, *, head: Optional[SoftmaxHead] = None):
+    """Top-k retrieval with scores: (state, inputs) -> (scores [b, k] desc,
+    global class ids [b, k]). Each shard's local top-k (ref: a stable sort;
+    kernel: ``ops.topk_rows``) is merged with one all-gather."""
+    head = head or make_head(model_cfg, head_cfg)
+    _require_class_weights(head)
+
+    @torch.inference_mode()
+    def step(state: HybridState, inputs: dict):
+        inputs = {k: v for k, v in inputs.items() if k != "labels"}
+        f_all = _gathered_features(model_cfg, state.fe_params, inputs)
+        f_all, w = _normalized(head_cfg, f_all, state.head_params)
+        return serve_topk_local(f_all, w, top_k, n_valid=head.n_valid,
+                                backend=head.backend)
+
+    return step
+
+
+def make_batched_serve_step(model_cfg: ModelConfig, head_cfg: HeadConfig, *,
+                            head: Optional[SoftmaxHead] = None):
+    """Serving-tier greedy retrieval over a padded micro-batch:
+    (state, queries [b_pad, D], n_queries) -> pred [b_pad] int32, padding
+    rows -1. Queries are the same on every member (no ring gather)."""
+    head = head or make_head(model_cfg, head_cfg)
+
+    @torch.inference_mode()
+    def step(state: HybridState, queries, n_queries: int):
+        f = _features(model_cfg, state.fe_params, {"features": queries})
+        pred, _ = head.eval_logits_local(f, state.head_params, state.head_aux)
+        return mask_padded_rows(pred.to(torch.int32), n_queries, -1)
+
+    return step
+
+
+def make_batched_topk_serve_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
+                                 top_k: int, *,
+                                 head: Optional[SoftmaxHead] = None):
+    """Serving-tier top-k retrieval over a padded micro-batch:
+    (state, queries [b_pad, D], n_queries) -> (vals [b_pad, k] desc,
+    gids [b_pad, k]), padding rows (-inf, -1)."""
+    head = head or make_head(model_cfg, head_cfg)
+    _require_class_weights(head)
+
+    @torch.inference_mode()
+    def step(state: HybridState, queries, n_queries: int):
+        f = _features(model_cfg, state.fe_params, {"features": queries})
+        f, w = _normalized(head_cfg, f, state.head_params)
+        return serve_topk_batched_local(f, w, top_k, n_queries,
+                                        n_valid=head.n_valid,
+                                        backend=head.backend)
+
+    return step

@@ -1,0 +1,151 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+nothing of JAX or of the JAX package, its configs match the JAX package's
+field for field, and its entry points run on the card unless the caller
+asks for the CPU."""
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jax_base
+from repro.configs import sku100m_resnet as jax_sku
+from repro_torch import interop
+from repro_torch.api import Experiment
+from repro_torch.configs import base as port_base
+from repro_torch.configs import sku100m_resnet as port_sku
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def test_importing_the_port_loads_no_jax():
+    """A fresh interpreter imports every module of the port and
+    ``chip_smoke`` and finds neither JAX nor the JAX package loaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch, chip_smoke\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('modules', len([m for m in sys.modules "
+        "if m.startswith('repro_torch')]))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_source_of_the_port_imports_jax():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        exp = Experiment.from_config(system="paper", classes=64, feat_dim=8)
+        assert exp.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Experiment.from_config(system="paper", classes=64, feat_dim=8)
+    exp = Experiment.from_config(system="paper", classes=64, feat_dim=8,
+                                 device="cpu")
+    assert exp.state.w_head.device.type == "cpu"
+
+
+def test_unported_parts_say_so():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        Experiment.from_config(system="zoo")
+    exp = Experiment.from_config(system="paper", classes=64, feat_dim=8,
+                                 device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        exp.fit(1)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        exp.serve(batch=4, top_k=2, index="ivf")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        Experiment.from_config(
+            system="paper", classes=64, feat_dim=8, device="cpu",
+            head=port_base.HeadConfig(softmax_impl="knn"))
+
+
+def _fields(cls):
+    return {f.name: (f.default if f.default is not dataclasses.MISSING
+                     else f.default_factory)
+            for f in dataclasses.fields(cls)}
+
+
+@pytest.mark.parametrize("name", ["ModelConfig", "HeadConfig", "TrainConfig",
+                                  "FCCSConfig", "DGCConfig", "MoEConfig",
+                                  "SSMConfig"])
+def test_configs_match_the_jax_package_field_for_field(name):
+    """Same field names and defaults, so one dict drives both packages;
+    only the head's default backend differs (the port defaults to its
+    kernels, ``"kernel"``, the JAX package to ``"ref"``)."""
+    jax_f, port_f = (_fields(getattr(m, name)) for m in (jax_base, port_base))
+    assert list(jax_f) == list(port_f)
+    differ = {k for k in jax_f if k not in ("fccs", "dgc")
+              and jax_f[k] != port_f[k]}
+    assert differ == ({"backend"} if name == "HeadConfig" else set())
+
+
+@pytest.mark.parametrize("fn", ["config", "config_1m", "config_10m",
+                                "reduced"])
+def test_sku_configs_match(fn):
+    assert (dataclasses.asdict(getattr(port_sku, fn)())
+            == dataclasses.asdict(getattr(jax_sku, fn)()))
+
+
+def test_pad_vocab_matches():
+    cfg = port_sku.config_1m()
+    jcfg = jax_sku.config_1m()
+    for mult in (128, 8, 2):
+        assert (dataclasses.asdict(port_base.pad_vocab(cfg, mult))
+                == dataclasses.asdict(jax_base.pad_vocab(jcfg, mult)))
+    padded = port_base.pad_vocab(cfg, 128)
+    assert port_base.effective_vocab(padded) == 1_020_250
+
+
+def test_head_config_validation_and_interop():
+    with pytest.raises(ValueError, match="'ref' or 'kernel'"):
+        port_base.HeadConfig(backend="pallas")
+    with pytest.raises(ValueError, match="softmax_impl"):
+        port_base.HeadConfig(softmax_impl="nope")
+    jcfg = jax_base.HeadConfig(backend="pallas", cosine_scale=8.0)
+    cfg = interop.head_config_from_dict(dataclasses.asdict(jcfg))
+    assert cfg.backend == "kernel" and cfg.cosine_scale == 8.0
+    with pytest.raises(ValueError, match="unknown HeadConfig fields"):
+        interop.head_config_from_dict({"bogus": 1})
+
+
+def test_paper_state_from_numpy_keeps_this_members_rows():
+    w = np.arange(24, dtype=np.float32).reshape(6, 4)
+    w.setflags(write=False)                   # as np.asarray of a jax array
+    blocks = [interop.paper_state_from_numpy({}, w, rank=r, world_size=3,
+                                             device="cpu").w_head
+              for r in range(3)]
+    np.testing.assert_array_equal(torch.cat(blocks).numpy(), w)
+    with pytest.raises(ValueError, match="do not divide"):
+        interop.paper_state_from_numpy({}, w, rank=0, world_size=4,
+                                       device="cpu")

@@ -1,0 +1,207 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+The same inputs, made from a seed with numpy, go through the Pallas kernel
+(interpret mode on the CPU, as the JAX package's own tests run it) and
+through the port's wrapper, which takes its plain PyTorch version for CPU
+tensors. The CUDA kernels themselves run only on the card, where
+``chip_smoke.py`` holds them against the same plain versions.
+
+Tolerances: fp32 statistics and scores ``rtol=atol=1e-5`` (the two sum in
+another order); ids and argmax columns exact (ties go to the lowest
+column on both sides).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ce_softmax as jce
+from repro.kernels import ops as jops
+from repro.kernels import topk_dc as jdc
+from repro_torch.kernels import build
+from repro_torch.kernels import ce_softmax as tce
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import topk_dc as tdc
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _ce_problem(seed, b, d, v):
+    rng = np.random.default_rng(seed)
+    f = rng.standard_normal((b, d)).astype(np.float32)
+    w = (0.1 * rng.standard_normal((v, d))).astype(np.float32)
+    y = rng.integers(0, v, b).astype(np.int32)
+    return f, w, y
+
+
+def _both_ce(f, w, y, limit, scale, block_v):
+    j = jce.ce_forward(jnp.asarray(f), jnp.asarray(w), jnp.asarray(y),
+                       limit=limit, scale=scale, block_v=block_v)
+    t = tce.ce_forward(torch.from_numpy(f), torch.from_numpy(w),
+                       torch.from_numpy(y), limit=limit, scale=scale)
+    return [np.asarray(a) for a in j], [a.numpy() for a in t]
+
+
+def _assert_stats_equal(j, t):
+    for name, a, b in zip(("m", "z", "corr"), j[:3], t[:3]):
+        np.testing.assert_allclose(b, a, err_msg=name, **TOL)
+    assert t[3].dtype == np.int32
+    np.testing.assert_array_equal(t[3], j[3], err_msg="amax")
+
+
+# ---------------------------------------------------------------------------
+# ce_forward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,d,v,bv", [(8, 16, 100, 32), (24, 32, 1000, 256)])
+@pytest.mark.parametrize("case", ["dense", "limit", "labels", "all_masked"])
+def test_ce_forward_matches_pallas(b, d, v, bv, case):
+    """(m, z, corr, amax) of the plain version equal the Pallas kernel's:
+    with every column live, with columns >= limit masked (vocab padding)
+    and a scale, with labels off the shard (-1, >= V) or on a masked
+    column (corr -inf), and on a shard whose limit is 0 (all masked: m
+    -inf, z 0, amax -1)."""
+    f, w, y = _ce_problem(b * v, b, d, v)
+    limit, scale = None, 1.0
+    if case == "limit":
+        limit, scale = 70, 4.0
+    elif case == "labels":
+        y[:3] = [-1, v + 5, v - 1]
+        limit = v - 10
+    elif case == "all_masked":
+        limit = 0
+    j, t = _both_ce(f, w, y, limit, scale, bv)
+    _assert_stats_equal(j, t)
+    if case == "all_masked":
+        assert np.all(t[0] == -np.inf) and np.all(t[1] == 0)
+        assert np.all(t[3] == -1)
+    if case == "labels":
+        assert t[2][0] == 0 and t[2][1] == 0 and t[2][2] == -np.inf
+
+
+def test_ce_forward_ties_pick_the_lowest_column():
+    """Integer-valued inputs make every score exact; duplicated class rows
+    then tie exactly, and amax must be the lowest tied column, as the TPU
+    kernel's first-max-then-strict-greater rule gives."""
+    rng = np.random.default_rng(11)
+    b, d, v = 16, 8, 300
+    f = rng.integers(-2, 3, (b, d)).astype(np.float32)
+    w = rng.integers(-2, 3, (v, d)).astype(np.float32)
+    w[200:260] = w[5]
+    w[130] = w[5]
+    y = rng.integers(0, v, b).astype(np.int32)
+    j, t = _both_ce(f, w, y, None, 1.0, 64)
+    _assert_stats_equal(j, t)
+    s = f @ w.T
+    np.testing.assert_array_equal(t[3], np.argmax(s, axis=1))
+
+
+def test_ce_shard_stats_matches_and_is_forward_only():
+    f, w, y = _ce_problem(3, 8, 16, 100)
+    j = jops.ce_shard_stats(jnp.asarray(f), jnp.asarray(w), jnp.asarray(y),
+                            jnp.asarray(90, jnp.int32), 2.0, 32)
+    ft = torch.from_numpy(f)
+    t = tops.ce_shard_stats(ft, torch.from_numpy(w), torch.from_numpy(y),
+                            90, 2.0)
+    _assert_stats_equal([np.asarray(a) for a in j], [a.numpy() for a in t])
+    with pytest.raises(NotImplementedError, match="backward"):
+        tops.ce_shard_stats(ft.requires_grad_(), torch.from_numpy(w),
+                            torch.from_numpy(y), 90, 2.0)
+
+
+def test_ce_forward_rejects_what_the_kernel_does_not_take():
+    f, w, y = (torch.from_numpy(a) for a in _ce_problem(0, 4, 8, 16))
+    with pytest.raises(TypeError, match="float32"):
+        tce.ce_forward(f.double(), w, y)
+    with pytest.raises(ValueError, match="shapes"):
+        tce.ce_forward(f[:, :4], w, y)
+    with pytest.raises(ValueError, match="shapes"):
+        tce.ce_forward(f, w, y[:2])
+    # labels elsewhere than f would hand the kernel a foreign pointer
+    with pytest.raises(ValueError, match="y on meta"):
+        tce.ce_forward(f, w, y.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# stage1_topk / topk_rows / topk_dc
+# ---------------------------------------------------------------------------
+
+
+def _topk_problem(seed, rows, n, ties=True):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, n)).astype(np.float32)
+    if ties:
+        x = np.round(x * 4) / 4                 # many exact ties
+        x[1] = -np.inf                          # a row with nothing
+        x[2, 3:] = -np.inf                      # a row short of k
+    return x
+
+
+@pytest.mark.parametrize("n,k,chunk", [(100, 5, 512), (3000, 7, 512),
+                                       (5000, 16, 2048)])
+def test_stage1_plain_matches_pallas(n, k, chunk):
+    """Per-chunk (values, in-chunk ids) of the plain version equal the
+    Pallas kernel's on the -inf-padded [M, chunk] view, ids exactly: ties
+    to the lowest index, and (-inf, 0) once a chunk runs out."""
+    x = _topk_problem(n + k, 4, n)
+    c = min(chunk, n)
+    pad = (-n) % c
+    xc = np.pad(x, ((0, 0), (0, pad)), constant_values=-np.inf)
+    xc = xc.reshape(-1, c)
+    jv, ji = jdc.stage1_topk(jnp.asarray(xc), min(k, c))
+    tv, ti = tdc.stage1_topk_plain(torch.from_numpy(xc), min(k, c))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    # the wrapper's own chunking (ragged tail masked, no padded copy)
+    # gives the same per-chunk result as the padded view
+    wv, wi = tdc.stage1_topk(torch.from_numpy(x), min(k, c), chunk=c)
+    np.testing.assert_array_equal(wv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(wi.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("n,k,chunk", [(100, 5, 512), (3000, 7, 512),
+                                       (5000, 16, 2048)])
+@pytest.mark.parametrize("ties", [True, False])
+def test_topk_rows_matches_jax(n, k, chunk, ties):
+    """Row-wise top-k through stage 1 and the stable stage-2 merge equals
+    ``repro.kernels.ops.topk_rows`` (stage 2 ``lax.top_k``) exactly."""
+    x = _topk_problem(n * k, 4, n, ties)
+    jv, ji = jops.topk_rows(jnp.asarray(x), k, chunk=chunk)
+    tv, ti = tops.topk_rows(torch.from_numpy(x), k, chunk=chunk)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    assert ti.dtype == torch.int32
+
+
+@pytest.mark.parametrize("n,k", [(1000, 8), (10000, 16)])
+def test_topk_dc_matches_jax(n, k):
+    x = _topk_problem(n, 1, n, ties=False)[0]
+    jv, ji = jops.topk_dc(jnp.asarray(x), k, chunk=512)
+    tv, ti = tops.topk_dc(torch.from_numpy(x), k, chunk=512)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+def test_topk_stable_keeps_the_lowest_index_on_ties():
+    x = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0], [0.0] * 5])
+    vals, pos = tops.topk_stable(x, 3)
+    assert pos.tolist() == [[1, 2, 4], [0, 1, 2]]
+    assert vals.tolist() == [[3.0, 3.0, 3.0], [0.0, 0.0, 0.0]]
+
+
+def test_stage1_topk_rejects_bad_arguments():
+    x = torch.zeros((2, 8))
+    with pytest.raises(ValueError, match="chunk"):
+        tdc.stage1_topk(x, 9)
+    with pytest.raises(TypeError, match="float32"):
+        tdc.stage1_topk(x.double(), 2)
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    """Without nvcc the build says where it looked instead of failing
+    somewhere inside ctypes."""
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build._nvcc()
