@@ -10,17 +10,23 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    into ``build/repro_torch_kernels/`` (one process per source, in
    parallel) and prints ``-Xptxas -v``'s register report.
 2. kernels: each hand-written kernel against its plain PyTorch version on
-   the same card tensors, at the serving shapes of the paper's 1M-class
-   configuration (B=64, V=1,020,250, D=512) and at small ragged shapes
-   with masked columns, labels off the shard, ties and -inf rows.
-   Tolerances: ``ce_forward`` m and corr atol 1e-4, z rtol 1e-4, amax
-   equal except on rows whose top-2 score gap is below 1e-5 (fp32 sums in
-   another order may swap a near-tie); ``stage1_topk`` values and ids
-   exact. Then CUDA-event times of the kernel, its plain version, the
-   library call that computes the same function where one exists, and
-   the bound (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s,
-   the H100 SXM data sheet's rates, whichever is larger).
-3. serving (the main path): ``Experiment.from_config(system="paper",
+   the same card tensors, at the shapes of the paper's 1M-class
+   configuration (V=1,020,250, D=512; B=64 for serving, B=256 for
+   training) and at small ragged shapes with masked columns, labels off
+   the shard, ties and -inf rows. Tolerances: ``ce_forward`` m and corr
+   atol 1e-4, z rtol 1e-4, amax equal except on rows whose top-2 score
+   gap is below 1e-5 (fp32 sums in another order may swap a near-tie);
+   ``stage1_topk`` values and ids exact; ``ce_backward`` max|kernel -
+   plain| <= 2e-5 * max|plain| for df, dW's label rows and dW's other rows,
+   each against its own max (sums over V or B in another order), at the
+   training shapes both with the loss's cotangents and with the softmax
+   term alone (gc = 0), and bit-identical across two runs (no atomics). Then
+   CUDA-event times of the kernel, its plain version, the library call
+   that computes the same function, or for the CE kernels its dense
+   ``f @ W.T`` product alone (cuBLAS, TF32 off), and the bound (bytes
+   over 3.35 TB/s or fp32 operations over 67 TFLOP/s, the H100 SXM data
+   sheet's rates, whichever is larger).
+3. serving (a main path): ``Experiment.from_config(system="paper",
    classes=1_020_250, feat_dim=512)`` with the ``full`` head on the
    ``kernel`` backend, random weights from a seed; ``serve(batch=64)`` and
    ``serve(batch=64, top_k=5, return_scores=True)`` through the serving
@@ -30,6 +36,23 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    weights and queries, and greedy ids against the top-1 of the top-5.
 4. launcher: ``repro_torch.launch.serve`` replaying 0.5 s of the bursty
    Zipfian trace through the engine at the same width.
+5. training (the main path of the training slice): the same width with
+   ``batch=256``, LARS and FCCS batch growth (``eta0=0.4``, ``t_warm=2``,
+   ``b0=b_min=256``, ``b_max=1024``, ``t_ini=2``, ``t_final=6``), on the
+   ``kernel`` backend; ``fit(6, use_fccs_batch=True)`` runs micro-batch
+   counts 1, 1, 1, 2, 4, 4, so ``ce_forward`` and ``ce_backward`` must
+   each launch exactly 13 times between the counters' reset and their
+   reading. Losses must be finite and W must move. Then 3 steps on the
+   ``kernel`` and ``ref`` backends from the same initial weights on the
+   same batches: losses within rtol 1e-4 and max|dW| <= 1e-4 * max|W|.
+   Before that, one batch's head gradient through ``loss_local`` on both
+   backends from the same W: the label rows and the other rows each within
+   BWD_TOL of their own max.
+   Step time (host clock, synchronised, n_micro=1), samples/s, one
+   profiled step and peak memory are printed.
+6. train launcher: ``python -m repro_torch.launch.train`` for 4 steps
+   with ``--fccs`` at the same width; it must exit 0 with a finite
+   accuracy.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, one ``{"end_to_end": ...}`` line and, last, ``{"ok": true,
@@ -40,6 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -49,6 +73,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 B, V, D, K = 64, 1_020_250, 512, 5          # configs/sku100m_resnet.config_1m
+BTRAIN = 256                                 # training micro-batch
+# ce_backward: max|kernel - plain| <= BWD_TOL * max|plain| for df, dW's label
+# rows and dW's other rows, each against its own max; the training shapes
+# read at most 1.0e-5 on an H100 (df: fp32 sums over V in another order),
+# 8e-7 for dW; the head gradient, kernel vs ref backend, 7e-7
+BWD_TOL = 2e-5
+FIT_STEPS, FIT_LAUNCHES = 6, 1 + 1 + 1 + 2 + 4 + 4   # n_micro per step
 CHUNK = 2048                                 # ops.topk_rows' chunk
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12                       # H100 SXM, outside tensor cores
@@ -107,17 +138,19 @@ def profile_ms(torch, fn) -> dict:
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.key, e.self_device_time_total / 1e3)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    busy = sum(ms for _, ms in kernels)
+    kernels: dict = {}          # device ms by (shortened) kernel name
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0):
+            name = e.key[:90]
+            kernels[name] = kernels.get(name, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(kernels.values())
     if busy <= 0:
-        fail("the profiler saw no device time in a serve call")
-    top = sorted(kernels, key=lambda k: -k[1])[:6]
+        fail("the profiler saw no device time in a profiled call")
+    top = sorted(kernels.items(), key=lambda k: -k[1])[:8]
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
-            "top_kernels_ms": {name[:60]: ms for name, ms in top}}
+            "top_kernels_ms": dict(top)}
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -246,6 +279,7 @@ def kernel_phase(torch, ce, dc, sharded):
     padded = torch.nn.functional.pad(logits, (0, nch * CHUNK - V),
                                      value=float("-inf")).reshape(-1, CHUNK)
     tk_lib = cuda_ms(torch, lambda: torch.topk(padded, K, dim=1), 50)
+    ce_lib = cuda_ms(torch, lambda: fs @ ws.T, 20)     # the product alone
 
     ce_bytes = 4 * (B * D + V * D + B) + 16 * B
     ce_bound, ce_by = bound_ms(ce_bytes, 2.0 * B * V * D)
@@ -258,7 +292,7 @@ def kernel_phase(torch, ce, dc, sharded):
             replaces="src/repro/kernels/ce_softmax.py:106",
             max_abs_err=ce_err, z_max_rel_err=z_rel, ms=ce_ms,
             plain_ms=ce_plain, bound_ms=ce_bound, bound_by=ce_by,
-            library_ms=None,
+            library_ms=ce_lib, library="f @ W.T (cuBLAS fp32, TF32 off)",
             shape=f"f[{B},{D}] W[{V},{D}]"),
         "stage1_topk": dict(
             name="stage1_topk", route="cuda",
@@ -268,6 +302,122 @@ def kernel_phase(torch, ce, dc, sharded):
             bound_ms=tk_bound, bound_by=tk_by, library_ms=tk_lib,
             shape=f"x[{B},{V}] chunk {CHUNK} k {K}"),
     }
+
+
+def check_ce_bwd(torch, ce, f, w, y, m, gz, gc, limit, scale, label):
+    """ce_backward's kernel vs ce_backward_plain on the same card tensors,
+    twice: the two kernel runs must agree bit for bit. Each part is held
+    against its own max|plain|: df, dW's label rows, and dW's other rows,
+    whose only term is the softmax one (it is orders of magnitude below the
+    one-hot term of the label rows, so a shared scale would not see it).
+    Returns {part: (max abs err, max abs err / max|plain|)}."""
+    df1, dw1 = ce.ce_backward(f, w, y, m, gz, gc, limit=limit, scale=scale)
+    df2, dw2 = ce.ce_backward(f, w, y, m, gz, gc, limit=limit, scale=scale)
+    yl = torch.where((y >= 0) & (y < w.shape[0]), y, -1).to(torch.int32)
+    lim = max(0, min(int(limit), w.shape[0]))
+    pdf, pdw = ce.ce_backward_plain(f, w, yl, m, gz, gc, lim, scale)
+    torch.cuda.synchronize()
+    if not (torch.equal(df1, df2) and torch.equal(dw1, dw2)):
+        fail(f"ce_backward {label}: two runs on the same inputs differ")
+    for name, k in (("df", df1), ("dW", dw1)):
+        if not bool(torch.isfinite(k).all()):
+            fail(f"ce_backward {name} {label}: non-finite values")
+    lab = torch.zeros(w.shape[0], dtype=torch.bool, device=w.device)
+    lab[yl[yl >= 0].long()] = True
+    out = {}
+    for name, k, p in (("df", df1, pdf), ("dW label rows", dw1[lab], pdw[lab]),
+                       ("dW other rows", dw1[~lab], pdw[~lab])):
+        if not p.numel():
+            continue
+        scale_ref = float(p.abs().max())
+        err = float((k - p).abs().max())
+        if err > BWD_TOL * scale_ref:
+            fail(f"ce_backward {name} {label}: max abs err {err:.3g} over "
+                 f"{BWD_TOL:g} * max|plain| = {BWD_TOL * scale_ref:.3g}")
+        out[name] = (err, err / scale_ref if scale_ref else err)
+    return out
+
+
+def backward_kernel_phase(torch, ce, sharded):
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+
+    def inputs(b, v, d, w_scale=0.1):
+        f = torch.randn((b, d), generator=g, device=dev)
+        w = torch.randn((v, d), generator=g, device=dev) * w_scale
+        y = torch.randint(0, v, (b,), generator=g, device=dev,
+                          dtype=torch.int32)
+        gz = torch.randn((b,), generator=g, device=dev)
+        gc = torch.randn((b,), generator=g, device=dev)
+        return f, w, y, gz, gc
+
+    # -- small ragged shapes: B and V off the tiles, masks, -inf rows -------
+    f, w, y, gz, gc = inputs(37, 5013, 36)
+    y[:4] = torch.tensor([-1, 5013 + 3, 5012, 4500], device=dev,
+                         dtype=torch.int32)      # off shard, masked column
+    ragged = {}
+    for limit, scale in ((5013, 1.0), (4000, 16.0), (0, 1.0)):
+        m = ce.ce_forward(f, w, y, limit=limit, scale=scale)[0]
+        if limit == 5013:
+            m[5:7] = float("-inf")               # rows with nothing live
+        ragged[f"limit={limit}"] = check_ce_bwd(
+            torch, ce, f, w, y, m, gz, gc, limit, scale, f"ragged limit={limit}")
+    f, w, y, gz, gc = inputs(300, 1000, 64)      # three 128-row chunks
+    m = ce.ce_forward(f, w, y, limit=1000)[0]
+    ragged["300 rows"] = check_ce_bwd(torch, ce, f, w, y, m, gz, gc, 1000,
+                                      1.0, "300 rows")
+    log("kernel phase: ce_backward ragged shapes agree with the plain "
+        "version, bit-identical across runs; max abs err / max|plain| by "
+        "part: " + "; ".join(
+            f"{case} {part} {r:.3g}" for case, parts in ragged.items()
+            for part, (_, r) in parts.items()))
+
+    # -- the training shapes: unit rows, scale 16, the loss's cotangents ---
+    ft = sharded._normalize(torch.randn((BTRAIN, D), generator=g, device=dev))
+    wt = sharded._normalize(torch.randn((V, D), generator=g, device=dev))
+    yt = torch.randint(0, V, (BTRAIN,), generator=g, device=dev,
+                       dtype=torch.int32)
+    m, z, _, _ = ce.ce_forward(ft, wt, yt, limit=V, scale=16.0)
+    gz = 1.0 / (BTRAIN * z)                      # d mean(log z) / dz
+    gc = torch.full_like(z, -1.0 / BTRAIN)       # d mean(-corr) / dcorr
+    # the loss's cotangents, then the softmax term alone (gc = 0): with the
+    # one-hot term present it dominates df, and the softmax term's share of
+    # df is below any tolerance relative to the one-hot's
+    parts = {}
+    for term, gct in (("loss", gc), ("softmax term", torch.zeros_like(gc))):
+        for part, v in check_ce_bwd(torch, ce, ft, wt, yt, m, gz, gct, V, 16.0,
+                                    f"training shapes, {term}").items():
+            parts[f"{part}, {term}"] = v
+    err = max(e for e, _ in parts.values())
+    rel = max(r for _, r in parts.values())
+    log("kernel phase: ce_backward at training shapes agrees, bit-identical "
+        "across runs; max abs err (of max|plain|) by part: " + "; ".join(
+            f"{k} {e:.3g} ({r:.3g})" for k, (e, r) in parts.items()))
+    ms = cuda_ms(torch, lambda: ce.ce_backward(ft, wt, yt, m, gz, gc,
+                                               limit=V, scale=16.0), 5)
+    plain = cuda_ms(torch, lambda: ce.ce_backward_plain(
+        ft, wt, yt, m, gz, gc, V, 16.0), 3)
+    lib = cuda_ms(torch, lambda: ft @ wt.T, 10)
+    fwd = cuda_ms(torch, lambda: ce.ce_forward(ft, wt, yt, limit=V,
+                                               scale=16.0), 10)
+    n_bytes = 4 * (2 * BTRAIN * D + 2 * V * D + 4 * BTRAIN)
+    bound, by = bound_ms(n_bytes, 6.0 * BTRAIN * V * D)
+    fwd_bound, _ = bound_ms(4 * (BTRAIN * D + V * D + BTRAIN) + 16 * BTRAIN,
+                            2.0 * BTRAIN * V * D)
+    log(f"kernel phase: ce_backward {ms:.3f} ms (bound {bound:.3f} ms by "
+        f"{by}), plain {plain:.3f} ms, f @ W.T {lib:.3f} ms; ce_forward at "
+        f"B={BTRAIN} {fwd:.3f} ms (bound {fwd_bound:.3f} ms)")
+    return dict(
+        name="ce_backward", route="cuda",
+        source="src/repro_torch/kernels/csrc/ce_softmax_bwd.cu",
+        replaces="src/repro/kernels/ce_softmax.py:184",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+        library_ms=lib, library="f @ W.T (cuBLAS fp32, TF32 off)",
+        max_rel_err=rel,
+        rel_err_by_part={k: r for k, (_, r) in parts.items()},
+        ce_forward_train_ms=fwd, ce_forward_train_bound_ms=fwd_bound,
+        shape=f"f[{BTRAIN},{D}] W[{V},{D}]")
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +534,172 @@ def launcher_phase(torch, ce, dc):
             "replay_occupancy": row["mean_batch_occupancy"]}
 
 
+# ---------------------------------------------------------------------------
+# training phase (the main path of the training slice) and its launcher
+# ---------------------------------------------------------------------------
+
+
+def _train_experiment(backend: str, data_fn=None):
+    from repro_torch.api import Experiment
+    from repro_torch.configs.base import FCCSConfig, HeadConfig, TrainConfig
+
+    return Experiment.from_config(
+        system="paper", classes=V, feat_dim=D, batch=BTRAIN, seed=0,
+        device=DEVICE, log_every=1, data_fn=data_fn,
+        head=HeadConfig(softmax_impl="full", backend=backend),
+        train=TrainConfig(optimizer="lars", fccs=FCCSConfig(
+            eta0=0.4, t_warm=2, b0=BTRAIN, b_min=BTRAIN, b_max=4 * BTRAIN,
+            t_ini=2, t_final=6)))
+
+
+def head_grad_check(torch, exp, w0):
+    """The head gradient of one batch's loss, through ``loss_local`` (W's
+    normalisation, ``ce_shard_stats`` and the completion), on the kernel
+    and the ref backend from the same W. The label rows and the other
+    rows, whose gradient is the softmax term alone, are each held against
+    their own max|ref| at BWD_TOL. (The weights after a few steps cannot
+    show the other rows' gradient: weight decay outweighs it there, and
+    fp32 rounding of W is larger than it.) Returns {part: err / max|ref|}."""
+    from repro_torch.api.heads import make_head
+    from repro_torch.train.trainer import to_device
+
+    batch = to_device(exp.data_fn(10**5 + 1, BTRAIN), exp.device)
+    grads = {}
+    for backend in ("kernel", "ref"):
+        head = make_head(exp.model_cfg, dataclasses.replace(
+            exp.head_cfg, backend=backend))
+        wp = w0.clone().requires_grad_()
+        loss, _ = head.loss_local(batch["features"], batch["labels"], wp,
+                                  exp.state.head_aux, global_batch=BTRAIN,
+                                  step=0)
+        loss.backward()
+        grads[backend] = wp.grad
+        del wp
+    lab = torch.zeros(V, dtype=torch.bool, device=w0.device)
+    lab[batch["labels"].long()] = True
+    out = {}
+    for name, sel in (("label rows", lab), ("other rows", ~lab)):
+        k, r = grads["kernel"][sel], grads["ref"][sel]
+        ref_max = float(r.abs().max())
+        err = float((k - r).abs().max())
+        if not ref_max > 0 or err > BWD_TOL * ref_max:
+            fail(f"head gradient of the {name}: kernel vs ref max abs err "
+                 f"{err:.3g} over {BWD_TOL:g} * max|ref| {ref_max:.3g}")
+        out[name] = err / ref_max
+    del grads, k, r
+    torch.cuda.empty_cache()
+    log(f"training phase: head gradient, kernel vs ref backend, max abs err "
+        f"of max|ref| by part {out}")
+    return out
+
+
+def training_phase(torch, ce):
+    from repro_torch.train.trainer import to_device
+
+    exp = _train_experiment("kernel")
+    w0 = exp.state.w_head.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ce.LAUNCHES = 0
+    ce.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    hist = exp.fit(FIT_STEPS, use_fccs_batch=True)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"ce_forward": ce.LAUNCHES, "ce_backward": ce.BWD_LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"training phase: fit({FIT_STEPS}) in {fit_s:.2f} s, batches "
+        f"{[r['batch'] for r in hist]}, launches {launches}, peak memory "
+        f"{peak_gb:.2f} GB")
+    for name, n in launches.items():
+        if n != FIT_LAUNCHES:
+            fail(f"the training path launched {name} {n} times, not "
+                 f"{FIT_LAUNCHES}")
+    if [r["batch"] for r in hist] != [BTRAIN * n for n in (1, 1, 1, 2, 4, 4)]:
+        fail(f"FCCS batches {[r['batch'] for r in hist]}")
+    losses = [r["loss"] for r in hist]
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite training losses {losses}")
+    moved = float((exp.state.w_head - w0).abs().max())
+    if not moved > 0:
+        fail("training did not change the class weights")
+    grad_err = head_grad_check(torch, exp, w0)
+
+    # the step at n_micro=1, timed on the host clock and profiled
+    step = exp.trainer._get_step(1)
+    inputs = to_device(exp.data_fn(10**5, BTRAIN), exp.device)
+
+    def one_step():
+        exp.trainer.state = step(exp.trainer.state, inputs, 0.4)[0]
+
+    step_ms = host_ms(torch, one_step, 5)
+    prof = profile_ms(torch, one_step)
+    log(f"training phase: step (n_micro=1) {step_ms:.2f} ms, "
+        f"{BTRAIN / step_ms * 1e3:.0f} samples/s; profiled: {prof}")
+    data_fn = exp.data_fn
+    del exp, step, inputs
+    torch.cuda.empty_cache()
+
+    # kernel vs ref backend: same initial weights, same batches, 3 steps
+    out = {}
+    for backend in ("kernel", "ref"):
+        e = _train_experiment(backend, data_fn)
+        e.load_state(e.state._replace(head_params=w0.clone()))
+        h = e.fit(3, use_fccs_batch=True)
+        torch.cuda.synchronize()
+        out[backend] = ([r["loss"] for r in h], e.state.w_head.clone(),
+                        e.evaluate() if backend == "kernel" else None)
+        del e
+        torch.cuda.empty_cache()
+    (lk, wk, acc), (lr_, wr, _) = out["kernel"], out["ref"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lr_))
+    w_err = float((wk - wr).abs().max())
+    w_max = float(wr.abs().max())
+    log(f"training phase: kernel vs ref losses {lk} / {lr_} (max rel "
+        f"{loss_rel:.3g}); max|dW| {w_err:.3g} vs max|W| {w_max:.3g}; "
+        f"evaluate() {acc}")
+    if loss_rel > 1e-4:
+        fail(f"kernel and ref losses differ by rel {loss_rel:.3g}")
+    if w_err > 1e-4 * w_max:
+        fail(f"kernel and ref weights differ by {w_err:.3g}")
+    if not 0.0 <= acc <= 1.0:
+        fail(f"evaluate() returned {acc}")
+    del wk, wr, w0
+    torch.cuda.empty_cache()
+    return launches, {
+        "fit_s": fit_s, "fit_losses": losses,
+        "fit_batches": [r["batch"] for r in hist],
+        "train_step_ms_n1": step_ms,
+        "train_samples_per_s_n1": BTRAIN / step_ms * 1e3,
+        "train_step_profile": prof, "train_peak_memory_gb": peak_gb,
+        "kernel_vs_ref_loss_max_rel": loss_rel,
+        "kernel_vs_ref_w_max_abs": w_err, "w_max_abs": w_max,
+        "head_grad_kernel_vs_ref_rel_err": grad_err,
+        "train_evaluate_accuracy": acc}
+
+
+def train_launcher_phase():
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--system",
+           "paper", "--classes", str(V), "--feat-dim", str(D), "--batch",
+           str(BTRAIN), "--steps", "4", "--fccs", "--backend", "kernel"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines()[-6:]:
+        log(f"train launcher: {line}")
+    if proc.returncode != 0:
+        fail(f"train launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
+    acc = [line for line in proc.stdout.splitlines()
+           if "final eval accuracy" in line]
+    if not acc or not math.isfinite(float(acc[-1].split()[-1])):
+        fail("train launcher printed no finite final accuracy")
+    return {"train_launcher_s": wall,
+            "train_launcher_accuracy": float(acc[-1].split()[-1])}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -415,16 +731,27 @@ def main() -> int:
             log(f"ptxas: {line.strip()}")
 
     kernels = kernel_phase(torch, ce, dc, sharded)
-    exp, launches, e2e = serving_phase(torch, np, ce, dc, sharded)
+    kernels["ce_backward"] = backward_kernel_phase(torch, ce, sharded)
+    torch.cuda.empty_cache()
+    exp, serve_launches, e2e = serving_phase(torch, np, ce, dc, sharded)
     del exp
     torch.cuda.empty_cache()
     e2e.update(launcher_phase(torch, ce, dc))
-    e2e["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    e2e["serve_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    train_launches, train_e2e = training_phase(torch, ce)
+    e2e.update(train_e2e)
+    e2e.update(train_launcher_phase())
     e2e["build_s"] = build_s
 
+    # launches on each main path, from its own reset-and-read of the counters
+    by_path = {name: {"serving": serve_launches.get(name, 0),
+                      "training": train_launches.get(name, 0)}
+               for name in kernels}
     rows = []
     for name, k in kernels.items():
-        rows.append({**k, "launches": launches[name],
+        path = "training" if by_path[name]["training"] else "serving"
+        rows.append({**k, "launches": by_path[name][path],
+                     "launches_path": path, "launches_by_path": by_path[name],
                      "kernel_ms": k["ms"], "max_err": k["max_abs_err"]})
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -1,14 +1,18 @@
-"""The ``Experiment`` facade of the port: the paper system's serving path.
+"""The ``Experiment`` facade of the port: the paper system's training and
+serving paths.
 
   >>> exp = Experiment.from_config(system="paper", classes=1_020_250,
-  ...                              feat_dim=512)          # on "cuda"
-  >>> exp.serve(batch=64)                                  # greedy ids
-  >>> exp.serve(batch=64, top_k=5, return_scores=True)     # (ids, scores)
+  ...                              feat_dim=512, batch=256)  # on "cuda"
+  >>> exp.fit(6, use_fccs_batch=True)                       # history rows
+  >>> exp.serve(batch=64)                                    # greedy ids
+  >>> exp.serve(batch=64, top_k=5, return_scores=True)       # (ids, scores)
 
 The port of the JAX package's ``api/experiment.py`` for the slices landed
-so far: ``serve`` (greedy and top-k, through the serving engine or on
-explicit inputs), ``serving_engine``, ``evaluate`` and ``weights_version``.
-``fit`` and the zoo system come with later slices (ROADMAP.md queue A).
+so far: ``fit`` (the FCCS trainer, without checkpoints), ``evaluate``,
+``serve`` (greedy and top-k, through the serving engine or on explicit
+inputs), ``serving_engine`` and ``weights_version``. Checkpoints
+(``ckpt_dir``, ``resume``) and the zoo system come with later slices
+(ROADMAP.md queue A).
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and with no
 GPU present they raise rather than fall back to the CPU. Pass
@@ -108,26 +112,24 @@ class PaperExperiment(Experiment):
                  trunk: str = "feats", classes: int = 4096,
                  feat_dim: int = 64, batch: int = 64,
                  data_fn: Optional[Callable[[int, int], dict]] = None,
-                 seed: int = 0, device=None):
-        from repro_torch.api.heads import make_head
-        from repro_torch.train import hybrid
+                 lr_fn=None, ckpt_dir: Optional[str] = None,
+                 log_every: int = 10, seed: int = 0, telemetry=None,
+                 device=None):
+        from repro_torch.train.trainer import PaperTrainer
 
         self.device = resolve_device(device)
         self.model_cfg = model or paper_model_config(trunk, classes, feat_dim)
         self.head_cfg = head or HeadConfig()
         self.train_cfg = train or TrainConfig(optimizer="sgd")
         self.batch = batch
-        self.head = make_head(self.model_cfg, self.head_cfg)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        self.state = hybrid.init_state(
-            gen, self.model_cfg, self.head_cfg, self.train_cfg,
-            dist.world_size(), rank=dist.rank(), device=self.device,
-            head=self.head)
-        self.loads = 0       # bumped on every load_state (serving-cache probe)
         self.data_fn = data_fn or self._default_data_fn()
+        self.trainer = PaperTrainer(
+            self.model_cfg, self.head_cfg, self.train_cfg, self.data_fn,
+            hw_batch=batch, device=self.device, lr_fn=lr_fn,
+            ckpt_dir=ckpt_dir or None, log_every=log_every, seed=seed,
+            telemetry=telemetry)
+        self.loads = 0       # bumped on every load_state (serving-cache probe)
         self._serve_step = None
-        self._eval_step = None
         self._topk_steps: dict = {}
         self._engines: dict = {}
 
@@ -140,37 +142,55 @@ class PaperExperiment(Experiment):
         return lambda t, b: sku_feature_batch(t, b, stream)
 
     @property
+    def head(self):
+        return self.trainer.head
+
+    @property
+    def state(self):
+        return self.trainer.state
+
+    @property
     def weights_version(self):
         """Serving-cache invalidation probe: moves whenever the served
         weights can have changed (every weight load and every step)."""
-        return (self.loads, int(self.state.step))
+        return (self.loads, int(self.trainer.state.step))
 
     def load_state(self, state) -> None:
-        """Install a ``HybridState`` (for example weights carried over from
+        """Install a ``HybridState`` (for example state carried over from
         the JAX package by ``repro_torch.interop``); the counterpart of a
-        checkpoint restore until checkpoints are ported."""
-        self.state = state
+        checkpoint restore until checkpoints are ported. Training updates
+        its tensors in place."""
+        self.trainer.state = state
         self.loads += 1
 
-    def fit(self, steps: int, **kw):
-        raise NotImplementedError(
-            "training is not ported to torch yet (ROADMAP.md queue A.3)")
+    def fit(self, steps: int, *, use_fccs_batch: bool = True,
+            resume=False, step_hook=None, telemetry=None):
+        """Train ``steps`` steps from the current cursor: the FCCS learning
+        rate and, with ``use_fccs_batch``, its batch growth through
+        micro-batch accumulation. ``step_hook(t)`` fires before each step;
+        ``telemetry=`` installs a ``repro_torch.telemetry.Tracer`` on the
+        trainer. Returns the history rows (step, lr, batch, loss, acc)."""
+        if resume:
+            raise NotImplementedError(
+                "resume needs checkpoints, which are not ported to torch "
+                "yet (ROADMAP.md queue A.7)")
+        if telemetry is not None:
+            self.trainer.telemetry = telemetry
+        if steps > 0:
+            self.trainer.run(steps, use_fccs_batch=use_fccs_batch,
+                             step_hook=step_hook)
+        return self.trainer.history
 
     def _to_device(self, inputs: dict) -> dict:
-        return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
-                                   else v).to(self.device)
-                for k, v in inputs.items()}
+        from repro_torch.train.trainer import to_device
+        return to_device(inputs, self.device)
 
     def evaluate(self, inputs=None, *, eval_batch: Optional[int] = None
                  ) -> float:
         """Deploy-style top-1 accuracy (§4.5 nearest class weight)."""
-        from repro_torch.train import hybrid
         if inputs is None:
             inputs = self.data_fn(10**6, eval_batch or 4 * self.batch)
-        if self._eval_step is None:
-            self._eval_step = hybrid.make_eval_step(
-                self.model_cfg, self.head_cfg, head=self.head)
-        return self._eval_step(self.state, self._to_device(inputs))
+        return self.trainer.evaluate(inputs)
 
     def serve(self, inputs=None, *, batch: Optional[int] = None,
               top_k: Optional[int] = None, return_scores: bool = False,

@@ -1,8 +1,8 @@
-"""Softmax-head strategies: the port of the state and serve parts of the JAX
-package's ``api/heads.py``.
+"""Softmax-head strategies: the port of the JAX package's ``api/heads.py``.
 
-A head owns its parameters and auxiliary state (``HeadState``) and its
-distributed prediction body ``eval_logits_local``. Heads register by name
+A head owns its parameters and auxiliary state (``HeadState``), its
+distributed training loss ``loss_local`` and its prediction body
+``eval_logits_local``. Heads register by name
 (``register_head``); ``make_head`` builds one from a ``HeadConfig``. Only
 ``full`` is ported so far; the other five are named in ``KNOWN_HEADS`` so
 that configs naming them parse, and ``make_head`` refuses them until their
@@ -16,7 +16,8 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.configs.base import HeadConfig, ModelConfig, effective_vocab
-from repro_torch.core.sharded_softmax import (_normalize, serve_argmax_local,
+from repro_torch.core.sharded_softmax import (_normalize, full_softmax_local,
+                                              serve_argmax_local,
                                               serve_logits_local)
 
 KNOWN_HEADS = ("full", "knn", "selective", "mach", "sampled", "csoft")
@@ -52,10 +53,33 @@ class SoftmaxHead:
         """This ring member's state: its row block of the params."""
         raise NotImplementedError
 
+    def loss_local(self, f_all, y_all, params, aux, *, global_batch: int,
+                   step=None):
+        """Distributed CE on this member's shard. ``f_all`` / ``y_all`` are
+        the ring-gathered batch; ``step`` is the training step (for heads
+        with per-step randomness; may be None). Returns (loss, metrics)."""
+        raise NotImplementedError
+
     def eval_logits_local(self, f_all, params, aux):
         """Deploy-style prediction (§4.5 retrieval). Returns (pred [b]
         global class ids, local scores or None)."""
         raise NotImplementedError
+
+    def metrics_spec(self) -> dict:
+        """The metrics ``loss_local`` returns, each a scalar replicated
+        over the ring (the JAX package's ``P()`` out-spec)."""
+        return {"accuracy": "replicated", "logz": "replicated"}
+
+    @property
+    def refresh_every(self) -> int:
+        """Steps between ``refresh`` calls (0 = the head has no periodic
+        work)."""
+        return 0
+
+    def refresh(self, head_state: HeadState) -> HeadState:
+        """The head's periodic work (graph / table rebuilds); none for
+        heads without aux state."""
+        return head_state
 
     def _init_w(self, generator: torch.Generator, n_dev: int, rank: int,
                 device, block_rows: int = 1 << 16):
@@ -106,6 +130,13 @@ class FullSoftmaxHead(SoftmaxHead):
     def init(self, generator, n_dev, *, rank, device) -> HeadState:
         return HeadState(params=self._init_w(generator, n_dev, rank, device),
                          aux=())
+
+    def loss_local(self, f_all, y_all, params, aux, *, global_batch: int,
+                   step=None):
+        return full_softmax_local(
+            f_all, y_all, params, global_batch=global_batch,
+            cosine_scale=self.head_cfg.cosine_scale, n_valid=self.n_valid,
+            backend=self.backend)
 
     def eval_logits_local(self, f_all, params, aux):
         f = f_all.float()

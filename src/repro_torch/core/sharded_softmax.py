@@ -1,16 +1,21 @@
-"""Hybrid-parallel serving bodies over a row-sharded class matrix (paper
-§3.1, §4.5): the port of the serve half of the JAX package's
-``core/sharded_softmax.py``.
+"""Hybrid-parallel softmax bodies over a row-sharded class matrix (paper
+§3.1, §4.5): the port of the JAX package's ``core/sharded_softmax.py``
+(training and serving; the IVF bodies come with the serving-index slice).
 
 W [N, D] is split by class rows across the ring; each member scores its own
 block and the results combine with small collectives (``repro_torch.dist``)
 — the counterparts of JAX's shard_map bodies. Every body takes
 ``backend="ref" | "kernel"``: ``ref`` is dense torch ops, ``kernel`` runs
-the local selection through the hand-written kernels
+the local scoring through the hand-written kernels
 (``repro_torch.kernels.ops``).
 
-The training bodies (``full_softmax_local`` and its completions) come with
-the training slice; the IVF bodies with the serving-index slice.
+Training (``full_softmax_local``): each member scores its class shard
+against the ring-gathered batch and the softmax is completed with small
+collectives — global max (``pmax``), partition sum and label logit
+(``psum``). The class-weight gradient stays local to its shard. The JAX
+trainer calls these bodies with ``batch_axes=()`` (its loss psum is the
+identity), so the port has no batch axes: the loss is
+``sum(per-sample) / global_batch`` on every member.
 """
 from __future__ import annotations
 
@@ -27,6 +32,120 @@ def _normalize(x):
     xf = x.float()
     return (xf / (torch.linalg.vector_norm(xf, dim=-1, keepdim=True)
                   + 1e-12)).to(x.dtype)
+
+
+def ce_ref(features, labels, w, *, cosine_scale: float = 0.0,
+           label_smoothing: float = 0.0):
+    """Plain full-softmax cross entropy on one device: features [T,D],
+    labels [T], w [N,D]. ``cosine_scale > 0`` switches to normalised
+    (cosine) logits, the paper's normalisation strategy (§3.2.1)."""
+    f = features.float()
+    wf = w.float()
+    if cosine_scale > 0:
+        f = f / (torch.linalg.vector_norm(f, dim=-1, keepdim=True) + 1e-12)
+        wf = wf / (torch.linalg.vector_norm(wf, dim=-1, keepdim=True) + 1e-12)
+    logits = f @ wf.T
+    if cosine_scale > 0:
+        logits = logits * cosine_scale
+    logz = torch.logsumexp(logits, dim=-1)
+    corr = logits.gather(1, labels.long()[:, None])[:, 0]
+    if label_smoothing > 0:
+        corr = ((1 - label_smoothing) * corr
+                + label_smoothing * logits.mean(dim=-1))
+    loss = (logz - corr).mean()
+    acc = (logits.argmax(dim=-1) == labels.long()).float().mean()
+    return loss, {"accuracy": acc, "logz": logz.mean()}
+
+
+def _finish_ce(logits, owned_label_pos, owned, batch_weight: float):
+    """Distributed-CE tail over dense local logits [b, C_local] (already
+    scaled). ``owned_label_pos`` [b] is each label's local column (only
+    meaningful where ``owned``); exactly one member owns each label.
+    Returns (loss, metrics), the same on every member."""
+    m_loc = logits.detach().max(dim=-1).values
+    m = dist.pmax(m_loc)
+    z = dist.psum(torch.exp(logits - m[:, None]).sum(dim=-1))
+    corr_loc = logits.gather(1, owned_label_pos.long()[:, None])[:, 0]
+    corr = dist.psum(torch.where(owned, corr_loc, 0.0))
+    per_sample = torch.log(z) + m - corr
+    loss = per_sample.sum() * batch_weight
+
+    # distributed top-1 accuracy (metrics only: no gradient)
+    with torch.no_grad():
+        lg = logits.detach()
+        amax_loc = lg.argmax(dim=-1)
+        vmax_loc = lg.gather(1, amax_loc[:, None])[:, 0]
+        is_best = vmax_loc >= dist.pmax(vmax_loc)
+        pred_here = owned & is_best & (amax_loc == owned_label_pos.long())
+        correct = dist.psum(pred_here.float()) > 0
+        acc = correct.float().sum() * batch_weight
+        logz = (torch.log(z) + m).mean()
+    return loss, {"accuracy": acc, "logz": logz}
+
+
+def _finish_ce_stats(m_loc, z_loc, corr_loc, pred_gid, y, owned,
+                     batch_weight: float):
+    """Distributed-CE tail from per-shard online-softmax statistics (the
+    kernel backend's counterpart of ``_finish_ce``). ``m_loc`` / ``z_loc``
+    / ``corr_loc`` [b]: each shard's running max, partition sum relative to
+    it, and label-logit contribution (0 off the owner). ``pred_gid`` [b]:
+    the shard's best candidate as a global class id (-1 when it scored
+    nothing). Gradients flow through ``z_loc`` and ``corr_loc`` into the
+    backward kernel; ``m_loc`` is a non-differentiable statistic."""
+    m_sg = m_loc.detach()
+    m = dist.pmax(m_sg)
+    z_resc = torch.where(torch.isfinite(m_sg), torch.exp(m_sg - m), 0.0)
+    z = dist.psum(z_loc * z_resc)
+    corr = dist.psum(corr_loc)
+    per_sample = torch.log(z) + m - corr
+    loss = per_sample.sum() * batch_weight
+
+    with torch.no_grad():
+        is_best = m_sg >= m      # ties: >=; duplicates across shards unlikely
+        pred_here = owned & is_best & (pred_gid.long() == y.long())
+        correct = dist.psum(pred_here.float()) > 0
+        acc = correct.float().sum() * batch_weight
+        logz = (torch.log(z.detach()) + m).mean()
+    return loss, {"accuracy": acc, "logz": logz}
+
+
+def full_softmax_local(f_loc, y_loc, w_loc, *, global_batch: int,
+                       cosine_scale: float = 0.0, n_valid: int = 0,
+                       backend: str = "ref"):
+    """The full-softmax loss body of one ring member. ``f_loc`` [b, D] is
+    the ring-gathered batch (the same on every member), ``y_loc`` [b]
+    global class ids, ``w_loc`` [V_loc, D] this member's class shard (row
+    offset from its ring index). ``n_valid > 0`` masks padded vocab rows.
+    ``backend="kernel"`` streams the scoring through ``ops.ce_shard_stats``
+    (no [b, V_loc] logits on the card, forward or backward); ``"ref"``
+    forms dense logits. Returns (loss, {"accuracy", "logz"})."""
+    v_loc = w_loc.shape[0]
+    v_start = dist.flat_axis_index() * v_loc
+    pos = (y_loc.long() - v_start)
+    owned = (pos >= 0) & (pos < v_loc)
+    if backend == "kernel":
+        f, w = ((_normalize(f_loc), _normalize(w_loc)) if cosine_scale > 0
+                else (f_loc, w_loc))
+        scale = cosine_scale if cosine_scale > 0 else 1.0
+        y_local = torch.where(owned, pos, -1).to(torch.int32)
+        limit = _shard_limit(v_start, v_loc, n_valid)
+        m, z, corr, amax = ops.ce_shard_stats(
+            f.float().contiguous(), w.float().contiguous(), y_local, limit,
+            scale)
+        pred_gid = torch.where(amax >= 0, v_start + amax.long(), -1)
+        return _finish_ce_stats(m, z, corr, pred_gid, y_loc, owned,
+                                1.0 / global_batch)
+    dt = f_loc.dtype
+    f, w = ((_normalize(f_loc), _normalize(w_loc)) if cosine_scale > 0
+            else (f_loc, w_loc.to(dt)))
+    logits = (f @ w.to(dt).T).float()
+    if cosine_scale > 0:
+        logits = logits * cosine_scale
+    if n_valid:
+        col = v_start + torch.arange(v_loc, device=logits.device)
+        logits = torch.where((col < n_valid)[None, :], logits, NEG_INF)
+    return _finish_ce(logits, pos.clamp(0, v_loc - 1), owned,
+                      1.0 / global_batch)
 
 
 def _shard_limit(v_start: int, v_loc: int, n_valid: int) -> int:

@@ -8,8 +8,19 @@ the functions below. With no process group initialised the ring has one
 member and every collective is the identity, so the same bodies run in a
 single process.
 
-Autograd through the collectives comes with the training slice; these are
-forward-only.
+Autograd through the collectives follows JAX's transposes inside
+``shard_map(..., check_vma=False)``, which the JAX trainer runs under:
+
+* ``psum``: the backward sums the cotangent over the ring. A loss that is
+  replicated on every member therefore contributes one cotangent per
+  member, and the head gradient grows with the ring size (ROADMAP.md C.1);
+  the port keeps that, as the reference does.
+* ``all_gather`` (tiled or stacked): the backward reduce-scatters the
+  cotangent (sums it over the ring, keeps this member's slice).
+* ``pmax`` / ``pmin``: no gradient (their results are detached).
+
+The functions are written by hand, not taken from
+``torch.distributed.nn``, whose backward rules differ between versions.
 """
 from __future__ import annotations
 
@@ -39,35 +50,67 @@ def flat_axis_index() -> int:
     return rank()
 
 
-def all_gather(x: torch.Tensor, dim: int = 0, tiled: bool = True):
-    """Gather ``x`` from every member, in rank order. ``tiled=True``
-    concatenates along ``dim``; otherwise stacks a new axis at ``dim``."""
-    if not _active():
-        return x if tiled else x.unsqueeze(dim)
-    x = x.contiguous()
+def _all_reduce(x: torch.Tensor, op) -> torch.Tensor:
+    out = x.detach().clone().contiguous()
+    tdist.all_reduce(out, op=op)
+    return out
+
+
+def _gather(x: torch.Tensor, dim: int, tiled: bool) -> torch.Tensor:
+    x = x.detach().contiguous()
     parts = [torch.empty_like(x) for _ in range(world_size())]
     tdist.all_gather(parts, x)
     return torch.cat(parts, dim=dim) if tiled else torch.stack(parts, dim=dim)
 
 
-def _all_reduce(x: torch.Tensor, op) -> torch.Tensor:
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _all_reduce(x, tdist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, tdist.ReduceOp.SUM)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tiled):
+        ctx.dim, ctx.tiled, ctx.n = dim, tiled, x.shape[dim] if tiled else 1
+        return _gather(x, dim, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.detach()
+        parts = (g.split(ctx.n, dim=ctx.dim) if ctx.tiled
+                 else g.unbind(ctx.dim))
+        out = torch.empty_like(parts[rank()], memory_format=torch.contiguous_format)
+        tdist.reduce_scatter(out, [p.contiguous() for p in parts])
+        return out, None, None
+
+
+def all_gather(x: torch.Tensor, dim: int = 0, tiled: bool = True):
+    """Gather ``x`` from every member, in rank order. ``tiled=True``
+    concatenates along ``dim``; otherwise stacks a new axis at ``dim``.
+    The backward reduce-scatters the cotangent."""
     if not _active():
-        return x
-    out = x.clone().contiguous()
-    tdist.all_reduce(out, op=op)
-    return out
+        return x if tiled else x.unsqueeze(dim)
+    return _AllGather.apply(x, dim, tiled)
 
 
 def pmax(x: torch.Tensor) -> torch.Tensor:
-    return _all_reduce(x, tdist.ReduceOp.MAX)
+    """Elementwise max over the ring; carries no gradient."""
+    return _all_reduce(x, tdist.ReduceOp.MAX) if _active() else x.detach()
 
 
 def pmin(x: torch.Tensor) -> torch.Tensor:
-    return _all_reduce(x, tdist.ReduceOp.MIN)
+    """Elementwise min over the ring; carries no gradient."""
+    return _all_reduce(x, tdist.ReduceOp.MIN) if _active() else x.detach()
 
 
 def psum(x: torch.Tensor) -> torch.Tensor:
-    return _all_reduce(x, tdist.ReduceOp.SUM)
+    """Sum over the ring; the backward sums the cotangent over the ring."""
+    return _PSum.apply(x) if _active() else x
 
 
 # ---------------------------------------------------------------------------

@@ -2,19 +2,21 @@
 
 Both packages name their fields alike, so a JAX ``HeadConfig`` turned into
 a dict (``dataclasses.asdict``) builds the port's ``HeadConfig``, and the
-JAX package's parameters, taken to the host as numpy arrays
-(``np.asarray(exp.state.head_params)``), become the port's
-``HybridState``. Nothing here imports JAX: only numpy arrays and plain
-dicts cross.
+JAX package's parameters and optimizer state, taken to the host as numpy
+arrays (``np.asarray(exp.state.head_params)``), become the port's
+``HybridState``, so a JAX run's state continues in the port. Nothing here
+imports JAX: only numpy arrays and plain dicts cross.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import HeadConfig
+from repro_torch.optim import OptState
 from repro_torch.train.hybrid import HybridState
 
 # the JAX package's name for the hand-written kernel backend
@@ -42,14 +44,33 @@ def _row_block(a: np.ndarray, rank: int, world_size: int) -> np.ndarray:
     return a[rank * n:(rank + 1) * n]
 
 
-def paper_state_from_numpy(fe_params: dict, head_params, *, rank: int = 0,
-                           world_size: int = 1, device) -> HybridState:
+def _tensor(a, device) -> torch.Tensor:
+    # a copy: the JAX package's host arrays are read-only
+    return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+
+def _moments(pair, rank: int, world_size: int, device):
+    """(fe moments dict, GLOBAL [V, D] head moment) -> this member's."""
+    if pair is None:
+        return None
+    fe, head = pair
+    return ({k: _tensor(v, device) for k, v in fe.items()},
+            _tensor(_row_block(np.asarray(head), rank, world_size), device))
+
+
+def paper_state_from_numpy(fe_params: dict, head_params, *,
+                           opt_state: Optional[dict] = None, step: int = 0,
+                           rank: int = 0, world_size: int = 1,
+                           device) -> HybridState:
     """The port's ``HybridState`` for ring member ``rank`` of
-    ``world_size``, from the JAX package's parameters as numpy arrays:
-    ``fe_params`` (replicated; empty for the ``feats`` trunk) and the
-    GLOBAL [V, D] head matrix, of which this member keeps its row block.
-    Optimizer state is not carried: the port serves, it does not train
-    yet."""
+    ``world_size``, from the JAX package's state as numpy arrays:
+    ``fe_params`` (replicated; empty for the ``feats`` trunk), the GLOBAL
+    [V, D] head matrix, of which this member keeps its row block, and
+    optionally the optimizer state ``{"step": int, "mu": (fe moments,
+    global head moment), "nu": the same or None}`` (the JAX
+    ``OptState``'s fields), whose head moments are cut to the same row
+    block. ``step`` is the state's step counter. Without ``opt_state`` the
+    state carries none: it serves, and ``load_state`` of it cannot train."""
     if not 0 <= rank < world_size:
         raise ValueError(f"rank {rank} is not on a ring of {world_size}")
     w = np.asarray(head_params)
@@ -58,7 +79,11 @@ def paper_state_from_numpy(fe_params: dict, head_params, *, rank: int = 0,
                          f"shape {w.shape}")
     fe = {k: torch.as_tensor(np.asarray(v)).to(device)
           for k, v in fe_params.items()}
-    # a copy: the JAX package's host arrays are read-only
-    block = torch.tensor(_row_block(w, rank, world_size),
-                         dtype=torch.float32, device=device)
-    return HybridState(fe, block, (), None, None, 0)
+    block = _tensor(_row_block(w, rank, world_size), device)
+    opt = None
+    if opt_state is not None:
+        opt = OptState(
+            step=int(opt_state["step"]),
+            mu=_moments(opt_state["mu"], rank, world_size, device),
+            nu=_moments(opt_state.get("nu"), rank, world_size, device))
+    return HybridState(fe, block, (), opt, None, int(step))

@@ -2,10 +2,12 @@
 
 Every ``csrc/*.cu`` has a plain C interface (no PyTorch headers), so
 ``nvcc`` builds each into its own shared library in seconds; the libraries
-are loaded with ``ctypes``. The build runs at first use, one ``nvcc`` per
+are loaded with ``ctypes``. Code that two kernels share lives in a
+``csrc/*.cuh`` header that each includes. The build runs at first use, one ``nvcc`` per
 source, all started together, into ``build/repro_torch_kernels/`` at the
-root of the checkout. A library's file name carries a hash of its source
-and flags, so an edited source is rebuilt and an unchanged one is reused.
+root of the checkout. A library's file name carries a hash of its source,
+the headers and the flags, so an edited source is rebuilt and an unchanged
+one is reused.
 ``nvcc``'s register and shared-memory report (``-Xptxas -v``) is kept
 beside each library as ``<name>-<hash>.log``.
 
@@ -45,7 +47,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
+    # the shared headers are hashed with every source that may include them
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 

@@ -14,8 +14,9 @@
 // block: one core. Here the parallelism comes from V. Pass 1 runs a grid of
 // (B tiles of 64) x (V segments); each block walks its segment in tiles of
 // 128 class rows, computing the 64 x 128 score tile with a register-tiled
-// fp32 FMA product (each thread a 4 x 8 micro-tile, depth staged through
-// shared memory 32 at a time, 16-byte coalesced loads of W), and folds it
+// fp32 FMA product (ce_tiles.cuh: each thread a 4 x 8 micro-tile, depth
+// staged through shared memory 32 at a time, 16-byte coalesced loads of W,
+// the same code as the backward's recomputation), and folds it
 // into per-thread running (m, z, corr, amax). The 16 threads sharing a row
 // combine with warp shuffles and write one partial per (segment, row).
 // Pass 2 combines the segments of a row: m = max m_s, z = sum z_s *
@@ -34,13 +35,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "ce_tiles.cuh"
+
 namespace {
 
+using ce_tiles::KC;
+using ce_tiles::NT;
+using ce_tiles::PAD;
 constexpr int BT = 64;     // batch rows per block
 constexpr int VT = 128;    // class rows per tile
-constexpr int KC = 32;     // depth per shared-memory stage
-constexpr int NT = 256;    // threads: 16 (rows) x 16 (columns)
-constexpr int PAD = 4;
 
 // Fold (m2, z2, a2) into (m, z, a). Ties on the max keep the lower column.
 __device__ __forceinline__ void merge_stat(float& m, float& z, int& a,
@@ -54,7 +57,9 @@ __device__ __forceinline__ void merge_stat(float& m, float& z, int& a,
   m = mn;
 }
 
-__global__ void __launch_bounds__(NT)
+// Three blocks per SM (at most 85 registers a thread): left free, nvcc 12.8
+// takes 86 for this code and two blocks fit, 13% slower on an H100.
+__global__ void __launch_bounds__(NT, 3)
 ce_fwd_partial(const float* __restrict__ f, const float* __restrict__ w,
                const int* __restrict__ y, int B, int D, int V, int limit,
                float scale, int seg_tiles, float* __restrict__ pm,
@@ -89,40 +94,12 @@ ce_fwd_partial(const float* __restrict__ f, const float* __restrict__ w,
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
     for (int k0 = 0; k0 < D; k0 += KC) {
-      // f tile: 64 rows x 32 depth = 512 float4, 2 per thread
-#pragma unroll
-      for (int l = 0; l < 2; ++l) {
-        int q = tid + l * NT, row = q >> 3, c4 = q & 7, kk = k0 + c4 * 4;
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (b0 + row < B && kk < D)
-          val = *reinterpret_cast<const float4*>(f + (size_t)(b0 + row) * D + kk);
-        fs[c4 * 4 + 0][row] = val.x; fs[c4 * 4 + 1][row] = val.y;
-        fs[c4 * 4 + 2][row] = val.z; fs[c4 * 4 + 3][row] = val.w;
-      }
-      // W tile: 128 rows x 32 depth = 1024 float4, 4 per thread
-#pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        int q = tid + l * NT, row = q >> 3, c4 = q & 7, kk = k0 + c4 * 4;
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (v0 + row < v_end && kk < D)
-          val = *reinterpret_cast<const float4*>(w + (size_t)(v0 + row) * D + kk);
-        ws[c4 * 4 + 0][row] = val.x; ws[c4 * 4 + 1][row] = val.y;
-        ws[c4 * 4 + 2][row] = val.z; ws[c4 * 4 + 3][row] = val.w;
-      }
+      ce_tiles::stage_kmajor<BT>(&fs[0][0], BT + PAD, f, b0, B, k0, D, tid);
+      ce_tiles::stage_kmajor<VT>(&ws[0][0], VT + PAD, w, v0, v_end, k0, D,
+                                 tid);
       __syncthreads();
-      const int kmax = min(KC, D - k0);
-#pragma unroll 8
-      for (int k = 0; k < kmax; ++k) {
-        float4 a = *reinterpret_cast<const float4*>(&fs[k][ty * 4]);
-        float4 b1 = *reinterpret_cast<const float4*>(&ws[k][tx * 4]);
-        float4 b2 = *reinterpret_cast<const float4*>(&ws[k][64 + tx * 4]);
-        float av[4] = {a.x, a.y, a.z, a.w};
-        float bv[8] = {b1.x, b1.y, b1.z, b1.w, b2.x, b2.y, b2.z, b2.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
+      ce_tiles::mma_stage(acc, &fs[0][0], BT + PAD, &ws[0][0], VT + PAD,
+                          min(KC, D - k0), tx, ty);
       __syncthreads();
     }
 
@@ -133,7 +110,7 @@ ce_fwd_partial(const float* __restrict__ f, const float* __restrict__ w,
       int ta = -1;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        int col = v0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
+        int col = v0 + ce_tiles::col_of(j, tx);
         float s = (col < lim) ? acc[i][j] * scale : -INFINITY;
         acc[i][j] = s;
         if (col == yl[i]) rc[i] += s;   // a masked label folds -inf, as on the TPU

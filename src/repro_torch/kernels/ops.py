@@ -1,6 +1,16 @@
 """Public wrappers around the kernels: the port of the JAX package's
-``kernels/ops.py`` for this slice (forward-only ``ce_shard_stats``,
-row-wise and flat divide-and-conquer top-k).
+``kernels/ops.py`` for the slices landed so far (``ce_shard_stats`` with
+its backward, ``fused_ce``, ``fused_ce_stats``, row-wise and flat
+divide-and-conquer top-k).
+
+``ce_shard_stats`` is a ``torch.autograd.Function`` over per-row
+online-softmax statistics ``(m, z, corr, amax)``, as the JAX package's is a
+``custom_vjp``: the distributed completion (pmax / psum over the ring,
+metrics) is plain torch in ``core.sharded_softmax``, and autograd through
+it delivers the per-row cotangents ``(gz, gc)`` that the streaming
+backward kernel consumes. ``m`` and ``amax`` are non-differentiable: the
+true total derivative of ``m`` cancels exactly against ``z``'s internal
+rescaling (``z·e^m`` is m-free), so dropping its cotangent is exact.
 
 Stage 2 of the top-k merge is ``topk_stable``: a stable descending sort,
 so ties go to the lowest position exactly as ``lax.top_k`` does
@@ -59,14 +69,46 @@ def topk_rows(x, k: int, *, chunk: int = 2048):
     return vals, flat_i.gather(1, pos.long())
 
 
+class _CEShardStats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f, w, y, limit, scale):
+        m, z, corr, amax = _ce.ce_forward(f, w, y, limit=limit, scale=scale)
+        ctx.save_for_backward(f, w, y, m)
+        ctx.limit, ctx.scale = limit, scale
+        ctx.mark_non_differentiable(m, amax)
+        return m, z, corr, amax
+
+    @staticmethod
+    def backward(ctx, gm, gz, gc, gamax):
+        f, w, y, m = ctx.saved_tensors
+        # gm / gamax are dropped: exact (module doc)
+        gz = torch.zeros_like(m) if gz is None else gz
+        gc = torch.zeros_like(m) if gc is None else gc
+        df, dw = _ce.ce_backward(f, w, y, m, gz, gc, limit=ctx.limit,
+                                 scale=ctx.scale)
+        return (df if ctx.needs_input_grad[0] else None,
+                dw if ctx.needs_input_grad[1] else None, None, None, None)
+
+
 def ce_shard_stats(f, w, y, limit, scale: float = 1.0):
     """Streaming online-softmax stats of f [B,D] against the class shard
     w [V,D]: per-row (m, z, corr, amax). y [B] are LOCAL ids (-1 / out of
     range = label not owned by this shard); ``limit`` masks columns
     >= limit (vocab padding). The [B, V] logit tensor never exists on the
-    card. Forward only: the backward kernel lands with the training slice."""
-    if torch.is_grad_enabled() and (f.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "ce_shard_stats has no backward yet (the training slice, "
-            "ROADMAP.md queue A.3)")
-    return _ce.ce_forward(f, w, y, limit=limit, scale=scale)
+    card, forward or backward; m and amax are non-differentiable."""
+    return _CEShardStats.apply(f, w, y, limit, scale)
+
+
+def fused_ce(f, w, y, scale: float = 1.0):
+    """Mean CE of rows whose label is in-shard; [B, V] never exists.
+    f [B,D], w [V,D], y [B] local ids (-1 / out of range = not owned
+    here). Single-shard convenience over ``ce_shard_stats`` (gradients
+    flow through its backward kernel)."""
+    m, z, corr, _ = ce_shard_stats(f, w, y, w.shape[0], scale)
+    return (torch.log(z) + m - corr).mean()
+
+
+def fused_ce_stats(f, w, y, *, scale: float = 1.0):
+    """(m, z, corr) building blocks for the distributed (sharded) loss."""
+    m, z, corr, _ = _ce.ce_forward(f, w, y, scale=scale)
+    return m, z, corr

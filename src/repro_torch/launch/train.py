@@ -1,0 +1,134 @@
+"""Training launcher of the port: a thin argparse shim over
+``repro_torch.api.Experiment``, with the flags of the JAX package's
+``repro.launch.train`` for the paper system.
+
+``--system paper`` trains the hybrid-parallel paper system (feature
+replicas + class-row shards) with the ``full`` head, the FCCS learning
+rate and, with ``--fccs``, its batch growth through micro-batch
+accumulation. It runs on the card (``--device cuda``, the default) in one
+process: a ring of one. What is not ported yet exits with an argparse
+error naming ROADMAP.md: ``--system zoo``, heads other than ``full``,
+``--dgc``, ``--trunk cnn`` and the checkpoint flags.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --system paper \\
+      --classes 1020250 --feat-dim 512 --batch 256 --steps 4 --fccs
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --classes 512 --feat-dim 32 --steps 8 --batch 32 --fccs
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import sys
+
+_NOT_PORTED = "is not ported to torch yet (see ROADMAP.md queue {})"
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--system", choices=["paper", "zoo"], default="paper")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (cuda | cpu)")
+    p.add_argument("--classes", type=int, default=4096)
+    p.add_argument("--feat-dim", type=int, default=64)
+    p.add_argument("--head",
+                   choices=["full", "knn", "selective", "mach", "sampled",
+                            "csoft"],
+                   default="full", help="softmax head strategy")
+    p.add_argument("--backend", choices=["ref", "kernel"], default="kernel",
+                   help="head hot-path compute backend: plain torch ops or "
+                        "the hand-written CUDA kernels")
+    p.add_argument("--knn", action="store_true",
+                   help="back-compat alias for --head knn")
+    p.add_argument("--dgc", action="store_true")
+    p.add_argument("--fccs", action="store_true",
+                   help="FCCS batch growth (micro-batch accumulation)")
+    p.add_argument("--trunk", choices=["feats", "cnn"], default="feats")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--lr", type=float, default=2.0)
+    p.add_argument("--optimizer", choices=["sgd", "lars", "adam"],
+                   default="sgd")
+    p.add_argument("--ckpt-dir", default="")
+    p.add_argument("--ckpt-every", type=int, default=None)
+    p.add_argument("--ckpt-keep", type=int, default=None)
+    p.add_argument("--resume", nargs="?", const=True, default=False,
+                   metavar="CKPT")
+    p.add_argument("--resume-reshard", action="store_true")
+    p.add_argument("--trace-out", default="", metavar="PATH",
+                   help="write a Chrome-trace/Perfetto JSON of the run's "
+                        "telemetry spans")
+    p.add_argument("--metrics-out", default="", metavar="PATH",
+                   help="append per-step train metrics as JSONL")
+    args = p.parse_args(argv)
+
+    if args.steps <= 0:
+        p.error(f"--steps must be positive, got {args.steps}")
+    if args.batch <= 0:
+        p.error(f"--batch must be positive, got {args.batch}")
+    if args.system == "zoo":
+        p.error("--system zoo " + _NOT_PORTED.format("A.9"))
+    if args.knn or args.head != "full":
+        head = "knn" if args.knn else args.head
+        p.error(f"--head {head} " + _NOT_PORTED.format("A.4 / A.6"))
+    if args.dgc:
+        p.error("--dgc " + _NOT_PORTED.format("A.5"))
+    if args.trunk != "feats":
+        p.error(f"--trunk {args.trunk} " + _NOT_PORTED.format("A.5"))
+    if (args.ckpt_dir or args.ckpt_every is not None
+            or args.ckpt_keep is not None or args.resume
+            or args.resume_reshard):
+        p.error("checkpoints (--ckpt-*, --resume*) "
+                + _NOT_PORTED.format("A.7"))
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    from repro_torch.api import Experiment
+    from repro_torch.configs.base import FCCSConfig, HeadConfig, TrainConfig
+    from repro_torch.telemetry import Tracer
+
+    telemetry = None
+    if args.trace_out or args.metrics_out:
+        telemetry = Tracer(metrics_path=args.metrics_out or None)
+    try:
+        hcfg = HeadConfig(softmax_impl="full", backend=args.backend,
+                          knn_k=16, knn_kprime=32, active_frac=0.1,
+                          rebuild_every=100,
+                          sampled_n=max(64, args.classes // 4))
+        fcfg = FCCSConfig(eta0=args.lr, t_warm=max(1, args.steps // 10),
+                          b0=args.batch, b_min=args.batch,
+                          b_max=args.batch * 8,
+                          t_ini=args.steps // 4, t_final=args.steps)
+        tcfg = TrainConfig(optimizer=args.optimizer, fccs=fcfg)
+        exp = Experiment.from_config(
+            system="paper", trunk=args.trunk, classes=args.classes,
+            feat_dim=args.feat_dim, batch=args.batch, head=hcfg, train=tcfg,
+            device=args.device)
+        hist = exp.fit(args.steps, use_fccs_batch=args.fccs,
+                       telemetry=telemetry)
+        acc = exp.evaluate(eval_batch=args.batch * 4)
+        if not (math.isfinite(hist[-1]["loss"]) and math.isfinite(acc)):
+            print(f"[train] non-finite result: loss {hist[-1]['loss']}, "
+                  f"accuracy {acc}", file=sys.stderr)
+            return 1
+        print(f"[train] final eval accuracy: {acc:.4f}")
+        if telemetry is not None:
+            telemetry.record_peak_memory()
+            if args.trace_out:
+                telemetry.write_chrome_trace(args.trace_out)
+                st = telemetry.span_stats("train.step")
+                print(f"[telemetry] {st['count']} train.step spans "
+                      f"({st['total_s']:.2f}s) -> {args.trace_out}")
+            if args.metrics_out:
+                print(f"[telemetry] metrics -> {args.metrics_out}")
+        return 0
+    finally:
+        if telemetry is not None:
+            telemetry.close()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

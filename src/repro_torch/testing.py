@@ -81,6 +81,68 @@ def paper_serve(head_cfg: dict, w: np.ndarray, inputs: np.ndarray,
     return out
 
 
+def numpy_batch(t: int, b: int, *, classes: int, dim: int,
+                seed: int = 0) -> dict:
+    """A deterministic training batch for step ``t`` of ``b`` rows, made
+    with numpy so both packages can be fed the same arrays: noisy unit
+    prototypes of random classes."""
+    protos = np.random.default_rng(seed).standard_normal(
+        (classes, dim)).astype(np.float32)
+    protos /= np.linalg.norm(protos, axis=1, keepdims=True)
+    rng = np.random.default_rng((seed + 1) * 1_000_003 + t)
+    labels = rng.integers(0, classes, b).astype(np.int32)
+    noise = rng.standard_normal((b, dim)).astype(np.float32)
+    return {"features": protos[labels] + np.float32(0.3) * noise,
+            "labels": labels}
+
+
+def loss_body(f: np.ndarray, y: np.ndarray, w: np.ndarray, *,
+              cosine_scale: float, n_valid: int, backend: str) -> dict:
+    """``full_softmax_local`` on this member's rows of ``w`` with the
+    batch ``f``, ``y`` on every member: loss, metrics and the head
+    gradient (gathered over the ring, [V, D])."""
+    wt = _my_rows(w).requires_grad_(True)
+    loss, metrics = ss.full_softmax_local(
+        torch.from_numpy(f), torch.from_numpy(y), wt,
+        global_batch=f.shape[0], cosine_scale=cosine_scale,
+        n_valid=n_valid, backend=backend)
+    loss.backward()
+    return {"loss": _np(loss), **{k: _np(v) for k, v in metrics.items()},
+            "grad": _np(dist.all_gather(wt.grad, dim=0))}
+
+
+def paper_fit(head_cfg: dict, train_cfg: dict, fccs_cfg: dict,
+              w0: np.ndarray, mu0: np.ndarray, *, steps: int, batch: int,
+              eval_inputs: dict, data_seed: int = 0) -> dict:
+    """A CPU ``PaperExperiment`` on this member, started from the JAX
+    package's class matrix and LARS/SGD moment (``interop``), trained
+    ``steps`` steps with FCCS batch growth on ``numpy_batch`` data.
+    Returns the history rows, the final class matrix gathered over the
+    ring, the evaluation accuracy, and the weights_version trail."""
+    from repro_torch import interop
+    from repro_torch.api import Experiment
+    from repro_torch.configs.base import FCCSConfig, TrainConfig
+
+    v, d = w0.shape
+    cfg = interop.head_config_from_dict(head_cfg)
+    tcfg = TrainConfig(**train_cfg, fccs=FCCSConfig(**fccs_cfg))
+    exp = Experiment.from_config(
+        system="paper", classes=v, feat_dim=d, batch=batch, head=cfg,
+        train=tcfg, device="cpu", log_every=0,
+        data_fn=lambda t, b: numpy_batch(t, b, classes=v, dim=d,
+                                         seed=data_seed))
+    exp.load_state(interop.paper_state_from_numpy(
+        {}, w0, opt_state={"step": 0, "mu": ({}, mu0), "nu": None},
+        rank=dist.rank(), world_size=dist.world_size(), device="cpu"))
+    versions = [exp.weights_version]
+    hist = exp.fit(steps, use_fccs_batch=True,
+                   step_hook=lambda t: versions.append(exp.weights_version))
+    return {"history": hist,
+            "w": _np(dist.all_gather(exp.state.w_head, dim=0)),
+            "eval": exp.evaluate(eval_inputs),
+            "versions": versions + [exp.weights_version]}
+
+
 def collectives() -> dict:
     """Each collective of ``dist`` on rank-dependent tensors."""
     r = dist.rank()
@@ -93,9 +155,22 @@ def collectives() -> dict:
             "gather_stacked": _np(dist.all_gather(x, dim=1, tiled=False))}
 
 
+def collective_grads() -> dict:
+    """Gradients through ``psum`` and ``all_gather`` on rank-dependent
+    tensors, and the absence of one through ``pmax`` / ``pmin``."""
+    r = dist.rank()
+    x = torch.tensor([1.0 + r, 2.0], requires_grad=True)
+    (dist.psum(x * x).sum() + (dist.all_gather(x[None] * (r + 1), dim=0)
+                               ** 2).sum()).backward()
+    mx = dist.pmax(x)
+    return {"grad": _np(x.grad), "pmax_requires_grad": mx.requires_grad,
+            "pmin_requires_grad": dist.pmin(x).requires_grad}
+
+
 def run_all(cases: list) -> list:
     """Run ``(worker name, args, kwargs)`` cases in order on this member,
     so one spawned ring serves a whole group of tests."""
     workers = {"serve_bodies": serve_bodies, "paper_serve": paper_serve,
-               "collectives": collectives}
+               "collectives": collectives, "loss_body": loss_body,
+               "paper_fit": paper_fit, "collective_grads": collective_grads}
     return [workers[name](*args, **kwargs) for name, args, kwargs in cases]

@@ -1,5 +1,5 @@
-"""The paper's hybrid-parallel layout (§3.1), serve and eval steps: the port
-of the deploy half of the JAX package's ``train/hybrid.py``.
+"""The paper's hybrid-parallel trainer and its serve and eval steps (§3.1):
+the port of the JAX package's ``train/hybrid.py``.
 
 Every member of the ring (``repro_torch.dist``) is a data-parallel replica
 of the feature extractor AND one row block of the class matrix. A step
@@ -17,17 +17,20 @@ import torch
 from repro_torch import dist
 from repro_torch.api.heads import HeadState, SoftmaxHead, make_head
 from repro_torch.configs.base import HeadConfig, ModelConfig, TrainConfig
+from repro_torch.core import sparsify as sp
+from repro_torch.core.pipeline import microbatched_value_and_grad
 from repro_torch.core.sharded_softmax import (_normalize, mask_padded_rows,
                                               serve_topk_batched_local,
                                               serve_topk_local)
+from repro_torch.optim import apply_updates, make_optimizer, tree_leaves
 
 
 class HybridState(NamedTuple):
     fe_params: dict        # replicated
     head_params: Any       # this member's row block of the head params
     head_aux: Any
-    opt_state: Any         # None until the training slice
-    dgc: Any               # None until the training slice
+    opt_state: Any         # optim.OptState over (fe_params, head_params)
+    dgc: Any               # None: DGC is not ported yet (ROADMAP.md A.5)
     step: int
 
     @property
@@ -42,14 +45,18 @@ def init_state(generator: torch.Generator, model_cfg: ModelConfig,
                rank: int = 0, device, head: Optional[SoftmaxHead] = None
                ) -> HybridState:
     """Fresh state of ring member ``rank`` of ``n_dev``: empty FE params for
-    the ``feats`` trunk, and this member's rows of the head."""
+    the ``feats`` trunk, this member's rows of the head, and the
+    optimizer's zero moments over both."""
     if model_cfg.family != "feats":
         raise NotImplementedError(
             f"the {model_cfg.family!r} trunk is not ported to torch yet "
             f"(see ROADMAP.md queue A)")
+    sp.require_dense(train_cfg.dgc)
     head = head or make_head(model_cfg, head_cfg)
     hs = head.init(generator, n_dev, rank=rank, device=device)
-    return HybridState({}, hs.params, hs.aux, None, None, 0)
+    fe_params: dict = {}
+    opt_state = make_optimizer(train_cfg).init((fe_params, hs.params))
+    return HybridState(fe_params, hs.params, hs.aux, opt_state, None, 0)
 
 
 def _features(model_cfg: ModelConfig, fe_params, inputs: dict):
@@ -74,6 +81,65 @@ def _gathered_features(model_cfg, fe_params, inputs):
     f = _features(model_cfg, fe_params,
                   {k: _local_rows(v) for k, v in inputs.items()})
     return dist.all_gather(f, dim=0, tiled=True)
+
+
+def _assign(dst, src) -> None:
+    """Copy the tensors of ``src`` into those of ``dst`` (same tree)."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        d.copy_(s)
+
+
+def make_train_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
+                    train_cfg: TrainConfig, *, n_micro: int = 1,
+                    head: Optional[SoftmaxHead] = None):
+    """Returns ``step(state, inputs, lr) -> (state, loss, metrics)``.
+
+    ``inputs`` is the GLOBAL batch (every member passes the same); each
+    member takes its rows, splits them into ``n_micro`` micro-batches and
+    all-gathers each over the ring. ``metrics`` holds the head's metrics
+    plus ``comm_dense_bytes`` (FE gradient bytes all-reduced) and
+    ``comm_wire_bytes`` (0 without DGC)."""
+    head = head or make_head(model_cfg, head_cfg)
+    sp.require_dense(train_cfg.dgc)
+    opt = make_optimizer(train_cfg)
+    metric_names = list(head.metrics_spec())
+
+    def step(state: HybridState, inputs: dict, lr: float):
+        if state.opt_state is None:
+            raise ValueError("the state carries no optimizer state (pass "
+                             "opt_state= to interop.paper_state_from_numpy)")
+        n_dev = dist.world_size()
+
+        def loss_fn(params, micro_inputs):
+            fe_p, hp = params
+            f = _features(model_cfg, fe_p, micro_inputs)
+            # hybrid parallel: gather every replica's features along the ring
+            f_all = dist.all_gather(f, dim=0, tiled=True)
+            y_all = dist.all_gather(micro_inputs["labels"], dim=0, tiled=True)
+            return head.loss_local(f_all, y_all, hp, state.head_aux,
+                                   global_batch=f_all.shape[0],
+                                   step=state.step)
+
+        local = {k: _local_rows(v) for k, v in inputs.items()}
+        (loss, metrics), (g_fe, g_hp) = microbatched_value_and_grad(
+            loss_fn, (state.fe_params, state.head_params), local, n_micro,
+            metric_names)
+        g_fe = sp.dense_exchange(g_fe, n_workers=n_dev)
+        # head gradient: LOCAL, never crosses members (paper §3.1 step 6)
+        params = (state.fe_params, state.head_params)
+        with torch.no_grad():
+            updates, opt_state = opt.update((g_fe, g_hp), state.opt_state,
+                                            params, lr)
+            _assign(params, apply_updates(params, updates))
+        metrics = dict(metrics)
+        zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+        metrics["comm_wire_bytes"] = zero
+        metrics["comm_dense_bytes"] = zero + float(
+            sum(g.numel() * 4 for g in tree_leaves(g_fe)))
+        return (state._replace(opt_state=opt_state, step=state.step + 1),
+                loss, metrics)
+
+    return step
 
 
 def make_eval_step(model_cfg: ModelConfig, head_cfg: HeadConfig, *,

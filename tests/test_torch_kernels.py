@@ -10,6 +10,7 @@ Tolerances: fp32 statistics and scores ``rtol=atol=1e-5`` (the two sum in
 another order); ids and argmax columns exact (ties go to the lowest
 column on both sides).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -98,16 +99,135 @@ def test_ce_forward_ties_pick_the_lowest_column():
 
 
 def test_ce_shard_stats_matches_and_is_forward_only():
+    """``ops.ce_shard_stats`` equals the JAX custom_vjp forward and
+    backward: the stats, and the gradients of f and W through a
+    log-partition completion (m and amax carry none). The name dates from
+    when the port's op had no backward; it is kept so that the test's
+    record carries on."""
     f, w, y = _ce_problem(3, 8, 16, 100)
-    j = jops.ce_shard_stats(jnp.asarray(f), jnp.asarray(w), jnp.asarray(y),
-                            jnp.asarray(90, jnp.int32), 2.0, 32)
-    ft = torch.from_numpy(f)
-    t = tops.ce_shard_stats(ft, torch.from_numpy(w), torch.from_numpy(y),
-                            90, 2.0)
-    _assert_stats_equal([np.asarray(a) for a in j], [a.numpy() for a in t])
-    with pytest.raises(NotImplementedError, match="backward"):
-        tops.ce_shard_stats(ft.requires_grad_(), torch.from_numpy(w),
-                            torch.from_numpy(y), 90, 2.0)
+    gz_w = np.random.default_rng(4).standard_normal(8).astype(np.float32)
+
+    def jloss(f_, w_):
+        m, z, corr, _ = jops.ce_shard_stats(
+            f_, w_, jnp.asarray(y), jnp.asarray(90, jnp.int32), 2.0, 32)
+        return jnp.sum((jnp.log(z) + m - corr) * gz_w), (m, z, corr)
+
+    (_, j), jg = jax.value_and_grad(jloss, (0, 1), has_aux=True)(
+        jnp.asarray(f), jnp.asarray(w))
+    ft = torch.from_numpy(f).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    t = tops.ce_shard_stats(ft, wt, torch.from_numpy(y), 90, 2.0)
+    assert not t[0].requires_grad and not t[3].requires_grad
+    ((torch.log(t[1]) + t[0] - t[2]) * torch.from_numpy(gz_w)).sum().backward()
+    _assert_stats_equal([np.asarray(a) for a in j] + [t[3].numpy()],
+                        [a.detach().numpy() for a in t])
+    np.testing.assert_allclose(ft.grad.numpy(), np.asarray(jg[0]), **TOL)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jg[1]), **TOL)
+
+
+def test_ce_shard_stats_grads_through_completion():
+    """``tests/test_kernels.py``'s grad check of the JAX custom_vjp through
+    a log/psum-style completion with vocab padding, on the port: the same
+    loss and gradients as the JAX package on the same inputs."""
+    rng = np.random.default_rng(12)
+    b, d, v, n_valid = 8, 16, 96, 80
+    f = rng.standard_normal((b, d)).astype(np.float32)
+    w = (0.3 * rng.standard_normal((v, d))).astype(np.float32)
+    y = rng.integers(0, n_valid, b).astype(np.int32)
+
+    def jloss(f_, w_):
+        m, z, corr, _ = jops.ce_shard_stats(
+            f_, w_, jnp.asarray(y), jnp.asarray(n_valid, jnp.int32), 2.0, 32)
+        return jnp.mean(jnp.log(z) + m - corr)
+
+    jl, jg = jax.value_and_grad(jloss, (0, 1))(jnp.asarray(f), jnp.asarray(w))
+    ft = torch.from_numpy(f).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    m, z, corr, _ = tops.ce_shard_stats(ft, wt, torch.from_numpy(y), n_valid,
+                                        2.0)
+    tl = (torch.log(z) + m - corr).mean()
+    tl.backward()
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-6)
+    np.testing.assert_allclose(ft.grad.numpy(), np.asarray(jg[0]), atol=1e-6)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jg[1]), atol=1e-6)
+    assert np.all(wt.grad.numpy()[n_valid:] == 0)
+
+
+def test_fused_ce_and_stats_match_jax():
+    f, w, y = _ce_problem(5, 8, 16, 100)
+    y[0] = -1                                  # a row not owned here
+    jl, jg = jax.value_and_grad(
+        lambda w_: jops.fused_ce(jnp.asarray(f), w_, jnp.asarray(y), 4.0, 32)
+    )(jnp.asarray(w))
+    wt = torch.from_numpy(w).requires_grad_()
+    tl = tops.fused_ce(torch.from_numpy(f), wt, torch.from_numpy(y), 4.0)
+    tl.backward()
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-6)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jg), **TOL)
+    js = jops.fused_ce_stats(jnp.asarray(f), jnp.asarray(w), jnp.asarray(y),
+                             scale=4.0, block_v=32)
+    ts = tops.fused_ce_stats(torch.from_numpy(f), torch.from_numpy(w),
+                             torch.from_numpy(y), scale=4.0)
+    for a, b in zip(js, ts):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# ce_backward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,d,v,bv", [(8, 16, 100, 32), (24, 32, 1000, 256)])
+@pytest.mark.parametrize("case", ["dense", "limit", "labels", "all_masked"])
+def test_ce_backward_matches_pallas(b, d, v, bv, case):
+    """(df, dW) of the plain version equal the Pallas kernel's on the
+    forward's own row max, over the cases of the forward test: every
+    column live, columns >= limit masked with a scale, labels off the
+    shard and on a masked column (the one-hot is not masked), and a shard
+    whose limit is 0 (m = -inf: only the one-hot term remains)."""
+    f, w, y = _ce_problem(b * v + 1, b, d, v)
+    rng = np.random.default_rng(b + v)
+    gz = rng.standard_normal(b).astype(np.float32)
+    gc = rng.standard_normal(b).astype(np.float32)
+    limit, scale = None, 1.0
+    if case == "limit":
+        limit, scale = 70, 4.0
+    elif case == "labels":
+        y[:3] = [-1, v + 5, v - 1]
+        limit = v - 10
+    elif case == "all_masked":
+        limit = 0
+    m = np.array(jce.ce_forward(jnp.asarray(f), jnp.asarray(w),
+                                  jnp.asarray(y), limit=limit, scale=scale,
+                                  block_v=bv)[0])
+    jdf, jdw = jce.ce_backward(jnp.asarray(f), jnp.asarray(w), jnp.asarray(y),
+                               jnp.asarray(m), jnp.asarray(gz),
+                               jnp.asarray(gc), limit=limit, block_v=bv,
+                               scale=scale)
+    tdf, tdw = tce.ce_backward(*(torch.from_numpy(a)
+                                 for a in (f, w, y, m, gz, gc)),
+                               limit=limit, scale=scale)
+    assert tdw.shape == (v, d) and tdf.shape == (b, d)
+    np.testing.assert_allclose(tdf.numpy(), np.asarray(jdf), **TOL)
+    np.testing.assert_allclose(tdw.numpy(), np.asarray(jdw), **TOL)
+    if case == "all_masked":
+        assert np.all(m == -np.inf)
+        hit = np.zeros((b, v), np.float32)
+        hit[np.arange(b), y] = gc
+        np.testing.assert_allclose(tdw.numpy(), hit.T @ f, **TOL)
+
+
+def test_ce_backward_rejects_what_the_kernel_does_not_take():
+    f, w, y = (torch.from_numpy(a) for a in _ce_problem(0, 4, 8, 16))
+    m = gz = gc = torch.zeros(4)
+    with pytest.raises(TypeError, match="float32"):
+        tce.ce_backward(f.double(), w, y, m, gz, gc)
+    with pytest.raises(ValueError, match="shapes"):
+        tce.ce_backward(f, w[:, :4], y, m, gz, gc)
+    with pytest.raises(ValueError, match="shapes"):
+        tce.ce_backward(f, w, y, m[:2], gz, gc)
+    with pytest.raises(ValueError, match="not on cpu"):
+        tce.ce_backward(f, w, y, m, gz.to("meta"), gc)
 
 
 def test_ce_forward_rejects_what_the_kernel_does_not_take():
