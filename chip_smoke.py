@@ -24,8 +24,22 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    CUDA-event times of the kernel, its plain version, the library call
    that computes the same function, or for the CE kernels its dense
    ``f @ W.T`` product alone (cuBLAS, TF32 off), and the bound (bytes
-   over 3.35 TB/s or fp32 operations over 67 TFLOP/s, the H100 SXM data
-   sheet's rates, whichever is larger).
+   over 3.35 TB/s or operations over 67 TFLOP/s fp32 / 989 TFLOP/s bf16,
+   the H100 SXM data sheet's rates, whichever is larger).
+   The knn slice's kernels: ``sparse_ce_forward`` / ``_backward`` at the
+   knn training shapes (B=256, A=102,025 active rows of the 1M x 512 unit
+   shard, labels first, 100 repeated ids, scale 16) and at ragged shapes
+   (repeated ids, labels off the shard, a label column listed twice,
+   ``mask_hits`` both ways, every column invalid, non-zero bias): forward
+   m and corr atol 1e-4, z rtol 1e-4, hit column exact; backward df, dW's
+   label rows and dW's other active rows each within BWD_TOL of its own
+   max; both bit-identical across two runs; library ``f @ W[ids].T``.
+   ``dist_topk``: 1,024 unit rows in bf16 against all 1,020,250 (values
+   within 1e-5, ids equal except at reported near-ties below 1e-5),
+   integer-valued inputs with duplicated rows (ids exact: the lowest
+   column), k' > Nk, ``col_offset`` and a depth of 72; timed on 16,896
+   rows (one wave of blocks) against all keys, the plain version and the
+   library's bf16 ``q @ K.T`` in 1,024-row chunks.
 3. serving (a main path): ``Experiment.from_config(system="paper",
    classes=1_020_250, feat_dim=512)`` with the ``full`` head on the
    ``kernel`` backend, random weights from a seed; ``serve(batch=64)`` and
@@ -53,6 +67,20 @@ PyTorch built for CUDA. Phases, each of which fails the run:
 6. train launcher: ``python -m repro_torch.launch.train`` for 4 steps
    with ``--fccs`` at the same width; it must exit 0 with a finite
    accuracy.
+7. knn training (the main path of the knn slice): the same experiment
+   with ``HeadConfig(softmax_impl="knn", knn_k=16, knn_kprime=32,
+   active_frac=0.1, rebuild_every=4, knn_pad_random=True)``; the counters
+   are set to 0 before the experiment is made (it builds the exact 1M x 1M
+   graph) and read after ``fit(6, use_fccs_batch=True)``, which rebuilds
+   it after step 3: ``sparse_ce_forward`` and ``_backward`` must each
+   launch 13 times, ``dist_topk`` twice (one ring hop a build).
+   ``label_recall`` must be 1.0 on every step, losses finite, W moved. The
+   graph build is timed apart (pass 1, merge + pass 2, copy,
+   compression); step time, samples/s, a profiled step and peak memory
+   as for the full head. Then 3 steps on the kernel and the ref backend
+   from the same W and the same kernel-built graph, without fillers or
+   rebuilds: losses within rtol 1e-4, max|dW| <= 1e-4 * max|W|.
+8. the train launcher again with ``--head knn``.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, one ``{"end_to_end": ...}`` line and, last, ``{"ok": true,
@@ -83,6 +111,9 @@ FIT_STEPS, FIT_LAUNCHES = 6, 1 + 1 + 1 + 2 + 4 + 4   # n_micro per step
 CHUNK = 2048                                 # ops.topk_rows' chunk
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12                       # H100 SXM, outside tensor cores
+BF16_OPS_PER_S = 989e12                      # H100 SXM, dense tensor cores
+QSLICE = 132 * 128      # dist_topk timing: one wave of 128-row blocks
+KNN_K, KPRIME, ACTIVE_FRAC = 16, 32, 0.1    # the knn head (launch/train.py)
 
 
 def fail(msg: str) -> None:
@@ -153,9 +184,10 @@ def profile_ms(torch, fn) -> dict:
             "top_kernels_ms": dict(top)}
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -421,6 +453,306 @@ def backward_kernel_phase(torch, ce, sharded):
 
 
 # ---------------------------------------------------------------------------
+# the knn slice's kernels: sparse_ce forward / backward, dist_topk
+# ---------------------------------------------------------------------------
+
+
+def _worst(torch, e):
+    e = e[torch.isfinite(e)]
+    return float(e.abs().max()) if e.numel() else 0.0
+
+
+def check_sparse(torch, sp, f, w, ids, gids, bias, valid, y, scale, mask_hits,
+                 gz, gc, label):
+    """sparse_ce_forward / _backward's kernels vs their plain versions on
+    the same card tensors, each kernel twice: the two runs must agree bit
+    for bit. Forward: m and corr atol 1e-4, z rtol 1e-4, the hit column
+    exact, amax exact except on rows whose best two kept scores lie within
+    1e-5. Backward: df, dW's label rows and dW's other active rows each
+    within BWD_TOL of its own max|plain|. Returns {part: error}."""
+    f1 = sp.sparse_ce_forward(f, w, ids, gids, bias, valid, y, scale=scale,
+                              mask_hits=mask_hits)
+    f2 = sp.sparse_ce_forward(f, w, ids, gids, bias, valid, y, scale=scale,
+                              mask_hits=mask_hits)
+    idc = ids.clamp(0, w.shape[0] - 1).to(torch.int32)
+    p = sp.sparse_ce_forward_plain(f, w, idc, gids, bias, valid, y, scale,
+                                   mask_hits)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(f1, f2)):
+        fail(f"sparse_ce_forward {label}: two runs on the same inputs differ")
+    m1, z1, c1, a1, h1 = f1
+    m2, z2, c2, a2, h2 = p
+    torch.testing.assert_close(m1, m2, atol=1e-4, rtol=0,
+                               msg=lambda s: f"sparse_ce_forward m {label}: {s}")
+    torch.testing.assert_close(c1, c2, atol=1e-4, rtol=0,
+                               msg=lambda s: f"sparse_ce_forward corr {label}: {s}")
+    torch.testing.assert_close(z1, z2, rtol=1e-4, atol=0,
+                               msg=lambda s: f"sparse_ce_forward z {label}: {s}")
+    if not torch.equal(h1, h2):
+        fail(f"sparse_ce_forward hit column {label}: kernel and plain differ")
+    s = (f @ w[idc.long()].T) * scale + bias[None, :]
+    keep, _ = sp._masks(gids, valid, y, mask_hits)
+    s = torch.where(keep, s, float("-inf"))
+    top2 = s.topk(min(2, s.shape[1]), dim=1).values
+    differ = (a1 != a2) & ~((top2[:, 0] - top2[:, -1]) < 1e-5)
+    if bool(differ.any()):
+        rows = differ.nonzero()[:, 0].tolist()[:8]
+        fail(f"sparse_ce_forward amax {label}: rows {rows} kernel "
+             f"{a1[rows].tolist()} plain {a2[rows].tolist()}")
+    out = {"fwd m/corr": max(_worst(torch, m1 - m2), _worst(torch, c1 - c2)),
+           "fwd z rel": _worst(torch, (z1 - z2) / z2.clamp_min(
+               torch.finfo(z2.dtype).tiny))}
+
+    b1 = sp.sparse_ce_backward(f, w, ids, gids, bias, valid, y, m1, gz, gc,
+                               h1, scale=scale, mask_hits=mask_hits)
+    b2 = sp.sparse_ce_backward(f, w, ids, gids, bias, valid, y, m1, gz, gc,
+                               h1, scale=scale, mask_hits=mask_hits)
+    pdf, pdw = sp.sparse_ce_backward_plain(f, w, idc, gids, bias, valid, y,
+                                           m1, gz, gc, h2, scale, mask_hits)
+    torch.cuda.synchronize()
+    if not (torch.equal(b1[0], b2[0]) and torch.equal(b1[1], b2[1])):
+        fail(f"sparse_ce_backward {label}: two runs on the same inputs differ")
+    df, dw = b1
+    for name, k in (("df", df), ("dW", dw)):
+        if not bool(torch.isfinite(k).all()):
+            fail(f"sparse_ce_backward {name} {label}: non-finite values")
+    lab = torch.zeros(w.shape[0], dtype=torch.bool, device=w.device)
+    yl = y.long()                        # one shard: gids are the ids
+    lab[yl[(yl >= 0) & (yl < w.shape[0])]] = True
+    act = torch.zeros_like(lab)
+    act[idc.long()] = True
+    for name, kk, pp in (("df", df, pdf),
+                         ("dW label rows", dw[lab], pdw[lab]),
+                         ("dW other active rows", dw[act & ~lab],
+                          pdw[act & ~lab])):
+        if not pp.numel():
+            continue
+        ref = float(pp.abs().max())
+        err = float((kk - pp).abs().max())
+        if err > BWD_TOL * ref:
+            fail(f"sparse_ce_backward {name} {label}: max abs err {err:.3g} "
+                 f"over {BWD_TOL:g} * max|plain| = {BWD_TOL * ref:.3g}")
+        out[name] = err / ref if ref else err
+    if bool(dw[~act].any()):
+        fail(f"sparse_ce_backward {label}: dW rows off the active set moved")
+    return out
+
+
+def sparse_problem(torch, g, b, v, d, a, *, n_dup=0, unit=False, dev):
+    """Inputs of the sparse CE kernels: the rows' labels come first in the
+    active set, random rows fill it, ``n_dup`` of them repeated."""
+    f = torch.randn((b, d), generator=g, device=dev)
+    w = torch.randn((v, d), generator=g, device=dev)
+    if unit:
+        f = f / f.norm(dim=1, keepdim=True)
+        w = w / w.norm(dim=1, keepdim=True)
+    else:
+        w = w * 0.1
+    y = torch.randint(0, v, (b,), generator=g, device=dev, dtype=torch.int32)
+    lab = torch.unique(y)[: a // 2]
+    fill = torch.randint(0, v, (a - lab.numel(),), generator=g, device=dev,
+                         dtype=torch.int32)
+    if n_dup:
+        fill[-n_dup:] = fill[:n_dup]
+    ids = torch.cat([lab.to(torch.int32), fill])
+    return f, w, ids, y
+
+
+def sparse_kernel_phase(torch, sp):
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+
+    # -- small ragged shapes ----------------------------------------------
+    b, v, d, a = 37, 5013, 36, 777
+    f, w, ids, y = sparse_problem(torch, g, b, v, d, a, n_dup=40, dev=dev)
+    ids[5] = ids[0]                      # a duplicated label column
+    ids[6] = v + 7                       # clipped into [0, V)
+    y[:3] = torch.tensor([-1, v + 3, 2 * v], device=dev, dtype=torch.int32)
+    gids = ids.clamp(0, v - 1)           # one shard: gids are ids
+    valid = (torch.rand((a,), generator=g, device=dev) > 0.1).to(torch.int32)
+    valid[0] = 1
+    bias = torch.randn((a,), generator=g, device=dev) * 0.5
+    gz = torch.randn((b,), generator=g, device=dev)
+    gc = torch.randn((b,), generator=g, device=dev)
+    ragged = {}
+    for mh in (False, True):
+        ragged[f"mask_hits={mh}"] = check_sparse(
+            torch, sp, f, w, ids, gids, bias, valid, y, 1.0, mh, gz, gc,
+            f"ragged mask_hits={mh}")
+    f2, w2, ids2, y2 = sparse_problem(torch, g, 200, 1000, 64, 300, n_dup=9,
+                                      dev=dev)
+    ones = torch.ones(300, dtype=torch.int32, device=dev)
+    ragged["200 rows scale 16"] = check_sparse(
+        torch, sp, f2, w2, ids2, ids2, torch.zeros(300, device=dev), ones, y2,
+        16.0, False, gz.repeat(6)[:200], gc.repeat(6)[:200], "200 rows")
+    ragged["all invalid"] = check_sparse(
+        torch, sp, f2, w2, ids2, ids2, torch.zeros(300, device=dev),
+        torch.zeros_like(ones), y2, 16.0, False, gz.repeat(6)[:200],
+        gc.repeat(6)[:200], "all invalid")
+    log("kernel phase: sparse_ce ragged shapes agree with the plain versions, "
+        "bit-identical across runs; errors " + "; ".join(
+            f"{case} {part} {e:.3g}" for case, parts in ragged.items()
+            for part, e in parts.items()))
+
+    # -- the knn training shapes: unit rows, scale 16, the loss's cotangents
+    a = max(8, int(V * ACTIVE_FRAC))      # the knn head's m_local
+    ft, wt, idt, yt = sparse_problem(torch, g, BTRAIN, V, D, a, n_dup=100,
+                                     unit=True, dev=dev)
+    bias = torch.zeros(a, device=dev)
+    valid = torch.ones(a, dtype=torch.int32, device=dev)
+    m, z, _, _, hit = sp.sparse_ce_forward(ft, wt, idt, idt, bias, valid, yt,
+                                           scale=16.0)
+    gz = 1.0 / (BTRAIN * z)
+    gc = torch.full_like(z, -1.0 / BTRAIN)
+    parts = {}
+    for term, gct in (("loss", gc), ("softmax term", torch.zeros_like(gc))):
+        for part, e in check_sparse(torch, sp, ft, wt, idt, idt, bias, valid,
+                                    yt, 16.0, False, gz, gct,
+                                    f"training shapes, {term}").items():
+            parts[f"{part}, {term}"] = e
+    log("kernel phase: sparse_ce at training shapes agrees, bit-identical "
+        "across runs; " + "; ".join(f"{k} {e:.3g}" for k, e in parts.items()))
+    fwd = lambda: sp.sparse_ce_forward(ft, wt, idt, idt, bias, valid, yt,
+                                       scale=16.0)
+    fwd_ms = cuda_ms(torch, fwd, 20)
+    fwd_plain = cuda_ms(torch, lambda: sp.sparse_ce_forward_plain(
+        ft, wt, idt, idt, bias, valid, yt, 16.0, False), 5)
+    lib = cuda_ms(torch, lambda: ft @ wt[idt.long()].T, 20)
+    bwd = lambda: sp.sparse_ce_backward(ft, wt, idt, idt, bias, valid, yt, m,
+                                        gz, gc, hit, scale=16.0)
+    bwd_ms = cuda_ms(torch, bwd, 5)
+    bwd_plain = cuda_ms(torch, lambda: sp.sparse_ce_backward_plain(
+        ft, wt, idt, idt, bias, valid, yt, m, gz, gc, hit, 16.0, False), 3)
+    col_bytes = 16 * a
+    fb, fby = bound_ms(4 * (BTRAIN * D + a * D) + col_bytes + 24 * BTRAIN,
+                       2.0 * BTRAIN * a * D)
+    bb, bby = bound_ms(4 * (2 * BTRAIN * D + a * D + V * D) + col_bytes
+                       + 20 * BTRAIN, 6.0 * BTRAIN * a * D)
+    log(f"kernel phase: sparse_ce_forward {fwd_ms:.3f} ms (bound {fb:.3f} by "
+        f"{fby}), plain {fwd_plain:.3f}, f @ W[ids].T {lib:.3f}; "
+        f"sparse_ce_backward {bwd_ms:.3f} ms (bound {bb:.3f} by {bby}), "
+        f"plain {bwd_plain:.3f}")
+    shape = f"f[{BTRAIN},{D}] W[{V},{D}] A={a}"
+    fwd_err = max(e for k, e in parts.items() if k.startswith("fwd"))
+    bwd_err = max(e for k, e in parts.items() if not k.startswith("fwd"))
+    return {
+        "sparse_ce_forward": dict(
+            name="sparse_ce_forward", route="cuda",
+            source="src/repro_torch/kernels/csrc/sparse_ce_fwd.cu",
+            replaces="src/repro/kernels/sparse_ce.py:140",
+            max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fb,
+            bound_by=fby, library_ms=lib,
+            library="f @ W[ids].T (gather + cuBLAS fp32, TF32 off)",
+            shape=shape),
+        "sparse_ce_backward": dict(
+            name="sparse_ce_backward", route="cuda",
+            source="src/repro_torch/kernels/csrc/sparse_ce_bwd.cu",
+            replaces="src/repro/kernels/sparse_ce.py:232",
+            max_abs_err=bwd_err, max_rel_err=bwd_err, ms=bwd_ms,
+            plain_ms=bwd_plain, bound_ms=bb, bound_by=bby, library_ms=lib,
+            library="f @ W[ids].T (gather + cuBLAS fp32, TF32 off)",
+            rel_err_by_part=parts, shape=shape),
+    }
+
+
+def check_dist_topk(torch, dk, q, k, kprime, col_offset=0, label="",
+                    exact_ids=False):
+    """dist_topk's kernel vs its plain version: values within 1e-5; ids
+    equal, except, unless ``exact_ids``, at slots whose plain value lies
+    within 1e-5 of a neighbouring slot's (or of the first value left out).
+    Returns the largest value error."""
+    v1, i1 = dk.dist_topk(q, k, kprime, col_offset=col_offset)
+    v2, i2 = dk.dist_topk_plain(q, k, kprime + 1, col_offset)
+    torch.cuda.synchronize()
+    ext = v2
+    v2, i2 = v2[:, :kprime], i2[:, :kprime]
+    both = torch.isfinite(v2)
+    if not torch.equal(torch.isfinite(v1), both):
+        fail(f"dist_topk {label}: filled slots differ")
+    err = float((v1[both] - v2[both]).abs().max()) if both.any() else 0.0
+    if err > 1e-5:
+        fail(f"dist_topk {label}: values differ by {err:.3g}")
+    bad = i1 != i2
+    if not exact_ids:
+        gap_prev = torch.nn.functional.pad(ext[:, 1:] - ext[:, :-1], (1, 0),
+                                           value=float("-inf")).abs()[:, :kprime]
+        gap_next = (ext[:, :-1] - ext[:, 1:]).abs()[:, :kprime]
+        near = (gap_prev < 1e-5) | (gap_next < 1e-5)
+        bad &= ~near
+    if bool(bad.any()):
+        rows = bad.any(dim=1).nonzero()[:4, 0].tolist()
+        fail(f"dist_topk ids {label}: rows {rows} kernel {i1[rows].tolist()} "
+             f"plain {i2[rows].tolist()}")
+    return err, int((i1 != i2).sum())
+
+
+def dist_topk_phase(torch, dk, sharded, w_unit=None):
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    bf = torch.bfloat16
+
+    # -- exact inputs: integer values make every score exact, so duplicated
+    # rows tie exactly and the lowest column must win
+    qi = torch.randint(-3, 4, (300, 64), generator=g, device=dev).to(bf)
+    ki = torch.randint(-3, 4, (5000, 64), generator=g, device=dev).to(bf)
+    ki[4000:4100] = ki[17]
+    ki[2500] = ki[17]
+    ki[3000:3064] = qi[:64]
+    check_dist_topk(torch, dk, qi, ki, 32, 0, "integer ties", exact_ids=True)
+    check_dist_topk(torch, dk, qi, ki, 7, 1000, "integer ties, col_offset",
+                    exact_ids=True)
+    check_dist_topk(torch, dk, qi, ki[:20].contiguous(), 32, 0, "k' > Nk",
+                    exact_ids=True)
+    # unit rows, as the graph build gives it: scores within [-1, 1]
+    qr = sharded._normalize(torch.randn((257, 72), generator=g,
+                                        device=dev)).to(bf)
+    kr = sharded._normalize(torch.randn((3001, 72), generator=g,
+                                        device=dev)).to(bf)
+    check_dist_topk(torch, dk, qr, kr, 16, 5, "ragged D=72")
+    log("kernel phase: dist_topk exact ties, k' > Nk, col_offset and a "
+        "ragged depth agree with the plain version")
+
+    # -- the graph build's shapes: unit W in bf16 ----------------------------
+    if w_unit is None:
+        w_unit = sharded._normalize(torch.randn((V, D), generator=g,
+                                                device=dev))
+    w16 = w_unit.to(bf)
+    q = w16[:QSLICE]
+    err, swaps = check_dist_topk(torch, dk, q[:1024], w16, KPRIME, 0,
+                                 "1,024 rows x all keys")
+    log(f"kernel phase: dist_topk on 1,024 unit rows x {V} keys agrees "
+        f"(values max abs err {err:.3g}; ids swapped at near-ties: {swaps})")
+    ms = cuda_ms(torch, lambda: dk.dist_topk(q, w16, KPRIME), 3)
+
+    def plain():
+        for r in range(0, QSLICE, 1024):
+            dk.dist_topk_plain(q[r:r + 1024], w16, KPRIME)
+
+    def library():
+        for r in range(0, QSLICE, 1024):
+            q[r:r + 1024] @ w16.T
+
+    plain_ms = cuda_ms(torch, plain, 1)
+    lib_ms = cuda_ms(torch, library, 3)
+    n_bytes = 2 * (QSLICE * D + V * D) + 8 * QSLICE * KPRIME
+    bound, by = bound_ms(n_bytes, 2.0 * QSLICE * V * D, BF16_OPS_PER_S)
+    log(f"kernel phase: dist_topk {QSLICE} x {V} rows {ms:.2f} ms (bound "
+        f"{bound:.2f} ms by {by}), plain {plain_ms:.1f} ms (1,024-row "
+        f"chunks), bf16 q @ k.T {lib_ms:.2f} ms")
+    return dict(
+        name="dist_topk", route="cuda",
+        source="src/repro_torch/kernels/csrc/knn_dist_topk.cu",
+        replaces="src/repro/kernels/knn_dist_topk.py:82",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=lib_ms,
+        library="q @ K.T (cuBLAS bf16) in 1,024-row chunks",
+        near_tie_id_swaps=swaps,
+        shape=f"q[{QSLICE},{D}] K[{V},{D}] bf16, k'={KPRIME}")
+
+
+# ---------------------------------------------------------------------------
 # serving phase (the main path) and launcher phase
 # ---------------------------------------------------------------------------
 
@@ -539,14 +871,19 @@ def launcher_phase(torch, ce, dc):
 # ---------------------------------------------------------------------------
 
 
-def _train_experiment(backend: str, data_fn=None):
+def _train_experiment(backend: str, data_fn=None, **knn):
+    """The training phases' experiment: the ``full`` head, or with ``knn``
+    settings (``rebuild_every``, ``knn_pad_random``) the ``knn`` head at
+    the train launcher's k=16, k'=32 and 10% active classes."""
     from repro_torch.api import Experiment
     from repro_torch.configs.base import FCCSConfig, HeadConfig, TrainConfig
 
+    head = (HeadConfig(softmax_impl="knn", backend=backend, knn_k=KNN_K,
+                       knn_kprime=KPRIME, active_frac=ACTIVE_FRAC, **knn)
+            if knn else HeadConfig(softmax_impl="full", backend=backend))
     return Experiment.from_config(
         system="paper", classes=V, feat_dim=D, batch=BTRAIN, seed=0,
-        device=DEVICE, log_every=1, data_fn=data_fn,
-        head=HeadConfig(softmax_impl="full", backend=backend),
+        device=DEVICE, log_every=1, data_fn=data_fn, head=head,
         train=TrainConfig(optimizer="lars", fccs=FCCSConfig(
             eta0=0.4, t_warm=2, b0=BTRAIN, b_min=BTRAIN, b_max=4 * BTRAIN,
             t_ini=2, t_final=6)))
@@ -678,26 +1015,169 @@ def training_phase(torch, ce):
         "train_evaluate_accuracy": acc}
 
 
-def train_launcher_phase():
+def train_launcher_phase(head: str = "full"):
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--system",
-           "paper", "--classes", str(V), "--feat-dim", str(D), "--batch",
-           str(BTRAIN), "--steps", "4", "--fccs", "--backend", "kernel"]
+           "paper", "--head", head, "--classes", str(V), "--feat-dim",
+           str(D), "--batch", str(BTRAIN), "--steps", "4", "--fccs",
+           "--backend", "kernel"]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=600)
     wall = time.perf_counter() - t0
     for line in proc.stdout.splitlines()[-6:]:
-        log(f"train launcher: {line}")
+        log(f"train launcher --head {head}: {line}")
     if proc.returncode != 0:
-        fail(f"train launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
+        fail(f"train launcher --head {head} exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
     acc = [line for line in proc.stdout.splitlines()
            if "final eval accuracy" in line]
     if not acc or not math.isfinite(float(acc[-1].split()[-1])):
-        fail("train launcher printed no finite final accuracy")
-    return {"train_launcher_s": wall,
-            "train_launcher_accuracy": float(acc[-1].split()[-1])}
+        fail(f"train launcher --head {head} printed no finite final accuracy")
+    tag = "" if head == "full" else f"_{head}"
+    return {f"train_launcher{tag}_s": wall,
+            f"train_launcher{tag}_accuracy": float(acc[-1].split()[-1])}
+
+
+# ---------------------------------------------------------------------------
+# knn training (the main path of the knn slice)
+# ---------------------------------------------------------------------------
+
+
+def graph_build_breakdown(torch, w):
+    """The graph build of ``w`` taken apart, each piece synchronised on the
+    host clock: pass 1 alone (the ``dist_topk`` launch over all rows), the
+    ring build (pass 1 again, the merge and pass 2's fp32 re-rank), the
+    copy of the [N, k] graph to the host, and its compression."""
+    import numpy as np
+
+    from repro_torch.core import knn_graph as kg
+    from repro_torch.core.sharded_softmax import _normalize
+    from repro_torch.kernels import ops
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    w16 = _normalize(w.float()).to(torch.bfloat16)
+    _, pass1_s = timed(lambda: ops.dist_topk(w16, w16, KPRIME))
+    del w16
+    g, ring_s = timed(lambda: kg.ring_knn_local(w, k=KNN_K, kprime=KPRIME))
+    graph, host_s = timed(lambda: g.cpu().numpy())
+    cg, compress_s = timed(lambda: kg.compress_graph(graph, 1))
+    if not np.array_equal(graph[:, 0], np.arange(V)):
+        fail("the rebuilt graph does not list every class first in its own "
+             "row")
+    out = {"pass1_dist_topk_s": pass1_s, "pass2_and_merge_s": ring_s - pass1_s,
+           "ring_build_s": ring_s, "to_host_s": host_s,
+           "compress_s": compress_s,
+           "build_s": ring_s + host_s + compress_s,
+           "graph_storage_bytes": kg.graph_storage_bytes(cg)["total_bytes"]}
+    log(f"knn phase: graph build {out['build_s']:.2f} s = pass 1 (dist_topk) "
+        f"{pass1_s:.2f} s + merge and pass 2 {ring_s - pass1_s:.2f} s + to "
+        f"host {host_s:.2f} s + compression {compress_s:.2f} s; storage "
+        f"{out['graph_storage_bytes'] / 1e6:.1f} MB")
+    return out
+
+
+def knn_training_phase(torch, sp, dk):
+    from repro_torch.train.trainer import to_device
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sp.LAUNCHES = 0
+    sp.BWD_LAUNCHES = 0
+    dk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    exp = _train_experiment("kernel", rebuild_every=4, knn_pad_random=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    w0 = exp.state.w_head.clone()
+    t0 = time.perf_counter()
+    hist = exp.fit(FIT_STEPS, use_fccs_batch=True)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"sparse_ce_forward": sp.LAUNCHES,
+                "sparse_ce_backward": sp.BWD_LAUNCHES,
+                "dist_topk": dk.LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"knn phase: experiment (one graph build) {setup_s:.2f} s, "
+        f"fit({FIT_STEPS}) {fit_s:.2f} s, batches "
+        f"{[r['batch'] for r in hist]}, launches {launches}, peak memory "
+        f"{peak_gb:.2f} GB")
+    builds = 2                     # at construction and after step 3
+    want = {"sparse_ce_forward": FIT_LAUNCHES,
+            "sparse_ce_backward": FIT_LAUNCHES, "dist_topk": builds}
+    for name, n in launches.items():
+        if n != want[name]:
+            fail(f"the knn training path launched {name} {n} times, not "
+                 f"{want[name]}")
+    if [r["batch"] for r in hist] != [BTRAIN * n for n in (1, 1, 1, 2, 4, 4)]:
+        fail(f"FCCS batches {[r['batch'] for r in hist]}")
+    losses = [r["loss"] for r in hist]
+    recall = [r["label_recall"] for r in hist]
+    active = [r["active_frac"] for r in hist]
+    log(f"knn phase: losses {losses}, label_recall {recall}, active_frac "
+        f"{active}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite knn training losses {losses}")
+    if any(r != 1.0 for r in recall):
+        fail(f"label_recall {recall}: a label missed its active set")
+    moved = float((exp.state.w_head - w0).abs().max())
+    if not moved > 0:
+        fail("knn training did not change the class weights")
+    build = graph_build_breakdown(torch, exp.state.w_head)
+
+    # the step at n_micro=1, timed on the host clock and profiled
+    step = exp.trainer._get_step(1)
+    inputs = to_device(exp.data_fn(10**5, BTRAIN), exp.device)
+
+    def one_step():
+        exp.trainer.state = step(exp.trainer.state, inputs, 0.4)[0]
+
+    step_ms = host_ms(torch, one_step, 5)
+    prof = profile_ms(torch, one_step)
+    log(f"knn phase: step (n_micro=1) {step_ms:.2f} ms, "
+        f"{BTRAIN / step_ms * 1e3:.0f} samples/s; profiled: {prof}")
+    aux, data_fn = exp.state.head_aux, exp.data_fn
+    del exp, step, inputs
+    torch.cuda.empty_cache()
+
+    # kernel vs ref backend: the same W and graph, no fillers, no rebuild
+    out = {}
+    for backend in ("kernel", "ref"):
+        e = _train_experiment(backend, data_fn, rebuild_every=0,
+                              knn_pad_random=False)
+        e.load_state(e.state._replace(head_params=w0.clone(), head_aux=aux))
+        h = e.fit(3, use_fccs_batch=True)
+        torch.cuda.synchronize()
+        out[backend] = ([r["loss"] for r in h], e.state.w_head.clone())
+        del e
+        torch.cuda.empty_cache()
+    (lk, wk), (lr_, wr) = out["kernel"], out["ref"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lr_))
+    w_err = float((wk - wr).abs().max())
+    w_max = float(wr.abs().max())
+    log(f"knn phase: kernel vs ref losses {lk} / {lr_} (max rel "
+        f"{loss_rel:.3g}); max|dW| {w_err:.3g} vs max|W| {w_max:.3g}")
+    if loss_rel > 1e-4:
+        fail(f"knn kernel and ref losses differ by rel {loss_rel:.3g}")
+    if w_err > 1e-4 * w_max:
+        fail(f"knn kernel and ref weights differ by {w_err:.3g}")
+    del wk, wr, w0, aux
+    torch.cuda.empty_cache()
+    return launches, {
+        "knn_setup_s": setup_s, "knn_fit_s": fit_s, "knn_fit_losses": losses,
+        "knn_label_recall": recall, "knn_active_frac": active,
+        "knn_graph_build": build, "knn_train_step_ms_n1": step_ms,
+        "knn_train_samples_per_s_n1": BTRAIN / step_ms * 1e3,
+        "knn_train_step_profile": prof, "knn_train_peak_memory_gb": peak_gb,
+        "knn_kernel_vs_ref_loss_max_rel": loss_rel,
+        "knn_kernel_vs_ref_w_max_abs": w_err, "knn_w_max_abs": w_max}
 
 
 def main() -> int:
@@ -720,6 +1200,8 @@ def main() -> int:
     from repro_torch.core import sharded_softmax as sharded
     from repro_torch.kernels import build
     from repro_torch.kernels import ce_softmax as ce
+    from repro_torch.kernels import knn_dist_topk as dk
+    from repro_torch.kernels import sparse_ce as sp
     from repro_torch.kernels import topk_dc as dc
 
     t0 = time.perf_counter()
@@ -733,6 +1215,10 @@ def main() -> int:
     kernels = kernel_phase(torch, ce, dc, sharded)
     kernels["ce_backward"] = backward_kernel_phase(torch, ce, sharded)
     torch.cuda.empty_cache()
+    kernels.update(sparse_kernel_phase(torch, sp))
+    torch.cuda.empty_cache()
+    kernels["dist_topk"] = dist_topk_phase(torch, dk, sharded)
+    torch.cuda.empty_cache()
     exp, serve_launches, e2e = serving_phase(torch, np, ce, dc, sharded)
     del exp
     torch.cuda.empty_cache()
@@ -741,15 +1227,20 @@ def main() -> int:
     train_launches, train_e2e = training_phase(torch, ce)
     e2e.update(train_e2e)
     e2e.update(train_launcher_phase())
+    knn_launches, knn_e2e = knn_training_phase(torch, sp, dk)
+    e2e.update(knn_e2e)
+    e2e.update(train_launcher_phase("knn"))
     e2e["build_s"] = build_s
 
     # launches on each main path, from its own reset-and-read of the counters
     by_path = {name: {"serving": serve_launches.get(name, 0),
-                      "training": train_launches.get(name, 0)}
+                      "training": train_launches.get(name, 0),
+                      "knn_training": knn_launches.get(name, 0)}
                for name in kernels}
     rows = []
     for name, k in kernels.items():
-        path = "training" if by_path[name]["training"] else "serving"
+        path = next(p for p in ("knn_training", "training", "serving")
+                    if by_path[name][p] or p == "serving")
         rows.append({**k, "launches": by_path[name][path],
                      "launches_path": path, "launches_by_path": by_path[name],
                      "kernel_ms": k["ms"], "max_err": k["max_abs_err"]})

@@ -3,19 +3,23 @@
 A head owns its parameters and auxiliary state (``HeadState``), its
 distributed training loss ``loss_local`` and its prediction body
 ``eval_logits_local``. Heads register by name
-(``register_head``); ``make_head`` builds one from a ``HeadConfig``. Only
-``full`` is ported so far; the other five are named in ``KNOWN_HEADS`` so
-that configs naming them parse, and ``make_head`` refuses them until their
-slice lands (ROADMAP.md queue A).
+(``register_head``); ``make_head`` builds one from a ``HeadConfig``. The
+``full`` and ``knn`` heads are ported so far; the other four are named in
+``KNOWN_HEADS`` so that configs naming them parse, and ``make_head``
+refuses them until their slice lands (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
 import math
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch import dist
 from repro_torch.configs.base import HeadConfig, ModelConfig, effective_vocab
+from repro_torch.core import knn_graph as kg
+from repro_torch.core.knn_softmax import knn_softmax_local
 from repro_torch.core.sharded_softmax import (_normalize, full_softmax_local,
                                               serve_argmax_local,
                                               serve_logits_local)
@@ -148,3 +152,68 @@ class FullSoftmaxHead(SoftmaxHead):
             # streaming (max, argmax) stats — no [b, V_loc] scores on the card
             return serve_argmax_local(f, w, n_valid=self.n_valid)
         return serve_logits_local(f, w, n_valid=self.n_valid)
+
+
+# ---------------------------------------------------------------------------
+# KNN softmax (the paper's contribution, §3.2)
+# ---------------------------------------------------------------------------
+
+
+@register_head("knn")
+class KNNSoftmaxHead(FullSoftmaxHead):
+    """Active classes from the compressed KNN graph of W; ``refresh``
+    rebuilds the exact graph on the ring (§3.2.2). ``aux`` is this
+    member's row of the ``CompressedGraph``: (offsets [N+1], neighbors
+    [nnz_cap], ranks [nnz_cap]) int32 tensors. Prediction is the full
+    head's (inherited), as in the JAX package."""
+
+    def init(self, generator, n_dev, *, rank, device) -> HeadState:
+        return HeadState(params=self._init_w(generator, n_dev, rank, device),
+                         aux=self.init_aux(n_dev, rank=rank, device=device))
+
+    def init_aux(self, n_dev: int, *, rank: int, device):
+        """The warm-start graph before the first refresh: self-only
+        neighbour lists (lossless by construction: every label selects
+        itself); needs no weights."""
+        self_graph = np.arange(self.n_classes, dtype=np.int32)[:, None]
+        return self._member_row(kg.compress_graph(self_graph, n_dev), rank,
+                                device)
+
+    @staticmethod
+    def _member_row(cg, rank: int, device):
+        return tuple(torch.as_tensor(np.ascontiguousarray(a[rank]),
+                                     device=device)
+                     for a in (cg.offsets, cg.neighbors, cg.ranks))
+
+    @property
+    def refresh_every(self) -> int:
+        return self.head_cfg.rebuild_every
+
+    def refresh(self, head_state: HeadState) -> HeadState:
+        """Paper §3.2.2: rebuild the exact KNN graph of the CURRENT class
+        weights on the ring, compress it on the host (every member packs
+        the whole graph, as the JAX package's host step does) and keep
+        this member's row."""
+        w = head_state.params
+        graph = kg.build_graph(w, k=self.head_cfg.knn_k,
+                               kprime=self.head_cfg.knn_kprime)
+        cg = kg.compress_graph(graph, dist.world_size())
+        return HeadState(params=w, aux=self._member_row(cg, dist.rank(),
+                                                        w.device))
+
+    def loss_local(self, f_all, y_all, params, aux, *, global_batch: int,
+                   step=None):
+        offsets, neighbors, ranks = aux
+        v_loc = params.shape[0]
+        m_local = max(8, int(v_loc * self.head_cfg.active_frac))
+        return knn_softmax_local(
+            f_all, y_all, params, offsets, neighbors, ranks,
+            global_batch=global_batch, m_local=m_local,
+            k_cap=self.head_cfg.knn_k,
+            cosine_scale=self.head_cfg.cosine_scale,
+            pad_random=self.head_cfg.knn_pad_random, n_valid=self.n_valid,
+            backend=self.backend)
+
+    def metrics_spec(self) -> dict:
+        return {"accuracy": "replicated", "logz": "replicated",
+                "active_frac": "replicated", "label_recall": "replicated"}

@@ -113,6 +113,31 @@ def psum(x: torch.Tensor) -> torch.Tensor:
     return _PSum.apply(x) if _active() else x
 
 
+def pmean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the ring (``psum`` over the ring size)."""
+    return psum(x) / world_size()
+
+
+def ppermute(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """Ring shift (JAX: ``lax.ppermute`` with the permutation
+    ``[(i, (i + shift) % n)]``): member r sends ``x`` to r + shift and
+    returns what r - shift sent. Carries no gradient; the identity on a
+    ring of one."""
+    n = world_size()
+    x = x.detach()
+    if n == 1 or shift % n == 0:
+        return x
+    r = rank()
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    reqs = tdist.batch_isend_irecv([
+        tdist.P2POp(tdist.isend, x, (r + shift) % n),
+        tdist.P2POp(tdist.irecv, out, (r - shift) % n)])
+    for req in reqs:
+        req.wait()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # spawning a ring of processes
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 Both packages name their fields alike, so a JAX ``HeadConfig`` turned into
 a dict (``dataclasses.asdict``) builds the port's ``HeadConfig``, and the
 JAX package's parameters and optimizer state, taken to the host as numpy
-arrays (``np.asarray(exp.state.head_params)``), become the port's
-``HybridState``, so a JAX run's state continues in the port. Nothing here
+arrays (``np.asarray(exp.state.head_params)``, and the knn head's graph
+``exp.state.head_aux``), become the port's ``HybridState``, so a JAX run's
+state continues in the port. Nothing here
 imports JAX: only numpy arrays and plain dicts cross.
 """
 from __future__ import annotations
@@ -60,7 +61,7 @@ def _moments(pair, rank: int, world_size: int, device):
 
 def paper_state_from_numpy(fe_params: dict, head_params, *,
                            opt_state: Optional[dict] = None, step: int = 0,
-                           rank: int = 0, world_size: int = 1,
+                           head_aux=(), rank: int = 0, world_size: int = 1,
                            device) -> HybridState:
     """The port's ``HybridState`` for ring member ``rank`` of
     ``world_size``, from the JAX package's state as numpy arrays:
@@ -69,8 +70,12 @@ def paper_state_from_numpy(fe_params: dict, head_params, *,
     optionally the optimizer state ``{"step": int, "mu": (fe moments,
     global head moment), "nu": the same or None}`` (the JAX
     ``OptState``'s fields), whose head moments are cut to the same row
-    block. ``step`` is the state's step counter. Without ``opt_state`` the
-    state carries none: it serves, and ``load_state`` of it cannot train."""
+    block. ``step`` is the state's step counter. ``head_aux`` is the head's
+    aux state as the JAX package shards it, each array with a leading
+    [world_size] axis (the knn head's ``CompressedGraph`` offsets,
+    neighbors and ranks), of which this member keeps row ``rank``. Without
+    ``opt_state`` the state carries none: it serves, and ``load_state`` of
+    it cannot train."""
     if not 0 <= rank < world_size:
         raise ValueError(f"rank {rank} is not on a ring of {world_size}")
     w = np.asarray(head_params)
@@ -86,4 +91,11 @@ def paper_state_from_numpy(fe_params: dict, head_params, *,
             step=int(opt_state["step"]),
             mu=_moments(opt_state["mu"], rank, world_size, device),
             nu=_moments(opt_state.get("nu"), rank, world_size, device))
-    return HybridState(fe, block, (), opt, None, int(step))
+    aux = []
+    for a in head_aux:
+        a = np.asarray(a)
+        if a.shape[0] != world_size:
+            raise ValueError(f"head_aux leading axis {a.shape[0]} is not the "
+                             f"ring of {world_size}")
+        aux.append(torch.tensor(a[rank], device=device))   # a copy
+    return HybridState(fe, block, tuple(aux), opt, None, int(step))

@@ -1,5 +1,6 @@
-// The register-tiled fp32 product shared by ce_softmax_fwd.cu and
-// ce_softmax_bwd.cu, so that the forward and the backward recompute the
+// The register-tiled fp32 product shared by ce_softmax_fwd.cu,
+// ce_softmax_bwd.cu and the sparse kernels (sparse_ce_fwd.cu,
+// sparse_ce_bwd.cu), so that each forward and its backward recompute the
 // scores with the same loads and the same FMA order.
 //
 // A block of NT = 256 threads is 16 x 16 (tx = tid & 15, ty = tid >> 4);
@@ -53,6 +54,26 @@ __device__ __forceinline__ void stage_kmajor(float* s, int lds, const float* g,
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + row < rmax && kk < D)
       v = *reinterpret_cast<const float4*>(g + (size_t)(r0 + row) * D + kk);
+    s[(c4 * 4 + 0) * lds + row] = v.x; s[(c4 * 4 + 1) * lds + row] = v.y;
+    s[(c4 * 4 + 2) * lds + row] = v.z; s[(c4 * 4 + 3) * lds + row] = v.w;
+  }
+}
+
+// As stage_kmajor, but tile row r is row rows[r] of g (a gather, for the
+// sparse kernels' active classes); rows r >= nrows are zero.
+template <int NROWS>
+__device__ __forceinline__ void stage_kmajor_rows(float* s, int lds,
+                                                  const float* g,
+                                                  const int* rows, int nrows,
+                                                  int c0, int D, int tid) {
+  constexpr int N4 = NROWS * KC / 4;
+  static_assert(N4 % NT == 0, "whole float4 loads per thread");
+#pragma unroll
+  for (int l = 0; l < N4 / NT; ++l) {
+    int q = tid + l * NT, row = q >> 3, c4 = q & 7, kk = c0 + c4 * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < nrows && kk < D)
+      v = *reinterpret_cast<const float4*>(g + (size_t)rows[row] * D + kk);
     s[(c4 * 4 + 0) * lds + row] = v.x; s[(c4 * 4 + 1) * lds + row] = v.y;
     s[(c4 * 4 + 2) * lds + row] = v.z; s[(c4 * 4 + 3) * lds + row] = v.w;
   }

@@ -1,14 +1,14 @@
 """Public wrappers around the kernels: the port of the JAX package's
 ``kernels/ops.py`` for the slices landed so far (``ce_shard_stats`` with
-its backward, ``fused_ce``, ``fused_ce_stats``, row-wise and flat
-divide-and-conquer top-k).
+its backward, ``fused_ce``, ``fused_ce_stats``, ``sparse_ce_stats``,
+``dist_topk``, row-wise and flat divide-and-conquer top-k).
 
-``ce_shard_stats`` is a ``torch.autograd.Function`` over per-row
-online-softmax statistics ``(m, z, corr, amax)``, as the JAX package's is a
-``custom_vjp``: the distributed completion (pmax / psum over the ring,
-metrics) is plain torch in ``core.sharded_softmax``, and autograd through
-it delivers the per-row cotangents ``(gz, gc)`` that the streaming
-backward kernel consumes. ``m`` and ``amax`` are non-differentiable: the
+``ce_shard_stats`` and ``sparse_ce_stats`` are ``torch.autograd.Function``s
+over per-row online-softmax statistics ``(m, z, corr, amax)``, as the JAX
+package's are ``custom_vjp``s: the distributed completion (pmax / psum over
+the ring, metrics) is plain torch in ``core.sharded_softmax``, and autograd
+through it delivers the per-row cotangents ``(gz, gc)`` that the streaming
+backward kernels consume. ``m`` and ``amax`` are non-differentiable: the
 true total derivative of ``m`` cancels exactly against ``z``'s internal
 rescaling (``z·e^m`` is m-free), so dropping its cotangent is exact.
 
@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ce_softmax as _ce
+from repro_torch.kernels import knn_dist_topk as _dk
+from repro_torch.kernels import sparse_ce as _sp
 from repro_torch.kernels import topk_dc as _dc
 
 
@@ -112,3 +114,53 @@ def fused_ce_stats(f, w, y, *, scale: float = 1.0):
     """(m, z, corr) building blocks for the distributed (sharded) loss."""
     m, z, corr, _ = _ce.ce_forward(f, w, y, scale=scale)
     return m, z, corr
+
+
+def dist_topk(q, kmat, kprime: int, *, col_offset: int = 0):
+    """Fused score + top-k' (the graph build's inner loop): q [Nq, D] x
+    kmat [Nk, D], both bf16 -> (vals [Nq, k'] fp32 descending, ids [Nq, k']
+    int32 columns + ``col_offset``, (-inf, -1) past Nk). Ties go to the
+    lowest column. The [Nq, Nk] scores never exist on the card."""
+    return _dk.dist_topk(q, kmat, kprime, col_offset=col_offset)
+
+
+class _SparseCEStats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f, w, ids, gids, bias, valid, y, scale, mask_hits):
+        m, z, corr, amax, hit = _sp.sparse_ce_forward(
+            f, w, ids, gids, bias, valid, y, scale=scale, mask_hits=mask_hits)
+        ctx.save_for_backward(f, w, ids, gids, bias, valid, y, m, hit)
+        ctx.scale, ctx.mask_hits = scale, mask_hits
+        ctx.mark_non_differentiable(m, amax)
+        return m, z, corr, amax
+
+    @staticmethod
+    def backward(ctx, gm, gz, gc, gamax):
+        f, w, ids, gids, bias, valid, y, m, hit = ctx.saved_tensors
+        # gm / gamax are dropped: exact (module doc)
+        gz = torch.zeros_like(m) if gz is None else gz
+        gc = torch.zeros_like(m) if gc is None else gc
+        df, dw = _sp.sparse_ce_backward(
+            f, w, ids, gids, bias, valid, y, m, gz, gc, hit, scale=ctx.scale,
+            mask_hits=ctx.mask_hits)
+        return (df if ctx.needs_input_grad[0] else None,
+                dw if ctx.needs_input_grad[1] else None,
+                None, None, None, None, None, None, None)
+
+
+def sparse_ce_stats(f, w, ids, gids, bias, valid, y, scale: float = 1.0,
+                    mask_hits: bool = False):
+    """Fused gather + streaming CE stats over an active-class set.
+
+    f [B,D]; w [V,D] (the whole shard: rows are gathered in the kernel);
+    ids [A] local candidate rows; gids [A] global candidate ids; bias [A]
+    per-column logit shift; valid [A] column mask; y [B] GLOBAL labels.
+    ``mask_hits`` drops candidates whose gid is the row's label from z
+    (sampled softmax's accidental hits) instead of folding the first into
+    corr (knn / selective label columns).
+
+    Returns per-row fp32 (m, z, corr) and int32 amax (the best column);
+    m and amax are non-differentiable. Only f and w receive gradients: dW
+    is dense [V, D], the repeated ids' rows summed deterministically."""
+    return _SparseCEStats.apply(f, w, ids, gids, bias, valid, y, scale,
+                                mask_hits)

@@ -11,14 +11,17 @@ optional ``--cache N`` LRU score cache), and the run reports p50/p95/p99
 latency, QPS, batch occupancy and cache hit rate.
 
 It runs on the card (``--device cuda``, the default) in one process: a
-ring of one. ``--system zoo``, ``--index ivf`` and heads other than
-``full`` are not ported yet and exit with an argparse error naming
-ROADMAP.md.
+ring of one. The ``knn`` head serves through the full head's prediction,
+which it inherits, as in the JAX package (its graph is built once when the
+experiment starts). ``--system zoo``, ``--index ivf`` and the other heads
+are not ported yet and exit with an argparse error naming ROADMAP.md.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --system paper \\
       --classes 1020250 --feat-dim 512 --topk 5 --batch 64
   PYTHONPATH=src python -m repro_torch.launch.serve --system paper \\
       --classes 4096 --topk 5 --replay 1.0 --cache 512 --max-wait-ms 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --classes 4096 --head knn --batch 64
 """
 from __future__ import annotations
 
@@ -131,7 +134,7 @@ def main(argv=None):
         p.error(f"--system zoo {_NOT_PORTED}")
     if args.index == "ivf":
         p.error(f"--index ivf {_NOT_PORTED}")
-    if args.head != "full":
+    if args.head not in ("full", "knn"):
         p.error(f"--head {args.head} {_NOT_PORTED}")
 
     from repro_torch.telemetry import Tracer

@@ -3,14 +3,18 @@
 ``repro.launch.train`` for the paper system.
 
 ``--system paper`` trains the hybrid-parallel paper system (feature
-replicas + class-row shards) with the ``full`` head, the FCCS learning
-rate and, with ``--fccs``, its batch growth through micro-batch
+replicas + class-row shards) with the ``full`` or the ``knn`` head
+(``--head knn``, or its alias ``--knn``: k=16, k'=32, 10% active classes,
+the graph rebuilt every 100 steps, as the JAX launcher sets it), the FCCS
+learning rate and, with ``--fccs``, its batch growth through micro-batch
 accumulation. It runs on the card (``--device cuda``, the default) in one
 process: a ring of one. What is not ported yet exits with an argparse
-error naming ROADMAP.md: ``--system zoo``, heads other than ``full``,
-``--dgc``, ``--trunk cnn`` and the checkpoint flags.
+error naming ROADMAP.md: ``--system zoo``, the other heads, ``--dgc``,
+``--trunk cnn`` and the checkpoint flags.
 
   PYTHONPATH=src python -m repro_torch.launch.train --system paper \\
+      --classes 1020250 --feat-dim 512 --batch 256 --steps 4 --fccs
+  PYTHONPATH=src python -m repro_torch.launch.train --head knn \\
       --classes 1020250 --feat-dim 512 --batch 256 --steps 4 --fccs
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --classes 512 --feat-dim 32 --steps 8 --batch 32 --fccs
@@ -68,9 +72,10 @@ def parse_args(argv=None):
         p.error(f"--batch must be positive, got {args.batch}")
     if args.system == "zoo":
         p.error("--system zoo " + _NOT_PORTED.format("A.9"))
-    if args.knn or args.head != "full":
-        head = "knn" if args.knn else args.head
-        p.error(f"--head {head} " + _NOT_PORTED.format("A.4 / A.6"))
+    # --knn is a back-compat alias; an explicit non-default --head wins
+    args.head = "knn" if (args.knn and args.head == "full") else args.head
+    if args.head not in ("full", "knn"):
+        p.error(f"--head {args.head} " + _NOT_PORTED.format("A.6"))
     if args.dgc:
         p.error("--dgc " + _NOT_PORTED.format("A.5"))
     if args.trunk != "feats":
@@ -94,7 +99,7 @@ def main(argv=None):
     if args.trace_out or args.metrics_out:
         telemetry = Tracer(metrics_path=args.metrics_out or None)
     try:
-        hcfg = HeadConfig(softmax_impl="full", backend=args.backend,
+        hcfg = HeadConfig(softmax_impl=args.head, backend=args.backend,
                           knn_k=16, knn_kprime=32, active_frac=0.1,
                           rebuild_every=100,
                           sampled_n=max(64, args.classes // 4))

@@ -113,12 +113,13 @@ def loss_body(f: np.ndarray, y: np.ndarray, w: np.ndarray, *,
 
 def paper_fit(head_cfg: dict, train_cfg: dict, fccs_cfg: dict,
               w0: np.ndarray, mu0: np.ndarray, *, steps: int, batch: int,
-              eval_inputs: dict, data_seed: int = 0) -> dict:
+              eval_inputs: dict, data_seed: int = 0, head_aux=()) -> dict:
     """A CPU ``PaperExperiment`` on this member, started from the JAX
-    package's class matrix and LARS/SGD moment (``interop``), trained
-    ``steps`` steps with FCCS batch growth on ``numpy_batch`` data.
-    Returns the history rows, the final class matrix gathered over the
-    ring, the evaluation accuracy, and the weights_version trail."""
+    package's class matrix and LARS/SGD moment and, for the knn head, its
+    graph (``interop``), trained ``steps`` steps with FCCS batch growth on
+    ``numpy_batch`` data. Returns the history rows, the final class matrix
+    gathered over the ring, the evaluation accuracy, the weights_version
+    trail and the head's final aux state."""
     from repro_torch import interop
     from repro_torch.api import Experiment
     from repro_torch.configs.base import FCCSConfig, TrainConfig
@@ -133,14 +134,46 @@ def paper_fit(head_cfg: dict, train_cfg: dict, fccs_cfg: dict,
                                          seed=data_seed))
     exp.load_state(interop.paper_state_from_numpy(
         {}, w0, opt_state={"step": 0, "mu": ({}, mu0), "nu": None},
-        rank=dist.rank(), world_size=dist.world_size(), device="cpu"))
+        head_aux=head_aux, rank=dist.rank(), world_size=dist.world_size(),
+        device="cpu"))
     versions = [exp.weights_version]
     hist = exp.fit(steps, use_fccs_batch=True,
                    step_hook=lambda t: versions.append(exp.weights_version))
     return {"history": hist,
             "w": _np(dist.all_gather(exp.state.w_head, dim=0)),
             "eval": exp.evaluate(eval_inputs),
-            "versions": versions + [exp.weights_version]}
+            "versions": versions + [exp.weights_version],
+            "aux": [_np(a) for a in exp.state.head_aux]}
+
+
+def knn_graph_build(w: np.ndarray, *, k: int, kprime: int) -> np.ndarray:
+    """The ring build of the exact KNN graph of ``w`` from this member's
+    rows: the whole [N, k] graph, as every member holds it."""
+    from repro_torch.core import knn_graph as kg
+    return kg.build_graph(_my_rows(w), k=k, kprime=kprime)
+
+
+def knn_loss_body(f: np.ndarray, y: np.ndarray, w: np.ndarray, graph: tuple,
+                  *, m_local: int, k_cap: int, backend: str,
+                  pad_random: bool = False, fillers=None) -> dict:
+    """``knn_softmax_local`` on this member's rows of ``w`` and of the
+    compressed ``graph`` arrays ([P, ...] each), with the batch ``f``, ``y``
+    on every member; ``fillers`` [P, m_local] are the pad draws to inject.
+    Returns loss, metrics, the head gradient gathered over the ring [V, D]
+    and this member's feature gradient stacked over the ring [P, b, D]."""
+    from repro_torch.core.knn_softmax import knn_softmax_local
+    r = dist.rank()
+    wt = _my_rows(w).requires_grad_(True)
+    ft = torch.from_numpy(f).requires_grad_(True)
+    aux = [torch.from_numpy(np.ascontiguousarray(a[r])) for a in graph]
+    loss, metrics = knn_softmax_local(
+        ft, torch.from_numpy(y), wt, *aux, global_batch=f.shape[0],
+        m_local=m_local, k_cap=k_cap, pad_random=pad_random, backend=backend,
+        fillers=None if fillers is None else torch.from_numpy(fillers[r]))
+    loss.backward()
+    return {"loss": _np(loss), **{k: _np(v) for k, v in metrics.items()},
+            "grad": _np(dist.all_gather(wt.grad, dim=0)),
+            "grad_f": _np(dist.all_gather(ft.grad, dim=0, tiled=False))}
 
 
 def collectives() -> dict:
@@ -153,6 +186,16 @@ def collectives() -> dict:
             "psum": _np(dist.psum(x)),
             "gather_tiled": _np(dist.all_gather(x[None], dim=0)),
             "gather_stacked": _np(dist.all_gather(x, dim=1, tiled=False))}
+
+
+def ring_shift() -> dict:
+    """``ppermute`` by one and by two places of a rank-dependent bf16
+    tensor, and ``pmean`` of the rank."""
+    r = dist.rank()
+    x = torch.full((2, 3), float(r), dtype=torch.bfloat16)
+    return {"shift1": _np(dist.ppermute(x).float()),
+            "shift2": _np(dist.ppermute(x, 2).float()),
+            "pmean": _np(dist.pmean(torch.tensor(float(r))))}
 
 
 def collective_grads() -> dict:
@@ -172,5 +215,7 @@ def run_all(cases: list) -> list:
     so one spawned ring serves a whole group of tests."""
     workers = {"serve_bodies": serve_bodies, "paper_serve": paper_serve,
                "collectives": collectives, "loss_body": loss_body,
-               "paper_fit": paper_fit, "collective_grads": collective_grads}
+               "paper_fit": paper_fit, "collective_grads": collective_grads,
+               "knn_graph_build": knn_graph_build,
+               "knn_loss_body": knn_loss_body, "ring_shift": ring_shift}
     return [workers[name](*args, **kwargs) for name, args, kwargs in cases]

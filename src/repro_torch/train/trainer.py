@@ -136,6 +136,10 @@ class PaperTrainer:
             row = {"step": t, "lr": lr, "batch": self.hw_batch * n,
                    "loss": float(loss),
                    "acc": float(metrics["accuracy"])}
+            # the head's own metrics beyond accuracy and logz (knn:
+            # active_frac, label_recall), averaged over the micro-batches
+            row.update({k: float(metrics[k]) for k in self.head.metrics_spec()
+                        if k not in ("accuracy", "logz")})
             self.history.append(row)
             tr.log_metrics(row)
             if self.log_every and t % self.log_every == 0:

@@ -23,6 +23,9 @@ from repro_torch.configs import sku100m_resnet as port_sku
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
+KNN_MODULES = ("repro_torch.core.knn_graph", "repro_torch.core.knn_softmax",
+               "repro_torch.kernels.sparse_ce",
+               "repro_torch.kernels.knn_dist_topk")
 
 
 def test_importing_the_port_loads_no_jax():
@@ -37,6 +40,8 @@ def test_importing_the_port_loads_no_jax():
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
+        f"missing = set({KNN_MODULES!r}) - set(sys.modules)\n"
+        "assert not missing, missing\n"
         "print('modules', len([m for m in sys.modules "
         "if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -45,8 +50,9 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     # the training slice's modules (optim, pipeline, fccs, sparsify,
-    # trainer, launch.train) are among them
-    assert int(out.stdout.split()[-1]) >= 38
+    # trainer, launch.train) and the knn slice's (knn_graph, knn_softmax,
+    # sparse_ce, knn_dist_topk) are among them
+    assert int(out.stdout.split()[-1]) >= 42
 
 
 def _imports(path: Path):
@@ -99,7 +105,7 @@ def test_unported_parts_say_so():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Experiment.from_config(
             system="paper", classes=64, feat_dim=8, device="cpu",
-            head=port_base.HeadConfig(softmax_impl="knn"))
+            head=port_base.HeadConfig(softmax_impl="selective"))
 
 
 def _fields(cls):
@@ -161,3 +167,14 @@ def test_paper_state_from_numpy_keeps_this_members_rows():
     with pytest.raises(ValueError, match="do not divide"):
         interop.paper_state_from_numpy({}, w, rank=0, world_size=4,
                                        device="cpu")
+    # the knn head's graph arrives [P, ...]: each member keeps its row
+    aux = (np.arange(12, dtype=np.int32).reshape(3, 4),
+           np.arange(6, dtype=np.int32).reshape(3, 2))
+    for r in range(3):
+        st = interop.paper_state_from_numpy({}, w, head_aux=aux, rank=r,
+                                            world_size=3, device="cpu")
+        assert [a.tolist() for a in st.head_aux] == [a[r].tolist()
+                                                     for a in aux]
+    with pytest.raises(ValueError, match="leading axis"):
+        interop.paper_state_from_numpy({}, w, head_aux=aux, rank=0,
+                                       world_size=2, device="cpu")
