@@ -81,6 +81,31 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    from the same W and the same kernel-built graph, without fillers or
    rebuilds: losses within rtol 1e-4, max|dW| <= 1e-4 * max|W|.
 8. the train launcher again with ``--head knn``.
+9. IVF serving (the main path of the IVF slice): ``ivf_rerank`` against
+   its plain version at ragged shapes (pads, rows with fewer real
+   candidates than k, rows with nothing, repeated candidates, A not a
+   multiple of the kernel's segment, k up to 32, integer-valued inputs with
+   exact ties: ids exact in candidate-position order) and bit-identical
+   across two runs. Then the same 1M-class experiment as phase 3: the IVF
+   index is fit twice (timed by part: Lloyd, scores and short preference
+   lists, claim), the two fits must be bit-identical and every valid row
+   packed exactly once; ``ivf_rerank``'s counter is set to 0, then
+   ``serve(batch=64, top_k=5, return_scores=True, index="ivf")`` runs and
+   the counter must have moved. That result is held against the ``ref``
+   backend on the same index and queries (scores within 1e-5, ids equal
+   except where adjacent scores lie within 1e-5), the kernel against its
+   plain version on these queries' real candidates (B=64, A=31 x 1,263:
+   values within 1e-5, ids equal except at near-ties, bit-identical), timed
+   beside its plain version and the gathered ``einsum`` (the bound from the
+   union of the probed rows' bytes), ``nprobe=C`` against the exact top-5
+   (ids equal except at near-ties), batch latency exact vs IVF top-5 at
+   batch 64 and 1 (host clock, median of 10) and one profiled IVF serve.
+   Last, clustered class rows at full width (15,941 centres, offset 0.3;
+   the port's copy of the JAX test's construction) are installed, the
+   index refit, and recall@5 against the exact scan printed at nprobe 2 and
+   31 for 256 near-prototype queries (reported, not gated).
+10. the serve launcher with ``--index ivf --topk 5 --replay 0.5`` at the
+   same width.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, one ``{"end_to_end": ...}`` line and, last, ``{"ok": true,
@@ -90,6 +115,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -114,6 +140,8 @@ FP32_OPS_PER_S = 67e12                       # H100 SXM, outside tensor cores
 BF16_OPS_PER_S = 989e12                      # H100 SXM, dense tensor cores
 QSLICE = 132 * 128      # dist_topk timing: one wave of 128-row blocks
 KNN_K, KPRIME, ACTIVE_FRAC = 16, 32, 0.1    # the knn head (launch/train.py)
+IVF_TOL = 1e-5       # ivf_rerank: fp32 dot products of D terms in another order
+RECALL_QUERIES = 256
 
 
 def fail(msg: str) -> None:
@@ -1180,6 +1208,294 @@ def knn_training_phase(torch, sp, dk):
         "knn_kernel_vs_ref_w_max_abs": w_err, "knn_w_max_abs": w_max}
 
 
+# ---------------------------------------------------------------------------
+# IVF serving (the main path of the IVF slice) and its launcher
+# ---------------------------------------------------------------------------
+
+
+def check_ivf(torch, ivf, f, w, cand, k, label, exact_ids=False):
+    """ivf_rerank's kernel, twice (the runs must agree bit for bit), vs its
+    plain version: the same slots filled, values within IVF_TOL times the
+    scores' scale (max(1, max|plain value|): 1 for the unit rows the serve
+    path scores), ids equal except, unless ``exact_ids``, at slots whose
+    plain value lies within that tolerance of a neighbouring slot's (or of
+    the first value left out). Returns (largest value error, ids that
+    differ)."""
+    v1, i1 = ivf.ivf_rerank(f, w, cand, k)
+    v2, i2 = ivf.ivf_rerank(f, w, cand, k)
+    pv, pi = ivf.ivf_rerank_plain(f, w, cand, k + 1)
+    torch.cuda.synchronize()
+    if not (torch.equal(v1, v2) and torch.equal(i1, i2)):
+        fail(f"ivf_rerank {label}: two runs on the same inputs differ")
+    ext = pv
+    pv, pi = pv[:, :k], pi[:, :k]
+    if not torch.equal(i1 >= 0, pi >= 0):
+        fail(f"ivf_rerank {label}: filled slots differ")
+    both = pi >= 0
+    err = float((v1[both] - pv[both]).abs().max()) if both.any() else 0.0
+    tol = IVF_TOL * max(1.0, float(pv[both].abs().max()) if both.any()
+                        else 0.0)
+    if err > tol:
+        fail(f"ivf_rerank {label}: values differ by {err:.3g} (tolerance "
+             f"{tol:.3g})")
+    bad = i1 != pi
+    if not exact_ids:
+        gaps = (ext[:, :-1] - ext[:, 1:]).abs()
+        gap_prev = torch.nn.functional.pad(gaps, (1, 0),
+                                           value=float("inf"))[:, :k]
+        near = (gap_prev < tol) | (gaps[:, :k] < tol)
+        bad &= ~near
+    if bool(bad.any()):
+        rows = bad.any(dim=1).nonzero()[:4, 0].tolist()
+        fail(f"ivf_rerank ids {label}: rows {rows} kernel {i1[rows].tolist()} "
+             f"plain {pi[rows].tolist()}")
+    return err, int((i1 != pi).sum())
+
+
+def ivf_ragged_checks(torch, ivf):
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    v, d, b, a = 5013, 36, 37, 3000
+    f = torch.randn((b, d), generator=g, device=dev)
+    w = torch.randn((v, d), generator=g, device=dev) * 0.1
+    cand = torch.randint(0, v, (b, a), generator=g, device=dev,
+                         dtype=torch.int32)
+    cand[torch.rand((b, a), generator=g, device=dev) < 0.2] = -1
+    cand[0] = -1                               # nothing real
+    cand[1, 3:] = -1                           # fewer real candidates than k
+    cand[2, 1500:] = cand[2, :1500]            # every candidate twice
+    for k in (1, 5, 32):
+        check_ivf(torch, ivf, f, w, cand, k, f"ragged k={k}")
+    check_ivf(torch, ivf, f, w, cand[:, :7].contiguous(), 32, "A=7 < k")
+    # integer-valued inputs: every score exact, so equal rows and repeated
+    # candidates tie exactly and the earlier candidate position must win
+    fi = torch.randint(-3, 4, (b, 64), generator=g, device=dev).float()
+    wi = torch.randint(-3, 4, (v, 64), generator=g, device=dev).float()
+    wi[4000:4100] = wi[17]
+    ci = torch.randint(0, v, (b, 2500), generator=g, device=dev,
+                       dtype=torch.int32)
+    ci[:, 40:140] = torch.arange(4000, 4100, device=dev, dtype=torch.int32)
+    ci[:, 2000:2100] = 17
+    ci[3, ::3] = -1
+    for k in (5, 32):
+        err, _ = check_ivf(torch, ivf, fi, wi, ci, k, f"integer ties k={k}",
+                           exact_ids=True)
+        if err != 0.0:
+            fail(f"ivf_rerank integer ties k={k}: values differ by {err}")
+    # the serving width, ragged pads
+    fw = torch.randn((5, D), generator=g, device=dev)
+    ww = torch.randn((v, D), generator=g, device=dev)
+    cw = torch.randint(-1, v, (5, 2049), generator=g, device=dev,
+                       dtype=torch.int32)
+    check_ivf(torch, ivf, fw, ww, cw, 5, f"D={D}, A=2049")
+    log("IVF phase: ivf_rerank ragged shapes, exact ties and k up to 32 agree "
+        "with the plain version, bit-identical across runs")
+
+
+def _probe_candidates(torch, ops, sharded, f, idx, nprobe):
+    """The serve body's candidates: the top-``nprobe`` centroids of each
+    normalised query, their member slots in probe order."""
+    _, probe = ops.topk_stable(sharded._normalize(f) @ idx.centroids.T,
+                               nprobe)
+    return idx.members[probe.long()].reshape(f.shape[0], -1).contiguous()
+
+
+def _same_topk(np, ids, vals, rids, rvals, what):
+    """ids / vals against a reference's: values within IVF_TOL, ids equal
+    except next to an adjacent reference gap below IVF_TOL. Returns the
+    largest value error."""
+    err = float(np.abs(vals - rvals).max())
+    if not np.all(np.isfinite(vals)) or err > IVF_TOL:
+        fail(f"{what}: scores differ by up to {err:.3g}")
+    gaps = np.diff(rvals, axis=1) > -IVF_TOL
+    near = np.pad(gaps, ((0, 0), (0, 1))) | np.pad(gaps, ((0, 0), (1, 0)))
+    if not ((ids == rids) | near).all():
+        fail(f"{what}: ids differ")
+    return err
+
+
+def _recall(np, exp, queries, nprobe):
+    exact = exp.serving_engine(top_k=K, max_batch=B, max_wait_ms=0.0)
+    ivf_eng = exp.serving_engine(top_k=K, max_batch=B, max_wait_ms=0.0,
+                                 index="ivf", nprobe=nprobe)
+    hits = []
+    for r0 in range(0, queries.shape[0], B):
+        q = queries[r0:r0 + B]
+        ids_e = exact.step_fn(q, B)[0]
+        ids_i = ivf_eng.step_fn(q, B)[0]
+        hits += [len(set(e) & set(i)) / K for e, i in zip(ids_e, ids_i)]
+    return float(np.mean(hits))
+
+
+def ivf_phase(torch, np, ivf, sharded):
+    from repro_torch import testing
+    from repro_torch.api import Experiment
+    from repro_torch.configs.base import HeadConfig
+    from repro_torch.kernels import ops
+    from repro_torch.train import hybrid
+
+    ivf_ragged_checks(torch, ivf)
+    exp = Experiment.from_config(
+        system="paper", classes=V, feat_dim=D, batch=B, seed=0,
+        device=DEVICE, head=HeadConfig(softmax_impl="full", backend="kernel"))
+    torch.cuda.synchronize()
+
+    # -- the fit, twice: bit-identical, every valid row packed once ---------
+    idx = exp.ivf_index(refit=True)
+    idx2 = exp.ivf_index(refit=True)
+    if not (torch.equal(idx.centroids, idx2.centroids)
+            and torch.equal(idx.members, idx2.members)):
+        fail("two IVF fits of the same weights differ")
+    exp.install_ivf_index(idx)
+    fit2_s = {k: round(v, 4) for k, v in idx2.fit_s.items()}
+    del idx2
+    rows = idx.members[idx.members >= 0]
+    if not torch.equal(torch.sort(rows).values,
+                       torch.arange(V, device=rows.device, dtype=torch.int32)):
+        fail("the IVF packing does not hold every class exactly once")
+    c, cap, nprobe = idx.n_clusters, idx.cap, idx.nprobe
+    fit_s = {k: round(v, 4) for k, v in idx.fit_s.items()}
+    log(f"IVF phase: {c} clusters of cap {cap}, nprobe {nprobe}; two fits "
+        f"bit-identical, seconds by part {fit_s} and {fit2_s}")
+
+    # -- the main path: launches counted around one IVF top-5 serve ---------
+    ivf.LAUNCHES = 0
+    tids, tscores = exp.serve(batch=B, top_k=K, return_scores=True,
+                              index="ivf")
+    launches = {"ivf_rerank": ivf.LAUNCHES}
+    if launches["ivf_rerank"] < 1:
+        fail("the IVF serving path never launched ivf_rerank")
+    log(f"IVF phase: launches on the main path {launches}")
+    if tids.shape != (B, K) or tscores.shape != (B, K):
+        fail(f"IVF result shapes {tids.shape} {tscores.shape}")
+    if not np.all((tids >= 0) & (tids < V)):
+        fail("IVF class ids out of range")
+    if not np.all(np.isfinite(tscores)) or np.any(np.diff(tscores, 1) > 0):
+        fail("IVF top-k scores not finite or not descending")
+
+    # -- the ref backend on the same index and queries ----------------------
+    q = exp.data_fn(10**6, B)["features"]
+    ref_cfg = dataclasses.replace(exp.head_cfg, backend="ref")
+    ref_step = hybrid.make_batched_ivf_topk_serve_step(
+        exp.model_cfg, ref_cfg, K, nprobe=nprobe)
+    rvals, rgids = (t.cpu().numpy() for t in ref_step(
+        exp.state, idx.centroids, idx.members, q, B))
+    ref_err = _same_topk(np, tids, tscores, rgids, rvals,
+                         "IVF kernel vs ref backend")
+    log(f"IVF phase: kernel backend agrees with ref (score max abs err "
+        f"{ref_err:.3g})")
+
+    # -- the kernel at the serving shapes: these queries' real candidates ---
+    f = sharded._normalize(q.float())
+    wn = sharded._normalize(exp.state.w_head)
+    cand = _probe_candidates(torch, ops, sharded, f, idx, nprobe)
+    err, swaps = check_ivf(torch, ivf, f, wn, cand, K, "serving shapes")
+    ms = cuda_ms(torch, lambda: ivf.ivf_rerank(f, wn, cand, K), 20)
+    plain_ms = cuda_ms(torch, lambda: ivf.ivf_rerank_plain(f, wn, cand, K), 3)
+    safe = cand.clamp_min(0).long()
+    lib_ms = cuda_ms(torch, lambda: torch.einsum("bd,bad->ba", f, wn[safe]), 3)
+    del safe
+    real = cand >= 0
+    n_real = int(real.sum())
+    union = int(torch.unique(cand[real]).numel())
+    io_bytes = 4 * B * D + 4 * cand.numel() + 8 * B * K
+    gathered_bytes = 4 * D * n_real + io_bytes
+    union_bytes = 4 * D * union + io_bytes
+    bound, by = bound_ms(union_bytes, 2.0 * n_real * D)
+    gathered_ms = gathered_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"IVF phase: ivf_rerank at B={B}, A={cand.shape[1]} ({n_real} real "
+        f"candidates, {union} distinct rows) agrees (values max abs err "
+        f"{err:.3g}, ids swapped at near-ties {swaps}); {ms:.3f} ms, bound "
+        f"{bound:.3f} ms by {by} on the union's {union_bytes / 1e9:.3f} GB "
+        f"({gathered_ms:.3f} ms on the {gathered_bytes / 1e9:.3f} GB "
+        f"gathered), plain {plain_ms:.3f} ms, gathered einsum {lib_ms:.3f} ms")
+    kernel_row = dict(
+        name="ivf_rerank", route="cuda",
+        source="src/repro_torch/kernels/csrc/ivf_rerank.cu",
+        replaces="src/repro/kernels/ivf_rerank.py:97",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=lib_ms,
+        library="einsum('bd,bad->ba', f, W[cand]) (gather + cuBLAS fp32)",
+        gathered_bytes=gathered_bytes, union_bytes=union_bytes,
+        gathered_bound_ms=gathered_ms, real_candidates=n_real,
+        distinct_rows=union, near_tie_id_swaps=swaps,
+        shape=f"f[{B},{D}] W[{V},{D}] cand[{B},{cand.shape[1]}] k={K}")
+    del wn, cand, real
+
+    # -- nprobe = C through the kernel against the exact top-5 --------------
+    fids, fvals = exp.serve(batch=B, top_k=K, return_scores=True,
+                            index="ivf", nprobe=c)
+    eids, evals = exp.serve(batch=B, top_k=K, return_scores=True)
+    full_err = _same_topk(np, fids, fvals, eids, evals,
+                          "IVF at nprobe=C vs the exact scan")
+    log(f"IVF phase: nprobe=C equals the exact top-5 (score max abs err "
+        f"{full_err:.3g}, ids equal: {bool(np.array_equal(fids, eids))})")
+
+    # -- batch latency, exact vs IVF, and one profiled IVF serve ------------
+    lat = {}
+    for b in (B, 1):
+        lat[f"exact_top5_b{b}_ms"] = host_ms(torch, lambda b=b: exp.serve(
+            batch=b, top_k=K, return_scores=True), 10)
+        lat[f"ivf_top5_b{b}_ms"] = host_ms(torch, lambda b=b: exp.serve(
+            batch=b, top_k=K, return_scores=True, index="ivf"), 10)
+    prof = profile_ms(torch, lambda: exp.serve(batch=B, top_k=K,
+                                               return_scores=True,
+                                               index="ivf"))
+    log(f"IVF phase: batch latency {lat}; profiled IVF serve {prof}")
+
+    # -- clustered class rows at full width: refit, recall ------------------
+    protos = testing.clustered_weights(V, D, device=DEVICE)
+    exp.load_state(exp.state._replace(head_params=protos))
+    del protos
+    t0 = time.perf_counter()
+    cidx = exp.ivf_index()
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    queries = testing.query_pool(exp.state.w_head, RECALL_QUERIES).cpu().numpy()
+    recall = {f"nprobe_{p}": _recall(np, exp, queries, p)
+              for p in (2, nprobe)}
+    log(f"IVF phase: clustered rows, refit {refit_s:.2f} s (by part "
+        f"{ {k: round(v, 4) for k, v in cidx.fit_s.items()} }); recall@5 "
+        f"vs the exact scan {recall}")
+    e2e = {"ivf_clusters": c, "ivf_cap": cap, "ivf_nprobe": nprobe,
+           "ivf_fit_s": fit_s, "ivf_fit2_s": fit2_s,
+           "ivf_vs_ref_score_max_abs_err": ref_err,
+           "ivf_full_probe_score_max_abs_err": full_err,
+           "ivf_full_probe_ids_equal": bool(np.array_equal(fids, eids)),
+           **{f"ivf_{k}": v for k, v in lat.items()},
+           "ivf_top5_profile": prof, "ivf_clustered_refit_s": refit_s,
+           "ivf_clustered_fit_s": cidx.fit_s,
+           "ivf_clustered_recall_at_5": recall}
+    return kernel_row, launches, e2e
+
+
+def ivf_launcher_phase(torch, ivf):
+    from repro_torch.launch import serve as launcher
+
+    metrics = ROOT / "build" / "chip_smoke" / "ivf_replay_metrics.jsonl"
+    metrics.parent.mkdir(parents=True, exist_ok=True)
+    metrics.unlink(missing_ok=True)
+    before = ivf.LAUNCHES
+    rc = launcher.main(["--system", "paper", "--classes", str(V),
+                        "--feat-dim", str(D), "--topk", str(K),
+                        "--index", "ivf", "--batch", str(B),
+                        "--replay", "0.5", "--device", DEVICE,
+                        "--metrics-out", str(metrics)])
+    torch.cuda.synchronize()
+    if rc != 0:
+        fail(f"the IVF launcher returned {rc}")
+    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+    if not rows or rows[-1].get("n", 0) < 1:
+        fail("the IVF launcher's replay served no request")
+    if ivf.LAUNCHES == before:
+        fail("the IVF launcher's replay never launched ivf_rerank")
+    row = rows[-1]
+    return {"ivf_replay_n": row["n"], "ivf_replay_p50_ms": row["p50_ms"],
+            "ivf_replay_p99_ms": row["p99_ms"], "ivf_replay_qps": row["qps"],
+            "ivf_replay_batches": row["n_batches"]}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1200,6 +1516,7 @@ def main() -> int:
     from repro_torch.core import sharded_softmax as sharded
     from repro_torch.kernels import build
     from repro_torch.kernels import ce_softmax as ce
+    from repro_torch.kernels import ivf_rerank as ivf
     from repro_torch.kernels import knn_dist_topk as dk
     from repro_torch.kernels import sparse_ce as sp
     from repro_torch.kernels import topk_dc as dc
@@ -1224,6 +1541,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     e2e.update(launcher_phase(torch, ce, dc))
     e2e["serve_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    kernels["ivf_rerank"], ivf_launches, ivf_e2e = ivf_phase(
+        torch, np, ivf, sharded)
+    gc.collect()                 # the engines and the experiment hold a cycle
+    torch.cuda.empty_cache()
+    e2e.update(ivf_e2e)
+    e2e.update(ivf_launcher_phase(torch, ivf))
+    e2e["ivf_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     train_launches, train_e2e = training_phase(torch, ce)
     e2e.update(train_e2e)
     e2e.update(train_launcher_phase())
@@ -1235,11 +1560,13 @@ def main() -> int:
     # launches on each main path, from its own reset-and-read of the counters
     by_path = {name: {"serving": serve_launches.get(name, 0),
                       "training": train_launches.get(name, 0),
-                      "knn_training": knn_launches.get(name, 0)}
+                      "knn_training": knn_launches.get(name, 0),
+                      "ivf_serving": ivf_launches.get(name, 0)}
                for name in kernels}
     rows = []
     for name, k in kernels.items():
-        path = next(p for p in ("knn_training", "training", "serving")
+        path = next(p for p in ("knn_training", "training", "ivf_serving",
+                                "serving")
                     if by_path[name][p] or p == "serving")
         rows.append({**k, "launches": by_path[name][path],
                      "launches_path": path, "launches_by_path": by_path[name],

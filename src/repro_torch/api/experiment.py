@@ -6,11 +6,13 @@ serving paths.
   >>> exp.fit(6, use_fccs_batch=True)                       # history rows
   >>> exp.serve(batch=64)                                    # greedy ids
   >>> exp.serve(batch=64, top_k=5, return_scores=True)       # (ids, scores)
+  >>> exp.serve(batch=64, top_k=5, index="ivf")              # IVF top-k
 
 The port of the JAX package's ``api/experiment.py`` for the slices landed
 so far: ``fit`` (the FCCS trainer, without checkpoints), ``evaluate``,
 ``serve`` (greedy and top-k, through the serving engine or on explicit
-inputs), ``serving_engine`` and ``weights_version``. Checkpoints
+inputs, and top-k through the IVF index), ``serving_engine``,
+``ivf_index`` / ``install_ivf_index`` and ``weights_version``. Checkpoints
 (``ckpt_dir``, ``resume``) and the zoo system come with later slices
 (ROADMAP.md queue A).
 
@@ -99,6 +101,30 @@ class Experiment:
         from repro_torch.serving import ServingEngine
         _validate_serve_args(effective_vocab(self.model_cfg), None, top_k)
         return ServingEngine.for_experiment(self, top_k=top_k, **kw)
+
+    def ivf_index(self, *, n_clusters: int = 0, nprobe: int = 0,
+                  iters: int = 8, refit: bool = False):
+        """The experiment's ``repro_torch.serving.IVFIndex`` over its class
+        shard, fit lazily and cached. The cached index is REFIT whenever
+        ``weights_version`` has moved since the fit (the seam that also
+        invalidates the serving score cache), so train steps and weight
+        loads retire a stale quantizer. ``refit=True`` forces a refit; the
+        knobs only apply when a (re)fit happens."""
+        from repro_torch.serving import IVFIndex
+        cur = getattr(self, "_ivf", None)
+        if (refit or cur is None
+                or tuple(cur.version) != tuple(self.weights_version)):
+            cur = IVFIndex.fit(self, n_clusters=n_clusters, nprobe=nprobe,
+                               iters=iters)
+            self._ivf = cur
+        return cur
+
+    def install_ivf_index(self, index) -> None:
+        """Install an index (``IVFIndex.state_from_restore``, or one carried
+        over by ``repro_torch.interop``) so the server skips the fit. It
+        still retires itself once ``weights_version`` moves past its
+        fit-time snapshot."""
+        self._ivf = index
 
 
 class PaperExperiment(Experiment):
@@ -201,11 +227,14 @@ class PaperExperiment(Experiment):
 
         Greedy mode (default) returns [b] class ids. ``top_k=k`` returns
         ids [b, k] (descending), or (ids, scores) with ``return_scores``.
+        ``index="ivf"`` (top-k only) serves through the experiment's
+        ``IVFIndex``: probe the ``nprobe`` nearest centroids of each shard
+        and rerank only their member rows.
         Without explicit ``inputs`` the call is routed through the
         serving engine (per-query submit -> one padded micro-batch ->
         batched serve step); explicit ``inputs`` run the single-shot step
-        (the batch must then divide the ring). ``index="ivf"`` is not
-        ported yet."""
+        (the batch must then divide the ring), except under
+        ``index="ivf"``, which always serves through the engine."""
         from repro_torch.telemetry import NULL_TRACER
         from repro_torch.train import hybrid
 
@@ -216,13 +245,15 @@ class PaperExperiment(Experiment):
         if index == "ivf" and top_k is None:
             raise ValueError("index='ivf' serves top-k retrieval; "
                              "pass top_k=...")
-        if index == "ivf" or nprobe is not None:
-            raise NotImplementedError(
-                "the IVF serving index is not ported to torch yet "
-                "(ROADMAP.md queue A.2)")
-        if inputs is None:
+        if inputs is None or index == "ivf":
+            queries = None
+            if inputs is not None:
+                queries = next(v for k, v in inputs.items() if k != "labels")
+                batch = queries.shape[0]
             return self._serve_via_engine(batch or self.batch, top_k,
-                                          return_scores, telemetry=telemetry)
+                                          return_scores, index=index,
+                                          nprobe=nprobe, queries=queries,
+                                          telemetry=telemetry)
         tr = telemetry or NULL_TRACER
         inputs = self._to_device(inputs)
         if top_k is not None:
@@ -240,23 +271,29 @@ class PaperExperiment(Experiment):
             return self._serve_step(self.state, inputs).cpu().numpy()
 
     def _serve_via_engine(self, batch: int, top_k: Optional[int],
-                          return_scores: bool, *, telemetry=None):
+                          return_scores: bool, *,
+                          index: Optional[str] = None,
+                          nprobe: Optional[int] = None, queries=None,
+                          telemetry=None):
         """Batched serving through the engine: one engine per (top_k,
-        batch), all queries submitted then drained as one micro-batch. No
-        cache on this path (a synchronous call wants fresh scores)."""
-        key = (top_k, batch)
+        batch, index, nprobe), all queries submitted then drained as one
+        micro-batch. No cache on this path (a synchronous call wants fresh
+        scores)."""
+        key = (top_k, batch, index, nprobe)
         eng = self._engines.get(key)
         if eng is None:
             # max_batch >= 2 keeps a 1-query call on the batched shapes
             eng = self.serving_engine(top_k=top_k, max_batch=max(batch, 2),
-                                      max_wait_ms=0.0, cache=None)
+                                      max_wait_ms=0.0, cache=None,
+                                      index=index, nprobe=nprobe)
             self._engines[key] = eng
         if telemetry is not None:
             eng.telemetry = telemetry
-        inputs = self.data_fn(10**6, batch)
-        qkey = next(k for k in inputs if k != "labels")
-        q = inputs[qkey]
-        queries = (q.cpu().numpy() if torch.is_tensor(q) else np.asarray(q))
+        if queries is None:
+            inputs = self.data_fn(10**6, batch)
+            queries = next(v for k, v in inputs.items() if k != "labels")
+        queries = (queries.cpu().numpy() if torch.is_tensor(queries)
+                   else np.asarray(queries))
         for i in range(batch):
             eng.submit(queries[i])
         done = sorted(eng.drain(), key=lambda r: r.rid)

@@ -1,6 +1,6 @@
 """Hybrid-parallel softmax bodies over a row-sharded class matrix (paper
 §3.1, §4.5): the port of the JAX package's ``core/sharded_softmax.py``
-(training and serving; the IVF bodies come with the serving-index slice).
+(training, serving, and the IVF index's serving bodies).
 
 W [N, D] is split by class rows across the ring; each member scores its own
 block and the results combine with small collectives (``repro_torch.dist``)
@@ -260,5 +260,65 @@ def serve_topk_batched_local(f_loc, w_loc, k: int, n_queries: int, *,
     rows real. Padded rows come back as (-inf, -1)."""
     vals, gids = serve_topk_local(f_loc, w_loc, k, n_valid=n_valid,
                                   backend=backend, chunk=chunk)
+    return (mask_padded_rows(vals, n_queries, float("-inf")),
+            mask_padded_rows(gids, n_queries, -1))
+
+
+def serve_topk_ivf_local(f_loc, w_loc, cent_loc, members_loc, k: int,
+                         nprobe: int, *, backend: str = "ref",
+                         block_a: int = 128):
+    """IVF top-k retrieval (``repro_torch.serving.index``): probe the
+    query's top-``nprobe`` centroids of this shard, rerank ONLY the member
+    rows of the probed clusters, then merge over the ring with the same
+    all-gather as the exact scan.
+
+    ``f_loc`` [b, D], the same on every member; ``w_loc`` [V_loc, D] the
+    class shard; ``cent_loc`` [C, D] unit centroids fit over it;
+    ``members_loc`` [C, cap] int32 local row ids per cluster, -1 padded
+    (every valid class sits in exactly one cluster, so ``nprobe == C``
+    gives the exact scan's ids). The probe takes the normalised query
+    against the centroids (``ops.topk_stable``: ties to the lowest
+    cluster); the candidates keep probe order, ``cap`` slots a cluster.
+    The rerank scores raw ``f . w`` dot products, as the exact path does
+    (``ref``: gather + einsum + stable top-k; ``kernel``: the fused
+    ``ops.ivf_rerank``); equal scores keep candidate order. Cosine heads
+    normalise f and w before calling. Returns (vals [b, k] desc,
+    gids [b, k]); slots without a real candidate are (-inf, -1)."""
+    c = members_loc.shape[0]
+    v_loc = w_loc.shape[0]
+    v_start = dist.flat_axis_index() * v_loc
+    f = f_loc.float()
+    b = f.shape[0]
+    _, probe = ops.topk_stable(_normalize(f) @ cent_loc.float().T,
+                               min(nprobe, c))
+    cand = members_loc[probe.long()].reshape(b, -1).contiguous()   # [b, A]
+    kk = min(k, cand.shape[1])
+    if backend == "kernel":
+        vals, lids = ops.ivf_rerank(f.contiguous(), w_loc.float().contiguous(),
+                                    cand, kk, block_a=block_a)
+    else:
+        wc = w_loc.float()[cand.clamp(0, v_loc - 1).long()]      # [b, A, D]
+        s = torch.einsum("bd,bad->ba", f, wc)
+        s = torch.where(cand >= 0, s, float("-inf"))
+        vals, pos = ops.topk_stable(s, kk)
+        lids = cand.gather(1, pos.long())
+    gids = torch.where(lids >= 0, v_start + lids, -1).to(torch.int32)
+    vals = torch.where(lids >= 0, vals, float("-inf"))
+    if kk < k:  # fewer candidates than slots: pad before the merge
+        pad = k - kk
+        vals = torch.nn.functional.pad(vals, (0, pad), value=float("-inf"))
+        gids = torch.nn.functional.pad(gids, (0, pad), value=-1)
+    return _merge_topk_ring(vals, gids, k)
+
+
+def serve_topk_ivf_batched_local(f_loc, w_loc, cent_loc, members_loc,
+                                 k: int, nprobe: int, n_queries: int, *,
+                                 backend: str = "ref", block_a: int = 128):
+    """Serving-tier entry of the IVF path: a padded micro-batch [b_pad, D]
+    with only the first ``n_queries`` rows real; padded rows come back as
+    (-inf, -1), as on the exact path."""
+    vals, gids = serve_topk_ivf_local(f_loc, w_loc, cent_loc, members_loc,
+                                      k, nprobe, backend=backend,
+                                      block_a=block_a)
     return (mask_padded_rows(vals, n_queries, float("-inf")),
             mask_padded_rows(gids, n_queries, -1))

@@ -5,8 +5,10 @@ a dict (``dataclasses.asdict``) builds the port's ``HeadConfig``, and the
 JAX package's parameters and optimizer state, taken to the host as numpy
 arrays (``np.asarray(exp.state.head_params)``, and the knn head's graph
 ``exp.state.head_aux``), become the port's ``HybridState``, so a JAX run's
-state continues in the port. Nothing here
-imports JAX: only numpy arrays and plain dicts cross.
+state continues in the port. A fitted JAX ``IVFIndex``'s
+``state_to_save()``, taken to the host the same way, becomes a ring
+member's ``IVFIndex``. Nothing here imports JAX: only numpy arrays and
+plain dicts cross.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import HeadConfig
 from repro_torch.optim import OptState
+from repro_torch.serving.index import IVFIndex
 from repro_torch.train.hybrid import HybridState
 
 # the JAX package's name for the hand-written kernel backend
@@ -99,3 +102,32 @@ def paper_state_from_numpy(fe_params: dict, head_params, *,
                              f"ring of {world_size}")
         aux.append(torch.tensor(a[rank], device=device))   # a copy
     return HybridState(fe, block, tuple(aux), opt, None, int(step))
+
+
+def ivf_index_from_numpy(tree: dict, *, rank: int = 0, world_size: int = 1,
+                         device) -> IVFIndex:
+    """Ring member ``rank``'s ``IVFIndex`` from the JAX package's
+    ``IVFIndex.state_to_save()`` as numpy arrays: ``centroids`` [P, C, D],
+    ``members`` [P, C, cap], ``counts`` [P, C] and ``meta`` (n_clusters,
+    cap, nprobe, iters, version), of which this member keeps row ``rank``.
+    The index keeps the JAX experiment's ``version``; installing it into a
+    port experiment whose ``weights_version`` differs needs
+    ``dataclasses.replace(index, version=...)``, or it is refit."""
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} is not on a ring of {world_size}")
+    cent = np.asarray(tree["centroids"], np.float32)
+    members = np.asarray(tree["members"], np.int32)
+    if cent.ndim != 3 or members.ndim != 3 or (
+            cent.shape[0], members.shape[0]) != (world_size, world_size):
+        raise ValueError(f"centroids {cent.shape} / members {members.shape} "
+                         f"are not [P={world_size}, C, ...]")
+    meta = tree["meta"]
+    return IVFIndex(
+        centroids=torch.tensor(cent[rank], device=device),
+        members=torch.tensor(members[rank], device=device),
+        counts=np.asarray(tree["counts"], np.int32)[rank].copy(),
+        n_clusters=int(np.asarray(meta["n_clusters"])),
+        cap=int(np.asarray(meta["cap"])),
+        nprobe=int(np.asarray(meta["nprobe"])),
+        iters=int(np.asarray(meta["iters"])),
+        version=tuple(int(x) for x in np.asarray(meta["version"])))

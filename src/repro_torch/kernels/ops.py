@@ -1,7 +1,8 @@
 """Public wrappers around the kernels: the port of the JAX package's
 ``kernels/ops.py`` for the slices landed so far (``ce_shard_stats`` with
 its backward, ``fused_ce``, ``fused_ce_stats``, ``sparse_ce_stats``,
-``dist_topk``, row-wise and flat divide-and-conquer top-k).
+``dist_topk``, ``ivf_rerank``, row-wise and flat divide-and-conquer
+top-k).
 
 ``ce_shard_stats`` and ``sparse_ce_stats`` are ``torch.autograd.Function``s
 over per-row online-softmax statistics ``(m, z, corr, amax)``, as the JAX
@@ -21,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ce_softmax as _ce
+from repro_torch.kernels import ivf_rerank as _ivf
 from repro_torch.kernels import knn_dist_topk as _dk
 from repro_torch.kernels import sparse_ce as _sp
 from repro_torch.kernels import topk_dc as _dc
@@ -122,6 +124,19 @@ def dist_topk(q, kmat, kprime: int, *, col_offset: int = 0):
     int32 columns + ``col_offset``, (-inf, -1) past Nk). Ties go to the
     lowest column. The [Nq, Nk] scores never exist on the card."""
     return _dk.dist_topk(q, kmat, kprime, col_offset=col_offset)
+
+
+def ivf_rerank(f, w, cand, k: int, *, block_a: int = 128):
+    """Fused gather + top-k rerank of IVF candidates: f [B, D] x the rows
+    ``cand`` [B, A] (int32 local ids, -1 = padding) of the shard w [V, D]
+    -> (vals [B, k] fp32 descending, ids [B, k] int32 row ids, -1 where a
+    row has fewer than k real candidates). Equal values keep the order of
+    their slots in ``cand``. ``block_a`` is the TPU kernel's candidate tile,
+    kept for the JAX package's signature: the result does not depend on it,
+    and the CUDA kernel cuts candidates into segments of its own."""
+    if block_a < 1:
+        raise ValueError(f"block_a must be positive, got {block_a}")
+    return _ivf.ivf_rerank(f, w, cand, k)
 
 
 class _SparseCEStats(torch.autograd.Function):

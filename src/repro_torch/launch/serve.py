@@ -10,11 +10,16 @@ coalescing into padded micro-batches, ``--max-wait-ms`` flush deadline,
 optional ``--cache N`` LRU score cache), and the run reports p50/p95/p99
 latency, QPS, batch occupancy and cache hit rate.
 
+``--index ivf --topk K`` serves top-k through the IVF index (probe
+``--nprobe`` k-means centroids, rerank only their member rows); the index
+is fit before the first query, and before the trace under ``--replay``, so
+the reported latencies do not include the fit.
+
 It runs on the card (``--device cuda``, the default) in one process: a
 ring of one. The ``knn`` head serves through the full head's prediction,
 which it inherits, as in the JAX package (its graph is built once when the
-experiment starts). ``--system zoo``, ``--index ivf`` and the other heads
-are not ported yet and exit with an argparse error naming ROADMAP.md.
+experiment starts). ``--system zoo`` and the other heads are not ported
+yet and exit with an argparse error naming ROADMAP.md.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --system paper \\
       --classes 1020250 --feat-dim 512 --topk 5 --batch 64
@@ -22,6 +27,8 @@ are not ported yet and exit with an argparse error naming ROADMAP.md.
       --classes 4096 --topk 5 --replay 1.0 --cache 512 --max-wait-ms 2
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --classes 4096 --head knn --batch 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --classes 4096 --topk 5 --index ivf
 """
 from __future__ import annotations
 
@@ -48,7 +55,7 @@ def _run_replay(exp, args, telemetry=None) -> int:
     eng = exp.serving_engine(
         top_k=args.topk or None, max_batch=args.batch,
         max_wait_ms=args.max_wait_ms, cache=cache, clock=clock.now,
-        telemetry=telemetry)
+        index=_index(args), nprobe=args.nprobe or None, telemetry=telemetry)
     eng.warmup(pool[0])
     done = replay_trace(eng, clock, times, qids, pool)
     lat = latency_stats(done)
@@ -62,7 +69,7 @@ def _run_replay(exp, args, telemetry=None) -> int:
             "mean_batch_occupancy": st["mean_batch_occupancy"],
             "cache_hit_rate": st["cache_hit_rate"]})
     print(f"[serve] replayed {lat['n']} requests over {args.replay:.1f}s "
-          f"of trace ({args.head} head, top-{args.topk or 1}, "
+          f"of trace ({args.head} head, top-{args.topk or 1}{_via(args)}, "
           f"{args.backend} on {exp.device}): "
           f"p50={lat['p50_ms']:.2f}ms p95={lat['p95_ms']:.2f}ms "
           f"p99={lat['p99_ms']:.2f}ms qps={lat['n'] / max(span, 1e-9):.1f}")
@@ -71,6 +78,22 @@ def _run_replay(exp, args, telemetry=None) -> int:
           f"cache_hit_rate={st['cache_hit_rate']:.2f}")
     print("[serve] first result ids:", np.atleast_1d(done[0].ids).tolist())
     return 0
+
+
+def _index(args):
+    return args.index if args.index != "none" else None
+
+
+def _via(args) -> str:
+    return f" via {args.index}" if args.index != "none" else ""
+
+
+def _fit_index(exp, args) -> None:
+    """Fit the IVF index up front, so no serve latency includes it."""
+    idx = exp.ivf_index(nprobe=args.nprobe)
+    parts = ", ".join(f"{k[:-2]} {v:.2f} s" for k, v in idx.fit_s.items())
+    print(f"[serve] ivf index: {idx.n_clusters} clusters of cap {idx.cap}, "
+          f"nprobe {idx.resolve_nprobe(args.nprobe or None)}; fit {parts}")
 
 
 def main(argv=None):
@@ -88,9 +111,12 @@ def main(argv=None):
                    help="return the k best classes per query with scores "
                         "(0 = greedy argmax)")
     p.add_argument("--index", choices=["none", "ivf"], default="none",
-                   help="top-k serving index ('ivf' is not ported yet)")
+                   help="top-k serving index: 'ivf' probes nprobe k-means "
+                        "centroids per class shard and reranks only their "
+                        "member rows (sublinear in the class count)")
     p.add_argument("--nprobe", type=int, default=0,
-                   help="--index ivf: centroids probed per shard")
+                   help="--index ivf: centroids probed per shard "
+                        "(0 = the index default, max(2, n_clusters/32))")
     p.add_argument("--backend", choices=["ref", "kernel"], default="kernel",
                    help="head hot-path compute backend: plain torch ops or "
                         "the hand-written CUDA kernels")
@@ -132,8 +158,6 @@ def main(argv=None):
         p.error(f"--max-wait-ms must be >= 0, got {args.max_wait_ms}")
     if args.system == "zoo":
         p.error(f"--system zoo {_NOT_PORTED}")
-    if args.index == "ivf":
-        p.error(f"--index ivf {_NOT_PORTED}")
     if args.head not in ("full", "knn"):
         p.error(f"--head {args.head} {_NOT_PORTED}")
 
@@ -162,14 +186,18 @@ def _serve(args, tr) -> int:
         system="paper", classes=args.classes, feat_dim=args.feat_dim,
         batch=args.batch, device=args.device,
         head=HeadConfig(softmax_impl=args.head, backend=args.backend))
+    if args.index == "ivf":
+        _fit_index(exp, args)
     if args.replay > 0:
         return _run_replay(exp, args, telemetry=tr)
     if args.topk:
         ids, scores = exp.serve(batch=args.batch, top_k=args.topk,
-                                return_scores=True, telemetry=tr)
+                                return_scores=True, index=_index(args),
+                                nprobe=args.nprobe or None, telemetry=tr)
         print(f"[serve] {args.head}-head top-{args.topk} retrieval over "
-              f"{args.classes} classes ({args.backend} on {exp.device}): "
-              f"{ids.shape[0]} queries in {compute_ms():.1f} ms")
+              f"{args.classes} classes ({args.backend}{_via(args)} on "
+              f"{exp.device}): {ids.shape[0]} queries in "
+              f"{compute_ms():.1f} ms")
         print("[serve] first query ids:   ", ids[0].tolist())
         print("[serve] first query scores:",
               [round(float(s), 3) for s in scores[0]])

@@ -25,7 +25,8 @@ and turns the per-head batched top-k / greedy steps into a serving loop:
 
 The engine itself is transport-agnostic: it only needs a ``step_fn`` that
 scores a padded query batch. ``for_experiment`` builds that step for the
-paper (hybrid) system.
+paper (hybrid) system: the exact scan, or with ``index="ivf"`` the IVF
+index's probe and rerank.
 """
 from __future__ import annotations
 
@@ -231,15 +232,21 @@ class ServingEngine:
         """Build an engine over a paper-system ``Experiment``. Queries are
         single feature embeddings ``[D]``; ``top_k=None`` serves greedy
         class ids, ``top_k=k`` serves ``(ids [k], scores [k])`` per
-        request. ``index="ivf"`` is not ported yet."""
+        request.
+
+        ``index="ivf"`` routes the top-k path through the experiment's
+        ``IVFIndex`` (fit lazily, refit when ``weights_version`` moves):
+        each shard probes ``nprobe`` centroids (default: the index's own)
+        and reranks only their member rows."""
         if index not in (None, "none", "ivf"):
             raise ValueError(f"unknown serving index {index!r}; "
                              f"expected 'none' or 'ivf'")
-        if index == "ivf" or nprobe is not None:
-            raise NotImplementedError(
-                "the IVF serving index is not ported to torch yet "
-                "(ROADMAP.md queue A.2)")
-        step_fn = _paper_step_fn(exp, top_k)
+        use_ivf = index == "ivf"
+        if use_ivf and top_k is None:
+            raise ValueError("index='ivf' serves top-k retrieval; "
+                             "pass top_k=...")
+        step_fn = (_paper_ivf_step_fn(exp, top_k, nprobe) if use_ivf
+                   else _paper_step_fn(exp, top_k))
         # the probe moves on every weight load as well as every train step
         # (weights_version is (loads, step)), so cached scores never outlive
         # the weights that produced them
@@ -300,5 +307,35 @@ def _paper_step_fn(exp, top_k):
             vals, gids = out
             return gids.cpu().numpy(), vals.cpu().numpy()
         return out.cpu().numpy(), None
+
+    return run
+
+
+def _paper_ivf_step_fn(exp, top_k, nprobe):
+    import torch
+
+    from repro_torch.train import hybrid
+
+    built = {}           # (n_clusters, cap, nprobe) -> step
+
+    def ensure():
+        # exp.ivf_index() refits when weights_version moves; the step is
+        # rebuilt only when the index's geometry (or the effective probe
+        # width) changes
+        idx = exp.ivf_index()
+        np_eff = idx.resolve_nprobe(nprobe)
+        key = (idx.n_clusters, idx.cap, np_eff)
+        if key not in built:
+            built.clear()
+            built[key] = hybrid.make_batched_ivf_topk_serve_step(
+                exp.model_cfg, exp.head_cfg, top_k, nprobe=np_eff,
+                head=exp.head)
+        return idx, built[key]
+
+    def run(queries: np.ndarray, n_valid: int):
+        idx, step = ensure()
+        q = torch.from_numpy(queries).to(exp.device)
+        vals, gids = step(exp.state, idx.centroids, idx.members, q, n_valid)
+        return gids.cpu().numpy(), vals.cpu().numpy()
 
     return run

@@ -55,17 +55,7 @@ def paper_serve(head_cfg: dict, w: np.ndarray, inputs: np.ndarray,
     class matrix ``w`` (carried over by ``interop``): greedy and top-k on
     explicit ``inputs``, then the same through the serving engine for
     ``queries`` submitted one by one."""
-    from repro_torch import interop
-    from repro_torch.api import Experiment
-
-    cfg = interop.head_config_from_dict(head_cfg)
-    v, d = w.shape
-    exp = Experiment.from_config(system="paper", classes=v, feat_dim=d,
-                                 batch=inputs.shape[0], head=cfg,
-                                 device="cpu")
-    exp.load_state(interop.paper_state_from_numpy(
-        {}, w, rank=dist.rank(), world_size=dist.world_size(),
-        device="cpu"))
+    exp = _cpu_experiment(head_cfg, w)
     out = {"greedy": exp.serve({"features": inputs})}
     out["topk_ids"], out["topk_scores"] = exp.serve(
         {"features": inputs}, top_k=top_k, return_scores=True)
@@ -210,6 +200,156 @@ def collective_grads() -> dict:
             "pmin_requires_grad": dist.pmin(x).requires_grad}
 
 
+def clustered_weights(classes: int, dim: int, *, offset: float = 0.3,
+                      seed: int = 0, device="cpu", block: int = 1 << 16):
+    """Tight clustered unit class rows [classes, dim] (a stand-in for a
+    converged cosine head, which the IVF quantizer needs structure to
+    index): ``classes // 64`` unit centres, each row a random centre plus
+    Gaussian noise of norm about ``offset``, renormalised. The JAX
+    package's ``tests/test_ivf_index.py`` construction, drawn with a torch
+    generator on ``device``, ``block`` rows at a time."""
+    from repro_torch.core.sharded_softmax import _normalize
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    n_cent = max(2, classes // 64)
+    centers = _normalize(torch.randn((n_cent, dim), generator=g,
+                                     device=device))
+    which = torch.randint(0, n_cent, (classes,), generator=g, device=device)
+    out = torch.empty((classes, dim), device=device)
+    for r0 in range(0, classes, block):
+        r1 = min(classes, r0 + block)
+        noise = torch.randn((r1 - r0, dim), generator=g, device=device)
+        out[r0:r1] = _normalize(centers[which[r0:r1]]
+                                + noise * (offset / dim ** 0.5))
+    return out
+
+
+def query_pool(protos, n: int, *, noise: float = 0.1, seed: int = 1):
+    """n queries near random rows of ``protos``: the row plus Gaussian
+    noise of norm about ``noise`` (``tests/test_ivf_index.py``'s pool)."""
+    g = torch.Generator(device=protos.device)
+    g.manual_seed(seed)
+    labels = torch.randint(0, protos.shape[0], (n,), generator=g,
+                           device=protos.device)
+    d = protos.shape[1]
+    return protos[labels] + torch.randn((n, d), generator=g,
+                                        device=protos.device) * (
+                                            noise / d ** 0.5)
+
+
+def _cpu_experiment(head_cfg: dict, w: np.ndarray, n_valid: int = 0):
+    """A CPU ``PaperExperiment`` on this member serving the GLOBAL class
+    matrix ``w`` (its row block), with ``n_valid`` real classes (0: all)."""
+    import dataclasses
+
+    from repro_torch import interop
+    from repro_torch.api import Experiment
+    from repro_torch.api.experiment import paper_model_config
+
+    v, d = w.shape
+    model = dataclasses.replace(paper_model_config("feats", v, d),
+                                real_vocab_size=n_valid or None)
+    exp = Experiment.from_config(
+        system="paper", model=model, batch=8, device="cpu",
+        head=interop.head_config_from_dict(head_cfg))
+    exp.load_state(interop.paper_state_from_numpy(
+        {}, w, rank=dist.rank(), world_size=dist.world_size(),
+        device="cpu"))
+    return exp
+
+
+def _stacked(t) -> np.ndarray:
+    """``t`` of every member, stacked in rank order: [P, ...]."""
+    return _np(dist.all_gather(t[None], dim=0))
+
+
+def ivf_fit(w: np.ndarray, *, n_valid: int = 0, n_clusters: int = 0,
+            iters: int = 8, centroids=None) -> dict:
+    """The IVF index fit over this member's rows of ``w``, stacked over the
+    ring as the JAX package's [P, ...] arrays, and whether a second fit
+    gives the same bits. With ``centroids`` (the JAX fit's [P, C, D]),
+    also the port's packing of this member's rows into those clusters."""
+    from repro_torch.serving import index as ix
+
+    exp = _cpu_experiment({"softmax_impl": "full"}, w, n_valid)
+    idx = exp.ivf_index(n_clusters=n_clusters, iters=iters)
+    again = exp.ivf_index(n_clusters=n_clusters, iters=iters, refit=True)
+    out = {"centroids": _stacked(idx.centroids),
+           "members": _stacked(idx.members),
+           "counts": _stacked(torch.from_numpy(idx.counts)),
+           "cap": idx.cap, "n_clusters": idx.n_clusters,
+           "nprobe": idx.nprobe,
+           "refit_bitwise": bool(
+               torch.equal(idx.centroids, again.centroids)
+               and torch.equal(idx.members, again.members))}
+    if centroids is not None:
+        wt = exp.state.head_params
+        v_loc = wt.shape[0]
+        limit = ss._shard_limit(dist.rank() * v_loc, v_loc, n_valid)
+        members, _ = ix._pack(wt, limit, torch.from_numpy(
+            np.ascontiguousarray(centroids[dist.rank()])), idx.cap)
+        out["pack_members"] = _stacked(members)
+    return out
+
+
+def ivf_serve(head_cfg: dict, w: np.ndarray, tree: dict, f: np.ndarray,
+              inputs: np.ndarray, *, k: int, n_queries: int) -> dict:
+    """The IVF serve path on this member, from the JAX package's fitted
+    index ``tree`` (its ``state_to_save()`` as numpy, carried over by
+    ``interop``) over the class matrix ``w``: both serve bodies on both
+    backends for the queries ``f``, the engine's IVF step, the facade on
+    explicit ``inputs``, and the facade's exact scan beside its IVF serve
+    at ``nprobe == C``. Returns numpy arrays."""
+    import dataclasses
+
+    from repro_torch import interop
+
+    exp = _cpu_experiment(head_cfg, w)
+    idx = interop.ivf_index_from_numpy(tree, rank=dist.rank(),
+                                       world_size=dist.world_size(),
+                                       device="cpu")
+    idx = dataclasses.replace(idx, version=tuple(exp.weights_version))
+    exp.install_ivf_index(idx)
+    ft, wt = torch.from_numpy(f), exp.state.head_params
+    out = {}
+    for b in BACKENDS:
+        out[f"body_{b}"] = tuple(map(_np, ss.serve_topk_ivf_local(
+            ft, wt, idx.centroids, idx.members, k, idx.nprobe, backend=b)))
+        out[f"batched_{b}"] = tuple(map(_np, ss.serve_topk_ivf_batched_local(
+            ft, wt, idx.centroids, idx.members, k, idx.nprobe, n_queries,
+            backend=b)))
+    eng = exp.serving_engine(top_k=k, max_batch=f.shape[0], index="ivf")
+    out["engine"] = eng.step_fn(f, n_queries)                # (ids, vals)
+    q = {"features": inputs}
+    out["facade"] = exp.serve(q, top_k=k, return_scores=True, index="ivf")
+    out["exact"] = exp.serve(q, top_k=k, return_scores=True)
+    out["full_probe"] = exp.serve(q, top_k=k, return_scores=True,
+                                  index="ivf", nprobe=idx.n_clusters)
+    out["not_refit"] = exp.ivf_index() is idx
+    return out
+
+
+def ivf_recall(protos: np.ndarray, queries: np.ndarray, *, k: int,
+               batch: int) -> dict:
+    """recall@k of the IVF serve at the index's default nprobe against the
+    exact scan, on this member's rows of the class matrix ``protos``, for
+    each backend, over ``queries`` in batches of ``batch``."""
+    out = {}
+    for b in BACKENDS:
+        exp = _cpu_experiment({"softmax_impl": "full", "backend": b}, protos)
+        exact = exp.serving_engine(top_k=k, max_batch=batch, max_wait_ms=0.0)
+        ivf = exp.serving_engine(top_k=k, max_batch=batch, max_wait_ms=0.0,
+                                 index="ivf")
+        hits = []
+        for r0 in range(0, queries.shape[0], batch):
+            q = queries[r0:r0 + batch]
+            ids_e = exact.step_fn(q, q.shape[0])[0]
+            ids_i = ivf.step_fn(q, q.shape[0])[0]
+            hits += [len(set(e) & set(i)) / k for e, i in zip(ids_e, ids_i)]
+        out[b] = (float(np.mean(hits)), exp.ivf_index().nprobe)
+    return out
+
+
 def run_all(cases: list) -> list:
     """Run ``(worker name, args, kwargs)`` cases in order on this member,
     so one spawned ring serves a whole group of tests."""
@@ -217,5 +357,7 @@ def run_all(cases: list) -> list:
                "collectives": collectives, "loss_body": loss_body,
                "paper_fit": paper_fit, "collective_grads": collective_grads,
                "knn_graph_build": knn_graph_build,
-               "knn_loss_body": knn_loss_body, "ring_shift": ring_shift}
+               "knn_loss_body": knn_loss_body, "ring_shift": ring_shift,
+               "ivf_fit": ivf_fit, "ivf_serve": ivf_serve,
+               "ivf_recall": ivf_recall}
     return [workers[name](*args, **kwargs) for name, args, kwargs in cases]

@@ -21,6 +21,7 @@ from repro_torch.core import sparsify as sp
 from repro_torch.core.pipeline import microbatched_value_and_grad
 from repro_torch.core.sharded_softmax import (_normalize, mask_padded_rows,
                                               serve_topk_batched_local,
+                                              serve_topk_ivf_batched_local,
                                               serve_topk_local)
 from repro_torch.optim import apply_updates, make_optimizer, tree_leaves
 
@@ -241,5 +242,32 @@ def make_batched_topk_serve_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
         return serve_topk_batched_local(f, w, top_k, n_queries,
                                         n_valid=head.n_valid,
                                         backend=head.backend)
+
+    return step
+
+
+def make_batched_ivf_topk_serve_step(model_cfg: ModelConfig,
+                                     head_cfg: HeadConfig, top_k: int, *,
+                                     nprobe: int,
+                                     head: Optional[SoftmaxHead] = None):
+    """Sublinear serving-tier top-k through an ``IVFIndex``:
+    (state, centroids [C, D], members [C, cap], queries [b_pad, D],
+    n_queries) -> (vals [b_pad, k] desc, gids [b_pad, k]), padding rows
+    (-inf, -1). The contract of ``make_batched_topk_serve_step``, but each
+    member probes its own ``nprobe`` centroids and reranks only their
+    member rows (``serve_topk_ivf_batched_local``; kernel backend: the
+    fused ``ops.ivf_rerank``). W-heads only: the index quantizes the
+    trained class matrix."""
+    head = head or make_head(model_cfg, head_cfg)
+    _require_class_weights(head)
+
+    @torch.inference_mode()
+    def step(state: HybridState, centroids, members, queries,
+             n_queries: int):
+        f = _features(model_cfg, state.fe_params, {"features": queries})
+        f, w = _normalized(head_cfg, f, state.head_params)
+        return serve_topk_ivf_batched_local(
+            f, w, centroids, members, top_k, nprobe, n_queries,
+            backend=head.backend, block_a=head_cfg.pallas_block_a)
 
     return step

@@ -7,6 +7,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -19,6 +20,7 @@ from repro_torch import interop
 from repro_torch.api import Experiment
 from repro_torch.configs import base as port_base
 from repro_torch.configs import sku100m_resnet as port_sku
+from repro_torch.serving import IVFIndex
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -26,6 +28,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 KNN_MODULES = ("repro_torch.core.knn_graph", "repro_torch.core.knn_softmax",
                "repro_torch.kernels.sparse_ce",
                "repro_torch.kernels.knn_dist_topk")
+IVF_MODULES = ("repro_torch.serving.index", "repro_torch.kernels.ivf_rerank")
 
 
 def test_importing_the_port_loads_no_jax():
@@ -40,7 +43,7 @@ def test_importing_the_port_loads_no_jax():
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
-        f"missing = set({KNN_MODULES!r}) - set(sys.modules)\n"
+        f"missing = set({KNN_MODULES + IVF_MODULES!r}) - set(sys.modules)\n"
         "assert not missing, missing\n"
         "print('modules', len([m for m in sys.modules "
         "if m.startswith('repro_torch')]))\n")
@@ -50,9 +53,10 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     # the training slice's modules (optim, pipeline, fccs, sparsify,
-    # trainer, launch.train) and the knn slice's (knn_graph, knn_softmax,
-    # sparse_ce, knn_dist_topk) are among them
-    assert int(out.stdout.split()[-1]) >= 42
+    # trainer, launch.train), the knn slice's (knn_graph, knn_softmax,
+    # sparse_ce, knn_dist_topk) and the IVF slice's (serving.index,
+    # kernels.ivf_rerank) are among them
+    assert int(out.stdout.split()[-1]) >= 44
 
 
 def _imports(path: Path):
@@ -101,7 +105,7 @@ def test_unported_parts_say_so():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         exp.trainer.restore_checkpoint()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        exp.serve(batch=4, top_k=2, index="ivf")
+        IVFIndex.fit(types.SimpleNamespace(par=None))      # a zoo experiment
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Experiment.from_config(
             system="paper", classes=64, feat_dim=8, device="cpu",

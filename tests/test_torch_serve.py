@@ -264,7 +264,7 @@ def test_launcher_serves_on_the_cpu(tmp_path, capsys):
     ["--cache", "-2"],
     ["--max-wait-ms", "-1"],
     ["--system", "zoo"],
-    ["--topk", "5", "--index", "ivf"],
+    ["--index", "ivf"],
     ["--head", "selective"],
     ["--backend", "pallas"],
 ])
@@ -273,8 +273,10 @@ def test_launcher_rejects_bad_and_unported_args(argv, capsys):
         port_launcher.main(argv)
     assert e.value.code == 2                   # argparse error, before torch
     err = capsys.readouterr().err
-    if "zoo" in argv or "ivf" in argv or "selective" in argv:
+    if "zoo" in argv or "selective" in argv:
         assert "not ported" in err
+    if "ivf" in argv:
+        assert "pass --topk" in err
 
 
 # ---------------------------------------------------------------------------
