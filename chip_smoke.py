@@ -106,6 +106,30 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    31 for 256 near-prototype queries (reported, not gated).
 10. the serve launcher with ``--index ivf --topk 5 --replay 0.5`` at the
    same width.
+11. flash attention: ``flash_attention`` against its plain version at the
+   JAX test's sweep (``tests/test_flash_kernel.py``: ragged Sq != T
+   non-causal, a window of 100, Dh 32/64/128) plus Dh 96 and 256 and rows
+   with no valid key (Sq=300, T=100, causal, window 50: exactly 0), in
+   fp32 (within 2e-5) and bf16 (within the JAX test's 3e-2); then at the
+   zoo prefill's shapes (BH = 72, S = T = 2,000, Dh = 64, bf16, causal):
+   bit-identical across two runs, timed beside its plain version and
+   ``scaled_dot_product_attention`` on the [8, 9, 2000, 64] view.
+12. zoo serving (the main path of the zoo slice):
+   ``Experiment.from_config(system="zoo", arch="smollm_135m")`` at its
+   full width (30 layers, bf16 over fp32 params, random weights from seed
+   0) on the ``kernel`` backend; every kernel's counter is set to 0 just
+   before ``serve(prompt_len=2000, gen=48, batch=8)`` and read just after:
+   ``flash_attention`` must have launched exactly 30 times (once a layer
+   of the prefill). Tokens [8, 48] in range. Against the ``ref`` backend
+   on the same weights and prompts: the prefill's final hidden states
+   within ZOO_H_TOL of max|h| in bf16 and ZOO_H32_TOL in fp32 compute,
+   the first greedy tokens equal except on rows whose top-2 logit gap is
+   below twice the logits' kernel-vs-ref difference, and the agreement
+   over all 48 tokens (reported). Prefill and decode times (median of 5
+   serves), tok/s, one profiled prefill and decode step (the flash
+   kernel's share and the idle share) and peak memory.
+13. the serve launcher with ``--system zoo`` at the same shapes; it must
+   return 0 and launch ``flash_attention``.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, one ``{"end_to_end": ...}`` line and, last, ``{"ok": true,
@@ -142,6 +166,40 @@ QSLICE = 132 * 128      # dist_topk timing: one wave of 128-row blocks
 KNN_K, KPRIME, ACTIVE_FRAC = 16, 32, 0.1    # the knn head (launch/train.py)
 IVF_TOL = 1e-5       # ivf_rerank: fp32 dot products of D terms in another order
 RECALL_QUERIES = 256
+# flash_attention vs its plain version. fp32: max abs error, fp32 sums in
+# another order. bf16: per element |out - plain| <= one bf16 step of |plain|
+# (2^-7 |plain|: outputs rounded to bf16 from fp32 sums in another order
+# land one step apart) + FLASH_BF16_ATOL (a p rounded to bf16 on the other
+# side of a boundary in a short row), read as the largest ratio of the two
+# sides; and mean|out - plain| / mean|plain| <= FLASH_BF16_MEAN_TOL, which
+# a diffuse fault (p left unrounded) breaks. On an H100 SXM (700 W) the
+# kernel reads ratio 0.66 and mean 3.2e-6 at the prefill's shapes, at most
+# 0.79 and 3.3e-6 over the sweep; p left unrounded reads 2.1 and 1.4e-3,
+# the ragged last key tile dropped 46 and 2.2e-4. The flash phase runs
+# such emulated faults through the gate at the prefill's shapes and fails
+# if one passes.
+FLASH_FP32_TOL = 2e-5
+BF16_STEP, FLASH_BF16_ATOL, FLASH_BF16_MEAN_TOL = 2.0 ** -7, 1e-3, 1e-4
+# (bh, sq, t, dh, causal, window): tests/test_flash_kernel.py's sweep, then
+# Dh 96 and 256, then rows >= 149 with no valid key
+FLASH_SWEEP = [(4, 256, 256, 64, True, 0), (2, 200, 300, 32, False, 0),
+               (3, 256, 256, 64, True, 100), (1, 512, 512, 128, True, 0),
+               (2, 192, 192, 96, True, 0), (2, 130, 130, 256, True, 0),
+               (2, 300, 100, 32, True, 50)]
+# the zoo serve: SmolLM-135M, 9 query heads of 64 over 3 KV heads; 2,000 +
+# 48 = 2,048 tokens, its context
+ZOO_BATCH, ZOO_PROMPT, ZOO_GEN, ZOO_HEADS, ZOO_HEAD_DIM = 8, 2000, 48, 9, 64
+ZOO_REPS = 5
+# prefill hidden states, kernel vs ref backend, max abs difference over
+# max|h|: bf16 activations through 30 layers, where the ref backend rounds
+# the normalised probabilities to bf16 and the kernel the unnormalised ones
+ZOO_H_TOL = 5e-2
+# greedy logits of the last ZOO_TOKEN_ROWS prompt positions of every row,
+# kernel vs ref backend: max abs difference over max|logit| (1.25e-2 on an
+# H100 SXM). A greedy token may differ only where the ref's top-2 gap is
+# below twice this bound
+ZOO_LOGIT_TOL, ZOO_TOKEN_ROWS = 2e-2, 256
+ZOO_H32_TOL = 1e-4     # the same in fp32 compute: sums in another order
 
 
 def fail(msg: str) -> None:
@@ -1496,6 +1554,345 @@ def ivf_launcher_phase(torch, ivf):
             "ivf_replay_batches": row["n_batches"]}
 
 
+# ---------------------------------------------------------------------------
+# flash attention and zoo serving (the main path of the zoo slice)
+# ---------------------------------------------------------------------------
+
+
+def _flash_bound(bh, s, t, dh, elem_bytes, causal=True):
+    """Least time of a causal (or full) attention: q, k, v, o moved once;
+    2 Dh flops for q.k and 2 Dh for p.v per (query, valid key) pair."""
+    pairs = (s * (s + 1) // 2 if causal and s == t else s * t)
+    n_ops = 4.0 * dh * pairs * bh
+    ops_rate = BF16_OPS_PER_S if elem_bytes == 2 else FP32_OPS_PER_S
+    return bound_ms(elem_bytes * bh * dh * (2 * s + 2 * t), n_ops, ops_rate)
+
+
+def flash_bf16_gate(torch, out, plain):
+    """The bf16 gate's two readings: the largest |out - plain| / (one bf16
+    step of |plain| + FLASH_BF16_ATOL), which passes at <= 1, and
+    mean|out - plain| / mean|plain|, which passes at <=
+    FLASH_BF16_MEAN_TOL."""
+    d = (out.float() - plain.float()).abs()
+    a = plain.float().abs()
+    ratio = float((d / (BF16_STEP * a + FLASH_BF16_ATOL)).max())
+    mean_rel = float(d.mean() / a.mean().clamp(min=1e-30))
+    return {"ratio": ratio, "mean_rel": mean_rel,
+            "ok": ratio <= 1.0 and mean_rel <= FLASH_BF16_MEAN_TOL}
+
+
+def flash_faults(torch, fa, q, k, v, plain):
+    """Outputs of faulty kernels, emulated with the plain version (causal,
+    S = T, S not a multiple of 64): p left unrounded; the ragged last key
+    tile dropped; key tile 0 dropped on the rows from 1,024 on; each row's
+    own (diagonal) key dropped. Shifting q, k and v by n rows keeps the
+    causal mask of the keys that stay, since positions are row indices."""
+    s = q.shape[1]
+    ragged = (s - 1) // fa.BLOCK * fa.BLOCK
+    shifted = fa.flash_attention_plain(q[:, 64:], k[:, 64:], v[:, 64:])
+    return {
+        "p_unrounded": fa.flash_attention_plain(
+            q.float(), k.float(), v.float()).to(q.dtype),
+        "ragged_tile_dropped": fa.flash_attention_plain(
+            q, k[:, :ragged], v[:, :ragged]),
+        "tile0_dropped_rows_ge_1024": torch.cat(
+            [plain[:, :1024], shifted[:, 1024 - 64:]], dim=1),
+        "diagonal_dropped": torch.cat(
+            [torch.zeros_like(plain[:, :1]), fa.flash_attention_plain(
+                q[:, 1:], k[:, :-1], v[:, :-1])], dim=1)}
+
+
+def check_flash(torch, fa, bh, s, t, dh, causal, window, dtype, seed):
+    """Kernel vs plain version on one shape: max abs error (and the bf16
+    gate's readings), and the rows with no valid key exactly 0 in both."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    q, k, v = (torch.randn((bh, n, dh), generator=g, device=DEVICE).to(dtype)
+               for n in (s, t, t))
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    if out.dtype != dtype or out.shape != q.shape:
+        fail(f"flash_attention returned {out.dtype} {tuple(out.shape)}")
+    if not torch.isfinite(out).all():
+        fail(f"flash_attention gave non-finite values at {bh, s, t, dh}")
+    err = float((out.float() - plain.float()).abs().max())
+    if window and causal:
+        empty = torch.arange(s, device=DEVICE) - window + 1 >= t
+        if empty.any() and (out[:, empty].any() or plain[:, empty].any()):
+            fail("rows with no valid key are not 0")
+    gate = flash_bf16_gate(torch, out, plain) if dtype == torch.bfloat16 \
+        else {"ok": err <= FLASH_FP32_TOL}
+    return err, gate
+
+
+def flash_kernel_phase(torch, fa):
+    """``flash_attention`` against its plain version at the JAX test's
+    sweep (and Dh 96 / 256, and rows with no valid key) in fp32 and bf16,
+    then at the zoo prefill's shapes: held to the bf16 gate, which must
+    reject emulated faults on the same inputs, bit-identical across two
+    runs, timed beside its plain version and SDPA."""
+    errs, gates = {}, {}
+    for i, (bh, s, t, dh, causal, window) in enumerate(FLASH_SWEEP):
+        for dtype in (torch.float32, torch.bfloat16):
+            err, gate = check_flash(torch, fa, bh, s, t, dh, causal, window,
+                                    dtype, seed=i)
+            name = f"{bh}x{s}x{t}x{dh}{'c' if causal else ''}w{window}"
+            errs[f"{name}_{str(dtype)[6:]}"] = err
+            if dtype == torch.bfloat16:
+                gates[name] = (gate["ratio"], gate["mean_rel"])
+            if not gate["ok"]:
+                fail(f"flash_attention {name} {dtype}: max abs err {err:.3g}"
+                     f", gate {gate}")
+    log(f"flash phase: the sweep agrees with the plain version "
+        f"(fp32 max {max(e for k, e in errs.items() if 'float32' in k):.3g}"
+        f", bf16 max {max(e for k, e in errs.items() if 'bfloat16' in k):.3g}"
+        f"; bf16 gate (ratio, mean) {gates}; {errs})")
+
+    bh, s, dh = ZOO_BATCH * ZOO_HEADS, ZOO_PROMPT, ZOO_HEAD_DIM
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(7)
+    q, k, v = (torch.randn((bh, s, dh), generator=g, device=DEVICE).to(
+        torch.bfloat16) for _ in range(3))
+    out = fa.flash_attention(q, k, v)
+    again = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        fail("flash_attention is not bit-identical across two runs")
+    plain = fa.flash_attention_plain(q, k, v)
+    err = float((out.float() - plain.float()).abs().max())
+    gate = flash_bf16_gate(torch, out, plain)
+    if not gate["ok"]:
+        fail(f"flash_attention at the prefill shapes: max abs err {err:.3g}, "
+             f"gate {gate}")
+    faults = {}
+    for name, bad in flash_faults(torch, fa, q, k, v, plain).items():
+        fgate = flash_bf16_gate(torch, bad, plain)
+        faults[name] = (fgate["ratio"], fgate["mean_rel"])
+        if fgate["ok"]:
+            fail(f"the bf16 gate passes an emulated faulty kernel ({name}: "
+                 f"{fgate})")
+    ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v), 50)
+    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v), 3)
+    # SDPA on the same tensors viewed [B, H, S, Dh]: its fused kernels want
+    # 4-d inputs (on [BH, S, Dh] it falls back to the unfused product)
+    q4, k4, v4 = (x.view(ZOO_BATCH, ZOO_HEADS, s, dh) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = cuda_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True), 50)
+    lib_out = sdpa(q4, k4, v4, is_causal=True).reshape(bh, s, dh)
+    lib_err = float((lib_out.float() - plain.float()).abs().max())
+    lib_gate = flash_bf16_gate(torch, lib_out, plain)
+    bound, by = _flash_bound(bh, s, s, dh, 2)
+    log(f"flash phase: at BH={bh}, S=T={s}, Dh={dh}, bf16, causal: max abs "
+        f"err {err:.3g} vs plain, bf16 gate ratio {gate['ratio']:.3g} (<= 1) "
+        f"and mean {gate['mean_rel']:.3g} (<= {FLASH_BF16_MEAN_TOL}); "
+        f"emulated faults (ratio, mean) {faults}, all rejected; SDPA "
+        f"{lib_err:.3g}, ratio {lib_gate['ratio']:.3g}, mean "
+        f"{lib_gate['mean_rel']:.3g}; bit-identical; {ms:.4f} ms, bound "
+        f"{bound:.4f} ms by {by}, plain {plain_ms:.3f} ms, SDPA "
+        f"{lib_ms:.4f} ms")
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:91",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=lib_ms,
+        library="scaled_dot_product_attention(is_causal=True) on "
+                f"[{ZOO_BATCH},{ZOO_HEADS},{s},{dh}] bf16",
+        library_max_abs_err=lib_err,
+        library_bf16_gate=(lib_gate["ratio"], lib_gate["mean_rel"]),
+        bf16_gate=(gate["ratio"], gate["mean_rel"]),
+        bf16_gate_faults=faults, sweep_bf16_gate=gates,
+        sweep_max_abs_err=errs, shape=f"q,k,v[{bh},{s},{dh}] bf16 causal")
+
+
+def _zoo(torch, backend, params=None):
+    from repro_torch.api import Experiment
+    from repro_torch.configs.base import HeadConfig
+    exp = Experiment.from_config(system="zoo", arch="smollm_135m",
+                                 batch=ZOO_BATCH, seq=ZOO_PROMPT + ZOO_GEN,
+                                 seed=0, device=DEVICE,
+                                 head=HeadConfig(backend=backend))
+    if params is not None:
+        exp.load_params(params)
+    return exp
+
+
+def zoo_phase(torch, np, counters, fa):
+    from repro_torch.core import sharded_softmax as sharded
+    from repro_torch.data import synthetic
+    from repro_torch.models import lm
+    from repro_torch.telemetry import Tracer
+    from repro_torch.train import gspmd
+
+    exp = _zoo(torch, "kernel")
+    cfg = exp.model_cfg
+    n_params = sum(p.numel() for p in exp.params.parameters())
+    log(f"zoo phase: {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}), "
+        f"{n_params / 1e6:.1f}M params")
+
+    # -- the main path, with every kernel's counter read around it ----------
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    toks = exp.serve(prompt_len=ZOO_PROMPT, gen=ZOO_GEN, batch=ZOO_BATCH)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()
+                if getattr(mod, attr)}
+    if launches.get("flash_attention") != cfg.n_layers:
+        fail(f"the zoo serve launched {launches}, not flash_attention once "
+             f"a layer ({cfg.n_layers})")
+    log(f"zoo phase: launches on the main path {launches}")
+    if toks.shape != (ZOO_BATCH, ZOO_GEN) or toks.dtype != np.int32:
+        fail(f"tokens {toks.shape} {toks.dtype}")
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail("tokens out of range")
+
+    # -- against the ref backend on the same weights and prompts ------------
+    prompts = synthetic.lm_batch(0, ZOO_BATCH, ZOO_PROMPT, cfg.vocab_size,
+                                 device=DEVICE)["tokens"]
+    h = {}
+    with torch.no_grad():
+        for b in ("kernel", "ref"):
+            h[b] = lm.backbone(exp.params, cfg, {"tokens": prompts},
+                               backend=b)[0].float()
+    scale = float(h["ref"].abs().max())
+    h_err = float((h["kernel"] - h["ref"]).abs().max()) / scale
+    if not torch.isfinite(h["kernel"]).all() or h_err > ZOO_H_TOL:
+        fail(f"prefill hidden states, kernel vs ref: {h_err:.3g} of "
+             f"max|h| > {ZOO_H_TOL}")
+    # the greedy next token at the last ZOO_TOKEN_ROWS positions of every
+    # row (the last is the serve's first token), kernel vs ref: the logits
+    # within a fixed bound, so a token may differ only where the ref's
+    # top-2 gap is below twice that bound
+    w = lm.head_weight(exp.params, cfg)
+    nxt, logits = {}, {}
+    for b in h:
+        ids, lg = sharded.serve_logits_local(
+            h[b][:, -ZOO_TOKEN_ROWS:].reshape(-1, cfg.d_model).to(
+                torch.bfloat16), w)
+        nxt[b], logits[b] = ids.view(ZOO_BATCH, -1).cpu().numpy(), lg
+    logit_scale = float(logits["ref"].abs().max())
+    logit_err = float((logits["kernel"] - logits["ref"]).abs().max())
+    if logit_err > ZOO_LOGIT_TOL * logit_scale:
+        fail(f"greedy logits, kernel vs ref: {logit_err:.3g} > "
+             f"{ZOO_LOGIT_TOL} of max|logit| {logit_scale:.3g}")
+    top2 = logits["ref"].topk(2, dim=1).values
+    gap = (top2[:, 0] - top2[:, 1]).view(ZOO_BATCH, -1).cpu().numpy()
+    near = gap < 2 * ZOO_LOGIT_TOL * logit_scale
+    differ = (nxt["kernel"] != nxt["ref"]) & ~near
+    if differ.any():
+        fail(f"greedy tokens differ from ref at {int(differ.sum())} "
+             f"positions whose top-2 gap is at least "
+             f"{2 * ZOO_LOGIT_TOL * logit_scale:.3g}")
+    if not np.array_equal(nxt["kernel"][:, -1], toks[:, 0]):
+        fail("the serve's first tokens are not the prefill's greedy tokens")
+    n_checked = int((~near).sum())
+    n_equal = int((nxt["kernel"] == nxt["ref"]).sum())
+    del logits
+    ref_exp = _zoo(torch, "ref", params=exp.params)
+    ref_toks = ref_exp.serve(prompt_len=ZOO_PROMPT, gen=ZOO_GEN,
+                             batch=ZOO_BATCH)
+    agree = float((ref_toks == toks).mean())
+    del h
+
+    # the same prefill in fp32 compute: the kernel's fp32 path vs ref
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.no_grad():
+        h32 = {b: lm.backbone(exp.params, cfg32, {"tokens": prompts},
+                              backend=b)[0]
+               for b in ("kernel", "ref")}
+    h32_err = float((h32["kernel"] - h32["ref"]).abs().max()
+                    / h32["ref"].abs().max())
+    if h32_err > ZOO_H32_TOL:
+        fail(f"fp32 prefill hidden states, kernel vs ref: {h32_err:.3g}")
+    del h32, ref_exp
+    n_pos = ZOO_BATCH * ZOO_TOKEN_ROWS
+    log(f"zoo phase: kernel vs ref prefill hidden states {h_err:.3g} of "
+        f"max|h| in bf16 ({h32_err:.3g} in fp32); greedy logits of the last "
+        f"{ZOO_TOKEN_ROWS} positions {logit_err:.3g} of max|logit| "
+        f"{logit_scale:.3g} ({logit_err / logit_scale:.3g} <= "
+        f"{ZOO_LOGIT_TOL}); next tokens equal at {n_equal}/{n_pos}, all "
+        f"{n_checked} with a top-2 gap >= "
+        f"{2 * ZOO_LOGIT_TOL * logit_scale:.3g} among them; the serve's "
+        f"{ZOO_GEN} tokens agree on {agree:.3f}")
+
+    # -- latency: host clock, synchronised, median of 5 ---------------------
+    pre, dec = [], []
+    for _ in range(ZOO_REPS + 1):
+        tr = Tracer()
+        exp.serve(prompt_len=ZOO_PROMPT, gen=ZOO_GEN, batch=ZOO_BATCH,
+                  telemetry=tr)
+        pre.append(tr.span_stats("serve.prefill")["total_s"] * 1e3)
+        dec.append(tr.span_stats("serve.decode")["total_s"] * 1e3)
+    pre, dec = pre[1:], dec[1:]                 # the first warms up
+    prefill_ms = statistics.median(pre)
+    decode_ms = statistics.median(dec)
+    step_ms = decode_ms / (ZOO_GEN - 1)
+    tok_s = ZOO_BATCH * ZOO_GEN / ((prefill_ms + decode_ms) / 1e3)
+    decode_tok_s = ZOO_BATCH * (ZOO_GEN - 1) / (decode_ms / 1e3)
+
+    # -- one profiled prefill and one profiled decode step ------------------
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import decoder
+    shape = InputShape("serve-decode", ZOO_PROMPT + ZOO_GEN, ZOO_BATCH,
+                       "decode")
+    prefill = gspmd.make_prefill_step(cfg, shape, backend="kernel")
+    step = gspmd.make_serve_step(cfg, shape, backend="kernel")
+    with torch.no_grad():
+        tok, caches = prefill(exp.params, {"tokens": prompts})
+        slots = decoder.init_cache_slots(
+            cfg, ZOO_PROMPT + ZOO_GEN,
+            prefill_positions=torch.arange(ZOO_PROMPT, device=DEVICE))
+        prof_pre = profile_ms(torch, lambda: prefill(
+            exp.params, {"tokens": prompts}))
+        prof_dec = profile_ms(torch, lambda: step(
+            exp.params, caches, slots, tok[:, None]))
+    flash_ms = sum(v for k, v in prof_pre["top_kernels_ms"].items()
+                   if "flash" in k)
+    prof_pre["flash_share"] = flash_ms / prof_pre["device_busy_ms"]
+    log(f"zoo phase: prefill {prefill_ms:.2f} ms, decode {step_ms:.3f} ms a "
+        f"step ({decode_ms:.1f} ms for {ZOO_GEN - 1}), {tok_s:.1f} tok/s end "
+        f"to end, {decode_tok_s:.1f} tok/s decoding; peak memory "
+        f"{peak_gb:.2f} GB; profiled prefill {prof_pre}; profiled decode "
+        f"step {prof_dec}")
+    e2e = {"zoo_prefill_ms": prefill_ms, "zoo_prefill_ms_all": pre,
+           "zoo_decode_step_ms": step_ms, "zoo_decode_ms": decode_ms,
+           "zoo_tok_per_s": tok_s, "zoo_decode_tok_per_s": decode_tok_s,
+           "zoo_peak_memory_gb": peak_gb, "zoo_prefill_profile": prof_pre,
+           "zoo_decode_step_profile": prof_dec,
+           "zoo_h_rel_err_bf16": h_err, "zoo_h_rel_err_fp32": h32_err,
+           "zoo_logit_rel_err": logit_err / logit_scale,
+           "zoo_logit_scale": logit_scale,
+           "zoo_next_tokens_equal": n_equal,
+           "zoo_next_tokens_checked": n_checked,
+           "zoo_next_tokens_positions": n_pos,
+           "zoo_token_agreement_vs_ref": agree,
+           "zoo_first_row": toks[0].tolist()}
+    return launches, e2e
+
+
+def zoo_launcher_phase(torch, fa):
+    from repro_torch.launch import serve as launcher
+
+    before = fa.LAUNCHES
+    t0 = time.perf_counter()
+    rc = launcher.main(["--system", "zoo", "--arch", "smollm_135m",
+                        "--prompt-len", str(ZOO_PROMPT), "--gen",
+                        str(ZOO_GEN), "--batch", str(ZOO_BATCH),
+                        "--device", DEVICE])
+    torch.cuda.synchronize()
+    if rc != 0:
+        fail(f"the zoo launcher returned {rc}")
+    if fa.LAUNCHES == before:
+        fail("the zoo launcher never launched flash_attention")
+    return {"zoo_launcher_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1516,6 +1913,7 @@ def main() -> int:
     from repro_torch.core import sharded_softmax as sharded
     from repro_torch.kernels import build
     from repro_torch.kernels import ce_softmax as ce
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ivf_rerank as ivf
     from repro_torch.kernels import knn_dist_topk as dk
     from repro_torch.kernels import sparse_ce as sp
@@ -1555,18 +1953,32 @@ def main() -> int:
     knn_launches, knn_e2e = knn_training_phase(torch, sp, dk)
     e2e.update(knn_e2e)
     e2e.update(train_launcher_phase("knn"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels["flash_attention"] = flash_kernel_phase(torch, fa)
+    counters = {"ce_forward": (ce, "LAUNCHES"),
+                "ce_backward": (ce, "BWD_LAUNCHES"),
+                "sparse_ce_forward": (sp, "LAUNCHES"),
+                "sparse_ce_backward": (sp, "BWD_LAUNCHES"),
+                "dist_topk": (dk, "LAUNCHES"), "stage1_topk": (dc, "LAUNCHES"),
+                "ivf_rerank": (ivf, "LAUNCHES"),
+                "flash_attention": (fa, "LAUNCHES")}
+    zoo_launches, zoo_e2e = zoo_phase(torch, np, counters, fa)
+    e2e.update(zoo_e2e)
+    e2e.update(zoo_launcher_phase(torch, fa))
     e2e["build_s"] = build_s
 
     # launches on each main path, from its own reset-and-read of the counters
     by_path = {name: {"serving": serve_launches.get(name, 0),
                       "training": train_launches.get(name, 0),
                       "knn_training": knn_launches.get(name, 0),
-                      "ivf_serving": ivf_launches.get(name, 0)}
+                      "ivf_serving": ivf_launches.get(name, 0),
+                      "zoo_serving": zoo_launches.get(name, 0)}
                for name in kernels}
     rows = []
     for name, k in kernels.items():
-        path = next(p for p in ("knn_training", "training", "ivf_serving",
-                                "serving")
+        path = next(p for p in ("zoo_serving", "knn_training", "training",
+                                "ivf_serving", "serving")
                     if by_path[name][p] or p == "serving")
         rows.append({**k, "launches": by_path[name][path],
                      "launches_path": path, "launches_by_path": by_path[name],

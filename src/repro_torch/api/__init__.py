@@ -1,3 +1,4 @@
-from repro_torch.api.experiment import Experiment, PaperExperiment
+from repro_torch.api.experiment import (Experiment, PaperExperiment,
+                                       ZooExperiment)
 
-__all__ = ["Experiment", "PaperExperiment"]
+__all__ = ["Experiment", "PaperExperiment", "ZooExperiment"]

@@ -1,5 +1,5 @@
 """The ``Experiment`` facade of the port: the paper system's training and
-serving paths.
+serving paths, and the zoo's greedy token serving.
 
   >>> exp = Experiment.from_config(system="paper", classes=1_020_250,
   ...                              feat_dim=512, batch=256)  # on "cuda"
@@ -7,14 +7,18 @@ serving paths.
   >>> exp.serve(batch=64)                                    # greedy ids
   >>> exp.serve(batch=64, top_k=5, return_scores=True)       # (ids, scores)
   >>> exp.serve(batch=64, top_k=5, index="ivf")              # IVF top-k
+  >>> zoo = Experiment.from_config(system="zoo", arch="smollm_135m")
+  >>> zoo.serve(prompt_len=2000, gen=48, batch=8)            # tokens [8, 48]
 
 The port of the JAX package's ``api/experiment.py`` for the slices landed
 so far: ``fit`` (the FCCS trainer, without checkpoints), ``evaluate``,
 ``serve`` (greedy and top-k, through the serving engine or on explicit
 inputs, and top-k through the IVF index), ``serving_engine``,
-``ivf_index`` / ``install_ivf_index`` and ``weights_version``. Checkpoints
-(``ckpt_dir``, ``resume``) and the zoo system come with later slices
-(ROADMAP.md queue A).
+``ivf_index`` / ``install_ivf_index`` and ``weights_version`` on the paper
+system; the zoo's prefill + greedy decode (``ZooExperiment.serve``) for
+the dense decoders. Checkpoints (``ckpt_dir``, ``resume``), the zoo
+trainer and the zoo's feature retrieval come with later slices (ROADMAP.md
+queue A).
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and with no
 GPU present they raise rather than fall back to the CPU. Pass
@@ -29,8 +33,9 @@ import numpy as np
 import torch
 
 from repro_torch import dist
-from repro_torch.configs.base import (HeadConfig, ModelConfig, TrainConfig,
-                                      effective_vocab)
+from repro_torch.configs.base import (HeadConfig, InputShape, ModelConfig,
+                                      TrainConfig, effective_vocab,
+                                      get_model_config, pad_vocab)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -80,9 +85,7 @@ class Experiment:
         if system == "paper":
             return PaperExperiment(**kw)
         if system == "zoo":
-            raise NotImplementedError(
-                "the zoo system is not ported to torch yet (ROADMAP.md "
-                "queue A)")
+            return ZooExperiment(**kw)
         raise ValueError(f"unknown system {system!r} (paper | zoo)")
 
     def fit(self, steps: int, **kw):
@@ -305,3 +308,167 @@ class PaperExperiment(Experiment):
         if return_scores:
             return ids, np.stack([r.scores for r in done])
         return ids
+
+
+# ---------------------------------------------------------------------------
+# zoo system (greedy token serving)
+# ---------------------------------------------------------------------------
+
+
+class ZooExperiment(Experiment):
+    """Greedy token serving for the zoo's dense decoders: prefill once,
+    then one-token decode steps through the rotating KV cache, each token
+    the argmax over the row-sharded class matrix (``train.gspmd``). The
+    trunk is replicated on every ring member; the head's rows are split
+    over the ring, the vocab padded to ``n_model`` (default: the ring
+    size). ``head.backend`` (``"kernel"`` by default) selects the kernels
+    of the whole path: the flash attention of the prefill.
+
+    The JAX package's constructor arguments are kept; ``fit``,
+    ``evaluate``, ``serve(top_k=...)``, serving engines, the IVF index and
+    ``ckpt_dir`` wait for their slices and raise, naming ROADMAP.md."""
+
+    def __init__(self, *, arch: str = "smollm_135m", reduced: bool = False,
+                 head: Optional[HeadConfig] = None,
+                 train: Optional[TrainConfig] = None,
+                 batch: int = 64, seq: int = 64, n_model: Optional[int] = None,
+                 ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
+                 ckpt_keep: int = 0, log_every: int = 10,
+                 seed: int = 0, telemetry=None, device=None):
+        import dataclasses
+
+        from repro_torch.api.heads import make_head
+        from repro_torch.models import decoder, lm
+
+        if ckpt_dir:
+            raise NotImplementedError(
+                "checkpoints are not ported to torch yet (ROADMAP.md queue "
+                "A.7)")
+        cfg = get_model_config(arch, reduced=reduced)
+        decoder.require_ported(cfg)
+        self.device = resolve_device(device)
+        if reduced:
+            cfg = dataclasses.replace(cfg, dtype="float32")
+        self.model_cfg = pad_vocab(cfg, n_model or dist.world_size())
+        self.head_cfg = head or HeadConfig()
+        if self.head_cfg.softmax_impl == "full":
+            # the JAX package's zoo numerics: the full softmax on LM trunks
+            # trains raw logits, matching the raw-argmax decode
+            self.head_cfg = dataclasses.replace(self.head_cfg,
+                                                cosine_scale=0.0)
+        self.train_cfg = train or TrainConfig(optimizer="sgd")
+        self.batch, self.seq = batch, seq
+        self.log_every = log_every
+        self.telemetry = telemetry
+        self.head = make_head(self.model_cfg, self.head_cfg)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        with torch.no_grad():
+            self.params = lm.init_model(gen, self.model_cfg)
+        self.restores = 0    # bumped on every load_params
+        self._t = 0          # the data cursor a fit would move
+
+    @property
+    def weights_version(self):
+        """Moves whenever the served weights can have changed."""
+        return (self.restores, self._t)
+
+    def load_params(self, params) -> None:
+        """Install model params (a ``models.layers.ParamDict``, for example
+        the JAX package's carried over by
+        ``repro_torch.interop.zoo_params_from_numpy``)."""
+        self.params = params
+        self.restores += 1
+
+    def fit(self, steps: int, **kw):
+        raise NotImplementedError(
+            "the zoo trainer is not ported to torch yet (ROADMAP.md A.9)")
+
+    def evaluate(self, inputs=None) -> float:
+        raise NotImplementedError(
+            "zoo evaluation comes with the zoo trainer (ROADMAP.md A.9)")
+
+    def serving_engine(self, *, top_k: Optional[int] = None, **kw):
+        raise NotImplementedError(
+            "zoo feature retrieval through the serving engine is not ported "
+            "to torch yet (ROADMAP.md A.9)")
+
+    def ivf_index(self, **kw):
+        raise NotImplementedError(
+            "the zoo's IVF path is not ported to torch yet (ROADMAP.md A.9)")
+
+    def serve(self, *, prompt_len: int = 32, gen: int = 16,
+              batch: Optional[int] = None, top_k: Optional[int] = None,
+              queries=None, return_scores: bool = False,
+              index: Optional[str] = None, nprobe: Optional[int] = None,
+              telemetry=None):
+        """Batched greedy decoding: prefill ``prompt_len`` tokens of the
+        synthetic LM stream once, then ``gen - 1`` single-token decode
+        steps through the KV cache and the sharded-vocab argmax. Returns
+        the generated tokens [batch, gen] (numpy int32). Spans
+        ``serve.prefill`` / ``serve.decode`` and the counter
+        ``serve.decoded_tokens`` go to ``telemetry``."""
+        from repro_torch.data import synthetic
+        from repro_torch.models import decoder, lm
+        from repro_torch.telemetry import NULL_TRACER
+        from repro_torch.train import gspmd
+
+        tr = telemetry or NULL_TRACER
+        _validate_serve_args(effective_vocab(self.model_cfg), batch, top_k)
+        if index not in (None, "none", "ivf"):
+            raise ValueError(f"unknown serving index {index!r}; "
+                             f"expected 'none' or 'ivf'")
+        if index == "ivf" and top_k is None:
+            raise ValueError("index='ivf' serves top-k retrieval; "
+                             "pass top_k=...")
+        if top_k is not None or queries is not None:
+            raise NotImplementedError(
+                "zoo feature retrieval (serve(top_k=...)) is not ported to "
+                "torch yet (ROADMAP.md A.9)")
+        if prompt_len <= 0 or gen <= 0:
+            raise ValueError(
+                f"prompt_len and gen must be positive, got "
+                f"prompt_len={prompt_len} gen={gen}")
+        if not self.head.params_are_class_weights:
+            raise NotImplementedError(
+                f"zoo serve() decodes with the model's [V, D] head weight, "
+                f"which the {self.head.name!r} head does not train")
+        cfg = self.model_cfg
+        batch = batch or self.batch
+        total = prompt_len + gen
+        dshape = InputShape("serve-decode", total, batch, "decode")
+        backend = self.head_cfg.backend
+        sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                else lambda: None)
+        with torch.no_grad():
+            prompts = synthetic.lm_batch(0, batch, prompt_len,
+                                         effective_vocab(cfg),
+                                         device=self.device)
+            window = lm.decode_window(cfg, total)
+            prefill = gspmd.make_prefill_step(cfg, dshape, backend=backend)
+            serve = gspmd.make_serve_step(cfg, dshape, backend=backend)
+            with tr.span("serve.prefill"):
+                tok, caches = prefill(self.params,
+                                      {"tokens": prompts["tokens"]})
+                if tr.enabled:
+                    sync()
+
+            def grow(c):
+                if c.dim() >= 3 and c.shape[2] == prompt_len:
+                    return torch.nn.functional.pad(
+                        c, (0, 0) * (c.dim() - 3) + (0, window - prompt_len))
+                return c
+            caches = {k: grow(c) for k, c in caches.items()}
+            slots = decoder.init_cache_slots(
+                cfg, window, prefill_positions=torch.arange(
+                    prompt_len, device=self.device))
+            out = [tok]
+            tok = tok[:, None]
+            with tr.span("serve.decode"):
+                for _ in range(gen - 1):
+                    tok, caches, slots = serve(self.params, caches, slots,
+                                               tok)
+                    out.append(tok[:, 0])
+                toks = torch.stack(out, dim=1).cpu().numpy()
+        tr.count("serve.decoded_tokens", float(toks.shape[0] * gen))
+        return toks

@@ -8,6 +8,7 @@ hand-written CUDA kernels), where the JAX package says ``"pallas"``.
 """
 from __future__ import annotations
 
+import importlib
 from dataclasses import dataclass, field, replace
 from typing import Optional
 
@@ -168,6 +169,41 @@ class TrainConfig:
     dgc: DGCConfig = field(default_factory=DGCConfig)
     seed: int = 0
     steps: int = 200
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                      # train | prefill | decode
+
+
+ARCH_IDS = [
+    "mamba2_370m", "kimi_k2_1t_a32b", "qwen3_moe_30b_a3b", "phi3_mini_3_8b",
+    "qwen3_1_7b", "gemma_2b", "whisper_tiny", "chameleon_34b", "smollm_135m",
+    "hymba_1_5b",
+]
+
+# the dense decoders, whose configs the port carries; the other arch ids
+# wait for their families (ROADMAP.md A.9)
+PORTED_ARCH_IDS = ("smollm_135m", "qwen3_1_7b", "gemma_2b", "phi3_mini_3_8b")
+
+
+def normalize_arch_id(arch: str) -> str:
+    return arch.replace("-", "_").replace(".", "_")
+
+
+def get_model_config(arch: str, reduced: bool = False) -> ModelConfig:
+    arch = normalize_arch_id(arch)
+    if arch not in ARCH_IDS:
+        raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    if arch not in PORTED_ARCH_IDS:
+        raise NotImplementedError(
+            f"the {arch!r} config is not ported to torch yet (ported: "
+            f"{list(PORTED_ARCH_IDS)}; see ROADMAP.md A.9)")
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    return mod.reduced() if reduced else mod.config()
 
 
 def pad_vocab(cfg: ModelConfig, multiple: int = 128) -> ModelConfig:

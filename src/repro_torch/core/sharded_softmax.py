@@ -188,9 +188,13 @@ def serve_argmax_local(f_loc, w_loc, *, n_valid: int = 0):
 
 
 def serve_logits_local(f_loc, w_loc, *, n_valid: int = 0):
-    """Local logits [b, V_loc] + distributed argmax class ids: each shard
-    proposes (best value, global id), combined over the ring."""
-    logits = f_loc @ w_loc.to(f_loc.dtype).T
+    """Local fp32 logits [b, V_loc] + distributed argmax class ids: each
+    shard proposes (best value, global id), combined over the ring. W is
+    rounded to the features' dtype and the product is taken in fp32 (the
+    JAX package's ``preferred_element_type=float32``): with bf16 features
+    the products are exact and only their fp32 sums are rounded, so the
+    argmax meets no ties that bf16 logits would make."""
+    logits = f_loc.float() @ w_loc.to(f_loc.dtype).float().T
     v_loc = w_loc.shape[0]
     v_start = dist.flat_axis_index() * v_loc
     if n_valid:

@@ -1,5 +1,6 @@
-"""Deterministic synthetic data: the port of the SKU feature stream of the
-JAX package's ``data/synthetic.py``.
+"""Deterministic synthetic data: the port of the SKU feature stream and
+the LM token stream (``lm_batch``) of the JAX package's
+``data/synthetic.py``.
 
 Each class has a unit prototype vector drawn around one of n/64 cluster
 centres (so neighbouring classes are confusable); samples are noisy
@@ -66,3 +67,26 @@ def sku_feature_batch(step: int, batch_size: int,
                       stream: ClassificationStream):
     f, y = stream.batch(step, batch_size)
     return {"features": f, "labels": y}
+
+
+def lm_batch(step: int, batch_size: int, seq_len: int, vocab: int,
+             seed: int = 0, noise_p: float = 0.05, *, device="cpu"):
+    """Learnable synthetic LM stream: per-sequence affine recurrence
+    t_{i+1} = (a*t_i + c) mod vocab with occasional resets/noise.
+    Returns {"tokens": [b,s], "labels": [b,s]} int64 (labels = next token).
+    Drawn on the CPU from a ``torch.Generator`` and moved to ``device``, so
+    a card and the CPU see the same prompts."""
+    g = _generator("cpu", seed + 31337, step)
+    a = torch.randint(1, 8, (batch_size,), generator=g) * 2 + 1
+    c = torch.randint(0, vocab, (batch_size,), generator=g)
+    t = torch.randint(0, vocab, (batch_size,), generator=g)
+    seq = [t]
+    for _ in range(seq_len):
+        t = (t * a + c) % vocab
+        seq.append(t)
+    tokens = torch.stack(seq, dim=1)                        # [b, s+1]
+    noise = torch.rand(tokens.shape, generator=g) < noise_p
+    rnd = torch.randint(0, vocab, tokens.shape, generator=g)
+    tokens = torch.where(noise, rnd, tokens).to(device)
+    return {"tokens": tokens[:, :seq_len],
+            "labels": tokens[:, 1:seq_len + 1]}

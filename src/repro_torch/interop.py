@@ -7,8 +7,10 @@ arrays (``np.asarray(exp.state.head_params)``, and the knn head's graph
 ``exp.state.head_aux``), become the port's ``HybridState``, so a JAX run's
 state continues in the port. A fitted JAX ``IVFIndex``'s
 ``state_to_save()``, taken to the host the same way, becomes a ring
-member's ``IVFIndex``. Nothing here imports JAX: only numpy arrays and
-plain dicts cross.
+member's ``IVFIndex``, and a zoo model's params (``jax.device_get`` of a
+JAX ``ZooExperiment``'s ``params``, blocks stacked on a leading [L] axis)
+become the port's per-layer modules. Nothing here imports JAX: only numpy
+arrays and plain dicts cross.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import HeadConfig
+from repro_torch.configs.base import HeadConfig, ModelConfig
+from repro_torch.models.layers import ParamDict
 from repro_torch.optim import OptState
 from repro_torch.serving.index import IVFIndex
 from repro_torch.train.hybrid import HybridState
@@ -131,3 +134,33 @@ def ivf_index_from_numpy(tree: dict, *, rank: int = 0, world_size: int = 1,
         nprobe=int(np.asarray(meta["nprobe"])),
         iters=int(np.asarray(meta["iters"])),
         version=tuple(int(x) for x in np.asarray(meta["version"])))
+
+
+def zoo_params_from_numpy(tree: dict, cfg: ModelConfig, *, rank: int = 0,
+                          world_size: int = 1, device) -> ParamDict:
+    """Ring member ``rank``'s model params from the JAX package's zoo param
+    tree as numpy arrays: ``{"embed": {"table"}, "blocks": {...},
+    "ln_f": {...}[, "head"]}``, each leaf of ``blocks`` stacked on a
+    leading [L] axis, which becomes one ``ParamDict`` a layer. The trunk
+    is replicated, so every member gets all of it; the class matrix's rows
+    must divide the ring, whose members each score their own block."""
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} is not on a ring of {world_size}")
+    if cfg.vocab_size % world_size:
+        raise ValueError(f"the vocab of {cfg.vocab_size} rows does not "
+                         f"divide the ring of {world_size}")
+
+    def convert(node, layer=None):
+        if isinstance(node, dict):
+            return {k: convert(v, layer) for k, v in node.items()}
+        a = np.asarray(node)
+        return _tensor(a if layer is None else a[layer], device)
+
+    blocks = tree["blocks"]
+    n_layers = len(np.asarray(blocks["ln1"]["scale"]))
+    if n_layers != cfg.n_layers:
+        raise ValueError(f"{n_layers} stacked layers, config has "
+                         f"{cfg.n_layers}")
+    params = {k: convert(v) for k, v in tree.items() if k != "blocks"}
+    params["blocks"] = [convert(blocks, layer) for layer in range(n_layers)]
+    return ParamDict(**params)

@@ -45,7 +45,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tiles.cuh"
+
 namespace {
+
+using namespace mma_tiles;
 
 constexpr int NT = 256;          // threads: 8 warps
 constexpr int BQ = 128;          // query rows per block
@@ -55,44 +59,6 @@ constexpr int STAGES = 3;
 constexpr int KS = KC + 8;       // stage row stride (bf16): 144 B, conflict-free ldmatrix
 constexpr int SS = BN + 8;       // score row stride (floats): conflict-free float2 stores
 constexpr int ROWS_PER_WARP = BQ / (NT / 32);   // 16
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  // src_size 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // (av, ac) comes before (bv, bc): larger value, then lower column
 __device__ __forceinline__ bool before(float av, int ac, float bv, int bc) {

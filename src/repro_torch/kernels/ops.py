@@ -1,8 +1,8 @@
 """Public wrappers around the kernels: the port of the JAX package's
 ``kernels/ops.py`` for the slices landed so far (``ce_shard_stats`` with
 its backward, ``fused_ce``, ``fused_ce_stats``, ``sparse_ce_stats``,
-``dist_topk``, ``ivf_rerank``, row-wise and flat divide-and-conquer
-top-k).
+``dist_topk``, ``ivf_rerank``, ``flash_attention``, row-wise and flat
+divide-and-conquer top-k).
 
 ``ce_shard_stats`` and ``sparse_ce_stats`` are ``torch.autograd.Function``s
 over per-row online-softmax statistics ``(m, z, corr, amax)``, as the JAX
@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ce_softmax as _ce
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ivf_rerank as _ivf
 from repro_torch.kernels import knn_dist_topk as _dk
 from repro_torch.kernels import sparse_ce as _sp
@@ -124,6 +125,13 @@ def dist_topk(q, kmat, kprime: int, *, col_offset: int = 0):
     int32 columns + ``col_offset``, (-inf, -1) past Nk). Ties go to the
     lowest column. The [Nq, Nk] scores never exist on the card."""
     return _dk.dist_topk(q, kmat, kprime, col_offset=col_offset)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Forward flash attention: q [BH, Sq, Dh], k / v [BH, T, Dh] ->
+    [BH, Sq, Dh]. Positions are implicit (row i is position i); GQA is
+    expanded into BH by the caller."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def ivf_rerank(f, w, cand, k: int, *, block_a: int = 128):

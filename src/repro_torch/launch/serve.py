@@ -1,6 +1,6 @@
 """Serving launcher of the port — a thin argparse shim over
 ``repro_torch.api.Experiment``, with the flags and validation of the JAX
-package's ``repro.launch.serve`` for the paper system.
+package's ``repro.launch.serve``.
 
 The paper deploys the trained class matrix as a retrieval index (§4.5 —
 nearest class weight); ``Experiment.serve`` is that lookup. ``--replay
@@ -15,11 +15,18 @@ latency, QPS, batch occupancy and cache hit rate.
 is fit before the first query, and before the trace under ``--replay``, so
 the reported latencies do not include the fit.
 
+``--system zoo`` is token serving for the zoo's dense decoders (``--arch``,
+``--reduced``): prefill ``--prompt-len`` tokens once, then greedy decode
+``--gen`` tokens through the KV cache and the sharded-vocab argmax; it
+prints the prefill and decode times and tok/s. The zoo's feature retrieval
+(``--topk``, ``--replay``, ``--index``) is not ported yet and exits with
+an argparse error naming ROADMAP.md.
+
 It runs on the card (``--device cuda``, the default) in one process: a
 ring of one. The ``knn`` head serves through the full head's prediction,
 which it inherits, as in the JAX package (its graph is built once when the
-experiment starts). ``--system zoo`` and the other heads are not ported
-yet and exit with an argparse error naming ROADMAP.md.
+experiment starts). The other heads are not ported yet and exit with an
+argparse error naming ROADMAP.md.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --system paper \\
       --classes 1020250 --feat-dim 512 --topk 5 --batch 64
@@ -29,6 +36,11 @@ yet and exit with an argparse error naming ROADMAP.md.
       --classes 4096 --head knn --batch 64
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --classes 4096 --topk 5 --index ivf
+  PYTHONPATH=src python -m repro_torch.launch.serve --system zoo \\
+      --arch smollm_135m --prompt-len 2000 --gen 48 --batch 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --system zoo --arch smollm_135m --reduced --prompt-len 16 --gen 8 \\
+      --batch 4
 """
 from __future__ import annotations
 
@@ -101,6 +113,12 @@ def main(argv=None):
     p.add_argument("--system", choices=["paper", "zoo"], default="paper")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda | cpu)")
+    # zoo
+    p.add_argument("--arch", default="smollm_135m")
+    p.add_argument("--reduced", action="store_true")
+    p.add_argument("--prompt-len", type=int, default=32)
+    p.add_argument("--gen", type=int, default=16)
+    # paper
     p.add_argument("--classes", type=int, default=4096)
     p.add_argument("--feat-dim", type=int, default=64)
     p.add_argument("--head",
@@ -157,7 +175,14 @@ def main(argv=None):
     if args.max_wait_ms < 0:
         p.error(f"--max-wait-ms must be >= 0, got {args.max_wait_ms}")
     if args.system == "zoo":
-        p.error(f"--system zoo {_NOT_PORTED}")
+        for flag, on in (("--topk", args.topk), ("--replay", args.replay),
+                         ("--index", args.index != "none")):
+            if on:
+                p.error(f"--system zoo with {flag} (zoo feature retrieval) "
+                        f"is not ported to torch yet (see ROADMAP.md A.9)")
+        if args.prompt_len <= 0 or args.gen <= 0:
+            p.error(f"--prompt-len and --gen must be positive, got "
+                    f"{args.prompt_len} and {args.gen}")
     if args.head not in ("full", "knn"):
         p.error(f"--head {args.head} {_NOT_PORTED}")
 
@@ -182,6 +207,8 @@ def _serve(args, tr) -> int:
         serve.compute spans."""
         return tr.span_stats("serve.compute")["total_s"] * 1e3
 
+    if args.system == "zoo":
+        return _serve_zoo(args, tr)
     exp = Experiment.from_config(
         system="paper", classes=args.classes, feat_dim=args.feat_dim,
         batch=args.batch, device=args.device,
@@ -207,6 +234,26 @@ def _serve(args, tr) -> int:
           f"({args.backend} on {exp.device}): {preds.shape[0]} queries in "
           f"{compute_ms():.1f} ms")
     print("[serve] first predictions:", preds[:8].tolist())
+    return 0
+
+
+def _serve_zoo(args, tr) -> int:
+    from repro_torch.api import Experiment
+    from repro_torch.configs.base import HeadConfig
+
+    exp = Experiment.from_config(
+        system="zoo", arch=args.arch, reduced=args.reduced, batch=args.batch,
+        seq=args.prompt_len + args.gen, device=args.device,
+        head=HeadConfig(softmax_impl=args.head, backend=args.backend))
+    gen = exp.serve(prompt_len=args.prompt_len, gen=args.gen,
+                    batch=args.batch, telemetry=tr)
+    prefill_ms = tr.span_stats("serve.prefill")["total_s"] * 1e3
+    decode_s = tr.span_stats("serve.decode")["total_s"]
+    print(f"[serve] {exp.model_cfg.name} ({args.backend} on {exp.device}): "
+          f"generated {gen.shape} tokens: prefill {prefill_ms:.1f} ms"
+          f" + decode {decode_s * 1e3:.1f} ms "
+          f"({args.batch * args.gen / max(decode_s, 1e-9):.1f} tok/s)")
+    print("[serve] first row:", gen[0].tolist())
     return 0
 
 

@@ -1,0 +1,392 @@
+"""Shared model primitives: norms, RoPE, GQA attention (qk-norm, sliding
+window, the q-block / kv-block online-softmax scan), gated MLPs,
+embeddings. The port of the JAX package's ``models/layers.py``.
+
+Conventions, as in the JAX package:
+
+* Parameters keep the JAX package's names and layouts (``wq`` [D, H, Dh],
+  ``wk`` / ``wv`` [D, Hk, Dh], ``wo`` [H, Dh, D], MLP matrices [in, out]).
+  They live in ``ParamDict`` modules, the JAX package's nested param dicts
+  as ``nn.Module``s, in fp32 (``cfg.param_dtype``), and are cast to the
+  compute dtype ``cfg.dtype`` where they are used.
+* Norm statistics, softmax and attention logits run in fp32. Where the JAX
+  package multiplies bf16 operands with ``preferred_element_type=float32``
+  (attention scores, the flash scan's two products), the port multiplies
+  the operands upcast to fp32: each product of two bf16 values is exact in
+  fp32, so only the order of the fp32 sums differs.
+* Sequence ops take absolute positions, so the same code serves prefill
+  and rotating-cache decode.
+
+``multihead_attention`` takes the path's ``backend``: ``"ref"`` runs the
+JAX package's two branches as it chooses them; ``"kernel"`` sends
+self-attention over a sequence's rows (the caller says so with
+``self_rows=True``: positions arange(S)) to the hand-written
+``ops.flash_attention``, the one case that kernel expresses, and
+everything else (decode over the rotating cache) down the ``ref``
+branches, as the JAX package leaves it to XLA.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+
+class ParamDict(nn.Module):
+    """Named parameters and sub-trees: one node of the JAX package's nested
+    param dict. Tensors become (frozen) parameters, dicts become
+    ``ParamDict``s and lists ``nn.ModuleList``s, so ``p.wq`` reads as the
+    JAX package's ``p["wq"]``."""
+
+    def __init__(self, **entries):
+        super().__init__()
+        for name, val in entries.items():
+            if isinstance(val, nn.Module):
+                self.add_module(name, val)
+            elif isinstance(val, dict):
+                self.add_module(name, ParamDict(**val))
+            elif isinstance(val, (list, tuple)):
+                self.add_module(name, nn.ModuleList(
+                    v if isinstance(v, nn.Module) else ParamDict(**v)
+                    for v in val))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(val, requires_grad=False))
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def _dense_init(gen: torch.Generator, shape, in_axis: int = -2):
+    """LeCun-normal-ish fan-in init, fp32."""
+    fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
+    return torch.randn(shape, generator=gen, device=gen.device) / math.sqrt(
+        fan_in)
+
+
+def _embed_init(gen: torch.Generator, shape):
+    return torch.randn(shape, generator=gen, device=gen.device) * 0.02
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(cfg: ModelConfig, dim: Optional[int] = None, *, device):
+    dim = dim or cfg.d_model
+    p = {"scale": torch.ones(dim, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(dim, device=device)
+    return ParamDict(**p)
+
+
+def apply_norm(p, x, cfg: ModelConfig):
+    dt = x.dtype
+    x = x.float()
+    if cfg.norm == "layernorm":
+        mu = x.mean(dim=-1, keepdim=True)
+        var = x.var(dim=-1, keepdim=True, unbiased=False)
+        y = (x - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p.scale + p.bias
+    else:  # rmsnorm
+        ms = x.square().mean(dim=-1, keepdim=True)
+        y = x * torch.rsqrt(ms + cfg.norm_eps) * p.scale
+    return y.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope(x, positions, theta: float):
+    """x: [..., S, H, Dh]; positions: [..., S] absolute token positions.
+    The rotation runs in fp32 (bf16 x times fp32 cos promotes, as in the
+    JAX package) and is cast back to x's dtype."""
+    if theta <= 0:
+        return x
+    dh = x.shape[-1]
+    half = dh // 2
+    # the JAX package's fp32 arithmetic: log(theta) / half, then exp
+    step = float(np.float32(np.log(np.float32(theta))) / np.float32(half))
+    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) * step)
+    ang = positions[..., :, None].float() * freqs           # [..., S, half]
+    cos = torch.cos(ang)[..., :, None, :]                   # [..., S, 1, half]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnDims:
+    n_heads: int
+    n_kv: int
+    head_dim: int
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   dims: Optional[AttnDims] = None):
+    d = dims or AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    p = {
+        "wq": _dense_init(gen, (cfg.d_model, d.n_heads, d.head_dim), in_axis=0),
+        "wk": _dense_init(gen, (cfg.d_model, d.n_kv, d.head_dim), in_axis=0),
+        "wv": _dense_init(gen, (cfg.d_model, d.n_kv, d.head_dim), in_axis=0),
+        "wo": _dense_init(gen, (d.n_heads, d.head_dim, cfg.d_model), in_axis=1),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(d.head_dim, device=gen.device)
+        p["k_norm"] = torch.ones(d.head_dim, device=gen.device)
+    return ParamDict(**p)
+
+
+def _qk_norm(x, scale, eps):
+    dt = x.dtype
+    x = x.float()
+    ms = x.square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(ms + eps) * scale).to(dt)
+
+
+def _attn_scores_block(q, k, q_pos, k_pos, scale, causal, window):
+    """q: [B,Hq,Sq,Dh] k: [B,Hk,T,Dh] (Hq multiple of Hk) -> probs fp32
+    [B,Hk,G,Sq,T]."""
+    b, hq, sq, dh = q.shape
+    hk = k.shape[1]
+    qg = q.reshape(b, hk, hq // hk, sq, dh)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg.float(), k.float()) * scale
+    qp = q_pos[:, None]
+    kp = k_pos[None, :]
+    valid = kp >= 0
+    if causal:
+        valid = valid & (kp <= qp)
+    if window is not None and window > 0:
+        valid = valid & (kp > qp - window)
+    scores = torch.where(valid, scores, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    # rows with no valid key (padding) -> zeros, not NaN
+    return torch.where(valid.any(dim=-1)[:, None], probs, 0.0)
+
+
+def _flash_qblock(qg, kT, vT, qpos, k_positions, scale, causal, window,
+                  kv_block: int):
+    """Online softmax over kv blocks for one q block.
+    qg: [B,Hk,G,qb,Dh]; kT/vT: [B,Hk,T,Dh]. Returns [B,Hk,G,qb,Dh] fp32."""
+    b, hk, g, qb, dh = qg.shape
+    t = kT.shape[2]
+    if t % kv_block:
+        raise ValueError(f"T {t} % kv_block {kv_block} != 0")
+    qp = qpos[:, None]
+    qf = qg.float()
+    m = torch.full((b, hk, g, qb), float("-inf"), device=qg.device)
+    l = torch.zeros((b, hk, g, qb), device=qg.device)
+    acc = torch.zeros((b, hk, g, qb, dh), device=qg.device)
+    for j0 in range(0, t, kv_block):
+        kb, vb = kT[:, :, j0:j0 + kv_block], vT[:, :, j0:j0 + kv_block]
+        kp = k_positions[j0:j0 + kv_block][None, :]
+        s = torch.einsum("bkgsd,bktd->bkgst", qf, kb.float()) * scale
+        valid = kp >= 0
+        if causal:
+            valid = valid & (kp <= qp)
+        if window is not None and window > 0:
+            valid = valid & (kp > qp - window)
+        s = torch.where(valid, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # rows still all-masked keep m = -inf; guard exp of (-inf) - (-inf)
+        safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(torch.where(valid, s - safe_m[..., None],
+                                  float("-inf")))
+        corr = torch.where(torch.isfinite(m), torch.exp(m - safe_m), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgst,bktd->bkgsd", p.to(vb.dtype).float(), vb.float())
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def _kernel_self_attention(q, k, v, causal, window):
+    """Self-attention over a sequence's rows through the flash kernel: the KV
+    heads expanded into the [B*Hq, S, Dh] layout it takes (query head h
+    reads KV head h // group, as the JAX package's reshape does)."""
+    b, s, hq, dh = q.shape
+    g = hq // k.shape[2]
+
+    def heads(x, rep):
+        x = x.transpose(1, 2)
+        if rep > 1:
+            x = x.repeat_interleave(rep, dim=1)
+        return x.reshape(b * hq, s, dh).contiguous()
+
+    out = ops.flash_attention(heads(q, 1), heads(k, g), heads(v, g),
+                              causal=causal, window=window or 0)
+    return out.reshape(b, hq, s, dh).transpose(1, 2)
+
+
+def multihead_attention(q, k, v, *, q_positions, k_positions, causal=True,
+                        window=None, q_block: int = 512, kv_block: int = 1024,
+                        backend: str = "ref", self_rows: bool = False):
+    """GQA attention over absolute positions.
+
+    q: [B,Sq,Hq,Dh]; k,v: [B,T,Hk,Dh]; q_positions [Sq]; k_positions [T]
+    (entries < 0 mark invalid cache slots). Returns [B,Sq,Hq,Dh] in q's
+    dtype.
+
+    ``ref``: long sequences run the two-level flash scan (q blocks outer,
+    kv blocks inner, online softmax in fp32), short and decode shapes score
+    directly, chosen by the JAX package's test. ``kernel``: with
+    ``self_rows`` (the caller's statement that q_positions and k_positions
+    are both arange(S): self-attention over a sequence's rows, the one case
+    the flash kernel expresses, since its positions are implicit) the call
+    goes to ``ops.flash_attention``; any other call (decode over the cache's
+    slots) takes the ``ref`` branches.
+    """
+    b, sq, hq, dh = q.shape
+    t = k.shape[1]
+    hk = k.shape[2]
+    if self_rows and sq != t:
+        raise ValueError(f"self_rows: {sq} query rows over {t} keys")
+    if backend == "kernel" and self_rows:
+        return _kernel_self_attention(q, k, v, causal, window)
+    # the JAX package's fp32 1 / sqrt(dh)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+    qT = q.transpose(1, 2)               # [B,Hq,Sq,Dh]
+    kT = k.transpose(1, 2)               # [B,Hk,T,Dh]
+    vT = v.transpose(1, 2)
+
+    if sq * t <= q_block * kv_block * 2 or t % kv_block:
+        probs = _attn_scores_block(qT, kT, q_positions, k_positions, scale,
+                                   causal, window)
+        out = torch.einsum("bkgst,bktd->bkgsd", probs.to(v.dtype).float(),
+                           vT.float())
+        out = out.reshape(b, hq, sq, dh)
+        return out.to(q.dtype).transpose(1, 2)
+
+    g = hq // hk
+    qg4 = qT.reshape(b, hk, g, sq, dh)
+    if sq <= q_block:
+        out = _flash_qblock(qg4, kT, vT, q_positions, k_positions, scale,
+                            causal, window, kv_block)
+    else:
+        if sq % q_block:
+            raise ValueError(f"seq {sq} not divisible by q_block {q_block}")
+        out = torch.cat([
+            _flash_qblock(qg4[:, :, :, i:i + q_block], kT, vT,
+                          q_positions[i:i + q_block], k_positions, scale,
+                          causal, window, kv_block)
+            for i in range(0, sq, q_block)], dim=3)
+    return out.reshape(b, hq, sq, dh).to(q.dtype).transpose(1, 2)
+
+
+def project_kv(p, cfg: ModelConfig, x, positions):
+    """Project (and qk-norm + rope) K/V of x for self-attention/caching."""
+    dt = x.dtype
+    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(dt))
+    if cfg.qk_norm:
+        k = _qk_norm(k, p.k_norm, cfg.norm_eps)
+    if cfg.rope_theta > 0:
+        k = rope(k, positions, cfg.rope_theta)
+    return k, v
+
+
+def apply_attention(p, cfg: ModelConfig, x, *, positions, kv=None,
+                    kv_positions=None, causal=True, window=None,
+                    backend: str = "ref", self_rows: bool = False):
+    """Full attention sublayer. ``kv`` overrides the K/V source:
+    - None: self-attention over x;
+    - (k_cache, v_cache): a pre-projected (and pre-roped) cache [B,T,Hk,Dh]
+      at ``kv_positions``.
+    Returns (out [B,S,D], (k_new, v_new) projected K/V of x for the cache,
+    or None when a cache was given). ``self_rows``: ``positions`` is
+    arange(S), which the ``kernel`` backend needs for self-attention (see
+    ``multihead_attention``); it raises on causal self-attention without
+    it rather than run the ``ref`` branches. (The JAX package's cross-attention
+    source, ``kv={"x": ...}``, comes with the encdec family, ROADMAP.md
+    A.9.)"""
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
+    if kv is None:
+        if backend == "kernel" and causal and not self_rows:
+            raise ValueError("the kernel backend runs causal self-attention "
+                             "over a sequence's rows only: pass self_rows="
+                             "True with positions arange(S)")
+        k, v = project_kv(p, cfg, x, positions)
+        k_pos = positions
+    else:
+        k, v = kv
+        k_pos = kv_positions
+    if cfg.qk_norm:
+        q = _qk_norm(q, p.q_norm, cfg.norm_eps)
+    if cfg.rope_theta > 0:
+        q = rope(q, positions, cfg.rope_theta)
+    out = multihead_attention(q, k, v, q_positions=positions,
+                              k_positions=k_pos, causal=causal, window=window,
+                              backend=backend, self_rows=self_rows)
+    out = torch.einsum("bshk,hkd->bsd", out, p.wo.to(dt))
+    if kv is None:
+        return out, (k, v)
+    return out, None
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig,
+             d_ff: Optional[int] = None):
+    d_ff = d_ff or cfg.d_ff
+    if cfg.activation in ("swiglu", "geglu"):
+        return ParamDict(
+            wi_gate=_dense_init(gen, (cfg.d_model, d_ff), in_axis=0),
+            wi_up=_dense_init(gen, (cfg.d_model, d_ff), in_axis=0),
+            wo=_dense_init(gen, (d_ff, cfg.d_model), in_axis=0))
+    return ParamDict(  # plain gelu MLP
+        wi=_dense_init(gen, (cfg.d_model, d_ff), in_axis=0),
+        bi=torch.zeros(d_ff, device=gen.device),
+        wo=_dense_init(gen, (d_ff, cfg.d_model), in_axis=0),
+        bo=torch.zeros(cfg.d_model, device=gen.device))
+
+
+def apply_mlp(p, cfg: ModelConfig, x):
+    """jax.nn.gelu defaults to the tanh approximation; so does this."""
+    dt = x.dtype
+    if cfg.activation in ("swiglu", "geglu"):
+        g = x @ p.wi_gate.to(dt)
+        u = x @ p.wi_up.to(dt)
+        act = (F.silu(g) if cfg.activation == "swiglu"
+               else F.gelu(g, approximate="tanh"))
+        return (act * u) @ p.wo.to(dt)
+    h = F.gelu(x @ p.wi.to(dt) + p.bi.to(dt), approximate="tanh")
+    return h @ p.wo.to(dt) + p.bo.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+# ---------------------------------------------------------------------------
+
+
+def init_embedding(gen: torch.Generator, cfg: ModelConfig):
+    return ParamDict(table=_embed_init(gen, (cfg.vocab_size, cfg.d_model)))
+
+
+def apply_embedding(p, cfg: ModelConfig, tokens):
+    """The table's rows in the compute dtype (gathered, then cast: the same
+    values as the JAX package's cast of the whole table, then gather)."""
+    return p.table[tokens.long()].to(getattr(torch, cfg.dtype))

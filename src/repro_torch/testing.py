@@ -350,6 +350,38 @@ def ivf_recall(protos: np.ndarray, queries: np.ndarray, *, k: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the zoo
+# ---------------------------------------------------------------------------
+
+
+def zoo_serve(tree: dict, *, arch: str, prompts: np.ndarray, gen: int,
+              backend: str) -> np.ndarray:
+    """A CPU ``ZooExperiment`` (the reduced ``arch``) on this member,
+    serving the JAX package's params ``tree`` (carried over by
+    ``interop``) on the JAX package's ``prompts`` [b, s], which replace
+    the port's ``lm_batch`` for the call. Returns the greedy tokens."""
+    from repro_torch import interop
+    from repro_torch.api import Experiment
+    from repro_torch.configs.base import HeadConfig
+    from repro_torch.data import synthetic
+
+    b, s = prompts.shape
+    exp = Experiment.from_config(system="zoo", arch=arch, reduced=True,
+                                 batch=b, device="cpu",
+                                 head=HeadConfig(backend=backend))
+    exp.load_params(interop.zoo_params_from_numpy(
+        tree, exp.model_cfg, rank=dist.rank(), world_size=dist.world_size(),
+        device="cpu"))
+    real = synthetic.lm_batch
+    synthetic.lm_batch = lambda *a, **kw: {
+        "tokens": torch.tensor(prompts, dtype=torch.long)}
+    try:
+        return exp.serve(prompt_len=s, gen=gen, batch=b)
+    finally:
+        synthetic.lm_batch = real
+
+
 def run_all(cases: list) -> list:
     """Run ``(worker name, args, kwargs)`` cases in order on this member,
     so one spawned ring serves a whole group of tests."""
@@ -359,5 +391,5 @@ def run_all(cases: list) -> list:
                "knn_graph_build": knn_graph_build,
                "knn_loss_body": knn_loss_body, "ring_shift": ring_shift,
                "ivf_fit": ivf_fit, "ivf_serve": ivf_serve,
-               "ivf_recall": ivf_recall}
+               "ivf_recall": ivf_recall, "zoo_serve": zoo_serve}
     return [workers[name](*args, **kwargs) for name, args, kwargs in cases]

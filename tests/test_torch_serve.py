@@ -263,7 +263,7 @@ def test_launcher_serves_on_the_cpu(tmp_path, capsys):
     ["--classes", "512", "--topk", "513"],
     ["--cache", "-2"],
     ["--max-wait-ms", "-1"],
-    ["--system", "zoo"],
+    ["--system", "zoo", "--topk", "5"],
     ["--index", "ivf"],
     ["--head", "selective"],
     ["--backend", "pallas"],
