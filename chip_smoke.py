@@ -8,7 +8,10 @@ PyTorch built for CUDA. Phases, each of which fails the run:
 
 1. build: ``nvcc`` compiles every ``src/repro_torch/kernels/csrc/*.cu``
    into ``build/repro_torch_kernels/`` (one process per source, in
-   parallel) and prints ``-Xptxas -v``'s register report.
+   parallel) and prints ``-Xptxas -v``'s register report. The two kernels
+   built on Hopper's warpgroup products and TMA (``flash_attention``,
+   ``dist_topk``) must show ``HGMMA`` and ``UTMALDG`` in their SASS
+   (``cuobjdump -sass``) and no spills.
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the same card tensors, at the shapes of the paper's 1M-class
    configuration (V=1,020,250, D=512; B=64 for serving, B=256 for
@@ -37,9 +40,12 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    ``dist_topk``: 1,024 unit rows in bf16 against all 1,020,250 (values
    within 1e-5, ids equal except at reported near-ties below 1e-5),
    integer-valued inputs with duplicated rows (ids exact: the lowest
-   column), k' > Nk, ``col_offset`` and a depth of 72; timed on 16,896
-   rows (one wave of blocks) against all keys, the plain version and the
-   library's bf16 ``q @ K.T`` in 1,024-row chunks.
+   column), k' > Nk, ``col_offset``, a depth of 72 and depths of 1,024,
+   2,048 and 3,072 (600 x 20,000 unit rows), bit-identical across two
+   runs; timed on 16,896 rows (the earlier design's one wave of blocks)
+   against all keys, the plain version and the library's bf16 ``q @ K.T``
+   in 1,024-row chunks. Its main time, pass 1 over all rows, comes from
+   the knn phase.
 3. serving (a main path): ``Experiment.from_config(system="paper",
    classes=1_020_250, feat_dim=512)`` with the ``full`` head on the
    ``kernel`` backend, random weights from a seed; ``serve(batch=64)`` and
@@ -108,12 +114,15 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    same width.
 11. flash attention: ``flash_attention`` against its plain version at the
    JAX test's sweep (``tests/test_flash_kernel.py``: ragged Sq != T
-   non-causal, a window of 100, Dh 32/64/128) plus Dh 96 and 256 and rows
-   with no valid key (Sq=300, T=100, causal, window 50: exactly 0), in
-   fp32 (within 2e-5) and bf16 (within the JAX test's 3e-2); then at the
-   zoo prefill's shapes (BH = 72, S = T = 2,000, Dh = 64, bf16, causal):
-   bit-identical across two runs, timed beside its plain version and
-   ``scaled_dot_product_attention`` on the [8, 9, 2000, 64] view.
+   non-causal, a window of 100, Dh 32/64/128) plus Dh 96 and 256, rows
+   with no valid key (Sq=300, T=100, causal, window 50: exactly 0) and
+   grouped KV heads (g = 8; g = 3 on a ragged S), in fp32 (within 2e-5)
+   and bf16 (the gate below), and at BH = 70,000 heads of 40 causal rows;
+   then at the zoo prefill's shapes (BH = 72 query heads over 24 KV heads,
+   S = T = 2,000, Dh = 64, bf16, causal): the bf16 gate with its emulated
+   faults, bit-identical across two runs, timed beside its plain version and
+   ``scaled_dot_product_attention`` on the [8, 9, 2000, 64] view with
+   ``enable_gqa`` (and on KV heads expanded beforehand).
 12. zoo serving (the main path of the zoo slice):
    ``Experiment.from_config(system="zoo", arch="smollm_135m")`` at its
    full width (30 layers, bf16 over fp32 params, random weights from seed
@@ -127,7 +136,8 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    below twice the logits' kernel-vs-ref difference, and the agreement
    over all 48 tokens (reported). Prefill and decode times (median of 5
    serves), tok/s, one profiled prefill and decode step (the flash
-   kernel's share and the idle share) and peak memory.
+   kernel's share, the device time of copies and of casts, and the idle
+   share) and peak memory.
 13. the serve launcher with ``--system zoo`` at the same shapes; it must
    return 0 and launch ``flash_attention``.
 
@@ -162,33 +172,55 @@ CHUNK = 2048                                 # ops.topk_rows' chunk
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12                       # H100 SXM, outside tensor cores
 BF16_OPS_PER_S = 989e12                      # H100 SXM, dense tensor cores
-QSLICE = 132 * 128      # dist_topk timing: one wave of 128-row blocks
+# dist_topk timing slice, kept from the earlier design's one wave of 132
+# blocks of 128 rows (66 blocks of 256 rows now); pass 1 over every row is
+# timed in the knn phase
+QSLICE = 132 * 128
+DEEP_DIMS = (1024, 2048, 3072)   # the zoo's knn heads (ROADMAP A.9.2)
+HOPPER_KERNELS = ("flash_attention", "knn_dist_topk")   # wgmma + TMA
 KNN_K, KPRIME, ACTIVE_FRAC = 16, 32, 0.1    # the knn head (launch/train.py)
 IVF_TOL = 1e-5       # ivf_rerank: fp32 dot products of D terms in another order
 RECALL_QUERIES = 256
-# flash_attention vs its plain version. fp32: max abs error, fp32 sums in
-# another order. bf16: per element |out - plain| <= one bf16 step of |plain|
-# (2^-7 |plain|: outputs rounded to bf16 from fp32 sums in another order
-# land one step apart) + FLASH_BF16_ATOL (a p rounded to bf16 on the other
-# side of a boundary in a short row), read as the largest ratio of the two
-# sides; and mean|out - plain| / mean|plain| <= FLASH_BF16_MEAN_TOL, which
-# a diffuse fault (p left unrounded) breaks. On an H100 SXM (700 W) the
-# kernel reads ratio 0.66 and mean 3.2e-6 at the prefill's shapes, at most
-# 0.79 and 3.3e-6 over the sweep; p left unrounded reads 2.1 and 1.4e-3,
-# the ragged last key tile dropped 46 and 2.2e-4. The flash phase runs
+# flash_attention vs its plain version (the TPU kernel's arithmetic: p =
+# exp(s scale - m) in fp32, rounded to bf16 before p.v). fp32: max abs
+# error, fp32 sums in another order. bf16: per element |out - plain| <=
+# one bf16 step of |plain| (2^-7 |plain|: outputs rounded to bf16 from fp32
+# sums in another order land one step apart) + FLASH_BF16_ATOL + the flip
+# bound, read as the largest ratio of the two sides; and mean|out - plain|
+# / mean|plain| <= FLASH_BF16_MEAN_TOL, which a diffuse fault (p left
+# unrounded) breaks. The flip bound (flash_flip_bound) is what a p can move
+# an output by when the kernel rounds it to bf16 on the other side of a
+# boundary: the kernel's p is 2^(s sl2 - m) by one FMA and ex2.approx over
+# fp32 sums in another order, within ~2^-18.5 of the plain version's p
+# (an emulation of both on the CPU, Dh 32 to 256), so a p that lies within
+# FLASH_FLIP_EPS (2^-16) of a bf16 rounding boundary may round either way.
+# Outside such p's the bound is 0, and in a short row one such flip moves
+# an output by up to a bf16 step of p times |v| over l, past the fixed part
+# of the gate. On an H100 SXM (700 W) the kernel reads 0.68 at the
+# prefill's shapes with no output past the fixed part, at most 0.79 over
+# the sweep; at 70,000 heads of 40 causal rows 3.1 without the flip bound
+# and 0.90 with it, the same from eps 2^-20 up (the phase logs 2^-24 and
+# 2^-20 beside the gate), 0.90 being one bf16 step of an output (at most
+# 2^-6 / (2^-6 + 1e-3) = 0.94 just above a power of two). p left unrounded
+# reads 2.03, the ragged last key tile dropped 56. The flash phase runs
 # such emulated faults through the gate at the prefill's shapes and fails
 # if one passes.
 FLASH_FP32_TOL = 2e-5
 BF16_STEP, FLASH_BF16_ATOL, FLASH_BF16_MEAN_TOL = 2.0 ** -7, 1e-3, 1e-4
-# (bh, sq, t, dh, causal, window): tests/test_flash_kernel.py's sweep, then
-# Dh 96 and 256, then rows >= 149 with no valid key
-FLASH_SWEEP = [(4, 256, 256, 64, True, 0), (2, 200, 300, 32, False, 0),
-               (3, 256, 256, 64, True, 100), (1, 512, 512, 128, True, 0),
-               (2, 192, 192, 96, True, 0), (2, 130, 130, 256, True, 0),
-               (2, 300, 100, 32, True, 50)]
+FLASH_FLIP_EPS = 2.0 ** -16
+# (bh, sq, t, dh, causal, window, g): tests/test_flash_kernel.py's sweep,
+# then Dh 96 and 256, then rows >= 149 with no valid key, then grouped KV
+# heads (g query heads a KV head: 8, and SmolLM's 3 on a ragged S)
+FLASH_SWEEP = [(4, 256, 256, 64, True, 0, 1), (2, 200, 300, 32, False, 0, 1),
+               (3, 256, 256, 64, True, 100, 1), (1, 512, 512, 128, True, 0, 1),
+               (2, 192, 192, 96, True, 0, 1), (2, 130, 130, 256, True, 0, 1),
+               (2, 300, 100, 32, True, 50, 1), (8, 256, 256, 64, True, 0, 8),
+               (6, 333, 333, 64, True, 0, 3)]
+FLASH_MANY_HEADS = 70_000    # past the earlier 65,535-head grid limit
 # the zoo serve: SmolLM-135M, 9 query heads of 64 over 3 KV heads; 2,000 +
 # 48 = 2,048 tokens, its context
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN, ZOO_HEADS, ZOO_HEAD_DIM = 8, 2000, 48, 9, 64
+ZOO_KV_HEADS = 3
 ZOO_REPS = 5
 # prefill hidden states, kernel vs ref backend, max abs difference over
 # max|h|: bf16 activations through 30 layers, where the ref backend rounds
@@ -256,17 +288,26 @@ def profile_ms(torch, fn) -> dict:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
     kernels: dict = {}          # device ms by (shortened) kernel name
+    # by full name: copies (torch's direct_copy kernels, memcpys) and the
+    # dtype casts (its <dtype>_copy kernels)
+    copy_ms = cast_ms = 0.0
     for e in prof.key_averages():
         if (e.device_type == torch.autograd.DeviceType.CUDA
                 and e.self_device_time_total > 0):
             name = e.key[:90]
-            kernels[name] = kernels.get(name, 0.0) + e.self_device_time_total / 1e3
+            ms = e.self_device_time_total / 1e3
+            kernels[name] = kernels.get(name, 0.0) + ms
+            if "direct_copy" in e.key or "memcpy" in e.key.lower():
+                copy_ms += ms
+            elif "_copy_kernel" in e.key:
+                cast_ms += ms
     busy = sum(kernels.values())
     if busy <= 0:
         fail("the profiler saw no device time in a profiled call")
     top = sorted(kernels.items(), key=lambda k: -k[1])[:8]
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
+            "copy_ms": copy_ms, "cast_ms": cast_ms,
             "top_kernels_ms": dict(top)}
 
 
@@ -275,6 +316,26 @@ def bound_ms(n_bytes: float, n_ops: float,
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hopper_path_check(build):
+    """The two kernels rebuilt on wgmma and TMA really use them: their SASS
+    holds HGMMA (warpgroup products) and UTMALDG (TMA tile loads), and
+    ``ptxas`` reports no spills for them."""
+    libs = build.build_all()
+    for stem in HOPPER_KERNELS:
+        sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass",
+                               str(libs[stem])], capture_output=True,
+                              text=True, check=True).stdout
+        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        if not all(counts.values()):
+            fail(f"{stem}: its SASS lacks the Hopper path {counts}")
+        spills = [line.strip() for line in
+                  libs[stem].with_suffix(".log").read_text().splitlines()
+                  if "spill" in line and " 0 bytes spill stores" not in line]
+        if spills:
+            fail(f"{stem} spills: {spills}")
+        log(f"build: {stem} SASS {counts}, no spills")
 
 
 # ---------------------------------------------------------------------------
@@ -797,8 +858,17 @@ def dist_topk_phase(torch, dk, sharded, w_unit=None):
     kr = sharded._normalize(torch.randn((3001, 72), generator=g,
                                         device=dev)).to(bf)
     check_dist_topk(torch, dk, qr, kr, 16, 5, "ragged D=72")
-    log("kernel phase: dist_topk exact ties, k' > Nk, col_offset and a "
-        "ragged depth agree with the plain version")
+    # the depths of the zoo's knn heads: Q and K stream over depth
+    deep = {}
+    for d in DEEP_DIMS:
+        qd = sharded._normalize(torch.randn((600, d), generator=g,
+                                            device=dev)).to(bf)
+        kd = sharded._normalize(torch.randn((20_000, d), generator=g,
+                                            device=dev)).to(bf)
+        deep[d] = check_dist_topk(torch, dk, qd, kd, KPRIME, 0, f"D={d}")
+    log(f"kernel phase: dist_topk exact ties, k' > Nk, col_offset, a "
+        f"ragged depth and D = {DEEP_DIMS} (600 x 20,000 unit rows: (max "
+        f"abs err, near-tie id swaps) {deep}) agree with the plain version")
 
     # -- the graph build's shapes: unit W in bf16 ----------------------------
     if w_unit is None:
@@ -810,6 +880,12 @@ def dist_topk_phase(torch, dk, sharded, w_unit=None):
                                  "1,024 rows x all keys")
     log(f"kernel phase: dist_topk on 1,024 unit rows x {V} keys agrees "
         f"(values max abs err {err:.3g}; ids swapped at near-ties: {swaps})")
+    first = dk.dist_topk(q, w16, KPRIME)
+    again = dk.dist_topk(q, w16, KPRIME)
+    if not (torch.equal(first[0], again[0]) and torch.equal(first[1],
+                                                            again[1])):
+        fail("dist_topk is not bit-identical across two runs")
+    del first, again
     ms = cuda_ms(torch, lambda: dk.dist_topk(q, w16, KPRIME), 3)
 
     def plain():
@@ -826,7 +902,7 @@ def dist_topk_phase(torch, dk, sharded, w_unit=None):
     bound, by = bound_ms(n_bytes, 2.0 * QSLICE * V * D, BF16_OPS_PER_S)
     log(f"kernel phase: dist_topk {QSLICE} x {V} rows {ms:.2f} ms (bound "
         f"{bound:.2f} ms by {by}), plain {plain_ms:.1f} ms (1,024-row "
-        f"chunks), bf16 q @ k.T {lib_ms:.2f} ms")
+        f"chunks), bf16 q @ k.T {lib_ms:.2f} ms; bit-identical")
     return dict(
         name="dist_topk", route="cuda",
         source="src/repro_torch/kernels/csrc/knn_dist_topk.cu",
@@ -834,7 +910,7 @@ def dist_topk_phase(torch, dk, sharded, w_unit=None):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by=by, library_ms=lib_ms,
         library="q @ K.T (cuBLAS bf16) in 1,024-row chunks",
-        near_tie_id_swaps=swaps,
+        near_tie_id_swaps=swaps, deep_dims=deep,
         shape=f"q[{QSLICE},{D}] K[{V},{D}] bf16, k'={KPRIME}")
 
 
@@ -1559,56 +1635,89 @@ def ivf_launcher_phase(torch, ivf):
 # ---------------------------------------------------------------------------
 
 
-def _flash_bound(bh, s, t, dh, elem_bytes, causal=True):
-    """Least time of a causal (or full) attention: q, k, v, o moved once;
-    2 Dh flops for q.k and 2 Dh for p.v per (query, valid key) pair."""
+def _flash_bound(bh, s, t, dh, elem_bytes, bhkv=None, causal=True):
+    """Least time of a causal (or full) attention: q and o of bh heads and
+    k and v of bhkv heads moved once; 2 Dh flops for q.k and 2 Dh for p.v
+    per (query, valid key) pair."""
+    bhkv = bh if bhkv is None else bhkv
     pairs = (s * (s + 1) // 2 if causal and s == t else s * t)
     n_ops = 4.0 * dh * pairs * bh
     ops_rate = BF16_OPS_PER_S if elem_bytes == 2 else FP32_OPS_PER_S
-    return bound_ms(elem_bytes * bh * dh * (2 * s + 2 * t), n_ops, ops_rate)
+    return bound_ms(elem_bytes * dh * (2 * s * bh + 2 * t * bhkv), n_ops,
+                    ops_rate)
 
 
-def flash_bf16_gate(torch, out, plain):
-    """The bf16 gate's two readings: the largest |out - plain| / (one bf16
-    step of |plain| + FLASH_BF16_ATOL), which passes at <= 1, and
-    mean|out - plain| / mean|plain|, which passes at <=
-    FLASH_BF16_MEAN_TOL."""
+def flash_flip_bound(torch, fa, q, k, v, causal=True, window=0,
+                     eps=FLASH_FLIP_EPS):
+    """Per output of the plain version on bf16 q, k, v: the sum over keys
+    of |v_j| times the gap between the bf16 roundings of (1 - eps) p_j and
+    (1 + eps) p_j, over l: the most that p's rounding to bf16 on the other
+    side of a boundary can move the output. A p_j farther than eps from a
+    boundary adds 0. The plain version's own tile loop, in fp32 (q and k
+    widen exactly, so s and p are its own)."""
+
+    def gap(p):
+        return ((p * (1 + eps)).to(torch.bfloat16).float()
+                - (p * (1 - eps)).to(torch.bfloat16).float())
+
+    return fa.flash_attention_plain(
+        q.float(), k.float(), v.float().abs(), causal=causal, window=window,
+        block_kv=fa.kv_tile(q.shape[2], q.dtype), round_p=gap)
+
+
+def flash_bf16_gate(torch, out, plain, flip):
+    """The bf16 gate's readings: ``ratio``, the largest |out - plain| /
+    (one bf16 step of |plain| + FLASH_BF16_ATOL + ``flip``), which passes
+    at <= 1; mean|out - plain| / mean|plain|, which passes at <=
+    FLASH_BF16_MEAN_TOL; and, for the record, ``fixed_ratio``, the same
+    ratio without the flip bound, and ``n_flips``, the outputs past that
+    fixed part."""
     d = (out.float() - plain.float()).abs()
     a = plain.float().abs()
-    ratio = float((d / (BF16_STEP * a + FLASH_BF16_ATOL)).max())
+    fixed = d / (BF16_STEP * a + FLASH_BF16_ATOL)
+    ratio = float((d / (BF16_STEP * a + FLASH_BF16_ATOL + flip)).max())
     mean_rel = float(d.mean() / a.mean().clamp(min=1e-30))
     return {"ratio": ratio, "mean_rel": mean_rel,
+            "fixed_ratio": float(fixed.max()),
+            "n_flips": int((fixed > 1).sum()),
             "ok": ratio <= 1.0 and mean_rel <= FLASH_BF16_MEAN_TOL}
 
 
 def flash_faults(torch, fa, q, k, v, plain):
-    """Outputs of faulty kernels, emulated with the plain version (causal,
-    S = T, S not a multiple of 64): p left unrounded; the ragged last key
-    tile dropped; key tile 0 dropped on the rows from 1,024 on; each row's
-    own (diagonal) key dropped. Shifting q, k and v by n rows keeps the
-    causal mask of the keys that stay, since positions are row indices."""
-    s = q.shape[1]
-    ragged = (s - 1) // fa.BLOCK * fa.BLOCK
-    shifted = fa.flash_attention_plain(q[:, 64:], k[:, 64:], v[:, 64:])
+    """Outputs of faulty kernels, emulated with the plain version at the
+    kernel's key tile (causal, S = T, S not a multiple of it): p left
+    unrounded; the ragged last key tile dropped; the first 64 keys dropped
+    on the rows from 1,024 on; each row's own (diagonal) key dropped.
+    Shifting q, k and v by n rows keeps the causal mask of the keys that
+    stay, since positions are row indices."""
+    s, dh = q.shape[1], q.shape[2]
+    bkv = fa.kv_tile(dh, q.dtype)
+    ragged = (s - 1) // bkv * bkv
+
+    def run(*x):
+        return fa.flash_attention_plain(*x, block_kv=bkv)
+
+    shifted = run(q[:, 64:], k[:, 64:], v[:, 64:])
     return {
-        "p_unrounded": fa.flash_attention_plain(
-            q.float(), k.float(), v.float()).to(q.dtype),
-        "ragged_tile_dropped": fa.flash_attention_plain(
-            q, k[:, :ragged], v[:, :ragged]),
+        "p_unrounded": run(q.float(), k.float(), v.float()).to(q.dtype),
+        "ragged_tile_dropped": run(q, k[:, :ragged], v[:, :ragged]),
         "tile0_dropped_rows_ge_1024": torch.cat(
             [plain[:, :1024], shifted[:, 1024 - 64:]], dim=1),
         "diagonal_dropped": torch.cat(
-            [torch.zeros_like(plain[:, :1]), fa.flash_attention_plain(
-                q[:, 1:], k[:, :-1], v[:, :-1])], dim=1)}
+            [torch.zeros_like(plain[:, :1]),
+             run(q[:, 1:], k[:, :-1], v[:, :-1])], dim=1)}
 
 
-def check_flash(torch, fa, bh, s, t, dh, causal, window, dtype, seed):
-    """Kernel vs plain version on one shape: max abs error (and the bf16
-    gate's readings), and the rows with no valid key exactly 0 in both."""
+def check_flash(torch, fa, bh, s, t, dh, causal, window, dtype, seed,
+                group=1, other_eps=()):
+    """Kernel vs plain version on one shape (k and v with bh / group heads):
+    max abs error (and the bf16 gate's readings, with the ratio at each of
+    ``other_eps`` beside it in ``ratio_at``), and the rows with no valid key
+    exactly 0 in both."""
     g = torch.Generator(device=DEVICE)
     g.manual_seed(seed)
-    q, k, v = (torch.randn((bh, n, dh), generator=g, device=DEVICE).to(dtype)
-               for n in (s, t, t))
+    q, k, v = (torch.randn((h, n, dh), generator=g, device=DEVICE).to(dtype)
+               for h, n in ((bh, s), (bh // group, t), (bh // group, t)))
     out = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -1621,8 +1730,15 @@ def check_flash(torch, fa, bh, s, t, dh, causal, window, dtype, seed):
         empty = torch.arange(s, device=DEVICE) - window + 1 >= t
         if empty.any() and (out[:, empty].any() or plain[:, empty].any()):
             fail("rows with no valid key are not 0")
-    gate = flash_bf16_gate(torch, out, plain) if dtype == torch.bfloat16 \
-        else {"ok": err <= FLASH_FP32_TOL}
+    if dtype == torch.bfloat16:
+        flip = flash_flip_bound(torch, fa, q, k, v, causal, window)
+        gate = flash_bf16_gate(torch, out, plain, flip)
+        gate["ratio_at"] = {
+            e: flash_bf16_gate(torch, out, plain, flash_flip_bound(
+                torch, fa, q, k, v, causal, window, e))["ratio"]
+            for e in other_eps}
+    else:
+        gate = {"ok": err <= FLASH_FP32_TOL}
     return err, gate
 
 
@@ -1633,77 +1749,125 @@ def flash_kernel_phase(torch, fa):
     reject emulated faults on the same inputs, bit-identical across two
     runs, timed beside its plain version and SDPA."""
     errs, gates = {}, {}
-    for i, (bh, s, t, dh, causal, window) in enumerate(FLASH_SWEEP):
+    for i, (bh, s, t, dh, causal, window, grp) in enumerate(FLASH_SWEEP):
         for dtype in (torch.float32, torch.bfloat16):
             err, gate = check_flash(torch, fa, bh, s, t, dh, causal, window,
-                                    dtype, seed=i)
-            name = f"{bh}x{s}x{t}x{dh}{'c' if causal else ''}w{window}"
+                                    dtype, seed=i, group=grp)
+            name = (f"{bh}x{s}x{t}x{dh}{'c' if causal else ''}w{window}"
+                    f"g{grp}")
             errs[f"{name}_{str(dtype)[6:]}"] = err
             if dtype == torch.bfloat16:
-                gates[name] = (gate["ratio"], gate["mean_rel"])
+                gates[name] = (gate["ratio"], gate["mean_rel"],
+                               gate["fixed_ratio"], gate["n_flips"])
             if not gate["ok"]:
                 fail(f"flash_attention {name} {dtype}: max abs err {err:.3g}"
                      f", gate {gate}")
     log(f"flash phase: the sweep agrees with the plain version "
         f"(fp32 max {max(e for k, e in errs.items() if 'float32' in k):.3g}"
         f", bf16 max {max(e for k, e in errs.items() if 'bfloat16' in k):.3g}"
-        f"; bf16 gate (ratio, mean) {gates}; {errs})")
+        f"; bf16 gate (ratio, mean, fixed ratio, outputs past the fixed "
+        f"part) {gates}; {errs})")
 
+    # BH = 70,000 heads (the heads share the grid's x axis with the query
+    # tiles; the earlier kernel took at most 65,535) of 40 causal rows: 2.8
+    # million short rows, where p's rounding flips show past the gate's
+    # fixed part
+    many, rows = FLASH_MANY_HEADS, 40
+    name = f"{many}x{rows}x{rows}x64cw0g1"
+    for dtype in (torch.float32, torch.bfloat16):
+        err, gate = check_flash(torch, fa, many, rows, rows, 64, True, 0,
+                                dtype, seed=11,
+                                other_eps=(2.0 ** -24, 2.0 ** -20))
+        if not gate["ok"]:
+            fail(f"flash_attention at BH={many} {dtype}: max abs err "
+                 f"{err:.3g}, gate {gate}")
+        errs[f"{name}_{str(dtype)[6:]}"] = err
+    gates[name] = (gate["ratio"], gate["mean_rel"], gate["fixed_ratio"],
+                   gate["n_flips"])
+    log(f"flash phase: BH={many} heads agree (fp32 max abs err "
+        f"{errs[f'{name}_float32']:.3g}; bf16 gate ratio "
+        f"{gate['ratio']:.3g}, mean {gate['mean_rel']:.3g}; without the "
+        f"flip bound {gate['fixed_ratio']:.3g}, {gate['n_flips']} outputs "
+        f"past it; with the bound at eps 2^-24 / 2^-20: "
+        f"{gate['ratio_at'][2.0 ** -24]:.3g} / "
+        f"{gate['ratio_at'][2.0 ** -20]:.3g})")
+
+    # the zoo prefill's shapes: 9 query heads over 3 KV heads, g = 3
     bh, s, dh = ZOO_BATCH * ZOO_HEADS, ZOO_PROMPT, ZOO_HEAD_DIM
+    bhkv = ZOO_BATCH * ZOO_KV_HEADS
     g = torch.Generator(device=DEVICE)
     g.manual_seed(7)
-    q, k, v = (torch.randn((bh, s, dh), generator=g, device=DEVICE).to(
-        torch.bfloat16) for _ in range(3))
+    q, k, v = (torch.randn((h, s, dh), generator=g, device=DEVICE).to(
+        torch.bfloat16) for h in (bh, bhkv, bhkv))
     out = fa.flash_attention(q, k, v)
     again = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     if not torch.equal(out, again):
         fail("flash_attention is not bit-identical across two runs")
     plain = fa.flash_attention_plain(q, k, v)
+    flip = flash_flip_bound(torch, fa, q, k, v)
     err = float((out.float() - plain.float()).abs().max())
-    gate = flash_bf16_gate(torch, out, plain)
+    gate = flash_bf16_gate(torch, out, plain, flip)
     if not gate["ok"]:
         fail(f"flash_attention at the prefill shapes: max abs err {err:.3g}, "
              f"gate {gate}")
     faults = {}
     for name, bad in flash_faults(torch, fa, q, k, v, plain).items():
-        fgate = flash_bf16_gate(torch, bad, plain)
-        faults[name] = (fgate["ratio"], fgate["mean_rel"])
+        fgate = flash_bf16_gate(torch, bad, plain, flip)
+        faults[name] = (fgate["ratio"], fgate["mean_rel"],
+                        fgate["fixed_ratio"])
         if fgate["ok"]:
             fail(f"the bf16 gate passes an emulated faulty kernel ({name}: "
                  f"{fgate})")
     ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v), 50)
     plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v), 3)
-    # SDPA on the same tensors viewed [B, H, S, Dh]: its fused kernels want
-    # 4-d inputs (on [BH, S, Dh] it falls back to the unfused product)
-    q4, k4, v4 = (x.view(ZOO_BATCH, ZOO_HEADS, s, dh) for x in (q, k, v))
+    # SDPA on the same tensors viewed [B, H, S, Dh] (its fused kernels want
+    # 4-d inputs; on [BH, S, Dh] it falls back to the unfused product), the
+    # KV heads grouped by enable_gqa; and, for reference, on KV heads
+    # expanded beforehand, as the earlier yardstick had them
+    q4 = q.view(ZOO_BATCH, ZOO_HEADS, s, dh)
+    k4, v4 = (x.view(ZOO_BATCH, ZOO_KV_HEADS, s, dh) for x in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = cuda_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True), 50)
-    lib_out = sdpa(q4, k4, v4, is_causal=True).reshape(bh, s, dh)
+    lib_ms = cuda_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True,
+                                         enable_gqa=True), 50)
+    ke, ve = (x.repeat_interleave(ZOO_HEADS // ZOO_KV_HEADS, dim=1)
+              for x in (k4, v4))
+    lib_expanded_ms = cuda_ms(torch, lambda: sdpa(q4, ke, ve, is_causal=True),
+                              50)
+    del ke, ve
+    lib_out = sdpa(q4, k4, v4, is_causal=True,
+                   enable_gqa=True).reshape(bh, s, dh)
     lib_err = float((lib_out.float() - plain.float()).abs().max())
-    lib_gate = flash_bf16_gate(torch, lib_out, plain)
-    bound, by = _flash_bound(bh, s, s, dh, 2)
-    log(f"flash phase: at BH={bh}, S=T={s}, Dh={dh}, bf16, causal: max abs "
+    lib_gate = flash_bf16_gate(torch, lib_out, plain, flip)
+    bound, by = _flash_bound(bh, s, s, dh, 2, bhkv)
+    log(f"flash phase: at BH={bh} over {bhkv} KV heads, S=T={s}, Dh={dh}, "
+        f"bf16, causal: max abs "
         f"err {err:.3g} vs plain, bf16 gate ratio {gate['ratio']:.3g} (<= 1) "
-        f"and mean {gate['mean_rel']:.3g} (<= {FLASH_BF16_MEAN_TOL}); "
-        f"emulated faults (ratio, mean) {faults}, all rejected; SDPA "
+        f"and mean {gate['mean_rel']:.3g} (<= {FLASH_BF16_MEAN_TOL}), "
+        f"without the flip bound {gate['fixed_ratio']:.3g} "
+        f"({gate['n_flips']} outputs past it); emulated faults (ratio, "
+        f"mean, fixed ratio) {faults}, all rejected; SDPA "
         f"{lib_err:.3g}, ratio {lib_gate['ratio']:.3g}, mean "
         f"{lib_gate['mean_rel']:.3g}; bit-identical; {ms:.4f} ms, bound "
         f"{bound:.4f} ms by {by}, plain {plain_ms:.3f} ms, SDPA "
-        f"{lib_ms:.4f} ms")
+        f"{lib_ms:.4f} ms ({lib_expanded_ms:.4f} ms on expanded KV heads)")
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:91",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by=by, library_ms=lib_ms,
-        library="scaled_dot_product_attention(is_causal=True) on "
-                f"[{ZOO_BATCH},{ZOO_HEADS},{s},{dh}] bf16",
+        library="scaled_dot_product_attention(is_causal=True, "
+                f"enable_gqa=True) on q [{ZOO_BATCH},{ZOO_HEADS},{s},{dh}], "
+                f"k, v [{ZOO_BATCH},{ZOO_KV_HEADS},{s},{dh}] bf16",
+        library_expanded_kv_ms=lib_expanded_ms,
         library_max_abs_err=lib_err,
         library_bf16_gate=(lib_gate["ratio"], lib_gate["mean_rel"]),
         bf16_gate=(gate["ratio"], gate["mean_rel"]),
+        bf16_gate_fixed=(gate["fixed_ratio"], gate["n_flips"]),
         bf16_gate_faults=faults, sweep_bf16_gate=gates,
-        sweep_max_abs_err=errs, shape=f"q,k,v[{bh},{s},{dh}] bf16 causal")
+        sweep_max_abs_err=errs,
+        shape=f"q[{bh},{s},{dh}] k,v[{bhkv},{s},{dh}] bf16 causal")
 
 
 def _zoo(torch, backend, params=None):
@@ -1926,6 +2090,7 @@ def main() -> int:
     for line in build.ptxas_report().splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             log(f"ptxas: {line.strip()}")
+    hopper_path_check(build)
 
     kernels = kernel_phase(torch, ce, dc, sharded)
     kernels["ce_backward"] = backward_kernel_phase(torch, ce, sharded)
@@ -1952,6 +2117,12 @@ def main() -> int:
     e2e.update(train_launcher_phase())
     knn_launches, knn_e2e = knn_training_phase(torch, sp, dk)
     e2e.update(knn_e2e)
+    # dist_topk's main time: pass 1 of the graph build over every row
+    pass1_bound, _ = bound_ms(2 * 2 * V * D + 8 * V * KPRIME,
+                              2.0 * V * V * D, BF16_OPS_PER_S)
+    kernels["dist_topk"].update(
+        pass1_ms=knn_e2e["knn_graph_build"]["pass1_dist_topk_s"] * 1e3,
+        pass1_bound_ms=pass1_bound)
     e2e.update(train_launcher_phase("knn"))
     gc.collect()
     torch.cuda.empty_cache()

@@ -165,7 +165,8 @@ def knn_softmax_local(f_loc, y_loc, w_loc, offsets_loc, neighbors_loc,
         dt = f_loc.dtype
         f = _normalize(f_loc)
         w_act = _normalize(w_loc[ids.long()])   # the backward scatter-adds
-        logits = (f @ w_act.to(dt).T).float() * cosine_scale
+        # bf16 operands, fp32 products and sums (preferred_element_type)
+        logits = (f.float() @ w_act.to(dt).float().T) * cosine_scale
         logits = torch.where(valid[None, :], logits, -1e30)
         pos = hit.float().argmax(dim=1)          # the first hit
         loss, metrics = _finish_ce(logits, pos, owned, 1.0 / global_batch)

@@ -138,7 +138,9 @@ def full_softmax_local(f_loc, y_loc, w_loc, *, global_batch: int,
     dt = f_loc.dtype
     f, w = ((_normalize(f_loc), _normalize(w_loc)) if cosine_scale > 0
             else (f_loc, w_loc.to(dt)))
-    logits = (f @ w.to(dt).T).float()
+    # operands rounded to dt, products and sums in fp32 (JAX's
+    # preferred_element_type=float32): bf16 products are exact in fp32
+    logits = f.float() @ w.to(dt).float().T
     if cosine_scale > 0:
         logits = logits * cosine_scale
     if n_valid:
@@ -227,7 +229,7 @@ def serve_topk_local(f_loc, w_loc, k: int, *, n_valid: int = 0,
     per row (``ref``: a stable sort; ``kernel``: the divide-and-conquer
     stage-1 kernel via ``ops.topk_rows``), then one all-gather merges the
     P*k survivors. Returns (vals [b,k] desc, gids [b,k] int32)."""
-    logits = f_loc @ w_loc.to(f_loc.dtype).T
+    logits = f_loc.float() @ w_loc.to(f_loc.dtype).float().T   # as above
     v_loc = w_loc.shape[0]
     v_start = dist.flat_axis_index() * v_loc
     if n_valid:

@@ -32,18 +32,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _loaded: dict = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """A CUDA toolkit program (``nvcc``, ``cuobjdump``) from PATH or
+    CUDA_HOME (default /usr/local/cuda)."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
+    cand = Path(home) / "bin" / name
     if cand.exists():
         return str(cand)
     raise RuntimeError(
-        "nvcc not found (looked on PATH and under CUDA_HOME or "
-        "/usr/local/cuda): the CUDA kernels are built on the machine with "
-        "the card")
+        f"{name} not found (looked on PATH and under CUDA_HOME or "
+        f"/usr/local/cuda): the CUDA kernels are built on the machine with "
+        f"the card")
+
+
+def _nvcc() -> str:
+    return cuda_tool("nvcc")
 
 
 def _target(src: Path) -> Path:

@@ -14,226 +14,323 @@
 // D = 512, k' = 32): 2·Nq·Nk·D = 1.066 PFLOP of bf16 products, 1.08 s at
 // the 989 TFLOP/s dense bf16 tensor-core rate; the inputs are 2.09 GB
 // (0.62 ms at 3.35 TB/s). So it is bound by operations, and the products
-// run on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate;
-// wgmma is later work).
+// run on wgmma, the only way to the tensor cores' full rate.
 //
-// Design. The TPU kernel walks the key tiles in order, merging each
-// [bq, bn] score tile into a running top-k' by k' argmax sweeps. Here each
-// block of 256 threads owns 128 query rows for the whole sweep over K:
-//   - the block's 128 x D query rows stay in shared memory (loaded once);
-//   - K streams through a 3-stage cp.async ring in tiles of 64 rows x 64
-//     depth; 8 warps (4 x 2) compute the 128 x 64 score tile with
-//     mma.sync, each warp a 32 x 32 corner (A and B fragments by ldmatrix);
-//   - the tile goes to shared memory, and each warp then folds 16 rows into
-//     their running top-k', which lives in registers: lane j of the warp
-//     holds slot j of each of its rows, sorted. A score enters only if it
-//     beats the row's k'-th slot under (value desc, column asc), so after
-//     the first few tiles almost nothing enters and the fold is a compare
-//     and a ballot per score. An entry is placed by one ballot (its rank)
-//     and one shuffle (the slots below it move down one). The order is
-//     total, so the result does not depend on the order of insertion.
-//   - columns at or past Nk are masked in the kernel; rows past Nq are not
-//     written.
+// Design. One block of three warpgroups owns 256 query rows for the whole
+// sweep over K, in tiles of 128 key rows:
+//   - warpgroup 0 is the producer: it gives up registers (setmaxnreg) and
+//     one thread streams, through a 3-stage mbarrier ring, 64-deep slabs of
+//     the block's 256 query rows and of the tile's 128 key rows by TMA
+//     (zero fill past Nq, Nk and D). Q is streamed over depth like K and
+//     never held whole, so D has no cap from shared memory;
+//   - warpgroups 1 and 2 are the consumers, 128 query rows each: S = Q K^T
+//     by wgmma m64n128k16 (two per 16-deep step, one per 64-row half), both
+//     operands in shared memory, fp32 accumulators in registers (128 a
+//     thread); a stage is released as soon as the next one's products are
+//     issued.
+//   - Reuse: each K slab read from L2 feeds 256 query rows, 256 operations
+//     per K byte (the card needs ~295 per byte of device memory; K is read
+//     from device memory about once a wave and from L2 once a block). Q's
+//     256 rows are read again for every 128-key tile, so the block does
+//     2·256·128 / ((256 + 128)·2) = 85 operations per byte it reads from L2
+//     in all, the most the 256 x 128 accumulator tile in registers allows
+//     when both operands stream. With the fold taken out the sweep runs at
+//     ~680 TFLOP/s (below), so L2 does not bind.
+//   - The fold, from registers. Each thread holds 4 rows' scores (two
+//     rows of each 64-row half, 32 columns each) and their current k'-th
+//     value in registers. A row's 32 scores are first reduced to their
+//     max; only when that reaches the k'-th value does the lane build the
+//     mask of its passing scores (ties are settled exactly by the merge).
+//     For a row with passing scores, its quad's 4 lanes stash their 32
+//     scores in shared memory, and the warp inserts the passing ones one by
+//     one into the row's sorted top-k' in shared memory (merge_row: lane j
+//     holds slot j, one ballot gives an entry's rank, one shuffle moves the
+//     slots below it), each checked exactly against the current k'-th
+//     entry. After the first tiles almost nothing passes: keys in random
+//     order enter a row's top-k' about k'(1 + ln(Nk / k')) times, ~360 over
+//     a sweep of 1M keys. The order is total, so the result does not
+//     depend on the order of insertion; there are no atomics, and two runs
+//     are bit-identical.
+//   - What it costs: the filter is cheap, the merges are not. The
+//     consumers share every K slab and the producer refills a stage only
+//     when all 8 consumer warps have released it, so the slowest warp's
+//     fold drains the ring. Handing the merges to the producer
+//     warpgroup's idle warps through per-warp queues read slower, and so
+//     did a 4th stage bought by keeping the top-k' lists in the outputs in
+//     device memory.
+//   - Columns at or past Nk are masked in the kernel; rows past Nq are not
+//     written, and get a k'-th value of +inf so nothing of theirs passes.
 // One launch per ring hop; the wrapper shifts the ids by the hop's column
 // offset.
 //
-// Requires D % 8 == 0, D <= 640, 16-byte aligned Q and K, 1 <= k' <= 32
-// (checked by the wrapper).
+// Requires D % 8 == 0, 16-byte aligned Q and K, 1 <= k' <= 32 (checked by
+// the wrapper).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_tiles.cuh"
+#include "hopper_tiles.cuh"
 
 namespace {
 
-using namespace mma_tiles;
+namespace ht = hopper;
 
-constexpr int NT = 256;          // threads: 8 warps
-constexpr int BQ = 128;          // query rows per block
-constexpr int BN = 64;           // key rows per tile
-constexpr int KC = 64;           // depth per pipeline stage (bf16)
+constexpr int WG_THREADS = 128;
+constexpr int THREADS = 3 * WG_THREADS;     // producer + 2 consumers
+constexpr int BQ = 256;                     // query rows a block
+constexpr int BN = 128;                     // key rows a tile
 constexpr int STAGES = 3;
-constexpr int KS = KC + 8;       // stage row stride (bf16): 144 B, conflict-free ldmatrix
-constexpr int SS = BN + 8;       // score row stride (floats): conflict-free float2 stores
-constexpr int ROWS_PER_WARP = BQ / (NT / 32);   // 16
+constexpr int KP_MAX = 32;
+constexpr int CONSUMER_WARPS = 8;
+constexpr int Q_SLAB = ht::slab_bytes(BQ);  // 256 rows x 64 depth
+constexpr int K_SLAB = ht::slab_bytes(BN);  // 128 rows x 64 depth
+constexpr int STAGE_BYTES = Q_SLAB + K_SLAB;
+constexpr int LIST_OFF = STAGES * STAGE_BYTES;
+constexpr int STASH_OFF = LIST_OFF + BQ * KP_MAX * 8;    // after the top-k'
+constexpr int BAR_OFF = STASH_OFF + CONSUMER_WARPS * 132 * 4;  // score stash
+constexpr int SMEM = 1024 + BAR_OFF + 8 * 2 * STAGES;
 
 // (av, ac) comes before (bv, bc): larger value, then lower column
 __device__ __forceinline__ bool before(float av, int ac, float bv, int bc) {
   return av > bv || (av == bv && ac < bc);
 }
 
-__global__ void __launch_bounds__(NT, 1)
-dist_topk_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k, int Nq, int Nk, int D,
-                 int Dp, int kp, float* __restrict__ vals,
+// One row's passing scores (the masks of quad q's lanes over the 32
+// scores each stashed in sbuf) inserted one by one into its sorted top-k'
+// in shared memory, lane j holding slot j: one ballot gives an entry's
+// rank, one shuffle moves the slots below it; each is checked exactly
+// against the current k'-th entry. The order is total, so the order of
+// insertion does not change the result. Returns the row's k'-th value. Not
+// inlined: the four call sites share one copy of the code.
+__device__ __noinline__ float merge_row(float* list_v, int* list_c,
+                                        const float* sbuf, unsigned mask,
+                                        int lr, int q, int n0, int lane,
+                                        int kp) {
+  float sv = lane < kp ? list_v[lr * KP_MAX + lane] : -INFINITY;
+  int sc = lane < kp ? list_c[lr * KP_MAX + lane] : -1;
+  float kv = __shfl_sync(0xffffffffu, sv, kp - 1);
+  int kc = __shfl_sync(0xffffffffu, sc, kp - 1);
+  for (int u = 0; u < 4; ++u) {
+    unsigned mu = __shfl_sync(0xffffffffu, mask, q * 4 + u);
+    while (mu) {
+      const int b = __ffs(mu) - 1;
+      mu &= mu - 1;
+      const float v = sbuf[u * 33 + b];
+      const int c = n0 + (b >> 1) * 8 + u * 2 + (b & 1);
+      if (!before(v, c, kv, kc)) continue;
+      // rank of the entry: the number of slots that come before it
+      const int p = __popc(__ballot_sync(
+          0xffffffffu, lane < kp && before(sv, sc, v, c)));
+      const float uv = __shfl_up_sync(0xffffffffu, sv, 1);
+      const int uc = __shfl_up_sync(0xffffffffu, sc, 1);
+      if (lane == p) { sv = v; sc = c; }
+      else if (lane > p && lane < kp) { sv = uv; sc = uc; }
+      kv = __shfl_sync(0xffffffffu, sv, kp - 1);
+      kc = __shfl_sync(0xffffffffu, sc, kp - 1);
+    }
+  }
+  if (lane < kp) {
+    list_v[lr * KP_MAX + lane] = sv;
+    list_c[lr * KP_MAX + lane] = sc;
+  }
+  return kv;
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+dist_topk_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk, int Nq, int Nk,
+                 int n_kc, int kp, float* __restrict__ vals,
                  int* __restrict__ ids) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int QS = Dp + 8;                          // query row stride (bf16)
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + BQ * QS;               // [STAGES][BN][KS]
-  float* sc = reinterpret_cast<float*>(ks + STAGES * BN * KS);  // [BQ][SS]
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (ht::smem_u32(smem_raw) & 1023)) & 1023);
+  float* list_v = reinterpret_cast<float*>(base + LIST_OFF);   // [BQ][32]
+  int* list_c = reinterpret_cast<int*>(list_v + BQ * KP_MAX);  // [BQ][32]
+  float* stash = reinterpret_cast<float*>(base + STASH_OFF);   // [8][4][33]
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + BAR_OFF);
+  uint64_t* empty = full + STAGES;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * BQ;
-  const int wm = warp >> 1, wn = warp & 1;        // warp tile: 32 rows x 32 cols
-  const int n_kc = Dp / KC;
   const int n_tiles = (Nk + BN - 1) / BN;
-  const int total = n_tiles * n_kc;
 
-  // -- the block's query rows, once (zero past Nq and past D) --------------
-  for (int c = tid; c < BQ * (Dp / 8); c += NT) {
-    const int r = c / (Dp / 8), d = (c % (Dp / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (q0 + r < Nq && d < D)
-      v = *reinterpret_cast<const uint4*>(q + (size_t)(q0 + r) * D + d);
-    *reinterpret_cast<uint4*>(qs + r * QS + d) = v;
-  }
-
-  auto load_stage = [&](int it) {
-    const int t = it / n_kc, kc = it % n_kc;
-    __nv_bfloat16* dst = ks + (it % STAGES) * BN * KS;
-#pragma unroll
-    for (int l = 0; l < BN * (KC / 8) / NT; ++l) {   // 2 chunks a thread
-      const int c = tid + l * NT, r = c >> 3, d = kc * KC + (c & 7) * 8;
-      const int n = t * BN + r;
-      const bool ok = n < Nk && d < D;
-      const __nv_bfloat16* src = ok ? k + (size_t)n * D + d : k;
-      cp_async16(dst + r * KS + (c & 7) * 8, src, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      ht::mbar_init(&full[s], 1);
+      ht::mbar_init(&empty[s], CONSUMER_WARPS);
     }
-  };
-
-  // running top-k' of this warp's 16 rows: lane j holds slot j of each
-  float tv[ROWS_PER_WARP];
-  int ti[ROWS_PER_WARP];
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) { tv[r] = -INFINITY; ti[r] = -1; }
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < total) load_stage(s);
-    cp_async_commit();
+    ht::mbar_init_fence();
   }
+  for (int i = threadIdx.x; i < BQ * KP_MAX; i += THREADS) {
+    list_v[i] = -INFINITY;
+    list_c[i] = -1;
+  }
+  __syncthreads();
 
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (it + STAGES - 1 < total) load_stage(it + STAGES - 1);
-    cp_async_commit();
-
-    const int t = it / n_kc, kc = it % n_kc;
-    const __nv_bfloat16* kb = ks + (it % STAGES) * BN * KS;
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      uint32_t a[2][4], b[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int row = wm * 32 + mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int col = kc * KC + kk + (lane >> 4) * 8;
-        ldmatrix_x4(a[mi], qs + row * QS + col);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        const int n = wn * 32 + nj * 16 + (lane & 7) + (lane >> 4) * 8;
-        const int col = kk + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(b[nj], kb + n * KS + col);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(acc[mi][ni], a[mi], b[ni >> 1][(ni & 1) * 2],
-                   b[ni >> 1][(ni & 1) * 2 + 1]);
-    }
-    if (kc != n_kc - 1) continue;
-
-    // -- the 128 x 64 tile is complete: through shared memory ------------
-    {
-      const int g = lane >> 2, tg = lane & 3;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int row = wm * 32 + mi * 16 + g, col = wn * 32 + ni * 8 + tg * 2;
-          *reinterpret_cast<float2*>(sc + row * SS + col) =
-              make_float2(acc[mi][ni][0], acc[mi][ni][1]);
-          *reinterpret_cast<float2*>(sc + (row + 8) * SS + col) =
-              make_float2(acc[mi][ni][2], acc[mi][ni][3]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 0) {
+    // -- producer: Q and K slabs, tile by tile, 64 deep ---------------------
+    ht::regs_release<40>();
+    if (threadIdx.x == 0) {
+      ht::tma_prefetch_desc(&tq);
+      ht::tma_prefetch_desc(&tk);
+      int it = 0;
+      for (int t = 0; t < n_tiles; ++t)
+        for (int kc = 0; kc < n_kc; ++kc, ++it) {
+          const int st = it % STAGES;
+          ht::mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
+          ht::mbar_expect_tx(&full[st], STAGE_BYTES);
+          unsigned char* dst = base + st * STAGE_BYTES;
+          ht::tma_load(dst, &tq, &full[st], kc * 64, q0);
+          ht::tma_load(dst + Q_SLAB, &tk, &full[st], kc * 64, t * BN);
         }
     }
-    __syncthreads();
+    return;
+  }
 
-    // -- fold each row's 64 scores into its running top-k' ---------------
+  // -- consumers: 128 query rows each -----------------------------------------
+  ht::regs_claim<232>();
+  const int wc = wg - 1;
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, tg = lane & 3;
+  float* sbuf = stash + (wc * 4 + warp) * 132;   // this warp's score stash
+  // local row of (half h, row-of-pair rr) for quad q: wc*128 + h*64 +
+  // warp*16 + q + 8*rr
+  const int row_base = wc * 128 + warp * 16;
+
+  // this lane's rows' k'-th value; +inf for rows past Nq, which are never
+  // written, so nothing of theirs passes
+  float thv[2][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      thv[h][rr] = q0 + row_base + h * 64 + g8 + 8 * rr < Nq ? -INFINITY
+                                                             : INFINITY;
+
+  int it = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    float acc[2][BN / 2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[h][i] = 0.f;
+    ht::fence_regs(acc[0]);
+    ht::fence_regs(acc[1]);
+    int prev = -1;
+    for (int kc = 0; kc < n_kc; ++kc, ++it) {
+      const int st = it % STAGES;
+      ht::mbar_wait(&full[st], (it / STAGES) & 1);
+      const unsigned char* qsl = base + st * STAGE_BYTES +
+                                 wc * ht::slab_bytes(128);
+      const unsigned char* ksl = base + st * STAGE_BYTES + Q_SLAB;
+      ht::wgmma_fence();
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) {
+        const uint64_t db = ht::desc_k(ksl, k4);
+        ht::wgmma_ss_n128(acc[0], ht::desc_k(qsl, k4), db, kc | k4);
+        ht::wgmma_ss_n128(acc[1], ht::desc_k(qsl + ht::slab_bytes(64), k4),
+                          db, kc | k4);
+      }
+      ht::wgmma_commit();
+      ht::wgmma_wait<1>();                  // the previous stage is read
+      if (prev >= 0) {
+        __syncwarp();
+        if (lane == 0) ht::mbar_arrive(&empty[prev]);
+      }
+      prev = st;
+    }
+    ht::wgmma_wait<0>();
+    ht::fence_regs(acc[0]);
+    ht::fence_regs(acc[1]);
+    __syncwarp();
+    if (lane == 0) ht::mbar_arrive(&empty[prev]);
+
+    // -- fold this tile's scores into the rows' top-k' ---------------------
     const int n0 = t * BN;
+    // bit 2i + e of a row's mask: column n0 + 8i + 2tg + e
+    unsigned colmask = 0xffffffffu;
+    if (n0 + BN > Nk) {
+      colmask = 0;
 #pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const float* srow = sc + (warp * ROWS_PER_WARP + r) * SS;
+      for (int b = 0; b < 32; ++b)
+        if (n0 + (b >> 1) * 8 + tg * 2 + (b & 1) < Nk) colmask |= 1u << b;
+    }
 #pragma unroll
-      for (int h = 0; h < BN / 32; ++h) {
-        const int col = n0 + h * 32 + lane;
-        const float s = srow[h * 32 + lane];
-        const float kv = __shfl_sync(0xffffffffu, tv[r], kp - 1);
-        const int kcol = __shfl_sync(0xffffffffu, ti[r], kp - 1);
-        unsigned cand = __ballot_sync(0xffffffffu,
-                                      col < Nk && before(s, col, kv, kcol));
-        while (cand) {
-          const int src = __ffs(cand) - 1;
-          cand &= cand - 1;
-          const float v = __shfl_sync(0xffffffffu, s, src);
-          const int c = __shfl_sync(0xffffffffu, col, src);
-          // rank of the entry: the number of slots that come before it
-          const int p = __popc(__ballot_sync(
-              0xffffffffu, lane < kp && before(tv[r], ti[r], v, c)));
-          const float uv = __shfl_up_sync(0xffffffffu, tv[r], 1);
-          const int uc = __shfl_up_sync(0xffffffffu, ti[r], 1);
-          if (p < kp) {
-            if (lane == p) { tv[r] = v; ti[r] = c; }
-            else if (lane > p && lane < kp) { tv[r] = uv; ti[r] = uc; }
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        // the row's 32 scores of this lane against its k'-th value: the max
+        // first, the per-score mask only when it passes
+        float mx = -INFINITY;
+#pragma unroll
+        for (int b = 0; b < 32; ++b)
+          mx = fmaxf(mx, acc[h][4 * (b >> 1) + 2 * rr + (b & 1)]);
+        if (!__any_sync(0xffffffffu, mx >= thv[h][rr])) continue;
+        // v >= the k'-th value: a superset of the scores that come before
+        // the k'-th entry (the merge settles ties exactly)
+        unsigned mask = 0;
+#pragma unroll
+        for (int b = 0; b < 32; ++b)
+          if (acc[h][4 * (b >> 1) + 2 * rr + (b & 1)] >= thv[h][rr])
+            mask |= 1u << b;
+        mask &= colmask;
+        unsigned pend = __ballot_sync(0xffffffffu, mask != 0);
+        while (pend) {
+          const int q = (__ffs(pend) - 1) >> 2;     // the row's quad
+          if (g8 == q) {                            // its 4 lanes' scores
+#pragma unroll
+            for (int b = 0; b < 32; ++b)
+              sbuf[tg * 33 + b] = acc[h][4 * (b >> 1) + 2 * rr + (b & 1)];
           }
+          __syncwarp();
+          const float kv = merge_row(list_v, list_c, sbuf, mask,
+                                     row_base + h * 64 + q + 8 * rr, q, n0,
+                                     lane, kp);
+          if (g8 == q) {                            // the row's new k'-th
+            thv[h][rr] = kv;
+            mask = 0;
+          }
+          __syncwarp();
+          pend = __ballot_sync(0xffffffffu, mask != 0);
         }
       }
-    }
   }
-  cp_async_wait<0>();
 
-  // -- write each row's slots -------------------------------------------------
+  // -- write each row's slots: a warp writes its own 32 rows -----------------
 #pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    const int row = q0 + warp * ROWS_PER_WARP + r;
-    if (row < Nq && lane < kp) {
-      vals[(size_t)row * kp + lane] = tv[r];
-      ids[(size_t)row * kp + lane] = ti[r];
+  for (int h = 0; h < 2; ++h)
+    for (int r = 0; r < 16; ++r) {
+      const int lr = row_base + h * 64 + r;
+      const int row = q0 + lr;
+      if (row < Nq && lane < kp) {
+        vals[(size_t)row * kp + lane] = list_v[lr * KP_MAX + lane];
+        ids[(size_t)row * kp + lane] = list_c[lr * KP_MAX + lane];
+      }
     }
-  }
 }
 
 }  // namespace
 
+// Returns a cudaError_t, or 10000 + a CUresult when a TMA descriptor cannot
+// be encoded.
 extern "C" int dist_topk_launch(const void* q, const void* k, int Nq, int Nk,
                                 int D, int kp, void* vals, void* ids,
                                 void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int Dp = (D + KC - 1) / KC * KC;
-  const int smem = BQ * (Dp + 8) * 2 + STAGES * BN * KS * 2 + BQ * SS * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      dist_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Nq + BQ - 1) / BQ);
-  dist_topk_kernel<<<grid, NT, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k), Nq, Nk, D, Dp, kp,
-      static_cast<float*>(vals), static_cast<int*>(ids));
+  CUtensorMap tq, tk;
+  const uint64_t row = 2ull * D;
+  int err = ht::tmap_bf16(&tq, q, 2, D, Nq, 1, row, 0, BQ);
+  if (!err) err = ht::tmap_bf16(&tk, k, 2, D, Nk, 1, row, 0, BN);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      dist_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_kc = (D + 63) / 64;
+  dist_topk_kernel<<<(Nq + BQ - 1) / BQ, THREADS, SMEM, st>>>(
+      tq, tk, Nq, Nk, n_kc, kp, static_cast<float*>(vals),
+      static_cast<int*>(ids));
   return static_cast<int>(cudaGetLastError());
 }

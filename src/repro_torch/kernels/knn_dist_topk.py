@@ -4,9 +4,11 @@
 ``dist_topk`` is the port of the Pallas TPU kernel
 ``src/repro/kernels/knn_dist_topk.py`` ``dist_topk`` / ``_dist_topk_kernel``.
 On CUDA tensors it launches the hand-written kernel in
-``csrc/knn_dist_topk.cu`` (each block keeps 128 query rows in shared
-memory and sweeps every key row, bf16 products on the tensor cores with
-fp32 sums, a running top-k' per row in registers); on CPU tensors it runs
+``csrc/knn_dist_topk.cu`` (each block owns 256 query rows and sweeps every
+key row in tiles of 128: a producer warp streams 64-deep slabs of the
+block's Q rows and the tile's K rows by TMA, two consumer warpgroups take
+the bf16 products by ``wgmma`` with fp32 sums and fold the scores that beat
+a row's k'-th entry into its running top-k'); on CPU tensors it runs
 ``dist_topk_plain``, the same function in plain torch ops.
 
 Bound on an H100 SXM at the graph build's shapes (Q = K = the 1,020,250
@@ -24,7 +26,7 @@ from repro_torch.kernels import build
 
 LAUNCHES = 0          # kernel launches (one per dist_topk call on the card)
 MAX_KPRIME = 32       # the CUDA kernel keeps a row's slots one per lane
-MAX_DIM = 640         # the block's query rows live in shared memory
+MAX_DIM = 4096        # Q and K stream over depth: no cap from shared memory
 
 
 def dist_topk_plain(q, kmat, kprime: int, col_offset: int = 0):
@@ -82,6 +84,10 @@ def dist_topk(q, kmat, kprime: int, *, col_offset: int = 0):
         raise ValueError("dist_topk: q and kmat must be contiguous")
     if q.data_ptr() % 16 or kmat.data_ptr() % 16:
         raise ValueError("the CUDA dist_topk needs 16-byte aligned q and kmat")
+    if not nk:                  # no keys: every slot is (-inf, -1)
+        return (torch.full((nq, kprime), float("-inf"), device=q.device),
+                torch.full((nq, kprime), -1, device=q.device,
+                           dtype=torch.int32))
     vals = torch.empty((nq, kprime), device=q.device, dtype=torch.float32)
     ids = torch.empty((nq, kprime), device=q.device, dtype=torch.int32)
     if nq:

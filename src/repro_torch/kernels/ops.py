@@ -128,9 +128,21 @@ def dist_topk(q, kmat, kprime: int, *, col_offset: int = 0):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """Forward flash attention: q [BH, Sq, Dh], k / v [BH, T, Dh] ->
-    [BH, Sq, Dh]. Positions are implicit (row i is position i); GQA is
-    expanded into BH by the caller."""
+    """Forward flash attention: q [BH, Sq, Dh], k / v [BH / g, T, Dh] ->
+    [BH, Sq, Dh]. Positions are implicit (row i is position i); query head
+    h reads KV head h // g (GQA without copies).
+
+    Forward only, as the JAX package's Pallas kernel is (it has no
+    ``custom_vjp``): under grad mode with an input that requires grad it
+    raises on every device, since the card's output would carry no
+    gradient. Training attention is ROADMAP A.9.1."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention is forward only (no backward kernel, as the JAX "
+            "package's Pallas kernel has none): call it under "
+            "torch.no_grad(), or train attention on the ref backend; "
+            "training through attention is ROADMAP A.9.1")
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 

@@ -221,20 +221,17 @@ def _flash_qblock(qg, kT, vT, qpos, k_positions, scale, causal, window,
 
 
 def _kernel_self_attention(q, k, v, causal, window):
-    """Self-attention over a sequence's rows through the flash kernel: the KV
-    heads expanded into the [B*Hq, S, Dh] layout it takes (query head h
-    reads KV head h // group, as the JAX package's reshape does)."""
+    """Self-attention over a sequence's rows through the flash kernel, in
+    the [B*H, S, Dh] layout it takes: the KV heads are not expanded, since
+    the kernel has query head b*Hq + h read KV head b*Hk + h // g, as the
+    JAX package's reshape does."""
     b, s, hq, dh = q.shape
-    g = hq // k.shape[2]
 
-    def heads(x, rep):
-        x = x.transpose(1, 2)
-        if rep > 1:
-            x = x.repeat_interleave(rep, dim=1)
-        return x.reshape(b * hq, s, dh).contiguous()
+    def heads(x):
+        return x.transpose(1, 2).reshape(-1, s, dh).contiguous()
 
-    out = ops.flash_attention(heads(q, 1), heads(k, g), heads(v, g),
-                              causal=causal, window=window or 0)
+    out = ops.flash_attention(heads(q), heads(k), heads(v), causal=causal,
+                              window=window or 0)
     return out.reshape(b, hq, s, dh).transpose(1, 2)
 
 

@@ -5,12 +5,14 @@ The same inputs, made from a seed with numpy, go through
 ``repro.kernels.flash_attention.flash_attention`` in interpret mode (at the
 block sizes of the JAX test's sweep) and through the port: its plain
 version, ``flash_attention_plain`` (the TPU kernel's tile loop in torch
-ops, at the CUDA kernel's 64-row tiles), and the public wrappers
+ops, at the CUDA kernel's key tiles), and the public wrappers
 ``flash_attention`` and ``ops.flash_attention``, which on CPU tensors run
 that plain version. The sweep is ``tests/test_flash_kernel.py``'s (ragged
 Sq != T with kv padding, non-causal; a sliding window of 100; Dh 32, 64
 and 128) plus Dh 96 and 256 and a case whose rows from 149 on have no
 valid key (Sq=300, T=100, causal, window 50), which must come out 0.
+Grouped KV heads (g = 1, 3, 8) equal the same heads expanded, and
+``ops.flash_attention`` is forward only: it raises under grad.
 
 Tolerances are the JAX test's own: fp32 within atol 2e-5 (fp32 sums in
 another order and over other tiles), bf16 within atol 3e-2 against the
@@ -114,6 +116,49 @@ def test_flash_dtypes(dtype):
     np.testing.assert_allclose(out.float().numpy(), ref, atol=atol, rtol=0)
 
 
+@pytest.mark.parametrize("g", [1, 3, 8])
+def test_grouped_kv_heads_equal_expanded_heads(g):
+    """GQA without copies: k and v with BH / g heads (g = 3 as SmolLM's 9
+    over 3) give exactly the plain version on heads expanded by
+    ``repeat_interleave`` (query head h reads KV head h // g), and match
+    the Pallas kernel in interpret mode on the expanded heads."""
+    bh, s, dh = 2 * g, 150, 64
+    rng = np.random.default_rng(g)
+    q = rng.standard_normal((bh, s, dh)).astype(np.float32)
+    k, v = (rng.standard_normal((bh // g, s, dh)).astype(np.float32)
+            for _ in range(2))
+    ke, ve = (np.repeat(a, g, axis=0) for a in (k, v))
+    ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(ke),
+                               jnp.asarray(ve), window=60, block_q=64,
+                               block_kv=64))
+    for dtype in (torch.float32, torch.bfloat16):
+        tq, tk, tv, tke, tve = (torch.from_numpy(a).to(dtype)
+                                for a in (q, k, v, ke, ve))
+        grouped = tops.flash_attention(tq, tk, tv, window=60)
+        expanded = tfa.flash_attention_plain(tq, tke, tve, window=60)
+        assert grouped.dtype == dtype
+        assert torch.equal(grouped, expanded)
+    np.testing.assert_allclose(
+        tfa.flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  window=60).numpy(), ref, atol=FP32_ATOL,
+        rtol=0)
+
+
+@pytest.mark.parametrize("grad_input", ["q", "k", "v"])
+def test_flash_attention_raises_under_grad(grad_input):
+    """Forward only, as the Pallas kernel (no custom_vjp): with grad mode on
+    and an input that requires grad, ``ops.flash_attention`` raises on
+    every device (on the card the output would carry no gradient) and
+    points at ROADMAP A.9.1; under ``no_grad`` it runs."""
+    x = {n: torch.randn(3, 40, 32) for n in "qkv"}
+    x[grad_input].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="A.9.1"):
+        tops.flash_attention(x["q"], x["k"], x["v"])
+    with torch.no_grad():
+        out = tops.flash_attention(x["q"], x["k"], x["v"])
+    assert out.shape == (3, 40, 32) and not out.requires_grad
+
+
 def test_plain_version_does_not_depend_on_its_tiles():
     """The kv tiles only change the order of fp32 sums: the plain version
     at the TPU kernel's 128-key tiles agrees with it at the CUDA kernel's
@@ -122,6 +167,22 @@ def test_plain_version_does_not_depend_on_its_tiles():
     a = tfa.flash_attention_plain(q, k, v, window=70)
     b = tfa.flash_attention_plain(q, k, v, window=70, block_kv=128)
     np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("group", [1, 3])
+def test_plain_version_takes_non_contiguous_inputs(group):
+    """A transposed (non-contiguous) fp32 q, k and v, as a caller's head
+    transpose leaves them, give on the CPU route exactly what their
+    contiguous copies give."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(6, 40, 40, 32, seed=5))
+    k, v = k[::group], v[::group]
+    qt, kt, vt = (x.transpose(0, 1).contiguous().transpose(0, 1)
+                  for x in (q, k, v))
+    assert not qt.is_contiguous()
+    with torch.no_grad():
+        a = tops.flash_attention(qt, kt, vt)
+    b = tfa.flash_attention_plain(q, k, v)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dh", [8, 40, 272])

@@ -228,7 +228,9 @@ TOPK_CASES = {"square": (64, 64, 32, 16, 0, 128),
               "wide": (40, 200, 16, 8, 0, 32),
               "ragged_offset": (130, 70, 32, 16, 100, 32),
               "kprime_over_nk": (30, 20, 16, 32, 0, 128),
-              "ties": (48, 96, 16, 12, 7, 32)}
+              "ties": (48, 96, 16, 12, 7, 32),
+              "deep_1024": (40, 96, 1024, 32, 0, 32),     # the zoo's knn
+              "deep_2048": (24, 70, 2048, 16, 5, 32)}     # heads (A.9.2)
 
 
 @pytest.mark.parametrize("case", list(TOPK_CASES))
@@ -479,6 +481,42 @@ def test_knn_softmax_local_matches_jax(port_results, n, backend, pad):
         other = port_results[n]["ranks"][r][
             2 + BODY_CASES.index((backend, pad))]
         np.testing.assert_array_equal(other["loss"], port["loss"])
+
+
+def test_knn_softmax_local_bf16_features_keep_fp32_products():
+    """bf16 features (the zoo trainer's) through the ``ref`` body: the
+    logits are fp32 sums of the exact products of the bf16 operands, as
+    the JAX package's ``preferred_element_type=float32`` makes them, so
+    the loss and logz are fp32 and within 1e-5 of JAX's on a ring of one.
+    Logits rounded to bf16 move the loss by ~1e-2 here."""
+    f, y, w = _problem()
+    jf = jnp.asarray(f, jnp.bfloat16)
+    graph = _graph(1)
+    mesh = jhybrid.make_hybrid_mesh(1)
+    ax = jhybrid.AXIS
+
+    def body(f_, y_, w_, off, nb, rk):
+        return jks.knn_softmax_local(
+            f_, y_, w_, off, nb, rk, model_axis=ax, batch_axes=(),
+            global_batch=B, m_local=_m_local(1), k_cap=K, cosine_scale=16.0,
+            pad_random=False, backend="ref")
+
+    fn = jax.shard_map(body, mesh=mesh,
+                       in_specs=(P(), P(), P(ax, None), P(ax, None),
+                                 P(ax, None), P(ax, None)),
+                       out_specs=(P(), dict(KSPEC)), check_vma=False)
+    with jax.set_mesh(mesh):
+        jl, jm = jax.device_get(jax.jit(fn)(jf, y, w, *graph))
+    tf = torch.from_numpy(np.array(jf.astype(jnp.float32))).bfloat16()
+    aux = [torch.from_numpy(np.ascontiguousarray(a[0])) for a in graph]
+    tl, tm = tks.knn_softmax_local(
+        tf, torch.from_numpy(y), torch.from_numpy(w), *aux, global_batch=B,
+        m_local=_m_local(1), k_cap=K, pad_random=False, backend="ref")
+    assert tl.dtype == torch.float32 and tm["logz"].dtype == torch.float32
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tm["logz"].numpy(), np.asarray(jm["logz"]),
+                               atol=1e-5, rtol=0)
+    assert float(tm["label_recall"]) == 1.0
 
 
 @pytest.mark.parametrize("n", RINGS)

@@ -235,7 +235,7 @@ def test_multihead_attention_ref_matches(case):
 @pytest.mark.parametrize("s,hq,hk", [(17, 9, 3), (2048, 2, 1)])
 def test_kernel_backend_attention_matches(s, hq, hk, window, monkeypatch):
     """Causal self-attention with ``self_rows`` goes to the flash kernel
-    (its plain version on the CPU), GQA expanded into BH, and agrees with
+    (its plain version on the CPU), GQA from the grouped KV heads, and agrees with
     the JAX package's ``multihead_attention``."""
     calls = []
     real = tops.flash_attention
@@ -257,6 +257,22 @@ def test_kernel_backend_attention_matches(s, hq, hk, window, monkeypatch):
     tlayers.multihead_attention(_t(q), _t(k), _t(v), q_positions=rows,
                                 k_positions=rows, backend="kernel")
     assert len(calls) == 1
+
+
+def test_kernel_backend_attention_is_forward_only():
+    """The flash kernel has no backward (nor has the Pallas kernel): the
+    kernel backend's attention raises under grad mode when q, k or v
+    requires grad, rather than drop attention's gradient on the card, and
+    runs under ``no_grad`` as serving calls it."""
+    q, k, v = (_t(a) for a in _attn_inputs(1, 12, 12, 9, 3, 16, seed=5))
+    rows = torch.arange(12)
+    kw = dict(q_positions=rows, k_positions=rows, backend="kernel",
+              self_rows=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        tlayers.multihead_attention(q.requires_grad_(True), k, v, **kw)
+    with torch.no_grad():
+        out = tlayers.multihead_attention(q, k, v, **kw)
+    assert out.shape == q.shape
 
 
 def test_kernel_backend_wants_self_rows():
@@ -531,6 +547,50 @@ def test_serve_logits_local_keeps_bf16_products_in_fp32():
                                atol=0)
     np.testing.assert_array_equal(_np(ids), np.asarray(jids))
     assert int(ids[0]) == v - 1                  # 64 + 47/128, not a tie
+
+
+C9_B, C9_V, C9_D = 64, 4096, 576
+
+
+def _jax_ring1(body, in_specs, out_specs, *args):
+    mesh = Mesh(np.array(jax.devices()[:1]), ("model",))
+    fn = jax.shard_map(body, mesh=mesh, in_specs=in_specs,
+                       out_specs=out_specs, check_vma=False)
+    return jax.device_get(fn(*args))
+
+
+@pytest.mark.parametrize("site", ["full_softmax_local", "serve_topk_local"])
+def test_bf16_features_keep_fp32_products(site):
+    """bf16 features against an fp32 class shard (what the zoo trainer
+    feeds the heads): the ``ref`` loss body and the top-k serve take the
+    product as the JAX package does, operands in bf16 and products and sums
+    in fp32, so the loss, logz and top-k scores are fp32 and within 2e-5 of
+    JAX's. A product rounded to bf16 is off by up to ~7e-3 a logit here."""
+    rng = np.random.default_rng(16)
+    f = rng.standard_normal((C9_B, C9_D)).astype(np.float32)
+    w = (0.05 * rng.standard_normal((C9_V, C9_D))).astype(np.float32)
+    y = rng.integers(0, C9_V, C9_B).astype(np.int32)
+    jf = jnp.asarray(f, jnp.bfloat16)
+    tf = _t(np.asarray(jf.astype(jnp.float32))).bfloat16()
+    if site == "full_softmax_local":
+        jl, jm = _jax_ring1(
+            functools.partial(jss.full_softmax_local, model_axis="model",
+                              batch_axes=(), global_batch=C9_B),
+            (P(), P(), P("model", None)), (P(), {"accuracy": P(), "logz": P()}),
+            jf, jnp.asarray(y), jnp.asarray(w))
+        tl, tm = tss.full_softmax_local(tf, _t(y), _t(w), global_batch=C9_B)
+        assert tl.dtype == torch.float32 and tm["logz"].dtype == torch.float32
+        np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=2e-5, rtol=0)
+        np.testing.assert_allclose(_np(tm["logz"]), np.asarray(jm["logz"]),
+                                   atol=2e-5, rtol=0)
+        return
+    jv, jg = _jax_ring1(
+        functools.partial(jss.serve_topk_local, k=5, model_axis="model"),
+        (P(), P("model", None)), (P(), P()), jf, jnp.asarray(w))
+    tv, tg = tss.serve_topk_local(tf, _t(w), 5)
+    assert tv.dtype == torch.float32
+    np.testing.assert_allclose(_np(tv), np.asarray(jv), atol=2e-5, rtol=0)
+    np.testing.assert_array_equal(_np(tg), np.asarray(jg))
 
 
 # ---------------------------------------------------------------------------
