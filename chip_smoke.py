@@ -8,9 +8,10 @@ PyTorch built for CUDA. Phases, each of which fails the run:
 
 1. build: ``nvcc`` compiles every ``src/repro_torch/kernels/csrc/*.cu``
    into ``build/repro_torch_kernels/`` (one process per source, in
-   parallel) and prints ``-Xptxas -v``'s register report. The two kernels
+   parallel) and prints ``-Xptxas -v``'s register report. The kernels
    built on Hopper's warpgroup products and TMA (``flash_attention``,
-   ``dist_topk``) must show ``HGMMA`` and ``UTMALDG`` in their SASS
+   ``dist_topk``, and the dense CE kernels ``ce_softmax_fwd`` and
+   ``ce_softmax_bwd``) must show ``HGMMA`` and ``UTMALDG`` in their SASS
    (``cuobjdump -sass``) and no spills.
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the same card tensors, at the shapes of the paper's 1M-class
@@ -23,12 +24,18 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    plain| <= 2e-5 * max|plain| for df, dW's label rows and dW's other rows,
    each against its own max (sums over V or B in another order), at the
    training shapes both with the loss's cotangents and with the softmax
-   term alone (gc = 0), and bit-identical across two runs (no atomics). Then
+   term alone (gc = 0); both CE kernels bit-identical across two runs (no
+   atomics). The CE kernels take their products in 3xTF32; at the training
+   shapes the plain versions with the products emulated in 1xTF32
+   (``repro_torch.testing``) must fail both CE gates, so the gates tell the
+   design from plain TF32. Then
    CUDA-event times of the kernel, its plain version, the library call
    that computes the same function, or for the CE kernels its dense
    ``f @ W.T`` product alone (cuBLAS, TF32 off), and the bound (bytes
-   over 3.35 TB/s or operations over 67 TFLOP/s fp32 / 989 TFLOP/s bf16,
-   the H100 SXM data sheet's rates, whichever is larger).
+   over 3.35 TB/s or operations over 67 TFLOP/s fp32 / 494.7 TFLOP/s TF32
+   / 989 TFLOP/s bf16, the H100 SXM data sheet's rates, whichever is
+   larger); the CE kernels' bound counts their 3xTF32 products (three
+   TF32 products for each fp32 one), with the fp32-FMA bound beside it.
    The knn slice's kernels: ``sparse_ce_forward`` / ``_backward`` at the
    knn training shapes (B=256, A=102,025 active rows of the 1M x 512 unit
    shard, labels first, 100 repeated ids, scale 16) and at ragged shapes
@@ -171,13 +178,15 @@ FIT_STEPS, FIT_LAUNCHES = 6, 1 + 1 + 1 + 2 + 4 + 4   # n_micro per step
 CHUNK = 2048                                 # ops.topk_rows' chunk
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12                       # H100 SXM, outside tensor cores
+TF32_OPS_PER_S = 494.7e12                    # H100 SXM data sheet, dense
 BF16_OPS_PER_S = 989e12                      # H100 SXM, dense tensor cores
 # dist_topk timing slice, kept from the earlier design's one wave of 132
 # blocks of 128 rows (66 blocks of 256 rows now); pass 1 over every row is
 # timed in the knn phase
 QSLICE = 132 * 128
 DEEP_DIMS = (1024, 2048, 3072)   # the zoo's knn heads (ROADMAP A.9.2)
-HOPPER_KERNELS = ("flash_attention", "knn_dist_topk")   # wgmma + TMA
+HOPPER_KERNELS = ("flash_attention", "knn_dist_topk",  # wgmma + TMA
+                  "ce_softmax_fwd", "ce_softmax_bwd")
 KNN_K, KPRIME, ACTIVE_FRAC = 16, 32, 0.1    # the knn head (launch/train.py)
 IVF_TOL = 1e-5       # ivf_rerank: fp32 dot products of D terms in another order
 RECALL_QUERIES = 256
@@ -318,8 +327,20 @@ def bound_ms(n_bytes: float, n_ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ce_bounds(n_bytes: float, n_products: int, b: int) -> dict:
+    """A dense CE kernel's bounds at batch b over the V x D shard: its
+    n_products fp32 products of 2 b V D operations as 3xTF32 on the tensor
+    cores (three TF32 products each; the kernels' design), and on CUDA
+    cores in fp32 FMA, each against its bytes."""
+    ops = n_products * 2.0 * b * V * D
+    t32, by32 = bound_ms(n_bytes, 3 * ops, TF32_OPS_PER_S)
+    fma, by_fma = bound_ms(n_bytes, ops)
+    return {"bound_ms": t32, "bound_by": by32, "bound_fp32_fma_ms": fma,
+            "bound_fp32_fma_by": by_fma}
+
+
 def hopper_path_check(build):
-    """The two kernels rebuilt on wgmma and TMA really use them: their SASS
+    """The kernels rebuilt on wgmma and TMA really use them: their SASS
     holds HGMMA (warpgroup products) and UTMALDG (TMA tile loads), and
     ``ptxas`` reports no spills for them."""
     libs = build.build_all()
@@ -344,39 +365,31 @@ def hopper_path_check(build):
 
 
 def check_ce(torch, ce, f, w, y, limit, scale=1.0, label=""):
-    """ce_forward's kernel vs ce_forward_plain on the same card tensors.
-    Returns the largest absolute error of m and corr, and the largest
-    relative error of z."""
-    m1, z1, c1, a1 = ce.ce_forward(f, w, y, limit=limit, scale=scale)
+    """ce_forward's kernel vs ce_forward_plain on the same card tensors,
+    through ``repro_torch.testing.ce_forward_gate`` (m and corr atol 1e-4,
+    z rtol 1e-4, amax equal except at top-2 gaps below 1e-5), twice: the
+    two kernel runs must agree bit for bit. Returns the largest absolute
+    error of m and corr, and the largest relative error of z."""
+    from repro_torch import testing
+    out = ce.ce_forward(f, w, y, limit=limit, scale=scale)
+    again = ce.ce_forward(f, w, y, limit=limit, scale=scale)
     yl = torch.where((y >= 0) & (y < w.shape[0]), y, -1).to(torch.int32)
     lim = max(0, min(int(limit), w.shape[0]))
-    m2, z2, c2, a2 = ce.ce_forward_plain(f, w, yl, lim, scale)
+    ref = ce.ce_forward_plain(f, w, yl, lim, scale)
     torch.cuda.synchronize()
-    torch.testing.assert_close(m1, m2, atol=1e-4, rtol=0,
-                               msg=lambda s: f"ce_forward m {label}: {s}")
-    torch.testing.assert_close(c1, c2, atol=1e-4, rtol=0,
-                               msg=lambda s: f"ce_forward corr {label}: {s}")
-    torch.testing.assert_close(z1, z2, rtol=1e-4, atol=0,
-                               msg=lambda s: f"ce_forward z {label}: {s}")
-    s = (f @ w.T) * scale
-    s[:, lim:] = float("-inf")
-    top2 = s.topk(min(2, s.shape[1]), dim=1).values
-    gap = (top2[:, 0] - top2[:, -1]) if top2.shape[1] > 1 else None
-    differ = a1 != a2
-    if gap is not None:
-        differ &= ~(gap < 1e-5)
-    if bool(differ.any()):
-        rows = differ.nonzero()[:, 0].tolist()[:8]
-        fail(f"ce_forward amax {label}: rows {rows} kernel "
-             f"{a1[rows].tolist()} plain {a2[rows].tolist()}")
-    def worst(e):
-        e = e[torch.isfinite(e)]
-        return float(e.abs().max()) if e.numel() else 0.0
-
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        fail(f"ce_forward {label}: two runs on the same inputs differ")
+    gate = testing.ce_forward_gate(out, ref, f, w, lim, scale)
+    if not gate["ok"]:
+        rows = gate["amax_rows"][:8]
+        fail(f"ce_forward {label}: {gate['failed']} fail; m/corr max abs err "
+             f"{gate['m_corr_err']:.3g} (atol {testing.CE_ATOL:g}), z max rel "
+             f"err {gate['z_rel_err']:.3g} (rtol {testing.CE_Z_RTOL:g}), amax "
+             f"rows {rows} kernel {out[3][rows].tolist()} plain "
+             f"{ref[3][rows].tolist()}")
     # m and corr are scores; z is a sum over V terms, so its error is
     # relative
-    return (max(worst(m1 - m2), worst(c1 - c2)),
-            worst((z1 - z2) / z2.clamp_min(torch.finfo(z2.dtype).tiny)))
+    return gate["m_corr_err"], gate["z_rel_err"]
 
 
 def check_topk(torch, dc, x, k, chunk=None, label=""):
@@ -445,8 +458,9 @@ def kernel_phase(torch, ce, dc, sharded):
     ce_err, z_rel = check_ce(torch, ce, fs, ws, ys, V, 1.0, "serving shapes")
     logits = fs @ ws.T
     tk_err = check_topk(torch, dc, logits, K, CHUNK, "serving shapes")
-    log(f"kernel phase: serving shapes agree (ce_forward m/corr max abs "
-        f"err {ce_err:.3g}, z max rel err {z_rel:.3g})")
+    log(f"kernel phase: serving shapes agree, ce_forward bit-identical "
+        f"across runs (m/corr max abs err {ce_err:.3g}, z max rel err "
+        f"{z_rel:.3g})")
 
     yl = torch.where(ys >= 0, ys, -1)
     ce_ms = cuda_ms(torch, lambda: ce.ce_forward(fs, ws, ys, limit=V), 20)
@@ -460,8 +474,11 @@ def kernel_phase(torch, ce, dc, sharded):
     tk_lib = cuda_ms(torch, lambda: torch.topk(padded, K, dim=1), 50)
     ce_lib = cuda_ms(torch, lambda: fs @ ws.T, 20)     # the product alone
 
-    ce_bytes = 4 * (B * D + V * D + B) + 16 * B
-    ce_bound, ce_by = bound_ms(ce_bytes, 2.0 * B * V * D)
+    ce_bound = ce_bounds(4 * (B * D + V * D + B) + 16 * B, 1, B)
+    log(f"kernel phase: ce_forward at B={B} {ce_ms:.3f} ms (3xTF32 bound "
+        f"{ce_bound['bound_ms']:.3f} ms by {ce_bound['bound_by']}, fp32-FMA "
+        f"{ce_bound['bound_fp32_fma_ms']:.3f}), plain {ce_plain:.3f} ms, "
+        f"f @ W.T {ce_lib:.3f} ms")
     tk_bytes = 4 * B * V + 8 * B * nch * K
     tk_bound, tk_by = bound_ms(tk_bytes, float(K) * B * V)
     return {
@@ -470,7 +487,7 @@ def kernel_phase(torch, ce, dc, sharded):
             source="src/repro_torch/kernels/csrc/ce_softmax_fwd.cu",
             replaces="src/repro/kernels/ce_softmax.py:106",
             max_abs_err=ce_err, z_max_rel_err=z_rel, ms=ce_ms,
-            plain_ms=ce_plain, bound_ms=ce_bound, bound_by=ce_by,
+            plain_ms=ce_plain, **ce_bound,
             library_ms=ce_lib, library="f @ W.T (cuBLAS fp32, TF32 off)",
             shape=f"f[{B},{D}] W[{V},{D}]"),
         "stage1_topk": dict(
@@ -489,7 +506,9 @@ def check_ce_bwd(torch, ce, f, w, y, m, gz, gc, limit, scale, label):
     against its own max|plain|: df, dW's label rows, and dW's other rows,
     whose only term is the softmax one (it is orders of magnitude below the
     one-hot term of the label rows, so a shared scale would not see it).
+    The gate is ``repro_torch.testing.ce_backward_gate`` (BWD_TOL).
     Returns {part: (max abs err, max abs err / max|plain|)}."""
+    from repro_torch import testing
     df1, dw1 = ce.ce_backward(f, w, y, m, gz, gc, limit=limit, scale=scale)
     df2, dw2 = ce.ce_backward(f, w, y, m, gz, gc, limit=limit, scale=scale)
     yl = torch.where((y >= 0) & (y < w.shape[0]), y, -1).to(torch.int32)
@@ -498,23 +517,11 @@ def check_ce_bwd(torch, ce, f, w, y, m, gz, gc, limit, scale, label):
     torch.cuda.synchronize()
     if not (torch.equal(df1, df2) and torch.equal(dw1, dw2)):
         fail(f"ce_backward {label}: two runs on the same inputs differ")
-    for name, k in (("df", df1), ("dW", dw1)):
-        if not bool(torch.isfinite(k).all()):
-            fail(f"ce_backward {name} {label}: non-finite values")
-    lab = torch.zeros(w.shape[0], dtype=torch.bool, device=w.device)
-    lab[yl[yl >= 0].long()] = True
-    out = {}
-    for name, k, p in (("df", df1, pdf), ("dW label rows", dw1[lab], pdw[lab]),
-                       ("dW other rows", dw1[~lab], pdw[~lab])):
-        if not p.numel():
-            continue
-        scale_ref = float(p.abs().max())
-        err = float((k - p).abs().max())
-        if err > BWD_TOL * scale_ref:
-            fail(f"ce_backward {name} {label}: max abs err {err:.3g} over "
-                 f"{BWD_TOL:g} * max|plain| = {BWD_TOL * scale_ref:.3g}")
-        out[name] = (err, err / scale_ref if scale_ref else err)
-    return out
+    gate = testing.ce_backward_gate(df1, dw1, pdf, pdw, yl)
+    if not gate["ok"]:
+        fail(f"ce_backward {label}: {gate['failed']} fail; max abs err (of "
+             f"max|plain|) by part {gate['parts']}, gate {BWD_TOL:g}")
+    return gate["parts"]
 
 
 def backward_kernel_phase(torch, ce, sharded):
@@ -542,10 +549,17 @@ def backward_kernel_phase(torch, ce, sharded):
             m[5:7] = float("-inf")               # rows with nothing live
         ragged[f"limit={limit}"] = check_ce_bwd(
             torch, ce, f, w, y, m, gz, gc, limit, scale, f"ragged limit={limit}")
-    f, w, y, gz, gc = inputs(300, 1000, 64)      # three 128-row chunks
+    f, w, y, gz, gc = inputs(300, 1000, 64)      # two 256-row chunks
     m = ce.ce_forward(f, w, y, limit=1000)[0]
     ragged["300 rows"] = check_ce_bwd(torch, ce, f, w, y, m, gz, gc, 1000,
                                       1.0, "300 rows")
+    # 70 rows (two 64-row tiles for df), D = 612: two 512-feature groups,
+    # a last 32-deep slab and 64-feature block cut short
+    f, w, y, gz, gc = inputs(70, 3000, 612, w_scale=0.05)
+    check_ce(torch, ce, f, w, y, 2900, 4.0, "70 rows, D=612")
+    m = ce.ce_forward(f, w, y, limit=2900, scale=4.0)[0]
+    ragged["D=612"] = check_ce_bwd(torch, ce, f, w, y, m, gz, gc, 2900, 4.0,
+                                   "70 rows, D=612")
     log("kernel phase: ce_backward ragged shapes agree with the plain "
         "version, bit-identical across runs; max abs err / max|plain| by "
         "part: " + "; ".join(
@@ -573,6 +587,9 @@ def backward_kernel_phase(torch, ce, sharded):
     log("kernel phase: ce_backward at training shapes agrees, bit-identical "
         "across runs; max abs err (of max|plain|) by part: " + "; ".join(
             f"{k} {e:.3g} ({r:.3g})" for k, (e, r) in parts.items()))
+    fwd_err, fwd_z = check_ce(torch, ce, ft, wt, yt, V, 16.0,
+                              "training shapes")
+    fault = tf32_fault(torch, ce, ft, wt, yt, m, gz, gc)
     ms = cuda_ms(torch, lambda: ce.ce_backward(ft, wt, yt, m, gz, gc,
                                                limit=V, scale=16.0), 5)
     plain = cuda_ms(torch, lambda: ce.ce_backward_plain(
@@ -580,23 +597,57 @@ def backward_kernel_phase(torch, ce, sharded):
     lib = cuda_ms(torch, lambda: ft @ wt.T, 10)
     fwd = cuda_ms(torch, lambda: ce.ce_forward(ft, wt, yt, limit=V,
                                                scale=16.0), 10)
-    n_bytes = 4 * (2 * BTRAIN * D + 2 * V * D + 4 * BTRAIN)
-    bound, by = bound_ms(n_bytes, 6.0 * BTRAIN * V * D)
-    fwd_bound, _ = bound_ms(4 * (BTRAIN * D + V * D + BTRAIN) + 16 * BTRAIN,
-                            2.0 * BTRAIN * V * D)
-    log(f"kernel phase: ce_backward {ms:.3f} ms (bound {bound:.3f} ms by "
-        f"{by}), plain {plain:.3f} ms, f @ W.T {lib:.3f} ms; ce_forward at "
-        f"B={BTRAIN} {fwd:.3f} ms (bound {fwd_bound:.3f} ms)")
+    bound = ce_bounds(4 * (2 * BTRAIN * D + 2 * V * D + 4 * BTRAIN), 3,
+                      BTRAIN)
+    fwd_bound = ce_bounds(4 * (BTRAIN * D + V * D + BTRAIN) + 16 * BTRAIN, 1,
+                          BTRAIN)
+    log(f"kernel phase: ce_backward {ms:.3f} ms (3xTF32 bound "
+        f"{bound['bound_ms']:.3f} ms by {bound['bound_by']}, fp32-FMA "
+        f"{bound['bound_fp32_fma_ms']:.3f}), plain {plain:.3f} ms, f @ W.T "
+        f"{lib:.3f} ms; ce_forward at B={BTRAIN} {fwd:.3f} ms (3xTF32 bound "
+        f"{fwd_bound['bound_ms']:.3f} ms by {fwd_bound['bound_by']}, "
+        f"fp32-FMA {fwd_bound['bound_fp32_fma_ms']:.3f}; m/corr max abs err "
+        f"{fwd_err:.3g}, z max rel err {fwd_z:.3g})")
     return dict(
         name="ce_backward", route="cuda",
         source="src/repro_torch/kernels/csrc/ce_softmax_bwd.cu",
         replaces="src/repro/kernels/ce_softmax.py:184",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+        max_abs_err=err, ms=ms, plain_ms=plain, **bound,
         library_ms=lib, library="f @ W.T (cuBLAS fp32, TF32 off)",
         max_rel_err=rel,
         rel_err_by_part={k: r for k, (_, r) in parts.items()},
-        ce_forward_train_ms=fwd, ce_forward_train_bound_ms=fwd_bound,
+        tf32_fault=fault,
+        ce_forward_train={"ms": fwd, "max_abs_err": fwd_err,
+                          "z_max_rel_err": fwd_z,
+                          **{k: v for k, v in fwd_bound.items()}},
         shape=f"f[{BTRAIN},{D}] W[{V},{D}]")
+
+
+def tf32_fault(torch, ce, f, w, y, m, gz, gc):
+    """The plain versions with their products emulated in 1xTF32 (each
+    operand rounded to TF32 once: a kernel that dropped the 3xTF32 lo
+    terms) must fail both CE gates at the training shapes, or the gates
+    could not tell the design from plain TF32. Returns the readings."""
+    from repro_torch import testing
+    yl = torch.where((y >= 0) & (y < V), y, -1).to(torch.int32)
+    fwd = testing.ce_forward_gate(
+        testing.ce_forward_tf32(f, w, yl, V, 16.0, 1),
+        ce.ce_forward_plain(f, w, yl, V, 16.0), f, w, V, 16.0)
+    bwd = testing.ce_backward_gate(
+        *testing.ce_backward_tf32(f, w, yl, m, gz, gc, V, 16.0, 1),
+        *ce.ce_backward_plain(f, w, yl, m, gz, gc, V, 16.0), yl)
+    out = {"forward_failed": fwd["failed"], "forward_m_corr_err":
+           fwd["m_corr_err"], "forward_z_rel_err": fwd["z_rel_err"],
+           "backward_failed": bwd["failed"],
+           "backward_rel_err_by_part": {k: r for k, (_, r) in
+                                        bwd["parts"].items()}}
+    log(f"kernel phase: CE products emulated in 1xTF32 at the training "
+        f"shapes: {out}")
+    if fwd["ok"] or bwd["ok"]:
+        fail("the CE gates pass products in 1xTF32: they cannot tell the "
+             "3xTF32 design from plain TF32")
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2094,6 +2145,9 @@ def main() -> int:
 
     kernels = kernel_phase(torch, ce, dc, sharded)
     kernels["ce_backward"] = backward_kernel_phase(torch, ce, sharded)
+    # ce_forward at the training batch, its main path's 13 launches
+    kernels["ce_forward"]["train_b256"] = kernels["ce_backward"].pop(
+        "ce_forward_train")
     torch.cuda.empty_cache()
     kernels.update(sparse_kernel_phase(torch, sp))
     torch.cuda.empty_cache()

@@ -4,23 +4,25 @@ softmax-stage hotspot (§3.2).
 ``ce_forward`` and ``ce_backward`` are the ports of the Pallas TPU kernels
 ``src/repro/kernels/ce_softmax.py`` ``ce_forward`` / ``_fwd_kernel`` and
 ``ce_backward`` / ``_bwd_kernel``. On CUDA tensors they launch the
-hand-written kernels in ``csrc/ce_softmax_fwd.cu`` (two passes: partial
-statistics per (batch tile, class segment), then a per-row combine) and
-``csrc/ce_softmax_bwd.cu`` (one block per class segment recomputes the
-scores, writes its dW rows and a df partial; a second pass sums the
-partials in segment order). On CPU tensors they run ``ce_forward_plain``
-and ``ce_backward_plain``, the same functions in plain torch ops.
+hand-written kernels in ``csrc/ce_softmax_fwd.cu`` (partial statistics per
+(batch tile, class segment), then a per-row combine) and
+``csrc/ce_softmax_bwd.cu`` (dW from one block per class segment over every
+batch row; df from blocks of 64 batch rows that keep their partial in
+registers over a class segment, then summed in segment order). On CPU
+tensors they run ``ce_forward_plain`` and ``ce_backward_plain``, the same
+functions in plain torch ops.
 
-Bound on an H100 SXM at the serving shapes (B=64, V=1,020,250, D=512): the
-66.9 GFLOP fp32 product at 67 TFLOP/s (1.0 ms) outweighs reading W's
-2.09 GB at 3.35 TB/s (0.62 ms), so it is bound by operations; the kernel
-keeps fp32 FMA on CUDA cores for parity with the fp32 reference (no TF32)
-and takes its parallelism from V, since B is small. See the source for the
-design.
-
-The backward at the training shapes (B=256, same V and D) does three such
-products, 802 GFLOP (11.98 ms at 67 TFLOP/s) against 4.18 GB of W read
-and dW written (1.25 ms): bound by operations as well.
+The products run on the tensor cores as 3xTF32 ``wgmma``, fed by TMA:
+each fp32 operand x is split into hi = tf32(x) and lo = tf32(x - hi), and
+a product is taken as lo.hi + hi.lo + hi.hi with fp32 sums
+(``csrc/ce_hopper.cuh``), which keeps fp32-level accuracy at three TF32
+products. Bounds on an H100 SXM at the 1,020,250 x 512 shard: the forward
+at B=64 is bound by reading W's 2.09 GB (0.62 ms at 3.35 TB/s; its 66.9
+GFLOP are 0.41 ms as 3xTF32 at 494.7 TFLOP/s, 1.0 ms on CUDA cores at 67),
+at B=256 by its products (1.62 ms as 3xTF32, 3.99 on CUDA cores). The
+backward at B=256 does three such products, 802 GFLOP: 4.87 ms as 3xTF32
+(11.98 on CUDA cores) against 4.18 GB of W read and dW written (1.25 ms).
+See the sources for the design.
 """
 from __future__ import annotations
 
@@ -33,10 +35,20 @@ from repro_torch.kernels import build
 LAUNCHES = 0          # kernel launches (one per ce_forward call on the card)
 BWD_LAUNCHES = 0      # kernel launches (one per ce_backward call on the card)
 
-_SEG_BLOCKS = 2048    # pass-1 blocks to aim for: many waves over 132 SMs
-_VT = 128             # class rows per tile in csrc/ce_softmax_fwd.cu
-_BT = 64              # batch rows per block
-_BWD_SEG_BLOCKS = 264  # backward blocks: two per SM on 132 SMs (93 KB smem each)
+_VT = 128             # class rows per tile (csrc/ce_hopper.cuh)
+_BT = 64              # batch rows per block of the forward and of df
+_DG = 512             # features per block of df
+
+
+def _segments(n_vtiles: int, blocks: int):
+    """(tiles per segment, segments): about ``blocks`` class segments, none
+    empty."""
+    seg_tiles = -(-n_vtiles // max(1, min(n_vtiles, blocks)))
+    return seg_tiles, -(-n_vtiles // seg_tiles)
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def ce_forward_plain(f, w, y, limit: int, scale: float = 1.0):
@@ -58,7 +70,7 @@ def _lib():
     lib = build.library("ce_softmax_fwd")
     fn = lib.ce_fwd_launch
     if not fn.argtypes:
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
                        + [ctypes.c_float] + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -69,12 +81,12 @@ def _launch(f, w, y, lim: int, scale: float):
     global LAUNCHES
     b, d = f.shape
     v = w.shape[0]
-    n_btiles = -(-b // _BT)
-    n_vtiles = max(1, -(-v // _VT))
-    n_segs = min(n_vtiles, max(1, _SEG_BLOCKS // n_btiles))
-    seg_tiles = -(-n_vtiles // n_segs)
-    n_segs = -(-n_vtiles // seg_tiles)
     dev = f.device
+    n_btiles = -(-b // _BT)
+    # about one block an SM, the B tiles of a segment side by side
+    seg_tiles, n_segs = _segments(-(-v // _VT), _sms(dev) // n_btiles)
+    fh = torch.empty_like(f)             # f's TF32 halves
+    fl = torch.empty_like(f)
     pm = torch.empty((n_segs, b), device=dev, dtype=torch.float32)
     pz, pc = torch.empty_like(pm), torch.empty_like(pm)
     pa = torch.empty((n_segs, b), device=dev, dtype=torch.int32)
@@ -82,8 +94,9 @@ def _launch(f, w, y, lim: int, scale: float):
     z, corr = torch.empty_like(m), torch.empty_like(m)
     amax = torch.empty((b,), device=dev, dtype=torch.int32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(f.data_ptr(), w.data_ptr(), y.data_ptr(), pm.data_ptr(),
-                 pz.data_ptr(), pc.data_ptr(), pa.data_ptr(), m.data_ptr(),
+    err = _lib()(f.data_ptr(), w.data_ptr(), y.data_ptr(), fh.data_ptr(),
+                 fl.data_ptr(), pm.data_ptr(), pz.data_ptr(), pc.data_ptr(),
+                 pa.data_ptr(), m.data_ptr(),
                  z.data_ptr(), corr.data_ptr(), amax.data_ptr(), b, d, v,
                  lim, float(scale), seg_tiles, n_segs, stream)
     build.check(err, "ce_forward")
@@ -120,6 +133,9 @@ def _check(what, f, w, y, rows, limit):
     if f.shape[1] % 4 or f.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError(f"the CUDA {what} needs D % 4 == 0 and 16-byte "
                          f"aligned f and W")
+    if not (b and v and f.shape[1]):
+        raise ValueError(f"the CUDA {what} needs B, V and D >= 1, got f "
+                         f"{tuple(f.shape)}, w {tuple(w.shape)}")
     return lim, y.contiguous(), True
 
 
@@ -151,8 +167,8 @@ def _bwd_lib():
     lib = build.library("ce_softmax_bwd")
     fn = lib.ce_bwd_launch
     if not fn.argtypes:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                       + [ctypes.c_float] + [ctypes.c_int] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -162,18 +178,26 @@ def _bwd_launch(f, w, y, m, gz, gc, lim: int, scale: float):
     global BWD_LAUNCHES
     b, d = f.shape
     v = w.shape[0]
-    n_vtiles = max(1, -(-v // _VT))
-    seg_tiles = -(-n_vtiles // min(n_vtiles, _BWD_SEG_BLOCKS))
-    n_segs = -(-n_vtiles // seg_tiles)
     dev = f.device
+    n_vtiles = -(-v // _VT)
+    sms = _sms(dev)
+    seg_dw, n_segs_dw = _segments(n_vtiles, sms)
+    seg_df, n_segs_df = _segments(
+        n_vtiles, sms // (-(-b // _BT) * -(-d // _DG)))
+    bp = -(-b // 8) * 8
+    fh, fl = torch.empty_like(f), torch.empty_like(f)   # f's TF32 halves
+    fth = torch.empty((d, bp), device=dev, dtype=torch.float32)  # and f^T's
+    ftl = torch.empty_like(fth)
     dw = torch.empty((v, d), device=dev, dtype=torch.float32)
-    pdf = torch.empty((n_segs, b, d), device=dev, dtype=torch.float32)
+    pdf = torch.empty((n_segs_df, b, d), device=dev, dtype=torch.float32)
     df = torch.empty((b, d), device=dev, dtype=torch.float32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _bwd_lib()(f.data_ptr(), w.data_ptr(), y.data_ptr(), m.data_ptr(),
-                     gz.data_ptr(), gc.data_ptr(), dw.data_ptr(),
-                     pdf.data_ptr(), df.data_ptr(), b, d, v, lim,
-                     float(scale), seg_tiles, n_segs, stream)
+                     gz.data_ptr(), gc.data_ptr(), fh.data_ptr(),
+                     fl.data_ptr(), fth.data_ptr(), ftl.data_ptr(),
+                     dw.data_ptr(), pdf.data_ptr(), df.data_ptr(), b, d, v,
+                     lim, float(scale), bp, seg_dw, n_segs_dw, seg_df,
+                     n_segs_df, stream)
     build.check(err, "ce_backward")
     BWD_LAUNCHES += 1
     return df, dw

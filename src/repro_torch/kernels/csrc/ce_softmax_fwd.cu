@@ -1,8 +1,8 @@
 // Streaming online-softmax statistics of f [B, D] against a class shard
-// W [V, D], on Hopper (sm_90a), fp32 throughout.
+// W [V, D], on Hopper (sm_90a): 3xTF32 wgmma products fed by TMA.
 //
-// Replaces: src/repro/kernels/ce_softmax.py, ce_forward / _fwd_kernel (the
-// Pallas TPU kernel). Same outputs per row b, over the scores
+// Replaces: src/repro/kernels/ce_softmax.py:106, ce_forward / _fwd_kernel
+// (the Pallas TPU kernel). Same outputs per row b, over the scores
 // s[b, v] = scale * <f[b], W[v]> with columns v >= limit masked to -inf:
 //   m[b]    = max_v s[b, v]                       (-inf if all masked)
 //   z[b]    = sum_v exp(s[b, v] - m[b])           (0 if all masked)
@@ -10,40 +10,55 @@
 //   amax[b] = lowest v with s[b, v] == m[b]       (-1 if all masked)
 // The [B, V] score matrix never reaches device memory.
 //
-// Design. The TPU kernel sweeps V in order with the whole batch in one
-// block: one core. Here the parallelism comes from V. Pass 1 runs a grid of
-// (B tiles of 64) x (V segments); each block walks its segment in tiles of
-// 128 class rows, computing the 64 x 128 score tile with a register-tiled
-// fp32 FMA product (ce_tiles.cuh: each thread a 4 x 8 micro-tile, depth
-// staged through shared memory 32 at a time, 16-byte coalesced loads of W,
-// the same code as the backward's recomputation), and folds it
-// into per-thread running (m, z, corr, amax). The 16 threads sharing a row
-// combine with warp shuffles and write one partial per (segment, row).
-// Pass 2 combines the segments of a row: m = max m_s, z = sum z_s *
-// exp(m_s - m), corr = sum corr_s, and ties on m go to the lowest column,
-// exactly as the TPU kernel's strict `tile_m > m_old` does.
+// Bounds on an H100 SXM (1,020,250 x 512 shard): the fp32 product is
+// 2 B V D operations, 66.9 GFLOP at B = 64 and 267.4 at B = 256. On CUDA
+// cores (67 TFLOP/s) that is 1.00 / 3.99 ms; as 3xTF32 on the tensor cores
+// (3 products at 494.7 TFLOP/s) 0.41 / 1.62 ms. Reading W is 2.09 GB,
+// 0.62 ms at 3.35 TB/s. So the kernel is bound by W's bytes at B = 64
+// (0.62 ms) and by its products at B = 256 (1.62 ms).
 //
-// Bound on an H100 SXM at the serving shapes (B = 64, V = 1,020,250,
-// D = 512): W is 2.09 GB, 0.62 ms at 3.35 TB/s; the product is 66.9 GFLOP,
-// 1.0 ms at the 67 TFLOP/s fp32 rate outside the tensor cores. So the
-// kernel is bound by operations; products stay fp32 FMA on CUDA cores (no
-// TF32) for parity with the fp32 reference. A tensor-core version is later
-// work.
+// Design. ce_hopper.cuh's score tile: classes on wgmma's M, 3xTF32 with
+// W's hi and lo made in registers from the TMA-written fp32 slab, and f's
+// hi and lo made once per call (split_rows, 2 x B x D x 4 bytes) and
+// streamed by TMA as the B operands. A grid of (B tiles of 64) x (class
+// segments), about one block an SM; the blocks of one segment's B tiles
+// are neighbours in launch order, so each W tile is read from device
+// memory about once and from L2 once a B tile. A block walks its segment
+// in tiles of 128 classes, 32-deep slabs through a 4-stage mbarrier ring
+// (W slab 16 KB, f hi and lo 8 KB each): each of the two consumer
+// warpgroups scores 64 classes x 64 rows (wgmma m64n64k8, three a k8
+// step) and folds them into running statistics of its 16 batch columns
+// (two class rows a tile): m, z and amax in registers, corr written once
+// to shared memory by the one thread that holds the label's score. The
+// lanes and then the 8 warps of a column are merged in a fixed order, and
+// a second launch combines the segments of a row: m = max m_s, z = sum
+// z_s exp(m_s - m), corr = sum corr_s, and on equal maxima the lowest
+// column, exactly as the TPU kernel's strict `tile_m > m_old` does.
+// Per 128-class tile a block reads W 256 KB and f's halves 256 KB from L2.
+// No atomics: two runs are bit-identical.
 //
-// Requires D % 4 == 0 and 16-byte aligned f and W (checked by the wrapper).
+// Requires D % 4 == 0 (TMA's 16-byte row strides) and a 16-byte aligned W
+// (checked by the wrapper); any B, V >= 1 and limit.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-#include "ce_tiles.cuh"
+#include "ce_hopper.cuh"
 
 namespace {
 
-using ce_tiles::KC;
-using ce_tiles::NT;
-using ce_tiles::PAD;
-constexpr int BT = 64;     // batch rows per block
-constexpr int VT = 128;    // class rows per tile
+using namespace ce_hopper;   // and its ht = hopper
+
+constexpr int BT = 64;                         // batch rows a block
+constexpr int STAGES = 4;
+constexpr int F_SLAB = ht::slab_bytes(BT);     // 64 rows x 32 fp32
+constexpr int STAGE_BYTES = W_SLAB + 2 * F_SLAB;
+constexpr int RED_OFF = STAGES * STAGE_BYTES;  // per-warp column stats
+constexpr int CORR_OFF = RED_OFF + 3 * CONSUMER_WARPS * BT * 4;
+constexpr int BAR_OFF = CORR_OFF + BT * 4;
+constexpr int SMEM = 1024 + BAR_OFF + 8 * 2 * STAGES;
 
 // Fold (m2, z2, a2) into (m, z, a). Ties on the max keep the lower column.
 __device__ __forceinline__ void merge_stat(float& m, float& z, int& a,
@@ -57,105 +72,161 @@ __device__ __forceinline__ void merge_stat(float& m, float& z, int& a,
   m = mn;
 }
 
-// Three blocks per SM (at most 85 registers a thread): left free, nvcc 12.8
-// takes 86 for this code and two blocks fit, 13% slower on an H100.
-__global__ void __launch_bounds__(NT, 3)
-ce_fwd_partial(const float* __restrict__ f, const float* __restrict__ w,
+__global__ void __launch_bounds__(THREADS, 1)
+ce_fwd_partial(const __grid_constant__ CUtensorMap tw,
+               const __grid_constant__ CUtensorMap tfh,
+               const __grid_constant__ CUtensorMap tfl,
                const int* __restrict__ y, int B, int D, int V, int limit,
                float scale, int seg_tiles, float* __restrict__ pm,
                float* __restrict__ pz, float* __restrict__ pc,
                int* __restrict__ pa) {
-  __shared__ __align__(16) float fs[KC][BT + PAD];
-  __shared__ __align__(16) float ws[KC][VT + PAD];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (ht::smem_u32(smem_raw) & 1023)) & 1023);
+  float* red_m = reinterpret_cast<float*>(base + RED_OFF);   // [8][BT]
+  float* red_z = red_m + CONSUMER_WARPS * BT;
+  int* red_a = reinterpret_cast<int*>(red_z + CONSUMER_WARPS * BT);
+  float* corr_s = reinterpret_cast<float*>(base + CORR_OFF); // [BT]
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + BAR_OFF);
+  uint64_t* empty = full + STAGES;
+
   const int b0 = blockIdx.x * BT;
   const int seg = blockIdx.y;
-  const int v_begin = seg * seg_tiles * VT;
-  const int v_end = min(V, v_begin + seg_tiles * VT);
-  const int lim = min(limit, v_end);
+  const int n_vtiles = (V + VT - 1) / VT;
+  const int t_begin = seg * seg_tiles;
+  const int t_end = min(n_vtiles, t_begin + seg_tiles);
+  const int n_kc = (D + KC - 1) / KC;
+  const int lim = min(limit, V);
 
-  // this thread's rows: b0 + ty*4 + i; columns: v0 + tx*4 + j, v0 + 64 + tx*4 + j
-  int yl[4];
-  float rm[4], rz[4], rc[4];
-  int ra[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int r = b0 + ty * 4 + i;
-    yl[i] = (r < B) ? y[r] : -1;
-    rm[i] = -INFINITY; rz[i] = 0.f; rc[i] = 0.f; ra[i] = -1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      ht::mbar_init(&full[s], 1);
+      ht::mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    ht::mbar_init_fence();
+  }
+  if (threadIdx.x < BT) corr_s[threadIdx.x] = 0.f;
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 0) {
+    // -- producer: per tile, D in 32-deep slabs of W and of f's halves ----
+    ht::regs_release<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      ht::tma_prefetch_desc(&tw);
+      ht::tma_prefetch_desc(&tfh);
+      ht::tma_prefetch_desc(&tfl);
+      int it = 0;
+      for (int tile = t_begin; tile < t_end; ++tile)
+        for (int kc = 0; kc < n_kc; ++kc, ++it) {
+          const int st = slot(it, STAGES);
+          ht::mbar_wait(&empty[st], phase(it, STAGES) ^ 1);
+          ht::mbar_expect_tx(&full[st], STAGE_BYTES);
+          unsigned char* dst = base + st * STAGE_BYTES;
+          ht::tma_load(dst, &tw, &full[st], kc * KC, tile * VT);
+          ht::tma_load(dst + W_SLAB, &tfh, &full[st], kc * KC, b0);
+          ht::tma_load(dst + W_SLAB + F_SLAB, &tfl, &full[st], kc * KC, b0);
+        }
+    }
+    return;
   }
 
-  for (int v0 = v_begin; v0 < v_end; v0 += VT) {
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  // -- consumers: 64 classes of each tile x the block's 64 rows -----------
+  ht::regs_claim<CONSUMER_REGS>();
+  const int wc = wg - 1;
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = wc * 64 + warp * 16 + g;      // slab row of acc[4i + 0]
 
-    for (int k0 = 0; k0 < D; k0 += KC) {
-      ce_tiles::stage_kmajor<BT>(&fs[0][0], BT + PAD, f, b0, B, k0, D, tid);
-      ce_tiles::stage_kmajor<VT>(&ws[0][0], VT + PAD, w, v0, v_end, k0, D,
-                                 tid);
-      __syncthreads();
-      ce_tiles::mma_stage(acc, &fs[0][0], BT + PAD, &ws[0][0], VT + PAD,
-                          min(KC, D - k0), tx, ty);
-      __syncthreads();
+  // column j of this lane: batch row b0 + 8 (j / 2) + 2t + j % 2, held in
+  // acc[4 (j / 2) + j % 2] (class row wrow) and acc[... + 2] (wrow + 8)
+  float cm[16], cz[16];
+  int ca[16], cy[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int b = b0 + 8 * (j >> 1) + 2 * t + (j & 1);
+    cy[j] = b < B ? y[b] : -1;
+    cm[j] = -INFINITY;
+    cz[j] = 0.f;
+    ca[j] = -1;
+  }
+
+  int it = 0;
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    float acc[BT / 2];
+#pragma unroll
+    for (int i = 0; i < BT / 2; ++i) acc[i] = 0.f;
+    for (int kc = 0; kc < n_kc; ++kc, ++it) {
+      const int st = slot(it, STAGES);
+      ht::mbar_wait(&full[st], phase(it, STAGES));
+      const unsigned char* src = base + st * STAGE_BYTES;
+      score_slab<BT, 4>(acc, src, src + W_SLAB, src + W_SLAB + F_SLAB, wrow,
+                        t);
+      release(&empty[st], lane);
     }
 
-    // fold the tile into the running statistics, columns in ascending order
+    // fold the tile, class rows in ascending order within each column
+    const int va = tile * VT + wrow, vb = va + 8;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tm = -INFINITY;
-      int ta = -1;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        int col = v0 + ce_tiles::col_of(j, tx);
-        float s = (col < lim) ? acc[i][j] * scale : -INFINITY;
-        acc[i][j] = s;
-        if (col == yl[i]) rc[i] += s;   // a masked label folds -inf, as on the TPU
-        if (s > tm) { tm = s; ta = col; }
-      }
-      float mn = fmaxf(rm[i], tm);
+    for (int j = 0; j < 16; ++j) {
+      const int e = 4 * (j >> 1) + (j & 1);
+      const float s0 = va < lim ? acc[e] * scale : -INFINITY;
+      const float s1 = vb < lim ? acc[e + 2] * scale : -INFINITY;
+      // the label's score, -inf when its column is masked (as on the TPU)
+      if (cy[j] == va) corr_s[8 * (j >> 1) + 2 * t + (j & 1)] = s0;
+      if (cy[j] == vb) corr_s[8 * (j >> 1) + 2 * t + (j & 1)] = s1;
+      const float tm = fmaxf(s0, s1);
+      if (tm > cm[j]) ca[j] = s1 > s0 ? vb : va;
+      const float mn = fmaxf(cm[j], tm);
       if (mn != -INFINITY) {
-        if (tm > rm[i]) ra[i] = ta;
-        float zz = (rm[i] == -INFINITY) ? 0.f : rz[i] * expf(rm[i] - mn);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (acc[i][j] != -INFINITY) zz += expf(acc[i][j] - mn);
-        rz[i] = zz;
-        rm[i] = mn;
+        cz[j] = cz[j] * __expf(cm[j] - mn) + __expf(s0 - mn) +
+                __expf(s1 - mn);
+        cm[j] = mn;
       }
     }
   }
 
-  // combine the 16 threads of each row (lanes differing in the low 4 bits)
+  // -- merge the 8 lanes of a column, then the 8 warps, in a fixed order --
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int j = 0; j < 16; ++j) {
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      float om = __shfl_xor_sync(0xffffffffu, rm[i], off);
-      float oz = __shfl_xor_sync(0xffffffffu, rz[i], off);
-      int oa = __shfl_xor_sync(0xffffffffu, ra[i], off);
-      float oc = __shfl_xor_sync(0xffffffffu, rc[i], off);
-      merge_stat(rm[i], rz[i], ra[i], om, oz, oa);
-      rc[i] += oc;
+    for (int off = 4; off < 32; off <<= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, cm[j], off);
+      const float oz = __shfl_xor_sync(0xffffffffu, cz[j], off);
+      const int oa = __shfl_xor_sync(0xffffffffu, ca[j], off);
+      merge_stat(cm[j], cz[j], ca[j], om, oz, oa);
     }
-    int r = b0 + ty * 4 + i;
-    if (tx == 0 && r < B) {
-      size_t o = (size_t)seg * B + r;
-      pm[o] = rm[i]; pz[o] = rz[i]; pc[o] = rc[i]; pa[o] = ra[i];
+    if (g == 0) {
+      const int q = (wc * 4 + warp) * BT + 8 * (j >> 1) + 2 * t + (j & 1);
+      red_m[q] = cm[j];
+      red_z[q] = cz[j];
+      red_a[q] = ca[j];
     }
+  }
+  consumers_sync();
+  const int col = threadIdx.x - WG_THREADS;
+  if (col < BT && b0 + col < B) {
+    float M = -INFINITY, Z = 0.f;
+    int A = -1;
+    for (int q = 0; q < CONSUMER_WARPS; ++q)
+      merge_stat(M, Z, A, red_m[q * BT + col], red_z[q * BT + col],
+                 red_a[q * BT + col]);
+    const size_t o = (size_t)seg * B + b0 + col;
+    pm[o] = M;
+    pz[o] = Z;
+    pa[o] = A;
+    pc[o] = corr_s[col];
   }
 }
 
 // One block per row: each thread folds a strided run of segments, then the
 // block combines them (ties to the lower column keep the result exact).
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(256)
 ce_fwd_combine(const float* __restrict__ pm, const float* __restrict__ pz,
                const float* __restrict__ pc, const int* __restrict__ pa,
                int B, int n_segs, float* __restrict__ m, float* __restrict__ z,
                float* __restrict__ corr, int* __restrict__ amax) {
+  constexpr int NT = 256;
   __shared__ float sm[NT / 32], sz[NT / 32], sc[NT / 32];
   __shared__ int sa[NT / 32];
   const int r = blockIdx.x, tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
@@ -189,21 +260,39 @@ ce_fwd_combine(const float* __restrict__ pm, const float* __restrict__ pz,
 
 }  // namespace
 
+// fh, fl: [B, D] scratch for f's TF32 halves; pm, pz, pc, pa: [n_segs, B]
+// partials. Returns a cudaError_t, or 10000 + a CUresult when a TMA
+// descriptor cannot be encoded.
 extern "C" int ce_fwd_launch(const void* f, const void* w, const void* y,
-                             void* pm, void* pz, void* pc, void* pa,
-                             void* m, void* z, void* corr, void* amax,
-                             int B, int D, int V, int limit, float scale,
-                             int seg_tiles, int n_segs, void* stream) {
+                             void* fh, void* fl, void* pm, void* pz,
+                             void* pc, void* pa, void* m, void* z,
+                             void* corr, void* amax, int B, int D, int V,
+                             int limit, float scale, int seg_tiles,
+                             int n_segs, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  dim3 grid1((B + BT - 1) / BT, n_segs);
-  ce_fwd_partial<<<grid1, NT, 0, st>>>(
-      static_cast<const float*>(f), static_cast<const float*>(w),
-      static_cast<const int*>(y), B, D, V, limit, scale, seg_tiles,
-      static_cast<float*>(pm), static_cast<float*>(pz),
+  const int n = B * D;
+  ce_hopper::split_rows<<<(n + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(f), n, static_cast<float*>(fh),
+      static_cast<float*>(fl));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap tw, tfh, tfl;
+  const uint64_t row = 4ull * D;
+  int err = ht::tmap_f32(&tw, w, D, V, row, VT);
+  if (!err) err = ht::tmap_f32(&tfh, fh, D, B, row, BT);
+  if (!err) err = ht::tmap_f32(&tfl, fl, D, B, row, BT);
+  if (err) return err;
+  e = cudaFuncSetAttribute(ce_fwd_partial,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((B + BT - 1) / BT, n_segs);
+  ce_fwd_partial<<<grid, THREADS, SMEM, st>>>(
+      tw, tfh, tfl, static_cast<const int*>(y), B, D, V, limit, scale,
+      seg_tiles, static_cast<float*>(pm), static_cast<float*>(pz),
       static_cast<float*>(pc), static_cast<int*>(pa));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ce_fwd_combine<<<B, NT, 0, st>>>(
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ce_fwd_combine<<<B, 256, 0, st>>>(
       static_cast<const float*>(pm), static_cast<const float*>(pz),
       static_cast<const float*>(pc), static_cast<const int*>(pa), B, n_segs,
       static_cast<float*>(m), static_cast<float*>(z),

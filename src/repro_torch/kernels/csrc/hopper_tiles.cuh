@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks shared by flash_attention.cu and
-// knn_dist_topk.cu: TMA tile loads described on the host by
-// cuTensorMapEncodeTiled, mbarrier rings between a producer warp and the
-// consumer warpgroups, setmaxnreg, and bf16 wgmma with fp32 accumulators.
+// Hopper (sm_90a) building blocks shared by flash_attention.cu,
+// knn_dist_topk.cu and the dense CE kernels (ce_softmax_fwd.cu,
+// ce_softmax_bwd.cu, through ce_hopper.cuh): TMA tile loads described on
+// the host by cuTensorMapEncodeTiled, mbarrier rings between a producer
+// warp and the consumer warpgroups, setmaxnreg, and bf16 and TF32 wgmma
+// with fp32 accumulators.
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes: rows of 64 bf16 (128 bytes), the 16-byte chunk c of row r stored
@@ -86,6 +88,25 @@ inline int tmap_bf16(CUtensorMap* map, const void* base, int rank,
   return r == CUDA_SUCCESS ? 0 : TMAP_ERROR + static_cast<int>(r);
 }
 
+// An fp32 matrix of d1 rows of d0 values, rows `row_bytes` apart; boxes of
+// 32 x box_rows (128 bytes a row), 128-byte swizzle, zeros outside.
+inline int tmap_f32(CUtensorMap* map, const void* base, uint64_t d0,
+                    uint64_t d1, uint64_t row_bytes, uint32_t box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return TMAP_ERROR + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {d0, d1};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {32, box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                        const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TMAP_ERROR + static_cast<int>(r);
+}
+
 // bytes of one 64-column slab of `rows` rows
 __host__ __device__ constexpr int slab_bytes(int rows) { return rows * 128; }
 
@@ -161,6 +182,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// shared-memory writes of the generic proxy (plain stores) made visible to
+// the async proxy (wgmma operand reads) that follows a barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier `id` over `n` threads (a multiple of 32)
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch_desc(const CUtensorMap* map) {
@@ -340,6 +372,42 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// fp32 rounded to the nearest TF32 (ties away from zero), as its bit
+// pattern: the low 13 mantissa bits are zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + O(2^-22 |x|): hi = tf32(x), lo = tf32(x - hi) (exact
+// difference), for the 3xTF32 product hi.hi + hi.lo + lo.hi
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// D[64 x 64] (+)= A[64 x 8] . B[64 x 8]^T in TF32 with fp32 sums, A in
+// registers (TF32 bit patterns in the fragment layout above), B K-major
+// in shared memory
+__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
 }

@@ -7,6 +7,13 @@ numpy arrays and plain dicts (the GLOBAL class matrix; every member keeps
 its own row block) and returns numpy arrays, so the caller can compare
 them with the JAX package's shard_map results directly. Both run on the
 CPU.
+
+Beside them, the gates that hold the dense CE kernels to their plain
+versions on the card (``ce_forward_gate``, ``ce_backward_gate``), and a
+plain-torch emulation of TF32 products (``tf32_round``, ``ce_forward_tf32``,
+``ce_backward_tf32``): with 3xTF32 products, as the kernels take them, the
+gates pass; with 1xTF32 products they must fail. The CPU tests and
+``chip_smoke.py`` run both through the same gates.
 """
 from __future__ import annotations
 
@@ -380,6 +387,120 @@ def zoo_serve(tree: dict, *, arch: str, prompts: np.ndarray, gen: int,
         return exp.serve(prompt_len=s, gen=gen, batch=b)
     finally:
         synthetic.lm_batch = real
+
+
+# ---------------------------------------------------------------------------
+# the dense CE kernels' gates, and TF32 products emulated
+# ---------------------------------------------------------------------------
+
+CE_ATOL = 1e-4        # ce_forward m and corr (scores), absolute
+CE_Z_RTOL = 1e-4      # ce_forward z, a sum over V terms, relative
+CE_TIE_GAP = 1e-5     # amax may differ only where the top-2 scores lie closer
+CE_BWD_TOL = 2e-5     # ce_backward: each part within this of its own max|plain|
+
+
+def tf32_round(x):
+    """fp32 ``x`` rounded to the nearest TF32 (10 mantissa bits; ties away
+    from zero, as the card's ``cvt.rna.tf32.f32``), by integer arithmetic
+    on its bits; returned as fp32."""
+    bits = x.float().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_matmul(a, b, passes: int):
+    """``a @ b`` with TF32 operands and fp32 sums: ``passes=1`` rounds each
+    operand once (hi . hi); ``passes=3`` is the kernels' 3xTF32, lo . hi +
+    hi . lo + hi . hi with hi = tf32(x), lo = tf32(x - hi)."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return ah @ bh
+    if passes != 3:
+        raise ValueError(f"passes is 1 or 3, got {passes}")
+    return tf32_round(a - ah) @ bh + ah @ tf32_round(b - bh) + ah @ bh
+
+
+def ce_forward_tf32(f, w, y, limit: int, scale: float, passes: int):
+    """``ce_forward_plain`` with its product in 1x or 3xTF32."""
+    from repro_torch.kernels.ce_softmax import ce_forward_plain
+    fh, wh = tf32_round(f), tf32_round(w)
+    if passes == 1:
+        return ce_forward_plain(fh, wh, y, limit, scale)
+    # lo . hi + hi . lo + hi . hi as one product over three copies of D
+    f3 = torch.cat([tf32_round(f - fh), fh, fh], dim=1)
+    w3 = torch.cat([wh, tf32_round(w - wh), wh], dim=1)
+    return ce_forward_plain(f3, w3, y, limit, scale)
+
+
+def ce_backward_tf32(f, w, y, m, gz, gc, limit: int, scale: float,
+                     passes: int):
+    """``ce_backward_plain`` with its three products in 1x or 3xTF32."""
+    s = tf32_matmul(f, w.T, passes) * scale
+    col = torch.arange(w.shape[0], device=w.device)
+    live = (col < limit)[None, :] & torch.isfinite(m)[:, None]
+    p = torch.where(live, torch.exp(s - m[:, None]), 0.0)
+    hit = (col[None, :] == y[:, None].long()).float()
+    dl = (p * gz[:, None] + hit * gc[:, None]) * scale
+    return tf32_matmul(dl, w, passes), tf32_matmul(dl.T, f, passes)
+
+
+def _worst(e) -> float:
+    e = e[torch.isfinite(e)]
+    return float(e.abs().max()) if e.numel() else 0.0
+
+
+def ce_forward_gate(out, ref, f, w, limit: int, scale: float) -> dict:
+    """``ce_forward``'s outputs ``out`` against the plain version's ``ref``
+    (both (m, z, corr, amax) on the same inputs, ``limit`` clamped): m and
+    corr within CE_ATOL, z within CE_Z_RTOL relative, amax equal except on
+    rows whose top-2 plain scores lie within CE_TIE_GAP (fp32 sums in
+    another order may swap a near-tie). Returns ``ok``, which parts fail,
+    the largest error of m and corr, of z (relative), and the rows whose
+    amax differs."""
+    (m1, z1, c1, a1), (m2, z2, c2, a2) = out, ref
+    failed = [name for name, a, b, atol, rtol in (
+        ("m", m1, m2, CE_ATOL, 0.0), ("corr", c1, c2, CE_ATOL, 0.0),
+        ("z", z1, z2, 0.0, CE_Z_RTOL))
+        if not bool(torch.isclose(a, b, rtol=rtol, atol=atol).all())]
+    s = (f @ w.T) * scale
+    s[:, limit:] = float("-inf")
+    differ = a1 != a2
+    if s.shape[1] > 1:
+        top2 = s.topk(2, dim=1).values
+        differ &= ~(top2[:, 0] - top2[:, 1] < CE_TIE_GAP)
+    rows = differ.nonzero()[:, 0].tolist()
+    if rows:
+        failed.append("amax")
+    return {"ok": not failed, "failed": failed,
+            "m_corr_err": max(_worst(m1 - m2), _worst(c1 - c2)),
+            "z_rel_err": _worst(
+                (z1 - z2) / z2.clamp_min(torch.finfo(z2.dtype).tiny)),
+            "amax_rows": rows}
+
+
+def ce_backward_gate(df, dw, pdf, pdw, y) -> dict:
+    """``ce_backward``'s (df, dw) against the plain version's (pdf, pdw),
+    ``y`` the local labels (-1 off the shard). Each part is held against
+    its own max|plain|: df, dW's label rows and dW's other rows, whose
+    only term is the softmax one (orders of magnitude below the one-hot
+    term of the label rows, so a shared scale would not see it). Returns
+    ``ok``, which parts fail, and {part: (max abs err, err / max|plain|)}."""
+    lab = torch.zeros(dw.shape[0], dtype=torch.bool, device=dw.device)
+    lab[y[y >= 0].long()] = True
+    failed, parts = [], {}
+    for name, k, p in (("df", df, pdf), ("dW label rows", dw[lab], pdw[lab]),
+                       ("dW other rows", dw[~lab], pdw[~lab])):
+        if not p.numel():
+            continue
+        if not bool(torch.isfinite(k).all()):
+            failed.append(name)
+            parts[name] = (float("inf"), float("inf"))
+            continue
+        scale_ref = float(p.abs().max())
+        err = float((k - p).abs().max())
+        if err > CE_BWD_TOL * scale_ref:
+            failed.append(name)
+        parts[name] = (err, err / scale_ref if scale_ref else err)
+    return {"ok": not failed, "failed": failed, "parts": parts}
 
 
 def run_all(cases: list) -> list:

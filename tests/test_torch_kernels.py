@@ -19,6 +19,7 @@ import torch
 from repro.kernels import ce_softmax as jce
 from repro.kernels import ops as jops
 from repro.kernels import topk_dc as jdc
+from repro_torch import testing
 from repro_torch.kernels import build
 from repro_torch.kernels import ce_softmax as tce
 from repro_torch.kernels import ops as tops
@@ -241,6 +242,65 @@ def test_ce_forward_rejects_what_the_kernel_does_not_take():
     # labels elsewhere than f would hand the kernel a foreign pointer
     with pytest.raises(ValueError, match="y on meta"):
         tce.ce_forward(f, w, y.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# the CE kernels' precision on the card: 3xTF32 products against the gates
+# ---------------------------------------------------------------------------
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """The emulation's TF32 rounding keeps 10 mantissa bits, rounds to the
+    nearest and sends ties away from zero (the card's cvt.rna)."""
+    x = torch.tensor([1.0, 1 + 2 ** -12, 1 + 2 ** -11, 1 + 2 ** -10 + 2 ** -11,
+                      -(1 + 2 ** -11), 3.14159265, 0.0, float("-inf")])
+    want = [1.0, 1.0, 1 + 2 ** -10, 1 + 2 ** -9, -(1 + 2 ** -10), 3.140625,
+            0.0, float("-inf")]
+    assert testing.tf32_round(x).tolist() == want
+
+
+def _gated_ce(passes):
+    """The training shapes cut to size (unit rows, scale 16, the loss's
+    cotangents and the softmax term alone) through the card's CE gates,
+    with the products of both functions emulated in ``passes``xTF32."""
+    rng = np.random.default_rng(17)
+    b, v, d, scale = 64, 4096, 512, 16.0
+    f, w = (torch.nn.functional.normalize(torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)), dim=1)
+        for s in ((b, d), (v, d)))
+    y = torch.from_numpy(rng.integers(0, v, b).astype(np.int32))
+    ref = tce.ce_forward_plain(f, w, y, v, scale)
+    gates = {"forward": testing.ce_forward_gate(
+        testing.ce_forward_tf32(f, w, y, v, scale, passes), ref, f, w, v,
+        scale)}
+    gz = 1.0 / (b * ref[1])
+    for term, gc in (("loss", torch.full_like(gz, -1.0 / b)),
+                     ("softmax term", torch.zeros_like(gz))):
+        plain = tce.ce_backward_plain(f, w, y, ref[0], gz, gc, v, scale)
+        emu = testing.ce_backward_tf32(f, w, y, ref[0], gz, gc, v, scale,
+                                       passes)
+        gates[f"backward, {term}"] = testing.ce_backward_gate(*emu, *plain, y)
+    return gates
+
+
+def test_3xtf32_products_meet_the_card_gates():
+    """The kernels' 3xTF32 products (lo.hi + hi.lo + hi.hi) pass the gates
+    that chip_smoke.py holds the CE kernels to, every part with room."""
+    for name, gate in _gated_ce(3).items():
+        assert gate["ok"], (name, gate)
+    fwd = _gated_ce(3)["forward"]
+    assert fwd["m_corr_err"] < testing.CE_ATOL / 10
+    assert fwd["z_rel_err"] < testing.CE_Z_RTOL / 10
+
+
+def test_1xtf32_products_break_the_card_gates():
+    """Plain TF32 products fail both the forward's and the backward's gate,
+    so the gates tell the design from a kernel that dropped the lo terms."""
+    gates = _gated_ce(1)
+    assert not gates["forward"]["ok"]
+    assert {"m", "corr"} <= set(gates["forward"]["failed"])
+    for term in ("loss", "softmax term"):
+        assert not gates[f"backward, {term}"]["ok"], gates
 
 
 # ---------------------------------------------------------------------------
