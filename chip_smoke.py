@@ -10,9 +10,10 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    into ``build/repro_torch_kernels/`` (one process per source, in
    parallel) and prints ``-Xptxas -v``'s register report. The kernels
    built on Hopper's warpgroup products and TMA (``flash_attention``,
-   ``dist_topk``, and the dense CE kernels ``ce_softmax_fwd`` and
-   ``ce_softmax_bwd``) must show ``HGMMA`` and ``UTMALDG`` in their SASS
-   (``cuobjdump -sass``) and no spills.
+   ``dist_topk``, the dense CE kernels ``ce_softmax_fwd`` and
+   ``ce_softmax_bwd``, and the sparse ones ``sparse_ce_fwd`` and
+   ``sparse_ce_bwd``, whose TMA loads are f's halves) must show ``HGMMA``
+   and ``UTMALDG`` in their SASS (``cuobjdump -sass``) and no spills.
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the same card tensors, at the shapes of the paper's 1M-class
    configuration (V=1,020,250, D=512; B=64 for serving, B=256 for
@@ -40,10 +41,14 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    knn training shapes (B=256, A=102,025 active rows of the 1M x 512 unit
    shard, labels first, 100 repeated ids, scale 16) and at ragged shapes
    (repeated ids, labels off the shard, a label column listed twice,
-   ``mask_hits`` both ways, every column invalid, non-zero bias): forward
-   m and corr atol 1e-4, z rtol 1e-4, hit column exact; backward df, dW's
-   label rows and dW's other active rows each within BWD_TOL of its own
-   max; both bit-identical across two runs; library ``f @ W[ids].T``.
+   ``mask_hits`` both ways, every column invalid, non-zero bias), through
+   ``repro_torch.testing``'s sparse gates: forward m and corr atol 1e-4, z
+   rtol 1e-4, hit column exact, amax exact outside near-ties; backward df,
+   dW's label rows and dW's other active rows each within BWD_TOL of its
+   own max, rows off the active set untouched; both bit-identical across
+   two runs; library ``f @ W[ids].T``. They too take their products in
+   3xTF32, and the plain versions with 1xTF32 products must fail the
+   sparse gates at the training shapes.
    ``dist_topk``: 1,024 unit rows in bf16 against all 1,020,250 (values
    within 1e-5, ids equal except at reported near-ties below 1e-5),
    integer-valued inputs with duplicated rows (ids exact: the lowest
@@ -89,10 +94,11 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    launch 13 times, ``dist_topk`` twice (one ring hop a build).
    ``label_recall`` must be 1.0 on every step, losses finite, W moved. The
    graph build is timed apart (pass 1, merge + pass 2, copy,
-   compression); step time, samples/s, a profiled step and peak memory
-   as for the full head. Then 3 steps on the kernel and the ref backend
-   from the same W and the same kernel-built graph, without fillers or
-   rebuilds: losses within rtol 1e-4, max|dW| <= 1e-4 * max|W|.
+   compression); step time, samples/s, a profiled step (its costliest
+   device kernels printed) and peak memory as for the full head. Then 3
+   steps on the kernel and the ref backend from the same W and the same
+   kernel-built graph, without fillers or rebuilds: losses within rtol
+   1e-4, max|dW| <= 1e-4 * max|W|.
 8. the train launcher again with ``--head knn``.
 9. IVF serving (the main path of the IVF slice): ``ivf_rerank`` against
    its plain version at ragged shapes (pads, rows with fewer real
@@ -186,7 +192,8 @@ BF16_OPS_PER_S = 989e12                      # H100 SXM, dense tensor cores
 QSLICE = 132 * 128
 DEEP_DIMS = (1024, 2048, 3072)   # the zoo's knn heads (ROADMAP A.9.2)
 HOPPER_KERNELS = ("flash_attention", "knn_dist_topk",  # wgmma + TMA
-                  "ce_softmax_fwd", "ce_softmax_bwd")
+                  "ce_softmax_fwd", "ce_softmax_bwd", "sparse_ce_fwd",
+                  "sparse_ce_bwd")
 KNN_K, KPRIME, ACTIVE_FRAC = 16, 32, 0.1    # the knn head (launch/train.py)
 IVF_TOL = 1e-5       # ivf_rerank: fp32 dot products of D terms in another order
 RECALL_QUERIES = 256
@@ -327,12 +334,14 @@ def bound_ms(n_bytes: float, n_ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ce_bounds(n_bytes: float, n_products: int, b: int) -> dict:
-    """A dense CE kernel's bounds at batch b over the V x D shard: its
-    n_products fp32 products of 2 b V D operations as 3xTF32 on the tensor
-    cores (three TF32 products each; the kernels' design), and on CUDA
-    cores in fp32 FMA, each against its bytes."""
-    ops = n_products * 2.0 * b * V * D
+def ce_bounds(n_bytes: float, n_products: int, b: int,
+              cols: int = V) -> dict:
+    """A CE kernel's bounds at batch b over ``cols`` class columns of width
+    D (the V x D shard, or the sparse kernels' A gathered rows): its
+    n_products fp32 products of 2 b cols D operations as 3xTF32 on the
+    tensor cores (three TF32 products each; the kernels' design), and on
+    CUDA cores in fp32 FMA, each against its bytes."""
+    ops = n_products * 2.0 * b * cols * D
     t32, by32 = bound_ms(n_bytes, 3 * ops, TF32_OPS_PER_S)
     fma, by_fma = bound_ms(n_bytes, ops)
     return {"bound_ms": t32, "bound_by": by32, "bound_fp32_fma_ms": fma,
@@ -655,84 +664,80 @@ def tf32_fault(torch, ce, f, w, y, m, gz, gc):
 # ---------------------------------------------------------------------------
 
 
-def _worst(torch, e):
-    e = e[torch.isfinite(e)]
-    return float(e.abs().max()) if e.numel() else 0.0
-
-
 def check_sparse(torch, sp, f, w, ids, gids, bias, valid, y, scale, mask_hits,
                  gz, gc, label):
     """sparse_ce_forward / _backward's kernels vs their plain versions on
     the same card tensors, each kernel twice: the two runs must agree bit
-    for bit. Forward: m and corr atol 1e-4, z rtol 1e-4, the hit column
-    exact, amax exact except on rows whose best two kept scores lie within
-    1e-5. Backward: df, dW's label rows and dW's other active rows each
-    within BWD_TOL of its own max|plain|. Returns {part: error}."""
+    for bit. The gates are ``repro_torch.testing.sparse_ce_forward_gate``
+    (m and corr atol 1e-4, z rtol 1e-4, the hit column exact, amax exact
+    except on rows whose best two kept scores lie within 1e-5) and
+    ``sparse_ce_backward_gate`` (df, dW's label rows and dW's other active
+    rows each within BWD_TOL of its own max|plain|; rows off the active set
+    untouched). Returns {part: error}."""
+    from repro_torch import testing
     f1 = sp.sparse_ce_forward(f, w, ids, gids, bias, valid, y, scale=scale,
                               mask_hits=mask_hits)
     f2 = sp.sparse_ce_forward(f, w, ids, gids, bias, valid, y, scale=scale,
                               mask_hits=mask_hits)
     idc = ids.clamp(0, w.shape[0] - 1).to(torch.int32)
-    p = sp.sparse_ce_forward_plain(f, w, idc, gids, bias, valid, y, scale,
-                                   mask_hits)
+    cols = (f, w, idc, gids, bias, valid, y)
+    p = sp.sparse_ce_forward_plain(*cols, scale, mask_hits)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(f1, f2)):
         fail(f"sparse_ce_forward {label}: two runs on the same inputs differ")
-    m1, z1, c1, a1, h1 = f1
-    m2, z2, c2, a2, h2 = p
-    torch.testing.assert_close(m1, m2, atol=1e-4, rtol=0,
-                               msg=lambda s: f"sparse_ce_forward m {label}: {s}")
-    torch.testing.assert_close(c1, c2, atol=1e-4, rtol=0,
-                               msg=lambda s: f"sparse_ce_forward corr {label}: {s}")
-    torch.testing.assert_close(z1, z2, rtol=1e-4, atol=0,
-                               msg=lambda s: f"sparse_ce_forward z {label}: {s}")
-    if not torch.equal(h1, h2):
-        fail(f"sparse_ce_forward hit column {label}: kernel and plain differ")
-    s = (f @ w[idc.long()].T) * scale + bias[None, :]
-    keep, _ = sp._masks(gids, valid, y, mask_hits)
-    s = torch.where(keep, s, float("-inf"))
-    top2 = s.topk(min(2, s.shape[1]), dim=1).values
-    differ = (a1 != a2) & ~((top2[:, 0] - top2[:, -1]) < 1e-5)
-    if bool(differ.any()):
-        rows = differ.nonzero()[:, 0].tolist()[:8]
-        fail(f"sparse_ce_forward amax {label}: rows {rows} kernel "
-             f"{a1[rows].tolist()} plain {a2[rows].tolist()}")
-    out = {"fwd m/corr": max(_worst(torch, m1 - m2), _worst(torch, c1 - c2)),
-           "fwd z rel": _worst(torch, (z1 - z2) / z2.clamp_min(
-               torch.finfo(z2.dtype).tiny))}
+    gate = testing.sparse_ce_forward_gate(f1, p, *cols, scale, mask_hits)
+    if not gate["ok"]:
+        rows = gate["amax_rows"][:8]
+        fail(f"sparse_ce_forward {label}: {gate['failed']} fail; m/corr max "
+             f"abs err {gate['m_corr_err']:.3g} (atol {testing.CE_ATOL:g}), "
+             f"z max rel err {gate['z_rel_err']:.3g} (rtol "
+             f"{testing.CE_Z_RTOL:g}), amax rows {rows} kernel "
+             f"{f1[3][rows].tolist()} plain {p[3][rows].tolist()}")
+    out = {"fwd m/corr": gate["m_corr_err"], "fwd z rel": gate["z_rel_err"]}
 
-    b1 = sp.sparse_ce_backward(f, w, ids, gids, bias, valid, y, m1, gz, gc,
-                               h1, scale=scale, mask_hits=mask_hits)
-    b2 = sp.sparse_ce_backward(f, w, ids, gids, bias, valid, y, m1, gz, gc,
-                               h1, scale=scale, mask_hits=mask_hits)
-    pdf, pdw = sp.sparse_ce_backward_plain(f, w, idc, gids, bias, valid, y,
-                                           m1, gz, gc, h2, scale, mask_hits)
+    b1 = sp.sparse_ce_backward(f, w, ids, gids, bias, valid, y, f1[0], gz, gc,
+                               f1[4], scale=scale, mask_hits=mask_hits)
+    b2 = sp.sparse_ce_backward(f, w, ids, gids, bias, valid, y, f1[0], gz, gc,
+                               f1[4], scale=scale, mask_hits=mask_hits)
+    pdf, pdw = sp.sparse_ce_backward_plain(*cols, f1[0], gz, gc, p[4], scale,
+                                           mask_hits)
     torch.cuda.synchronize()
     if not (torch.equal(b1[0], b2[0]) and torch.equal(b1[1], b2[1])):
         fail(f"sparse_ce_backward {label}: two runs on the same inputs differ")
-    df, dw = b1
-    for name, k in (("df", df), ("dW", dw)):
-        if not bool(torch.isfinite(k).all()):
-            fail(f"sparse_ce_backward {name} {label}: non-finite values")
-    lab = torch.zeros(w.shape[0], dtype=torch.bool, device=w.device)
-    yl = y.long()                        # one shard: gids are the ids
-    lab[yl[(yl >= 0) & (yl < w.shape[0])]] = True
-    act = torch.zeros_like(lab)
-    act[idc.long()] = True
-    for name, kk, pp in (("df", df, pdf),
-                         ("dW label rows", dw[lab], pdw[lab]),
-                         ("dW other active rows", dw[act & ~lab],
-                          pdw[act & ~lab])):
-        if not pp.numel():
-            continue
-        ref = float(pp.abs().max())
-        err = float((kk - pp).abs().max())
-        if err > BWD_TOL * ref:
-            fail(f"sparse_ce_backward {name} {label}: max abs err {err:.3g} "
-                 f"over {BWD_TOL:g} * max|plain| = {BWD_TOL * ref:.3g}")
-        out[name] = err / ref if ref else err
-    if bool(dw[~act].any()):
-        fail(f"sparse_ce_backward {label}: dW rows off the active set moved")
+    gate = testing.sparse_ce_backward_gate(*b1, pdf, pdw, idc, gids, y)
+    if not gate["ok"]:
+        fail(f"sparse_ce_backward {label}: {gate['failed']} fail; max abs "
+             f"err (of max|plain|) by part {gate['parts']}, gate "
+             f"{BWD_TOL:g}")
+    out.update({k: r for k, (_, r) in gate["parts"].items()})
+    return out
+
+
+def sparse_tf32_fault(torch, sp, f, w, ids, bias, valid, y, m, gz, gc, hit):
+    """The sparse plain versions with their products emulated in 1xTF32
+    (a kernel that dropped the 3xTF32 lo terms) must fail the forward's
+    gate and the backward's at the training shapes. Returns the
+    readings."""
+    from repro_torch import testing
+    cols = (f, w, ids, ids, bias, valid, y)
+    fwd = testing.sparse_ce_forward_gate(
+        testing.sparse_ce_forward_tf32(*cols, 16.0, False, 1),
+        sp.sparse_ce_forward_plain(*cols, 16.0, False), *cols, 16.0, False)
+    rows = (m, gz, gc, hit, 16.0, False)
+    bwd = testing.sparse_ce_backward_gate(
+        *testing.sparse_ce_backward_tf32(*cols, *rows, 1),
+        *sp.sparse_ce_backward_plain(*cols, *rows), ids, ids, y)
+    out = {"forward_failed": fwd["failed"], "forward_m_corr_err":
+           fwd["m_corr_err"], "forward_z_rel_err": fwd["z_rel_err"],
+           "backward_failed": bwd["failed"],
+           "backward_rel_err_by_part": {k: r for k, (_, r) in
+                                        bwd["parts"].items()}}
+    log(f"kernel phase: sparse CE products emulated in 1xTF32 at the "
+        f"training shapes: {out}")
+    if fwd["ok"] or bwd["ok"]:
+        fail("the sparse CE gates pass products in 1xTF32: they cannot tell "
+             "the 3xTF32 design from plain TF32")
+    torch.cuda.empty_cache()
     return out
 
 
@@ -811,6 +816,8 @@ def sparse_kernel_phase(torch, sp):
             parts[f"{part}, {term}"] = e
     log("kernel phase: sparse_ce at training shapes agrees, bit-identical "
         "across runs; " + "; ".join(f"{k} {e:.3g}" for k, e in parts.items()))
+    fault = sparse_tf32_fault(torch, sp, ft, wt, idt, bias, valid, yt, m, gz,
+                              gc, hit)
     fwd = lambda: sp.sparse_ce_forward(ft, wt, idt, idt, bias, valid, yt,
                                        scale=16.0)
     fwd_ms = cuda_ms(torch, fwd, 20)
@@ -819,18 +826,23 @@ def sparse_kernel_phase(torch, sp):
     lib = cuda_ms(torch, lambda: ft @ wt[idt.long()].T, 20)
     bwd = lambda: sp.sparse_ce_backward(ft, wt, idt, idt, bias, valid, yt, m,
                                         gz, gc, hit, scale=16.0)
-    bwd_ms = cuda_ms(torch, bwd, 5)
+    bwd_ms = cuda_ms(torch, bwd, 10)
     bwd_plain = cuda_ms(torch, lambda: sp.sparse_ce_backward_plain(
         ft, wt, idt, idt, bias, valid, yt, m, gz, gc, hit, 16.0, False), 3)
+    # the dense dW zero-fill that the backward's timed window includes
+    fill_ms = cuda_ms(torch, lambda: torch.zeros_like(wt), 10)
     col_bytes = 16 * a
-    fb, fby = bound_ms(4 * (BTRAIN * D + a * D) + col_bytes + 24 * BTRAIN,
-                       2.0 * BTRAIN * a * D)
-    bb, bby = bound_ms(4 * (2 * BTRAIN * D + a * D + V * D) + col_bytes
-                       + 20 * BTRAIN, 6.0 * BTRAIN * a * D)
-    log(f"kernel phase: sparse_ce_forward {fwd_ms:.3f} ms (bound {fb:.3f} by "
-        f"{fby}), plain {fwd_plain:.3f}, f @ W[ids].T {lib:.3f}; "
-        f"sparse_ce_backward {bwd_ms:.3f} ms (bound {bb:.3f} by {bby}), "
-        f"plain {bwd_plain:.3f}")
+    fb = ce_bounds(4 * (BTRAIN * D + a * D) + col_bytes + 24 * BTRAIN, 1,
+                   BTRAIN, a)
+    bb = ce_bounds(4 * (2 * BTRAIN * D + a * D + V * D) + col_bytes
+                   + 20 * BTRAIN, 3, BTRAIN, a)
+    log(f"kernel phase: sparse_ce_forward {fwd_ms:.3f} ms (3xTF32 bound "
+        f"{fb['bound_ms']:.3f} by {fb['bound_by']}, fp32-FMA "
+        f"{fb['bound_fp32_fma_ms']:.3f}), plain {fwd_plain:.3f}, f @ "
+        f"W[ids].T {lib:.3f}; sparse_ce_backward {bwd_ms:.3f} ms (3xTF32 "
+        f"bound {bb['bound_ms']:.3f} by {bb['bound_by']}, fp32-FMA "
+        f"{bb['bound_fp32_fma_ms']:.3f}; the dW zero-fill alone "
+        f"{fill_ms:.3f}), plain {bwd_plain:.3f}")
     shape = f"f[{BTRAIN},{D}] W[{V},{D}] A={a}"
     fwd_err = max(e for k, e in parts.items() if k.startswith("fwd"))
     bwd_err = max(e for k, e in parts.items() if not k.startswith("fwd"))
@@ -839,18 +851,18 @@ def sparse_kernel_phase(torch, sp):
             name="sparse_ce_forward", route="cuda",
             source="src/repro_torch/kernels/csrc/sparse_ce_fwd.cu",
             replaces="src/repro/kernels/sparse_ce.py:140",
-            max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fb,
-            bound_by=fby, library_ms=lib,
+            max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain, **fb,
+            library_ms=lib,
             library="f @ W[ids].T (gather + cuBLAS fp32, TF32 off)",
-            shape=shape),
+            tf32_fault=fault, shape=shape),
         "sparse_ce_backward": dict(
             name="sparse_ce_backward", route="cuda",
             source="src/repro_torch/kernels/csrc/sparse_ce_bwd.cu",
             replaces="src/repro/kernels/sparse_ce.py:232",
             max_abs_err=bwd_err, max_rel_err=bwd_err, ms=bwd_ms,
-            plain_ms=bwd_plain, bound_ms=bb, bound_by=bby, library_ms=lib,
+            plain_ms=bwd_plain, **bb, library_ms=lib,
             library="f @ W[ids].T (gather + cuBLAS fp32, TF32 off)",
-            rel_err_by_part=parts, shape=shape),
+            zero_fill_ms=fill_ms, rel_err_by_part=parts, shape=shape),
     }
 
 
@@ -1356,6 +1368,8 @@ def knn_training_phase(torch, sp, dk):
     prof = profile_ms(torch, one_step)
     log(f"knn phase: step (n_micro=1) {step_ms:.2f} ms, "
         f"{BTRAIN / step_ms * 1e3:.0f} samples/s; profiled: {prof}")
+    log("knn phase: top device kernels of one step (ms): " + "; ".join(
+        f"{k} {v:.3f}" for k, v in prof["top_kernels_ms"].items()))
     aux, data_fn = exp.state.head_aux, exp.data_fn
     del exp, step, inputs
     torch.cuda.empty_cache()

@@ -81,25 +81,6 @@ namespace {
 
 using namespace ce_hopper;   // and its ht = hopper
 
-// ---------------------------------------------------------------------------
-// f^T's TF32 halves, [D, Bp] with Bp = B rounded up to 8: position k of an
-// 8-column group holds batch row 2k (k < 4) or 2(k - 4) + 1 of the group,
-// the order in which dl's accumulators serve as A fragments; rows past B
-// are zero
-// ---------------------------------------------------------------------------
-
-__global__ void split_cols(const float* __restrict__ f, int B, int D, int Bp,
-                           float* __restrict__ hi, float* __restrict__ lo) {
-  const int i = blockIdx.x * 256 + threadIdx.x;
-  if (i >= D * Bp) return;
-  const int d = i / Bp, k = i % Bp, o = k & 7;
-  const int b = (k & ~7) + (o < 4 ? 2 * o : 2 * (o - 4) + 1);
-  uint32_t h, l;
-  ht::split_tf32(b < B ? f[(size_t)b * D + d] : 0.f, h, l);
-  hi[i] = __uint_as_float(h);
-  lo[i] = __uint_as_float(l);
-}
-
 // the row statistics of batch rows b0 .. b0 + n - 1 into shared memory;
 // rows past B give dl = 0
 __device__ __forceinline__ void load_rows(float* ms, float* gzs, float* gcs,
@@ -323,58 +304,15 @@ ce_bwd_dw(const __grid_constant__ CUtensorMap tw,
 // df: a block per (64 batch rows, class segment, 512 features)
 // ---------------------------------------------------------------------------
 
-constexpr int DF_BT = 64;
 constexpr int DF_DG = 512;                       // features a block
 constexpr int DF_STAGES = 4;
 constexpr int DF_F_SLAB = ht::slab_bytes(DF_BT);
 constexpr int DF_STAGE = W_SLAB + 2 * DF_F_SLAB; // = two W slabs
 static_assert(DF_STAGE == 2 * W_SLAB, "score and df stages share the ring");
-constexpr int DL_SLAB = ht::slab_bytes(DF_BT);   // 64 b x 32 v
 constexpr int DL_OFF = DF_STAGES * DF_STAGE;     // dl hi: 4 slabs, lo: 4
 constexpr int DF_ROWS_OFF = DL_OFF + 8 * DL_SLAB;
 constexpr int DF_BAR_OFF = DF_ROWS_OFF + 16 * DF_BT;
 constexpr int DF_SMEM = 1024 + DF_BAR_OFF + 8 * 2 * DF_STAGES;
-
-// One 64-feature block of df^T += W^T dl^T over a tile's 128 classes: A is
-// W^T, loaded transposed from the stage's two W slabs (features 0..31 and
-// 32..63 of the block) and split in registers; B is dl's halves (ddh,
-// ddl). The tile's share goes into a fresh accumulator that the CUDA cores
-// add into dacc (ce_hopper.cuh, score_slab: the tensor cores' sums drop
-// bits, which over a segment's ~30,000 additions read 1e-4). The k loop is
-// not unrolled: the kernel's code stays small enough for the instruction
-// cache.
-__device__ __forceinline__ void df_block(float (&dacc)[32],
-                                         const unsigned char* src,
-                                         uint64_t ddh, uint64_t ddl,
-                                         const int (&aoff)[4]) {
-  float part[32];                    // set by the first product
-#pragma unroll 1
-  for (int k0 = 0; k0 < 16; k0 += 4) {
-    uint32_t hi[4][4], lo[4][4];
-    const unsigned char* rows = src + 1024 * k0;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float x = *reinterpret_cast<const float*>(rows + aoff[r] +
-                                                        1024 * kk);
-        ht::split_tf32(x, hi[kk][r], lo[kk][r]);
-      }
-    ht::fence_regs(part);
-    ht::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mma3(part, hi[kk], lo[kk], desc_at(ddh, (k0 >> 2) * DL_SLAB + 32 * kk),
-           desc_at(ddl, (k0 >> 2) * DL_SLAB + 32 * kk), k0 + kk > 0);
-    ht::wgmma_commit();
-    ht::wgmma_wait<0>();
-    ht::fence_regs(part);
-    ht::fence_regs(hi);
-    ht::fence_regs(lo);
-  }
-#pragma unroll
-  for (int i = 0; i < 32; ++i) dacc[i] += part[i];
-}
 
 __global__ void __launch_bounds__(THREADS, 1)
 ce_bwd_df(const __grid_constant__ CUtensorMap tw,
@@ -539,17 +477,6 @@ ce_bwd_df(const __grid_constant__ CUtensorMap tw,
   }
 }
 
-// df[e] = sum over segments s, in order, of pdf[s][e]: one thread per element.
-__global__ void __launch_bounds__(256)
-ce_bwd_combine(const float* __restrict__ pdf, int n_elems, int n_segs,
-               float* __restrict__ df) {
-  const int e = blockIdx.x * 256 + threadIdx.x;
-  if (e >= n_elems) return;
-  float s = 0.f;
-  for (int q = 0; q < n_segs; ++q) s += pdf[(size_t)q * n_elems + e];
-  df[e] = s;
-}
-
 template <int NB>
 int launch_dw(const CUtensorMap& tw, const void* fh, const void* fl,
               const CUtensorMap& tfth, const CUtensorMap& tftl, const void* y,
@@ -591,7 +518,7 @@ extern "C" int ce_bwd_launch(const void* f, const void* w, const void* y,
   ce_hopper::split_rows<<<(n + 255) / 256, 256, 0, st>>>(
       static_cast<const float*>(f), n, static_cast<float*>(fh),
       static_cast<float*>(fl));
-  split_cols<<<(D * Bp + 255) / 256, 256, 0, st>>>(
+  ce_hopper::split_cols<<<(D * Bp + 255) / 256, 256, 0, st>>>(
       static_cast<const float*>(f), B, D, Bp, static_cast<float*>(fth),
       static_cast<float*>(ftl));
   cudaError_t e = cudaGetLastError();
@@ -625,7 +552,7 @@ extern "C" int ce_bwd_launch(const void* f, const void* w, const void* y,
       limit, scale, seg_tiles_df, static_cast<float*>(pdf));
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  ce_bwd_combine<<<(n + 255) / 256, 256, 0, st>>>(
+  ce_hopper::sum_segments<<<(n + 255) / 256, 256, 0, st>>>(
       static_cast<const float*>(pdf), n, n_segs_df, static_cast<float*>(df));
   return static_cast<int>(cudaGetLastError());
 }

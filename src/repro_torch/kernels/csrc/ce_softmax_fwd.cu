@@ -60,18 +60,6 @@ constexpr int CORR_OFF = RED_OFF + 3 * CONSUMER_WARPS * BT * 4;
 constexpr int BAR_OFF = CORR_OFF + BT * 4;
 constexpr int SMEM = 1024 + BAR_OFF + 8 * 2 * STAGES;
 
-// Fold (m2, z2, a2) into (m, z, a). Ties on the max keep the lower column.
-__device__ __forceinline__ void merge_stat(float& m, float& z, int& a,
-                                           float m2, float z2, int a2) {
-  float mn = fmaxf(m, m2);
-  if (mn == -INFINITY) return;             // both empty: z = 0, a = -1 stay
-  float s1 = (m == -INFINITY) ? 0.f : expf(m - mn);
-  float s2 = (m2 == -INFINITY) ? 0.f : expf(m2 - mn);
-  z = z * s1 + z2 * s2;
-  if (m2 > m || (m2 == m && a2 < a)) a = a2;
-  m = mn;
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
 ce_fwd_partial(const __grid_constant__ CUtensorMap tw,
                const __grid_constant__ CUtensorMap tfh,

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by flash_attention.cu,
-// knn_dist_topk.cu and the dense CE kernels (ce_softmax_fwd.cu,
-// ce_softmax_bwd.cu, through ce_hopper.cuh): TMA tile loads described on
-// the host by cuTensorMapEncodeTiled, mbarrier rings between a producer
-// warp and the consumer warpgroups, setmaxnreg, and bf16 and TF32 wgmma
-// with fp32 accumulators.
+// knn_dist_topk.cu and the CE kernels (ce_softmax_fwd.cu,
+// ce_softmax_bwd.cu, sparse_ce_fwd.cu, sparse_ce_bwd.cu, through
+// ce_hopper.cuh): TMA tile loads described on the host by
+// cuTensorMapEncodeTiled, cp.async copies that arrive on an mbarrier,
+// mbarrier rings between a producer warp and the consumer warpgroups,
+// setmaxnreg, and bf16 and TF32 wgmma with fp32 accumulators.
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes: rows of 64 bf16 (128 bytes), the 16-byte chunk c of row r stored
@@ -182,6 +183,38 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// cp.async: a 16-byte copy from device to shared memory that bypasses L1
+// (and asks L2 to fetch the 256 bytes around it), or a 4-byte one; the
+// bytes past `src_bytes` (0 or the whole size) are filled with zeros
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            int src_bytes) {
+  asm volatile(
+      "cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(src_bytes)
+      : "memory");
+}
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// one arrival on `bar` once every earlier cp.async of this thread has
+// landed; it is one of the barrier's expected arrivals (noinc)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// wait for every cp.async of this thread to land (before it exits)
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // shared-memory writes of the generic proxy (plain stores) made visible to

@@ -22,10 +22,17 @@ forward also returns that first-hit column per row, which the backward
 takes for its one-hot: the TPU kernel finds it with a flag carried from
 tile to tile, which a parallel grid does not have.
 
-Bound on an H100 SXM at the knn training shapes (B = 256, A = 102,025 of
-V = 1,020,250, D = 512): the forward's 26.7 GFLOP take 0.40 ms at the
-67 TFLOP/s fp32 rate and the backward's 80.2 GFLOP 1.20 ms, both above
-their bytes (0.21 and 0.42 GB): bound by operations.
+The products run on the tensor cores as 3xTF32 ``wgmma`` on
+``csrc/ce_hopper.cuh``'s score tile, as the dense CE kernels' do, with W's
+rows gathered by id into the tile's slabs by ``cp.async`` (a TMA box cannot
+gather rows) and f's halves fed by TMA. Bounds on an H100 SXM at the knn
+training shapes (B = 256, A = 102,025 of V = 1,020,250, D = 512): the
+forward's 26.7 GFLOP take 0.162 ms as 3xTF32 at 494.7 TFLOP/s (0.40 ms in
+fp32 FMA at 67), more than its 0.21 GB of bytes take (0.06 ms at 3.35
+TB/s): bound by operations. The backward's three products, 80.2 GFLOP,
+take 0.486 ms as 3xTF32 (1.20 ms in fp32 FMA), less than its 2.30 GB of
+bytes take (0.687 ms), most of them the dense [V, D] dW that it
+zero-fills and writes: bound by bytes. See the sources for the design.
 """
 from __future__ import annotations
 
@@ -34,14 +41,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ce_softmax import _segments, _sms
 
 LAUNCHES = 0          # kernel launches (one per sparse_ce_forward on the card)
 BWD_LAUNCHES = 0      # kernel launches (one per sparse_ce_backward on the card)
 
-_SEG_BLOCKS = 2048    # forward pass-1 blocks to aim for
-_AT = 128             # active columns per tile in csrc/sparse_ce_*.cu
-_BT = 64              # batch rows per forward block
-_BWD_SEG_BLOCKS = 264  # backward blocks: two per SM on 132 SMs
+_AT = 128             # active columns per tile (csrc/ce_hopper.cuh)
+_BT = 64              # batch rows per block of the forward and of df
+_DG = 512             # features per block of df
 
 
 def _scores(f, w, ids, bias, scale):
@@ -139,7 +146,7 @@ def _check(what, f, w, ids, gids, bias, valid, y, rows):
 def _fwd_lib():
     fn = build.library("sparse_ce_fwd").sparse_ce_fwd_launch
     if not fn.argtypes:
-        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 3
                        + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -162,12 +169,10 @@ def sparse_ce_forward(f, w, ids, gids, bias, valid, y, *, scale: float = 1.0,
                                        scale, mask_hits)
     b, d = f.shape
     a = ids.shape[0]
-    n_btiles = -(-b // _BT)
-    n_atiles = -(-a // _AT)
-    n_segs = min(n_atiles, max(1, _SEG_BLOCKS // n_btiles))
-    seg_tiles = -(-n_atiles // n_segs)
-    n_segs = -(-n_atiles // seg_tiles)
     dev = f.device
+    # about one block an SM, the B tiles of a segment side by side
+    seg_tiles, n_segs = _segments(-(-a // _AT), _sms(dev) // -(-b // _BT))
+    fh, fl = torch.empty_like(f), torch.empty_like(f)   # f's TF32 halves
     pm = torch.empty((n_segs, b), device=dev, dtype=torch.float32)
     pz, phs = torch.empty_like(pm), torch.empty_like(pm)
     pa = torch.empty((n_segs, b), device=dev, dtype=torch.int32)
@@ -179,11 +184,11 @@ def sparse_ce_forward(f, w, ids, gids, bias, valid, y, *, scale: float = 1.0,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _fwd_lib()(
         f.data_ptr(), w.data_ptr(), ids.data_ptr(), gids.data_ptr(),
-        bias.data_ptr(), valid.data_ptr(), y.data_ptr(), pm.data_ptr(),
-        pz.data_ptr(), phs.data_ptr(), pa.data_ptr(), ph.data_ptr(),
-        m.data_ptr(), z.data_ptr(), corr.data_ptr(), amax.data_ptr(),
-        hit.data_ptr(), b, d, a, float(scale), int(mask_hits), seg_tiles,
-        n_segs, stream)
+        bias.data_ptr(), valid.data_ptr(), y.data_ptr(), fh.data_ptr(),
+        fl.data_ptr(), pm.data_ptr(), pz.data_ptr(), phs.data_ptr(),
+        pa.data_ptr(), ph.data_ptr(), m.data_ptr(), z.data_ptr(),
+        corr.data_ptr(), amax.data_ptr(), hit.data_ptr(), b, d, a,
+        float(scale), int(mask_hits), seg_tiles, n_segs, stream)
     build.check(err, "sparse_ce_forward")
     LAUNCHES += 1
     return m, z, corr, amax, hit
@@ -192,8 +197,8 @@ def sparse_ce_forward(f, w, ids, gids, bias, valid, y, *, scale: float = 1.0,
 def _bwd_lib():
     fn = build.library("sparse_ce_bwd").sparse_ce_bwd_launch
     if not fn.argtypes:
-        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 3
-                       + [ctypes.c_float] + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 3
+                       + [ctypes.c_float] + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -217,13 +222,19 @@ def sparse_ce_backward(f, w, ids, gids, bias, valid, y, m, gz, gc, hit, *,
                                         gz, gc, hit, scale, mask_hits)
     b, d = f.shape
     v, a = w.shape[0], ids.shape[0]
-    n_atiles = -(-a // _AT)
-    seg_tiles = -(-n_atiles // min(n_atiles, _BWD_SEG_BLOCKS))
-    n_segs = -(-n_atiles // seg_tiles)
     dev = f.device
+    n_atiles = -(-a // _AT)
+    sms = _sms(dev)
+    seg_dw, n_segs_dw = _segments(n_atiles, sms)
+    seg_df, n_segs_df = _segments(
+        n_atiles, sms // (-(-b // _BT) * -(-d // _DG)))
+    bp = -(-b // 8) * 8
     sid, order = torch.sort(ids, stable=True)
+    fh, fl = torch.empty_like(f), torch.empty_like(f)   # f's TF32 halves
+    fth = torch.empty((d, bp), device=dev, dtype=torch.float32)  # and f^T's
+    ftl = torch.empty_like(fth)
     dwa = torch.empty((a, d), device=dev, dtype=torch.float32)
-    pdf = torch.empty((n_segs, b, d), device=dev, dtype=torch.float32)
+    pdf = torch.empty((n_segs_df, b, d), device=dev, dtype=torch.float32)
     df = torch.empty((b, d), device=dev, dtype=torch.float32)
     dw = torch.zeros((v, d), device=dev, dtype=torch.float32)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -231,9 +242,10 @@ def sparse_ce_backward(f, w, ids, gids, bias, valid, y, m, gz, gc, hit, *,
         f.data_ptr(), w.data_ptr(), ids.data_ptr(), gids.data_ptr(),
         bias.data_ptr(), valid.data_ptr(), y.data_ptr(), m.data_ptr(),
         gz.data_ptr(), gc.data_ptr(), hit.data_ptr(), sid.data_ptr(),
-        order.data_ptr(), dwa.data_ptr(), pdf.data_ptr(), df.data_ptr(),
-        dw.data_ptr(), b, d, a, float(scale), int(mask_hits), seg_tiles,
-        n_segs, stream)
+        order.data_ptr(), fh.data_ptr(), fl.data_ptr(), fth.data_ptr(),
+        ftl.data_ptr(), dwa.data_ptr(), pdf.data_ptr(), df.data_ptr(),
+        dw.data_ptr(), b, d, a, float(scale), int(mask_hits), bp, seg_dw,
+        n_segs_dw, seg_df, n_segs_df, stream)
     build.check(err, "sparse_ce_backward")
     BWD_LAUNCHES += 1
     return df, dw

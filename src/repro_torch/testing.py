@@ -8,12 +8,14 @@ its own row block) and returns numpy arrays, so the caller can compare
 them with the JAX package's shard_map results directly. Both run on the
 CPU.
 
-Beside them, the gates that hold the dense CE kernels to their plain
-versions on the card (``ce_forward_gate``, ``ce_backward_gate``), and a
-plain-torch emulation of TF32 products (``tf32_round``, ``ce_forward_tf32``,
-``ce_backward_tf32``): with 3xTF32 products, as the kernels take them, the
-gates pass; with 1xTF32 products they must fail. The CPU tests and
-``chip_smoke.py`` run both through the same gates.
+Beside them, the gates that hold the CE kernels to their plain versions
+on the card (``ce_forward_gate``, ``ce_backward_gate`` for the dense pair,
+``sparse_ce_forward_gate``, ``sparse_ce_backward_gate`` for the sparse
+one), and a plain-torch emulation of TF32 products (``tf32_round``,
+``ce_forward_tf32``, ``ce_backward_tf32``, ``sparse_ce_forward_tf32``,
+``sparse_ce_backward_tf32``): with 3xTF32 products, as the kernels take
+them, the gates pass; with 1xTF32 products they must fail. The CPU tests
+and ``chip_smoke.py`` run both through the same gates.
 """
 from __future__ import annotations
 
@@ -448,21 +450,17 @@ def _worst(e) -> float:
     return float(e.abs().max()) if e.numel() else 0.0
 
 
-def ce_forward_gate(out, ref, f, w, limit: int, scale: float) -> dict:
-    """``ce_forward``'s outputs ``out`` against the plain version's ``ref``
-    (both (m, z, corr, amax) on the same inputs, ``limit`` clamped): m and
-    corr within CE_ATOL, z within CE_Z_RTOL relative, amax equal except on
-    rows whose top-2 plain scores lie within CE_TIE_GAP (fp32 sums in
-    another order may swap a near-tie). Returns ``ok``, which parts fail,
-    the largest error of m and corr, of z (relative), and the rows whose
-    amax differs."""
+def _stats_gate(out, ref, s) -> dict:
+    """(m, z, corr, amax) against the plain version's, ``s`` the plain
+    scores with the columns that fold nothing at -inf: m and corr within
+    CE_ATOL, z within CE_Z_RTOL relative, amax equal except on rows whose
+    top-2 scores lie within CE_TIE_GAP (fp32 sums in another order may swap
+    a near-tie)."""
     (m1, z1, c1, a1), (m2, z2, c2, a2) = out, ref
     failed = [name for name, a, b, atol, rtol in (
         ("m", m1, m2, CE_ATOL, 0.0), ("corr", c1, c2, CE_ATOL, 0.0),
         ("z", z1, z2, 0.0, CE_Z_RTOL))
         if not bool(torch.isclose(a, b, rtol=rtol, atol=atol).all())]
-    s = (f @ w.T) * scale
-    s[:, limit:] = float("-inf")
     differ = a1 != a2
     if s.shape[1] > 1:
         top2 = s.topk(2, dim=1).values
@@ -477,29 +475,129 @@ def ce_forward_gate(out, ref, f, w, limit: int, scale: float) -> dict:
             "amax_rows": rows}
 
 
-def ce_backward_gate(df, dw, pdf, pdw, y) -> dict:
-    """``ce_backward``'s (df, dw) against the plain version's (pdf, pdw),
-    ``y`` the local labels (-1 off the shard). Each part is held against
-    its own max|plain|: df, dW's label rows and dW's other rows, whose
-    only term is the softmax one (orders of magnitude below the one-hot
-    term of the label rows, so a shared scale would not see it). Returns
-    ``ok``, which parts fail, and {part: (max abs err, err / max|plain|)}."""
-    lab = torch.zeros(dw.shape[0], dtype=torch.bool, device=dw.device)
-    lab[y[y >= 0].long()] = True
-    failed, parts = [], {}
-    for name, k, p in (("df", df, pdf), ("dW label rows", dw[lab], pdw[lab]),
-                       ("dW other rows", dw[~lab], pdw[~lab])):
+def ce_forward_gate(out, ref, f, w, limit: int, scale: float) -> dict:
+    """``ce_forward``'s outputs ``out`` against the plain version's ``ref``
+    (both (m, z, corr, amax) on the same inputs, ``limit`` clamped), by
+    ``_stats_gate``. Returns ``ok``, which parts fail, the largest error of
+    m and corr, of z (relative), and the rows whose amax differs."""
+    s = (f @ w.T) * scale
+    s[:, limit:] = float("-inf")
+    return _stats_gate(out, ref, s)
+
+
+def _parts_gate(parts) -> tuple:
+    """Each (name, kernel, plain) part within CE_BWD_TOL of its own
+    max|plain| and finite. Returns (the failing names, {name: (max abs err,
+    err / max|plain|)})."""
+    failed, out = [], {}
+    for name, k, p in parts:
         if not p.numel():
             continue
         if not bool(torch.isfinite(k).all()):
             failed.append(name)
-            parts[name] = (float("inf"), float("inf"))
+            out[name] = (float("inf"), float("inf"))
             continue
         scale_ref = float(p.abs().max())
         err = float((k - p).abs().max())
         if err > CE_BWD_TOL * scale_ref:
             failed.append(name)
-        parts[name] = (err, err / scale_ref if scale_ref else err)
+        out[name] = (err, err / scale_ref if scale_ref else err)
+    return failed, out
+
+
+def ce_backward_gate(df, dw, pdf, pdw, y) -> dict:
+    """``ce_backward``'s (df, dw) against the plain version's (pdf, pdw),
+    ``y`` the local labels (-1 off the shard). Each part is held against
+    its own max|plain| (``_parts_gate``): df, dW's label rows and dW's
+    other rows, whose only term is the softmax one (orders of magnitude
+    below the one-hot term of the label rows, so a shared scale would not
+    see it). Returns ``ok``, which parts fail, and {part: (max abs err,
+    err / max|plain|)}."""
+    lab = torch.zeros(dw.shape[0], dtype=torch.bool, device=dw.device)
+    lab[y[y >= 0].long()] = True
+    failed, parts = _parts_gate((
+        ("df", df, pdf), ("dW label rows", dw[lab], pdw[lab]),
+        ("dW other rows", dw[~lab], pdw[~lab])))
+    return {"ok": not failed, "failed": failed, "parts": parts}
+
+
+# ---------------------------------------------------------------------------
+# the sparse CE kernels' gates (the same tolerances) and emulations
+# ---------------------------------------------------------------------------
+
+
+def sparse_ce_forward_tf32(f, w, ids, gids, bias, valid, y, scale: float,
+                           mask_hits: bool, passes: int):
+    """``sparse_ce_forward_plain`` with its product in 1x or 3xTF32 (over
+    the gathered rows, so the [V, D] shard is not copied)."""
+    from repro_torch.kernels.sparse_ce import sparse_ce_forward_plain
+    wa = w[ids.long()]
+    cols = torch.arange(ids.shape[0], dtype=torch.int32, device=ids.device)
+    fh, wh = tf32_round(f), tf32_round(wa)
+    if passes == 1:
+        f3, w3 = fh, wh
+    elif passes == 3:    # lo . hi + hi . lo + hi . hi as one product
+        f3 = torch.cat([tf32_round(f - fh), fh, fh], dim=1)
+        w3 = torch.cat([wh, tf32_round(wa - wh), wh], dim=1)
+    else:
+        raise ValueError(f"passes is 1 or 3, got {passes}")
+    return sparse_ce_forward_plain(f3, w3, cols, gids, bias, valid, y, scale,
+                                   mask_hits)
+
+
+def sparse_ce_backward_tf32(f, w, ids, gids, bias, valid, y, m, gz, gc, hit,
+                            scale: float, mask_hits: bool, passes: int):
+    """``sparse_ce_backward_plain`` with its three products in 1x or
+    3xTF32."""
+    from repro_torch.kernels.sparse_ce import _masks
+    wa = w[ids.long()]
+    s = tf32_matmul(f, wa.T, passes) * scale + bias[None, :]
+    keep, _ = _masks(gids, valid, y, mask_hits)
+    p = torch.where(keep & torch.isfinite(m)[:, None],
+                    torch.exp(s - m[:, None]), 0.0)
+    col = torch.arange(ids.shape[0], device=f.device)
+    onehot = (col[None, :] == hit[:, None].long()).float()
+    dl = (p * gz[:, None] + onehot * gc[:, None]) * scale
+    dw = torch.zeros_like(w).index_add_(0, ids.long(),
+                                        tf32_matmul(dl.T, f, passes))
+    return tf32_matmul(dl, wa, passes), dw
+
+
+def sparse_ce_forward_gate(out, ref, f, w, ids, gids, bias, valid, y,
+                           scale: float, mask_hits: bool) -> dict:
+    """``sparse_ce_forward``'s outputs ``out`` against the plain version's
+    ``ref`` (both (m, z, corr, amax, hit) on the same inputs, ``ids``
+    clipped into [0, V)): m, z, corr and amax by ``_stats_gate`` over the
+    kept columns, and the hit column exact. Returns ``ok``, which parts
+    fail, the largest error of m and corr, of z (relative), and the rows
+    whose amax differs."""
+    from repro_torch.kernels.sparse_ce import _masks, _scores
+    keep, _ = _masks(gids, valid, y, mask_hits)
+    s = torch.where(keep, _scores(f, w, ids, bias, scale), float("-inf"))
+    gate = _stats_gate(out[:4], ref[:4], s)
+    if not torch.equal(out[4], ref[4]):
+        gate["failed"].append("hit")
+        gate["ok"] = False
+    return gate
+
+
+def sparse_ce_backward_gate(df, dw, pdf, pdw, ids, gids, y) -> dict:
+    """``sparse_ce_backward``'s (df, dw) against the plain version's (pdf,
+    pdw), ``ids`` clipped into [0, V). Each part is held against its own
+    max|plain| (``_parts_gate``): df, dW's label rows (the rows of the
+    columns whose gid is some row's label) and dW's other active rows (the
+    softmax term alone, orders of magnitude below the label rows' one-hot
+    term). Rows off the active set must stay 0. Returns ``ok``, which parts
+    fail, and {part: (max abs err, err / max|plain|)}."""
+    act = torch.zeros(dw.shape[0], dtype=torch.bool, device=dw.device)
+    act[ids.long()] = True
+    lab = torch.zeros_like(act)
+    lab[ids[torch.isin(gids, y)].long()] = True
+    failed, parts = _parts_gate((
+        ("df", df, pdf), ("dW label rows", dw[lab], pdw[lab]),
+        ("dW other active rows", dw[act & ~lab], pdw[act & ~lab])))
+    if bool(dw[~act].any()):
+        failed.append("dW rows off the active set")
     return {"ok": not failed, "failed": failed, "parts": parts}
 
 

@@ -219,6 +219,153 @@ def test_sparse_ce_rejects_what_the_kernel_does_not_take():
 
 
 # ---------------------------------------------------------------------------
+# the sparse CE kernels' gates, and their precision on the card: 3xTF32
+# products against the gates
+# ---------------------------------------------------------------------------
+
+
+def _gate_problem(seed=18):
+    """The knn training shapes cut to size: B = 64, A = 4,096 of V = 8,192,
+    D = 512, unit rows, the rows' labels first in the active set, 100
+    duplicated filler rows, a bias."""
+    rng = np.random.default_rng(seed)
+    b, v, d, a = 64, 8192, 512, 4096
+    f, w = (torch.nn.functional.normalize(torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)), dim=1)
+        for s in ((b, d), (v, d)))
+    y = rng.integers(0, v, b).astype(np.int32)
+    lab = np.unique(y)
+    fill = rng.integers(0, v, a - lab.size).astype(np.int32)
+    fill[-100:] = fill[:100]
+    ids = torch.from_numpy(np.concatenate([lab, fill]).astype(np.int32))
+    bias = torch.from_numpy((0.5 * rng.standard_normal(a)).astype(np.float32))
+    valid = torch.ones(a, dtype=torch.int32)
+    return f, w, ids, ids.clone(), bias, valid, torch.from_numpy(y)
+
+
+def _gated_sparse(passes, mask_hits=False):
+    """The cut-down training shapes at scale 16 through the card's sparse
+    gates, the products of both functions emulated in ``passes``xTF32: the
+    forward, then the backward with the loss's cotangents and with the
+    softmax term alone."""
+    f, w, ids, gids, bias, valid, y = _gate_problem()
+    cols = (f, w, ids, gids, bias, valid, y)
+    ref = tsp.sparse_ce_forward_plain(*cols, 16.0, mask_hits)
+    gates = {"forward": testing.sparse_ce_forward_gate(
+        testing.sparse_ce_forward_tf32(*cols, 16.0, mask_hits, passes), ref,
+        *cols, 16.0, mask_hits)}
+    m, z, hit = ref[0], ref[1], ref[4]
+    gz = 1.0 / (f.shape[0] * z)
+    for term, gc in (("loss", torch.full_like(gz, -1.0 / f.shape[0])),
+                     ("softmax term", torch.zeros_like(gz))):
+        rows = (m, gz, gc, hit, 16.0, mask_hits)
+        plain = tsp.sparse_ce_backward_plain(*cols, *rows)
+        emu = testing.sparse_ce_backward_tf32(*cols, *rows, passes)
+        gates[f"backward, {term}"] = testing.sparse_ce_backward_gate(
+            *emu, *plain, ids, gids, y)
+    return gates
+
+
+@pytest.mark.parametrize("mask_hits", [False, True])
+def test_sparse_3xtf32_products_meet_the_card_gates(mask_hits):
+    """The kernels' 3xTF32 products (lo.hi + hi.lo + hi.hi) pass the gates
+    that chip_smoke.py holds the sparse CE kernels to, every part with
+    room."""
+    gates = _gated_sparse(3, mask_hits)
+    for name, gate in gates.items():
+        assert gate["ok"], (name, gate)
+        for part, (_, rel) in gate.get("parts", {}).items():
+            assert rel < testing.CE_BWD_TOL / 2, (name, part, rel)
+    assert gates["forward"]["m_corr_err"] < testing.CE_ATOL / 10
+    assert gates["forward"]["z_rel_err"] < testing.CE_Z_RTOL / 10
+
+
+@pytest.mark.parametrize("mask_hits", [False, True])
+def test_sparse_1xtf32_products_break_the_card_gates(mask_hits):
+    """Plain TF32 products fail the forward's gate and both backward terms'
+    gates, so the gates tell the design from a kernel that dropped the lo
+    terms."""
+    gates = _gated_sparse(1, mask_hits)
+    want = {"m"} if mask_hits else {"m", "corr"}   # corr = 0 when masked
+    assert want <= set(gates["forward"]["failed"]), gates["forward"]
+    for term in ("loss", "softmax term"):
+        assert not gates[f"backward, {term}"]["ok"], gates
+
+
+def _sparse_gate_inputs(mask_hits):
+    """A small sparse problem through the plain versions: the inputs, the
+    forward's outputs and the backward's."""
+    f, w, ids, gids, bias, valid, y, gz, gc = (
+        torch.from_numpy(x) for x in _sparse_problem(30, 0.5, 3))
+    ids = ids.clamp(0, w.shape[0] - 1)
+    cols = (f, w, ids, gids, bias, valid, y)
+    fwd = tsp.sparse_ce_forward_plain(*cols, 2.0, mask_hits)
+    bwd = tsp.sparse_ce_backward_plain(*cols, fwd[0], gz, gc, fwd[4], 2.0,
+                                       mask_hits)
+    return cols, fwd, bwd
+
+
+@pytest.mark.parametrize("mask_hits", [False, True])
+def test_sparse_gates_pass_the_plain_versions(mask_hits):
+    """The plain versions against themselves: every gate passes with no
+    error, and a row with nothing kept (m = -inf) compares equal."""
+    cols, fwd, bwd = _sparse_gate_inputs(mask_hits)
+    gate = testing.sparse_ce_forward_gate(fwd, fwd, *cols, 2.0, mask_hits)
+    assert gate["ok"] and gate["m_corr_err"] == gate["z_rel_err"] == 0.0
+    gate = testing.sparse_ce_backward_gate(*bwd, *bwd, cols[2], cols[3],
+                                           cols[6])
+    assert gate["ok"], gate
+    assert all(e == 0.0 for e, _ in gate["parts"].values())
+    assert {"df", "dW label rows", "dW other active rows"} <= set(
+        gate["parts"])
+
+
+@pytest.mark.parametrize("fault", ["m", "corr", "z", "hit", "amax"])
+def test_sparse_forward_gate_rejects(fault):
+    """Each output of the forward off by more than its tolerance fails the
+    gate under its own name: m and corr by 2e-4, z by 2e-4 relative, one
+    row's hit column, one row's amax where its best two scores lie apart."""
+    cols, fwd, _ = _sparse_gate_inputs(False)
+    out = [t.clone() for t in fwd]
+    k = ("m", "z", "corr", "amax", "hit").index(fault)
+    row = int(torch.nonzero(fwd[4] >= 0)[0, 0])       # a row with a hit
+    if fault in ("m", "corr"):
+        out[k][row] += 2e-4
+    elif fault == "z":
+        out[k][row] *= 1 + 2e-4
+    else:
+        out[k][row] = out[k][row] + 1
+    gate = testing.sparse_ce_forward_gate(out, fwd, *cols, 2.0, False)
+    assert gate["failed"] == [fault], gate
+
+
+@pytest.mark.parametrize("fault", ["df", "dW label rows",
+                                   "dW other active rows",
+                                   "dW rows off the active set", "nan"])
+def test_sparse_backward_gate_rejects(fault):
+    """Each part of the backward off by 3e-5 of its own max|plain| fails
+    the gate under its own name, as do a moved row off the active set and
+    a non-finite value."""
+    (_, _, ids, gids, _, _, y), _, (pdf, pdw) = _sparse_gate_inputs(False)
+    df, dw = pdf.clone(), pdw.clone()
+    act = torch.zeros(dw.shape[0], dtype=torch.bool)
+    act[ids.long()] = True
+    lab = torch.zeros_like(act)
+    lab[ids[torch.isin(gids, y)].long()] = True
+    if fault == "df":
+        df[0, 0] += 3e-5 * float(pdf.abs().max())
+    elif fault == "nan":
+        df[0, 0] = float("nan")
+    else:
+        rows = {"dW label rows": lab, "dW other active rows": act & ~lab,
+                "dW rows off the active set": ~act}[fault]
+        r = int(torch.nonzero(rows)[0, 0])
+        dw[r, 0] += 3e-5 * float(pdw[rows].abs().max() or 1.0)
+    gate = testing.sparse_ce_backward_gate(df, dw, pdf, pdw, ids, gids, y)
+    assert gate["failed"] == ["df" if fault == "nan" else fault], gate
+
+
+# ---------------------------------------------------------------------------
 # dist_topk
 # ---------------------------------------------------------------------------
 
