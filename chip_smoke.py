@@ -13,7 +13,9 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    ``dist_topk``, the dense CE kernels ``ce_softmax_fwd`` and
    ``ce_softmax_bwd``, and the sparse ones ``sparse_ce_fwd`` and
    ``sparse_ce_bwd``, whose TMA loads are f's halves) must show ``HGMMA``
-   and ``UTMALDG`` in their SASS (``cuobjdump -sass``) and no spills.
+   and ``UTMALDG`` in their SASS (``cuobjdump -sass``) and no spills; the
+   FMA kernels that stream by 1-D bulk copies (``ivf_rerank``,
+   ``topk_stage1``) must show ``UBLKCP`` and no spills.
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the same card tensors, at the shapes of the paper's 1M-class
    configuration (V=1,020,250, D=512; B=64 for serving, B=256 for
@@ -21,7 +23,11 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    the shard, ties and -inf rows. Tolerances: ``ce_forward`` m and corr
    atol 1e-4, z rtol 1e-4, amax equal except on rows whose top-2 score
    gap is below 1e-5 (fp32 sums in another order may swap a near-tie);
-   ``stage1_topk`` values and ids exact; ``ce_backward`` max|kernel -
+   ``stage1_topk`` values and ids exact (also at k = chunk / 2 and k =
+   chunk, -0 tied with +0, rows 4 and 12 bytes off 16, chunks of 4,096 and
+   10,000, k = 1,048 on a [512, 2,048] DGC group of |N(0, 1)| values, and
+   the serving logits, whose odd rows start 8 bytes off 16; the wrapper's
+   shared-memory limit equal to the kernel's); ``ce_backward`` max|kernel -
    plain| <= 2e-5 * max|plain| for df, dW's label rows and dW's other rows,
    each against its own max (sums over V or B in another order), at the
    training shapes both with the loss's cotangents and with the softmax
@@ -102,21 +108,29 @@ PyTorch built for CUDA. Phases, each of which fails the run:
 8. the train launcher again with ``--head knn``.
 9. IVF serving (the main path of the IVF slice): ``ivf_rerank`` against
    its plain version at ragged shapes (pads, rows with fewer real
-   candidates than k, rows with nothing, repeated candidates, A not a
-   multiple of the kernel's segment, k up to 32, integer-valued inputs with
-   exact ties: ids exact in candidate-position order) and bit-identical
-   across two runs. Then the same 1M-class experiment as phase 3: the IVF
+   candidates than k, rows with nothing, repeated candidates, ids past the
+   shard, A not a multiple of the kernel's segment, k up to 32,
+   integer-valued inputs with exact ties: ids exact in candidate-position
+   order), each through both entries (the generic one on cand, the probed
+   one on cand cut into clusters: the two must agree bit for bit), and at
+   D = 2,048 and 3,072 through the probed entry (clusters with more
+   queries than a tile, a cluster nobody probes), bit-identical across two
+   runs. Then the same 1M-class experiment as phase 3: the IVF
    index is fit twice (timed by part: Lloyd, scores and short preference
    lists, claim), the two fits must be bit-identical and every valid row
    packed exactly once; ``ivf_rerank``'s counter is set to 0, then
    ``serve(batch=64, top_k=5, return_scores=True, index="ivf")`` runs and
    the counter must have moved. That result is held against the ``ref``
    backend on the same index and queries (scores within 1e-5, ids equal
-   except where adjacent scores lie within 1e-5), the kernel against its
-   plain version on these queries' real candidates (B=64, A=31 x 1,263:
-   values within 1e-5, ids equal except at near-ties, bit-identical), timed
-   beside its plain version and the gathered ``einsum`` (the bound from the
-   union of the probed rows' bytes), ``nprobe=C`` against the exact top-5
+   except where adjacent scores lie within 1e-5), the kernel's probed entry
+   (the one serving launches, on the index's members and the queries'
+   probes, B=64, P=31 x cap 1,263) against its plain version (values
+   within 1e-5, ids equal except at near-ties, bit-identical, the generic
+   entry's bits on the same candidates), and with all 64 queries on the
+   first query's 31 clusters (skew); timed at B=64 and B=1 (a different
+   query each launch) and skewed, beside the generic entry, its plain
+   version and the gathered ``einsum`` (the bounds from the union of the
+   probed rows' bytes), ``nprobe=C`` against the exact top-5
    (ids equal except at near-ties), batch latency exact vs IVF top-5 at
    batch 64 and 1 (host clock, median of 10) and one profiled IVF serve.
    Last, clustered class rows at full width (15,941 centres, offset 0.3;
@@ -161,6 +175,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import json
@@ -195,6 +210,13 @@ HOPPER_KERNELS = ("flash_attention", "knn_dist_topk",  # wgmma + TMA
                   "ce_softmax_fwd", "ce_softmax_bwd", "sparse_ce_fwd",
                   "sparse_ce_bwd")
 KNN_K, KPRIME, ACTIVE_FRAC = 16, 32, 0.1    # the knn head (launch/train.py)
+# the kernels without warpgroup products, redesigned to stream by 1-D bulk
+# copies (TMA without a map): their SASS must hold UBLKCP, and ptxas must
+# report no spills
+FMA_KERNELS = ("ivf_rerank", "topk_stage1")
+# DGC's stage 1 (src/repro/core/sparsify.py): k of each 2,048-wide chunk
+# of one group of 512 rows, |N(0, 1)| values
+DGC_ROWS, DGC_CHUNK, DGC_K = 512, 2048, 1048
 IVF_TOL = 1e-5       # ivf_rerank: fp32 dot products of D terms in another order
 RECALL_QUERIES = 256
 # flash_attention vs its plain version (the TPU kernel's arithmetic: p =
@@ -368,6 +390,28 @@ def hopper_path_check(build):
         log(f"build: {stem} SASS {counts}, no spills")
 
 
+def fma_kernel_check(build):
+    """The redesigned FMA kernels: their SASS holds the bulk copies, no
+    spills, and their ``ptxas`` lines."""
+    libs = build.build_all()
+    for stem in FMA_KERNELS:
+        sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass",
+                               str(libs[stem])], capture_output=True,
+                              text=True, check=True).stdout
+        if "UBLKCP" not in sass:
+            fail(f"{stem}: its SASS holds no bulk copy (UBLKCP)")
+        log(f"build: {stem} SASS UBLKCP x{sass.count('UBLKCP')}")
+        log_lines = libs[stem].with_suffix(".log").read_text().splitlines()
+        spills = [line.strip() for line in log_lines
+                  if "spill" in line and " 0 bytes spill stores" not in line]
+        if spills:
+            fail(f"{stem} spills: {spills}")
+        for line in log_lines:
+            if "registers" in line:
+                log(f"build: {stem} ptxas: {line.strip()}")
+        log(f"build: {stem} no spills")
+
+
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
@@ -416,6 +460,14 @@ def check_topk(torch, dc, x, k, chunk=None, label=""):
     return 0.0
 
 
+def topk_lib():
+    """The loaded stage1_topk library, its argument types set."""
+    from repro_torch.kernels import build
+    lib = build.library("topk_stage1")
+    lib.topk_stage1_smem.argtypes = [ctypes.c_int] * 2
+    return lib
+
+
 def kernel_phase(torch, ce, dc, sharded):
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev)
@@ -456,6 +508,21 @@ def kernel_phase(torch, ce, dc, sharded):
     check_topk(torch, dc, x[:, :100].contiguous(), 5, None, "n <= chunk")
     check_topk(torch, dc, x, 16, 2048, "ragged 2048")
     check_topk(torch, dc, x[:, :2500], 7, 512, "strided rows")
+    x[4, 10:20] = 0.0
+    x[4, 15:18] = -0.0                           # -0 ties +0: lowest index
+    check_topk(torch, dc, x, 256, 512, "k = chunk / 2")
+    check_topk(torch, dc, x, 512, 512, "k = chunk")
+    check_topk(torch, dc, x[:, 1:], 16, 512, "rows 4 bytes off")
+    check_topk(torch, dc, x[:, 3:], 300, 2048, "rows 12 bytes off")
+    check_topk(torch, dc, x, 5, 4096, "chunk 4,096")
+    check_topk(torch, dc, x, 2048, 4096, "chunk 4,096, k 2,048")
+    xl = torch.randn((3, 20000), generator=g, device=dev)
+    check_topk(torch, dc, xl, 33, 10000, "chunk 10,000 (two-byte counters)")
+    lib = topk_lib()
+    for chunk, k in ((2048, 5), (2048, 1048), (4096, 2048), (10000, 33)):
+        if lib.topk_stage1_smem(chunk, k) != dc.cuda_smem_bytes(chunk, k):
+            fail(f"stage1_topk: the wrapper's shared-memory limit for chunk "
+                 f"{chunk}, k {k} is not the kernel's")
     log("kernel phase: ragged shapes agree with the plain versions")
 
     # -- the serving shapes ------------------------------------------------
@@ -466,7 +533,10 @@ def kernel_phase(torch, ce, dc, sharded):
     ys[::7] = -1
     ce_err, z_rel = check_ce(torch, ce, fs, ws, ys, V, 1.0, "serving shapes")
     logits = fs @ ws.T
+    # V = 1,020,250 is 2 mod 4: every odd row starts 8 bytes off 16
     tk_err = check_topk(torch, dc, logits, K, CHUNK, "serving shapes")
+    grp = torch.randn((DGC_ROWS, DGC_CHUNK), generator=g, device=dev).abs()
+    check_topk(torch, dc, grp, DGC_K, DGC_CHUNK, f"k = {DGC_K}")
     log(f"kernel phase: serving shapes agree, ce_forward bit-identical "
         f"across runs (m/corr max abs err {ce_err:.3g}, z max rel err "
         f"{z_rel:.3g})")
@@ -481,6 +551,14 @@ def kernel_phase(torch, ce, dc, sharded):
     padded = torch.nn.functional.pad(logits, (0, nch * CHUNK - V),
                                      value=float("-inf")).reshape(-1, CHUNK)
     tk_lib = cuda_ms(torch, lambda: torch.topk(padded, K, dim=1), 50)
+    del padded
+    dgc_ms = cuda_ms(torch, lambda: dc.stage1_topk(grp, DGC_K,
+                                                   chunk=DGC_CHUNK), 50)
+    dgc_plain = cuda_ms(torch, lambda: dc.stage1_topk_plain(grp, DGC_K,
+                                                           DGC_CHUNK), 1)
+    dgc_lib = cuda_ms(torch, lambda: torch.topk(grp, DGC_K, dim=1), 50)
+    dgc_bound, dgc_by = bound_ms(4 * grp.numel() + 8 * DGC_ROWS * DGC_K,
+                                 float(grp.numel()))
     ce_lib = cuda_ms(torch, lambda: fs @ ws.T, 20)     # the product alone
 
     ce_bound = ce_bounds(4 * (B * D + V * D + B) + 16 * B, 1, B)
@@ -488,8 +566,15 @@ def kernel_phase(torch, ce, dc, sharded):
         f"{ce_bound['bound_ms']:.3f} ms by {ce_bound['bound_by']}, fp32-FMA "
         f"{ce_bound['bound_fp32_fma_ms']:.3f}), plain {ce_plain:.3f} ms, "
         f"f @ W.T {ce_lib:.3f} ms")
+    # the logits read once and the candidates written; one compare an
+    # element (the selection's least work, whatever k is)
     tk_bytes = 4 * B * V + 8 * B * nch * K
-    tk_bound, tk_by = bound_ms(tk_bytes, float(K) * B * V)
+    tk_bound, tk_by = bound_ms(tk_bytes, float(B) * V)
+    log(f"kernel phase: stage1_topk k={K} on [{B}, {V}] {tk_ms:.4f} ms "
+        f"(bound {tk_bound:.4f} by {tk_by}), plain {tk_plain:.3f}, torch.topk "
+        f"{tk_lib:.3f}; k={DGC_K} on [{DGC_ROWS}, {DGC_CHUNK}] {dgc_ms:.4f} ms "
+        f"(bound {dgc_bound:.4f} by {dgc_by}), plain {dgc_plain:.1f}, "
+        f"torch.topk {dgc_lib:.4f}")
     return {
         "ce_forward": dict(
             name="ce_forward", route="cuda",
@@ -505,7 +590,11 @@ def kernel_phase(torch, ce, dc, sharded):
             replaces="src/repro/kernels/topk_dc.py:46",
             max_abs_err=tk_err, ms=tk_ms, plain_ms=tk_plain,
             bound_ms=tk_bound, bound_by=tk_by, library_ms=tk_lib,
-            shape=f"x[{B},{V}] chunk {CHUNK} k {K}"),
+            shape=f"x[{B},{V}] chunk {CHUNK} k {K}",
+            dgc_k=DGC_K, dgc_ms=dgc_ms, dgc_plain_ms=dgc_plain,
+            dgc_bound_ms=dgc_bound, dgc_bound_by=dgc_by,
+            dgc_library_ms=dgc_lib,
+            dgc_shape=f"x[{DGC_ROWS},{DGC_CHUNK}] |N(0,1)| k {DGC_K}"),
     }
 
 
@@ -1412,16 +1501,25 @@ def knn_training_phase(torch, sp, dk):
 # ---------------------------------------------------------------------------
 
 
-def check_ivf(torch, ivf, f, w, cand, k, label, exact_ids=False):
+def check_ivf(torch, ivf, f, w, cand, k, label, exact_ids=False,
+              members=None, probe=None):
     """ivf_rerank's kernel, twice (the runs must agree bit for bit), vs its
-    plain version: the same slots filled, values within IVF_TOL times the
-    scores' scale (max(1, max|plain value|): 1 for the unit rows the serve
-    path scores), ids equal except, unless ``exact_ids``, at slots whose
-    plain value lies within that tolerance of a neighbouring slot's (or of
-    the first value left out). Returns (largest value error, ids that
-    differ)."""
-    v1, i1 = ivf.ivf_rerank(f, w, cand, k)
-    v2, i2 = ivf.ivf_rerank(f, w, cand, k)
+    plain version on ``cand``: the same slots filled, values within IVF_TOL
+    times the scores' scale (max(1, max|plain value|): 1 for the unit rows
+    the serve path scores), ids equal except, unless ``exact_ids``, at
+    slots whose plain value lies within that tolerance of a neighbouring
+    slot's (or of the first value left out). With ``members`` and
+    ``probe`` (whose ``members[probe].reshape(B, -1)`` is ``cand``) it runs
+    the probed entry, the serve path's, instead of the generic one.
+    Returns (largest value error, ids that differ, the kernel's result)."""
+    if members is None:
+        def run():
+            return ivf.ivf_rerank(f, w, cand, k)
+    else:
+        def run():
+            return ivf.ivf_rerank_probed(f, w, members, probe, k)
+    v1, i1 = run()
+    v2, i2 = run()
     pv, pi = ivf.ivf_rerank_plain(f, w, cand, k + 1)
     torch.cuda.synchronize()
     if not (torch.equal(v1, v2) and torch.equal(i1, i2)):
@@ -1448,7 +1546,25 @@ def check_ivf(torch, ivf, f, w, cand, k, label, exact_ids=False):
         rows = bad.any(dim=1).nonzero()[:4, 0].tolist()
         fail(f"ivf_rerank ids {label}: rows {rows} kernel {i1[rows].tolist()} "
              f"plain {pi[rows].tolist()}")
-    return err, int((i1 != pi).sum())
+    return err, int((i1 != pi).sum()), (v1, i1)
+
+
+def check_ivf_both(torch, ivf, f, w, cand, k, label, p, exact_ids=False):
+    """``check_ivf`` through both entries: the generic one on cand [B, A],
+    and the probed one on cand cut into B * p clusters of A / p slots, each
+    query probing its own p in order (the same candidate positions). The
+    two entries must give the same bits."""
+    b, a = cand.shape
+    members = cand.reshape(b * p, a // p)
+    probe = torch.arange(b * p, device=cand.device,
+                         dtype=torch.int32).reshape(b, p)
+    err, _, gen = check_ivf(torch, ivf, f, w, cand, k, label, exact_ids)
+    _, _, prb = check_ivf(torch, ivf, f, w, cand, k, f"{label}, probed",
+                          exact_ids, members, probe)
+    if not all(torch.equal(x, y) for x, y in zip(gen, prb)):
+        fail(f"ivf_rerank {label}: the probed entry differs from the generic "
+             f"one")
+    return err
 
 
 def ivf_ragged_checks(torch, ivf):
@@ -1464,9 +1580,11 @@ def ivf_ragged_checks(torch, ivf):
     cand[0] = -1                               # nothing real
     cand[1, 3:] = -1                           # fewer real candidates than k
     cand[2, 1500:] = cand[2, :1500]            # every candidate twice
+    cand[4, 7:40] = v + 11                     # past the shard: clipped
     for k in (1, 5, 32):
-        check_ivf(torch, ivf, f, w, cand, k, f"ragged k={k}")
-    check_ivf(torch, ivf, f, w, cand[:, :7].contiguous(), 32, "A=7 < k")
+        check_ivf_both(torch, ivf, f, w, cand, k, f"ragged k={k}", 4)
+    check_ivf_both(torch, ivf, f, w, cand[:, :7].contiguous(), 32, "A=7 < k",
+                   1)
     # integer-valued inputs: every score exact, so equal rows and repeated
     # candidates tie exactly and the earlier candidate position must win
     fi = torch.randint(-3, 4, (b, 64), generator=g, device=dev).float()
@@ -1478,8 +1596,8 @@ def ivf_ragged_checks(torch, ivf):
     ci[:, 2000:2100] = 17
     ci[3, ::3] = -1
     for k in (5, 32):
-        err, _ = check_ivf(torch, ivf, fi, wi, ci, k, f"integer ties k={k}",
-                           exact_ids=True)
+        err = check_ivf_both(torch, ivf, fi, wi, ci, k, f"integer ties k={k}",
+                             5, exact_ids=True)
         if err != 0.0:
             fail(f"ivf_rerank integer ties k={k}: values differ by {err}")
     # the serving width, ragged pads
@@ -1487,17 +1605,48 @@ def ivf_ragged_checks(torch, ivf):
     ww = torch.randn((v, D), generator=g, device=dev)
     cw = torch.randint(-1, v, (5, 2049), generator=g, device=dev,
                        dtype=torch.int32)
-    check_ivf(torch, ivf, fw, ww, cw, 5, f"D={D}, A=2049")
-    log("IVF phase: ivf_rerank ragged shapes, exact ties and k up to 32 agree "
-        "with the plain version, bit-identical across runs")
+    check_ivf_both(torch, ivf, fw, ww, cw, 5, f"D={D}, A=2049", 3)
+    # the zoo's widths (ROADMAP A.9.2), more queries a cluster than a tile
+    # holds, repeated probes across queries, a cluster nobody probes
+    for dd in DEEP_DIMS[1:]:
+        wd = torch.randn((3000, dd), generator=g, device=dev)
+        fd = torch.randn((24, dd), generator=g, device=dev)
+        md = torch.randint(-1, 3000, (40, 300), generator=g, device=dev,
+                           dtype=torch.int32)
+        md[5, 100:] = -1
+        pd = torch.stack([torch.randperm(39, generator=g, device=dev)[:6]
+                          for _ in range(24)]).to(torch.int32)
+        pd[:8, 0] = 7                           # one cluster, 8+ queries
+        cd = md[pd.long()].reshape(24, -1).contiguous()
+        for k in (5, 32):
+            check_ivf(torch, ivf, fd, wd, cd, k, f"D={dd} k={k}, probed",
+                      members=md, probe=pd)
+    log("IVF phase: ivf_rerank ragged shapes (through both entries, which "
+        "agree bit for bit), exact ties, ids past the shard, k up to 32 and "
+        f"D up to {DEEP_DIMS[-1]} agree with the plain version, "
+        "bit-identical across runs")
+
+
+def ivf_union_bytes(torch, members, probe, b, k):
+    """Bytes a rerank of these probes must move at least: every real row of
+    the probed clusters once, f, the probe and the result; and the real
+    candidates (the FMA work's count)."""
+    used = torch.unique(probe[:b])
+    rows = members[used.long()]
+    union = int((rows >= 0).sum())
+    n_real = int((members[probe[:b].long()] >= 0).sum())
+    return 4 * D * union + 4 * b * D + 4 * probe[:b].numel() + 8 * b * k, \
+        union, n_real
 
 
 def _probe_candidates(torch, ops, sharded, f, idx, nprobe):
-    """The serve body's candidates: the top-``nprobe`` centroids of each
-    normalised query, their member slots in probe order."""
+    """The serve body's probe, the top-``nprobe`` centroids of each
+    normalised query, and the candidates it names: their member slots in
+    probe order (what the ``ref`` backend builds)."""
     _, probe = ops.topk_stable(sharded._normalize(f) @ idx.centroids.T,
                                nprobe)
-    return idx.members[probe.long()].reshape(f.shape[0], -1).contiguous()
+    cand = idx.members[probe.long()].reshape(f.shape[0], -1).contiguous()
+    return probe.contiguous(), cand
 
 
 def _same_topk(np, ids, vals, rids, rvals, what):
@@ -1585,30 +1734,64 @@ def ivf_phase(torch, np, ivf, sharded):
     log(f"IVF phase: kernel backend agrees with ref (score max abs err "
         f"{ref_err:.3g})")
 
-    # -- the kernel at the serving shapes: these queries' real candidates ---
+    # -- the kernel at the serving shapes: these queries' real candidates,
+    #    through the probed entry that serving launches ---------------------
     f = sharded._normalize(q.float())
     wn = sharded._normalize(exp.state.w_head)
-    cand = _probe_candidates(torch, ops, sharded, f, idx, nprobe)
-    err, swaps = check_ivf(torch, ivf, f, wn, cand, K, "serving shapes")
-    ms = cuda_ms(torch, lambda: ivf.ivf_rerank(f, wn, cand, K), 20)
+    members = idx.members
+    probe, cand = _probe_candidates(torch, ops, sharded, f, idx, nprobe)
+    err, swaps, prb = check_ivf(torch, ivf, f, wn, cand, K, "serving shapes",
+                                members=members, probe=probe)
+    _, _, gen = check_ivf(torch, ivf, f, wn, cand, K,
+                          "serving shapes, generic entry")
+    if not all(torch.equal(x, y) for x, y in zip(gen, prb)):
+        fail("ivf_rerank serving shapes: the probed entry differs from the "
+             "generic one")
+    # skew: all 64 queries probe the first query's 31 clusters
+    probe_sk = probe[:1].expand(B, -1).contiguous()
+    cand_sk = cand[:1].expand(B, -1).contiguous()
+    check_ivf(torch, ivf, f, wn, cand_sk, K, "skewed probe", members=members,
+              probe=probe_sk)
+    ms = cuda_ms(torch, lambda: ivf.ivf_rerank_probed(f, wn, members, probe,
+                                                      K), 20)
+    # batch 1: a different query each launch, so its 31 clusters (~80 MB)
+    # are not left in the 50 MB L2 by the launch before
+    turn = iter(range(10**9))
+
+    def one():
+        i = next(turn) % B
+        return ivf.ivf_rerank_probed(f[i:i + 1], wn, members,
+                                     probe[i:i + 1], K)
+    b1_ms = cuda_ms(torch, one, 2 * B)
+    skew_ms = cuda_ms(torch, lambda: ivf.ivf_rerank_probed(
+        f, wn, members, probe_sk, K), 20)
+    gen_ms = cuda_ms(torch, lambda: ivf.ivf_rerank(f, wn, cand, K), 20)
     plain_ms = cuda_ms(torch, lambda: ivf.ivf_rerank_plain(f, wn, cand, K), 3)
     safe = cand.clamp_min(0).long()
     lib_ms = cuda_ms(torch, lambda: torch.einsum("bd,bad->ba", f, wn[safe]), 3)
     del safe
-    real = cand >= 0
-    n_real = int(real.sum())
-    union = int(torch.unique(cand[real]).numel())
-    io_bytes = 4 * B * D + 4 * cand.numel() + 8 * B * K
-    gathered_bytes = 4 * D * n_real + io_bytes
-    union_bytes = 4 * D * union + io_bytes
+    union_bytes, union, n_real = ivf_union_bytes(torch, members, probe, B, K)
+    gathered_bytes = 4 * D * n_real + union_bytes - 4 * D * union
     bound, by = bound_ms(union_bytes, 2.0 * n_real * D)
     gathered_ms = gathered_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"IVF phase: ivf_rerank at B={B}, A={cand.shape[1]} ({n_real} real "
-        f"candidates, {union} distinct rows) agrees (values max abs err "
-        f"{err:.3g}, ids swapped at near-ties {swaps}); {ms:.3f} ms, bound "
-        f"{bound:.3f} ms by {by} on the union's {union_bytes / 1e9:.3f} GB "
-        f"({gathered_ms:.3f} ms on the {gathered_bytes / 1e9:.3f} GB "
-        f"gathered), plain {plain_ms:.3f} ms, gathered einsum {lib_ms:.3f} ms")
+    b1 = []
+    for i in range(B):
+        ub, _, nr = ivf_union_bytes(torch, members, probe[i:i + 1], 1, K)
+        b1.append(bound_ms(ub, 2.0 * nr * D)[0])
+    b1_bound = statistics.mean(b1)
+    sk_bytes, _, sk_real = ivf_union_bytes(torch, members, probe_sk, B, K)
+    skew_bound, skew_by = bound_ms(sk_bytes, 2.0 * sk_real * D)
+    log(f"IVF phase: ivf_rerank (probed entry) at B={B}, P={nprobe} x cap "
+        f"{members.shape[1]} ({n_real} real candidates, {union} distinct "
+        f"rows) agrees (values max abs err {err:.3g}, ids swapped at "
+        f"near-ties {swaps}), the generic entry bit for bit; {ms:.3f} ms, "
+        f"bound {bound:.3f} ms by {by} on the union's "
+        f"{union_bytes / 1e9:.3f} GB ({gathered_ms:.3f} ms on the "
+        f"{gathered_bytes / 1e9:.3f} GB gathered); batch 1 {b1_ms:.4f} ms "
+        f"(bound {b1_bound:.4f}, mean over the {B} queries); skewed (64 "
+        f"queries on 31 clusters) {skew_ms:.3f} ms (bound {skew_bound:.4f} "
+        f"by {skew_by}); generic entry on cand {gen_ms:.3f} ms; plain "
+        f"{plain_ms:.3f} ms, gathered einsum {lib_ms:.3f} ms")
     kernel_row = dict(
         name="ivf_rerank", route="cuda",
         source="src/repro_torch/kernels/csrc/ivf_rerank.cu",
@@ -1619,8 +1802,11 @@ def ivf_phase(torch, np, ivf, sharded):
         gathered_bytes=gathered_bytes, union_bytes=union_bytes,
         gathered_bound_ms=gathered_ms, real_candidates=n_real,
         distinct_rows=union, near_tie_id_swaps=swaps,
-        shape=f"f[{B},{D}] W[{V},{D}] cand[{B},{cand.shape[1]}] k={K}")
-    del wn, cand, real
+        b1_ms=b1_ms, b1_bound_ms=b1_bound, skew_ms=skew_ms,
+        skew_bound_ms=skew_bound, generic_entry_ms=gen_ms,
+        shape=f"f[{B},{D}] W[{V},{D}] members[{members.shape[0]},"
+              f"{members.shape[1]}] probe[{B},{nprobe}] k={K}")
+    del wn, cand, cand_sk
 
     # -- nprobe = C through the kernel against the exact top-5 --------------
     fids, fvals = exp.serve(batch=B, top_k=K, return_scores=True,
@@ -2156,6 +2342,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line:
             log(f"ptxas: {line.strip()}")
     hopper_path_check(build)
+    fma_kernel_check(build)
 
     kernels = kernel_phase(torch, ce, dc, sharded)
     kernels["ce_backward"] = backward_kernel_phase(torch, ce, sharded)

@@ -287,8 +287,12 @@ def serve_topk_ivf_local(f_loc, w_loc, cent_loc, members_loc, k: int,
     cluster); the candidates keep probe order, ``cap`` slots a cluster.
     The rerank scores raw ``f . w`` dot products, as the exact path does
     (``ref``: gather + einsum + stable top-k; ``kernel``: the fused
-    ``ops.ivf_rerank``); equal scores keep candidate order. Cosine heads
-    normalise f and w before calling. Returns (vals [b, k] desc,
+    ``ops.ivf_rerank_probed`` on ``members_loc`` and the probe, which reads
+    each probed row once for the queries that probe its cluster and never
+    builds the candidate list); equal scores keep candidate order. Cosine heads
+    normalise f and w before calling. ``block_a`` is the TPU kernel's
+    candidate tile, kept for the JAX package's signature: the result does
+    not depend on it. Returns (vals [b, k] desc,
     gids [b, k]); slots without a real candidate are (-inf, -1)."""
     c = members_loc.shape[0]
     v_loc = w_loc.shape[0]
@@ -297,12 +301,13 @@ def serve_topk_ivf_local(f_loc, w_loc, cent_loc, members_loc, k: int,
     b = f.shape[0]
     _, probe = ops.topk_stable(_normalize(f) @ cent_loc.float().T,
                                min(nprobe, c))
-    cand = members_loc[probe.long()].reshape(b, -1).contiguous()   # [b, A]
-    kk = min(k, cand.shape[1])
+    kk = min(k, probe.shape[1] * members_loc.shape[1])
     if backend == "kernel":
-        vals, lids = ops.ivf_rerank(f.contiguous(), w_loc.float().contiguous(),
-                                    cand, kk, block_a=block_a)
+        vals, lids = ops.ivf_rerank_probed(
+            f.contiguous(), w_loc.float().contiguous(),
+            members_loc.contiguous(), probe.contiguous(), kk)
     else:
+        cand = members_loc[probe.long()].reshape(b, -1).contiguous()   # [b, A]
         wc = w_loc.float()[cand.clamp(0, v_loc - 1).long()]      # [b, A, D]
         s = torch.einsum("bd,bad->ba", f, wc)
         s = torch.where(cand >= 0, s, float("-inf"))

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by flash_attention.cu,
-// knn_dist_topk.cu and the CE kernels (ce_softmax_fwd.cu,
-// ce_softmax_bwd.cu, sparse_ce_fwd.cu, sparse_ce_bwd.cu, through
-// ce_hopper.cuh): TMA tile loads described on the host by
-// cuTensorMapEncodeTiled, cp.async copies that arrive on an mbarrier,
+// knn_dist_topk.cu, ivf_rerank.cu, topk_stage1.cu and the CE kernels
+// (ce_softmax_fwd.cu, ce_softmax_bwd.cu, sparse_ce_fwd.cu, sparse_ce_bwd.cu,
+// through ce_hopper.cuh): TMA tile loads described on the host by
+// cuTensorMapEncodeTiled, 1-D bulk copies of contiguous bytes, cp.async
+// copies that arrive on an mbarrier,
 // mbarrier rings between a producer warp and the consumer warpgroups,
 // setmaxnreg, and bf16 and TF32 wgmma with fp32 accumulators.
 //
@@ -182,6 +183,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a 1-D bulk copy (TMA without a map) of `bytes` contiguous bytes, a
+// multiple of 16, from device to shared memory, both addresses 16-byte
+// aligned; completion is counted in bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

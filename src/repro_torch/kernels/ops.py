@@ -1,7 +1,8 @@
 """Public wrappers around the kernels: the port of the JAX package's
 ``kernels/ops.py`` for the slices landed so far (``ce_shard_stats`` with
 its backward, ``fused_ce``, ``fused_ce_stats``, ``sparse_ce_stats``,
-``dist_topk``, ``ivf_rerank``, ``flash_attention``, row-wise and flat
+``dist_topk``, ``ivf_rerank`` (and ``ivf_rerank_probed``, the IVF serve's
+entry), ``flash_attention``, row-wise and flat
 divide-and-conquer top-k).
 
 ``ce_shard_stats`` and ``sparse_ce_stats`` are ``torch.autograd.Function``s
@@ -157,6 +158,15 @@ def ivf_rerank(f, w, cand, k: int, *, block_a: int = 128):
     if block_a < 1:
         raise ValueError(f"block_a must be positive, got {block_a}")
     return _ivf.ivf_rerank(f, w, cand, k)
+
+
+def ivf_rerank_probed(f, w, members, probe, k: int):
+    """``ivf_rerank`` of the IVF serve's candidates
+    ``members[probe].reshape(B, -1)`` without building them: members
+    [C, cap] int32 local ids of each cluster (-1 padded), probe [B, P]
+    int32 cluster ids in probe order. The same result, ties by candidate
+    position included, from the same kernel."""
+    return _ivf.ivf_rerank_probed(f, w, members, probe, k)
 
 
 class _SparseCEStats(torch.autograd.Function):

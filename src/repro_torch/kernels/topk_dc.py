@@ -3,14 +3,16 @@
 ``stage1_topk`` is the port of the Pallas TPU kernel
 ``src/repro/kernels/topk_dc.py`` ``stage1_topk`` / ``_stage1_kernel``. On a
 CUDA tensor it launches the hand-written kernel in ``csrc/topk_stage1.cu``
-(one warp per chunk, the chunk held in registers, k shuffle-argmax sweeps);
-on a CPU tensor it runs ``stage1_topk_plain``, the TPU kernel's k
-max-extraction sweeps in plain torch ops.
+(one warp a chunk: the chunk in shared memory by a bulk copy, a radix
+select of the k-th largest key with per-lane counters, the survivors sorted
+by a bitonic sort; its cost does not grow with k); on a CPU tensor it runs
+``stage1_topk_plain``, the TPU kernel's k max-extraction sweeps in plain
+torch ops.
 
 Bound on an H100 SXM at the serving shapes (top-5 over [64, 1,020,250]
 logits, chunks of 2,048): reading the 0.26 GB of logits once, about 78 us
-at 3.35 TB/s — bound by bytes; the kernel reads each value once, coalesced,
-and does the k sweeps in registers.
+at 3.35 TB/s — bound by bytes; the kernel reads each value once from device
+memory and selects in shared memory.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 from repro_torch.kernels import build
 
 LAUNCHES = 0          # kernel launches (one per stage1_topk call on the card)
-MAX_CHUNK = 2048      # the CUDA kernel keeps a chunk in 64 registers a lane
+MAX_SMEM = 232448     # shared memory a block may use on an H100 (227 KB)
 
 
 def stage1_topk_plain(x, k: int, chunk=None):
@@ -45,6 +47,29 @@ def stage1_topk_plain(x, k: int, chunk=None):
         idx[:, i] = am.to(torch.int32)
         xs = torch.where(col[None, :] == am[:, None], float("-inf"), xs)
     return vals, idx
+
+
+def cuda_smem_bytes(chunk: int, k: int) -> int:
+    """Shared memory the CUDA kernel's warp needs for one chunk: the keys,
+    then the per-lane counters (a byte a bin and lane, two past 255
+    columns a lane) or the sort buffer (8 bytes a survivor, at least 64),
+    whichever is larger. ``topk_stage1_smem`` in ``csrc/topk_stage1.cu``
+    computes the same."""
+    keys = ((chunk + 4) * 4 + 15) & ~15
+    counters = 256 * 32 * (1 if -(-chunk // 32) < 256 else 2)
+    sort = 64
+    while sort < min(k, chunk):
+        sort *= 2
+    return 16 + keys + max(counters, 8 * sort)
+
+
+def check_cuda_chunk(chunk: int, k: int) -> None:
+    """Raise ValueError for a chunk the CUDA kernel cannot hold."""
+    need = cuda_smem_bytes(chunk, k)
+    if need > MAX_SMEM:
+        raise ValueError(f"the CUDA stage1_topk needs {need} bytes of shared "
+                         f"memory for chunk={chunk}, k={k}; a block has "
+                         f"{MAX_SMEM}")
 
 
 def _lib():
@@ -72,14 +97,14 @@ def stage1_topk(x, k: int, *, chunk=None):
         return stage1_topk_plain(x, k, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"stage1_topk: tensor on {x.device}")
-    if chunk > MAX_CHUNK:
-        raise ValueError(f"the CUDA stage1_topk takes chunk <= {MAX_CHUNK}, "
-                         f"got {chunk}")
+    check_cuda_chunk(chunk, k)
     if x.stride(1) != 1:
         raise ValueError("stage1_topk: rows must be contiguous")
     rows = m * (-(-n // chunk))
     vals = torch.empty((rows, k), device=x.device, dtype=torch.float32)
     idx = torch.empty((rows, k), device=x.device, dtype=torch.int32)
+    if rows == 0:
+        return vals, idx
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib()(x.data_ptr(), m, x.stride(0), n, chunk, k, vals.data_ptr(),
                  idx.data_ptr(), stream)

@@ -16,7 +16,12 @@ through the JAX package and through the port:
 * ``ivf_rerank_plain`` and ``ops.ivf_rerank`` against the Pallas kernel in
   interpret mode: -1 pads, a row with fewer than k real candidates,
   integer-valued inputs with exact ties (ids exact, in candidate-position
-  order), A not a multiple of the tile;
+  order), A not a multiple of the tile; and ``ops.ivf_rerank_probed`` on
+  (members, probe) against the Pallas kernel on
+  ``members[probe].reshape(B, -1)``: probes repeated across queries, a
+  cluster no query probes, clusters with -1 pads, ids past the shard, exact
+  ties (ids exact; values exact in the ties case); the CUDA kernel's limits
+  (D % 4 == 0 up to 4,096, k up to 32);
 * ``serve_topk_ivf_local`` / ``_batched_local`` on both backends, the
   engine's IVF step and ``serve(..., index="ivf")`` against the JAX
   package at rings 1 and 2, with the ``full`` and ``knn`` heads, from one
@@ -377,6 +382,62 @@ def test_rerank_ties_follow_candidate_position():
     assert np.asarray(ji).tolist() == ids.tolist()
 
 
+def _probed_problem(case):
+    """f [6, D], w [V, D], members [10, 12] (-1 padded) and probe [6, 3]:
+    each query probes 3 distinct clusters in rank order."""
+    rng = np.random.default_rng(7 + len(case))
+    b, c, cap, p = 6, 10, 12, 3
+    if case == "ties":
+        v, d = 40, 8
+        f = rng.integers(-2, 3, (b, d)).astype(np.float32)
+        w = rng.integers(-2, 3, (v, d)).astype(np.float32)
+        w[10:20] = w[3]                     # equal rows: exact ties
+    else:
+        v, d = 90, 12
+        f = rng.standard_normal((b, d)).astype(np.float32)
+        w = rng.standard_normal((v, d)).astype(np.float32)
+    members = rng.integers(0, v, (c, cap)).astype(np.int32)
+    probe = np.stack([rng.permutation(c)[:p] for _ in range(b)])
+    if case == "repeated":                  # every query on clusters 1, 4, 7
+        probe[:] = [1, 4, 7]
+        probe[2] = [7, 1, 4]                # ... in another rank order
+    elif case == "unprobed":                # cluster 9 is probed by nobody
+        probe = np.stack([rng.permutation(9)[:p] for _ in range(b)])
+    elif case == "pads":
+        members[:, 9:] = -1                 # short clusters
+        members[probe[0, 1], :] = -1        # a probed cluster with nothing
+        members[probe[1, 0], ::2] = -1      # pads inside a list
+    elif case == "past_shard":
+        members[probe[0, 0], :3] = v + 5    # clipped into the shard
+        members[probe[3, 2], 4] = v
+    elif case == "ties":
+        members[probe[4, 0], :5] = [3, 12, 3, 15, 10]   # equal rows, twice
+        members[probe[4, 1], :2] = [11, 3]
+    return f, w, members, probe.astype(np.int32)
+
+
+@pytest.mark.parametrize("case,k", [("repeated", 5), ("unprobed", 5),
+                                    ("pads", 5), ("pads", 30),
+                                    ("past_shard", 5), ("ties", 9)])
+def test_rerank_probed_matches_pallas(case, k):
+    """The (members, probe) entry the serve path launches equals the JAX
+    package's ``ops.ivf_rerank`` on the candidates it stands for,
+    ``members[probe].reshape(B, -1)``: ids exact (candidate-position
+    order), values exact on integer inputs."""
+    f, w, members, probe = _probed_problem(case)
+    cand = members[probe].reshape(f.shape[0], -1)
+    jv, ji = (np.asarray(a) for a in jops.ivf_rerank(f, w, cand, k))
+    pv, pi = tops.ivf_rerank_probed(
+        torch.from_numpy(f), torch.from_numpy(w), torch.from_numpy(members),
+        torch.from_numpy(probe), k)
+    np.testing.assert_array_equal(pi.numpy(), ji)
+    if case == "ties":
+        np.testing.assert_array_equal(pv.numpy(), jv)
+    else:
+        np.testing.assert_allclose(pv.numpy(), jv, rtol=1e-5, atol=1e-5)
+    assert pi.dtype == torch.int32
+
+
 def test_rerank_refuses_bad_arguments():
     f, w = torch.zeros((2, 8)), torch.zeros((10, 8))
     cand = torch.zeros((2, 4), dtype=torch.int32)
@@ -386,6 +447,20 @@ def test_rerank_refuses_bad_arguments():
         tops.ivf_rerank(f, w, cand[:1], 2)
     with pytest.raises(ValueError):
         tops.ivf_rerank(f, w, cand, 2, block_a=0)
+    members = torch.zeros((3, 4), dtype=torch.int32)
+    probe = torch.zeros((2, 2), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        tops.ivf_rerank_probed(f, w, members, probe.long(), 2)
+    with pytest.raises(ValueError):
+        tops.ivf_rerank_probed(f, w, members, probe[:1], 2)
+    with pytest.raises(ValueError):
+        tops.ivf_rerank_probed(f, w, members, probe, 0)
+    # the CUDA kernel's limits: D % 4 == 0 up to 4,096, k up to 32
+    for d, k in ((4, 1), (512, 5), (2048, 32), (3072, 5), (4096, 5)):
+        tivf.check_cuda_limits(d, k)
+    for d, k in ((4100, 5), (8192, 5), (6, 5), (0, 5), (512, 33), (512, 0)):
+        with pytest.raises(ValueError):
+            tivf.check_cuda_limits(d, k)
 
 
 # ---------------------------------------------------------------------------

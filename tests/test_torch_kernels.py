@@ -319,7 +319,8 @@ def _topk_problem(seed, rows, n, ties=True):
 
 
 @pytest.mark.parametrize("n,k,chunk", [(100, 5, 512), (3000, 7, 512),
-                                       (5000, 16, 2048)])
+                                       (5000, 16, 2048), (300, 32, 64),
+                                       (9000, 5, 4096)])
 def test_stage1_plain_matches_pallas(n, k, chunk):
     """Per-chunk (values, in-chunk ids) of the plain version equal the
     Pallas kernel's on the -inf-padded [M, chunk] view, ids exactly: ties
@@ -376,6 +377,16 @@ def test_stage1_topk_rejects_bad_arguments():
         tdc.stage1_topk(x, 9)
     with pytest.raises(TypeError, match="float32"):
         tdc.stage1_topk(x.double(), 2)
+    # the CUDA kernel takes any k up to the chunk, and any chunk whose
+    # keys, counters and sort buffer fit a block's shared memory
+    assert tdc.cuda_smem_bytes(2048, 5) == 16_416       # csrc's note
+    assert tdc.cuda_smem_bytes(2048, 1048) == 24_608
+    for chunk, k in ((2048, 5), (2048, 2048), (4096, 2048), (10_000, 33),
+                     (16_384, 16_384), (50_000, 5)):
+        tdc.check_cuda_chunk(chunk, k)
+    for chunk, k in ((20_000, 20_000), (60_000, 5)):
+        with pytest.raises(ValueError, match="shared memory"):
+            tdc.check_cuda_chunk(chunk, k)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
