@@ -106,7 +106,32 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    kernel-built graph, without fillers or rebuilds: losses within rtol
    1e-4, max|dW| <= 1e-4 * max|W|.
 8. the train launcher again with ``--head knn``.
-9. IVF serving (the main path of the IVF slice): ``ivf_rerank`` against
+9. the four remaining heads (the main paths of the heads slice), each
+   with the experiment of phase 5 and Table 2's ratios: ``selective`` (4
+   tables of 8 bits, 32 classes a bucket, 10% active classes), ``mach``
+   and ``csoft`` (R = 4 repetitions of N // 16 = 63,765 buckets),
+   ``sampled`` (102,025 uniform draws). Every counter is set to 0 just
+   before ``fit(6, use_fccs_batch=True)`` and read just after:
+   ``sparse_ce_forward`` and ``_backward`` 13 times each for selective and
+   sampled, ``ce_forward`` and ``ce_backward`` 52 times each (once a
+   repetition) for mach and csoft, nothing else. FCCS batches, finite
+   losses, selective's ``label_recall`` 1.0 and sampled's ``sample_frac``
+   0.1 on every step, the params moved; the head gradient of one batch on
+   the kernel and the ref backend from the same params (label rows, or the
+   labels' buckets, and the other rows each within BWD_TOL of their own
+   max|ref|; sampled with both draws). The step at n_micro = 1 (median of
+   5), one profiled step, peak memory, ``evaluate`` on 1,024 rows (its
+   peak memory apart) and greedy serving of 64 queries through the engine
+   (median of 5). At MACH's bucket shard ([256, 63,765] x 512 on a view
+   of repetition 1, scale 1, limit = B) ``ce_forward`` / ``_backward``
+   through the CE gates, bit-identical, with the emulated 1xTF32 fault
+   failing both, a W 4 bytes off 16-byte alignment refused, times and
+   bounds; at the sampled head's draws (A = 102,025, bias -logQ,
+   ``mask_hits``; uniform, then log_uniform with its repeated ids) the
+   sparse pair through the sparse gates, bit-identical, times and bounds.
+   Then the train launcher with each head for 2 steps, and the serve
+   launcher's greedy serving with each head, in this process.
+10. IVF serving (the main path of the IVF slice): ``ivf_rerank`` against
    its plain version at ragged shapes (pads, rows with fewer real
    candidates than k, rows with nothing, repeated candidates, ids past the
    shard, A not a multiple of the kernel's segment, k up to 32,
@@ -137,9 +162,9 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    the port's copy of the JAX test's construction) are installed, the
    index refit, and recall@5 against the exact scan printed at nprobe 2 and
    31 for 256 near-prototype queries (reported, not gated).
-10. the serve launcher with ``--index ivf --topk 5 --replay 0.5`` at the
+11. the serve launcher with ``--index ivf --topk 5 --replay 0.5`` at the
    same width.
-11. flash attention: ``flash_attention`` against its plain version at the
+12. flash attention: ``flash_attention`` against its plain version at the
    JAX test's sweep (``tests/test_flash_kernel.py``: ragged Sq != T
    non-causal, a window of 100, Dh 32/64/128) plus Dh 96 and 256, rows
    with no valid key (Sq=300, T=100, causal, window 50: exactly 0) and
@@ -150,7 +175,7 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    faults, bit-identical across two runs, timed beside its plain version and
    ``scaled_dot_product_attention`` on the [8, 9, 2000, 64] view with
    ``enable_gqa`` (and on KV heads expanded beforehand).
-12. zoo serving (the main path of the zoo slice):
+13. zoo serving (the main path of the zoo slice):
    ``Experiment.from_config(system="zoo", arch="smollm_135m")`` at its
    full width (30 layers, bf16 over fp32 params, random weights from seed
    0) on the ``kernel`` backend; every kernel's counter is set to 0 just
@@ -165,7 +190,7 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    serves), tok/s, one profiled prefill and decode step (the flash
    kernel's share, the device time of copies and of casts, and the idle
    share) and peak memory.
-13. the serve launcher with ``--system zoo`` at the same shapes; it must
+14. the serve launcher with ``--system zoo`` at the same shapes; it must
    return 0 and launch ``flash_attention``.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
@@ -210,6 +235,18 @@ HOPPER_KERNELS = ("flash_attention", "knn_dist_topk",  # wgmma + TMA
                   "ce_softmax_fwd", "ce_softmax_bwd", "sparse_ce_fwd",
                   "sparse_ce_bwd")
 KNN_K, KPRIME, ACTIVE_FRAC = 16, 32, 0.1    # the knn head (launch/train.py)
+# the four remaining heads at the 1M-class width, with the paper's Table 2
+# ratios: MACH and CSoft R = 4 repetitions of N // 16 buckets; the sampled
+# head draws 10% of the classes (the knn head's active share); selective
+# keeps its defaults of 4 tables of 8 bits, 32 classes a bucket, and the
+# knn head's 10% active classes
+SKETCH_B, SKETCH_R = V // 16, 4
+HEAD_CFGS = {
+    "selective": dict(softmax_impl="selective", active_frac=ACTIVE_FRAC),
+    "mach": dict(softmax_impl="mach", mach_b=SKETCH_B, mach_r=SKETCH_R),
+    "sampled": dict(softmax_impl="sampled", sampled_n=int(V * ACTIVE_FRAC)),
+    "csoft": dict(softmax_impl="csoft", csoft_b=SKETCH_B, csoft_r=SKETCH_R),
+}
 # the kernels without warpgroup products, redesigned to stream by 1-D bulk
 # copies (TMA without a map): their SASS must hold UBLKCP, and ptxas must
 # report no spills
@@ -721,26 +758,27 @@ def backward_kernel_phase(torch, ce, sharded):
         shape=f"f[{BTRAIN},{D}] W[{V},{D}]")
 
 
-def tf32_fault(torch, ce, f, w, y, m, gz, gc):
+def tf32_fault(torch, ce, f, w, y, m, gz, gc, limit=V, scale=16.0,
+               label="the training shapes"):
     """The plain versions with their products emulated in 1xTF32 (each
     operand rounded to TF32 once: a kernel that dropped the 3xTF32 lo
-    terms) must fail both CE gates at the training shapes, or the gates
-    could not tell the design from plain TF32. Returns the readings."""
+    terms) must fail both CE gates at the training shapes (and at MACH's
+    bucket shard), or the gates could not tell the design from plain TF32.
+    Returns the readings."""
     from repro_torch import testing
-    yl = torch.where((y >= 0) & (y < V), y, -1).to(torch.int32)
+    yl = torch.where((y >= 0) & (y < w.shape[0]), y, -1).to(torch.int32)
     fwd = testing.ce_forward_gate(
-        testing.ce_forward_tf32(f, w, yl, V, 16.0, 1),
-        ce.ce_forward_plain(f, w, yl, V, 16.0), f, w, V, 16.0)
+        testing.ce_forward_tf32(f, w, yl, limit, scale, 1),
+        ce.ce_forward_plain(f, w, yl, limit, scale), f, w, limit, scale)
     bwd = testing.ce_backward_gate(
-        *testing.ce_backward_tf32(f, w, yl, m, gz, gc, V, 16.0, 1),
-        *ce.ce_backward_plain(f, w, yl, m, gz, gc, V, 16.0), yl)
+        *testing.ce_backward_tf32(f, w, yl, m, gz, gc, limit, scale, 1),
+        *ce.ce_backward_plain(f, w, yl, m, gz, gc, limit, scale), yl)
     out = {"forward_failed": fwd["failed"], "forward_m_corr_err":
            fwd["m_corr_err"], "forward_z_rel_err": fwd["z_rel_err"],
            "backward_failed": bwd["failed"],
            "backward_rel_err_by_part": {k: r for k, (_, r) in
                                         bwd["parts"].items()}}
-    log(f"kernel phase: CE products emulated in 1xTF32 at the training "
-        f"shapes: {out}")
+    log(f"kernel phase: CE products emulated in 1xTF32 at {label}: {out}")
     if fwd["ok"] or bwd["ok"]:
         fail("the CE gates pass products in 1xTF32: they cannot tell the "
              "3xTF32 design from plain TF32")
@@ -1185,16 +1223,21 @@ def launcher_phase(torch, ce, dc):
 # ---------------------------------------------------------------------------
 
 
-def _train_experiment(backend: str, data_fn=None, **knn):
+def _train_experiment(backend: str, data_fn=None, impl=None, **knn):
     """The training phases' experiment: the ``full`` head, or with ``knn``
     settings (``rebuild_every``, ``knn_pad_random``) the ``knn`` head at
-    the train launcher's k=16, k'=32 and 10% active classes."""
+    the train launcher's k=16, k'=32 and 10% active classes, or with
+    ``impl`` one of ``HEAD_CFGS``' heads."""
     from repro_torch.api import Experiment
     from repro_torch.configs.base import FCCSConfig, HeadConfig, TrainConfig
 
-    head = (HeadConfig(softmax_impl="knn", backend=backend, knn_k=KNN_K,
-                       knn_kprime=KPRIME, active_frac=ACTIVE_FRAC, **knn)
-            if knn else HeadConfig(softmax_impl="full", backend=backend))
+    if impl:
+        head = HeadConfig(backend=backend, **HEAD_CFGS[impl])
+    elif knn:
+        head = HeadConfig(softmax_impl="knn", backend=backend, knn_k=KNN_K,
+                          knn_kprime=KPRIME, active_frac=ACTIVE_FRAC, **knn)
+    else:
+        head = HeadConfig(softmax_impl="full", backend=backend)
     return Experiment.from_config(
         system="paper", classes=V, feat_dim=D, batch=BTRAIN, seed=0,
         device=DEVICE, log_every=1, data_fn=data_fn, head=head,
@@ -1203,14 +1246,17 @@ def _train_experiment(backend: str, data_fn=None, **knn):
             t_ini=2, t_final=6)))
 
 
-def head_grad_check(torch, exp, w0):
+def head_grad_check(torch, exp, w0, head_cfg=None, tag="training phase"):
     """The head gradient of one batch's loss, through ``loss_local`` (W's
     normalisation, ``ce_shard_stats`` and the completion), on the kernel
     and the ref backend from the same W. The label rows and the other
     rows, whose gradient is the softmax term alone, are each held against
     their own max|ref| at BWD_TOL. (The weights after a few steps cannot
     show the other rows' gradient: weight decay outweighs it there, and
-    fp32 rounding of W is larger than it.) Returns {part: err / max|ref|}."""
+    fp32 rounding of W is larger than it.) For the sketch heads' [R, B, D]
+    params the label rows are the buckets the labels hash to in each
+    repetition. ``head_cfg`` replaces the experiment's head config (its
+    backend set to each in turn). Returns {part: err / max|ref|}."""
     from repro_torch.api.heads import make_head
     from repro_torch.train.trainer import to_device
 
@@ -1218,7 +1264,7 @@ def head_grad_check(torch, exp, w0):
     grads = {}
     for backend in ("kernel", "ref"):
         head = make_head(exp.model_cfg, dataclasses.replace(
-            exp.head_cfg, backend=backend))
+            head_cfg or exp.head_cfg, backend=backend))
         wp = w0.clone().requires_grad_()
         loss, _ = head.loss_local(batch["features"], batch["labels"], wp,
                                   exp.state.head_aux, global_batch=BTRAIN,
@@ -1226,21 +1272,26 @@ def head_grad_check(torch, exp, w0):
         loss.backward()
         grads[backend] = wp.grad
         del wp
-    lab = torch.zeros(V, dtype=torch.bool, device=w0.device)
-    lab[batch["labels"].long()] = True
+    lab = torch.zeros(w0.shape[:-1], dtype=torch.bool, device=w0.device)
+    if w0.dim() == 3:                    # [R, B, D]: the labels' buckets
+        hashes = exp.state.head_aux[0].long()
+        for r in range(w0.shape[0]):
+            lab[r, hashes[r, batch["labels"].long()]] = True
+    else:
+        lab[batch["labels"].long()] = True
     out = {}
     for name, sel in (("label rows", lab), ("other rows", ~lab)):
         k, r = grads["kernel"][sel], grads["ref"][sel]
         ref_max = float(r.abs().max())
         err = float((k - r).abs().max())
         if not ref_max > 0 or err > BWD_TOL * ref_max:
-            fail(f"head gradient of the {name}: kernel vs ref max abs err "
-                 f"{err:.3g} over {BWD_TOL:g} * max|ref| {ref_max:.3g}")
+            fail(f"{tag}: head gradient of the {name}: kernel vs ref max abs "
+                 f"err {err:.3g} over {BWD_TOL:g} * max|ref| {ref_max:.3g}")
         out[name] = err / ref_max
     del grads, k, r
     torch.cuda.empty_cache()
-    log(f"training phase: head gradient, kernel vs ref backend, max abs err "
-        f"of max|ref| by part {out}")
+    log(f"{tag}: head gradient, kernel vs ref backend, max abs err of "
+        f"max|ref| by part {out}")
     return out
 
 
@@ -1494,6 +1545,322 @@ def knn_training_phase(torch, sp, dk):
         "knn_train_step_profile": prof, "knn_train_peak_memory_gb": peak_gb,
         "knn_kernel_vs_ref_loss_max_rel": loss_rel,
         "knn_kernel_vs_ref_w_max_abs": w_err, "knn_w_max_abs": w_max}
+
+
+# ---------------------------------------------------------------------------
+# the four remaining heads (the main paths of the heads slice)
+# ---------------------------------------------------------------------------
+
+
+def _reset(counters) -> None:
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def _read(counters) -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+
+def ce_mach_rows(torch, ce, exp):
+    """ce_forward / ce_backward at MACH's bucket shard: f a training batch's
+    features [256, 512] (not normalised), W the experiment's repetition 1,
+    a view of [R, B, D] at offset B D 4 bytes, scale 1, limit = B, the
+    labels' buckets. Both gates, bit-identical runs, the emulated 1xTF32
+    fault (which must fail both gates here too), a view 4 bytes off 16
+    (which the wrapper must refuse), times and bounds. Returns the two
+    rows."""
+    from repro_torch.train.trainer import to_device
+
+    w = exp.state.head_params[1]
+    b_loc = w.shape[0]
+    if w.data_ptr() % 16 or not w.is_contiguous():
+        fail("MACH's repetition view is not a 16-byte aligned contiguous "
+             "block")
+    batch = to_device(exp.data_fn(10**5 + 2, BTRAIN), exp.device)
+    f = batch["features"].float().contiguous()
+    y = exp.state.head_aux[0][1, batch["labels"].long()].to(torch.int32)
+    fwd_err, fwd_z = check_ce(torch, ce, f, w, y, b_loc, 1.0, "MACH shard")
+    m, z, _, _ = ce.ce_forward(f, w, y, limit=b_loc, scale=1.0)
+    gz = 1.0 / (BTRAIN * z)
+    gc = torch.full_like(z, -1.0 / BTRAIN)
+    parts = {}
+    for term, gct in (("loss", gc), ("softmax term", torch.zeros_like(gc))):
+        for part, v in check_ce_bwd(torch, ce, f, w, y, m, gz, gct, b_loc,
+                                    1.0, f"MACH shard, {term}").items():
+            parts[f"{part}, {term}"] = v
+    fault = tf32_fault(torch, ce, f, w, y, m, gz, gc, b_loc, 1.0,
+                       "MACH's bucket shard")
+    buf = torch.empty(b_loc * D + 1, device=f.device)
+    off = buf[1:].view(b_loc, D)
+    try:
+        ce.ce_forward(f, off, y, limit=b_loc)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail("ce_forward took a W 4 bytes off 16-byte alignment")
+    del buf, off
+    fwd_ms = cuda_ms(torch, lambda: ce.ce_forward(f, w, y, limit=b_loc), 20)
+    fwd_plain = cuda_ms(torch, lambda: ce.ce_forward_plain(f, w, y, b_loc,
+                                                           1.0), 10)
+    bwd_ms = cuda_ms(torch, lambda: ce.ce_backward(f, w, y, m, gz, gc,
+                                                   limit=b_loc), 10)
+    bwd_plain = cuda_ms(torch, lambda: ce.ce_backward_plain(
+        f, w, y, m, gz, gc, b_loc, 1.0), 5)
+    lib = cuda_ms(torch, lambda: f @ w.T, 20)
+    fb = ce_bounds(4 * (BTRAIN * D + b_loc * D + BTRAIN) + 16 * BTRAIN, 1,
+                   BTRAIN, b_loc)
+    bb = ce_bounds(4 * (2 * BTRAIN * D + 2 * b_loc * D + 4 * BTRAIN), 3,
+                   BTRAIN, b_loc)
+    log(f"heads phase: at MACH's shard [{BTRAIN}, {b_loc}] x {D}: ce_forward "
+        f"{fwd_ms:.4f} ms (3xTF32 bound {fb['bound_ms']:.4f} by "
+        f"{fb['bound_by']}), plain {fwd_plain:.4f}; ce_backward {bwd_ms:.4f} "
+        f"ms (bound {bb['bound_ms']:.4f} by {bb['bound_by']}), plain "
+        f"{bwd_plain:.4f}; f @ W.T {lib:.4f}; m/corr max abs err "
+        f"{fwd_err:.3g}, z rel {fwd_z:.3g}; backward by part {parts}; a "
+        f"misaligned W refused: {refused}")
+    shape = f"f[{BTRAIN},{D}] W[{b_loc},{D}] (rep 1 of [R,B,D]) scale 1"
+    lib_name = "f @ W.T (cuBLAS fp32, TF32 off)"
+    return (dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib,
+                 library=lib_name, max_abs_err=fwd_err, z_max_rel_err=fwd_z,
+                 **fb, shape=shape),
+            dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib,
+                 library=lib_name,
+                 max_abs_err=max(e for e, _ in parts.values()),
+                 rel_err_by_part={k: r for k, (_, r) in parts.items()},
+                 tf32_fault=fault, **bb, shape=shape))
+
+
+def sparse_sampled_rows(torch, sp, exp):
+    """sparse_ce_forward / _backward at the sampled head's shapes: f a
+    training batch [256, 512], the normalised 1M x 512 shard, scale 16,
+    A = 102,025 draws with bias -logQ and mask_hits=True, once from the
+    uniform draw (distinct ids) and once from the log_uniform one
+    (repeated ids), through the sparse gates, bit-identical runs, times
+    and bounds. Returns {draw: (forward row, backward row)}."""
+    from repro_torch.core import baselines as bl
+    from repro_torch.core.sharded_softmax import _normalize
+    from repro_torch.train.trainer import to_device
+
+    batch = to_device(exp.data_fn(10**5 + 3, BTRAIN), exp.device)
+    f = _normalize(batch["features"].float()).contiguous()
+    w = _normalize(exp.state.w_head).contiguous()
+    y = batch["labels"]
+    out = {}
+    for name in ("uniform", "log_uniform"):
+        d = bl.sampled_draw(y, v_loc=V, n_samples=HEAD_CFGS["sampled"][
+            "sampled_n"], distribution=name, seed=17, step=0)
+        ids, bias, valid = d.ids, -d.logq, d.valid.to(torch.int32)
+        a = ids.shape[0]
+        _, counts = torch.unique(ids, return_counts=True)
+        m, z, _, _, hit = sp.sparse_ce_forward(f, w, ids, ids, bias, valid, y,
+                                               scale=16.0, mask_hits=True)
+        gz = 1.0 / (BTRAIN * z)
+        gc = torch.full_like(z, -1.0 / BTRAIN)
+        errs = check_sparse(torch, sp, f, w, ids, ids, bias, valid, y, 16.0,
+                            True, gz, gc, f"sampled {name}")
+        fwd_ms = cuda_ms(torch, lambda: sp.sparse_ce_forward(
+            f, w, ids, ids, bias, valid, y, scale=16.0, mask_hits=True), 20)
+        fwd_plain = cuda_ms(torch, lambda: sp.sparse_ce_forward_plain(
+            f, w, ids, ids, bias, valid, y, 16.0, True), 5)
+        bwd_ms = cuda_ms(torch, lambda: sp.sparse_ce_backward(
+            f, w, ids, ids, bias, valid, y, m, gz, gc, hit, scale=16.0,
+            mask_hits=True), 10)
+        bwd_plain = cuda_ms(torch, lambda: sp.sparse_ce_backward_plain(
+            f, w, ids, ids, bias, valid, y, m, gz, gc, hit, 16.0, True), 3)
+        lib = cuda_ms(torch, lambda: f @ w[ids.long()].T, 20)
+        col_bytes = 16 * a
+        fb = ce_bounds(4 * (BTRAIN * D + a * D) + col_bytes + 24 * BTRAIN, 1,
+                       BTRAIN, a)
+        bb = ce_bounds(4 * (2 * BTRAIN * D + a * D + V * D) + col_bytes
+                       + 20 * BTRAIN, 3, BTRAIN, a)
+        rep = {"distinct_ids": int(counts.numel()),
+               "most_repeated": int(counts.max())}
+        log(f"heads phase: sparse CE at the sampled {name} draw (A={a}, "
+            f"{rep}): forward {fwd_ms:.3f} ms (bound {fb['bound_ms']:.3f} by "
+            f"{fb['bound_by']}), plain {fwd_plain:.3f}; backward {bwd_ms:.3f} "
+            f"ms (bound {bb['bound_ms']:.3f} by {bb['bound_by']}), plain "
+            f"{bwd_plain:.3f}; f @ W[ids].T {lib:.3f}; errors {errs}")
+        shape = (f"f[{BTRAIN},{D}] W[{V},{D}] A={a} {name} draw, bias -logQ, "
+                 f"mask_hits")
+        lib_name = "f @ W[ids].T (gather + cuBLAS fp32, TF32 off)"
+        fwd_err = max(e for k, e in errs.items() if k.startswith("fwd"))
+        bwd_err = max(e for k, e in errs.items() if not k.startswith("fwd"))
+        out[name] = (dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib,
+                          library=lib_name, max_abs_err=fwd_err, **fb,
+                          shape=shape, **rep),
+                     dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib,
+                          library=lib_name, max_abs_err=bwd_err,
+                          rel_err_by_part=errs, **bb, shape=shape, **rep))
+    torch.cuda.empty_cache()
+    return out
+
+
+def one_head_phase(torch, np, counters, impl):
+    """``impl``'s main path at the 1M-class width: ``fit(6,
+    use_fccs_batch=True)`` on the kernel backend with every counter set to
+    0 just before and read just after (selective and sampled: the sparse
+    pair 13 times each; mach and csoft: the dense CE pair once a
+    repetition, 52 times each; nothing else), then the head gradient on
+    both backends, the step at n_micro = 1, evaluate and greedy serving
+    through the engine. Returns (launches, numbers, the experiment)."""
+    from repro_torch.train.trainer import to_device
+
+    sketch = impl in ("mach", "csoft")
+    t0 = time.perf_counter()
+    exp = _train_experiment("kernel", impl=impl)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    w0 = exp.state.w_head.clone()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(counters)
+    t0 = time.perf_counter()
+    hist = exp.fit(FIT_STEPS, use_fccs_batch=True)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _read(counters)
+    fit_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pair = (("ce_forward", "ce_backward") if sketch
+            else ("sparse_ce_forward", "sparse_ce_backward"))
+    want = FIT_LAUNCHES * (SKETCH_R if sketch else 1)
+    log(f"heads phase: {impl} W {tuple(w0.shape)}, experiment {setup_s:.2f} "
+        f"s, fit({FIT_STEPS}) {fit_s:.2f} s, batches "
+        f"{[r['batch'] for r in hist]}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }, peak memory "
+        f"{fit_peak_gb:.2f} GB")
+    for name, n in launches.items():
+        if n != (want if name in pair else 0):
+            fail(f"the {impl} training path launched {name} {n} times, not "
+                 f"{want if name in pair else 0}")
+    if [r["batch"] for r in hist] != [BTRAIN * n for n in (1, 1, 1, 2, 4, 4)]:
+        fail(f"{impl}: FCCS batches {[r['batch'] for r in hist]}")
+    losses = [r["loss"] for r in hist]
+    own = {k: [r[k] for r in hist] for k in hist[0]
+           if k not in ("step", "lr", "batch", "loss")}
+    log(f"heads phase: {impl} losses {losses}, metrics {own}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite {impl} training losses {losses}")
+    if impl == "selective" and any(r != 1.0 for r in own["label_recall"]):
+        fail(f"selective label_recall {own['label_recall']}: a label missed "
+             f"its active set")
+    frac = HEAD_CFGS["sampled"]["sampled_n"] / V
+    if impl == "sampled" and any(abs(r - frac) > 1e-6
+                                 for r in own["sample_frac"]):
+        fail(f"sampled sample_frac {own['sample_frac']}")
+    if not float((exp.state.w_head - w0).abs().max()) > 0:
+        fail(f"{impl} training did not change the head params")
+
+    grads = {exp.head_cfg.sampled_dist if impl == "sampled" else impl:
+             head_grad_check(torch, exp, w0, tag=f"heads phase: {impl}")}
+    if impl == "sampled":
+        grads["log_uniform"] = head_grad_check(
+            torch, exp, w0, dataclasses.replace(
+                exp.head_cfg, sampled_dist="log_uniform"),
+            tag="heads phase: sampled log_uniform")
+    del w0
+    torch.cuda.empty_cache()
+
+    step = exp.trainer._get_step(1)
+    inputs = to_device(exp.data_fn(10**5, BTRAIN), exp.device)
+
+    def one_step():
+        exp.trainer.state = step(exp.trainer.state, inputs, 0.4)[0]
+
+    step_ms = host_ms(torch, one_step, 5)
+    prof = profile_ms(torch, one_step)
+    torch.cuda.reset_peak_memory_stats()
+    acc = exp.evaluate()
+    torch.cuda.synchronize()
+    eval_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not 0.0 <= acc <= 1.0:
+        fail(f"{impl} evaluate() returned {acc}")
+    ids = exp.serve(batch=B)
+    if ids.shape != (B,) or not np.all((ids >= 0) & (ids < V)):
+        fail(f"{impl} greedy serving gave {ids.shape} ids out of range")
+    serve_ms = host_ms(torch, lambda: exp.serve(batch=B), 5)
+    log(f"heads phase: {impl} step (n_micro=1) {step_ms:.2f} ms, "
+        f"{BTRAIN / step_ms * 1e3:.0f} samples/s, idle share "
+        f"{prof['idle_share']:.3f}; evaluate {acc} on {4 * BTRAIN} rows (peak "
+        f"{eval_peak_gb:.2f} GB); greedy serve at batch {B} {serve_ms:.2f} ms")
+    log(f"heads phase: {impl} top device kernels of one step (ms): " +
+        "; ".join(f"{k} {v:.3f}" for k, v in prof["top_kernels_ms"].items()))
+    del step, inputs
+    return launches, {
+        "setup_s": setup_s, "fit_s": fit_s, "fit_losses": losses,
+        "fit_metrics": own, "fit_peak_memory_gb": fit_peak_gb,
+        "head_grad_kernel_vs_ref_rel_err": grads,
+        "train_step_ms_n1": step_ms,
+        "train_samples_per_s_n1": BTRAIN / step_ms * 1e3,
+        "train_step_profile": prof, "evaluate_accuracy": acc,
+        "evaluate_peak_memory_gb": eval_peak_gb,
+        "greedy_serve_ms_b64": serve_ms}, exp
+
+
+def head_launchers_phase(torch, impl):
+    """``repro_torch.launch.train --head impl`` for 2 steps at the 1M-class
+    width, then the serve launcher's greedy serving of 64 queries, both in
+    this process."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+
+    lr = ["--lr", "0.3"] if impl in ("mach", "csoft") else []
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train_launcher.main(
+            ["--head", impl, "--classes", str(V), "--feat-dim", str(D),
+             "--batch", str(BTRAIN), "--steps", "2", "--fccs",
+             "--device", DEVICE] + lr)
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    acc = [line for line in text.splitlines() if "final eval accuracy" in line]
+    if rc != 0 or not acc:
+        fail(f"train launcher --head {impl} returned {rc}: {text[-500:]}")
+    log(f"heads phase: train launcher --head {impl}: {acc[-1]} ({wall:.1f} s)")
+    res = {"train_launcher_s": wall,
+           "train_launcher_accuracy": float(acc[-1].split()[-1])}
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve_launcher.main(
+            ["--system", "paper", "--head", impl, "--classes", str(V),
+             "--feat-dim", str(D), "--batch", str(B), "--device", DEVICE])
+    if rc != 0 or "first predictions" not in out.getvalue():
+        fail(f"serve launcher --head {impl} returned {rc}")
+    log(f"heads phase: serve launcher --head {impl}: "
+        f"{out.getvalue().splitlines()[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def heads_phase(torch, np, counters, ce, sp):
+    """The four heads in turn (``one_head_phase``); at MACH's the CE pair on
+    its bucket shard, at the sampled head's the sparse pair on its draws;
+    then the launchers. Returns ({path: launches}, {kernel: {shape: row}},
+    numbers)."""
+    launches, rows, e2e = {}, {}, {}
+    for impl in HEAD_CFGS:
+        launches[f"{impl}_training"], e2e[impl], exp = one_head_phase(
+            torch, np, counters, impl)
+        if impl == "mach":
+            fwd, bwd = ce_mach_rows(torch, ce, exp)
+            rows["ce_forward"] = {"mach_shard": fwd}
+            rows["ce_backward"] = {"mach_shard": bwd}
+        if impl == "sampled":
+            for name, (fwd, bwd) in sparse_sampled_rows(torch, sp,
+                                                        exp).items():
+                rows.setdefault("sparse_ce_forward", {})[
+                    f"sampled_{name}"] = fwd
+                rows.setdefault("sparse_ce_backward", {})[
+                    f"sampled_{name}"] = bwd
+        del exp
+        gc.collect()
+        torch.cuda.empty_cache()
+    for impl in HEAD_CFGS:
+        e2e[impl].update(head_launchers_phase(torch, impl))
+    return launches, rows, e2e
 
 
 # ---------------------------------------------------------------------------
@@ -2149,15 +2516,12 @@ def zoo_phase(torch, np, counters, fa):
         f"{n_params / 1e6:.1f}M params")
 
     # -- the main path, with every kernel's counter read around it ----------
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    _reset(counters)
     torch.cuda.reset_peak_memory_stats()
     toks = exp.serve(prompt_len=ZOO_PROMPT, gen=ZOO_GEN, batch=ZOO_BATCH)
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = {name: getattr(mod, attr)
-                for name, (mod, attr) in counters.items()
-                if getattr(mod, attr)}
+    launches = {name: n for name, n in _read(counters).items() if n}
     if launches.get("flash_attention") != cfg.n_layers:
         fail(f"the zoo serve launched {launches}, not flash_attention once "
              f"a layer ({cfg.n_layers})")
@@ -2381,7 +2745,6 @@ def main() -> int:
     e2e.update(train_launcher_phase("knn"))
     gc.collect()
     torch.cuda.empty_cache()
-    kernels["flash_attention"] = flash_kernel_phase(torch, fa)
     counters = {"ce_forward": (ce, "LAUNCHES"),
                 "ce_backward": (ce, "BWD_LAUNCHES"),
                 "sparse_ce_forward": (sp, "LAUNCHES"),
@@ -2389,6 +2752,11 @@ def main() -> int:
                 "dist_topk": (dk, "LAUNCHES"), "stage1_topk": (dc, "LAUNCHES"),
                 "ivf_rerank": (ivf, "LAUNCHES"),
                 "flash_attention": (fa, "LAUNCHES")}
+    head_launches, head_rows, e2e["heads"] = heads_phase(torch, np, counters,
+                                                         ce, sp)
+    for name, shapes in head_rows.items():
+        kernels[name].update(shapes)
+    kernels["flash_attention"] = flash_kernel_phase(torch, fa)
     zoo_launches, zoo_e2e = zoo_phase(torch, np, counters, fa)
     e2e.update(zoo_e2e)
     e2e.update(zoo_launcher_phase(torch, fa))
@@ -2399,7 +2767,9 @@ def main() -> int:
                       "training": train_launches.get(name, 0),
                       "knn_training": knn_launches.get(name, 0),
                       "ivf_serving": ivf_launches.get(name, 0),
-                      "zoo_serving": zoo_launches.get(name, 0)}
+                      "zoo_serving": zoo_launches.get(name, 0),
+                      **{path: n.get(name, 0)
+                         for path, n in head_launches.items()}}
                for name in kernels}
     rows = []
     for name, k in kernels.items():

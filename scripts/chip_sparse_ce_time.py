@@ -12,7 +12,13 @@ from seed 2 as ``chip_smoke.py``'s sparse phase. Each kernel is first
 compared with its plain version (m and corr max abs error, z max relative
 error; df and dW max abs error over max|plain|), then timed with CUDA
 events (``chip_smoke.cuda_ms``), and one backward is profiled for its
-kernels by name. Prints one JSON line with the card's name.
+kernels by name. Then the backward alone at the same shapes with the two
+active sets of the selective and sampled heads (``padded``: a tenth of the
+columns valid, the rest invalid columns of id 0, as selective pads its
+active set; ``repeated``: every id drawn log-uniformly with replacement,
+id 0 some 5,000 times, ``mask_hits``, as the sampled head's log_uniform
+draw), each held to its plain version (dW's error over its max), both held to
+the plain version in fp64, and timed. Prints one JSON line with the card's name.
 
 To compare two commits on one card, unpack the other commit with ``git
 archive`` into a git-ignored directory and run both in turns in one call:
@@ -20,6 +26,7 @@ archive`` into a git-ignored directory and run both in turns in one call:
 done``.
 """
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -84,6 +91,42 @@ def main(root: str) -> dict:
                                    + e.self_device_time_total / 5e3)
     res["backward_kernels_ms"] = dict(sorted(kernels.items(),
                                              key=lambda k: -k[1]))
+    del df, dw
+    u = torch.rand((a,), generator=g, device=dev)
+    drawn = (torch.exp(u * math.log(cs.V + 1.0)) - 1.0).to(
+        torch.int32).clamp(0, cs.V - 1)
+    tenth = (torch.arange(a, device=dev) < a // 10).to(torch.int32)
+    for name, ids2, valid2, mask_hits in (
+            ("padded", torch.where(tenth > 0, ids, 0), tenth, False),
+            ("repeated", drawn, valid, True)):
+        cols = (f, w, ids2, ids2, bias, valid2, y)
+        m, z, _, _, hit = sp.sparse_ce_forward(*cols, scale=16.0,
+                                               mask_hits=mask_hits)
+        gz = 1.0 / (b * z)
+        bwd = lambda: sp.sparse_ce_backward(*cols, m, gz, gc, hit,
+                                            scale=16.0, mask_hits=mask_hits)
+        dw = bwd()[1]
+        pdw = sp.sparse_ce_backward_plain(*cols, m, gz, gc, hit, 16.0,
+                                          mask_hits)[1]
+        res[f"backward_{name}_dw_err_of_max"] = float(
+            (dw - pdw).abs().max() / pdw.abs().max())
+        # both against the same function in fp64: a run of equal ids sums
+        # equal rows, whose fp32 sum drifts with the run's length
+        d64 = [t.double() for t in (f, w, bias, m, gz, gc)]
+        pdw64 = sp.sparse_ce_backward_plain(
+            d64[0], d64[1], ids2, ids2, d64[2], valid2, y, *d64[3:], hit,
+            16.0, mask_hits)[1]
+        del d64
+        top = float(pdw64.abs().max())
+        res[f"backward_{name}_kernel_dw_err_vs_fp64"] = float(
+            (dw - pdw64).abs().max()) / top
+        res[f"backward_{name}_plain_dw_err_vs_fp64"] = float(
+            (pdw - pdw64).abs().max()) / top
+        del pdw64
+        res[f"backward_{name}_most_repeated"] = int(
+            torch.unique(ids2, return_counts=True)[1].max())
+        del dw, pdw
+        res[f"backward_{name}_ms"] = cs.cuda_ms(torch, bwd, 10)
     res["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

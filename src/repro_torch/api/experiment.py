@@ -15,8 +15,11 @@ so far: ``fit`` (the FCCS trainer, without checkpoints), ``evaluate``,
 ``serve`` (greedy and top-k, through the serving engine or on explicit
 inputs, and top-k through the IVF index), ``serving_engine``,
 ``ivf_index`` / ``install_ivf_index`` and ``weights_version`` on the paper
-system; the zoo's prefill + greedy decode (``ZooExperiment.serve``) for
-the dense decoders. Checkpoints (``ckpt_dir``, ``resume``), the zoo
+system, with any of the six softmax heads (``HeadConfig.softmax_impl``:
+full, knn, selective, mach, sampled, csoft; the sketch heads mach and
+csoft serve greedy only, since top-k and the IVF index retrieve against a
+[V, D] class matrix they do not train); the zoo's prefill + greedy decode
+(``ZooExperiment.serve``) for the dense decoders. Checkpoints (``ckpt_dir``, ``resume``), the zoo
 trainer and the zoo's feature retrieval come with later slices (ROADMAP.md
 queue A).
 
@@ -216,7 +219,9 @@ class PaperExperiment(Experiment):
 
     def evaluate(self, inputs=None, *, eval_batch: Optional[int] = None
                  ) -> float:
-        """Deploy-style top-1 accuracy (§4.5 nearest class weight)."""
+        """Deploy-style top-1 accuracy through the head's own prediction
+        (§4.5 nearest class weight; the hashed-bucket decode of mach and
+        csoft)."""
         if inputs is None:
             inputs = self.data_fn(10**6, eval_batch or 4 * self.batch)
         return self.trainer.evaluate(inputs)

@@ -2,11 +2,15 @@
 
 A head owns its parameters and auxiliary state (``HeadState``), its
 distributed training loss ``loss_local`` and its prediction body
-``eval_logits_local``. Heads register by name
-(``register_head``); ``make_head`` builds one from a ``HeadConfig``. The
-``full`` and ``knn`` heads are ported so far; the other four are named in
-``KNOWN_HEADS`` so that configs naming them parse, and ``make_head``
-refuses them until their slice lands (ROADMAP.md queue A).
+``eval_logits_local``. Heads register by name (``register_head``);
+``make_head`` builds one from a ``HeadConfig``. All six heads of the
+paper's comparison are registered: ``full``, ``knn``, ``selective``,
+``sampled`` (W-heads: their params are the [V, D] class matrix, each ring
+member holding a row block) and ``mach``, ``csoft`` (sketch heads: [R, B,
+D] bucket weights, each member holding a block of the bucket axis).
+
+Not ported yet: the elastic reshard methods (``reshard_state``,
+``reshard_params_like``; ROADMAP.md A.7).
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 
 from repro_torch import dist
 from repro_torch.configs.base import HeadConfig, ModelConfig, effective_vocab
+from repro_torch.core import baselines as bl
 from repro_torch.core import knn_graph as kg
 from repro_torch.core.knn_softmax import knn_softmax_local
 from repro_torch.core.sharded_softmax import (_normalize, full_softmax_local,
@@ -74,6 +79,12 @@ class SoftmaxHead:
         over the ring (the JAX package's ``P()`` out-spec)."""
         return {"accuracy": "replicated", "logz": "replicated"}
 
+    def aux_spec(self) -> tuple:
+        """How each entry of ``aux`` lies on the ring (the JAX package's
+        ``aux_spec``): ``"sharded"`` (each member holds its row of a [P,
+        ...] array) or ``"replicated"``."""
+        return ()
+
     @property
     def refresh_every(self) -> int:
         """Steps between ``refresh`` calls (0 = the head has no periodic
@@ -86,25 +97,31 @@ class SoftmaxHead:
         return head_state
 
     def _init_w(self, generator: torch.Generator, n_dev: int, rank: int,
-                device, block_rows: int = 1 << 16):
-        """Rows [rank*V/n, (rank+1)*V/n) of a W [V, D] ~ N(0, 1/D). The
-        whole matrix is drawn in fixed row blocks from ``generator`` and
-        each member keeps its own rows, so W does not depend on the ring
-        size and no member ever holds more than its block plus one draw."""
+                device):
+        """Rows [rank*V/n, (rank+1)*V/n) of a W [V, D] ~ N(0, 1/D)
+        (``_draw_block``), so W does not depend on the ring size."""
         if self.n_classes % n_dev:
             raise ValueError(f"{self.n_classes} classes do not divide a ring "
                              f"of {n_dev}")
         v_loc = self.n_classes // n_dev
-        lo, hi = rank * v_loc, (rank + 1) * v_loc
-        out = torch.empty((v_loc, self.d), device=device, dtype=torch.float32)
-        for start in range(0, self.n_classes, block_rows):
-            stop = min(start + block_rows, self.n_classes)
-            blk = torch.randn((stop - start, self.d), generator=generator,
-                              device=device)
-            a, b = max(start, lo), min(stop, hi)
-            if a < b:
-                out[a - lo:b - lo] = blk[a - start:b - start]
-        return out.div_(math.sqrt(self.d))
+        return _draw_block(generator, self.n_classes, self.d, rank * v_loc,
+                           (rank + 1) * v_loc, device).div_(math.sqrt(self.d))
+
+
+def _draw_block(generator: torch.Generator, n_rows: int, d: int, lo: int,
+                hi: int, device, block_rows: int = 1 << 16):
+    """Rows [lo, hi) of an [n_rows, d] N(0, 1) matrix: the whole matrix is
+    drawn in fixed row blocks from ``generator`` and only those rows are
+    kept, so no ring member ever holds more than its block plus one draw."""
+    out = torch.empty((hi - lo, d), device=device, dtype=torch.float32)
+    for start in range(0, n_rows, block_rows):
+        stop = min(start + block_rows, n_rows)
+        blk = torch.randn((stop - start, d), generator=generator,
+                          device=device)
+        a, b = max(start, lo), min(stop, hi)
+        if a < b:
+            out[a - lo:b - lo] = blk[a - start:b - start]
+    return out
 
 
 HEAD_REGISTRY: dict = {}
@@ -121,9 +138,8 @@ def register_head(name: str):
 def make_head(model_cfg: ModelConfig, head_cfg: HeadConfig) -> SoftmaxHead:
     cls = HEAD_REGISTRY.get(head_cfg.softmax_impl)
     if cls is None:
-        raise NotImplementedError(
-            f"the {head_cfg.softmax_impl!r} head is not ported to torch yet "
-            f"(ported: {sorted(HEAD_REGISTRY)}; see ROADMAP.md queue A)")
+        raise ValueError(f"unknown softmax_impl {head_cfg.softmax_impl!r}; "
+                         f"known heads: {sorted(HEAD_REGISTRY)}")
     return cls(model_cfg, head_cfg)
 
 
@@ -214,6 +230,182 @@ class KNNSoftmaxHead(FullSoftmaxHead):
             pad_random=self.head_cfg.knn_pad_random, n_valid=self.n_valid,
             backend=self.backend)
 
+    def aux_spec(self) -> tuple:
+        return ("sharded",) * 3
+
     def metrics_spec(self) -> dict:
         return {"accuracy": "replicated", "logz": "replicated",
                 "active_frac": "replicated", "label_recall": "replicated"}
+
+
+# ---------------------------------------------------------------------------
+# selective softmax [Zhang et al., AAAI'18]: LSH active classes
+# ---------------------------------------------------------------------------
+
+_LSH_REFRESH_SEED = 41      # the JAX package's refresh key, PRNGKey(41)
+
+
+@register_head("selective")
+class SelectiveSoftmaxHead(FullSoftmaxHead):
+    """W [V, D] row-sharded plus this member's LSH tables: ``aux`` is
+    (planes [R, D, n_bits], replicated; offsets [R, n_buckets+1] and
+    classes [R, V_loc], this member's CSR over its own rows). ``refresh``
+    rebuilds the tables from the current weights. Prediction is the full
+    head's (inherited)."""
+
+    def _tables(self, planes, w_loc):
+        offsets, classes = bl.build_sharded_lsh_tables(w_loc, planes)
+        return planes, offsets, classes
+
+    def _planes(self, generator, device):
+        return bl.lsh_planes(generator, self.head_cfg.selective_n_hash,
+                             self.d, self.head_cfg.selective_n_bits,
+                             device=device)
+
+    def init(self, generator, n_dev, *, rank, device) -> HeadState:
+        w = self._init_w(generator, n_dev, rank, device)
+        return HeadState(params=w, aux=self._tables(
+            self._planes(generator, device), w))
+
+    def aux_spec(self) -> tuple:
+        return ("replicated", "sharded", "sharded")
+
+    @property
+    def refresh_every(self) -> int:
+        return self.head_cfg.rebuild_every
+
+    def refresh(self, head_state: HeadState) -> HeadState:
+        """Rebuild the tables on the current weights through hyperplanes
+        drawn from a generator seeded 41 on the weights' device (the same
+        on every member): each member hashes its own rows, so nothing
+        crosses the ring."""
+        w = head_state.params
+        g = torch.Generator(device=w.device)
+        g.manual_seed(_LSH_REFRESH_SEED)
+        return HeadState(params=w, aux=self._tables(
+            self._planes(g, w.device), w.detach()))
+
+    def loss_local(self, f_all, y_all, params, aux, *, global_batch: int,
+                   step=None):
+        planes, offsets, classes = aux
+        v_loc = params.shape[0]
+        m_local = max(8, int(v_loc * self.head_cfg.active_frac))
+        return bl.selective_softmax_local(
+            f_all, y_all, params, planes, offsets, classes,
+            global_batch=global_batch, m_local=m_local,
+            cap=self.head_cfg.selective_cap,
+            cosine_scale=self.head_cfg.cosine_scale, backend=self.backend)
+
+    def metrics_spec(self) -> dict:
+        return {"accuracy": "replicated", "logz": "replicated",
+                "active_frac": "replicated", "label_recall": "replicated"}
+
+
+# ---------------------------------------------------------------------------
+# MACH [Medini et al., NeurIPS'19]: R hashed B-way softmaxes
+# ---------------------------------------------------------------------------
+
+
+@register_head("mach")
+class MACHSoftmaxHead(SoftmaxHead):
+    """R bucket heads [R, B, D] with the BUCKET axis split over the ring
+    (each member holds [R, B/P, D]); ``aux`` is the static class->bucket
+    hash tables [R, N], replicated."""
+
+    params_are_class_weights = False
+    _hash_seed = 0          # universal-hash family seed (csoft uses 1)
+
+    def _buckets_and_reps(self):
+        return self.head_cfg.mach_b, self.head_cfg.mach_r
+
+    def _n_buckets(self, n_dev: int) -> int:
+        # the bucket axis must divide the ring
+        b = self._buckets_and_reps()[0]
+        return -(-b // n_dev) * n_dev
+
+    def init(self, generator, n_dev, *, rank, device) -> HeadState:
+        """This member's bucket block of W [R, B, D] ~ N(0, 1/D), each
+        repetition drawn whole in fixed blocks (``_draw_block``), and the
+        hash tables."""
+        n_buckets = self._n_buckets(n_dev)
+        n_rep = self._buckets_and_reps()[1]
+        b_loc = n_buckets // n_dev
+        w = torch.stack([_draw_block(generator, n_buckets, self.d,
+                                     rank * b_loc, (rank + 1) * b_loc,
+                                     device) for _ in range(n_rep)])
+        hashes = bl.mach_hashes(self.n_classes, n_buckets, n_rep=n_rep,
+                                seed=self._hash_seed)
+        return HeadState(params=w.div_(math.sqrt(self.d)),
+                         aux=(torch.as_tensor(hashes, device=device),))
+
+    def aux_spec(self) -> tuple:
+        return ("replicated",)
+
+    def loss_local(self, f_all, y_all, params, aux, *, global_batch: int,
+                   step=None):
+        (hashes,) = aux
+        return bl.mach_softmax_local(f_all, y_all, params, hashes,
+                                     global_batch=global_batch,
+                                     backend=self.backend)
+
+    def eval_logits_local(self, f_all, params, aux):
+        (hashes,) = aux
+        return bl.mach_predict_local(f_all, params, hashes), None
+
+
+# ---------------------------------------------------------------------------
+# sampled softmax [Jean et al., ACL'15]: logQ-corrected negative sampling
+# ---------------------------------------------------------------------------
+
+
+@register_head("sampled")
+class SampledSoftmaxHead(FullSoftmaxHead):
+    """W [V, D] row-sharded; CE over the true label plus a drawn negative
+    set with the logQ correction (``sampled_dist``: ``"uniform"`` without
+    replacement, the full softmax at ``sampled_n >= V``; ``"log_uniform"``
+    Zipfian with replacement). Negatives are drawn anew every micro-batch
+    from (``sampled_seed``, the training step, the batch's labels); there
+    is no aux state. The training ``accuracy`` is relative to the
+    candidate set; prediction is the full head's (inherited)."""
+
+    def draw(self, y_all, v_loc: int, step=None) -> bl.SampledDraw:
+        """This member's draw for the batch's labels ``y_all``."""
+        return bl.sampled_draw(
+            y_all, v_loc=v_loc, n_samples=self.head_cfg.sampled_n,
+            distribution=self.head_cfg.sampled_dist,
+            seed=self.head_cfg.sampled_seed, n_valid=self.n_valid, step=step)
+
+    def loss_local(self, f_all, y_all, params, aux, *, global_batch: int,
+                   step=None):
+        return bl.sampled_softmax_loss(
+            f_all, y_all, params, self.draw(y_all, params.shape[0], step),
+            global_batch=global_batch,
+            cosine_scale=self.head_cfg.cosine_scale, backend=self.backend)
+
+    def metrics_spec(self) -> dict:
+        return {"accuracy": "replicated", "logz": "replicated",
+                "sample_frac": "replicated"}
+
+
+# ---------------------------------------------------------------------------
+# CSoft: a count-min sketch over class ids (MACH's training, min decode)
+# ---------------------------------------------------------------------------
+
+
+@register_head("csoft")
+class CSoftSketchHead(MACHSoftmaxHead):
+    """R pairwise-independent hash rows of B buckets, [R, B, D] with the
+    bucket axis split over the ring. Training is MACH's loss (inherited);
+    the heads differ in their hash family's seed and in decoding: the min
+    of the rows' log-probabilities, the count-min bound, or with
+    ``csoft_agg="mean"`` their mean."""
+
+    _hash_seed = 1
+
+    def _buckets_and_reps(self):
+        return self.head_cfg.csoft_b, self.head_cfg.csoft_r
+
+    def eval_logits_local(self, f_all, params, aux):
+        (hashes,) = aux
+        return bl.csoft_predict_local(f_all, params, hashes,
+                                      agg=self.head_cfg.csoft_agg), None

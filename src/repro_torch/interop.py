@@ -3,9 +3,10 @@
 Both packages name their fields alike, so a JAX ``HeadConfig`` turned into
 a dict (``dataclasses.asdict``) builds the port's ``HeadConfig``, and the
 JAX package's parameters and optimizer state, taken to the host as numpy
-arrays (``np.asarray(exp.state.head_params)``, and the knn head's graph
-``exp.state.head_aux``), become the port's ``HybridState``, so a JAX run's
-state continues in the port. A fitted JAX ``IVFIndex``'s
+arrays (``np.asarray(exp.state.head_params)``, and the head's aux state
+``exp.state.head_aux``: the knn graph, the LSH tables, the sketch hashes),
+become the port's ``HybridState``, so a JAX run's state continues in the
+port. A fitted JAX ``IVFIndex``'s
 ``state_to_save()``, taken to the host the same way, becomes a ring
 member's ``IVFIndex``, and a zoo model's params (``jax.device_get`` of a
 JAX ``ZooExperiment``'s ``params``, blocks stacked on a leading [L] axis)
@@ -43,12 +44,15 @@ def head_config_from_dict(d: dict) -> HeadConfig:
     return HeadConfig(**d)
 
 
-def _row_block(a: np.ndarray, rank: int, world_size: int) -> np.ndarray:
-    if a.shape[0] % world_size:
-        raise ValueError(f"{a.shape[0]} rows do not divide a ring of "
+def _row_block(a: np.ndarray, rank: int, world_size: int,
+               axis: int = 0) -> np.ndarray:
+    """This member's block of ``a`` along ``axis`` (0: the class rows of a
+    [V, D] matrix; 1: the buckets of an [R, B, D] sketch)."""
+    if a.shape[axis] % world_size:
+        raise ValueError(f"{a.shape[axis]} rows do not divide a ring of "
                          f"{world_size}")
-    n = a.shape[0] // world_size
-    return a[rank * n:(rank + 1) * n]
+    n = a.shape[axis] // world_size
+    return np.take(a, np.arange(rank * n, (rank + 1) * n), axis=axis)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -56,50 +60,76 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
 
 
+def _head_axis(a: np.ndarray) -> int:
+    """The axis the ring splits: a [V, D] class matrix by rows, an [R, B,
+    D] sketch (mach, csoft) by buckets."""
+    if a.ndim == 2:
+        return 0
+    if a.ndim == 3:
+        return 1
+    raise ValueError(f"head_params must be the [V, D] class matrix or an "
+                     f"[R, B, D] sketch, got shape {a.shape}")
+
+
 def _moments(pair, rank: int, world_size: int, device):
-    """(fe moments dict, GLOBAL [V, D] head moment) -> this member's."""
+    """(fe moments dict, GLOBAL head moment) -> this member's."""
     if pair is None:
         return None
     fe, head = pair
+    head = np.asarray(head)
     return ({k: _tensor(v, device) for k, v in fe.items()},
-            _tensor(_row_block(np.asarray(head), rank, world_size), device))
+            _tensor(_row_block(head, rank, world_size, _head_axis(head)),
+                    device))
 
 
 def paper_state_from_numpy(fe_params: dict, head_params, *,
                            opt_state: Optional[dict] = None, step: int = 0,
-                           head_aux=(), rank: int = 0, world_size: int = 1,
-                           device) -> HybridState:
+                           head_aux=(), aux_spec=None, rank: int = 0,
+                           world_size: int = 1, device) -> HybridState:
     """The port's ``HybridState`` for ring member ``rank`` of
     ``world_size``, from the JAX package's state as numpy arrays:
     ``fe_params`` (replicated; empty for the ``feats`` trunk), the GLOBAL
-    [V, D] head matrix, of which this member keeps its row block, and
+    head params, of which this member keeps its block (the rows of a [V,
+    D] class matrix, the buckets of the sketch heads' [R, B, D]), and
     optionally the optimizer state ``{"step": int, "mu": (fe moments,
-    global head moment), "nu": the same or None}`` (the JAX
-    ``OptState``'s fields), whose head moments are cut to the same row
-    block. ``step`` is the state's step counter. ``head_aux`` is the head's
-    aux state as the JAX package shards it, each array with a leading
-    [world_size] axis (the knn head's ``CompressedGraph`` offsets,
-    neighbors and ranks), of which this member keeps row ``rank``. Without
-    ``opt_state`` the state carries none: it serves, and ``load_state`` of
-    it cannot train."""
+    global head moment), "nu": the same or None}`` (the JAX ``OptState``'s
+    fields), whose head moments are cut to the same block. ``step`` is the
+    state's step counter. ``head_aux`` is the head's aux state as the JAX
+    package lays it out; ``aux_spec`` (the port head's ``aux_spec()``)
+    says for each entry whether it is ``"sharded"``, with a leading
+    [world_size] axis of which this member keeps row ``rank`` (the knn
+    head's graph, the selective head's CSR tables), or ``"replicated"``
+    and kept whole (the LSH planes, the sketch heads' hash tables). Without
+    ``aux_spec`` every entry is sharded. Without ``opt_state`` the state
+    carries none: it serves, and ``load_state`` of it cannot train."""
     if not 0 <= rank < world_size:
         raise ValueError(f"rank {rank} is not on a ring of {world_size}")
     w = np.asarray(head_params)
-    if w.ndim != 2:
-        raise ValueError(f"head_params must be the [V, D] class matrix, got "
-                         f"shape {w.shape}")
+    axis = _head_axis(w)
     fe = {k: torch.as_tensor(np.asarray(v)).to(device)
           for k, v in fe_params.items()}
-    block = _tensor(_row_block(w, rank, world_size), device)
+    block = _tensor(_row_block(w, rank, world_size, axis), device)
     opt = None
     if opt_state is not None:
         opt = OptState(
             step=int(opt_state["step"]),
             mu=_moments(opt_state["mu"], rank, world_size, device),
             nu=_moments(opt_state.get("nu"), rank, world_size, device))
+    head_aux = tuple(head_aux)
+    aux_spec = tuple(aux_spec) if aux_spec is not None else (
+        ("sharded",) * len(head_aux))
+    if len(aux_spec) != len(head_aux):
+        raise ValueError(f"aux_spec {aux_spec} does not name the "
+                         f"{len(head_aux)} head_aux entries")
     aux = []
-    for a in head_aux:
+    for a, spec in zip(head_aux, aux_spec):
         a = np.asarray(a)
+        if spec == "replicated":
+            aux.append(torch.tensor(a, device=device))         # a copy
+            continue
+        if spec != "sharded":
+            raise ValueError(f"aux spec {spec!r} is not 'sharded' or "
+                             f"'replicated'")
         if a.shape[0] != world_size:
             raise ValueError(f"head_aux leading axis {a.shape[0]} is not the "
                              f"ring of {world_size}")

@@ -50,9 +50,16 @@
 //     register load from two more gathered slabs of the tile's rows (64
 //     features) per feature block, df^T held in registers for the whole
 //     segment and written once.
-// Then three small launches: the df partials summed in segment order; and
-// the scatter of dW_act into dW: the wrapper sorts ids stably, and one
-// block per run of equal ids sums its rows in that order.
+// Then small launches: the df partials summed in segment order; and the
+// scatter of dW_act into dW. The wrapper sorts the ids stably, with the
+// invalid columns' ids replaced by INT_MAX (their dl is 0, so their dW_act
+// rows are +-0 and add nothing: they sort last and are skipped). A run of
+// equal ids can be long (the selective head pads its active set with
+// invalid columns of id 0; a log-uniform draw repeats id 0 some 5,000
+// times), so it is summed in two levels: the sorted positions in chunks of
+// SCATTER_CHUNK, each chunk's piece of a run summed in order; a run that
+// lies inside one chunk is written to dW at once, and the pieces of a run
+// that crosses a chunk's end are summed in order by a second launch.
 // What it costs beyond the bound: a fourth product (the scores twice;
 // 0.648 ms at the 3xTF32 rate for all four), the gathered rows read about
 // three times from device memory (dW_act, the df scores, W^T), dW_act
@@ -527,20 +534,68 @@ sparse_bwd_df(const __grid_constant__ CUtensorMap tfh,
   }
 }
 
-// dW[sid[k]] = sum of dW_act[order[k']] over the run k' = k, k + 1, ... of
-// equal sorted ids, in that order. One block per sorted position; only the
-// first position of a run works.
+constexpr int SCATTER_CHUNK = 32;   // sorted positions a block sums
+constexpr int SKIP_ID = INT_MAX;     // the sort key of an invalid column
+
+// Level 1 of the scatter: block c sums, for each run of equal sorted ids
+// within positions [c * SCATTER_CHUNK, ...), its piece of dW_act[order[q]]
+// in order. A run inside the chunk goes to dW[id]; the piece of a run that
+// crosses either end of the chunk is written over dW_act[order[first
+// position of the piece]], a row only this thread's column of this block
+// reads.
 __global__ void __launch_bounds__(NT)
-sparse_bwd_scatter(const float* __restrict__ dwa, const int* __restrict__ sid,
-                   const long long* __restrict__ order, int A, int D,
-                   float* __restrict__ dw) {
-  const int k = blockIdx.x;
-  const int id = sid[k];
-  if (k > 0 && sid[k - 1] == id) return;
+sparse_bwd_scatter_pieces(float* __restrict__ dwa, const int* __restrict__ sid,
+                          const long long* __restrict__ order, int A, int D,
+                          float* __restrict__ dw) {
+  const int k0 = blockIdx.x * SCATTER_CHUNK;
+  const int k1 = min(A, k0 + SCATTER_CHUNK);
+  // does the run at the chunk's first (last) position continue before (past)
+  // the chunk?
+  const bool open_lo = k0 > 0 && sid[k0 - 1] == sid[k0];
+  const bool open_hi = k1 < A && sid[k1] == sid[k1 - 1];
   for (int c = threadIdx.x * 4; c < D; c += NT * 4) {
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int q = k; q < A && sid[q] == id; ++q) {
-      float4 v = *reinterpret_cast<const float4*>(dwa + (size_t)order[q] * D + c);
+    int first = k0;
+    for (int q = k0; q < k1; ++q) {
+      const int id = sid[q];
+      if (id == SKIP_ID) break;                  // invalid columns sort last
+      const float4 v =
+          *reinterpret_cast<const float4*>(dwa + (size_t)order[q] * D + c);
+      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+      if (q + 1 < k1 && sid[q + 1] == id) continue;
+      // the piece [first, q] ends here
+      const bool whole = !(first == k0 && open_lo) && !(q + 1 == k1 && open_hi);
+      float* dst = whole ? dw + (size_t)id * D : dwa + (size_t)order[first] * D;
+      *reinterpret_cast<float4*>(dst + c) = s;
+      s = make_float4(0.f, 0.f, 0.f, 0.f);
+      first = q + 1;
+    }
+  }
+}
+
+// Level 2: dW[id] for each run that crosses a chunk's end, the sum of its
+// pieces in order: the one at the run's first position, then one at each
+// chunk start inside the run. Block c looks at the chunk start b = c *
+// SCATTER_CHUNK (c >= 1) and works when b is the first chunk start that
+// its run crosses, so that the run begins in chunk c - 1.
+__global__ void __launch_bounds__(NT)
+sparse_bwd_scatter_runs(const float* __restrict__ dwa,
+                        const int* __restrict__ sid,
+                        const long long* __restrict__ order, int A, int D,
+                        float* __restrict__ dw) {
+  const int b = (blockIdx.x + 1) * SCATTER_CHUNK;
+  if (b >= A) return;
+  const int id = sid[b];
+  const int lo = b - SCATTER_CHUNK;
+  if (id == SKIP_ID || sid[b - 1] != id || (lo > 0 && sid[lo - 1] == id))
+    return;
+  int k = b - 1;                                 // the run's first position
+  while (k > lo && sid[k - 1] == id) --k;
+  for (int c = threadIdx.x * 4; c < D; c += NT * 4) {
+    float4 s = *reinterpret_cast<const float4*>(dwa + (size_t)order[k] * D + c);
+    for (int q = b; q < A && sid[q] == id; q += SCATTER_CHUNK) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(dwa + (size_t)order[q] * D + c);
       s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
     }
     *reinterpret_cast<float4*>(dw + (size_t)id * D + c) = s;
@@ -578,8 +633,8 @@ int launch_dw(const void* fh, const void* fl, const CUtensorMap& tfth,
 
 // fh, fl: [B, D] and fth, ftl: [D, Bp] scratch for f's TF32 halves (Bp =
 // B rounded up to 8); dwa: [A, D] compact dW; pdf: [n_segs_df, B, D]
-// partials; sid, order: ids sorted stably and their positions; dw: [V, D],
-// zero. Returns a cudaError_t, or 10000 + a CUresult when a TMA descriptor
+// partials; sid, order: ids sorted stably (an invalid column's as INT_MAX)
+// and their positions; dw: [V, D], zero. dwa is overwritten. Returns a cudaError_t, or 10000 + a CUresult when a TMA descriptor
 // cannot be encoded.
 extern "C" int sparse_ce_bwd_launch(
     const void* f, const void* w, const void* ids, const void* gids,
@@ -636,7 +691,13 @@ extern "C" int sparse_ce_bwd_launch(
       static_cast<const float*>(pdf), n, n_segs_df, static_cast<float*>(df));
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  sparse_bwd_scatter<<<A, NT, 0, st>>>(
+  const int n_chunks = (A + SCATTER_CHUNK - 1) / SCATTER_CHUNK;
+  sparse_bwd_scatter_pieces<<<n_chunks, NT, 0, st>>>(
+      static_cast<float*>(dwa), static_cast<const int*>(sid),
+      static_cast<const long long*>(order), A, D, static_cast<float*>(dw));
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n_chunks < 2) return static_cast<int>(e);
+  sparse_bwd_scatter_runs<<<n_chunks - 1, NT, 0, st>>>(
       static_cast<const float*>(dwa), static_cast<const int*>(sid),
       static_cast<const long long*>(order), A, D, static_cast<float*>(dw));
   return static_cast<int>(cudaGetLastError());

@@ -1,5 +1,5 @@
 """Active-class sparse softmax cross-entropy: the fused gather + streaming
-CE of the KNN head (and, later, the selective and sampled heads).
+CE of the knn, selective and sampled heads.
 
 ``sparse_ce_forward`` and ``sparse_ce_backward`` are the ports of the
 Pallas TPU kernels ``src/repro/kernels/sparse_ce.py`` ``sparse_ce_forward``
@@ -47,6 +47,7 @@ LAUNCHES = 0          # kernel launches (one per sparse_ce_forward on the card)
 BWD_LAUNCHES = 0      # kernel launches (one per sparse_ce_backward on the card)
 
 _AT = 128             # active columns per tile (csrc/ce_hopper.cuh)
+_SKIP_ID = 2**31 - 1  # the scatter's key of an invalid column (INT_MAX)
 _BT = 64              # batch rows per block of the forward and of df
 _DG = 512             # features per block of df
 
@@ -211,7 +212,9 @@ def sparse_ce_backward(f, w, ids, gids, bias, valid, y, m, gz, gc, hit, *,
     its first-hit column. Returns (df [B,D], dW [V,D]) fp32; where ids
     repeat, their rows of the compact gradient add up in dW.
     Deterministic: no floating-point atomics on the card (the repeated
-    rows are summed in the order of a stable sort)."""
+    rows are summed in the order of a stable sort, in pieces of 32 sorted
+    positions and then the pieces in order; invalid columns, whose rows are
+    0, are left out)."""
     global BWD_LAUNCHES
     ids, gids, bias, valid, y, rows, on_card = _check(
         "sparse_ce_backward", f, w, ids, gids, bias, valid, y,
@@ -229,7 +232,10 @@ def sparse_ce_backward(f, w, ids, gids, bias, valid, y, m, gz, gc, hit, *,
     seg_df, n_segs_df = _segments(
         n_atiles, sms // (-(-b // _BT) * -(-d // _DG)))
     bp = -(-b // 8) * 8
-    sid, order = torch.sort(ids, stable=True)
+    # the scatter's runs: an invalid column's dW_act row is +-0, so its key
+    # sorts it past every id and the kernel skips it
+    sid, order = torch.sort(torch.where(valid != 0, ids, _SKIP_ID),
+                            stable=True)
     fh, fl = torch.empty_like(f), torch.empty_like(f)   # f's TF32 halves
     fth = torch.empty((d, bp), device=dev, dtype=torch.float32)  # and f^T's
     ftl = torch.empty_like(fth)

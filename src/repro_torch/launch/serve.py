@@ -23,10 +23,14 @@ prints the prefill and decode times and tok/s. The zoo's feature retrieval
 an argparse error naming ROADMAP.md.
 
 It runs on the card (``--device cuda``, the default) in one process: a
-ring of one. The ``knn`` head serves through the full head's prediction,
-which it inherits, as in the JAX package (its graph is built once when the
-experiment starts). The other heads are not ported yet and exit with an
-argparse error naming ROADMAP.md.
+ring of one. Every head serves greedy (``--head``): the W-heads (full,
+knn, selective, sampled) through the nearest class weight, which knn,
+selective and sampled inherit from the full head, as in the JAX package
+(knn builds its graph and selective its tables once when the experiment
+starts); the sketch heads (mach, csoft) through their hashed-bucket
+decode. ``--topk`` and ``--index ivf`` retrieve against the [V, D] class
+matrix, which the sketch heads do not train: with them they raise, as in
+the JAX package.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --system paper \\
       --classes 1020250 --feat-dim 512 --topk 5 --batch 64
@@ -34,6 +38,8 @@ argparse error naming ROADMAP.md.
       --classes 4096 --topk 5 --replay 1.0 --cache 512 --max-wait-ms 2
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --classes 4096 --head knn --batch 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --classes 4096 --head csoft --batch 64
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --classes 4096 --topk 5 --index ivf
   PYTHONPATH=src python -m repro_torch.launch.serve --system zoo \\
@@ -46,9 +52,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-
-_NOT_PORTED = "is not ported to torch yet (see ROADMAP.md queue A)"
-
 
 def _run_replay(exp, args, telemetry=None) -> int:
     """Trace-driven serving through the engine."""
@@ -183,8 +186,6 @@ def main(argv=None):
         if args.prompt_len <= 0 or args.gen <= 0:
             p.error(f"--prompt-len and --gen must be positive, got "
                     f"{args.prompt_len} and {args.gen}")
-    if args.head not in ("full", "knn"):
-        p.error(f"--head {args.head} {_NOT_PORTED}")
 
     from repro_torch.telemetry import Tracer
 

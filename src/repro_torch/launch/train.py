@@ -3,14 +3,16 @@
 ``repro.launch.train`` for the paper system.
 
 ``--system paper`` trains the hybrid-parallel paper system (feature
-replicas + class-row shards) with the ``full`` or the ``knn`` head
-(``--head knn``, or its alias ``--knn``: k=16, k'=32, 10% active classes,
-the graph rebuilt every 100 steps, as the JAX launcher sets it), the FCCS
-learning rate and, with ``--fccs``, its batch growth through micro-batch
-accumulation. It runs on the card (``--device cuda``, the default) in one
-process: a ring of one. What is not ported yet exits with an argparse
-error naming ROADMAP.md: ``--system zoo``, the other heads, ``--dgc``,
-``--trunk cnn`` and the checkpoint flags.
+replicas + class-row shards) with any of the six softmax heads
+(``--head full|knn|selective|mach|sampled|csoft``, ``--knn`` an alias of
+``--head knn``) at the JAX launcher's settings: k=16, k'=32 and 10% active
+classes for knn and selective, the graph and the LSH tables rebuilt every
+100 steps, ``sampled_n = max(64, classes // 4)``, and the config's
+defaults for the rest. It runs the FCCS learning rate and, with
+``--fccs``, its batch growth through micro-batch accumulation, on the card
+(``--device cuda``, the default) in one process: a ring of one. What is
+not ported yet exits with an argparse error naming ROADMAP.md: ``--system
+zoo``, ``--dgc``, ``--trunk cnn`` and the checkpoint flags.
 
   PYTHONPATH=src python -m repro_torch.launch.train --system paper \\
       --classes 1020250 --feat-dim 512 --batch 256 --steps 4 --fccs
@@ -18,6 +20,8 @@ error naming ROADMAP.md: ``--system zoo``, the other heads, ``--dgc``,
       --classes 1020250 --feat-dim 512 --batch 256 --steps 4 --fccs
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --classes 512 --feat-dim 32 --steps 8 --batch 32 --fccs
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --head mach --lr 0.3 --classes 512 --feat-dim 32 --steps 8 --batch 32
 """
 from __future__ import annotations
 
@@ -74,8 +78,6 @@ def parse_args(argv=None):
         p.error("--system zoo " + _NOT_PORTED.format("A.9"))
     # --knn is a back-compat alias; an explicit non-default --head wins
     args.head = "knn" if (args.knn and args.head == "full") else args.head
-    if args.head not in ("full", "knn"):
-        p.error(f"--head {args.head} " + _NOT_PORTED.format("A.6"))
     if args.dgc:
         p.error("--dgc " + _NOT_PORTED.format("A.5"))
     if args.trunk != "feats":
@@ -99,6 +101,9 @@ def main(argv=None):
     if args.trace_out or args.metrics_out:
         telemetry = Tracer(metrics_path=args.metrics_out or None)
     try:
+        # sampled_n below the class count, so that the estimator (a
+        # partial draw + the logQ correction) is what runs, as in the JAX
+        # launcher
         hcfg = HeadConfig(softmax_impl=args.head, backend=args.backend,
                           knn_k=16, knn_kprime=32, active_frac=0.1,
                           rebuild_every=100,

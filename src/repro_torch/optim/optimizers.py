@@ -98,7 +98,9 @@ def lars(momentum: float = 0.9, weight_decay: float = 1e-4,
          trust_coef: float = 0.001, eps: float = 1e-9) -> Optimizer:
     """LARS [You et al. '17], the paper's FCCS local policy (§3.4). Per-leaf
     trust ratio: lr_local = trust * ||w|| / (||g|| + wd*||w||), from this
-    member's own block."""
+    member's own block, each norm over the whole local tensor (the sketch
+    heads' [R, B/P, D] block included, as the JAX package's norm of the
+    flattened leaf)."""
 
     def init(params):
         return OptState(step=0, mu=_zeros_like_tree(params))

@@ -79,8 +79,8 @@ def _exp_head_geometry(exp):
         if not head.params_are_class_weights:
             raise NotImplementedError(
                 f"the IVF index quantizes the [V, D] class matrix, which the "
-                f"{head.name!r} head does not train; use a W-head (see "
-                f"ROADMAP.md queue A.6)")
+                f"{head.name!r} head does not train; use a W-head "
+                f"(full/knn/selective/sampled)")
         return exp.state.head_params, head.n_valid
     if hasattr(exp, "par"):                                # zoo system
         raise NotImplementedError(

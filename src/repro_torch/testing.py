@@ -32,10 +32,13 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-def _my_rows(w: np.ndarray) -> torch.Tensor:
-    n = w.shape[0] // dist.world_size()
+def _my_rows(w: np.ndarray, axis: int = 0) -> torch.Tensor:
+    """This member's block of ``w`` along ``axis`` (0: class rows; 1: the
+    buckets of an [R, B, D] sketch)."""
+    n = w.shape[axis] // dist.world_size()
     r = dist.rank()
-    return torch.from_numpy(np.ascontiguousarray(w[r * n:(r + 1) * n]))
+    return torch.from_numpy(np.ascontiguousarray(
+        np.take(w, np.arange(r * n, (r + 1) * n), axis=axis)))
 
 
 def serve_bodies(f: np.ndarray, w: np.ndarray, *, k: int, n_queries: int,
@@ -112,18 +115,24 @@ def loss_body(f: np.ndarray, y: np.ndarray, w: np.ndarray, *,
 
 def paper_fit(head_cfg: dict, train_cfg: dict, fccs_cfg: dict,
               w0: np.ndarray, mu0: np.ndarray, *, steps: int, batch: int,
-              eval_inputs: dict, data_seed: int = 0, head_aux=()) -> dict:
+              eval_inputs: dict, data_seed: int = 0, head_aux=(),
+              classes: int = 0, draws=None) -> dict:
     """A CPU ``PaperExperiment`` on this member, started from the JAX
-    package's class matrix and LARS/SGD moment and, for the knn head, its
-    graph (``interop``), trained ``steps`` steps with FCCS batch growth on
-    ``numpy_batch`` data. Returns the history rows, the final class matrix
-    gathered over the ring, the evaluation accuracy, the weights_version
-    trail and the head's final aux state."""
+    package's head params and LARS/SGD moment and its aux state (the knn
+    graph, the LSH tables, the sketch hashes; ``interop``, laid out by the
+    head's ``aux_spec``), trained ``steps`` steps with FCCS batch growth on
+    ``numpy_batch`` data. ``classes`` is the class count (default: the rows
+    of the [V, D] ``w0``; the sketch heads' [R, B, D] params do not give
+    it). ``draws`` maps a sampled draw's salt (``baselines.sampled_salt``)
+    to the JAX package's draw for each member, which then replaces the
+    port's own. Returns the history rows, the final head params gathered
+    over the ring, the evaluation accuracy, the weights_version trail and
+    the head's final aux state."""
     from repro_torch import interop
     from repro_torch.api import Experiment
     from repro_torch.configs.base import FCCSConfig, TrainConfig
 
-    v, d = w0.shape
+    v, d = classes or w0.shape[0], w0.shape[-1]
     cfg = interop.head_config_from_dict(head_cfg)
     tcfg = TrainConfig(**train_cfg, fccs=FCCSConfig(**fccs_cfg))
     exp = Experiment.from_config(
@@ -133,16 +142,155 @@ def paper_fit(head_cfg: dict, train_cfg: dict, fccs_cfg: dict,
                                          seed=data_seed))
     exp.load_state(interop.paper_state_from_numpy(
         {}, w0, opt_state={"step": 0, "mu": ({}, mu0), "nu": None},
-        head_aux=head_aux, rank=dist.rank(), world_size=dist.world_size(),
-        device="cpu"))
+        head_aux=head_aux, aux_spec=exp.head.aux_spec(), rank=dist.rank(),
+        world_size=dist.world_size(), device="cpu"))
+    if draws is not None:
+        exp.head.draw = _injected_draw(draws)
     versions = [exp.weights_version]
     hist = exp.fit(steps, use_fccs_batch=True,
                    step_hook=lambda t: versions.append(exp.weights_version))
+    axis = 0 if exp.head.params_are_class_weights else 1
     return {"history": hist,
-            "w": _np(dist.all_gather(exp.state.w_head, dim=0)),
+            "w": _np(dist.all_gather(exp.state.w_head, dim=axis)),
             "eval": exp.evaluate(eval_inputs),
             "versions": versions + [exp.weights_version],
             "aux": [_np(a) for a in exp.state.head_aux]}
+
+
+def _draw_tensors(d):
+    """A draw given as numpy arrays (ids, valid, logq, logq_y,
+    sample_frac), as tensors."""
+    from repro_torch.core import baselines as bl
+    return bl.SampledDraw(*(torch.from_numpy(np.asarray(a)) for a in d))
+
+
+def _injected_draw(draws: dict):
+    """A sampled head's ``draw`` that returns, for each micro-batch, the
+    JAX package's draw of this member keyed by its salt."""
+    from repro_torch.core import baselines as bl
+
+    def draw(y_all, v_loc, step=None):
+        return _draw_tensors(draws[bl.sampled_salt(y_all, step)][
+            dist.rank()])
+    return draw
+
+
+# ---------------------------------------------------------------------------
+# the selective, MACH, sampled and CSoft heads' bodies
+# ---------------------------------------------------------------------------
+
+
+def head_loss_body(kind: str, f: np.ndarray, y: np.ndarray, w: np.ndarray,
+                   aux, *, backend: str, **kw) -> dict:
+    """A baseline head's loss body on this member, with the batch ``f``,
+    ``y`` on every member and the GLOBAL head params ``w`` (its rows, or
+    for ``kind="mach"`` the buckets of [R, B, D]): ``selective`` takes
+    ``aux`` = (planes, offsets [P, ...], classes [P, ...]), ``mach`` the
+    hashes [R, N], ``sampled`` each member's draw (a list of P tuples of
+    arrays); ``kw`` goes to the body. Returns loss, metrics, the head
+    gradient gathered over the ring and the feature gradient stacked over
+    the ring [P, b, D]."""
+    from repro_torch.core import baselines as bl
+    r = dist.rank()
+    axis = 1 if kind == "mach" else 0
+    wt = _my_rows(w, axis).requires_grad_(True)
+    ft = torch.from_numpy(f).requires_grad_(True)
+    yt = torch.from_numpy(y)
+    if kind == "selective":
+        planes, offsets, classes = aux
+        loss, metrics = bl.selective_softmax_local(
+            ft, yt, wt, torch.from_numpy(planes),
+            torch.from_numpy(np.ascontiguousarray(offsets[r])),
+            torch.from_numpy(np.ascontiguousarray(classes[r])),
+            global_batch=f.shape[0], backend=backend, **kw)
+    elif kind == "mach":
+        loss, metrics = bl.mach_softmax_local(
+            ft, yt, wt, torch.from_numpy(aux), global_batch=f.shape[0],
+            backend=backend)
+    elif kind == "sampled":
+        loss, metrics = bl.sampled_softmax_loss(
+            ft, yt, wt, _draw_tensors(aux[r]), global_batch=f.shape[0],
+            backend=backend, **kw)
+    else:
+        raise ValueError(f"unknown head body {kind!r}")
+    loss.backward()
+    return {"loss": _np(loss), **{k: _np(v) for k, v in metrics.items()},
+            "grad": _np(dist.all_gather(wt.grad, dim=axis)),
+            "grad_f": _np(dist.all_gather(ft.grad, dim=0, tiled=False))}
+
+
+def sketch_predict(f: np.ndarray, w: np.ndarray, hashes: np.ndarray) -> dict:
+    """``mach_predict_local`` and ``csoft_predict_local`` (min and mean) on
+    this member's buckets of the GLOBAL sketch ``w`` [R, B, D]."""
+    from repro_torch.core import baselines as bl
+    ft, wt, ht = torch.from_numpy(f), _my_rows(w, 1), torch.from_numpy(hashes)
+    return {"mach": _np(bl.mach_predict_local(ft, wt, ht)),
+            **{f"csoft_{agg}": _np(bl.csoft_predict_local(ft, wt, ht,
+                                                          agg=agg))
+               for agg in ("min", "mean")}}
+
+
+def sampled_draws(y: np.ndarray, *, v_loc: int, n_samples: int, seed: int,
+                  steps: tuple) -> dict:
+    """The port's own draws on this member for the labels ``y``: each
+    distribution at each step, twice (to show that a draw repeats), and at
+    the labels shifted by one."""
+    from repro_torch.core import baselines as bl
+    yt = torch.from_numpy(y)
+    out = {}
+    for dist_name in ("uniform", "log_uniform"):
+        kw = dict(v_loc=v_loc, n_samples=n_samples, distribution=dist_name,
+                  seed=seed)
+        for step in steps:
+            a = bl.sampled_draw(yt, step=step, **kw)
+            b = bl.sampled_draw(yt, step=step, **kw)
+            out[(dist_name, step)] = [_np(t) for t in a]
+            out[(dist_name, step, "again")] = [_np(t) for t in b]
+        out[(dist_name, "shifted")] = [
+            _np(t) for t in bl.sampled_draw(yt + 1, step=steps[0], **kw)]
+    return out
+
+
+def sampled_full_draw(f: np.ndarray, y: np.ndarray, w: np.ndarray, *,
+                      backend: str) -> dict:
+    """The sampled body with uniform draws of every class (``n_samples``
+    = V) beside ``full_softmax_local`` on this member's rows: loss and
+    head gradient of each, gathered over the ring."""
+    from repro_torch.core import baselines as bl
+    out = {}
+    for name in ("sampled", "full"):
+        wt = _my_rows(w).requires_grad_(True)
+        ft, yt = torch.from_numpy(f), torch.from_numpy(y)
+        if name == "sampled":
+            loss, metrics = bl.sampled_softmax_local(
+                ft, yt, wt, global_batch=f.shape[0], n_samples=w.shape[0],
+                distribution="uniform", step=3, backend=backend)
+            out["sample_frac"] = _np(metrics["sample_frac"])
+        else:
+            loss, _ = ss.full_softmax_local(ft, yt, wt,
+                                            global_batch=f.shape[0],
+                                            cosine_scale=16.0,
+                                            backend=backend)
+        loss.backward()
+        out[name] = (_np(loss), _np(dist.all_gather(wt.grad, dim=0)))
+    return out
+
+
+def selective_refresh(w: np.ndarray, head_cfg: dict) -> dict:
+    """The selective head's ``refresh`` on this member's rows of ``w``:
+    its tables, and those that ``build_sharded_lsh_tables`` makes from the
+    same rows through the refresh's planes."""
+    from repro_torch import interop
+    from repro_torch.api.experiment import paper_model_config
+    from repro_torch.api.heads import HeadState, make_head
+    from repro_torch.core import baselines as bl
+    head = make_head(paper_model_config("feats", w.shape[0], w.shape[1]),
+                     interop.head_config_from_dict(head_cfg))
+    wt = _my_rows(w)
+    planes, offsets, classes = head.refresh(HeadState(wt, ())).aux
+    rebuilt = bl.build_sharded_lsh_tables(wt, planes)
+    return {"planes": _np(planes), "offsets": _np(offsets),
+            "classes": _np(classes), "rebuilt": [_np(t) for t in rebuilt]}
 
 
 def knn_graph_build(w: np.ndarray, *, k: int, kprime: int) -> np.ndarray:
@@ -610,5 +758,10 @@ def run_all(cases: list) -> list:
                "knn_graph_build": knn_graph_build,
                "knn_loss_body": knn_loss_body, "ring_shift": ring_shift,
                "ivf_fit": ivf_fit, "ivf_serve": ivf_serve,
-               "ivf_recall": ivf_recall, "zoo_serve": zoo_serve}
+               "ivf_recall": ivf_recall, "zoo_serve": zoo_serve,
+               "head_loss_body": head_loss_body,
+               "sketch_predict": sketch_predict,
+               "sampled_draws": sampled_draws,
+               "sampled_full_draw": sampled_full_draw,
+               "selective_refresh": selective_refresh}
     return [workers[name](*args, **kwargs) for name, args, kwargs in cases]

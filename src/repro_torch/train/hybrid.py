@@ -28,7 +28,7 @@ from repro_torch.optim import apply_updates, make_optimizer, tree_leaves
 
 class HybridState(NamedTuple):
     fe_params: dict        # replicated
-    head_params: Any       # this member's row block of the head params
+    head_params: Any       # this member's block of the head params
     head_aux: Any
     opt_state: Any         # optim.OptState over (fe_params, head_params)
     dgc: Any               # None: DGC is not ported yet (ROADMAP.md A.5)
@@ -36,8 +36,10 @@ class HybridState(NamedTuple):
 
     @property
     def w_head(self):
-        """The [V/P, D] class-weight block, for heads whose params are one
-        tensor."""
+        """This member's block of the head params, one tensor for every
+        head: the [V/P, D] class-weight rows of the W-heads
+        (full/knn/selective/sampled), the [R, B/P, D] bucket block of the
+        sketch heads (mach/csoft)."""
         return self.head_params
 
 
@@ -46,7 +48,7 @@ def init_state(generator: torch.Generator, model_cfg: ModelConfig,
                rank: int = 0, device, head: Optional[SoftmaxHead] = None
                ) -> HybridState:
     """Fresh state of ring member ``rank`` of ``n_dev``: empty FE params for
-    the ``feats`` trunk, this member's rows of the head, and the
+    the ``feats`` trunk, this member's block of the head, and the
     optimizer's zero moments over both."""
     if model_cfg.family != "feats":
         raise NotImplementedError(
@@ -181,7 +183,8 @@ def _require_class_weights(head: SoftmaxHead):
     if not head.params_are_class_weights:
         raise NotImplementedError(
             f"top-k serving retrieves against the [V, D] class matrix, "
-            f"which the {head.name!r} head does not train; use a W-head")
+            f"which the {head.name!r} head does not train; use a W-head "
+            f"(full/knn/selective/sampled)")
 
 
 def _normalized(head_cfg, f, w):

@@ -136,8 +136,9 @@ class PaperTrainer:
             row = {"step": t, "lr": lr, "batch": self.hw_batch * n,
                    "loss": float(loss),
                    "acc": float(metrics["accuracy"])}
-            # the head's own metrics beyond accuracy and logz (knn:
-            # active_frac, label_recall), averaged over the micro-batches
+            # the head's own metrics beyond accuracy and logz (knn and
+            # selective: active_frac, label_recall; sampled: sample_frac),
+            # averaged over the micro-batches
             row.update({k: float(metrics[k]) for k in self.head.metrics_spec()
                         if k not in ("accuracy", "logz")})
             self.history.append(row)

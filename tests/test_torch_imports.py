@@ -119,9 +119,8 @@ def test_unported_parts_say_so():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         IVFIndex.fit(types.SimpleNamespace(par=None))      # a zoo experiment
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Experiment.from_config(
-            system="paper", classes=64, feat_dim=8, device="cpu",
-            head=port_base.HeadConfig(softmax_impl="selective"))
+        Experiment.from_config(system="paper", classes=64, feat_dim=8,
+                               device="cpu", trunk="cnn")
 
 
 def _fields(cls):

@@ -265,7 +265,6 @@ def test_launcher_serves_on_the_cpu(tmp_path, capsys):
     ["--max-wait-ms", "-1"],
     ["--system", "zoo", "--topk", "5"],
     ["--index", "ivf"],
-    ["--head", "selective"],
     ["--backend", "pallas"],
 ])
 def test_launcher_rejects_bad_and_unported_args(argv, capsys):
@@ -273,7 +272,7 @@ def test_launcher_rejects_bad_and_unported_args(argv, capsys):
         port_launcher.main(argv)
     assert e.value.code == 2                   # argparse error, before torch
     err = capsys.readouterr().err
-    if "zoo" in argv or "selective" in argv:
+    if "zoo" in argv:
         assert "not ported" in err
     if "ivf" in argv:
         assert "pass --topk" in err

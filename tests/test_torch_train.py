@@ -370,8 +370,6 @@ def test_train_launcher_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,queue", [
     (["--system", "zoo"], "A.9"),
-    (["--head", "selective"], "A.6"),
-    (["--head", "sampled"], "A.6"),
     (["--dgc"], "A.5"),
     (["--trunk", "cnn"], "A.5"),
     (["--ckpt-dir", "x"], "A.7"),
