@@ -131,7 +131,34 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    sparse pair through the sparse gates, bit-identical, times and bounds.
    Then the train launcher with each head for 2 steps, and the serve
    launcher's greedy serving with each head, in this process.
-10. IVF serving (the main path of the IVF slice): ``ivf_rerank`` against
+10. the paper's own trainer (the main path of the cnn slice):
+   ``sku100m_resnet.config_1m()`` (ResNet-50, D = 512, 1,020,250 classes,
+   bf16 convs over fp32 params) through ``Experiment.from_config(system=
+   "paper", model=...)`` on 224 x 224 synthetic images in micro-batches of
+   128, the ``full`` head on the ``kernel`` backend, LARS, FCCS from 256
+   to 1,024 images (micro-batch counts 2, 2, 2, 4, 8, 8) and
+   ``DGCConfig(enabled=True, backend="kernel")`` at its defaults (sparsity
+   0.999, momentum 0.9, factor masking, chunks of 2,048, 4 MiB groups).
+   Every counter is set to 0 just before ``fit(6)`` and read just after:
+   ``ce_forward`` and ``ce_backward`` 26 times each, ``stage1_topk`` 26 a
+   step (one a group of the trunk's gradients), nothing else; finite
+   losses, the trunk and W moved. On one step's FE gradients
+   ``dgc_exchange`` on the kernel backend against the ref backend: the
+   26 thresholds bit-equal, and equal to a full sort's; the updates, u and
+   v equal; 26 launches. The exchange timed (host, median of 5) and
+   profiled, its two stages timed group by group (stage 1 beside its
+   bound and ``torch.topk``; stage 2's sort). The step at n_micro 1 and 2
+   (median of 5), the same step without DGC, one step taken apart by CUDA
+   events (trunk forward and backward, head forward and backward,
+   ``dgc_exchange``, LARS) and one profiled; compression from the step's
+   metrics (about 500). ``evaluate`` and greedy and top-5 ``serve`` of 64
+   image queries (timed through the engine, counters read). Then 2 steps
+   of the trunk in fp32 on the kernel and the ref backend (head and DGC):
+   losses within rtol 1e-4. Last, the train launcher with ``--trunk cnn
+   --dgc --backend kernel`` at the same class count (its reduced ResNet on
+   32 x 32 images) with the full head and with ``--head knn``, in this
+   process.
+11. IVF serving (the main path of the IVF slice): ``ivf_rerank`` against
    its plain version at ragged shapes (pads, rows with fewer real
    candidates than k, rows with nothing, repeated candidates, ids past the
    shard, A not a multiple of the kernel's segment, k up to 32,
@@ -162,9 +189,9 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    the port's copy of the JAX test's construction) are installed, the
    index refit, and recall@5 against the exact scan printed at nprobe 2 and
    31 for 256 near-prototype queries (reported, not gated).
-11. the serve launcher with ``--index ivf --topk 5 --replay 0.5`` at the
+12. the serve launcher with ``--index ivf --topk 5 --replay 0.5`` at the
    same width.
-12. flash attention: ``flash_attention`` against its plain version at the
+13. flash attention: ``flash_attention`` against its plain version at the
    JAX test's sweep (``tests/test_flash_kernel.py``: ragged Sq != T
    non-causal, a window of 100, Dh 32/64/128) plus Dh 96 and 256, rows
    with no valid key (Sq=300, T=100, causal, window 50: exactly 0) and
@@ -175,7 +202,7 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    faults, bit-identical across two runs, timed beside its plain version and
    ``scaled_dot_product_attention`` on the [8, 9, 2000, 64] view with
    ``enable_gqa`` (and on KV heads expanded beforehand).
-13. zoo serving (the main path of the zoo slice):
+14. zoo serving (the main path of the zoo slice):
    ``Experiment.from_config(system="zoo", arch="smollm_135m")`` at its
    full width (30 layers, bf16 over fp32 params, random weights from seed
    0) on the ``kernel`` backend; every kernel's counter is set to 0 just
@@ -190,7 +217,7 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    serves), tok/s, one profiled prefill and decode step (the flash
    kernel's share, the device time of copies and of casts, and the idle
    share) and peak memory.
-14. the serve launcher with ``--system zoo`` at the same shapes; it must
+15. the serve launcher with ``--system zoo`` at the same shapes; it must
    return 0 and launch ``flash_attention``.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
@@ -254,6 +281,20 @@ FMA_KERNELS = ("ivf_rerank", "topk_stage1")
 # DGC's stage 1 (src/repro/core/sparsify.py): k of each 2,048-wide chunk
 # of one group of 512 rows, |N(0, 1)| values
 DGC_ROWS, DGC_CHUNK, DGC_K = 512, 2048, 1048
+# the paper's own trainer (ResNet-50 + DGC): 224 x 224 images in
+# micro-batches of 128 (the fp32 trunk's kernel vs ref losses too); the FE
+# gradients pack into 26 groups of 4 MiB, one stage1_topk launch each
+RES_HW, RES_MICRO, RES_DGC_GROUPS = 224, 128, 26
+# device kernels by part, by name: the DGC selection's two stages, the CE
+# pair, the trunk's convolutions and GroupNorm
+KERNEL_GROUPS = {"stage 1 (stage1_topk)": ("topk_stage1",),
+              "stage 2 sort": ("radixsort", "radix_sort", "sort"),
+              "CE pair": ("ce_fwd", "ce_bwd", "ce_softmax", "ce_dw",
+                          "ce_df"),
+              "convolutions": ("conv", "xmma", "cudnn", "gemm", "wgrad",
+                               "dgrad", "fprop"),
+              "GroupNorm": ("group_norm", "groupnorm", "rowwisemoments",
+                            "computefusedparams", "gammabeta")}
 IVF_TOL = 1e-5       # ivf_rerank: fp32 dot products of D terms in another order
 RECALL_QUERIES = 256
 # flash_attention vs its plain version (the TPU kernel's arithmetic: p =
@@ -347,10 +388,12 @@ def host_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def profile_ms(torch, fn) -> dict:
+def profile_ms(torch, fn, groups=None) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its host wall-clock,
     the device time of the kernels it ran, the device's idle share, and
-    the costliest kernels by name."""
+    the costliest kernels by name; with ``groups`` ({label: substrings}),
+    also the device time of the kernels whose full name holds one of a
+    label's substrings (case-insensitive)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -380,10 +423,23 @@ def profile_ms(torch, fn) -> dict:
     if busy <= 0:
         fail("the profiler saw no device time in a profiled call")
     top = sorted(kernels.items(), key=lambda k: -k[1])[:8]
-    return {"wall_ms": wall, "device_busy_ms": busy,
-            "idle_share": max(0.0, 1.0 - busy / wall),
-            "copy_ms": copy_ms, "cast_ms": cast_ms,
-            "top_kernels_ms": dict(top)}
+    out = {"wall_ms": wall, "device_busy_ms": busy,
+           "idle_share": max(0.0, 1.0 - busy / wall),
+           "copy_ms": copy_ms, "cast_ms": cast_ms,
+           "top_kernels_ms": dict(top)}
+    if groups:
+        by = dict.fromkeys(groups, 0.0)
+        for e in prof.key_averages():
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or e.self_device_time_total <= 0):
+                continue
+            name = e.key.lower()
+            for label, subs in groups.items():
+                if any(sub.lower() in name for sub in subs):
+                    by[label] += e.self_device_time_total / 1e3
+                    break
+        out["device_ms_by_group"] = by
+    return out
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -1864,6 +1920,491 @@ def heads_phase(torch, np, counters, ce, sp):
 
 
 # ---------------------------------------------------------------------------
+# the paper's own trainer: ResNet-50 + DGC (the main path of the cnn slice)
+# ---------------------------------------------------------------------------
+
+
+def _cnn_experiment(backend: str, *, dtype: str = "bfloat16",
+                    batch=None, dgc: bool = True):
+    """``sku100m_resnet.config_1m()`` (ResNet-50, D=512, 1,020,250 classes;
+    ``dtype`` its compute type over fp32 params) with the ``full`` head at
+    scale 16, LARS, FCCS growth from 256 to 1,024 images and ``DGCConfig()``
+    at its defaults, everything on ``backend``; 224 x 224 synthetic
+    images, micro-batches of ``batch``."""
+    from repro_torch.api import Experiment
+    from repro_torch.configs import sku100m_resnet
+    from repro_torch.configs.base import (DGCConfig, FCCSConfig, HeadConfig,
+                                          TrainConfig)
+    from repro_torch.data.synthetic import sku_image_batch
+
+    model = dataclasses.replace(sku100m_resnet.config_1m(), dtype=dtype)
+    return Experiment.from_config(
+        system="paper", model=model, batch=batch or RES_MICRO, seed=0,
+        device=DEVICE, log_every=1,
+        data_fn=lambda t, b: sku_image_batch(t, b, V, hw=RES_HW,
+                                             device=DEVICE),
+        head=HeadConfig(softmax_impl="full", backend=backend),
+        train=TrainConfig(optimizer="lars", dgc=DGCConfig(
+            enabled=dgc, backend=backend), fccs=FCCSConfig(
+            eta0=0.4, t_warm=2, b0=BTRAIN, b_min=BTRAIN, b_max=4 * BTRAIN,
+            t_ini=2, t_final=6)))
+
+
+def _fe_grads(torch, exp, inputs, events=None):
+    """One micro-batch's loss and gradients through the experiment's trunk
+    and head (the body ``hybrid.make_train_step`` differentiates), with
+    CUDA events after the trunk forward, the head forward, the head
+    backward (a hook on the features' gradient) and the trunk backward
+    when ``events`` (five) are given. -> (loss, FE gradient tree, head
+    gradient)."""
+    from repro_torch.optim import tree_leaves, tree_map
+    from repro_torch.train import hybrid
+
+    st = exp.state
+    fe = tree_map(lambda p: p.detach().requires_grad_(True), st.fe_params)
+    hp = st.head_params.detach().requires_grad_(True)
+    rec = (lambda i: events[i].record()) if events else (lambda i: None)
+    rec(0)
+    f = hybrid._features(exp.model_cfg, fe, inputs)
+    rec(1)
+    loss, _ = exp.head.loss_local(f, inputs["labels"], hp, st.head_aux,
+                                  global_batch=f.shape[0], step=st.step)
+    rec(2)
+    if events:
+        f.register_hook(lambda g: events[3].record())
+    leaves = tree_leaves(fe)
+    grads = torch.autograd.grad(loss, leaves + [hp])
+    rec(4)
+    it = iter(grads[:-1])
+    return loss.detach(), tree_map(lambda _: next(it), fe), grads[-1]
+
+
+def ce_cnn_rows(torch, ce, exp):
+    """ce_forward / ce_backward at the cnn path's own shapes: f one
+    micro-batch's trunk features [RES_MICRO, 512] in bf16, normalised and
+    upcast as the full head's kernel body hands them over, W the trained
+    [1,020,250, 512] shard normalised, the head's cosine scale, the
+    labels on this shard. Both gates, bit-identical runs, the emulated
+    1xTF32 fault (which must fail both gates here too), times and bounds.
+    Returns the two rows."""
+    from repro_torch.core.sharded_softmax import _normalize
+    from repro_torch.train import hybrid
+    from repro_torch.train.trainer import to_device
+
+    inputs = to_device(exp.data_fn(10**5 + 3, RES_MICRO), exp.device)
+    with torch.no_grad():
+        f = _normalize(hybrid._features(exp.model_cfg, exp.state.fe_params,
+                                        inputs)).float().contiguous()
+        w = _normalize(exp.state.w_head).float().contiguous()
+    y = inputs["labels"].to(torch.int32)
+    b, v = f.shape[0], w.shape[0]
+    scale = exp.head_cfg.cosine_scale
+    fwd_err, fwd_z = check_ce(torch, ce, f, w, y, v, scale, "cnn features")
+    m, z, _, _ = ce.ce_forward(f, w, y, limit=v, scale=scale)
+    gz = 1.0 / (b * z)
+    gc_ = torch.full_like(z, -1.0 / b)
+    parts = {}
+    for term, gct in (("loss", gc_), ("softmax term", torch.zeros_like(gc_))):
+        for part, r in check_ce_bwd(torch, ce, f, w, y, m, gz, gct, v, scale,
+                                    f"cnn features, {term}").items():
+            parts[f"{part}, {term}"] = r
+    fault = tf32_fault(torch, ce, f, w, y, m, gz, gc_, v, scale,
+                       f"the cnn features (B={b})")
+    fwd_ms = cuda_ms(torch, lambda: ce.ce_forward(f, w, y, limit=v,
+                                                  scale=scale), 10)
+    fwd_plain = cuda_ms(torch, lambda: ce.ce_forward_plain(f, w, y, v, scale),
+                        3)
+    bwd_ms = cuda_ms(torch, lambda: ce.ce_backward(f, w, y, m, gz, gc_,
+                                                   limit=v, scale=scale), 5)
+    bwd_plain = cuda_ms(torch, lambda: ce.ce_backward_plain(
+        f, w, y, m, gz, gc_, v, scale), 3)
+    lib = cuda_ms(torch, lambda: f @ w.T, 10)
+    fb = ce_bounds(4 * (b * D + v * D + b) + 16 * b, 1, b, v)
+    bb = ce_bounds(4 * (2 * b * D + 2 * v * D + 4 * b), 3, b, v)
+    log(f"cnn phase: CE pair on the trunk's features [{b}, {D}] x W [{v}, "
+        f"{D}] scale {scale:g}: ce_forward {fwd_ms:.3f} ms (3xTF32 bound "
+        f"{fb['bound_ms']:.3f} by {fb['bound_by']}), plain {fwd_plain:.3f}; "
+        f"ce_backward {bwd_ms:.3f} ms (bound {bb['bound_ms']:.3f} by "
+        f"{bb['bound_by']}), plain {bwd_plain:.3f}; f @ W.T {lib:.3f}; m/corr "
+        f"max abs err {fwd_err:.3g}, z rel {fwd_z:.3g}; backward by part "
+        f"{parts}")
+    del f, w, m, z, gz, gc_, inputs
+    torch.cuda.empty_cache()
+    shape = f"f[{b},{D}] (trunk features) W[{v},{D}] scale {scale:g}"
+    lib_name = "f @ W.T (cuBLAS fp32, TF32 off)"
+    return (dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib,
+                 library=lib_name, max_abs_err=fwd_err, z_max_rel_err=fwd_z,
+                 **fb, shape=shape),
+            dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib,
+                 library=lib_name,
+                 max_abs_err=max(e for e, _ in parts.values()),
+                 rel_err_by_part={k: r for k, (_, r) in parts.items()},
+                 tf32_fault=fault, **bb, shape=shape))
+
+
+def dgc_selection_times(torch, dc, exp, g_fe):
+    """DGC's selection on one step's gradients taken apart, group by
+    group, each part timed by CUDA events over 5 repeats: stage 1 (the
+    ``stage1_topk`` launch over the group's chunks), stage 2 (the stable
+    sort of the survivors), the library's ``torch.topk`` of the chunks,
+    and the bound (each |v| read once, the survivors written: 4 + 4 bytes
+    each; one compare an element). Thresholds from a full ``torch.sort``
+    of each group beside them."""
+    from repro_torch.core import sparsify as sp_
+    from repro_torch.kernels import ops as kops
+
+    cfg = exp.train_cfg.dgc
+    leaves, _ = sp_.flatten(g_fe)
+    u_l, _ = sp_.flatten(exp.state.dgc.u)
+    v_l, _ = sp_.flatten(exp.state.dgc.v)
+    rows, full_sort, checked = [], [], set()
+    n_max = max(sum(leaves[i].numel() for i in grp)
+                for grp in sp_.group_leaves(leaves, cfg.group_bytes))
+    for grp in sp_.group_leaves(leaves, cfg.group_bytes):
+        vflat = torch.cat([v_l[i].reshape(-1) + torch.add(
+            leaves[i].float().reshape(-1), u_l[i].reshape(-1),
+            alpha=cfg.momentum) for i in grp])
+        n = vflat.shape[0]
+        k = max(1, int(n * (1.0 - cfg.sparsity)))
+        kk = min(k, cfg.chunk)
+        x = vflat.abs()
+        full_sort.append(float(sp_.topk_threshold_ref(x, k)))
+        # the survivors against the plain version: the largest group (whole
+        # chunks kept, kk = chunk) and the first of 1,048,576 entries
+        if n in (n_max, 1 << 20) and n not in checked:
+            check_topk(torch, dc, x[None, :], kk, cfg.chunk,
+                       f"DGC group of {n} entries, k {kk}")
+            checked.add(n)
+        sub_v, _ = dc.stage1_topk(x[None, :], kk, chunk=cfg.chunk)
+        flat = sub_v.reshape(-1)
+        s1 = cuda_ms(torch, lambda: dc.stage1_topk(x[None, :], kk,
+                                                   chunk=cfg.chunk), 5)
+        s2 = cuda_ms(torch, lambda: kops.topk_stable(flat, k), 5)
+        nch = -(-n // cfg.chunk)
+        padded = torch.nn.functional.pad(x, (0, nch * cfg.chunk - n),
+                                         value=float("-inf"))
+        lib = cuda_ms(torch, lambda: torch.topk(padded.view(nch, -1), kk,
+                                                dim=1), 5)
+        rows.append({"n": n, "k": k, "kk": kk, "survivors": flat.numel(),
+                     "stage1_ms": s1, "stage2_ms": s2, "library_ms": lib})
+        del vflat, x, sub_v, flat, padded
+    if checked != {n_max, 1 << 20}:
+        fail(f"DGC groups of {sorted(checked)} entries held against "
+             f"stage1_topk_plain, not {n_max} and {1 << 20}")
+    log(f"cnn phase: stage1_topk equals its plain version on DGC groups of "
+        f"{sorted(checked)} entries")
+    n_all = sum(r["n"] for r in rows)
+    surv = sum(r["survivors"] for r in rows)
+    bound, by = bound_ms(4 * n_all + 8 * surv, float(n_all))
+    return rows, full_sort, {
+        "groups": len(rows), "entries": n_all, "survivors": surv,
+        "stage1_ms": sum(r["stage1_ms"] for r in rows),
+        "stage2_sort_ms": sum(r["stage2_ms"] for r in rows),
+        "library_ms": sum(r["library_ms"] for r in rows),
+        "bound_ms": bound, "bound_by": by}
+
+
+def dgc_gate(torch, dc, exp):
+    """``dgc_exchange`` on one real step's FE gradients (a micro-batch of
+    RES_MICRO images, the state after ``fit``) on the kernel backend against
+    the ref backend: the thresholds bit-equal (and equal to a full sort's),
+    the updates, u and v equal, as the masks then are; the kernel exchange
+    launches ``stage1_topk`` once a group. Then the exchange timed, its
+    selection taken apart and one exchange profiled."""
+    from repro_torch.core import sparsify as sp_
+    from repro_torch.train.trainer import to_device
+
+    inputs = to_device(exp.data_fn(10**5 + 4, RES_MICRO), exp.device)
+    _, g_fe, _ = _fe_grads(torch, exp, inputs)
+    cfg = exp.train_cfg.dgc
+    out = {}
+    for backend in ("kernel", "ref"):
+        before = dc.LAUNCHES
+        out[backend] = sp_.dgc_exchange(g_fe, exp.state.dgc,
+                                        dataclasses.replace(cfg,
+                                                            backend=backend))
+        torch.cuda.synchronize()
+        out[backend + "_launches"] = dc.LAUNCHES - before
+    (uk, sk, ik), (ur, sr, ir) = out["kernel"], out["ref"]
+    n_groups = int(ik["thresholds"].numel())
+    if out["kernel_launches"] != n_groups or out["ref_launches"] != 0:
+        fail(f"the kernel exchange launched stage1_topk "
+             f"{out['kernel_launches']} times for {n_groups} groups (ref: "
+             f"{out['ref_launches']})")
+    if not torch.equal(ik["thresholds"], ir["thresholds"]):
+        fail(f"DGC thresholds differ between the kernel and the ref backend: "
+             f"{ik['thresholds'].tolist()} / {ir['thresholds'].tolist()}")
+    rows, full_sort, sel = dgc_selection_times(torch, dc, exp, g_fe)
+    if ik["thresholds"].tolist() != full_sort:
+        fail(f"DGC thresholds differ from a full sort's: "
+             f"{ik['thresholds'].tolist()} / {full_sort}")
+    for name, a, b in (("update", uk, ur), ("u", sk.u, sr.u),
+                       ("v", sk.v, sr.v)):
+        for x, y in zip(sp_.flatten(a)[0], sp_.flatten(b)[0]):
+            if not torch.equal(x, y):
+                fail(f"DGC {name} differs between the kernel and the ref "
+                     f"backend")
+    sent = int(float(ik["wire_bytes"]) / 8)
+    state = exp.state.dgc
+    xchg_ms = host_ms(torch, lambda: sp_.dgc_exchange(g_fe, state, cfg), 5)
+    prof = profile_ms(torch, lambda: sp_.dgc_exchange(g_fe, state, cfg),
+                      groups=KERNEL_GROUPS)
+    log(f"cnn phase: DGC on one step's gradients ({n_groups} groups, "
+        f"{sel['entries']} entries): thresholds bit-equal between backends "
+        f"and to a full sort; updates, u, v equal; {sent} entries sent; "
+        f"compression {float(ik['compression']):.1f}; stage1_topk "
+        f"{out['kernel_launches']} launches")
+    log(f"cnn phase: dgc_exchange {xchg_ms:.3f} ms (host, synchronised); "
+        f"stage 1 {sel['stage1_ms']:.3f} ms over {n_groups} groups (bound "
+        f"{sel['bound_ms']:.4f} by {sel['bound_by']}; torch.topk "
+        f"{sel['library_ms']:.3f}), stage 2 sort {sel['stage2_sort_ms']:.3f} "
+        f"ms of {sel['survivors']} survivors; profiled exchange {prof}")
+    log("cnn phase: groups (n, k, survivors, stage 1 ms, stage 2 ms): "
+        + "; ".join(f"{r['n']} {r['k']} {r['survivors']} "
+                    f"{r['stage1_ms']:.4f} {r['stage2_ms']:.4f}"
+                    for r in rows))
+    del out, uk, sk, ur, sr, g_fe
+    torch.cuda.empty_cache()
+    return {"groups": n_groups, "thresholds_bit_equal": True,
+            "compression": float(ik["compression"]),
+            "wire_bytes": float(ik["wire_bytes"]),
+            "dense_bytes": float(ik["dense_bytes"]),
+            "exchange_ms": xchg_ms, "exchange_profile": prof,
+            "selection": sel, "group_rows": rows}
+
+
+def cnn_step_breakdown(torch, exp, reps: int = 3):
+    """One n_micro = 1 step taken apart by CUDA events (median of
+    ``reps``): trunk forward, head forward, head backward, trunk backward,
+    ``dgc_exchange``, LARS and the update. The state is not changed."""
+    from repro_torch.core import sparsify as sp_
+    from repro_torch.optim import apply_updates, make_optimizer
+    from repro_torch.train.trainer import to_device
+
+    inputs = to_device(exp.data_fn(10**5 + 5, RES_MICRO), exp.device)
+    opt = make_optimizer(exp.train_cfg)
+    names = ("trunk forward", "head forward", "head backward",
+             "trunk backward", "dgc_exchange", "LARS + update")
+    times = {k: [] for k in names}
+    st = exp.state
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        _, g_fe, g_hp = _fe_grads(torch, exp, inputs, ev)
+        upd, _, _ = sp_.dgc_exchange(g_fe, st.dgc, exp.train_cfg.dgc)
+        ev[5].record()
+        with torch.no_grad():
+            updates, _ = opt.update((upd, g_hp), st.opt_state,
+                                    (st.fe_params, st.head_params), 0.4)
+            apply_updates((st.fe_params, st.head_params), updates)
+        ev[6].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(names):
+            times[k].append(ev[i].elapsed_time(ev[i + 1]))
+        del g_fe, g_hp, upd, updates
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def cnn_phase(torch, np, counters, ce, dc):
+    """The cnn slice's main path: ``fit(6)`` of ResNet-50 + DGC at the
+    1M-class width with every counter reset just before and read just
+    after, then the gates (the CE pair and stage 1 at this path's own
+    shapes) and the timings. Returns (launches, numbers, {kernel: row at
+    this path's shapes})."""
+    from repro_torch.train.trainer import to_device
+
+    exp = _cnn_experiment("kernel")
+    fe0 = [t.clone() for t in _fe_leaves(exp)]
+    w0 = exp.state.w_head.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(counters)
+    t0 = time.perf_counter()
+    hist = exp.fit(FIT_STEPS, use_fccs_batch=True)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: v for k, v in _read(counters).items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batches = [r["batch"] for r in hist]
+    log(f"cnn phase: fit({FIT_STEPS}) in {fit_s:.2f} s, batches {batches}, "
+        f"launches {launches}, peak memory {peak_gb:.2f} GB")
+    n_micro = sum(b // RES_MICRO for b in batches)
+    want = {"ce_forward": n_micro, "ce_backward": n_micro,
+            "stage1_topk": RES_DGC_GROUPS * FIT_STEPS}
+    if launches != want:
+        fail(f"the cnn + DGC training path launched {launches}, not {want}")
+    if batches != [BTRAIN * n for n in (1, 1, 1, 2, 4, 4)]:
+        fail(f"FCCS batches {batches}")
+    if n_micro != 26:
+        fail(f"{n_micro} micro-steps of {RES_MICRO}, not 2+2+2+4+8+8")
+    losses = [r["loss"] for r in hist]
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite cnn training losses {losses}")
+    # a leaf none of whose entries was sent may stay (a GroupNorm bias of
+    # zeros, where weight decay has nothing to pull)
+    moved = sum(bool((a != b).any()) for a, b in zip(_fe_leaves(exp), fe0))
+    if not (moved and float((exp.state.w_head - w0).abs().max()) > 0):
+        fail("cnn training left the trunk or the class weights unchanged")
+    log(f"cnn phase: losses {losses}; {moved} of {len(fe0)} trunk leaves "
+        f"moved")
+    del fe0, w0
+    ce_rows = dict(zip(("ce_forward", "ce_backward"),
+                       ce_cnn_rows(torch, ce, exp)))
+    dgc = dgc_gate(torch, dc, exp)
+
+    # the step at n_micro = 1 and 2, with and without DGC; one profiled
+    from repro_torch.train import hybrid
+    steps, metrics = {}, {}
+    for n in (1, 2):
+        step = exp.trainer._get_step(n)
+        inputs = to_device(exp.data_fn(10**5 + n, RES_MICRO * n), exp.device)
+
+        def one_step(step=step, inputs=inputs):
+            exp.trainer.state, _, m = step(exp.trainer.state, inputs, 0.4)
+            metrics.update(m)
+
+        steps[n] = host_ms(torch, one_step, 5)
+        if n == 1:
+            prof = profile_ms(torch, one_step, groups=KERNEL_GROUPS)
+        del inputs
+    compression = float(metrics["comm_dense_bytes"]
+                        / metrics["comm_wire_bytes"])
+    dense_cfg = dataclasses.replace(exp.train_cfg, dgc=dataclasses.replace(
+        exp.train_cfg.dgc, enabled=False))
+    dense_step = hybrid.make_train_step(exp.model_cfg, exp.head_cfg,
+                                        dense_cfg, n_micro=1, head=exp.head)
+    inputs = to_device(exp.data_fn(10**5 + 1, RES_MICRO), exp.device)
+
+    def dense_one():
+        exp.trainer.state = dense_step(exp.trainer.state, inputs, 0.4)[0]
+
+    dense_ms = host_ms(torch, dense_one, 5)
+    del inputs
+    parts = cnn_step_breakdown(torch, exp)
+    log(f"cnn phase: step n_micro=1 {steps[1]:.2f} ms "
+        f"({RES_MICRO / steps[1] * 1e3:.0f} images/s), n_micro=2 "
+        f"{steps[2]:.2f} ms ({2 * RES_MICRO / steps[2] * 1e3:.0f} images/s); "
+        f"without DGC {dense_ms:.2f} ms; compression {compression:.1f}; "
+        f"parts (ms) {parts}; profiled: {prof}")
+    if not compression > 100:
+        fail(f"DGC compression {compression}: expected ~1 / (1 - 0.999)")
+
+    # evaluate and serve image queries (greedy and top-5) at batch 64
+    _reset(counters)
+    acc = exp.evaluate()
+    ev_launch = _read(counters)
+    queries = exp.data_fn(10**6 + 7, B)
+    serve_ms, serve_launch = {}, {}
+    for name, kw in (("greedy", {}), ("top5", {"top_k": K})):
+        _reset(counters)
+        ids = exp.serve(queries, **kw)
+        serve_launch[name] = {k: v for k, v in _read(counters).items() if v}
+        if np.asarray(ids).shape != ((B,) if not kw else (B, K)) or not (
+                0 <= np.asarray(ids).min() and np.asarray(ids).max() < V):
+            fail(f"cnn {name} serve returned ids of shape "
+                 f"{np.asarray(ids).shape}")
+        # through the engine (the images made by data_fn, copied to the
+        # host, submitted one by one, re-stacked and copied back), and the
+        # single-shot step on images already on the card
+        serve_ms[name] = host_ms(torch, lambda kw=kw: exp.serve(
+            batch=B, **kw), 5)
+        serve_ms[name + "_on_card"] = host_ms(
+            torch, lambda kw=kw: exp.serve(queries, **kw), 5)
+    serve_ms["data_fn"] = host_ms(torch, lambda: exp.data_fn(10**6, B), 5)
+    serve_prof = {
+        "engine": profile_ms(torch, lambda: exp.serve(batch=B)),
+        "on_card": profile_ms(torch, lambda: exp.serve(queries))}
+    greedy_ids = exp.serve(queries)
+    top_ids = exp.serve(queries, top_k=K)
+    if not np.array_equal(greedy_ids, top_ids[:, 0]):
+        fail("cnn serve: greedy ids differ from the top-1 of the top-5")
+    if not (ev_launch["ce_forward"] and serve_launch["greedy"].get(
+            "ce_forward") and serve_launch["top5"].get("stage1_topk")):
+        fail(f"cnn evaluate / serve launches {ev_launch} {serve_launch}")
+    log(f"cnn phase: evaluate() {acc} (launches "
+        f"{ {k: v for k, v in ev_launch.items() if v} }); serve {B} image "
+        f"queries through the engine greedy {serve_ms['greedy']:.2f} ms, "
+        f"top-5 {serve_ms['top5']:.2f} ms; on the card greedy "
+        f"{serve_ms['greedy_on_card']:.2f} ms, top-5 "
+        f"{serve_ms['top5_on_card']:.2f} ms; making the images "
+        f"{serve_ms['data_fn']:.2f} ms; launches {serve_launch}; profiled "
+        f"greedy {serve_prof}")
+    del exp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # kernel vs ref backends (head and DGC) with the trunk in fp32
+    out = {}
+    for backend in ("kernel", "ref"):
+        e = _cnn_experiment(backend, dtype="float32")
+        h = e.fit(2, use_fccs_batch=True)
+        torch.cuda.synchronize()
+        out[backend] = ([r["loss"] for r in h], [r["batch"] for r in h],
+                        e.state.w_head[:4].clone())
+        del e
+        gc.collect()
+        torch.cuda.empty_cache()
+    (lk, bk, wk), (lr_, br, wr) = out["kernel"], out["ref"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lr_))
+    log(f"cnn phase: fp32 trunk, kernel vs ref losses {lk} / {lr_} (max rel "
+        f"{loss_rel:.3g}), batches {bk}")
+    if loss_rel > 1e-4 or bk != br:
+        fail(f"cnn kernel and ref losses differ by rel {loss_rel:.3g}")
+    launcher = cnn_launchers_phase(torch)
+    return launches, {
+        "cnn_fit_s": fit_s, "cnn_fit_losses": losses, "cnn_fit_batches":
+        batches, "cnn_peak_memory_gb": peak_gb, "cnn_leaves_moved": moved,
+        "cnn_step_ms_n1": steps[1], "cnn_step_ms_n2": steps[2],
+        "cnn_images_per_s_n1": RES_MICRO / steps[1] * 1e3,
+        "cnn_images_per_s_n2": 2 * RES_MICRO / steps[2] * 1e3,
+        "cnn_step_ms_n1_without_dgc": dense_ms,
+        "cnn_step_parts_ms": parts, "cnn_step_profile": prof,
+        "cnn_compression": compression, "cnn_dgc": dgc,
+        "cnn_evaluate_accuracy": acc, "cnn_serve_ms": serve_ms,
+        "cnn_serve_launches": serve_launch, "cnn_serve_profile": serve_prof,
+        "cnn_fp32_kernel_vs_ref_loss_max_rel": loss_rel,
+        "cnn_launchers": launcher}, ce_rows
+
+
+def _fe_leaves(exp):
+    from repro_torch.core import sparsify as sp_
+    return sp_.flatten(exp.state.fe_params)[0]
+
+
+def cnn_launchers_phase(torch):
+    """``repro_torch.launch.train --trunk cnn --dgc --backend kernel`` at
+    the 1M-class width (the launcher's reduced ResNet, D=128, on 32 x 32
+    images) for 4 FCCS steps, with the full head and with ``--head knn``,
+    in this process: each must return 0 and print a finite accuracy."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as train_launcher
+
+    res = {}
+    for head in ("full", "knn"):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = train_launcher.main(
+                ["--trunk", "cnn", "--dgc", "--backend", "kernel", "--head",
+                 head, "--classes", str(V), "--batch", str(BTRAIN),
+                 "--steps", "4", "--fccs", "--optimizer", "lars",
+                 "--device", DEVICE])
+        wall = time.perf_counter() - t0
+        acc = [line for line in out.getvalue().splitlines()
+               if "final eval accuracy" in line]
+        if rc != 0 or not acc or not math.isfinite(float(acc[-1].split()[-1])):
+            fail(f"train launcher --trunk cnn --dgc --head {head} returned "
+                 f"{rc}: {out.getvalue()[-500:]}")
+        log(f"cnn phase: train launcher --trunk cnn --dgc --head {head}: "
+            f"{acc[-1]} ({wall:.1f} s)")
+        res[head] = {"s": wall, "accuracy": float(acc[-1].split()[-1])}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # IVF serving (the main path of the IVF slice) and its launcher
 # ---------------------------------------------------------------------------
 
@@ -2756,6 +3297,24 @@ def main() -> int:
                                                          ce, sp)
     for name, shapes in head_rows.items():
         kernels[name].update(shapes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cnn_launches, e2e["cnn"], cnn_rows = cnn_phase(torch, np, counters, ce,
+                                                   dc)
+    for name, row in cnn_rows.items():
+        kernels[name]["cnn_b128"] = row
+    sel = e2e["cnn"]["cnn_dgc"]["selection"]
+    kernels["stage1_topk"].update(
+        dgc_step_groups=sel["groups"], dgc_step_ms=sel["stage1_ms"],
+        dgc_step_bound_ms=sel["bound_ms"], dgc_step_bound_by=sel["bound_by"],
+        dgc_step_library_ms=sel["library_ms"],
+        dgc_step_stage2_sort_ms=sel["stage2_sort_ms"],
+        dgc_exchange_ms=e2e["cnn"]["cnn_dgc"]["exchange_ms"],
+        dgc_exchange_share=sel["stage1_ms"]
+        / e2e["cnn"]["cnn_dgc"]["exchange_ms"])
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels["flash_attention"] = flash_kernel_phase(torch, fa)
     zoo_launches, zoo_e2e = zoo_phase(torch, np, counters, fa)
     e2e.update(zoo_e2e)
@@ -2768,13 +3327,14 @@ def main() -> int:
                       "knn_training": knn_launches.get(name, 0),
                       "ivf_serving": ivf_launches.get(name, 0),
                       "zoo_serving": zoo_launches.get(name, 0),
+                      "dgc_training": cnn_launches.get(name, 0),
                       **{path: n.get(name, 0)
                          for path, n in head_launches.items()}}
                for name in kernels}
     rows = []
     for name, k in kernels.items():
         path = next(p for p in ("zoo_serving", "knn_training", "training",
-                                "ivf_serving", "serving")
+                                "dgc_training", "ivf_serving", "serving")
                     if by_path[name][p] or p == "serving")
         rows.append({**k, "launches": by_path[name][path],
                      "launches_path": path, "launches_by_path": by_path[name],

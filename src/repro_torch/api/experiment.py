@@ -7,6 +7,10 @@ serving paths, and the zoo's greedy token serving.
   >>> exp.serve(batch=64)                                    # greedy ids
   >>> exp.serve(batch=64, top_k=5, return_scores=True)       # (ids, scores)
   >>> exp.serve(batch=64, top_k=5, index="ivf")              # IVF top-k
+  >>> cnn = Experiment.from_config(         # ResNet-50 + DGC, on images
+  ...     system="paper", model=sku100m_resnet.config_1m(), batch=128,
+  ...     train=TrainConfig(optimizer="lars", dgc=DGCConfig(
+  ...         enabled=True, backend="kernel")))
   >>> zoo = Experiment.from_config(system="zoo", arch="smollm_135m")
   >>> zoo.serve(prompt_len=2000, gen=48, batch=8)            # tokens [8, 48]
 
@@ -18,7 +22,9 @@ inputs, and top-k through the IVF index), ``serving_engine``,
 system, with any of the six softmax heads (``HeadConfig.softmax_impl``:
 full, knn, selective, mach, sampled, csoft; the sketch heads mach and
 csoft serve greedy only, since top-k and the IVF index retrieve against a
-[V, D] class matrix they do not train); the zoo's prefill + greedy decode
+[V, D] class matrix they do not train), on the ``feats`` trunk or the
+paper's ResNet (``trunk="cnn"``, or a ``family="cnn"`` model config), with
+or without DGC (``TrainConfig.dgc``); the zoo's prefill + greedy decode
 (``ZooExperiment.serve``) for the dense decoders. Checkpoints (``ckpt_dir``, ``resume``), the zoo
 trainer and the zoo's feature retrieval come with later slices (ROADMAP.md
 queue A).
@@ -30,6 +36,7 @@ fp32 (TF32 is switched off), as in the JAX reference.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
@@ -68,15 +75,17 @@ def _validate_serve_args(n_classes: int, batch: Optional[int],
 
 def paper_model_config(trunk: str = "feats", classes: int = 4096,
                        feat_dim: int = 64) -> ModelConfig:
-    """The paper system's trunk config (only the ``feats`` trunk is
-    ported)."""
+    """The paper system's trunk config: raw features or the reduced SKU
+    ResNet (in fp32; its width is the config's, ``feat_dim`` is not
+    read)."""
     if trunk == "feats":
         return ModelConfig(name="paper-feats", family="feats", n_layers=0,
                            d_model=feat_dim, n_heads=0, n_kv_heads=0,
                            d_ff=0, vocab_size=classes, dtype="float32")
     if trunk == "cnn":
-        raise NotImplementedError(
-            "the cnn trunk is not ported to torch yet (ROADMAP.md queue A)")
+        from repro_torch.configs import sku100m_resnet
+        return dataclasses.replace(sku100m_resnet.reduced(classes),
+                                   dtype="float32")
     raise ValueError(f"unknown paper trunk {trunk!r}")
 
 
@@ -167,11 +176,15 @@ class PaperExperiment(Experiment):
 
     def _default_data_fn(self):
         from repro_torch.data.synthetic import (ClassificationStream,
-                                                sku_feature_batch)
-        stream = ClassificationStream(self.model_cfg.vocab_size,
-                                      self.model_cfg.d_model,
-                                      device=self.device)
-        return lambda t, b: sku_feature_batch(t, b, stream)
+                                                sku_feature_batch,
+                                                sku_image_batch)
+        n_classes = self.model_cfg.vocab_size
+        if self.model_cfg.family == "feats":
+            stream = ClassificationStream(n_classes, self.model_cfg.d_model,
+                                          device=self.device)
+            return lambda t, b: sku_feature_batch(t, b, stream)
+        return lambda t, b: sku_image_batch(t, b, n_classes,
+                                            device=self.device)
 
     @property
     def head(self):
@@ -340,8 +353,6 @@ class ZooExperiment(Experiment):
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
                  ckpt_keep: int = 0, log_every: int = 10,
                  seed: int = 0, telemetry=None, device=None):
-        import dataclasses
-
         from repro_torch.api.heads import make_head
         from repro_torch.models import decoder, lm
 

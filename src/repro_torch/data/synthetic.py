@@ -1,6 +1,6 @@
-"""Deterministic synthetic data: the port of the SKU feature stream and
-the LM token stream (``lm_batch``) of the JAX package's
-``data/synthetic.py``.
+"""Deterministic synthetic data: the port of the SKU feature stream, the
+SKU image batch of the cnn trunk (``sku_image_batch``) and the LM token
+stream (``lm_batch``) of the JAX package's ``data/synthetic.py``.
 
 Each class has a unit prototype vector drawn around one of n/64 cluster
 centres (so neighbouring classes are confusable); samples are noisy
@@ -67,6 +67,34 @@ def sku_feature_batch(step: int, batch_size: int,
                       stream: ClassificationStream):
     f, y = stream.batch(step, batch_size)
     return {"features": f, "labels": y}
+
+
+def class_pattern(labels, hw: int):
+    """The per-class low-frequency pattern of ``sku_image_batch``: labels
+    [b] -> [b, hw, hw, 3] fp32 on the labels' device."""
+    lin = torch.linspace(0, 1, hw, device=labels.device)
+    yy, xx = torch.meshgrid(lin, lin, indexing="ij")
+    lab = labels.float()[:, None, None]
+    two_pi = 2 * math.pi
+    return torch.stack([
+        torch.sin(two_pi * ((lab % 7 + 1) * xx[None] + (lab % 3) * 0.2)),
+        torch.cos(two_pi * ((lab % 5 + 1) * yy[None])),
+        torch.sin(two_pi * ((lab % 11 + 1) * (xx + yy)[None] * 0.5)),
+    ], dim=-1)
+
+
+def sku_image_batch(step: int, batch_size: int, n_classes: int,
+                    hw: int = 32, seed: int = 0, noise: float = 0.3, *,
+                    device="cpu"):
+    """Class-coded image batch for the CNN trunk: a per-class low-frequency
+    pattern + noise, drawn on ``device``. {"images": [b, hw, hw, 3] fp32,
+    "labels": [b] int64}."""
+    g = _generator(device, seed + 4242, step)
+    labels = torch.randint(0, n_classes, (batch_size,), generator=g,
+                           device=device)
+    base = class_pattern(labels, hw)
+    imgs = base + noise * torch.randn(base.shape, generator=g, device=device)
+    return {"images": imgs, "labels": labels}
 
 
 def lm_batch(step: int, batch_size: int, seq_len: int, vocab: int,

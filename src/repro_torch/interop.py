@@ -6,7 +6,7 @@ JAX package's parameters and optimizer state, taken to the host as numpy
 arrays (``np.asarray(exp.state.head_params)``, and the head's aux state
 ``exp.state.head_aux``: the knn graph, the LSH tables, the sketch hashes),
 become the port's ``HybridState``, so a JAX run's state continues in the
-port. A fitted JAX ``IVFIndex``'s
+port: the cnn trunk's nested params and moments, and DGC's u and v, too. A fitted JAX ``IVFIndex``'s
 ``state_to_save()``, taken to the host the same way, becomes a ring
 member's ``IVFIndex``, and a zoo model's params (``jax.device_get`` of a
 JAX ``ZooExperiment``'s ``params``, blocks stacked on a leading [L] axis)
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import HeadConfig, ModelConfig
+from repro_torch.core import sparsify as sp
 from repro_torch.models.layers import ParamDict
 from repro_torch.optim import OptState
 from repro_torch.serving.index import IVFIndex
@@ -71,24 +72,37 @@ def _head_axis(a: np.ndarray) -> int:
                      f"[R, B, D] sketch, got shape {a.shape}")
 
 
+def _tree(node, device, row: Optional[int] = None):
+    """A tree of dicts and lists over numpy arrays -> the same tree over
+    fp32 tensors (``row``: keep that row of each leaf's leading axis)."""
+    if isinstance(node, dict):
+        return {k: _tree(v, device, row) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_tree(v, device, row) for v in node)
+    a = np.asarray(node)
+    return _tensor(a if row is None else a[row], device)
+
+
 def _moments(pair, rank: int, world_size: int, device):
-    """(fe moments dict, GLOBAL head moment) -> this member's."""
+    """(fe moments tree, GLOBAL head moment) -> this member's."""
     if pair is None:
         return None
     fe, head = pair
     head = np.asarray(head)
-    return ({k: _tensor(v, device) for k, v in fe.items()},
+    return (_tree(fe, device),
             _tensor(_row_block(head, rank, world_size, _head_axis(head)),
                     device))
 
 
 def paper_state_from_numpy(fe_params: dict, head_params, *,
                            opt_state: Optional[dict] = None, step: int = 0,
-                           head_aux=(), aux_spec=None, rank: int = 0,
-                           world_size: int = 1, device) -> HybridState:
+                           head_aux=(), aux_spec=None, dgc=None,
+                           rank: int = 0, world_size: int = 1,
+                           device) -> HybridState:
     """The port's ``HybridState`` for ring member ``rank`` of
     ``world_size``, from the JAX package's state as numpy arrays:
-    ``fe_params`` (replicated; empty for the ``feats`` trunk), the GLOBAL
+    ``fe_params`` (replicated: empty for the ``feats`` trunk, the nested
+    ``{"trunk": ...}`` tree of the cnn trunk, HWIO kernels), the GLOBAL
     head params, of which this member keeps its block (the rows of a [V,
     D] class matrix, the buckets of the sketch heads' [R, B, D]), and
     optionally the optimizer state ``{"step": int, "mu": (fe moments,
@@ -101,13 +115,15 @@ def paper_state_from_numpy(fe_params: dict, head_params, *,
     head's graph, the selective head's CSR tables), or ``"replicated"``
     and kept whole (the LSH planes, the sketch heads' hash tables). Without
     ``aux_spec`` every entry is sharded. Without ``opt_state`` the state
-    carries none: it serves, and ``load_state`` of it cannot train."""
+    carries none: it serves, and ``load_state`` of it cannot train.
+    ``dgc`` is the JAX ``DGCState`` as ``{"u": tree, "v": tree}``, each
+    leaf with a leading [world_size] axis, of which this member keeps row
+    ``rank``; without it the state carries no DGC state."""
     if not 0 <= rank < world_size:
         raise ValueError(f"rank {rank} is not on a ring of {world_size}")
     w = np.asarray(head_params)
     axis = _head_axis(w)
-    fe = {k: torch.as_tensor(np.asarray(v)).to(device)
-          for k, v in fe_params.items()}
+    fe = _tree(fe_params, device)
     block = _tensor(_row_block(w, rank, world_size, axis), device)
     opt = None
     if opt_state is not None:
@@ -134,7 +150,17 @@ def paper_state_from_numpy(fe_params: dict, head_params, *,
             raise ValueError(f"head_aux leading axis {a.shape[0]} is not the "
                              f"ring of {world_size}")
         aux.append(torch.tensor(a[rank], device=device))   # a copy
-    return HybridState(fe, block, tuple(aux), opt, None, int(step))
+    dgc_state = None
+    if dgc is not None:
+        for name in ("u", "v"):
+            for leaf in sp.flatten(dgc[name])[0]:
+                if np.shape(leaf)[:1] != (world_size,):
+                    raise ValueError(
+                        f"dgc {name} leaf of shape {np.shape(leaf)} has no "
+                        f"leading ring axis of {world_size}")
+        dgc_state = sp.DGCState(u=_tree(dgc["u"], device, rank),
+                                v=_tree(dgc["v"], device, rank))
+    return HybridState(fe, block, tuple(aux), opt, dgc_state, int(step))
 
 
 def ivf_index_from_numpy(tree: dict, *, rank: int = 0, world_size: int = 1,

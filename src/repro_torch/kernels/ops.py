@@ -3,7 +3,7 @@
 its backward, ``fused_ce``, ``fused_ce_stats``, ``sparse_ce_stats``,
 ``dist_topk``, ``ivf_rerank`` (and ``ivf_rerank_probed``, the IVF serve's
 entry), ``flash_attention``, row-wise and flat
-divide-and-conquer top-k).
+divide-and-conquer top-k, and DGC's threshold ``topk_threshold``).
 
 ``ce_shard_stats`` and ``sparse_ce_stats`` are ``torch.autograd.Function``s
 over per-row online-softmax statistics ``(m, z, corr, amax)``, as the JAX
@@ -52,6 +52,13 @@ def topk_dc(x, k: int, *, chunk: int = 2048):
     flat_i = (sub_i + base).reshape(-1)
     vals, pos = topk_stable(flat_v, min(k, flat_v.shape[0]))      # stage 2
     return vals, flat_i[pos.long()]
+
+
+def topk_threshold(x_abs, k: int, *, chunk: int = 2048):
+    """k-th largest value (DGC's threshold) through ``topk_dc``: on a CUDA
+    tensor longer than ``chunk``, stage 1 is the ``stage1_topk`` kernel."""
+    vals, _ = topk_dc(x_abs, k, chunk=chunk)
+    return vals[-1]
 
 
 def topk_rows(x, k: int, *, chunk: int = 2048):

@@ -10,9 +10,13 @@ classes for knn and selective, the graph and the LSH tables rebuilt every
 100 steps, ``sampled_n = max(64, classes // 4)``, and the config's
 defaults for the rest. It runs the FCCS learning rate and, with
 ``--fccs``, its batch growth through micro-batch accumulation, on the card
-(``--device cuda``, the default) in one process: a ring of one. What is
-not ported yet exits with an argparse error naming ROADMAP.md: ``--system
-zoo``, ``--dgc``, ``--trunk cnn`` and the checkpoint flags.
+(``--device cuda``, the default) in one process: a ring of one.
+``--trunk cnn`` trains the reduced SKU ResNet on 32 x 32 synthetic images
+(its width is the config's; ``--feat-dim`` is not read), and ``--dgc``
+sparsifies the feature extractor's gradients as the JAX launcher does
+(sparsity 0.99, chunks of 2,048, the threshold on ``--backend``'s top-k).
+What is not ported yet exits with an argparse error naming ROADMAP.md:
+``--system zoo`` and the checkpoint flags.
 
   PYTHONPATH=src python -m repro_torch.launch.train --system paper \\
       --classes 1020250 --feat-dim 512 --batch 256 --steps 4 --fccs
@@ -22,6 +26,8 @@ zoo``, ``--dgc``, ``--trunk cnn`` and the checkpoint flags.
       --classes 512 --feat-dim 32 --steps 8 --batch 32 --fccs
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --head mach --lr 0.3 --classes 512 --feat-dim 32 --steps 8 --batch 32
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --trunk cnn --dgc --classes 512 --steps 4 --batch 16 --fccs
 """
 from __future__ import annotations
 
@@ -78,10 +84,6 @@ def parse_args(argv=None):
         p.error("--system zoo " + _NOT_PORTED.format("A.9"))
     # --knn is a back-compat alias; an explicit non-default --head wins
     args.head = "knn" if (args.knn and args.head == "full") else args.head
-    if args.dgc:
-        p.error("--dgc " + _NOT_PORTED.format("A.5"))
-    if args.trunk != "feats":
-        p.error(f"--trunk {args.trunk} " + _NOT_PORTED.format("A.5"))
     if (args.ckpt_dir or args.ckpt_every is not None
             or args.ckpt_keep is not None or args.resume
             or args.resume_reshard):
@@ -94,7 +96,8 @@ def main(argv=None):
     args = parse_args(argv)
 
     from repro_torch.api import Experiment
-    from repro_torch.configs.base import FCCSConfig, HeadConfig, TrainConfig
+    from repro_torch.configs.base import (DGCConfig, FCCSConfig, HeadConfig,
+                                          TrainConfig)
     from repro_torch.telemetry import Tracer
 
     telemetry = None
@@ -112,7 +115,9 @@ def main(argv=None):
                           b0=args.batch, b_min=args.batch,
                           b_max=args.batch * 8,
                           t_ini=args.steps // 4, t_final=args.steps)
-        tcfg = TrainConfig(optimizer=args.optimizer, fccs=fcfg)
+        tcfg = TrainConfig(optimizer=args.optimizer, fccs=fcfg,
+                           dgc=DGCConfig(enabled=args.dgc, sparsity=0.99,
+                                         chunk=2048, backend=args.backend))
         exp = Experiment.from_config(
             system="paper", trunk=args.trunk, classes=args.classes,
             feat_dim=args.feat_dim, batch=args.batch, head=hcfg, train=tcfg,

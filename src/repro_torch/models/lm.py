@@ -9,9 +9,12 @@ family:
   decode_window / init_decode_state
 
 The head weight is what the greedy token's sharded argmax runs over
-(``core.sharded_softmax.serve_logits_local``). The encdec, cnn and feats
-families (and the moe / ssm / hybrid stacks) raise, naming ROADMAP.md:
-the paper system's feature trunk lives in ``api.experiment``.
+(``core.sharded_softmax.serve_logits_local``). The ``cnn`` family is the
+paper's ResNet trunk (``models/resnet.py``): a plain dict ``{"trunk",
+"head"}`` whose ``backbone`` takes ``{"images": [B, H, W, 3]}``. The
+encdec and feats families (and the moe / ssm / hybrid stacks) raise,
+naming ROADMAP.md: the paper system's ``feats`` trunk lives in
+``train.hybrid``.
 """
 from __future__ import annotations
 
@@ -21,15 +24,28 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import decoder as dec_lib
+from repro_torch.models import resnet as resnet_lib
 from repro_torch.models.layers import (ParamDict, _dense_init,
                                        apply_embedding, apply_norm,
                                        init_embedding, init_norm)
 
 
+def require_ported(cfg: ModelConfig) -> None:
+    """Raise for a family this module cannot build: the cnn trunk, and the
+    decoder stacks ``models.decoder`` has."""
+    if cfg.family != "cnn":
+        dec_lib.require_ported(cfg)
+
+
 def init_model(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:
     """Random params on ``gen``'s device: embedding, blocks, ``ln_f`` and,
-    for untied embeddings, ``head`` [V, D]."""
-    dec_lib.require_ported(cfg)
+    for untied embeddings, ``head`` [V, D]. The cnn family: a dict of the
+    ``trunk`` and the ``head`` [V, D]."""
+    require_ported(cfg)
+    if cfg.family == "cnn":
+        return {"head": _dense_init(gen, (cfg.vocab_size, cfg.d_model),
+                                    in_axis=1),
+                "trunk": resnet_lib.init_resnet(gen, cfg)}
     p = {"embed": init_embedding(gen, cfg),
          "blocks": dec_lib.init_blocks(gen, cfg),
          "ln_f": init_norm(cfg, device=gen.device)}
@@ -40,6 +56,8 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:
 
 def head_weight(params, cfg: ModelConfig):
     """The classification head W [V, D]."""
+    if cfg.family == "cnn":
+        return params["head"]
     if not cfg.tie_embeddings:
         return params.head
     return params.embed.table
@@ -49,7 +67,12 @@ def backbone(params, cfg: ModelConfig, inputs, *, want_cache: bool = False,
              cache_window: Optional[int] = None, backend: str = "ref"):
     """-> (hidden [B,S,D], aux scalar, caches or None). ``backend`` selects
     the attention's kernels (``layers.multihead_attention``)."""
-    dec_lib.require_ported(cfg)
+    require_ported(cfg)
+    if cfg.family == "cnn":
+        feat = resnet_lib.apply_resnet(params["trunk"], cfg,
+                                       inputs["images"].to(
+                                           getattr(torch, cfg.dtype)))
+        return feat, torch.zeros((), device=feat.device), None
     tokens = inputs["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = apply_embedding(params.embed, cfg, tokens)

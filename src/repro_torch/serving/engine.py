@@ -230,7 +230,8 @@ class ServingEngine:
                        nprobe: Optional[int] = None,
                        telemetry=None) -> "ServingEngine":
         """Build an engine over a paper-system ``Experiment``. Queries are
-        single feature embeddings ``[D]``; ``top_k=None`` serves greedy
+        single feature embeddings ``[D]`` (the ``feats`` trunk) or images
+        ``[H, W, 3]`` (the cnn trunk); ``top_k=None`` serves greedy
         class ids, ``top_k=k`` serves ``(ids [k], scores [k])`` per
         request.
 

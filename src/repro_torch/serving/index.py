@@ -266,10 +266,14 @@ class IVFIndex:
     @classmethod
     def state_from_restore(cls, tree: dict, *, device=None) -> "IVFIndex":
         """Rebuild an index from ``state_to_save``'s dict, its tensors
-        copied onto ``device`` (default: where they are)."""
+        copied onto ``device``: ``None`` means ``"cuda"`` (raising without
+        a GPU), as for every entry point; pass ``device="cpu"`` for the
+        CPU."""
+        from repro_torch.api.experiment import resolve_device
+
+        device = resolve_device(device)
         cent = torch.as_tensor(tree["centroids"], dtype=torch.float32)
         members = torch.as_tensor(tree["members"], dtype=torch.int32)
-        device = device or cent.device
         meta = tree["meta"]
         return cls(centroids=cent.to(device, copy=True),
                    members=members.to(device, copy=True),

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch import dist
 from repro_torch.core import sharded_softmax as ss
+from repro_torch.data import synthetic
 
 BACKENDS = ("ref", "kernel")
 
@@ -95,6 +96,20 @@ def numpy_batch(t: int, b: int, *, classes: int, dim: int,
     labels = rng.integers(0, classes, b).astype(np.int32)
     noise = rng.standard_normal((b, dim)).astype(np.float32)
     return {"features": protos[labels] + np.float32(0.3) * noise,
+            "labels": labels}
+
+
+def numpy_image_batch(t: int, b: int, *, classes: int, hw: int,
+                      seed: int = 0) -> dict:
+    """A deterministic image batch for step ``t`` of ``b`` rows, made with
+    numpy so both packages can be fed the same arrays: the synthetic
+    stream's per-class pattern (``data.synthetic.class_pattern``) plus
+    noise. {"images": [b, hw, hw, 3] fp32, "labels": [b] int32}."""
+    rng = np.random.default_rng((seed + 3) * 1_000_003 + t)
+    labels = rng.integers(0, classes, b).astype(np.int32)
+    base = synthetic.class_pattern(torch.from_numpy(labels), hw).numpy()
+    noise = rng.standard_normal(base.shape)
+    return {"images": (base + 0.3 * noise).astype(np.float32),
             "labels": labels}
 
 
@@ -321,6 +336,99 @@ def knn_loss_body(f: np.ndarray, y: np.ndarray, w: np.ndarray, graph: tuple,
     return {"loss": _np(loss), **{k: _np(v) for k, v in metrics.items()},
             "grad": _np(dist.all_gather(wt.grad, dim=0)),
             "grad_f": _np(dist.all_gather(ft.grad, dim=0, tiled=False))}
+
+
+def _np_tree(tree):
+    from repro_torch.optim import tree_map
+    return tree_map(_np, tree)
+
+
+def dgc_rounds(grads: list, dgc_cfg: dict) -> list:
+    """``core.sparsify.dgc_exchange`` on this member for each round of
+    ``grads`` (a list of rounds, each a list of one gradient tree per
+    member), the state carried from round to round. Returns each round's
+    update, u, v and info as numpy."""
+    from repro_torch.configs.base import DGCConfig
+    from repro_torch.core import sparsify as sp
+    from repro_torch.optim import tree_map
+
+    cfg = DGCConfig(**dgc_cfg)
+    mine = [tree_map(torch.from_numpy, g[dist.rank()]) for g in grads]
+    state = sp.init_dgc_state(mine[0])
+    out = []
+    for g in mine:
+        upd, state, info = sp.dgc_exchange(g, state, cfg,
+                                           n_workers=dist.world_size())
+        out.append({"update": _np_tree(upd), "u": _np_tree(state.u),
+                    "v": _np_tree(state.v),
+                    **{k: _np(v) for k, v in info.items()}})
+    return out
+
+
+def cnn_fit(init: dict, head_cfg: dict, train_cfg: dict, *, steps: int,
+            batch: int, classes: int, hw: int) -> dict:
+    """A CPU ``PaperExperiment`` of the reduced SKU ResNet (``trunk="cnn"``)
+    on this member, started from the JAX experiment's state (``init``:
+    ``fe``, ``w0``, ``mu`` = (fe moments, head moment), and ``dgc`` = {"u",
+    "v"} with the ring axis, or None) through ``interop``, trained
+    ``steps`` steps with FCCS batch growth on ``numpy_image_batch`` data.
+    ``train_cfg`` holds ``TrainConfig``'s fields with ``fccs`` and ``dgc``
+    as dicts. Returns the history rows, the final head params gathered over
+    the ring, the final FE params and DGC v of this member."""
+    from repro_torch import interop
+    from repro_torch.api import Experiment
+    from repro_torch.configs.base import DGCConfig, FCCSConfig, TrainConfig
+
+    tcfg = dict(train_cfg)
+    tcfg = TrainConfig(**{**tcfg, "fccs": FCCSConfig(**tcfg["fccs"]),
+                          "dgc": DGCConfig(**tcfg["dgc"])})
+    exp = Experiment.from_config(
+        system="paper", trunk="cnn", classes=classes, batch=batch,
+        head=interop.head_config_from_dict(head_cfg), train=tcfg,
+        device="cpu", log_every=0,
+        data_fn=lambda t, b: numpy_image_batch(t, b, classes=classes, hw=hw))
+    exp.load_state(interop.paper_state_from_numpy(
+        init["fe"], init["w0"],
+        opt_state={"step": 0, "mu": init["mu"], "nu": None},
+        dgc=init["dgc"], rank=dist.rank(), world_size=dist.world_size(),
+        device="cpu"))
+    hist = exp.fit(steps, use_fccs_batch=True)
+    dgc = exp.state.dgc
+    return {"history": hist,
+            "w": _np(dist.all_gather(exp.state.w_head, dim=0)),
+            "fe": _np_tree(exp.state.fe_params),
+            "v": None if dgc is None else _np_tree(dgc.v)}
+
+
+def cnn_serve(init: dict, head_cfg: dict, *, classes: int, images,
+              labels, k: int) -> dict:
+    """Evaluation and serving of the reduced SKU ResNet on this member from
+    the JAX experiment's state: ``evaluate`` on (images, labels), greedy and
+    top-k ``serve`` on the explicit images, and both through a serving
+    engine (each image a query, padded micro-batches of 4)."""
+    from repro_torch import interop
+    from repro_torch.api import Experiment
+
+    exp = Experiment.from_config(
+        system="paper", trunk="cnn", classes=classes, batch=images.shape[0],
+        head=interop.head_config_from_dict(head_cfg), device="cpu",
+        log_every=0)
+    exp.load_state(interop.paper_state_from_numpy(
+        init["fe"], init["w0"], rank=dist.rank(),
+        world_size=dist.world_size(), device="cpu"))
+    inputs = {"images": images, "labels": labels}
+    out = {"eval": exp.evaluate(inputs), "greedy": exp.serve(inputs),
+           "topk": exp.serve(inputs, top_k=k, return_scores=True)}
+    for name, top_k in (("engine_greedy", None), ("engine_topk", k)):
+        eng = exp.serving_engine(top_k=top_k, max_batch=4, max_wait_ms=0.0,
+                                 cache=None)
+        for q in images:
+            eng.submit(q)
+        done = sorted(eng.drain(), key=lambda r: r.rid)
+        out[name] = (np.stack([r.ids for r in done]),
+                     None if top_k is None
+                     else np.stack([r.scores for r in done]))
+    return out
 
 
 def collectives() -> dict:
@@ -763,5 +871,7 @@ def run_all(cases: list) -> list:
                "sketch_predict": sketch_predict,
                "sampled_draws": sampled_draws,
                "sampled_full_draw": sampled_full_draw,
-               "selective_refresh": selective_refresh}
+               "selective_refresh": selective_refresh,
+               "dgc_rounds": dgc_rounds, "cnn_fit": cnn_fit,
+               "cnn_serve": cnn_serve}
     return [workers[name](*args, **kwargs) for name, args, kwargs in cases]

@@ -5,8 +5,14 @@ Every member of the ring (``repro_torch.dist``) is a data-parallel replica
 of the feature extractor AND one row block of the class matrix. A step
 function here is what one member runs; with a process group of P members
 every member calls it with the same arguments (the global batch), exactly
-as a JAX shard_map body sees one device's shard of them. The train step
-comes with the training slice.
+as a JAX shard_map body sees one device's shard of them.
+
+The feature extractor is the ``feats`` trunk (precomputed features, no
+params) or the paper's ResNet (``cnn``, ``models/resnet.py``) on
+``{"images": [B, H, W, 3]}``. Its gradients cross the ring once a step:
+a dense all-reduce, or with ``TrainConfig.dgc.enabled`` the DGC exchange
+(``core.sparsify.dgc_exchange``), whose u and v are this member's
+``HybridState.dgc``.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ from repro_torch.core.sharded_softmax import (_normalize, mask_padded_rows,
                                               serve_topk_batched_local,
                                               serve_topk_ivf_batched_local,
                                               serve_topk_local)
+from repro_torch.models import lm
+from repro_torch.models import resnet as resnet_lib
 from repro_torch.optim import apply_updates, make_optimizer, tree_leaves
 
 
@@ -31,7 +39,7 @@ class HybridState(NamedTuple):
     head_params: Any       # this member's block of the head params
     head_aux: Any
     opt_state: Any         # optim.OptState over (fe_params, head_params)
-    dgc: Any               # None: DGC is not ported yet (ROADMAP.md A.5)
+    dgc: Optional[sp.DGCState]   # this member's u, v; None without DGC
     step: int
 
     @property
@@ -47,27 +55,28 @@ def init_state(generator: torch.Generator, model_cfg: ModelConfig,
                head_cfg: HeadConfig, train_cfg: TrainConfig, n_dev: int, *,
                rank: int = 0, device, head: Optional[SoftmaxHead] = None
                ) -> HybridState:
-    """Fresh state of ring member ``rank`` of ``n_dev``: empty FE params for
-    the ``feats`` trunk, this member's block of the head, and the
-    optimizer's zero moments over both."""
-    if model_cfg.family != "feats":
-        raise NotImplementedError(
-            f"the {model_cfg.family!r} trunk is not ported to torch yet "
-            f"(see ROADMAP.md queue A)")
-    sp.require_dense(train_cfg.dgc)
+    """Fresh state of ring member ``rank`` of ``n_dev``: the FE params
+    (none for the ``feats`` trunk; the ResNet's for ``cnn``), this
+    member's block of the head, the optimizer's zero moments over both,
+    and with DGC its zero u and v over the FE params."""
+    _input_structure(model_cfg)          # a trunk the paper system takes
     head = head or make_head(model_cfg, head_cfg)
-    hs = head.init(generator, n_dev, rank=rank, device=device)
     fe_params: dict = {}
+    if model_cfg.family != "feats":
+        # the trunk alone: the fc is this member's head shard, built below
+        fe_params = {"trunk": resnet_lib.init_resnet(generator, model_cfg)}
+    hs = head.init(generator, n_dev, rank=rank, device=device)
     opt_state = make_optimizer(train_cfg).init((fe_params, hs.params))
-    return HybridState(fe_params, hs.params, hs.aux, opt_state, None, 0)
+    dgc = sp.init_dgc_state(fe_params) if train_cfg.dgc.enabled else None
+    return HybridState(fe_params, hs.params, hs.aux, opt_state, dgc, 0)
 
 
 def _features(model_cfg: ModelConfig, fe_params, inputs: dict):
     """Label-free FE forward: flat [t, D] features."""
-    if model_cfg.family != "feats":
-        raise NotImplementedError(
-            f"the {model_cfg.family!r} trunk is not ported to torch yet")
-    return inputs["features"].to(getattr(torch, model_cfg.dtype))
+    if model_cfg.family == "feats":
+        return inputs["features"].to(getattr(torch, model_cfg.dtype))
+    h, _, _ = lm.backbone(fe_params, model_cfg, inputs)
+    return h.reshape(-1, h.shape[-1])
 
 
 def _local_rows(x):
@@ -101,10 +110,10 @@ def make_train_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
     member takes its rows, splits them into ``n_micro`` micro-batches and
     all-gathers each over the ring. ``metrics`` holds the head's metrics
     plus ``comm_dense_bytes`` (FE gradient bytes all-reduced) and
-    ``comm_wire_bytes`` (0 without DGC)."""
+    ``comm_wire_bytes`` (the bytes DGC sends; 0 without DGC)."""
     head = head or make_head(model_cfg, head_cfg)
-    sp.require_dense(train_cfg.dgc)
     opt = make_optimizer(train_cfg)
+    dcfg = train_cfg.dgc
     metric_names = list(head.metrics_spec())
 
     def step(state: HybridState, inputs: dict, lr: float):
@@ -127,7 +136,20 @@ def make_train_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
         (loss, metrics), (g_fe, g_hp) = microbatched_value_and_grad(
             loss_fn, (state.fe_params, state.head_params), local, n_micro,
             metric_names)
-        g_fe = sp.dense_exchange(g_fe, n_workers=n_dev)
+        zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+        dgc = state.dgc
+        if dcfg.enabled:
+            if dgc is None:
+                raise ValueError("DGC is enabled but the state carries no "
+                                 "DGC u and v")
+            g_fe, dgc, info = sp.dgc_exchange(g_fe, dgc, dcfg,
+                                              n_workers=n_dev)
+            wire, dense = info["wire_bytes"], info["dense_bytes"]
+        else:
+            g_fe = sp.dense_exchange(g_fe, n_workers=n_dev)
+            wire = zero
+            dense = zero + float(sum(g.numel() * 4
+                                     for g in tree_leaves(g_fe)))
         # head gradient: LOCAL, never crosses members (paper §3.1 step 6)
         params = (state.fe_params, state.head_params)
         with torch.no_grad():
@@ -135,14 +157,30 @@ def make_train_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
                                             params, lr)
             _assign(params, apply_updates(params, updates))
         metrics = dict(metrics)
-        zero = torch.zeros((), dtype=torch.float32, device=loss.device)
-        metrics["comm_wire_bytes"] = zero
-        metrics["comm_dense_bytes"] = zero + float(
-            sum(g.numel() * 4 for g in tree_leaves(g_fe)))
-        return (state._replace(opt_state=opt_state, step=state.step + 1),
+        metrics["comm_wire_bytes"] = wire
+        metrics["comm_dense_bytes"] = dense
+        return (state._replace(opt_state=opt_state, dgc=dgc,
+                               step=state.step + 1),
                 loss, metrics)
 
     return step
+
+
+def _input_structure(model_cfg: ModelConfig) -> tuple:
+    """The keys of a training batch for the trunk."""
+    if model_cfg.family == "feats":
+        return ("features", "labels")
+    if model_cfg.family == "cnn":
+        return ("images", "labels")
+    raise NotImplementedError(
+        f"the paper trainer takes the feats and cnn trunks; "
+        f"{model_cfg.family!r} is not one (ROADMAP.md queue A)")
+
+
+def _serve_query_key(model_cfg: ModelConfig) -> str:
+    """The input key a serving-tier query fills (no labels at serve
+    time): each trunk takes one input, the first of its batch keys."""
+    return _input_structure(model_cfg)[0]
 
 
 def make_eval_step(model_cfg: ModelConfig, head_cfg: HeadConfig, *,
@@ -216,13 +254,15 @@ def make_topk_serve_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
 def make_batched_serve_step(model_cfg: ModelConfig, head_cfg: HeadConfig, *,
                             head: Optional[SoftmaxHead] = None):
     """Serving-tier greedy retrieval over a padded micro-batch:
-    (state, queries [b_pad, D], n_queries) -> pred [b_pad] int32, padding
-    rows -1. Queries are the same on every member (no ring gather)."""
+    (state, queries [b_pad, ...], n_queries) -> pred [b_pad] int32, padding
+    rows -1. Queries (features [D] or images [H, W, 3]) are the same on
+    every member (no ring gather)."""
     head = head or make_head(model_cfg, head_cfg)
+    key = _serve_query_key(model_cfg)
 
     @torch.inference_mode()
     def step(state: HybridState, queries, n_queries: int):
-        f = _features(model_cfg, state.fe_params, {"features": queries})
+        f = _features(model_cfg, state.fe_params, {key: queries})
         pred, _ = head.eval_logits_local(f, state.head_params, state.head_aux)
         return mask_padded_rows(pred.to(torch.int32), n_queries, -1)
 
@@ -233,14 +273,15 @@ def make_batched_topk_serve_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
                                  top_k: int, *,
                                  head: Optional[SoftmaxHead] = None):
     """Serving-tier top-k retrieval over a padded micro-batch:
-    (state, queries [b_pad, D], n_queries) -> (vals [b_pad, k] desc,
+    (state, queries [b_pad, ...], n_queries) -> (vals [b_pad, k] desc,
     gids [b_pad, k]), padding rows (-inf, -1)."""
     head = head or make_head(model_cfg, head_cfg)
     _require_class_weights(head)
+    key = _serve_query_key(model_cfg)
 
     @torch.inference_mode()
     def step(state: HybridState, queries, n_queries: int):
-        f = _features(model_cfg, state.fe_params, {"features": queries})
+        f = _features(model_cfg, state.fe_params, {key: queries})
         f, w = _normalized(head_cfg, f, state.head_params)
         return serve_topk_batched_local(f, w, top_k, n_queries,
                                         n_valid=head.n_valid,
@@ -254,7 +295,7 @@ def make_batched_ivf_topk_serve_step(model_cfg: ModelConfig,
                                      nprobe: int,
                                      head: Optional[SoftmaxHead] = None):
     """Sublinear serving-tier top-k through an ``IVFIndex``:
-    (state, centroids [C, D], members [C, cap], queries [b_pad, D],
+    (state, centroids [C, D], members [C, cap], queries [b_pad, ...],
     n_queries) -> (vals [b_pad, k] desc, gids [b_pad, k]), padding rows
     (-inf, -1). The contract of ``make_batched_topk_serve_step``, but each
     member probes its own ``nprobe`` centroids and reranks only their
@@ -263,11 +304,12 @@ def make_batched_ivf_topk_serve_step(model_cfg: ModelConfig,
     trained class matrix."""
     head = head or make_head(model_cfg, head_cfg)
     _require_class_weights(head)
+    key = _serve_query_key(model_cfg)
 
     @torch.inference_mode()
     def step(state: HybridState, centroids, members, queries,
              n_queries: int):
-        f = _features(model_cfg, state.fe_params, {"features": queries})
+        f = _features(model_cfg, state.fe_params, {key: queries})
         f, w = _normalized(head_cfg, f, state.head_params)
         return serve_topk_ivf_batched_local(
             f, w, centroids, members, top_k, nprobe, n_queries,

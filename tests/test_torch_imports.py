@@ -105,11 +105,6 @@ def test_unported_parts_say_so():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Experiment.from_config(system="paper", classes=64, feat_dim=8,
                                device="cpu", ckpt_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Experiment.from_config(
-            system="paper", classes=64, feat_dim=8, device="cpu",
-            train=port_base.TrainConfig(
-                dgc=port_base.DGCConfig(enabled=True)))
     exp = Experiment.from_config(system="paper", classes=64, feat_dim=8,
                                  device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -118,9 +113,6 @@ def test_unported_parts_say_so():
         exp.trainer.restore_checkpoint()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         IVFIndex.fit(types.SimpleNamespace(par=None))      # a zoo experiment
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Experiment.from_config(system="paper", classes=64, feat_dim=8,
-                               device="cpu", trunk="cnn")
 
 
 def _fields(cls):

@@ -629,3 +629,14 @@ def test_launcher_serves_ivf_on_the_cpu(tmp_path, capsys):
                                        "--metrics-out", str(metrics)]) == 0
     assert "replayed" in capsys.readouterr().out
     assert '"p99_ms"' in metrics.read_text().splitlines()[-1]
+
+
+def test_state_from_restore_defaults_to_the_card():
+    """``device=None`` means the card, as for every entry point: without a
+    GPU it raises rather than build the index on the CPU."""
+    tree = _port_experiment().ivf_index(refit=True).state_to_save()
+    if torch.cuda.is_available():
+        assert IVFIndex.state_from_restore(tree).members.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IVFIndex.state_from_restore(tree)

@@ -20,6 +20,7 @@ run them. One ring per ring size is spawned for the whole module.
 """
 import dataclasses
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -368,10 +369,28 @@ def test_train_launcher_on_the_cpu(tmp_path, capsys):
     assert len(rows) == 8 and '"batch": 256' in rows[-1]
 
 
+@pytest.mark.parametrize("extra", [["--trunk", "cnn"], ["--dgc"],
+                                   ["--trunk", "cnn", "--dgc"],
+                                   ["--trunk", "cnn", "--dgc", "--backend",
+                                    "ref"]])
+def test_train_launcher_cnn_and_dgc_on_the_cpu(extra, tmp_path, capsys):
+    """The reduced ResNet trunk and DGC through the launcher: exit 0, a
+    printed accuracy in [0, 1], a metrics row a step."""
+    metrics = tmp_path / "m.jsonl"
+    rc = port_launcher.main([
+        "--device", "cpu", "--classes", "64", "--feat-dim", "16",
+        "--steps", "3", "--batch", "8", "--fccs", "--optimizer", "lars",
+        "--metrics-out", str(metrics)] + extra)
+    assert rc == 0
+    out = capsys.readouterr().out
+    acc = [line for line in out.splitlines() if "final eval accuracy" in line]
+    assert acc and 0.0 <= float(acc[-1].split()[-1]) <= 1.0
+    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+    assert len(rows) == 3
+
+
 @pytest.mark.parametrize("argv,queue", [
     (["--system", "zoo"], "A.9"),
-    (["--dgc"], "A.5"),
-    (["--trunk", "cnn"], "A.5"),
     (["--ckpt-dir", "x"], "A.7"),
     (["--resume"], "A.7"),
     (["--backend", "pallas"], None),
