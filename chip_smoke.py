@@ -158,6 +158,28 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    --dgc --backend kernel`` at the same class count (its reduced ResNet on
    32 x 32 images) with the full head and with ``--head knn``, in this
    process.
+10b. checkpoints (the main path of the checkpoint slice), after phase 10:
+   ResNet-50 + DGC at the same width, ``fit(6)`` twice from one state;
+   bit-equal snapshots (``resilience.tree_compare`` on the card) make
+   ``"bitwise"`` the class the recovery is held to, otherwise
+   ``"trajectory"`` (losses within the harness's 1e-4 relative) with the
+   differing leaves and one micro-step's gradients run twice named. Then
+   ``resilience.kill_and_recover``: the victim checkpoints every 4 steps
+   (``build/chip_ckpt``, in this slice's codec) and is killed before step
+   5; every kernel counter is set to 0 just before the resumed leg (a
+   fresh experiment, ``restore``, steps 4 and 5 replayed) and read after:
+   ``{'ce_forward': 16, 'ce_backward': 16, 'stage1_topk': 52}``. Printed:
+   the verdict, max |diff|, the restored step and steps replayed, save and
+   restore seconds, the file's bytes, the codec, host peak RSS and card
+   peak memory, and the n_micro = 1 step with cuDNN's deterministic
+   algorithms beside its default (measured, not used). The knn head on
+   the feats trunk: 4 steps past a graph refresh, saved, restored into a
+   fresh experiment (snapshots bitwise, the one-step-stale graph
+   included), one more step on each (bitwise). The full head's fitted IVF
+   index (1,010 clusters) saved, restored onto the card, installed, and
+   top-5 of 64 queries equal before and after. The train launcher with
+   ``--ckpt-dir --ckpt-every 2 --steps 4``, then ``--resume --steps 6``
+   from t = 4. The files are removed at the end.
 11. IVF serving (the main path of the IVF slice): ``ivf_rerank`` against
    its plain version at ragged shapes (pads, rows with fewer real
    candidates than k, rows with nothing, repeated candidates, ids past the
@@ -232,6 +254,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -295,6 +318,11 @@ KERNEL_GROUPS = {"stage 1 (stage1_topk)": ("topk_stage1",),
                                "dgrad", "fprop"),
               "GroupNorm": ("group_norm", "groupnorm", "rowwisemoments",
                             "computefusedparams", "gammabeta")}
+# checkpoints: kill and recover runs 6 steps, checkpointing every 4 and
+# killed before step 5, so one checkpoint (t = 4) is written and steps 4
+# and 5 are replayed
+CKPT_DIR = ROOT / "build" / "chip_ckpt"
+CKPT_TOTAL, CKPT_EVERY, CKPT_KILL = 6, 4, 5
 IVF_TOL = 1e-5       # ivf_rerank: fp32 dot products of D terms in another order
 RECALL_QUERIES = 256
 # flash_attention vs its plain version (the TPU kernel's arithmetic: p =
@@ -1279,11 +1307,13 @@ def launcher_phase(torch, ce, dc):
 # ---------------------------------------------------------------------------
 
 
-def _train_experiment(backend: str, data_fn=None, impl=None, **knn):
+def _train_experiment(backend: str, data_fn=None, impl=None, exp_kw=None,
+                      **knn):
     """The training phases' experiment: the ``full`` head, or with ``knn``
     settings (``rebuild_every``, ``knn_pad_random``) the ``knn`` head at
     the train launcher's k=16, k'=32 and 10% active classes, or with
-    ``impl`` one of ``HEAD_CFGS``' heads."""
+    ``impl`` one of ``HEAD_CFGS``' heads; ``exp_kw`` (``ckpt_dir``, ...)
+    goes to ``Experiment.from_config``."""
     from repro_torch.api import Experiment
     from repro_torch.configs.base import FCCSConfig, HeadConfig, TrainConfig
 
@@ -1299,7 +1329,7 @@ def _train_experiment(backend: str, data_fn=None, impl=None, **knn):
         device=DEVICE, log_every=1, data_fn=data_fn, head=head,
         train=TrainConfig(optimizer="lars", fccs=FCCSConfig(
             eta0=0.4, t_warm=2, b0=BTRAIN, b_min=BTRAIN, b_max=4 * BTRAIN,
-            t_ini=2, t_final=6)))
+            t_ini=2, t_final=6)), **(exp_kw or {}))
 
 
 def head_grad_check(torch, exp, w0, head_cfg=None, tag="training phase"):
@@ -1437,7 +1467,6 @@ def training_phase(torch, ce):
 
 
 def train_launcher_phase(head: str = "full"):
-    import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--system",
            "paper", "--head", head, "--classes", str(V), "--feat-dim",
@@ -1925,12 +1954,13 @@ def heads_phase(torch, np, counters, ce, sp):
 
 
 def _cnn_experiment(backend: str, *, dtype: str = "bfloat16",
-                    batch=None, dgc: bool = True):
+                    batch=None, dgc: bool = True, **exp_kw):
     """``sku100m_resnet.config_1m()`` (ResNet-50, D=512, 1,020,250 classes;
     ``dtype`` its compute type over fp32 params) with the ``full`` head at
     scale 16, LARS, FCCS growth from 256 to 1,024 images and ``DGCConfig()``
     at its defaults, everything on ``backend``; 224 x 224 synthetic
-    images, micro-batches of ``batch``."""
+    images, micro-batches of ``batch``; ``exp_kw`` (``ckpt_dir``, ...) goes
+    to ``Experiment.from_config``."""
     from repro_torch.api import Experiment
     from repro_torch.configs import sku100m_resnet
     from repro_torch.configs.base import (DGCConfig, FCCSConfig, HeadConfig,
@@ -1947,7 +1977,7 @@ def _cnn_experiment(backend: str, *, dtype: str = "bfloat16",
         train=TrainConfig(optimizer="lars", dgc=DGCConfig(
             enabled=dgc, backend=backend), fccs=FCCSConfig(
             eta0=0.4, t_warm=2, b0=BTRAIN, b_min=BTRAIN, b_max=4 * BTRAIN,
-            t_ini=2, t_final=6)))
+            t_ini=2, t_final=6)), **exp_kw)
 
 
 def _fe_grads(torch, exp, inputs, events=None):
@@ -2407,6 +2437,302 @@ def cnn_launchers_phase(torch):
 # ---------------------------------------------------------------------------
 # IVF serving (the main path of the IVF slice) and its launcher
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# checkpoints (the main path of the checkpoint slice)
+# ---------------------------------------------------------------------------
+
+
+def _host_peak_gb() -> float:
+    """This process's peak resident host memory so far (ru_maxrss, KiB)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _micro_step_diff(torch, exp) -> dict:
+    """Which part of one cnn micro-step differs between two runs on the
+    same state and images: the loss (the trunk's and the head's forward),
+    the head's gradient, and the trunk's gradients leaf by leaf (the
+    trunk's backward: its convolutions and GroupNorms)."""
+    from repro_torch.core import sparsify as sp_
+    from repro_torch.train.trainer import to_device
+
+    inputs = to_device(exp.data_fn(10**5 + 9, RES_MICRO), exp.device)
+    (la, ga, ha), (lb, gb, hb) = (_fe_grads(torch, exp, inputs)
+                                  for _ in range(2))
+    names = [k for k, _ in sp_.flatten(ga, with_paths=True)[0]]
+    differ = [n for n, x, y in zip(names, sp_.flatten(ga)[0],
+                                   sp_.flatten(gb)[0])
+              if not torch.equal(x, y)]
+    return {"loss_equal": bool(torch.equal(la, lb)),
+            "head_grad_equal": bool(torch.equal(ha, hb)),
+            "trunk_grads_differ": len(differ), "trunk_grads": len(names),
+            "differing_leaves": differ[:8]}
+
+
+def _ckpt_cnn(torch, counters, root) -> tuple:
+    """Kill and recover of ResNet-50 + DGC at the 1M-class width: two
+    uninterrupted ``fit(6)`` runs from one state set the equivalence class
+    the harness holds the recovery to; the victim checkpoints every 4
+    steps and dies before step 5; a fresh experiment restores t = 4 and
+    replays steps 4 and 5. Returns (launches of the resumed leg, numbers)."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.resilience import kill_and_recover, tree_compare
+
+    fit_kw = {"use_fccs_batch": True}
+
+    def make(ckpt_dir):
+        return _cnn_experiment("kernel", ckpt_dir=ckpt_dir,
+                               ckpt_every=CKPT_EVERY)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = make(None)
+    ref.fit(CKPT_TOTAL, **fit_kw)
+    twin = make(None)
+    twin.fit(CKPT_TOTAL, **fit_kw)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    det = tree_compare(twin.trainer._snapshot(), ref.trainer._snapshot())
+    twin_loss = [r["loss"] for r in twin.trainer.history]
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    equivalence = "bitwise" if det["bitwise"] else "trajectory"
+    log(f"checkpoint phase: two uninterrupted fit({CKPT_TOTAL}) runs from "
+        f"one state ({twin_s:.1f} s): bitwise {det['bitwise']}, max |diff| "
+        f"{det['max_abs_diff']:.3g}, {len(det['mismatches'])} leaves differ "
+        f"(first {det['mismatches'][:4]}), losses "
+        f"{[r['loss'] for r in ref.trainer.history]} / {twin_loss}: the "
+        f"recovery is held to {equivalence!r}")
+
+    t0 = time.perf_counter()
+    rep = kill_and_recover(
+        make, total_steps=CKPT_TOTAL, kill_at=CKPT_KILL,
+        ckpt_dir=str(root / "cnn"), equivalence=equivalence,
+        head="full+cnn+dgc", fit_kw=fit_kw, reference=ref,
+        before_resume=lambda: _reset(counters))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _read(counters).items() if v}
+    harness_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    replayed = [r["step"] for r in rep.resumed_history]
+    n_micro = sum(r["batch"] // RES_MICRO for r in rep.resumed_history)
+    want = {"ce_forward": n_micro, "ce_backward": n_micro,
+            "stage1_topk": RES_DGC_GROUPS * len(replayed)}
+    log(f"checkpoint phase: {rep.summary()}; verdict {rep.equivalence}, "
+        f"bitwise {rep.bitwise}, max_abs_diff {rep.max_abs_diff:.3g}, loss "
+        f"max rel {rep.loss_max_rel:.3g}; restored t={rep.restored_step}, "
+        f"steps replayed {rep.steps_replayed} (ran {replayed}); save "
+        f"{rep.save_s:.2f} s (the leaves to the host {rep.save_fetch_s:.2f} "
+        f"s, encoding, compression and the file the rest), restore "
+        f"{rep.restore_s:.2f} s (the file read and decoded "
+        f"{rep.restore_read_s:.2f} s, the state onto the card "
+        f"{rep.restore_place_s:.2f} s; fresh experiment + restore "
+        f"{rep.recovery_s:.2f} s), {rep.ckpt_bytes} bytes, codec "
+        f"{ckpt.codec_name()}; host peak RSS {_host_peak_gb():.2f} GB, card "
+        f"peak {peak_gb:.2f} GB; resumed leg launches {launches}")
+    if not rep.ok:
+        fail(f"kill and recover at the 1M-class width: {rep.summary()} "
+             f"(loss max rel {rep.loss_max_rel:.3g})")
+    if (rep.restored_step, rep.steps_replayed, replayed) != (
+            CKPT_EVERY, CKPT_KILL - CKPT_EVERY,
+            list(range(CKPT_EVERY, CKPT_TOTAL))):
+        fail(f"restored t={rep.restored_step}, replayed {replayed}")
+    if launches != want:
+        fail(f"the resumed leg launched {launches}, not {want}")
+    out = {"equivalence": rep.equivalence, "bitwise": rep.bitwise,
+           "two_runs_bitwise": det["bitwise"],
+           "two_runs_max_abs_diff": det["max_abs_diff"],
+           "two_runs_leaves_differ": len(det["mismatches"]),
+           "max_abs_diff": rep.max_abs_diff,
+           "loss_max_rel": rep.loss_max_rel,
+           "restored_step": rep.restored_step,
+           "steps_replayed": rep.steps_replayed, "replayed": replayed,
+           "save_s": rep.save_s, "save_fetch_s": rep.save_fetch_s,
+           "restore_s": rep.restore_s,
+           "restore_read_s": rep.restore_read_s,
+           "restore_place_s": rep.restore_place_s,
+           "recovery_s": rep.recovery_s, "ckpt_bytes": rep.ckpt_bytes,
+           "codec": ckpt.codec_name(), "harness_s": harness_s,
+           "card_peak_gb": peak_gb, "resumed_launches": launches}
+    if not det["bitwise"]:
+        out["micro_step_diff"] = _micro_step_diff(torch, ref)
+        log(f"checkpoint phase: one micro-step run twice: "
+            f"{out['micro_step_diff']}")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _ckpt_knn(torch) -> dict:
+    """The knn head on the feats trunk at the 1M-class width: train past a
+    graph refresh, save, restore into a fresh experiment (whose own graph
+    was built on its initial weights), hold the snapshots equal leaf for
+    leaf (the graph, one step stale, included), then one more step on
+    each."""
+    from repro_torch.resilience import tree_compare
+    from repro_torch.telemetry import Tracer
+
+    root = CKPT_DIR / "knn"
+
+    def make():
+        return _train_experiment("kernel", rebuild_every=3,
+                                 knn_pad_random=True,
+                                 exp_kw={"ckpt_dir": str(root)})
+
+    a = make()
+    a.fit(4, use_fccs_batch=True)            # refreshed after step 2
+    torch.cuda.synchronize()
+    tele = Tracer()                           # the save's and restore's parts
+    a.trainer.telemetry = tele
+    t0 = time.perf_counter()
+    fname = a.trainer.save_checkpoint()
+    save_s = time.perf_counter() - t0
+    b = make()
+    b.trainer.telemetry = tele
+    fresh_graph_differs = not all(
+        torch.equal(x, y) for x, y in zip(a.state.head_aux, b.state.head_aux))
+    t0 = time.perf_counter()
+    step = b.restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    cmp0 = tree_compare(b.trainer._snapshot(), a.trainer._snapshot())
+    ha = a.fit(1, use_fccs_batch=True)
+    hb = b.fit(1, use_fccs_batch=True)
+    cmp1 = tree_compare(b.trainer._snapshot(), a.trainer._snapshot())
+    la, lb = ha[-1]["loss"], hb[-1]["loss"]
+    nnz = int(a.state.head_aux[1].numel())
+    c = tele.counters
+    parts = {"save_fetch_s": c["train.checkpoint.fetch_s"],
+             "restore_read_s": c["train.restore.read_s"],
+             "restore_place_s": c["train.restore.place_s"]}
+    out = {"restored_step": step, "save_s": save_s, "restore_s": restore_s,
+           **parts,
+           "ckpt_bytes": os.path.getsize(fname), "graph_entries": nnz,
+           "fresh_graph_differs": fresh_graph_differs,
+           "restored_bitwise": cmp0["bitwise"],
+           "after_step_bitwise": cmp1["bitwise"],
+           "after_step_max_abs_diff": cmp1["max_abs_diff"],
+           "after_step_losses": [la, lb]}
+    log(f"checkpoint phase, knn: saved t=4 (graph from the refresh after "
+        f"step 2) in {save_s:.2f} s (to the host {parts['save_fetch_s']:.2f}"
+        f" s), {out['ckpt_bytes']} bytes, {nnz} graph entries; restored into "
+        f"a fresh experiment in {restore_s:.2f} s (read and decoded "
+        f"{parts['restore_read_s']:.2f} s, onto the card "
+        f"{parts['restore_place_s']:.2f} s): "
+        f"snapshot bitwise {cmp0['bitwise']} {cmp0['mismatches'][:4]}; one "
+        f"more step each: losses {la} / {lb}, bitwise {cmp1['bitwise']}, "
+        f"max |diff| {cmp1['max_abs_diff']:.3g} {cmp1['mismatches'][:4]}")
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (cmp0["bitwise"] and step == 4 and fresh_graph_differs):
+        fail(f"knn restore at the 1M-class width: step {step}, bitwise "
+             f"{cmp0['bitwise']} {cmp0['mismatches'][:8]}")
+    if not cmp1["bitwise"]:
+        fail(f"knn: one step from the restored state and from the saved "
+             f"one differ in {cmp1['mismatches'][:8]} (losses {la} / {lb})")
+    return out
+
+
+def _ckpt_ivf(torch, np) -> dict:
+    """The fitted IVF index of the 1M-class full head through a
+    checkpoint: saved, restored onto the card, installed, and serving
+    top-5 at batch 64 the ids and scores it served before the save."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.serving import IVFIndex
+
+    exp = _train_experiment("kernel")
+    idx = exp.ivf_index(refit=True)
+    ids0, sc0 = exp.serve(batch=B, top_k=K, return_scores=True, index="ivf")
+    root = str(CKPT_DIR / "ivf")
+    t0 = time.perf_counter()
+    ckpt.save(root, idx.state_to_save(), step=0)
+    tree, _ = ckpt.restore(root, idx.state_to_save(), step=0)
+    back = IVFIndex.state_from_restore(tree, device=DEVICE)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    if not (back.members.device.type == DEVICE
+            and torch.equal(back.centroids, idx.centroids)
+            and torch.equal(back.members, idx.members)
+            and np.array_equal(back.counts, idx.counts)
+            and back.version == idx.version):
+        fail("the IVF index changed through its checkpoint")
+    exp.install_ivf_index(back)
+    if exp.ivf_index() is not back:
+        fail("the restored IVF index was refit instead of served")
+    ids1, sc1 = exp.serve(batch=B, top_k=K, return_scores=True, index="ivf")
+    if not (np.array_equal(ids0, ids1) and np.array_equal(sc0, sc1)):
+        fail("top-5 through the restored IVF index differs")
+    log(f"checkpoint phase, IVF: {idx.n_clusters} clusters of cap {idx.cap} "
+        f"saved, restored and installed in {round_s:.2f} s; top-5 of {B} "
+        f"queries equal before and after")
+    del exp, idx, back
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"clusters": int(tree["meta"]["n_clusters"]), "round_trip_s":
+            round_s}
+
+
+def _ckpt_launcher() -> dict:
+    """``launch.train --ckpt-dir D --ckpt-every 2 --steps 4`` on the card
+    at the 1M-class width (``train_launcher_phase``'s flags), then
+    ``--resume --steps 6``: both exit 0, the second from t = 4."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    root = str(CKPT_DIR / "launcher")
+    out = {}
+    for tag, extra in (("first", ["--steps", "4"]),
+                       ("resumed", ["--steps", "6", "--resume"])):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--system",
+               "paper", "--head", "full", "--classes", str(V), "--feat-dim",
+               str(D), "--batch", str(BTRAIN), "--fccs", "--backend",
+               "kernel", "--ckpt-dir", root, "--ckpt-every", "2"] + extra
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=300)
+        out[f"{tag}_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"train launcher {' '.join(extra)} with checkpoints exited "
+                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        out[f"{tag}_steps"] = sorted(int(f.split("_")[1].split(".")[0])
+                                     for f in os.listdir(root))
+    if "resumed at t=4: 2 steps to 6" not in proc.stdout:
+        fail(f"the resumed launcher did not start at t=4: "
+             f"{proc.stdout[-1000:]}")
+    if (out["first_steps"], out["resumed_steps"]) != ([2, 4], [2, 4, 6]):
+        fail(f"launcher checkpoints {out}")
+    log(f"checkpoint phase, launcher: --steps 4 {out['first_s']:.1f} s, "
+        f"--resume --steps 6 {out['resumed_s']:.1f} s (from t=4); files at "
+        f"steps {out['resumed_steps']}")
+    return out
+
+
+def checkpoint_phase(torch, np, counters) -> tuple:
+    """The checkpoint slice: kill and recover at full width (ResNet-50 +
+    DGC), the knn head's graph through a checkpoint, the IVF index's
+    files, and the launcher's resume. The files go under
+    ``build/chip_ckpt`` and are removed at the end. Returns (the resumed
+    leg's launches, numbers)."""
+    import shutil
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        launches, out = _ckpt_cnn(torch, counters, CKPT_DIR)
+        shutil.rmtree(CKPT_DIR / "cnn")
+        out["knn"] = _ckpt_knn(torch)
+        shutil.rmtree(CKPT_DIR / "knn")
+        out["ivf"] = _ckpt_ivf(torch, np)
+        out["launcher"] = _ckpt_launcher()
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    out["host_peak_rss_gb"] = _host_peak_gb()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"checkpoint phase: {out['phase_s']:.1f} s")
+    return launches, out
 
 
 def check_ivf(torch, ivf, f, w, cand, k, label, exact_ids=False,
@@ -3315,6 +3641,9 @@ def main() -> int:
         / e2e["cnn"]["cnn_dgc"]["exchange_ms"])
     gc.collect()
     torch.cuda.empty_cache()
+    ckpt_launches, e2e["checkpoint"] = checkpoint_phase(torch, np, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels["flash_attention"] = flash_kernel_phase(torch, fa)
     zoo_launches, zoo_e2e = zoo_phase(torch, np, counters, fa)
     e2e.update(zoo_e2e)
@@ -3328,6 +3657,7 @@ def main() -> int:
                       "ivf_serving": ivf_launches.get(name, 0),
                       "zoo_serving": zoo_launches.get(name, 0),
                       "dgc_training": cnn_launches.get(name, 0),
+                      "checkpoint": ckpt_launches.get(name, 0),
                       **{path: n.get(name, 0)
                          for path, n in head_launches.items()}}
                for name in kernels}

@@ -4,6 +4,9 @@ serving paths, and the zoo's greedy token serving.
   >>> exp = Experiment.from_config(system="paper", classes=1_020_250,
   ...                              feat_dim=512, batch=256)  # on "cuda"
   >>> exp.fit(6, use_fccs_batch=True)                       # history rows
+  >>> run = Experiment.from_config(system="paper", ckpt_dir="ck",
+  ...                              ckpt_every=4)
+  >>> run.fit(100, resume=True)          # restores the latest, runs the rest
   >>> exp.serve(batch=64)                                    # greedy ids
   >>> exp.serve(batch=64, top_k=5, return_scores=True)       # (ids, scores)
   >>> exp.serve(batch=64, top_k=5, index="ivf")              # IVF top-k
@@ -15,7 +18,10 @@ serving paths, and the zoo's greedy token serving.
   >>> zoo.serve(prompt_len=2000, gen=48, batch=8)            # tokens [8, 48]
 
 The port of the JAX package's ``api/experiment.py`` for the slices landed
-so far: ``fit`` (the FCCS trainer, without checkpoints), ``evaluate``,
+so far: ``fit`` (the FCCS trainer, with full-state checkpoints under
+``ckpt_dir`` every ``ckpt_every`` steps, ``fit(resume=True)`` and
+``restore``, on the same ring or, with ``resume="reshard"``, on a ring of
+another size), ``evaluate``,
 ``serve`` (greedy and top-k, through the serving engine or on explicit
 inputs, and top-k through the IVF index), ``serving_engine``,
 ``ivf_index`` / ``install_ivf_index`` and ``weights_version`` on the paper
@@ -25,9 +31,9 @@ csoft serve greedy only, since top-k and the IVF index retrieve against a
 [V, D] class matrix they do not train), on the ``feats`` trunk or the
 paper's ResNet (``trunk="cnn"``, or a ``family="cnn"`` model config), with
 or without DGC (``TrainConfig.dgc``); the zoo's prefill + greedy decode
-(``ZooExperiment.serve``) for the dense decoders. Checkpoints (``ckpt_dir``, ``resume``), the zoo
-trainer and the zoo's feature retrieval come with later slices (ROADMAP.md
-queue A).
+(``ZooExperiment.serve``) for the dense decoders. The zoo trainer, its
+checkpoints and the zoo's feature retrieval come with later slices
+(ROADMAP.md queue A).
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and with no
 GPU present they raise rather than fall back to the CPU. Pass
@@ -154,6 +160,7 @@ class PaperExperiment(Experiment):
                  feat_dim: int = 64, batch: int = 64,
                  data_fn: Optional[Callable[[int, int], dict]] = None,
                  lr_fn=None, ckpt_dir: Optional[str] = None,
+                 ckpt_every: int = 0, ckpt_keep: int = 0,
                  log_every: int = 10, seed: int = 0, telemetry=None,
                  device=None):
         from repro_torch.train.trainer import PaperTrainer
@@ -167,7 +174,8 @@ class PaperExperiment(Experiment):
         self.trainer = PaperTrainer(
             self.model_cfg, self.head_cfg, self.train_cfg, self.data_fn,
             hw_batch=batch, device=self.device, lr_fn=lr_fn,
-            ckpt_dir=ckpt_dir or None, log_every=log_every, seed=seed,
+            ckpt_dir=ckpt_dir or None, ckpt_every=ckpt_every,
+            ckpt_keep=ckpt_keep, log_every=log_every, seed=seed,
             telemetry=telemetry)
         self.loads = 0       # bumped on every load_state (serving-cache probe)
         self._serve_step = None
@@ -197,14 +205,17 @@ class PaperExperiment(Experiment):
     @property
     def weights_version(self):
         """Serving-cache invalidation probe: moves whenever the served
-        weights can have changed (every weight load and every step)."""
-        return (self.loads, int(self.trainer.state.step))
+        weights can have changed: on every step, every weight load and
+        every restore. Counting restores is what makes a rewound-then-
+        retrained run (the step back at a value seen before, other
+        weights) retire a cached score or IVF index."""
+        return (self.loads + self.trainer.restores,
+                int(self.trainer.state.step))
 
     def load_state(self, state) -> None:
         """Install a ``HybridState`` (for example state carried over from
-        the JAX package by ``repro_torch.interop``); the counterpart of a
-        checkpoint restore until checkpoints are ported. Training updates
-        its tensors in place."""
+        the JAX package by ``repro_torch.interop``). Training updates its
+        tensors in place."""
         self.trainer.state = state
         self.loads += 1
 
@@ -212,19 +223,42 @@ class PaperExperiment(Experiment):
             resume=False, step_hook=None, telemetry=None):
         """Train ``steps`` steps from the current cursor: the FCCS learning
         rate and, with ``use_fccs_batch``, its batch growth through
-        micro-batch accumulation. ``step_hook(t)`` fires before each step;
-        ``telemetry=`` installs a ``repro_torch.telemetry.Tracer`` on the
-        trainer. Returns the history rows (step, lr, batch, loss, acc)."""
-        if resume:
-            raise NotImplementedError(
-                "resume needs checkpoints, which are not ported to torch "
-                "yet (ROADMAP.md queue A.7)")
+        micro-batch accumulation. With ``resume=True`` the latest
+        checkpoint under ``ckpt_dir`` is restored first (if there is one)
+        and ``steps`` becomes the TOTAL: a killed 100-step run relaunched
+        with ``fit(100, resume=True)`` replays only the lost tail.
+        ``resume="reshard"`` also takes a checkpoint written on a ring of
+        another size. ``step_hook(t)`` fires before each step (fault
+        injection, ``repro_torch.resilience``); ``telemetry=`` installs a
+        ``repro_torch.telemetry.Tracer`` on the trainer. Returns the
+        history rows (step, lr, batch, loss, acc)."""
         if telemetry is not None:
             self.trainer.telemetry = telemetry
+        if resume:
+            self.restore(missing_ok=True, reshard=(resume == "reshard"))
+            steps = steps - self.trainer._t
         if steps > 0:
             self.trainer.run(steps, use_fccs_batch=use_fccs_batch,
                              step_hook=step_hook)
         return self.trainer.history
+
+    def restore(self, step: Optional[int] = None, *,
+                missing_ok: bool = False,
+                reshard: bool = False) -> Optional[int]:
+        """Restore the FULL trainer state (params, moments, head aux, DGC
+        buffers, cursor) from ``ckpt_dir``. ``reshard=True`` takes a
+        checkpoint written on a ring of another size
+        (``repro_torch.elastic``). Returns the restored step, or None when
+        ``missing_ok`` and there is no checkpoint."""
+        from repro_torch import checkpoint as ckpt
+        if not self.trainer.ckpt_dir:
+            raise ValueError("experiment has no ckpt_dir to restore from")
+        if step is None and ckpt.latest_step(self.trainer.ckpt_dir) is None:
+            if missing_ok:
+                return None
+            raise FileNotFoundError(
+                f"no checkpoints under {self.trainer.ckpt_dir}")
+        return self.trainer.restore_checkpoint(step, reshard=reshard)
 
     def _to_device(self, inputs: dict) -> dict:
         from repro_torch.train.trainer import to_device
@@ -358,8 +392,8 @@ class ZooExperiment(Experiment):
 
         if ckpt_dir:
             raise NotImplementedError(
-                "checkpoints are not ported to torch yet (ROADMAP.md queue "
-                "A.7)")
+                "zoo checkpoints wait for the zoo trainer (ROADMAP.md "
+                "A.9.3)")
         cfg = get_model_config(arch, reduced=reduced)
         decoder.require_ported(cfg)
         self.device = resolve_device(device)

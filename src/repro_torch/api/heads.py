@@ -9,8 +9,14 @@ paper's comparison are registered: ``full``, ``knn``, ``selective``,
 member holding a row block) and ``mach``, ``csoft`` (sketch heads: [R, B,
 D] bucket weights, each member holding a block of the bucket axis).
 
-Not ported yet: the elastic reshard methods (``reshard_state``,
-``reshard_params_like``; ROADMAP.md A.7).
+The checkpoint contract is the JAX package's: ``state_to_save`` gathers
+the GLOBAL head state over the ring (the params' rows or buckets, a
+sharded aux entry stacked [P, ...], a replicated one once),
+``state_from_restore`` cuts this member's block back out of it, and
+``reshard_state`` / ``reshard_params_like`` rewrite a stored head for a
+ring of another size (``repro_torch.elastic``): exactly for the knn graph
+and the LSH tables, by re-bucketing for the sketch heads when their
+bucket count no longer divides the ring.
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ from repro_torch.core.knn_softmax import knn_softmax_local
 from repro_torch.core.sharded_softmax import (_normalize, full_softmax_local,
                                               serve_argmax_local,
                                               serve_logits_local)
+from repro_torch.elastic.reshard import row_block
+from repro_torch.optim import tree_leaves
 
 KNOWN_HEADS = ("full", "knn", "selective", "mach", "sampled", "csoft")
 
@@ -96,6 +104,56 @@ class SoftmaxHead:
         heads without aux state."""
         return head_state
 
+    # -- checkpoint contract ----------------------------------------------
+    def gather_params(self, block: torch.Tensor) -> torch.Tensor:
+        """The GLOBAL params (or a moment shaped like them) from this
+        member's block: the rows of a W-head, the buckets of a sketch."""
+        axis = 0 if self.params_are_class_weights else 1
+        return dist.all_gather(block.detach(), dim=axis, tiled=True)
+
+    def state_to_save(self, state: HeadState) -> dict:
+        """The head's part of a checkpoint, GLOBAL, as the JAX package
+        lays it out: ``{"params", "aux"}``, a sharded aux entry gathered
+        into [P, ...], a replicated one saved once. The aux is saved, not
+        rebuilt, so a restore resumes mid-refresh-interval with the tables
+        the killed run used. A collective: every member calls it."""
+        aux = tuple(a if spec == "replicated"
+                    else dist.all_gather(a.detach(), dim=0, tiled=False)
+                    for a, spec in zip(state.aux, self.aux_spec()))
+        return {"params": self.gather_params(state.params), "aux": aux}
+
+    def state_from_restore(self, tree, *, rank: int, world_size: int,
+                           device) -> HeadState:
+        """This member's ``HeadState`` from a restored ``state_to_save``
+        tree (host arrays). The aux shapes may differ from a fresh
+        ``init``'s (a refreshed knn graph is denser than the warm start)."""
+        return head_state_from_tree(tree, self.aux_spec(), rank=rank,
+                                    world_size=world_size, device=device)
+
+    def init_aux(self, n_dev: int) -> tuple:
+        """A shape-correct GLOBAL aux for a ring of ``n_dev`` that needs no
+        weights (host arrays): what the default reshard leg installs before
+        the head's own refresh rebuilds it."""
+        return ()
+
+    # -- elastic resharding (repro_torch.elastic) -------------------------
+    def reshard_state(self, tree, src, dst):
+        """Map a host-side ``state_to_save`` tree written on the ``src``
+        ring onto ``dst`` (both ``elastic.MeshGeometry``). Global [V, D]
+        params pass through; heads whose aux bakes in the ring size
+        override with an exact re-pack. Returns ``(tree, needs_refresh)``:
+        the default re-initializes aux for the dst ring and asks the
+        trainer to run ``refresh`` after placement."""
+        if src.n_model == dst.n_model or not tree_leaves(tree["aux"]):
+            return tree, False
+        return dict(tree, aux=self.init_aux(dst.n_model)), True
+
+    def reshard_params_like(self, arr, src, dst):
+        """Reshard one optimizer-moment leaf shaped like ``params``: the
+        identity for global [V, D] rows; the sketch heads apply their
+        bucket transfer, so the moments track the params."""
+        return arr
+
     def _init_w(self, generator: torch.Generator, n_dev: int, rank: int,
                 device):
         """Rows [rank*V/n, (rank+1)*V/n) of a W [V, D] ~ N(0, 1/D)
@@ -122,6 +180,57 @@ def _draw_block(generator: torch.Generator, n_rows: int, d: int, lo: int,
         if a < b:
             out[a - lo:b - lo] = blk[a - start:b - start]
     return out
+
+
+def _head_axis(a: np.ndarray) -> int:
+    """The axis the ring splits: a [V, D] class matrix by rows, an [R, B,
+    D] sketch (mach, csoft) by buckets."""
+    if a.ndim == 2:
+        return 0
+    if a.ndim == 3:
+        return 1
+    raise ValueError(f"head_params must be the [V, D] class matrix or an "
+                     f"[R, B, D] sketch, got shape {a.shape}")
+
+
+def params_block(a, rank: int, world_size: int, device) -> torch.Tensor:
+    """Ring member ``rank``'s fp32 block of GLOBAL head params (or of a
+    moment shaped like them), a copy on ``device``."""
+    a = np.asarray(a)
+    return torch.tensor(row_block(a, rank, world_size, _head_axis(a)),
+                        dtype=torch.float32, device=device)
+
+
+def head_state_from_tree(tree, aux_spec, *, rank: int, world_size: int,
+                         device) -> HeadState:
+    """Ring member ``rank``'s ``HeadState`` from the GLOBAL head tree
+    ``{"params", "aux"}`` as host arrays (a restored checkpoint, or the
+    JAX package's state carried by ``interop``): its block of the params,
+    and of each aux entry by ``aux_spec``: ``"sharded"`` keeps row
+    ``rank`` of a leading [world_size] axis, ``"replicated"`` keeps the
+    whole (every entry a copy)."""
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} is not on a ring of {world_size}")
+    head_aux = tuple(tree["aux"])
+    aux_spec = tuple(aux_spec)
+    if len(aux_spec) != len(head_aux):
+        raise ValueError(f"aux_spec {aux_spec} does not name the "
+                         f"{len(head_aux)} head_aux entries")
+    aux = []
+    for a, spec in zip(head_aux, aux_spec):
+        a = np.asarray(a)
+        if spec == "replicated":
+            aux.append(torch.tensor(a, device=device))
+            continue
+        if spec != "sharded":
+            raise ValueError(f"aux spec {spec!r} is not 'sharded' or "
+                             f"'replicated'")
+        if a.shape[0] != world_size:
+            raise ValueError(f"head_aux leading axis {a.shape[0]} is not the "
+                             f"ring of {world_size}")
+        aux.append(torch.tensor(a[rank], device=device))
+    return HeadState(params_block(tree["params"], rank, world_size, device),
+                     tuple(aux))
 
 
 HEAD_REGISTRY: dict = {}
@@ -185,21 +294,21 @@ class KNNSoftmaxHead(FullSoftmaxHead):
 
     def init(self, generator, n_dev, *, rank, device) -> HeadState:
         return HeadState(params=self._init_w(generator, n_dev, rank, device),
-                         aux=self.init_aux(n_dev, rank=rank, device=device))
+                         aux=self._member_row(self.init_aux(n_dev), rank,
+                                              device))
 
-    def init_aux(self, n_dev: int, *, rank: int, device):
+    def init_aux(self, n_dev: int) -> tuple:
         """The warm-start graph before the first refresh: self-only
         neighbour lists (lossless by construction: every label selects
         itself); needs no weights."""
         self_graph = np.arange(self.n_classes, dtype=np.int32)[:, None]
-        return self._member_row(kg.compress_graph(self_graph, n_dev), rank,
-                                device)
+        cg = kg.compress_graph(self_graph, n_dev)
+        return (cg.offsets, cg.neighbors, cg.ranks)
 
     @staticmethod
-    def _member_row(cg, rank: int, device):
+    def _member_row(aux, rank: int, device):
         return tuple(torch.as_tensor(np.ascontiguousarray(a[rank]),
-                                     device=device)
-                     for a in (cg.offsets, cg.neighbors, cg.ranks))
+                                     device=device) for a in aux)
 
     @property
     def refresh_every(self) -> int:
@@ -214,8 +323,8 @@ class KNNSoftmaxHead(FullSoftmaxHead):
         graph = kg.build_graph(w, k=self.head_cfg.knn_k,
                                kprime=self.head_cfg.knn_kprime)
         cg = kg.compress_graph(graph, dist.world_size())
-        return HeadState(params=w, aux=self._member_row(cg, dist.rank(),
-                                                        w.device))
+        return HeadState(params=w, aux=self._member_row(
+            (cg.offsets, cg.neighbors, cg.ranks), dist.rank(), w.device))
 
     def loss_local(self, f_all, y_all, params, aux, *, global_batch: int,
                    step=None):
@@ -236,6 +345,15 @@ class KNNSoftmaxHead(FullSoftmaxHead):
     def metrics_spec(self) -> dict:
         return {"accuracy": "replicated", "logz": "replicated",
                 "active_frac": "replicated", "label_recall": "replicated"}
+
+    def reshard_state(self, tree, src, dst):
+        """The exact CSR re-pack: the graph, mid-refresh staleness
+        included, is preserved bit for bit, and n->m->n is the identity."""
+        if src.n_model == dst.n_model:
+            return tree, False
+        from repro_torch.elastic.reshard import repack_knn_aux
+        return dict(tree, aux=repack_knn_aux(tree["aux"],
+                                             dst.n_model)), False
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +418,28 @@ class SelectiveSoftmaxHead(FullSoftmaxHead):
         return {"accuracy": "replicated", "logz": "replicated",
                 "active_frac": "replicated", "label_recall": "replicated"}
 
+    def init_aux(self, n_dev: int) -> tuple:
+        """Shape-correct tables without a [V, D] weight draw: every class
+        in bucket 0, through planes from a generator seeded 0; the refresh
+        rebuilds them from the class weights before any step uses them."""
+        planes = self._planes(torch.Generator().manual_seed(0), "cpu")
+        offsets, classes = bl.build_sharded_lsh_tables(
+            torch.zeros((self.n_classes // n_dev, self.d)), planes)
+        return (planes.numpy(),
+                np.stack([offsets.numpy()] * n_dev),
+                np.stack([classes.numpy()] * n_dev))
+
+    def reshard_state(self, tree, src, dst):
+        """The exact table re-pack: a bucket is a function of the
+        replicated planes and the global rows, so the per-shard CSRs
+        invert to a class->bucket map and re-sort per dst shard with the
+        stable sort of ``build_sharded_lsh_tables``."""
+        if src.n_model == dst.n_model:
+            return tree, False
+        from repro_torch.elastic.reshard import repack_lsh_aux
+        return dict(tree, aux=repack_lsh_aux(tree["aux"],
+                                             dst.n_model)), False
+
 
 # ---------------------------------------------------------------------------
 # MACH [Medini et al., NeurIPS'19]: R hashed B-way softmaxes
@@ -340,6 +480,42 @@ class MACHSoftmaxHead(SoftmaxHead):
 
     def aux_spec(self) -> tuple:
         return ("replicated",)
+
+    def init_aux(self, n_dev: int) -> tuple:
+        n_rep = self._buckets_and_reps()[1]
+        return (bl.mach_hashes(self.n_classes, self._n_buckets(n_dev),
+                               n_rep=n_rep, seed=self._hash_seed),)
+
+    def reshard_state(self, tree, src, dst):
+        """Keep the stored buckets AND hash tables verbatim while the
+        stored bucket count divides the dst ring (bitwise decode
+        equivalence); otherwise re-hash the classes with the SAME universal
+        family at the new modulus and give each new bucket the mean of its
+        classes' old bucket weights (the lossy case)."""
+        w = np.asarray(tree["params"])
+        if w.shape[1] % dst.n_model == 0:
+            return tree, False
+        from repro_torch.elastic.reshard import rebucket_sketch
+        b_dst = self._n_buckets(dst.n_model)
+        h_new = bl.mach_hashes(self.n_classes, b_dst, n_rep=w.shape[0],
+                               seed=self._hash_seed)
+        return dict(tree, params=rebucket_sketch(w, tree["aux"][0], h_new,
+                                                 b_dst),
+                    aux=(h_new,)), False
+
+    def reshard_params_like(self, arr, src, dst):
+        a = np.asarray(arr)
+        if a.ndim != 3 or a.shape[1] % dst.n_model == 0:
+            return arr
+        from repro_torch.elastic.reshard import rebucket_sketch
+        b_dst = self._n_buckets(dst.n_model)
+        # both tables recompute from the family's seed, so the moments get
+        # the transfer the params got
+        h_old = bl.mach_hashes(self.n_classes, a.shape[1], n_rep=a.shape[0],
+                               seed=self._hash_seed)
+        h_new = bl.mach_hashes(self.n_classes, b_dst, n_rep=a.shape[0],
+                               seed=self._hash_seed)
+        return rebucket_sketch(a, h_old, h_new, b_dst)
 
     def loss_local(self, f_all, y_all, params, aux, *, global_batch: int,
                    step=None):

@@ -46,24 +46,31 @@ def init_dgc_state(fe_params) -> DGCState:
     return DGCState(u=z, v=tree_map(torch.clone, z))
 
 
-def flatten(tree):
+def flatten(tree, *, with_paths: bool = False):
     """(leaves in ``jax.tree.flatten``'s order, ``unflatten(leaves)``
     rebuilding ``tree``'s structure, dict keys sorted as JAX rebuilds
-    them). Dict keys are taken sorted; lists and tuples in order; ``None``
-    holds no leaf."""
+    them). Dict keys are taken sorted; lists and tuples in order, a
+    NamedTuple (``OptState``) by its fields; ``None`` holds no leaf.
+
+    With ``with_paths`` the leaves come as ``(path, leaf)`` pairs, the
+    path named as the JAX package's checkpoints key a leaf: the steps from
+    the root joined by ``/``, a dict key by itself, a list or tuple entry
+    by its index, a NamedTuple field by its name (``opt/mu/0/trunk/stem``).
+    """
     leaves = []
 
-    def walk(node):
+    def walk(node, path):
         if isinstance(node, dict):
             for k in sorted(node):
-                walk(node[k])
+                walk(node[k], path + (str(k),))
         elif isinstance(node, (tuple, list)):
-            for v in node:
-                walk(v)
+            names = getattr(node, "_fields", range(len(node)))
+            for name, v in zip(names, node):
+                walk(v, path + (str(name),))
         elif node is not None:
-            leaves.append(node)
+            leaves.append(("/".join(path), node) if with_paths else node)
 
-    walk(tree)
+    walk(tree, ())
 
     def unflatten(new):
         it = iter(new)
@@ -71,6 +78,8 @@ def flatten(tree):
         def build(node):
             if isinstance(node, dict):
                 return {k: build(node[k]) for k in sorted(node)}
+            if hasattr(node, "_fields"):
+                return type(node)(*(build(v) for v in node))
             if isinstance(node, (tuple, list)):
                 return type(node)(build(v) for v in node)
             return None if node is None else next(it)

@@ -50,6 +50,13 @@ def flat_axis_index() -> int:
     return rank()
 
 
+def barrier() -> None:
+    """Wait until every member reaches this point (a checkpoint's readers
+    wait for its writer); nothing to wait for on a ring of one."""
+    if _active():
+        tdist.barrier()
+
+
 def _all_reduce(x: torch.Tensor, op) -> torch.Tensor:
     out = x.detach().clone().contiguous()
     tdist.all_reduce(out, op=op)

@@ -22,10 +22,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import HeadConfig, ModelConfig
-from repro_torch.core import sparsify as sp
 from repro_torch.models.layers import ParamDict
 from repro_torch.optim import OptState
 from repro_torch.serving.index import IVFIndex
+from repro_torch.train import hybrid
 from repro_torch.train.hybrid import HybridState
 
 # the JAX package's name for the hand-written kernel backend
@@ -43,55 +43,6 @@ def head_config_from_dict(d: dict) -> HeadConfig:
     if "backend" in d:
         d["backend"] = _BACKEND_NAMES.get(d["backend"], d["backend"])
     return HeadConfig(**d)
-
-
-def _row_block(a: np.ndarray, rank: int, world_size: int,
-               axis: int = 0) -> np.ndarray:
-    """This member's block of ``a`` along ``axis`` (0: the class rows of a
-    [V, D] matrix; 1: the buckets of an [R, B, D] sketch)."""
-    if a.shape[axis] % world_size:
-        raise ValueError(f"{a.shape[axis]} rows do not divide a ring of "
-                         f"{world_size}")
-    n = a.shape[axis] // world_size
-    return np.take(a, np.arange(rank * n, (rank + 1) * n), axis=axis)
-
-
-def _tensor(a, device) -> torch.Tensor:
-    # a copy: the JAX package's host arrays are read-only
-    return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
-
-
-def _head_axis(a: np.ndarray) -> int:
-    """The axis the ring splits: a [V, D] class matrix by rows, an [R, B,
-    D] sketch (mach, csoft) by buckets."""
-    if a.ndim == 2:
-        return 0
-    if a.ndim == 3:
-        return 1
-    raise ValueError(f"head_params must be the [V, D] class matrix or an "
-                     f"[R, B, D] sketch, got shape {a.shape}")
-
-
-def _tree(node, device, row: Optional[int] = None):
-    """A tree of dicts and lists over numpy arrays -> the same tree over
-    fp32 tensors (``row``: keep that row of each leaf's leading axis)."""
-    if isinstance(node, dict):
-        return {k: _tree(v, device, row) for k, v in node.items()}
-    if isinstance(node, (list, tuple)):
-        return type(node)(_tree(v, device, row) for v in node)
-    a = np.asarray(node)
-    return _tensor(a if row is None else a[row], device)
-
-
-def _moments(pair, rank: int, world_size: int, device):
-    """(fe moments tree, GLOBAL head moment) -> this member's."""
-    if pair is None:
-        return None
-    fe, head = pair
-    head = np.asarray(head)
-    return (_tree(fe, device),
-            _tensor(_row_block(head, rank, world_size, _head_axis(head)),
-                    device))
 
 
 def paper_state_from_numpy(fe_params: dict, head_params, *,
@@ -118,49 +69,20 @@ def paper_state_from_numpy(fe_params: dict, head_params, *,
     carries none: it serves, and ``load_state`` of it cannot train.
     ``dgc`` is the JAX ``DGCState`` as ``{"u": tree, "v": tree}``, each
     leaf with a leading [world_size] axis, of which this member keeps row
-    ``rank``; without it the state carries no DGC state."""
-    if not 0 <= rank < world_size:
-        raise ValueError(f"rank {rank} is not on a ring of {world_size}")
-    w = np.asarray(head_params)
-    axis = _head_axis(w)
-    fe = _tree(fe_params, device)
-    block = _tensor(_row_block(w, rank, world_size, axis), device)
-    opt = None
-    if opt_state is not None:
-        opt = OptState(
-            step=int(opt_state["step"]),
-            mu=_moments(opt_state["mu"], rank, world_size, device),
-            nu=_moments(opt_state.get("nu"), rank, world_size, device))
+    ``rank``; without it the state carries no DGC state.
+
+    The state goes through ``hybrid.state_from_snapshot``, the function a
+    checkpoint restore places its tree with."""
     head_aux = tuple(head_aux)
-    aux_spec = tuple(aux_spec) if aux_spec is not None else (
-        ("sharded",) * len(head_aux))
-    if len(aux_spec) != len(head_aux):
-        raise ValueError(f"aux_spec {aux_spec} does not name the "
-                         f"{len(head_aux)} head_aux entries")
-    aux = []
-    for a, spec in zip(head_aux, aux_spec):
-        a = np.asarray(a)
-        if spec == "replicated":
-            aux.append(torch.tensor(a, device=device))         # a copy
-            continue
-        if spec != "sharded":
-            raise ValueError(f"aux spec {spec!r} is not 'sharded' or "
-                             f"'replicated'")
-        if a.shape[0] != world_size:
-            raise ValueError(f"head_aux leading axis {a.shape[0]} is not the "
-                             f"ring of {world_size}")
-        aux.append(torch.tensor(a[rank], device=device))   # a copy
-    dgc_state = None
-    if dgc is not None:
-        for name in ("u", "v"):
-            for leaf in sp.flatten(dgc[name])[0]:
-                if np.shape(leaf)[:1] != (world_size,):
-                    raise ValueError(
-                        f"dgc {name} leaf of shape {np.shape(leaf)} has no "
-                        f"leading ring axis of {world_size}")
-        dgc_state = sp.DGCState(u=_tree(dgc["u"], device, rank),
-                                v=_tree(dgc["v"], device, rank))
-    return HybridState(fe, block, tuple(aux), opt, dgc_state, int(step))
+    if aux_spec is None:
+        aux_spec = ("sharded",) * len(head_aux)
+    opt = None if opt_state is None else OptState(
+        step=opt_state["step"], mu=opt_state["mu"], nu=opt_state.get("nu"))
+    tree = {"fe": fe_params,
+            "head": {"params": head_params, "aux": head_aux},
+            "opt": opt, "dgc": dgc, "extra": {"step": step}}
+    return hybrid.state_from_snapshot(tree, aux_spec=aux_spec, rank=rank,
+                                      world_size=world_size, device=device)
 
 
 def ivf_index_from_numpy(tree: dict, *, rank: int = 0, world_size: int = 1,
@@ -210,7 +132,9 @@ def zoo_params_from_numpy(tree: dict, cfg: ModelConfig, *, rank: int = 0,
         if isinstance(node, dict):
             return {k: convert(v, layer) for k, v in node.items()}
         a = np.asarray(node)
-        return _tensor(a if layer is None else a[layer], device)
+        # a copy: the JAX package's host arrays are read-only
+        return torch.tensor(a if layer is None else a[layer],
+                            dtype=torch.float32, device=device)
 
     blocks = tree["blocks"]
     n_layers = len(np.asarray(blocks["ln1"]["scale"]))

@@ -15,8 +15,14 @@ defaults for the rest. It runs the FCCS learning rate and, with
 (its width is the config's; ``--feat-dim`` is not read), and ``--dgc``
 sparsifies the feature extractor's gradients as the JAX launcher does
 (sparsity 0.99, chunks of 2,048, the threshold on ``--backend``'s top-k).
-What is not ported yet exits with an argparse error naming ROADMAP.md:
-``--system zoo`` and the checkpoint flags.
+``--ckpt-dir D --ckpt-every N [--ckpt-keep K]`` writes full-state
+checkpoints; ``--resume`` restores the latest one under ``--ckpt-dir``
+(``--resume CKPT`` names the directory, or a file in it, and implies
+``--ckpt-dir``) and runs only the rest of ``--steps``, which is then the
+TOTAL; ``--resume-reshard`` (implying ``--resume``) also takes a
+checkpoint written on a ring of another size. What is not ported yet
+exits with an argparse error naming ROADMAP.md: ``--system zoo``, and
+with the checkpoint flags, the zoo's checkpoints (A.9.3).
 
   PYTHONPATH=src python -m repro_torch.launch.train --system paper \\
       --classes 1020250 --feat-dim 512 --batch 256 --steps 4 --fccs
@@ -28,11 +34,16 @@ What is not ported yet exits with an argparse error naming ROADMAP.md:
       --head mach --lr 0.3 --classes 512 --feat-dim 32 --steps 8 --batch 32
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --trunk cnn --dgc --classes 512 --steps 4 --batch 16 --fccs
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --ckpt-dir ck --ckpt-every 2 --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --ckpt-dir ck --resume --steps 6      # restores t=4, runs steps 4, 5
 """
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 
 _NOT_PORTED = "is not ported to torch yet (see ROADMAP.md queue {})"
@@ -64,11 +75,22 @@ def parse_args(argv=None):
     p.add_argument("--optimizer", choices=["sgd", "lars", "adam"],
                    default="sgd")
     p.add_argument("--ckpt-dir", default="")
-    p.add_argument("--ckpt-every", type=int, default=None)
-    p.add_argument("--ckpt-keep", type=int, default=None)
+    p.add_argument("--ckpt-every", type=int, default=None,
+                   help="full-state snapshot cadence in steps (default 50 "
+                        "with --ckpt-dir)")
+    p.add_argument("--ckpt-keep", type=int, default=None,
+                   help="retain only the N newest checkpoints "
+                        "(>= 1; omit to keep all)")
     p.add_argument("--resume", nargs="?", const=True, default=False,
-                   metavar="CKPT")
-    p.add_argument("--resume-reshard", action="store_true")
+                   metavar="CKPT",
+                   help="restore the latest checkpoint and run only the "
+                        "remaining steps (--steps is the TOTAL). With no "
+                        "value, restores from --ckpt-dir; a value names a "
+                        "checkpoint directory (or a .msgpack.zst file inside "
+                        "one) and implies --ckpt-dir")
+    p.add_argument("--resume-reshard", action="store_true",
+                   help="allow --resume from a checkpoint written on a ring "
+                        "of another size; implies --resume")
     p.add_argument("--trace-out", default="", metavar="PATH",
                    help="write a Chrome-trace/Perfetto JSON of the run's "
                         "telemetry spans")
@@ -80,15 +102,37 @@ def parse_args(argv=None):
         p.error(f"--steps must be positive, got {args.steps}")
     if args.batch <= 0:
         p.error(f"--batch must be positive, got {args.batch}")
+    ckpt_flags = (args.ckpt_dir or args.ckpt_every is not None
+                  or args.ckpt_keep is not None or args.resume
+                  or args.resume_reshard)
     if args.system == "zoo":
+        if ckpt_flags:
+            p.error("the zoo's checkpoints (--ckpt-*, --resume*) wait for "
+                    "the zoo trainer: " + _NOT_PORTED.format("A.9.3"))
         p.error("--system zoo " + _NOT_PORTED.format("A.9"))
     # --knn is a back-compat alias; an explicit non-default --head wins
     args.head = "knn" if (args.knn and args.head == "full") else args.head
-    if (args.ckpt_dir or args.ckpt_every is not None
-            or args.ckpt_keep is not None or args.resume
-            or args.resume_reshard):
-        p.error("checkpoints (--ckpt-*, --resume*) "
-                + _NOT_PORTED.format("A.7"))
+    if args.resume_reshard and not args.resume:
+        args.resume = True
+    if isinstance(args.resume, str):
+        # --resume CKPT names the checkpoint to restore from: the directory
+        # or one of its .msgpack.zst files
+        path = args.resume
+        if path.endswith(".msgpack.zst"):
+            path = os.path.dirname(path) or "."
+        if args.ckpt_dir and args.ckpt_dir != path:
+            p.error(f"--resume {args.resume} conflicts with "
+                    f"--ckpt-dir {args.ckpt_dir}")
+        args.ckpt_dir = path
+        args.resume = True
+    if args.resume and not args.ckpt_dir:
+        p.error("--resume requires --ckpt-dir (or --resume CKPT)")
+    if args.ckpt_keep is not None and args.ckpt_keep <= 0:
+        p.error("--ckpt-keep must be >= 1 (omit the flag to keep all)")
+    if args.ckpt_every is None:
+        args.ckpt_every = 50
+    if args.ckpt_every < 0:
+        p.error("--ckpt-every must be >= 0")
     return args
 
 
@@ -121,9 +165,20 @@ def main(argv=None):
         exp = Experiment.from_config(
             system="paper", trunk=args.trunk, classes=args.classes,
             feat_dim=args.feat_dim, batch=args.batch, head=hcfg, train=tcfg,
-            device=args.device)
+            ckpt_dir=args.ckpt_dir or None, ckpt_every=args.ckpt_every,
+            ckpt_keep=args.ckpt_keep or 0, device=args.device)
+        resume = ("reshard" if args.resume_reshard
+                  else bool(args.resume))
         hist = exp.fit(args.steps, use_fccs_batch=args.fccs,
-                       telemetry=telemetry)
+                       resume=resume, telemetry=telemetry)
+        if resume:
+            start = hist[0]["step"] if hist else args.steps
+            print(f"[train] resumed at t={start}: {len(hist)} steps to "
+                  f"{args.steps}")
+        if not hist:
+            print(f"[train] nothing to run: the checkpoint is at step "
+                  f"{args.steps}")
+            return 0
         acc = exp.evaluate(eval_batch=args.batch * 4)
         if not (math.isfinite(hist[-1]["loss"]) and math.isfinite(acc)):
             print(f"[train] non-finite result: loss {hist[-1]['loss']}, "

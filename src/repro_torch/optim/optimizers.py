@@ -38,14 +38,18 @@ class OptState(NamedTuple):
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the tensors of ``tree`` (dicts, tuples, lists), with the
-    matching leaves of ``rest``; ``None`` leaves stay ``None``."""
+    """``fn`` over the tensors of ``tree`` (dicts, tuples, NamedTuples,
+    lists), with the matching leaves of ``rest``; ``None`` leaves stay
+    ``None``."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        out = (tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree))
+        # a NamedTuple (OptState) takes its fields as arguments
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
     if tree is None:
         return None
     return fn(tree, *rest)

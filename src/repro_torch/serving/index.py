@@ -30,9 +30,10 @@ at serve time, scores only the rows of the clusters nearest the query:
     full score row on the card.
   * **lifecycle** — the index records the experiment's ``weights_version``
     at fit time; the engine refits when it moves.
-    ``state_to_save`` / ``state_from_restore`` turn the index into a dict
-    of tensors and ints and back (the checkpoint module itself is not
-    ported yet, ROADMAP.md A.7).
+    ``state_to_save`` / ``state_from_restore`` turn the index into a tree
+    of tensors, laid out as the JAX package's, and back;
+    ``repro_torch.checkpoint.save`` writes it, so a restarted server
+    installs the index instead of refitting it.
 
 The two normalisations of the reference are kept as they are: the fit's
 ``x / (|x| + 1e-12)`` (``core.sharded_softmax._normalize``) and the
@@ -251,16 +252,20 @@ class IVFIndex:
                    version=tuple(exp.weights_version), fit_s=times)
 
     def state_to_save(self) -> dict:
-        """The index as a dict of tensors and ints, from which
-        ``state_from_restore`` rebuilds it bit for bit (so a resumed
-        server skips the refit)."""
+        """The index as a tree of tensors (its ints as int32 scalars, the
+        version as an int32 vector, as the JAX package saves them), for
+        ``repro_torch.checkpoint.save``; ``state_from_restore`` rebuilds it
+        bit for bit, so a resumed server skips the refit."""
+        def i32(v):
+            return torch.tensor(v, dtype=torch.int32)
         return {
             "centroids": self.centroids,
             "members": self.members,
             "counts": torch.from_numpy(self.counts),
-            "meta": {"n_clusters": self.n_clusters, "cap": self.cap,
-                     "nprobe": self.nprobe, "iters": self.iters,
-                     "version": tuple(self.version)},
+            "meta": {"n_clusters": i32(self.n_clusters),
+                     "cap": i32(self.cap), "nprobe": i32(self.nprobe),
+                     "iters": i32(self.iters),
+                     "version": i32(tuple(self.version))},
         }
 
     @classmethod

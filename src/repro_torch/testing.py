@@ -857,6 +857,141 @@ def sparse_ce_backward_gate(df, dw, pdf, pdw, ids, gids, y) -> dict:
     return {"ok": not failed, "failed": failed, "parts": parts}
 
 
+# ---------------------------------------------------------------------------
+# checkpoints, recovery and elastic restores
+# ---------------------------------------------------------------------------
+
+
+def ckpt_experiment(spec: dict, ckpt_dir=None):
+    """A CPU ``PaperExperiment`` on this member from ``spec``: ``head`` and
+    ``train`` (the JAX package's ``HeadConfig`` / ``TrainConfig`` fields
+    as dicts, ``fccs`` and ``dgc`` nested), ``trunk`` ("feats" or "cnn"),
+    ``classes``, ``feat_dim``, ``batch``, ``ckpt_every`` and ``hw`` (the
+    cnn trunk's image side), on ``numpy_batch`` / ``numpy_image_batch``
+    data, checkpointing under ``ckpt_dir``."""
+    from repro_torch import interop
+    from repro_torch.api import Experiment
+    from repro_torch.configs.base import DGCConfig, FCCSConfig, TrainConfig
+
+    t = dict(spec["train"])
+    tcfg = TrainConfig(**{**t, "fccs": FCCSConfig(**t["fccs"]),
+                          "dgc": DGCConfig(**t["dgc"])})
+    v, trunk = spec["classes"], spec.get("trunk", "feats")
+    if trunk == "cnn":
+        def data_fn(step, b):
+            return numpy_image_batch(step, b, classes=v, hw=spec["hw"])
+    else:
+        def data_fn(step, b):
+            return numpy_batch(step, b, classes=v, dim=spec["feat_dim"])
+    return Experiment.from_config(
+        system="paper", trunk=trunk, classes=v,
+        feat_dim=spec.get("feat_dim", 64), batch=spec["batch"],
+        head=interop.head_config_from_dict(spec["head"]), train=tcfg,
+        ckpt_dir=ckpt_dir, ckpt_every=spec.get("ckpt_every", 0),
+        log_every=0, device="cpu", data_fn=data_fn)
+
+
+def _state_tree(st) -> dict:
+    """A member's ``HybridState`` as one tree, for ``tree_compare``."""
+    return {"fe": st.fe_params, "params": st.head_params,
+            "aux": st.head_aux, "opt": st.opt_state,
+            "dgc": None if st.dgc is None else {"u": st.dgc.u,
+                                                  "v": st.dgc.v},
+            "step": torch.tensor(st.step)}
+
+
+def ckpt_from_jax(spec: dict, jax_dir: str, port_dir: str,
+                  jax_state: dict) -> dict:
+    """Restore the JAX package's checkpoint under ``jax_dir`` on this
+    member, hold the state to ``interop.paper_state_from_numpy`` of the
+    JAX state (``jax_state``: ``fe``, ``params``, ``aux``, ``opt`` =
+    {"step", "mu", "nu"}, ``dgc`` = {"u", "v"} or None, ``step``), then
+    save it under ``port_dir``. Returns the restored step and cursor and
+    ``tree_compare``'s result."""
+    from repro_torch import interop
+    from repro_torch.resilience import tree_compare
+
+    exp = ckpt_experiment(spec, jax_dir)
+    step = exp.restore()
+    want = interop.paper_state_from_numpy(
+        jax_state["fe"], jax_state["params"], opt_state=jax_state["opt"],
+        step=jax_state["step"], head_aux=jax_state["aux"],
+        aux_spec=exp.head.aux_spec(), dgc=jax_state["dgc"],
+        rank=dist.rank(), world_size=dist.world_size(), device="cpu")
+    cmp = tree_compare(_state_tree(exp.state), _state_tree(want))
+    exp.trainer.ckpt_dir = port_dir
+    exp.trainer.save_checkpoint()
+    return {"step": step, "t": exp.trainer._t, "cmp": cmp,
+            "version": exp.weights_version}
+
+
+def kill_recover(spec: dict, ckpt_dir: str, *, total_steps: int,
+                 kill_at: int, fit_kw: dict, equivalence: str = "bitwise"):
+    """``resilience.kill_and_recover`` on this member for the experiment
+    of ``spec`` (every member runs it; member 0 writes). Returns the
+    ``RecoveryReport``."""
+    from repro_torch.resilience import kill_and_recover
+    return kill_and_recover(lambda d: ckpt_experiment(spec, d),
+                            total_steps=total_steps, kill_at=kill_at,
+                            ckpt_dir=ckpt_dir, equivalence=equivalence,
+                            head=spec["head"]["softmax_impl"],
+                            fit_kw=fit_kw)
+
+
+def snapshot_numpy(exp) -> dict:
+    """The experiment's GLOBAL snapshot tree as host arrays (a collective:
+    every member calls it)."""
+    return _np_tree(exp.trainer._snapshot())
+
+
+def elastic_source(spec: dict, ckpt_dir: str, *, steps: int,
+                   queries=None) -> dict:
+    """Train ``steps`` steps on this ring and save a checkpoint at the
+    end; returns the snapshot and the top-5 served (ids, scores) of the
+    feature ``queries`` (W-heads) or the greedy ids (sketch heads)."""
+    exp = ckpt_experiment(spec, ckpt_dir)
+    exp.fit(steps, use_fccs_batch=False)
+    exp.trainer.save_checkpoint()
+    return {"snap": snapshot_numpy(exp), "serve": _serve(exp, queries)}
+
+
+def _serve(exp, queries):
+    if queries is None:
+        return None
+    inputs = {"features": queries}
+    if exp.head.params_are_class_weights:
+        return exp.serve(inputs, top_k=5, return_scores=True)
+    return exp.serve(inputs)
+
+
+def elastic_restore(spec: dict, ckpt_dir: str, *, queries=None,
+                    save_dir=None, train_steps: int = 0) -> dict:
+    """Restore ``ckpt_dir``'s checkpoint onto this ring with ``reshard``;
+    returns the restored step, the snapshot, the served results, the
+    reshard's bytes and spans, and (with ``train_steps``) the losses of
+    that many more steps. With ``save_dir`` the restored state is saved
+    there first."""
+    from repro_torch.telemetry import Tracer
+    exp = ckpt_experiment(spec, ckpt_dir)
+    tele = Tracer()
+    exp.trainer.telemetry = tele
+    step = exp.restore(reshard=True)
+    out = {"step": step, "t": exp.trainer._t, "snap": snapshot_numpy(exp),
+           "serve": _serve(exp, queries),
+           "spans": [(e.name, e.depth) for e in tele.events],
+           "counters": dict(tele.counters),
+           "last_reshard": {k: v for k, v in
+                            (exp.trainer.last_reshard or {}).items()
+                            if k in ("plan", "bytes_moved")}}
+    if save_dir:
+        exp.trainer.ckpt_dir = save_dir
+        exp.trainer.save_checkpoint()
+    if train_steps:
+        hist = exp.fit(train_steps, use_fccs_batch=False)
+        out["losses"] = [r["loss"] for r in hist[-train_steps:]]
+    return out
+
+
 def run_all(cases: list) -> list:
     """Run ``(worker name, args, kwargs)`` cases in order on this member,
     so one spawned ring serves a whole group of tests."""
@@ -873,5 +1008,8 @@ def run_all(cases: list) -> list:
                "sampled_full_draw": sampled_full_draw,
                "selective_refresh": selective_refresh,
                "dgc_rounds": dgc_rounds, "cnn_fit": cnn_fit,
-               "cnn_serve": cnn_serve}
+               "cnn_serve": cnn_serve, "ckpt_from_jax": ckpt_from_jax,
+               "kill_recover": kill_recover,
+               "elastic_source": elastic_source,
+               "elastic_restore": elastic_restore}
     return [workers[name](*args, **kwargs) for name, args, kwargs in cases]

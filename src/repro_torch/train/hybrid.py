@@ -13,15 +13,23 @@ params) or the paper's ResNet (``cnn``, ``models/resnet.py``) on
 a dense all-reduce, or with ``TrainConfig.dgc.enabled`` the DGC exchange
 (``core.sparsify.dgc_exchange``), whose u and v are this member's
 ``HybridState.dgc``.
+
+``snapshot_tree`` gathers a member's state into the GLOBAL tree a
+checkpoint stores, laid out as the JAX package's trainer snapshot, and
+``state_from_snapshot`` cuts a member's state back out of such a tree;
+``interop`` carries the JAX package's state through the same function.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import dist
-from repro_torch.api.heads import HeadState, SoftmaxHead, make_head
+from repro_torch.api.heads import (HeadState, SoftmaxHead,
+                                   head_state_from_tree, make_head,
+                                   params_block)
 from repro_torch.configs.base import HeadConfig, ModelConfig, TrainConfig
 from repro_torch.core import sparsify as sp
 from repro_torch.core.pipeline import microbatched_value_and_grad
@@ -31,7 +39,8 @@ from repro_torch.core.sharded_softmax import (_normalize, mask_padded_rows,
                                               serve_topk_local)
 from repro_torch.models import lm
 from repro_torch.models import resnet as resnet_lib
-from repro_torch.optim import apply_updates, make_optimizer, tree_leaves
+from repro_torch.optim import (OptState, apply_updates, make_optimizer,
+                               tree_leaves, tree_map)
 
 
 class HybridState(NamedTuple):
@@ -69,6 +78,108 @@ def init_state(generator: torch.Generator, model_cfg: ModelConfig,
     opt_state = make_optimizer(train_cfg).init((fe_params, hs.params))
     dgc = sp.init_dgc_state(fe_params) if train_cfg.dgc.enabled else None
     return HybridState(fe_params, hs.params, hs.aux, opt_state, dgc, 0)
+
+
+def _int32(v) -> torch.Tensor:
+    return torch.tensor(int(v), dtype=torch.int32)
+
+
+@torch.no_grad()
+def snapshot_tree(state: HybridState, head: SoftmaxHead, *, t: int,
+                  seed: int, gather: bool = True) -> dict:
+    """The GLOBAL checkpoint tree of this member's state, in the JAX
+    package's layout: ``fe`` (replicated), ``head`` (``state_to_save``),
+    ``opt`` (an ``OptState`` whose moments mirror (fe, GLOBAL head)),
+    ``extra`` (the cursor ``t``, the step and the seed, int32) and, with
+    DGC, ``dgc`` {u, v} with every member's row stacked [P, ...]. A
+    collective: every member calls it. On a ring of one the leaves are the
+    state's own tensors, not copies. ``gather=False`` gives the same tree
+    paths over this member's own tensors, with no collective: the template
+    a restore reads the leaf names from."""
+    if state.opt_state is None:
+        raise ValueError("the state carries no optimizer state to save")
+    opt = state.opt_state
+    hs = HeadState(state.head_params, state.head_aux)
+    if gather:
+        gather_params = head.gather_params
+        head_tree = head.state_to_save(hs)
+
+        def stack(a):
+            return dist.all_gather(a, dim=0, tiled=False)
+    else:
+        gather_params = stack = (lambda a: a)
+        head_tree = {"params": hs.params, "aux": tuple(hs.aux)}
+
+    def moments(pair):
+        if pair is None:
+            return None
+        return (pair[0], gather_params(pair[1]))
+
+    tree = {
+        "fe": state.fe_params,
+        "head": head_tree,
+        "opt": OptState(step=_int32(opt.step), mu=moments(opt.mu),
+                        nu=moments(opt.nu)),
+        "extra": {"t": _int32(t), "step": _int32(state.step),
+                  "seed": _int32(seed)},
+    }
+    if state.dgc is not None:
+        tree["dgc"] = {"u": tree_map(stack, state.dgc.u),
+                       "v": tree_map(stack, state.dgc.v)}
+    return tree
+
+
+def _fp32_tree(node, device, row: Optional[int] = None):
+    """A tree of dicts and lists over host arrays -> the same tree over
+    fp32 tensors on ``device`` (``row``: keep that row of each leaf's
+    leading axis)."""
+    if isinstance(node, dict):
+        return {k: _fp32_tree(v, device, row) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_fp32_tree(v, device, row) for v in node)
+    a = np.asarray(node)
+    # a copy: a restored leaf or the JAX package's host array stays as is
+    return torch.tensor(a if row is None else a[row], dtype=torch.float32,
+                        device=device)
+
+
+def state_from_snapshot(tree: dict, *, aux_spec, rank: int, world_size: int,
+                        device) -> HybridState:
+    """Ring member ``rank``'s ``HybridState`` from a GLOBAL snapshot tree
+    of host arrays (``snapshot_tree``'s layout, restored from a checkpoint
+    or built by ``interop`` from the JAX package's state): the replicated
+    FE params, this member's block of the head (``head_state_from_tree``
+    by the head's ``aux_spec``), the moments cut like the params, row
+    ``rank`` of DGC's u and v, and the step. ``opt`` (an ``OptState``) and
+    ``dgc`` may be absent or None."""
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} is not on a ring of {world_size}")
+    hs = head_state_from_tree(tree["head"], aux_spec, rank=rank,
+                              world_size=world_size, device=device)
+
+    def moments(pair):
+        if pair is None:
+            return None
+        fe, hp = pair
+        return (_fp32_tree(fe, device),
+                params_block(hp, rank, world_size, device))
+
+    opt = tree.get("opt")
+    if opt is not None:
+        opt = OptState(step=int(np.asarray(opt.step)), mu=moments(opt.mu),
+                       nu=moments(opt.nu))
+    dgc = tree.get("dgc")
+    if dgc is not None:
+        for name in ("u", "v"):
+            for leaf in sp.flatten(dgc[name])[0]:
+                if np.shape(leaf)[:1] != (world_size,):
+                    raise ValueError(
+                        f"dgc {name} leaf of shape {np.shape(leaf)} has no "
+                        f"leading ring axis of {world_size}")
+        dgc = sp.DGCState(u=_fp32_tree(dgc["u"], device, rank),
+                          v=_fp32_tree(dgc["v"], device, rank))
+    return HybridState(_fp32_tree(tree["fe"], device), hs.params, hs.aux,
+                       opt, dgc, int(np.asarray(tree["extra"]["step"])))
 
 
 def _features(model_cfg: ModelConfig, fe_params, inputs: dict):

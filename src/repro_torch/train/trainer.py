@@ -1,13 +1,23 @@
 """FCCS-driven training loop for the paper system: the port of the JAX
-package's ``train/trainer.py`` without checkpoints.
+package's ``train/trainer.py``.
 
 Orchestrates the warm-up learning rate, continuous batch growth through
 gradient accumulation (quantised to powers of two, as in the JAX package,
-where each value is one compiled step), the head's periodic refresh and
-evaluation. The trainer never branches on the head kind.
+where each value is one compiled step), the head's periodic refresh,
+periodic checkpoints and evaluation. The trainer never branches on the
+head kind.
 
-Checkpoints, ``restore_checkpoint`` and elastic restore are not ported yet
-(ROADMAP.md queue A.7): asking for them raises.
+Checkpoints are FULL-state snapshots in the JAX package's format
+(``repro_torch.checkpoint``): the FE params, the head's params AND aux
+(the knn graph, the LSH tables, the sketch hashes), the optimizer
+moments, DGC's u and v, and the data cursor and step, so a killed run
+continues from ``restore_checkpoint`` step for step as if it had never
+stopped. The FCCS schedule and the synthetic data stream are functions of
+the cursor, so saving the cursor saves the schedule. On a ring, member 0
+writes the gathered global tree and every member reads the file and keeps
+its block; ``restore_checkpoint(reshard=True)`` takes a checkpoint written
+on a ring of another size (``repro_torch.elastic``). ``step_hook`` is the
+fault-injection seam (``repro_torch.resilience``).
 """
 from __future__ import annotations
 
@@ -18,6 +28,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import checkpoint as ckpt_lib
 from repro_torch import dist
 from repro_torch.api.experiment import resolve_device
 from repro_torch.api.heads import HeadState, make_head
@@ -25,10 +36,6 @@ from repro_torch.configs.base import HeadConfig, ModelConfig, TrainConfig
 from repro_torch.core import fccs
 from repro_torch.telemetry import NULL_TRACER
 from repro_torch.train import hybrid
-
-_NO_CKPT = ("checkpoints are not ported to torch yet (ROADMAP.md queue "
-            "A.7)")
-
 
 def _pow2_quantize(n: int) -> int:
     p = 1
@@ -54,14 +61,14 @@ class PaperTrainer:
     device: object = None                   # None = "cuda"; "cpu" on request
     lr_fn: Optional[Callable[[int], float]] = None  # default: FCCS policy
     ckpt_dir: Optional[str] = None
+    ckpt_every: int = 0
+    ckpt_keep: int = 0                      # 0 = retain every checkpoint
     log_every: int = 10
     seed: int = 0
     history: list = field(default_factory=list)
     telemetry: object = None                # Tracer, or None = NULL_TRACER
 
     def __post_init__(self):
-        if self.ckpt_dir:
-            raise NotImplementedError(_NO_CKPT)
         self.device = resolve_device(self.device)
         self.n_dev = dist.world_size()
         self.head = make_head(self.model_cfg, self.head_cfg)
@@ -72,6 +79,8 @@ class PaperTrainer:
             rank=dist.rank(), device=self.device, head=self.head)
         self._steps = {}
         self._t = 0          # data cursor: next step index run() will take
+        self.restores = 0    # bumped on every restore (serving-cache probe)
+        self.last_reshard = None   # stats dict of the last elastic restore
         self.refresh_head()
         self.eval_step = hybrid.make_eval_step(
             self.model_cfg, self.head_cfg, head=self.head)
@@ -96,9 +105,98 @@ class PaperTrainer:
         tr.count("train.refreshes")
         return time.perf_counter() - t0
 
+    # -- full-state checkpoint / restore ----------------------------------
+
+    def _snapshot(self) -> dict:
+        """The checkpoint tree: everything the step consumes, plus the
+        cursor the loop consumes, GLOBAL (``hybrid.snapshot_tree``; a
+        collective on a ring)."""
+        return hybrid.snapshot_tree(self.state, self.head, t=self._t,
+                                    seed=self.seed)
+
+    def geometry(self):
+        """This trainer's ``elastic.MeshGeometry``: the ring is both the
+        model and the data axis."""
+        from repro_torch.elastic import MeshGeometry
+        return MeshGeometry(n_model=self.n_dev, n_data=self.n_dev,
+                            n_classes=self.model_cfg.vocab_size)
+
+    def save_checkpoint(self) -> Optional[str]:
+        """An atomic full-state snapshot at the current cursor, written by
+        member 0 with the ring's geometry as its meta; every member returns
+        once the file is complete. Returns the file's path on member 0,
+        None on the others."""
+        if not self.ckpt_dir:
+            raise ValueError("trainer has no ckpt_dir")
+        tree = self._snapshot()
+        fname = None
+        if dist.rank() == 0:
+            tr = self.telemetry or NULL_TRACER
+            meta = {"system": "paper", **self.geometry().meta()}
+            self._sync()        # the fetches wait on no pending step
+            parts = {}
+            fname = ckpt_lib.save(self.ckpt_dir, tree, step=self._t,
+                                  keep=self.ckpt_keep or None, meta=meta,
+                                  timings=parts)
+            tr.count("train.checkpoint.fetch_s", parts["fetch_s"])
+            tr.count("train.checkpoint.write_s", parts["write_s"])
+        dist.barrier()
+        return fname
+
     def restore_checkpoint(self, step: Optional[int] = None, *,
                            reshard: bool = False) -> int:
-        raise NotImplementedError(_NO_CKPT)
+        """Refill the FULL trainer state from ``ckpt_dir`` (the latest step
+        by default) and move the cursor, so the next ``run`` continues the
+        killed run step for step. ``reshard=True`` accepts a checkpoint
+        written on a ring of another size and re-shards it onto this one;
+        without it a ring mismatch raises ``ReshardError`` before any leaf
+        is decoded. Returns the restored step."""
+        if not self.ckpt_dir:
+            raise ValueError("trainer has no ckpt_dir")
+        from repro_torch import elastic
+
+        tr = self.telemetry or NULL_TRACER
+        with tr.span("train.restore"):
+            dst = self.geometry()
+            src = ckpt_lib.validate_restore(self.ckpt_dir, dst, step,
+                                            reshard=reshard)
+            # the paths come from this member's own tensors: no gather
+            template = hybrid.snapshot_tree(self.state, self.head, t=self._t,
+                                            seed=self.seed, gather=False)
+            parts = {}
+            tree, step = ckpt_lib.restore(self.ckpt_dir, template, step,
+                                          timings=parts)
+            tr.count("train.restore.read_s", parts["read_s"])
+            needs_refresh = False
+            if src.n_model != dst.n_model:
+                t0 = time.perf_counter()
+                with tr.span("train.reshard",
+                             attrs={"src": src.describe(),
+                                    "dst": dst.describe()}):
+                    tree, needs_refresh, led = \
+                        elastic.reshard_paper_snapshot(tree, self.head, src,
+                                                       dst)
+                bytes_moved = led.total_bytes()
+                tr.count("reshard.bytes_moved", bytes_moved)
+                self.last_reshard = {
+                    "src": src, "dst": dst,
+                    "plan": elastic.plan_reshard(src, dst).describe(),
+                    "bytes_moved": bytes_moved, "ledger": led,
+                    "seconds": time.perf_counter() - t0}
+            t0 = time.perf_counter()
+            self.state = hybrid.state_from_snapshot(
+                tree, aux_spec=self.head.aux_spec(), rank=dist.rank(),
+                world_size=self.n_dev, device=self.device)
+            self._sync()
+            tr.count("train.restore.place_s", time.perf_counter() - t0)
+            self._t = int(tree["extra"]["t"])
+            self.restores += 1
+            tr.count("train.restores")
+            if needs_refresh:
+                # aux with no exact re-pack rule: the head's own refresh
+                # on the dst ring
+                self.refresh_head()
+        return step
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -106,8 +204,11 @@ class PaperTrainer:
 
     def run(self, total_steps: int, *, use_fccs_batch: bool = True,
             step_hook: Optional[Callable[[int], None]] = None):
-        """Run ``total_steps`` MORE steps from the current cursor.
-        ``step_hook(t)`` fires before each step."""
+        """Run ``total_steps`` MORE steps from the current cursor (0 for a
+        fresh trainer; the restored step after ``restore_checkpoint``).
+        ``step_hook(t)`` fires before each step; whatever it raises
+        propagates after any due checkpoint of the previous step was
+        written."""
         fcfg = self.train_cfg.fccs
         refresh_every = self.head.refresh_every
         start = self._t
@@ -133,6 +234,11 @@ class PaperTrainer:
             self._t = t + 1
             if refresh_every and (t + 1) % refresh_every == 0:
                 self.refresh_head()
+            if self.ckpt_dir and self.ckpt_every and \
+                    (t + 1) % self.ckpt_every == 0:
+                with tr.span("train.checkpoint"):
+                    self.save_checkpoint()
+                tr.count("train.checkpoints")
             row = {"step": t, "lr": lr, "batch": self.hw_batch * n,
                    "loss": float(loss),
                    "acc": float(metrics["accuracy"])}

@@ -32,6 +32,12 @@ IVF_MODULES = ("repro_torch.serving.index", "repro_torch.kernels.ivf_rerank")
 ZOO_MODULES = ("repro_torch.models.layers", "repro_torch.models.decoder",
                "repro_torch.models.lm", "repro_torch.train.gspmd",
                "repro_torch.kernels.flash_attention")
+CKPT_MODULES = ("repro_torch.checkpoint.checkpoint",
+                "repro_torch.checkpoint.codec", "repro_torch.elastic.plan",
+                "repro_torch.elastic.reshard", "repro_torch.elastic.apply",
+                "repro_torch.resilience.faults",
+                "repro_torch.resilience.harness",
+                "repro_torch.telemetry.ledger")
 
 
 def test_importing_the_port_loads_no_jax():
@@ -46,7 +52,8 @@ def test_importing_the_port_loads_no_jax():
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
-        f"missing = set({KNN_MODULES + IVF_MODULES + ZOO_MODULES!r}) "
+        f"missing = set("
+        f"{KNN_MODULES + IVF_MODULES + ZOO_MODULES + CKPT_MODULES!r}) "
         f"- set(sys.modules)\n"
         "assert not missing, missing\n"
         "print('modules', len([m for m in sys.modules "
@@ -60,8 +67,48 @@ def test_importing_the_port_loads_no_jax():
     # trainer, launch.train), the knn slice's (knn_graph, knn_softmax,
     # sparse_ce, knn_dist_topk), the IVF slice's (serving.index,
     # kernels.ivf_rerank) and the zoo's (models, train.gspmd,
-    # kernels.flash_attention) are among them
-    assert int(out.stdout.split()[-1]) >= 44
+    # kernels.flash_attention) and the checkpoint slice's (checkpoint,
+    # elastic, resilience, telemetry.ledger) are among them
+    assert int(out.stdout.split()[-1]) >= 56
+
+
+def test_checkpoints_need_neither_msgpack_nor_zstandard(tmp_path):
+    """Where neither package is installed (the card's machine), the port
+    still writes and reads checkpoints, with its own codec and zlib, and
+    no module of the port imports msgpack; zstandard is imported only by
+    the checkpoint module, guarded."""
+    code = (
+        "import sys\n"
+        "sys.modules['msgpack'] = None\n"
+        "sys.modules['zstandard'] = None\n"
+        "import numpy as np\n"
+        "from repro_torch import checkpoint, elastic, resilience\n"
+        "from repro_torch.api import Experiment\n"
+        "assert checkpoint.codec_name() == 'zlib-0'\n"
+        "exp = Experiment.from_config(system='paper', classes=64, "
+        "feat_dim=8, batch=8, device='cpu', log_every=0, "
+        f"ckpt_dir={str(tmp_path / 'ck')!r}, ckpt_every=2)\n"
+        "exp.fit(2)\n"
+        "fresh = Experiment.from_config(system='paper', classes=64, "
+        "feat_dim=8, batch=8, device='cpu', log_every=0, "
+        f"ckpt_dir={str(tmp_path / 'ck')!r})\n"
+        "assert fresh.restore() == 2\n"
+        "cmp = resilience.tree_compare(fresh.trainer._snapshot(), "
+        "exp.trainer._snapshot())\n"
+        "assert cmp['bitwise'], cmp\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+    importers = {str(p.relative_to(ROOT)): m
+                 for p in sorted(PORT.rglob("*.py")) for m in _imports(p)
+                 if m.split(".")[0] in ("msgpack", "zstandard")}
+    assert importers == {"src/repro_torch/checkpoint/checkpoint.py":
+                         "zstandard"}
+    src = (PORT / "checkpoint" / "checkpoint.py").read_text()
+    assert "try:\n    import zstandard\nexcept ImportError:" in src
 
 
 def _imports(path: Path):
@@ -102,14 +149,16 @@ def test_unported_parts_say_so():
                                  reduced=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         zoo.fit(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Experiment.from_config(system="paper", classes=64, feat_dim=8,
-                               device="cpu", ckpt_dir="ckpt")
+    # the zoo's checkpoints wait for the zoo trainer; the paper system's
+    # are ported and want a ckpt_dir to restore from
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.9.3"):
+        Experiment.from_config(system="zoo", arch="smollm_135m",
+                               reduced=True, device="cpu", ckpt_dir="ckpt")
     exp = Experiment.from_config(system="paper", classes=64, feat_dim=8,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="ckpt_dir"):
         exp.fit(1, resume=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="ckpt_dir"):
         exp.trainer.restore_checkpoint()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         IVFIndex.fit(types.SimpleNamespace(par=None))      # a zoo experiment

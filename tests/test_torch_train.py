@@ -391,8 +391,12 @@ def test_train_launcher_cnn_and_dgc_on_the_cpu(extra, tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,queue", [
     (["--system", "zoo"], "A.9"),
-    (["--ckpt-dir", "x"], "A.7"),
-    (["--resume"], "A.7"),
+    # the paper system's checkpoints are ported; the zoo's wait for its
+    # trainer (the ids are kept from when A.7 held every --ckpt-* flag)
+    pytest.param(["--system", "zoo", "--ckpt-dir", "x"], "A.9.3",
+                 id="argv1-A.7"),
+    pytest.param(["--system", "zoo", "--resume", "x"], "A.9.3",
+                 id="argv2-A.7"),
     (["--backend", "pallas"], None),
     (["--steps", "0"], None),
 ])

@@ -477,7 +477,7 @@ def test_zoo_experiment_config_and_unported_parts():
         exp.serve(index="ivf")
     with pytest.raises(ValueError, match="positive"):
         exp.serve(prompt_len=0)
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(NotImplementedError, match="A.9.3"):
         Experiment.from_config(system="zoo", reduced=True, device="cpu",
                                ckpt_dir="ckpt")
     with pytest.raises(NotImplementedError, match="A.9"):
