@@ -223,7 +223,9 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    S = T = 2,000, Dh = 64, bf16, causal): the bf16 gate with its emulated
    faults, bit-identical across two runs, timed beside its plain version and
    ``scaled_dot_product_attention`` on the [8, 9, 2000, 64] view with
-   ``enable_gqa`` (and on KV heads expanded beforehand).
+   ``enable_gqa`` (and on KV heads expanded beforehand); and at the zoo
+   trainer's ``evaluate`` shapes (BH = 144 over 48 KV heads, S = T = 512,
+   Dh = 64, bf16, causal): the bf16 gate, bit-identical, timed.
 14. zoo serving (the main path of the zoo slice):
    ``Experiment.from_config(system="zoo", arch="smollm_135m")`` at its
    full width (30 layers, bf16 over fp32 params, random weights from seed
@@ -241,6 +243,48 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    share) and peak memory.
 15. the serve launcher with ``--system zoo`` at the same shapes; it must
    return 0 and launch ``flash_attention``.
+16. zoo training (the main paths of the zoo trainer): SmolLM-135M at its
+   published width and depth, 16 x 512 = 8,192 tokens a step, SGD at lr
+   0.5, on the ``kernel`` backend (the trunk trains on the ``ref``
+   attention: the flash kernel has no backward). Every counter is set to
+   0 just before each path and read just after, and must equal
+   ``ZOO_WANT`` (written in PERF.md before the first run): ``fit(4)``
+   with the full head (``ce_forward`` and ``ce_backward`` 4 times each,
+   raw logits at scale 1), ``evaluate`` (``ce_forward`` 1, and
+   ``flash_attention`` 30: no grad there), ``fit(4)`` at two
+   micro-batches (8 each), the knn head (k 16, k' 32, 10% active, rebuilt
+   every 2 steps: the sparse pair 4 times each, ``dist_topk`` 3, once a
+   build; ``label_recall`` equal to Algorithm 1's, which is below 1 here:
+   8,192 tokens carry ~7,300 distinct labels, more than the 4,915 active
+   slots; 1.0 on every step of a ``fit(2)`` at 8 x 512 tokens), MACH
+   (R = 4 x 3,072 buckets, ``fit(2)``: the CE pair 8 times each). Losses
+   finite, the head and a trunk weight moved. ``evaluate``'s picks
+   against the ``ref`` backend on the same params and batch: its accuracy
+   is its kernel path's, features within ZOO_H_TOL, logits within
+   ZOO_LOGIT_TOL, picks equal but at near-ties. Against the ``ref``
+   backend from the same params and batch: one step's loss within
+   ZOO_LOSS_RTOL; the tied table's gradient within ZOO_TABLE_GRAD_STEPS
+   bf16 steps of its max (its embedding part is formed in bf16), and every
+   leaf within ZOO_GRAD32_TOL in fp32 compute; the updated tables within lr
+   times that; the table's head gradient (label rows and other rows)
+   within BWD_TOL of its max. MACH likewise: its loss, the bucket block's
+   gradient within BWD_TOL, and the CE pair at its [8,192, 3,072] block
+   through the CE gates and the 1xTF32 emulation. The CE pair at [8,192, 49,152]
+   x 576 through the CE gates (bit-identical runs; the 1xTF32 emulation
+   must fail both), the sparse pair at the knn active set through the
+   sparse gates, ``dist_topk`` over the table's 49,152 rows; each timed
+   beside its plain version, the library call and the bound. The step at
+   n_micro 1 and 2 (host clock, median of 5), tokens/s, one profiled step
+   (idle share, kernels by group, the costliest kernels), peak memory.
+17. zoo retrieval on the trained full-head experiment: top-5 of 64 queries
+   (the JAX package's default pool) through the serving engine, exact
+   (``stage1_topk`` 1) and through the IVF index (``ivf_rerank`` 1), each
+   held against the ``ref`` backend (scores within IVF_TOL, ids equal but
+   at near-ties), batch latencies (median of 10), both kernels at these
+   shapes against their plain versions.
+18. the train launcher with ``--system zoo`` at the same width for 2 steps
+   with the full and the knn head, and the serve launcher's zoo top-5,
+   exact and with ``--index ivf``; each must return 0.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, one ``{"end_to_end": ...}`` line and, last, ``{"ok": true,
@@ -376,6 +420,50 @@ ZOO_H_TOL = 5e-2
 # below twice this bound
 ZOO_LOGIT_TOL, ZOO_TOKEN_ROWS = 2e-2, 256
 ZOO_H32_TOL = 1e-4     # the same in fp32 compute: sums in another order
+# the zoo trainer: SmolLM-135M at its published width and depth (30
+# layers, d_model 576, 9 query over 3 KV heads, vocab 49,152, bf16 over
+# fp32 params), 16 sequences of 512 tokens a step (8,192 tokens, one
+# micro-batch by auto_micro_batches), SGD (momentum 0.9) at lr 0.5, random
+# weights from seed 0. The knn head at the train launcher's k, k' and
+# active share, rebuilt every 2 steps; MACH with Table 2's ratios (R = 4
+# repetitions of V // 16 buckets)
+ZOO_TB, ZOO_TS, ZOO_STEPS, ZOO_LR = 16, 512, 4, 0.5
+ZOO_V, ZOO_D = 49_152, 576
+ZOO_KNN = dict(softmax_impl="knn", knn_k=KNN_K, knn_kprime=KPRIME,
+               active_frac=ACTIVE_FRAC, rebuild_every=2)
+ZOO_MACH = dict(softmax_impl="mach", mach_b=ZOO_V // 16, mach_r=4)
+ZOO_MACH_STEPS = 2
+# the launches each zoo path must make, every counter reset just before
+# and read just after (PERF.md §6, written before the first run on the
+# card): the CE pair once a micro-step (n_micro 1, then 2), once a
+# repetition a micro-step for MACH; the sparse pair once a micro-step and
+# dist_topk once a graph build (fit's first build and the rebuilds after
+# steps 2 and 4) for knn; evaluate's argmax and the flash attention of its
+# 30 layers (evaluate runs under no grad, so its trunk takes the kernel);
+# one stage1_topk a top-5 serve, one ivf_rerank an IVF top-5 serve
+ZOO_WANT = {
+    "zoo_training": {"ce_forward": ZOO_STEPS, "ce_backward": ZOO_STEPS},
+    "zoo_training_n2": {"ce_forward": 2 * ZOO_STEPS,
+                        "ce_backward": 2 * ZOO_STEPS},
+    "zoo_evaluate": {"ce_forward": 1, "flash_attention": 30},
+    "zoo_knn_training": {"sparse_ce_forward": ZOO_STEPS,
+                         "sparse_ce_backward": ZOO_STEPS, "dist_topk": 3},
+    "zoo_mach_training": {"ce_forward": 4 * ZOO_MACH_STEPS,
+                          "ce_backward": 4 * ZOO_MACH_STEPS},
+    "zoo_retrieval": {"stage1_topk": 1},
+    "zoo_ivf_retrieval": {"ivf_rerank": 1},
+}
+ZOO_LOSS_RTOL = 1e-4   # one step's loss, kernel vs ref backend
+# the tied table's gradient of one batch, kernel vs ref backend from the
+# same params. In the step's own precision its embedding part is formed in
+# bf16, so the kernels' fp32-level differences in df move it by whole bf16
+# steps (read: 2 steps of max|ref|, with or without the features upcast
+# before the head): within ZOO_TABLE_GRAD_STEPS bf16 steps of max|ref|. In
+# fp32 compute throughout only the sums' order differs (read 1.8e-6): every
+# leaf within ZOO_GRAD32_TOL of its max|ref| (PERF.md §6)
+ZOO_TABLE_GRAD_STEPS = 4
+ZOO_GRAD32_TOL = 1e-5
+ZOO_RET_B = 64         # zoo retrieval: 64 queries, top-5
 
 
 def fail(msg: str) -> None:
@@ -478,13 +566,13 @@ def bound_ms(n_bytes: float, n_ops: float,
 
 
 def ce_bounds(n_bytes: float, n_products: int, b: int,
-              cols: int = V) -> dict:
+              cols: int = V, d: int = D) -> dict:
     """A CE kernel's bounds at batch b over ``cols`` class columns of width
-    D (the V x D shard, or the sparse kernels' A gathered rows): its
-    n_products fp32 products of 2 b cols D operations as 3xTF32 on the
+    d (the V x D shard, or the sparse kernels' A gathered rows): its
+    n_products fp32 products of 2 b cols d operations as 3xTF32 on the
     tensor cores (three TF32 products each; the kernels' design), and on
     CUDA cores in fp32 FMA, each against its bytes."""
-    ops = n_products * 2.0 * b * cols * D
+    ops = n_products * 2.0 * b * cols * d
     t32, by32 = bound_ms(n_bytes, 3 * ops, TF32_OPS_PER_S)
     fma, by_fma = bound_ms(n_bytes, ops)
     return {"bound_ms": t32, "bound_by": by32, "bound_fp32_fma_ms": fma,
@@ -2861,7 +2949,7 @@ def ivf_ragged_checks(torch, ivf):
         "bit-identical across runs")
 
 
-def ivf_union_bytes(torch, members, probe, b, k):
+def ivf_union_bytes(torch, members, probe, b, k, d=D):
     """Bytes a rerank of these probes must move at least: every real row of
     the probed clusters once, f, the probe and the result; and the real
     candidates (the FMA work's count)."""
@@ -2869,7 +2957,7 @@ def ivf_union_bytes(torch, members, probe, b, k):
     rows = members[used.long()]
     union = int((rows >= 0).sum())
     n_real = int((members[probe[:b].long()] >= 0).sum())
-    return 4 * D * union + 4 * b * D + 4 * probe[:b].numel() + 8 * b * k, \
+    return 4 * d * union + 4 * b * d + 4 * probe[:b].numel() + 8 * b * k, \
         union, n_real
 
 
@@ -3325,6 +3413,7 @@ def flash_kernel_phase(torch, fa):
     lib_err = float((lib_out.float() - plain.float()).abs().max())
     lib_gate = flash_bf16_gate(torch, lib_out, plain, flip)
     bound, by = _flash_bound(bh, s, s, dh, 2, bhkv)
+    zoo_eval = flash_zoo_evaluate_check(torch, fa)
     log(f"flash phase: at BH={bh} over {bhkv} KV heads, S=T={s}, Dh={dh}, "
         f"bf16, causal: max abs "
         f"err {err:.3g} vs plain, bf16 gate ratio {gate['ratio']:.3g} (<= 1) "
@@ -3351,8 +3440,51 @@ def flash_kernel_phase(torch, fa):
         bf16_gate=(gate["ratio"], gate["mean_rel"]),
         bf16_gate_fixed=(gate["fixed_ratio"], gate["n_flips"]),
         bf16_gate_faults=faults, sweep_bf16_gate=gates,
-        sweep_max_abs_err=errs,
+        sweep_max_abs_err=errs, zoo_evaluate=zoo_eval,
         shape=f"q[{bh},{s},{dh}] k,v[{bhkv},{s},{dh}] bf16 causal")
+
+
+def flash_zoo_evaluate_check(torch, fa):
+    """``flash_attention`` at the zoo trainer's ``evaluate`` shapes (16
+    sequences of 512 tokens, 9 query heads over 3 KV heads, Dh 64, bf16,
+    causal): held to the bf16 gate against its plain version, bit-identical
+    across two runs, timed beside its plain version and SDPA."""
+    bh, bhkv = ZOO_TB * ZOO_HEADS, ZOO_TB * ZOO_KV_HEADS
+    s, dh = ZOO_TS, ZOO_HEAD_DIM
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(8)
+    q, k, v = (torch.randn((h, s, dh), generator=g, device=DEVICE).to(
+        torch.bfloat16) for h in (bh, bhkv, bhkv))
+    out = fa.flash_attention(q, k, v)
+    again = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        fail("flash_attention at the zoo's evaluate shapes is not "
+             "bit-identical across two runs")
+    plain = fa.flash_attention_plain(q, k, v)
+    err = float((out.float() - plain.float()).abs().max())
+    gate = flash_bf16_gate(torch, out, plain,
+                           flash_flip_bound(torch, fa, q, k, v))
+    if not gate["ok"]:
+        fail(f"flash_attention at the zoo's evaluate shapes: max abs err "
+             f"{err:.3g}, gate {gate}")
+    ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v), 50)
+    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v), 3)
+    q4 = q.view(ZOO_TB, ZOO_HEADS, s, dh)
+    k4, v4 = (x.view(ZOO_TB, ZOO_KV_HEADS, s, dh) for x in (k, v))
+    lib_ms = cuda_ms(torch, lambda: torch.nn.functional.
+                     scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                  enable_gqa=True), 50)
+    bound, by = _flash_bound(bh, s, s, dh, 2, bhkv)
+    log(f"flash phase: at the zoo's evaluate shapes BH={bh} over {bhkv} KV "
+        f"heads, S=T={s}, Dh={dh}, bf16, causal: max abs err {err:.3g}, bf16 "
+        f"gate ratio {gate['ratio']:.3g} (<= 1), mean {gate['mean_rel']:.3g} "
+        f"(<= {FLASH_BF16_MEAN_TOL}); bit-identical; {ms:.4f} ms, bound "
+        f"{bound:.4f} ms by {by}, plain {plain_ms:.3f} ms, SDPA {lib_ms:.4f}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by, max_abs_err=err,
+                bf16_gate=(gate["ratio"], gate["mean_rel"]),
+                shape=f"q[{bh},{s},{dh}] k,v[{bhkv},{s},{dh}] bf16 causal")
 
 
 def _zoo(torch, backend, params=None):
@@ -3371,12 +3503,13 @@ def zoo_phase(torch, np, counters, fa):
     from repro_torch.core import sharded_softmax as sharded
     from repro_torch.data import synthetic
     from repro_torch.models import lm
+    from repro_torch.optim import tree_leaves
     from repro_torch.telemetry import Tracer
     from repro_torch.train import gspmd
 
     exp = _zoo(torch, "kernel")
     cfg = exp.model_cfg
-    n_params = sum(p.numel() for p in exp.params.parameters())
+    n_params = sum(p.numel() for p in tree_leaves(exp.params))
     log(f"zoo phase: {cfg.name} ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
         f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}), "
@@ -3539,6 +3672,898 @@ def zoo_launcher_phase(torch, fa):
     return {"zoo_launcher_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# the zoo trainer and the zoo's feature retrieval (SmolLM-135M at full width)
+# ---------------------------------------------------------------------------
+
+
+def _zoo_trainer(backend: str, head=None, train=None, log_every: int = 1,
+                 batch: int = ZOO_TB):
+    """The zoo trainer's experiment: SmolLM-135M at full width on
+    ``batch`` x ``ZOO_TS`` tokens a step, the ``full`` head unless
+    ``head`` (HeadConfig fields) says otherwise, SGD unless ``train``."""
+    from repro_torch.api import Experiment
+    from repro_torch.configs.base import HeadConfig, TrainConfig
+    return Experiment.from_config(
+        system="zoo", arch="smollm_135m", batch=batch, seq=ZOO_TS, seed=0,
+        device=DEVICE, log_every=log_every,
+        head=HeadConfig(backend=backend, **(head or {})),
+        train=train or TrainConfig(optimizer="sgd"))
+
+
+def _zoo_fit(torch, counters, exp, steps, path):
+    """``exp.fit(steps)`` with every counter set to 0 just before and read
+    just after: the launches must be ``ZOO_WANT[path]``, the losses finite
+    and the trained params moved. Returns (history, launches, seconds,
+    peak GB)."""
+    from repro_torch.models import lm
+    trained = (lm.head_weight(exp.params, exp.model_cfg)
+               if exp.head.params_are_class_weights else exp.head_state.params)
+    w0 = trained.detach().clone()
+    wq0 = exp.params.blocks[0].attn.wq.detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(counters)
+    t0 = time.perf_counter()
+    hist = exp.fit(steps, lr=ZOO_LR)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: v for k, v in _read(counters).items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r["loss"] for r in hist]
+    log(f"zoo training phase: {path} fit({steps}) {fit_s:.2f} s, launches "
+        f"{launches}, losses {losses}, peak memory {peak_gb:.2f} GB")
+    if launches != ZOO_WANT[path]:
+        fail(f"the {path} path launched {launches}, not {ZOO_WANT[path]} "
+             f"(PERF.md §6)")
+    if not all(map(math.isfinite, losses)):
+        fail(f"{path}: non-finite losses {losses}")
+    moved = float((trained - w0).abs().max())
+    wq_moved = float((exp.params.blocks[0].attn.wq - wq0).abs().max())
+    if not (moved > 0 and wq_moved > 0):
+        fail(f"{path}: training did not move the params (head {moved}, "
+             f"layer 0 wq {wq_moved})")
+    del w0, wq0
+    return hist, launches, fit_s, peak_gb
+
+
+def _zoo_batch_features(torch, exp, t):
+    """A batch's labels and the trunk's features for it, fp32 [B*S, D] (no
+    grad, the ref attention, as the training step's trunk)."""
+    from repro_torch.models import lm
+    batch = exp._batch(t)
+    with torch.no_grad():
+        h, _, _ = lm.backbone(exp.params, exp.model_cfg, batch,
+                              backend="ref")
+    f = h.reshape(-1, h.shape[-1]).float().contiguous()
+    return f, batch["labels"].reshape(-1).to(torch.int32), batch
+
+
+def zoo_head_grad_check(torch, exp, f, y):
+    """The tied table's head gradient of one batch's loss through the full
+    head's ``loss_local``, on the kernel and the ref backend from the same
+    table and the same fp32 features: the label rows and the other rows
+    each within BWD_TOL (the CE gates' bound) of their own max|ref|."""
+    from repro_torch.api.heads import make_head
+    from repro_torch.models import lm
+
+    table = lm.head_weight(exp.params, exp.model_cfg)
+    grads = {}
+    for backend in ("kernel", "ref"):
+        head = make_head(exp.model_cfg, dataclasses.replace(
+            exp.head_cfg, backend=backend))
+        wp = table.detach().clone().requires_grad_()
+        loss, _ = head.loss_local(f, y, wp, (), global_batch=f.shape[0])
+        loss.backward()
+        grads[backend] = wp.grad
+        del wp
+    lab = torch.zeros(table.shape[0], dtype=torch.bool, device=f.device)
+    lab[y.long()] = True
+    out = {}
+    for name, sel in (("label rows", lab), ("other rows", ~lab)):
+        k, r = grads["kernel"][sel], grads["ref"][sel]
+        ref_max = float(r.abs().max())
+        err = float((k - r).abs().max())
+        if not ref_max > 0 or err > BWD_TOL * ref_max:
+            fail(f"zoo training phase: the table's head gradient of the "
+                 f"{name}: kernel vs ref {err:.3g} over {BWD_TOL:g} * "
+                 f"max|ref| {ref_max:.3g}")
+        out[name] = err / ref_max
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_ce_rows(torch, ce, f, w, y):
+    """The dense CE pair at the zoo's shapes (f [8,192, 576] the trunk's
+    features, W the trained tied table [49,152, 576], scale 1: raw logits)
+    through the CE gates, bit-identical runs, the emulated 1xTF32 fault
+    (which must fail both gates), times beside the bounds and f @ W.T.
+    Returns (forward row, backward row)."""
+    b, v = f.shape[0], w.shape[0]
+    fwd_err, fwd_z = check_ce(torch, ce, f, w, y, v, 1.0, "zoo shapes")
+    m, z, _, _ = ce.ce_forward(f, w, y, limit=v, scale=1.0)
+    gz = 1.0 / (b * z)
+    gc = torch.full_like(z, -1.0 / b)
+    parts = {}
+    for term, gct in (("loss", gc), ("softmax term", torch.zeros_like(gc))):
+        for part, val in check_ce_bwd(torch, ce, f, w, y, m, gz, gct, v, 1.0,
+                                      f"zoo shapes, {term}").items():
+            parts[f"{part}, {term}"] = val
+    fault = tf32_fault(torch, ce, f, w, y, m, gz, gc, v, 1.0,
+                       "the zoo's shapes")
+    fwd_ms = cuda_ms(torch, lambda: ce.ce_forward(f, w, y, limit=v), 10)
+    fwd_plain = cuda_ms(torch, lambda: ce.ce_forward_plain(f, w, y, v, 1.0),
+                        3)
+    bwd_ms = cuda_ms(torch, lambda: ce.ce_backward(f, w, y, m, gz, gc,
+                                                   limit=v), 5)
+    bwd_plain = cuda_ms(torch, lambda: ce.ce_backward_plain(
+        f, w, y, m, gz, gc, v, 1.0), 2)
+    lib = cuda_ms(torch, lambda: f @ w.T, 10)
+    fb = ce_bounds(4 * (b * ZOO_D + v * ZOO_D + b) + 16 * b, 1, b, v, ZOO_D)
+    bb = ce_bounds(4 * (2 * b * ZOO_D + 2 * v * ZOO_D + 4 * b), 3, b, v,
+                   ZOO_D)
+    log(f"zoo training phase: at the zoo's shapes [{b}, {v}] x {ZOO_D}: "
+        f"ce_forward {fwd_ms:.3f} ms (3xTF32 bound {fb['bound_ms']:.3f} by "
+        f"{fb['bound_by']}), plain {fwd_plain:.3f}; ce_backward {bwd_ms:.3f} "
+        f"ms (bound {bb['bound_ms']:.3f} by {bb['bound_by']}), plain "
+        f"{bwd_plain:.3f}; f @ W.T {lib:.3f}; m/corr max abs err "
+        f"{fwd_err:.3g}, z rel {fwd_z:.3g}; backward by part {parts}")
+    shape = f"f[{b},{ZOO_D}] W[{v},{ZOO_D}] scale 1 (SmolLM-135M tied table)"
+    lib_name = "f @ W.T (cuBLAS fp32, TF32 off)"
+    del m, z, gz, gc
+    torch.cuda.empty_cache()
+    return (dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib,
+                 library=lib_name, max_abs_err=fwd_err, z_max_rel_err=fwd_z,
+                 **fb, shape=shape),
+            dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib,
+                 library=lib_name,
+                 max_abs_err=max(e for e, _ in parts.values()),
+                 rel_err_by_part={k: r for k, (_, r) in parts.items()},
+                 tf32_fault=fault, **bb, shape=shape))
+
+
+def zoo_sparse_rows(torch, sp, exp, f, y):
+    """The sparse CE pair at the zoo's knn shapes: f the trunk's features
+    [8,192, 576] normalised, the normalised trained table, the active set
+    ``select_active`` draws from the experiment's graph for these labels
+    (A = 4,915, fillers on), scale 16, through the sparse gates,
+    bit-identical runs, times and bounds. Returns (forward, backward)."""
+    from repro_torch.core.knn_softmax import select_active
+    from repro_torch.core.sharded_softmax import _normalize
+    from repro_torch.models import lm
+
+    w = lm.head_weight(exp.params, exp.model_cfg).detach()
+    v = w.shape[0]
+    offsets, neighbors, ranks = exp.head_state.aux
+    a = max(8, int(v * exp.head_cfg.active_frac))
+    ids, valid = select_active(y, offsets, neighbors, v_loc=v, m_local=a,
+                               k_cap=exp.head_cfg.knn_k, ranks=ranks)
+    fn = _normalize(f).contiguous()
+    wn = _normalize(w).contiguous()
+    bias = torch.zeros(a, device=f.device)
+    valid = valid.to(torch.int32)
+    b = f.shape[0]
+    m, z, _, _, hit = sp.sparse_ce_forward(fn, wn, ids, ids, bias, valid, y,
+                                           scale=16.0)
+    gz = 1.0 / (b * z)
+    gc = torch.full_like(z, -1.0 / b)
+    errs = check_sparse(torch, sp, fn, wn, ids, ids, bias, valid, y, 16.0,
+                        False, gz, gc, "zoo knn shapes")
+    fwd_ms = cuda_ms(torch, lambda: sp.sparse_ce_forward(
+        fn, wn, ids, ids, bias, valid, y, scale=16.0), 10)
+    fwd_plain = cuda_ms(torch, lambda: sp.sparse_ce_forward_plain(
+        fn, wn, ids, ids, bias, valid, y, 16.0, False), 3)
+    bwd_ms = cuda_ms(torch, lambda: sp.sparse_ce_backward(
+        fn, wn, ids, ids, bias, valid, y, m, gz, gc, hit, scale=16.0), 5)
+    bwd_plain = cuda_ms(torch, lambda: sp.sparse_ce_backward_plain(
+        fn, wn, ids, ids, bias, valid, y, m, gz, gc, hit, 16.0, False), 2)
+    lib = cuda_ms(torch, lambda: fn @ wn[ids.long()].T, 10)
+    col_bytes = 16 * a
+    fb = ce_bounds(4 * (b * ZOO_D + a * ZOO_D) + col_bytes + 24 * b, 1, b, a,
+                   ZOO_D)
+    bb = ce_bounds(4 * (2 * b * ZOO_D + a * ZOO_D + v * ZOO_D) + col_bytes
+                   + 20 * b, 3, b, a, ZOO_D)
+    log(f"zoo training phase: sparse CE at the zoo's knn shapes (B={b}, "
+        f"A={a}, D={ZOO_D}): forward {fwd_ms:.3f} ms (bound "
+        f"{fb['bound_ms']:.3f} by {fb['bound_by']}), plain {fwd_plain:.3f}; "
+        f"backward {bwd_ms:.3f} ms (bound {bb['bound_ms']:.3f} by "
+        f"{bb['bound_by']}), plain {bwd_plain:.3f}; f @ W[ids].T {lib:.3f}; "
+        f"errors {errs}")
+    shape = f"f[{b},{ZOO_D}] W[{v},{ZOO_D}] A={a} knn active set, scale 16"
+    lib_name = "f @ W[ids].T (gather + cuBLAS fp32, TF32 off)"
+    fwd_err = max(e for k, e in errs.items() if k.startswith("fwd"))
+    bwd_err = max(e for k, e in errs.items() if not k.startswith("fwd"))
+    del fn, wn, m, z, gz, gc, hit
+    torch.cuda.empty_cache()
+    return (dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib,
+                 library=lib_name, max_abs_err=fwd_err, **fb, shape=shape),
+            dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib,
+                 library=lib_name, max_abs_err=bwd_err,
+                 rel_err_by_part=errs, **bb, shape=shape))
+
+
+def zoo_dist_topk_row(torch, dk, exp):
+    """dist_topk at the zoo's graph build: pass 1 over all 49,152 unit rows
+    of the trained table in bf16 at D = 576, k' = 32; 1,024 rows held
+    against the plain version, bit-identical runs, the whole pass timed
+    beside the plain version and the library's bf16 q @ K.T in 4,096-row
+    chunks."""
+    from repro_torch.core.sharded_softmax import _normalize
+    from repro_torch.models import lm
+
+    w16 = _normalize(lm.head_weight(exp.params, exp.model_cfg).detach()).to(
+        torch.bfloat16).contiguous()
+    n = w16.shape[0]
+    err, swaps = check_dist_topk(torch, dk, w16[:1024], w16, KPRIME, 0,
+                                 "zoo graph build, 1,024 rows")
+    first = dk.dist_topk(w16, w16, KPRIME)
+    again = dk.dist_topk(w16, w16, KPRIME)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        fail("dist_topk at the zoo's shapes is not bit-identical")
+    del first, again
+    ms = cuda_ms(torch, lambda: dk.dist_topk(w16, w16, KPRIME), 3)
+
+    def plain():
+        for r in range(0, n, 4096):
+            dk.dist_topk_plain(w16[r:r + 4096], w16, KPRIME)
+
+    def library():
+        for r in range(0, n, 4096):
+            w16[r:r + 4096] @ w16.T
+
+    plain_ms = cuda_ms(torch, plain, 1)
+    lib_ms = cuda_ms(torch, library, 3)
+    bound, by = bound_ms(2 * 2 * n * ZOO_D + 8 * n * KPRIME,
+                         2.0 * n * n * ZOO_D, BF16_OPS_PER_S)
+    log(f"zoo training phase: dist_topk over the table's {n} unit rows at "
+        f"D={ZOO_D} {ms:.3f} ms (bound {bound:.3f} by {by}), plain "
+        f"{plain_ms:.2f} ms, bf16 q @ K.T {lib_ms:.3f} ms; 1,024 rows max abs "
+        f"err {err:.3g}, near-tie id swaps {swaps}; bit-identical")
+    del w16
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library="q @ K.T (cuBLAS bf16) in 4,096-row chunks",
+                max_abs_err=err, near_tie_id_swaps=swaps, bound_ms=bound,
+                bound_by=by, shape=f"q = K [{n},{ZOO_D}] bf16, k'={KPRIME}")
+
+
+def _knn_label_recall(torch, exp, t):
+    """The label_recall Algorithm 1 gives step ``t``'s batch: the labels
+    come first (each its own nearest neighbour, rank 0), and when they
+    outnumber the m_local active slots the lowest ids win the ties, so
+    the share of tokens whose label is among the m_local lowest distinct
+    labels (1.0 when they all fit). Returns (that share, the distinct
+    labels)."""
+    y = exp._batch(t)["labels"].reshape(-1)
+    labels = torch.unique(y)                      # sorted
+    slots = max(8, int(exp.model_cfg.vocab_size * exp.head_cfg.active_frac))
+    kept = torch.isin(y, labels[:slots])
+    return float(kept.float().mean()), int(labels.numel())
+
+
+class _UpcastHead:
+    """A head whose loss takes the trunk's features in fp32: the ref
+    backend then scores fp32 W, as the kernel does, not W rounded to the
+    features' bf16."""
+
+    def __init__(self, head):
+        self._head = head
+
+    def __getattr__(self, name):
+        return getattr(self._head, name)
+
+    def loss_local(self, f, *args, **kw):
+        return self._head.loss_local(f.float(), *args, **kw)
+
+
+def _zoo_grads(torch, exp, batch, backend, mode="bf16"):
+    """One batch's loss and gradients of (params, head params) through
+    ``gspmd.make_head_loss_fn`` (the loss the step differentiates) on
+    ``backend``, from exp's params: ``mode`` "bf16" as the step trains,
+    "f32 head" with the trunk's features upcast before the head, "fp32" in
+    fp32 compute throughout."""
+    from repro_torch.api.heads import make_head
+    from repro_torch.core.pipeline import microbatched_value_and_grad
+    from repro_torch.train import gspmd
+
+    cfg = exp.model_cfg
+    if mode == "fp32":
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    hcfg = dataclasses.replace(exp.head_cfg, backend=backend)
+    head = make_head(cfg, hcfg)
+    if mode == "f32 head":
+        head = _UpcastHead(head)
+    loss_fn = gspmd.make_head_loss_fn(cfg, hcfg, global_tokens=ZOO_TB * ZOO_TS,
+                                      head=head)
+    (loss, _), grads = microbatched_value_and_grad(
+        lambda p, x: loss_fn(p[0], p[1], exp.head_state.aux, x),
+        (exp.params, exp.head_state.params), batch, 1)
+    return float(loss), grads
+
+
+def _grad_gap(a, b) -> tuple:
+    """(max|a - b|, max|b|) of two tensors."""
+    return float((a - b).abs().max()), float(b.abs().max())
+
+
+def _bf16_steps_bound(top: float) -> float:
+    """ZOO_TABLE_GRAD_STEPS steps of bf16 (7 stored mantissa bits) at a
+    value of magnitude ``top``."""
+    return ZOO_TABLE_GRAD_STEPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def zoo_table_grad_gaps(torch, exp, batch):
+    """The tied table's gradient of one batch (its embedding and head parts
+    together), kernel vs ref backend from the same params, in three
+    precisions: as the step trains ("bf16"), with the features upcast to
+    fp32 before the head ("f32 head": the ref head then scores fp32 W),
+    and in fp32 compute throughout ("fp32"). The bf16 gaps are held to
+    ZOO_TABLE_GRAD_STEPS bf16 steps of max|ref|; in fp32 every leaf is held
+    to ZOO_GRAD32_TOL of its own max|ref|."""
+    from repro_torch.optim import tree_leaves
+
+    out = {}
+    for mode in ("bf16", "f32 head", "fp32"):
+        res = {b: _zoo_grads(torch, exp, batch, b, mode)
+               for b in ("kernel", "ref")}
+        (lk, gk), (lr, gr) = res["kernel"], res["ref"]
+        gap, top = _grad_gap(gk[0].embed.table, gr[0].embed.table)
+        leaf = max(d / max(t, 1e-30) for d, t in (
+            _grad_gap(a, b) for a, b in zip(tree_leaves(gk), tree_leaves(gr))))
+        bound = (ZOO_GRAD32_TOL * top if mode == "fp32"
+                 else _bf16_steps_bound(top))
+        out[mode] = dict(table_abs=gap, table_max=top, table_rel=gap / top,
+                         table_bound=bound, leaf_rel_max=leaf,
+                         loss_rel=abs(lk - lr) / abs(lr))
+        del res, gk, gr
+        torch.cuda.empty_cache()
+        if not (top > 0 and gap <= bound):
+            fail(f"zoo training phase: the table's gradient ({mode}), kernel "
+                 f"vs ref: {gap:.3g} over {bound:.3g} (max|ref| {top:.3g})")
+        if mode == "fp32" and leaf > ZOO_GRAD32_TOL:
+            fail(f"zoo training phase: a leaf's gradient in fp32, kernel vs "
+                 f"ref: {leaf:.3g} of its max|ref| > {ZOO_GRAD32_TOL:g}")
+    log(f"zoo training phase: the table's gradient of one batch, kernel vs "
+        f"ref, by precision: {out}")
+    return out
+
+
+def zoo_evaluate_check(torch, exp, acc):
+    """``evaluate``'s predictions on its batch, kernel vs ref backend on the
+    same params: the kernel path's accuracy is ``acc`` (what ``evaluate``
+    returned); the trunk's features within ZOO_H_TOL of max|h| (the
+    kernel's trunk runs the flash kernel, the ref's the dense attention);
+    the fp32 logits f W^T of the two within ZOO_LOGIT_TOL of max|logit|; the
+    kernel head's pick within the CE gate's atol of its features' top
+    logit; the two backends' picks equal wherever the ref's top-2 gap is at
+    least twice that logit bound."""
+    from repro_torch import testing
+    from repro_torch.api.heads import make_head
+    from repro_torch.models import lm
+
+    cfg = exp.model_cfg
+    batch = exp._batch(10**6)                    # evaluate's own batch
+    labels = batch["labels"].reshape(-1).long()
+    w = lm.head_weight(exp.params, cfg).detach().float()
+    h, pred, logits = {}, {}, {}
+    with torch.no_grad():
+        for b in ("kernel", "ref"):
+            h[b] = lm.backbone(exp.params, cfg, batch, backend=b)[0].reshape(
+                -1, cfg.d_model)
+            head = make_head(cfg, dataclasses.replace(exp.head_cfg,
+                                                      backend=b))
+            pred[b] = head.eval_logits_local(h[b], w,
+                                             exp.head_state.aux)[0].long()
+            logits[b] = h[b].float() @ w.T
+    acc_k = float((pred["kernel"] == labels).float().mean())
+    acc_r = float((pred["ref"] == labels).float().mean())
+    if acc_k != acc:
+        fail(f"zoo evaluate returned {acc}, its kernel path's picks score "
+             f"{acc_k}")
+    hs = float(h["ref"].float().abs().max())
+    h_err = float((h["kernel"].float() - h["ref"].float()).abs().max()) / hs
+    scale = float(logits["ref"].abs().max())
+    logit_err = float((logits["kernel"] - logits["ref"]).abs().max())
+    top = logits["kernel"].max(dim=1).values
+    pick_gap = float((top - logits["kernel"].gather(
+        1, pred["kernel"][:, None])[:, 0]).max())
+    top2 = logits["ref"].topk(2, dim=1).values
+    near = (top2[:, 0] - top2[:, 1]) < 2 * ZOO_LOGIT_TOL * scale
+    n_diff = int((pred["kernel"] != pred["ref"]).sum())
+    n_far_diff = int(((pred["kernel"] != pred["ref"]) & ~near).sum())
+    out = dict(accuracy_kernel=acc_k, accuracy_ref=acc_r, h_rel_err=h_err,
+               logit_rel_err=logit_err / scale, logit_scale=scale,
+               kernel_pick_gap=pick_gap, picks_differ=n_diff,
+               picks_checked=int((~near).sum()), tokens=int(labels.numel()))
+    log(f"zoo training phase: evaluate, kernel vs ref on its batch: {out}")
+    if not torch.isfinite(h["kernel"]).all() or h_err > ZOO_H_TOL:
+        fail(f"zoo evaluate's features, kernel vs ref: {h_err:.3g} of max|h| "
+             f"> {ZOO_H_TOL}")
+    if logit_err > ZOO_LOGIT_TOL * scale:
+        fail(f"zoo evaluate's logits, kernel vs ref: {logit_err:.3g} > "
+             f"{ZOO_LOGIT_TOL} of max|logit| {scale:.3g}")
+    if pick_gap > testing.CE_ATOL:
+        fail(f"zoo evaluate: the kernel head's pick is {pick_gap:.3g} below "
+             f"its features' top logit")
+    if n_far_diff:
+        fail(f"zoo evaluate: the picks differ from ref at {n_far_diff} "
+             f"tokens whose top-2 gap is at least "
+             f"{2 * ZOO_LOGIT_TOL * scale:.3g}")
+    del h, logits, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_mach_checks(torch, ce, mach, rows):
+    """MACH at the zoo's shapes: the CE pair on a batch's trunk features
+    [8,192, 576] against repetition 1's bucket block [3,072, 576] (a view
+    of [R, B, D]), scale 1, the labels' buckets, through both CE gates,
+    bit-identical runs and the emulated 1xTF32 fault, timed (into
+    ``rows``' CE rows as ``mach_rep1``); then one batch's loss and
+    gradients, kernel vs ref backend from the same params: the loss within
+    ZOO_LOSS_RTOL, the bucket block's gradient within BWD_TOL of its
+    max|ref|, the tied table's (trunk) gradient within
+    ZOO_TABLE_GRAD_STEPS bf16 steps of its max|ref|. Returns the
+    readings."""
+    f, y, batch = _zoo_batch_features(torch, mach, 10**5 + 1)
+    w = mach.head_state.params[1]
+    b_loc, b = w.shape[0], f.shape[0]
+    if w.data_ptr() % 16 or not w.is_contiguous():
+        fail("MACH's repetition view is not a 16-byte aligned contiguous "
+             "block")
+    yb = mach.head_state.aux[0][1, y.long()].to(torch.int32)
+    fwd_err, fwd_z = check_ce(torch, ce, f, w, yb, b_loc, 1.0,
+                              "zoo MACH rep 1")
+    m, z, _, _ = ce.ce_forward(f, w, yb, limit=b_loc, scale=1.0)
+    gz = 1.0 / (b * z)
+    gc = torch.full_like(z, -1.0 / b)
+    parts = {}
+    for term, gct in (("loss", gc), ("softmax term", torch.zeros_like(gc))):
+        for part, v in check_ce_bwd(torch, ce, f, w, yb, m, gz, gct, b_loc,
+                                    1.0, f"zoo MACH rep 1, {term}").items():
+            parts[f"{part}, {term}"] = v
+    fault = tf32_fault(torch, ce, f, w, yb, m, gz, gc, b_loc, 1.0,
+                       "the zoo's MACH bucket block")
+    fwd_ms = cuda_ms(torch, lambda: ce.ce_forward(f, w, yb, limit=b_loc), 20)
+    fwd_plain = cuda_ms(torch, lambda: ce.ce_forward_plain(f, w, yb, b_loc,
+                                                           1.0), 5)
+    bwd_ms = cuda_ms(torch, lambda: ce.ce_backward(f, w, yb, m, gz, gc,
+                                                   limit=b_loc), 10)
+    bwd_plain = cuda_ms(torch, lambda: ce.ce_backward_plain(
+        f, w, yb, m, gz, gc, b_loc, 1.0), 3)
+    lib = cuda_ms(torch, lambda: f @ w.T, 20)
+    fb = ce_bounds(4 * (b * ZOO_D + b_loc * ZOO_D + b) + 16 * b, 1, b, b_loc,
+                   ZOO_D)
+    bb = ce_bounds(4 * (2 * b * ZOO_D + 2 * b_loc * ZOO_D + 4 * b), 3, b,
+                   b_loc, ZOO_D)
+    shape = (f"f[{b},{ZOO_D}] W[{b_loc},{ZOO_D}] (rep 1 of [R,B,D]) scale 1 "
+             f"(zoo MACH)")
+    rows["ce_forward"]["mach_rep1"] = dict(
+        ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib, max_abs_err=fwd_err,
+        z_max_rel_err=fwd_z, **fb, shape=shape)
+    rows["ce_backward"]["mach_rep1"] = dict(
+        ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib,
+        max_abs_err=max(e for e, _ in parts.values()),
+        rel_err_by_part={k: r for k, (_, r) in parts.items()},
+        tf32_fault=fault, **bb, shape=shape)
+    log(f"zoo training phase: at the zoo's MACH block [{b}, {b_loc}] x "
+        f"{ZOO_D}: ce_forward {fwd_ms:.4f} ms (bound {fb['bound_ms']:.4f} by "
+        f"{fb['bound_by']}), plain {fwd_plain:.4f}; ce_backward {bwd_ms:.4f} "
+        f"ms (bound {bb['bound_ms']:.4f} by {bb['bound_by']}), plain "
+        f"{bwd_plain:.4f}; f @ W.T {lib:.4f}; m/corr max abs err "
+        f"{fwd_err:.3g}, z rel {fwd_z:.3g}; backward by part {parts}")
+    del f, y, m, z, gz, gc
+    torch.cuda.empty_cache()
+
+    (lk, gk), (lr, gr) = (_zoo_grads(torch, mach, batch, bk)
+                          for bk in ("kernel", "ref"))
+    loss_rel = abs(lk - lr) / abs(lr)
+    blk_gap, blk_top = _grad_gap(gk[1], gr[1])
+    tab_gap, tab_top = _grad_gap(gk[0].embed.table, gr[0].embed.table)
+    out = dict(loss_kernel=lk, loss_ref=lr, loss_rel=loss_rel,
+               bucket_grad_rel=blk_gap / blk_top,
+               table_grad_rel=tab_gap / tab_top,
+               table_grad_bf16_steps=tab_gap / _bf16_steps_bound(tab_top)
+               * ZOO_TABLE_GRAD_STEPS)
+    del gk, gr
+    torch.cuda.empty_cache()
+    log(f"zoo training phase: MACH, one batch kernel vs ref: {out}")
+    if loss_rel > ZOO_LOSS_RTOL:
+        fail(f"zoo MACH loss, kernel {lk} vs ref {lr}: rel {loss_rel:.3g}")
+    if not (blk_top > 0 and blk_gap <= BWD_TOL * blk_top):
+        fail(f"zoo MACH bucket gradient, kernel vs ref: {blk_gap:.3g} over "
+             f"{BWD_TOL:g} * max|ref| {blk_top:.3g}")
+    if not (tab_top > 0 and tab_gap <= _bf16_steps_bound(tab_top)):
+        fail(f"zoo MACH table gradient, kernel vs ref: {tab_gap:.3g} over "
+             f"{ZOO_TABLE_GRAD_STEPS} bf16 steps of max|ref| {tab_top:.3g}")
+    return out
+
+
+def zoo_training_phase(torch, np, counters, ce, sp, dk):
+    """The zoo trainer's main paths at SmolLM-135M's full width (the full
+    head at n_micro 1 and 2, evaluate, knn, MACH), each with the counters
+    reset and read around it; the full head against the ref backend; the
+    kernels at the zoo's shapes; the step taken apart. Returns
+    ({path: launches}, {kernel: row}, numbers, the trained full-head
+    experiment)."""
+    from repro_torch.api.heads import make_head
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optim import make_optimizer, tree_leaves, tree_map
+    from repro_torch.train import gspmd
+
+    launches, rows, e2e = {}, {}, {}
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    exp = _zoo_trainer("kernel")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = exp.model_cfg
+    n_params = sum(p.numel() for p in tree_leaves(exp.params))
+    log(f"zoo training phase: {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype} over "
+        f"{cfg.param_dtype}), {n_params / 1e6:.1f}M params, {ZOO_TB} x "
+        f"{ZOO_TS} tokens a step, n_micro "
+        f"{gspmd.auto_micro_batches(cfg, exp.shape)} by auto_micro_batches; "
+        f"experiment {setup_s:.2f} s")
+
+    # -- the main path: the full head, n_micro 1 ----------------------------
+    hist, launches["zoo_training"], fit_s, peak_gb = _zoo_fit(
+        torch, counters, exp, ZOO_STEPS, "zoo_training")
+    _reset(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    acc = exp.evaluate()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches["zoo_evaluate"] = {k: v for k, v in _read(counters).items()
+                                if v}
+    eval_peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches["zoo_evaluate"] != ZOO_WANT["zoo_evaluate"]:
+        fail(f"zoo evaluate launched {launches['zoo_evaluate']}, not "
+             f"{ZOO_WANT['zoo_evaluate']}")
+    if not 0.0 <= acc <= 1.0:
+        fail(f"zoo evaluate() returned {acc}")
+    log(f"zoo training phase: evaluate {acc} in {eval_s:.2f} s, launches "
+        f"{launches['zoo_evaluate']}, peak {eval_peak:.2f} GB")
+    eval_vs_ref = zoo_evaluate_check(torch, exp, acc)
+
+    # -- the step at n_micro 1 and 2: host clock (median of 5), a profile ----
+    inputs = exp._batch(10**5)
+    steps = {n: gspmd.make_head_train_step(
+        cfg, exp.head_cfg, dataclasses.replace(exp.train_cfg, micro_batch=n),
+        exp.shape, head=exp.head) for n in (1, 2)}
+
+    def one_step(n):
+        def run():
+            exp.params, exp.head_state, exp.opt_state, loss, _ = steps[n](
+                exp.params, exp.head_state, exp.opt_state, inputs, ZOO_LR)
+            return float(loss)
+        return run
+
+    step_ms = {n: host_ms(torch, one_step(n), 5) for n in (1, 2)}
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_ms(torch, one_step(1), {
+        "CE pair": ("ce_fwd", "ce_bwd", "ce_softmax", "ce_dw", "ce_df"),
+        "matmuls (bf16 + fp32)": ("gemm", "cutlass", "sm90_xmma", "ampere",
+                                  "cublas"),
+        "softmax": ("softmax",), "copies and casts": ("copy",)})
+    step_peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = ZOO_TB * ZOO_TS
+    log(f"zoo training phase: step {step_ms[1]:.2f} ms at n_micro 1 "
+        f"({tokens / step_ms[1] * 1e3:.0f} tokens/s), {step_ms[2]:.2f} ms at "
+        f"n_micro 2; profiled step (n_micro 1): idle share "
+        f"{prof['idle_share']:.3f}, device busy {prof['device_busy_ms']:.2f} "
+        f"of {prof['wall_ms']:.2f} ms, by group "
+        f"{prof.get('device_ms_by_group')}, peak {step_peak:.2f} GB")
+    log("zoo training phase: top device kernels of one step (ms): "
+        + "; ".join(f"{k} {v:.3f}"
+                    for k, v in prof["top_kernels_ms"].items()))
+    del steps
+
+    # -- against the ref backend: one step from the same params and batch ---
+    f, y, batch = _zoo_batch_features(torch, exp, 10**5 + 1)
+    step_loss, tables = {}, {}
+    train1 = dataclasses.replace(exp.train_cfg, micro_batch=1)
+    for backend in ("kernel", "ref"):
+        hcfg = dataclasses.replace(exp.head_cfg, backend=backend)
+        params = tree_map(lambda p: p.detach().clone(), exp.params)
+        opt = make_optimizer(train1).init((params, ()))
+        step = gspmd.make_head_train_step(cfg, hcfg, train1, exp.shape,
+                                          head=make_head(cfg, hcfg))
+        _, _, _, loss, _ = step(params, exp.head_state, opt, batch, ZOO_LR)
+        step_loss[backend] = float(loss)
+        tables[backend] = params.embed.table.detach()
+        del params, opt, step
+        torch.cuda.empty_cache()
+    loss_rel = abs(step_loss["kernel"] - step_loss["ref"]) / abs(
+        step_loss["ref"])
+    table_err = float((tables["kernel"] - tables["ref"]).abs().max())
+    del tables
+    if loss_rel > ZOO_LOSS_RTOL:
+        fail(f"zoo step loss, kernel {step_loss['kernel']} vs ref "
+             f"{step_loss['ref']}: rel {loss_rel:.3g} > {ZOO_LOSS_RTOL:g}")
+    grad_gaps = zoo_table_grad_gaps(torch, exp, batch)
+    # SGD's first step from a zero momentum moves the table by -lr g, so
+    # the updated tables differ by lr times the gradients' gap
+    table_bound = ZOO_LR * grad_gaps["bf16"]["table_bound"]
+    if table_err > table_bound:
+        fail(f"zoo step: the updated tables, kernel vs ref, differ by "
+             f"{table_err:.3g} > lr times the gradient's bound "
+             f"{table_bound:.3g}")
+    grad_err = zoo_head_grad_check(torch, exp, f, y)
+    log(f"zoo training phase: one step from the same params and batch, "
+        f"kernel vs ref: losses {step_loss} (rel {loss_rel:.3g}); the updated "
+        f"tables differ by {table_err:.3g} (lr {ZOO_LR} x the gradient's gap "
+        f"{grad_gaps['bf16']['table_abs']:.3g}); the table's head gradient, "
+        f"kernel vs ref, max abs err of max|ref| by part {grad_err}")
+
+    # -- the CE pair at the zoo's shapes through the gates ------------------
+    w = exp.params.embed.table.detach()
+    rows["ce_forward"], rows["ce_backward"] = zoo_ce_rows(torch, ce, f, w, y)
+    del w
+    torch.cuda.empty_cache()
+
+    # -- n_micro 2: twice the launches ---------------------------------------
+    exp2 = _zoo_trainer("kernel", train=TrainConfig(optimizer="sgd",
+                                                    micro_batch=2))
+    hist2, launches["zoo_training_n2"], fit2_s, peak2 = _zoo_fit(
+        torch, counters, exp2, ZOO_STEPS, "zoo_training_n2")
+    del exp2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- knn: sparse pair a micro-step, dist_topk a graph build --------------
+    knn = _zoo_trainer("kernel", head=ZOO_KNN)
+    hist_k, launches["zoo_knn_training"], fitk_s, peak_k = _zoo_fit(
+        torch, counters, knn, ZOO_STEPS, "zoo_knn_training")
+    recall = [r["label_recall"] for r in hist_k]
+    want_recall, n_labels = zip(*(_knn_label_recall(torch, knn, t)
+                                  for t in range(ZOO_STEPS)))
+    if any(abs(r - w) > 1e-6 for r, w in zip(recall, want_recall)):
+        fail(f"zoo knn label_recall {recall}, not Algorithm 1's "
+             f"{want_recall}")
+    rows["sparse_ce_forward"], rows["sparse_ce_backward"] = zoo_sparse_rows(
+        torch, sp, knn, f, y)
+    rows["dist_topk"] = zoo_dist_topk_row(torch, dk, knn)
+    knn_step_ms = host_ms(torch, lambda: knn._train_step(
+        knn.params, knn.head_state, knn.opt_state, inputs, ZOO_LR)[3].item(),
+        5)
+    slots = max(8, int(knn.model_cfg.vocab_size * knn.head_cfg.active_frac))
+    del knn
+    gc.collect()
+    torch.cuda.empty_cache()
+    # half the batch: 4,096 tokens, whose labels fit the active slots
+    knn_half = _zoo_trainer("kernel", head=ZOO_KNN, batch=ZOO_TB // 2,
+                            log_every=0)
+    recall_half = [r["label_recall"] for r in knn_half.fit(2, lr=ZOO_LR)]
+    if any(r != 1.0 for r in recall_half):
+        fail(f"zoo knn at {ZOO_TB // 2} x {ZOO_TS} tokens: label_recall "
+             f"{recall_half}, not 1.0")
+    del knn_half
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"zoo training phase: knn label_recall {recall} (Algorithm 1's: "
+        f"the steps' {list(n_labels)} distinct labels outnumber the "
+        f"{slots} active slots; at "
+        f"{ZOO_TB // 2} x {ZOO_TS} tokens {recall_half}), active_frac "
+        f"{[round(r['active_frac'], 4) for r in hist_k]}, step "
+        f"{knn_step_ms:.2f} ms")
+
+    # -- MACH: the CE pair once a repetition a micro-step -------------------
+    mach = _zoo_trainer("kernel", head=ZOO_MACH)
+    hist_m, launches["zoo_mach_training"], fitm_s, peak_m = _zoo_fit(
+        torch, counters, mach, ZOO_MACH_STEPS, "zoo_mach_training")
+    acc_m = mach.evaluate()
+    if not 0.0 <= acc_m <= 1.0:
+        fail(f"zoo mach evaluate() returned {acc_m}")
+    mach_vs_ref = zoo_mach_checks(torch, ce, mach, rows)
+    del mach
+    gc.collect()
+    torch.cuda.empty_cache()
+    del f, y, batch, inputs
+    phase_s = time.perf_counter() - t_phase
+    log(f"zoo training phase: {phase_s:.1f} s")
+    e2e.update({
+        "zoo_train_setup_s": setup_s, "zoo_fit_s": fit_s,
+        "zoo_fit_losses": [r["loss"] for r in hist],
+        "zoo_fit_peak_memory_gb": peak_gb,
+        "zoo_evaluate_accuracy": acc, "zoo_evaluate_s": eval_s,
+        "zoo_evaluate_peak_memory_gb": eval_peak,
+        "zoo_train_step_ms_n1": step_ms[1], "zoo_train_step_ms_n2": step_ms[2],
+        "zoo_train_tokens_per_s_n1": tokens / step_ms[1] * 1e3,
+        "zoo_train_tokens_per_s_n2": tokens / step_ms[2] * 1e3,
+        "zoo_train_step_profile": prof, "zoo_train_step_peak_memory_gb":
+            step_peak,
+        "zoo_step_loss_kernel_vs_ref": step_loss,
+        "zoo_step_loss_rel_err": loss_rel,
+        "zoo_step_table_kernel_vs_ref_max_abs": table_err,
+        "zoo_head_grad_kernel_vs_ref_rel_err": grad_err,
+        "zoo_table_grad_kernel_vs_ref": grad_gaps,
+        "zoo_evaluate_kernel_vs_ref": eval_vs_ref,
+        "zoo_mach_kernel_vs_ref": mach_vs_ref,
+        "zoo_fit_n2_s": fit2_s, "zoo_fit_n2_losses": [r["loss"]
+                                                      for r in hist2],
+        "zoo_fit_n2_peak_memory_gb": peak2,
+        "zoo_knn_fit_s": fitk_s, "zoo_knn_losses": [r["loss"]
+                                                    for r in hist_k],
+        "zoo_knn_label_recall": recall,
+        "zoo_knn_distinct_labels": list(n_labels),
+        "zoo_knn_label_recall_half_batch": recall_half,
+        "zoo_knn_step_ms": knn_step_ms,
+        "zoo_knn_peak_memory_gb": peak_k,
+        "zoo_mach_fit_s": fitm_s, "zoo_mach_losses": [r["loss"]
+                                                      for r in hist_m],
+        "zoo_mach_peak_memory_gb": peak_m, "zoo_mach_evaluate": acc_m,
+        "zoo_training_phase_s": phase_s})
+    return launches, rows, e2e, exp
+
+
+def zoo_retrieval_phase(torch, np, counters, dc, ivf, exp):
+    """The zoo's feature retrieval on the trained full-head experiment:
+    exact and IVF top-5 of 64 queries (the JAX package's default pool)
+    through the serving engine, each with the counters reset and read
+    around it, against the ref backend on the same params (scores within
+    IVF_TOL, ids equal except at near-ties), batch latencies (median of
+    10), and ``stage1_topk`` / ``ivf_rerank`` at these shapes against
+    their plain versions. Returns ({path: launches}, {kernel: row},
+    numbers)."""
+    from repro_torch.core import sharded_softmax as sharded
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    launches, rows = {}, {}
+    cfg = exp.model_cfg
+    b, k = ZOO_RET_B, K
+    results = {}
+    for path, index in (("zoo_retrieval", None), ("zoo_ivf_retrieval",
+                                                  "ivf")):
+        if index:
+            exp.ivf_index()             # the fit is not the serve's
+        _reset(counters)
+        ids, scores = exp.serve(batch=b, top_k=k, return_scores=True,
+                                index=index)
+        torch.cuda.synchronize()
+        launches[path] = {n: v for n, v in _read(counters).items() if v}
+        if launches[path] != ZOO_WANT[path]:
+            fail(f"the {path} path launched {launches[path]}, not "
+                 f"{ZOO_WANT[path]}")
+        if ids.shape != (b, k) or scores.shape != (b, k):
+            fail(f"{path}: result shapes {ids.shape} {scores.shape}")
+        if not np.all((ids >= 0) & (ids < cfg.vocab_size)):
+            fail(f"{path}: class ids out of range")
+        if not np.all(np.isfinite(scores)) or np.any(np.diff(scores, 1) > 0):
+            fail(f"{path}: scores not finite or not descending")
+        results[path] = (ids, scores)
+    idx = exp.ivf_index()
+    ref = _zoo_trainer("ref")
+    ref.load_params(exp.params)
+    errs = {}
+    for path, index in (("zoo_retrieval", None), ("zoo_ivf_retrieval",
+                                                  "ivf")):
+        rids, rscores = ref.serve(batch=b, top_k=k, return_scores=True,
+                                  index=index)
+        errs[path] = _same_topk(np, *results[path], rids, rscores,
+                                f"{path}, kernel vs ref backend")
+    overlap = float(np.mean([len(set(e) & set(i)) / k for e, i in zip(
+        results["zoo_retrieval"][0], results["zoo_ivf_retrieval"][0])]))
+    lat = {"exact_top5_b64_ms": host_ms(torch, lambda: exp.serve(
+               batch=b, top_k=k, return_scores=True), 10),
+           "ivf_top5_b64_ms": host_ms(torch, lambda: exp.serve(
+               batch=b, top_k=k, return_scores=True, index="ivf"), 10)}
+    log(f"zoo retrieval phase: launches {launches}; kernel vs ref score max "
+        f"abs err {errs}; IVF ({idx.n_clusters} clusters of cap {idx.cap}, "
+        f"nprobe {idx.nprobe}) shares {overlap:.3f} of the exact top-5 on "
+        f"these random queries; batch latency {lat}")
+    del ref
+
+    # -- the kernels at these shapes ----------------------------------------
+    q = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (b, cfg.d_model)).astype(np.float32)).to(DEVICE)
+    w = lm.head_weight(exp.params, cfg).detach()
+    v = w.shape[0]
+    logits = q @ w.T
+    check_topk(torch, dc, logits, k, CHUNK, "zoo serving logits")
+    nch = -(-v // CHUNK)
+    tk_ms = cuda_ms(torch, lambda: dc.stage1_topk(logits, k, chunk=CHUNK), 50)
+    tk_plain = cuda_ms(torch, lambda: dc.stage1_topk_plain(logits, k, CHUNK),
+                       5)
+    padded = torch.nn.functional.pad(logits, (0, nch * CHUNK - v),
+                                     value=float("-inf")).reshape(-1, CHUNK)
+    tk_lib = cuda_ms(torch, lambda: torch.topk(padded, k, dim=1), 50)
+    tk_bound, tk_by = bound_ms(4 * b * v + 8 * b * nch * k, float(b) * v)
+    rows["stage1_topk"] = dict(
+        ms=tk_ms, plain_ms=tk_plain, library_ms=tk_lib,
+        library="torch.topk on the padded chunks", max_abs_err=0.0,
+        bound_ms=tk_bound, bound_by=tk_by,
+        shape=f"x[{b},{v}] chunk {CHUNK} k {k} (zoo raw logits)")
+    probe, cand = _probe_candidates(torch, ops, sharded, q, idx, idx.nprobe)
+    members = idx.members
+    err, swaps, _ = check_ivf(torch, ivf, q, w, cand, k, "zoo serving shapes",
+                              members=members, probe=probe)
+    iv_ms = cuda_ms(torch, lambda: ivf.ivf_rerank_probed(q, w, members,
+                                                         probe, k), 20)
+    iv_plain = cuda_ms(torch, lambda: ivf.ivf_rerank_plain(q, w, cand, k), 3)
+    safe = cand.clamp_min(0).long()
+    iv_lib = cuda_ms(torch, lambda: torch.einsum("bd,bad->ba", q, w[safe]), 3)
+    ub, union, n_real = ivf_union_bytes(torch, members, probe, b, k, ZOO_D)
+    iv_bound, iv_by = bound_ms(ub, 2.0 * n_real * ZOO_D)
+    rows["ivf_rerank"] = dict(
+        ms=iv_ms, plain_ms=iv_plain, library_ms=iv_lib,
+        library="einsum('bd,bad->ba', f, W[cand]) (gather + cuBLAS fp32)",
+        max_abs_err=err, near_tie_id_swaps=swaps, bound_ms=iv_bound,
+        bound_by=iv_by, real_candidates=n_real, distinct_rows=union,
+        shape=f"f[{b},{ZOO_D}] W[{v},{ZOO_D}] members[{members.shape[0]},"
+              f"{members.shape[1]}] probe[{b},{idx.nprobe}] k={k} (raw)")
+    log(f"zoo retrieval phase: stage1_topk on [{b}, {v}] {tk_ms:.4f} ms "
+        f"(bound {tk_bound:.4f} by {tk_by}), plain {tk_plain:.3f}, "
+        f"torch.topk {tk_lib:.4f}; ivf_rerank ({n_real} real candidates, "
+        f"{union} distinct rows) {iv_ms:.4f} ms (bound {iv_bound:.4f} by "
+        f"{iv_by}), plain {iv_plain:.3f}, gathered einsum {iv_lib:.3f}; "
+        f"values max abs err {err:.3g}, near-tie swaps {swaps}")
+    del logits, padded, safe, cand
+    phase_s = time.perf_counter() - t_phase
+    log(f"zoo retrieval phase: {phase_s:.1f} s")
+    return launches, rows, {
+        "zoo_retrieval_kernel_vs_ref_score_max_abs_err": errs,
+        "zoo_ivf_exact_overlap": overlap,
+        "zoo_ivf_clusters": idx.n_clusters, "zoo_ivf_cap": idx.cap,
+        "zoo_ivf_nprobe": idx.nprobe, "zoo_ivf_fit_s": idx.fit_s,
+        **{f"zoo_{k_}": v_ for k_, v_ in lat.items()},
+        "zoo_retrieval_phase_s": phase_s}
+
+
+def zoo_train_launchers_phase(torch):
+    """The train launcher with ``--system zoo`` at full width for 2 steps
+    (the full and the knn head), then the serve launcher's zoo top-5, exact
+    and through the IVF index, all in this process; each must return 0."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+
+    out = {}
+    for head in ("full", "knn"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = train_launcher.main(
+                ["--system", "zoo", "--arch", "smollm_135m", "--batch",
+                 str(ZOO_TB), "--seq", str(ZOO_TS), "--steps", "2", "--lr",
+                 str(ZOO_LR), "--head", head, "--device", DEVICE])
+        text = buf.getvalue()
+        acc = [line for line in text.splitlines()
+               if "[zoo] final next-token accuracy" in line]
+        if rc != 0 or not acc:
+            fail(f"train launcher --system zoo --head {head} returned {rc}: "
+                 f"{text[-500:]}")
+        out[f"zoo_train_launcher_{head}_s"] = time.perf_counter() - t0
+        log(f"zoo launchers: train --head {head}: {acc[-1]} "
+            f"({out[f'zoo_train_launcher_{head}_s']:.1f} s)")
+        gc.collect()
+        torch.cuda.empty_cache()
+    for extra in ([], ["--index", "ivf"]):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_launcher.main(
+                ["--system", "zoo", "--arch", "smollm_135m", "--topk",
+                 str(K), "--batch", str(ZOO_RET_B), "--device",
+                 DEVICE] + extra)
+        text = buf.getvalue()
+        if rc != 0 or "first query ids" not in text:
+            fail(f"serve launcher --system zoo --topk {K} {extra} returned "
+                 f"{rc}: {text[-500:]}")
+        key = "zoo_serve_launcher_topk" + ("_ivf" if extra else "") + "_s"
+        out[key] = time.perf_counter() - t0
+        log(f"zoo launchers: serve --topk {K} {' '.join(extra)}: "
+            f"{text.splitlines()[0]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -3648,6 +4673,18 @@ def main() -> int:
     zoo_launches, zoo_e2e = zoo_phase(torch, np, counters, fa)
     e2e.update(zoo_e2e)
     e2e.update(zoo_launcher_phase(torch, fa))
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_train_launches, zoo_rows, e2e["zoo_training"], zexp = \
+        zoo_training_phase(torch, np, counters, ce, sp, dk)
+    zoo_ret_launches, zoo_ret_rows, e2e["zoo_retrieval"] = \
+        zoo_retrieval_phase(torch, np, counters, dc, ivf, zexp)
+    del zexp
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e["zoo_launchers"] = zoo_train_launchers_phase(torch)
+    for name, row in {**zoo_rows, **zoo_ret_rows}.items():
+        kernels[name]["zoo"] = row
     e2e["build_s"] = build_s
 
     # launches on each main path, from its own reset-and-read of the counters
@@ -3659,7 +4696,10 @@ def main() -> int:
                       "dgc_training": cnn_launches.get(name, 0),
                       "checkpoint": ckpt_launches.get(name, 0),
                       **{path: n.get(name, 0)
-                         for path, n in head_launches.items()}}
+                         for path, n in head_launches.items()},
+                      **{path: n.get(name, 0)
+                         for path, n in {**zoo_train_launches,
+                                         **zoo_ret_launches}.items()}}
                for name in kernels}
     rows = []
     for name, k in kernels.items():

@@ -14,8 +14,11 @@ serving paths, and the zoo's greedy token serving.
   ...     system="paper", model=sku100m_resnet.config_1m(), batch=128,
   ...     train=TrainConfig(optimizer="lars", dgc=DGCConfig(
   ...         enabled=True, backend="kernel")))
-  >>> zoo = Experiment.from_config(system="zoo", arch="smollm_135m")
+  >>> zoo = Experiment.from_config(system="zoo", arch="smollm_135m",
+  ...                              batch=16, seq=512)
+  >>> zoo.fit(4, lr=0.5)                                     # history rows
   >>> zoo.serve(prompt_len=2000, gen=48, batch=8)            # tokens [8, 48]
+  >>> zoo.serve(batch=64, top_k=5, index="ivf")              # feature top-k
 
 The port of the JAX package's ``api/experiment.py`` for the slices landed
 so far: ``fit`` (the FCCS trainer, with full-state checkpoints under
@@ -30,10 +33,11 @@ full, knn, selective, mach, sampled, csoft; the sketch heads mach and
 csoft serve greedy only, since top-k and the IVF index retrieve against a
 [V, D] class matrix they do not train), on the ``feats`` trunk or the
 paper's ResNet (``trunk="cnn"``, or a ``family="cnn"`` model config), with
-or without DGC (``TrainConfig.dgc``); the zoo's prefill + greedy decode
-(``ZooExperiment.serve``) for the dense decoders. The zoo trainer, its
-checkpoints and the zoo's feature retrieval come with later slices
-(ROADMAP.md queue A).
+or without DGC (``TrainConfig.dgc``); for the zoo's dense decoders the
+zoo trainer (``ZooExperiment.fit`` / ``evaluate``, any of the six heads),
+prefill + greedy decode and feature retrieval (``serve(top_k=...)``,
+exact or through the IVF index, and ``serving_engine``). The zoo's
+checkpoints come with a later slice (ROADMAP.md A.9.3).
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and with no
 GPU present they raise rather than fall back to the CPU. Pass
@@ -68,7 +72,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _validate_serve_args(n_classes: int, batch: Optional[int],
-                         top_k: Optional[int]):
+                         top_k: Optional[int], index: Optional[str] = None):
     """Reject bad serving knobs with a clear error."""
     if batch is not None and batch <= 0:
         raise ValueError(
@@ -77,6 +81,12 @@ def _validate_serve_args(n_classes: int, batch: Optional[int],
         raise ValueError(
             f"top_k must be in [1, num_classes={n_classes}], got {top_k} "
             f"(retrieval cannot return more classes than exist)")
+    if index not in (None, "none", "ivf"):
+        raise ValueError(f"unknown serving index {index!r}; "
+                         f"expected 'none' or 'ivf'")
+    if index == "ivf" and top_k is None:
+        raise ValueError("index='ivf' serves top-k retrieval; "
+                         "pass top_k=...")
 
 
 def paper_model_config(trunk: str = "feats", classes: int = 4096,
@@ -146,6 +156,39 @@ class Experiment:
         still retires itself once ``weights_version`` moves past its
         fit-time snapshot."""
         self._ivf = index
+
+    def _serve_via_engine(self, queries, top_k: Optional[int],
+                          return_scores: bool, *,
+                          index: Optional[str] = None,
+                          nprobe: Optional[int] = None, telemetry=None):
+        """Batched serving of ``queries`` through the engine: one engine
+        per (top_k, batch, index, nprobe), every query submitted, then
+        drained as one micro-batch. No cache on this path (a synchronous
+        call wants fresh scores)."""
+        queries = np.asarray(queries.cpu() if torch.is_tensor(queries)
+                             else queries, np.float32)
+        batch = queries.shape[0]
+        key = (top_k, batch, index, nprobe)
+        eng = self._engines.get(key)
+        if eng is None:
+            # max_batch >= 2 keeps a 1-query call on the batched shapes
+            eng = self.serving_engine(top_k=top_k, max_batch=max(batch, 2),
+                                      max_wait_ms=0.0, cache=None,
+                                      index=index, nprobe=nprobe)
+            self._engines[key] = eng
+        if telemetry is not None:
+            eng.telemetry = telemetry
+        for i in range(batch):
+            eng.submit(queries[i])
+        done = sorted(eng.drain(), key=lambda r: r.rid)
+        if len(done) != batch:
+            raise RuntimeError(f"engine returned {len(done)} of {batch}")
+        ids = np.stack([r.ids for r in done])
+        if top_k is None:
+            return ids.astype(np.int32)
+        if return_scores:
+            return ids, np.stack([r.scores for r in done])
+        return ids
 
 
 class PaperExperiment(Experiment):
@@ -293,21 +336,14 @@ class PaperExperiment(Experiment):
         from repro_torch.telemetry import NULL_TRACER
         from repro_torch.train import hybrid
 
-        _validate_serve_args(effective_vocab(self.model_cfg), batch, top_k)
-        if index not in (None, "none", "ivf"):
-            raise ValueError(f"unknown serving index {index!r}; "
-                             f"expected 'none' or 'ivf'")
-        if index == "ivf" and top_k is None:
-            raise ValueError("index='ivf' serves top-k retrieval; "
-                             "pass top_k=...")
+        _validate_serve_args(effective_vocab(self.model_cfg), batch, top_k,
+                             index)
         if inputs is None or index == "ivf":
-            queries = None
-            if inputs is not None:
-                queries = next(v for k, v in inputs.items() if k != "labels")
-                batch = queries.shape[0]
-            return self._serve_via_engine(batch or self.batch, top_k,
-                                          return_scores, index=index,
-                                          nprobe=nprobe, queries=queries,
+            if inputs is None:
+                inputs = self.data_fn(10**6, batch or self.batch)
+            queries = next(v for k, v in inputs.items() if k != "labels")
+            return self._serve_via_engine(queries, top_k, return_scores,
+                                          index=index, nprobe=nprobe,
                                           telemetry=telemetry)
         tr = telemetry or NULL_TRACER
         inputs = self._to_device(inputs)
@@ -325,75 +361,53 @@ class PaperExperiment(Experiment):
         with tr.span("serve.compute"):
             return self._serve_step(self.state, inputs).cpu().numpy()
 
-    def _serve_via_engine(self, batch: int, top_k: Optional[int],
-                          return_scores: bool, *,
-                          index: Optional[str] = None,
-                          nprobe: Optional[int] = None, queries=None,
-                          telemetry=None):
-        """Batched serving through the engine: one engine per (top_k,
-        batch, index, nprobe), all queries submitted then drained as one
-        micro-batch. No cache on this path (a synchronous call wants fresh
-        scores)."""
-        key = (top_k, batch, index, nprobe)
-        eng = self._engines.get(key)
-        if eng is None:
-            # max_batch >= 2 keeps a 1-query call on the batched shapes
-            eng = self.serving_engine(top_k=top_k, max_batch=max(batch, 2),
-                                      max_wait_ms=0.0, cache=None,
-                                      index=index, nprobe=nprobe)
-            self._engines[key] = eng
-        if telemetry is not None:
-            eng.telemetry = telemetry
-        if queries is None:
-            inputs = self.data_fn(10**6, batch)
-            queries = next(v for k, v in inputs.items() if k != "labels")
-        queries = (queries.cpu().numpy() if torch.is_tensor(queries)
-                   else np.asarray(queries))
-        for i in range(batch):
-            eng.submit(queries[i])
-        done = sorted(eng.drain(), key=lambda r: r.rid)
-        if len(done) != batch:
-            raise RuntimeError(f"engine returned {len(done)} of {batch}")
-        ids = np.stack([r.ids for r in done])
-        if top_k is None:
-            return ids.astype(np.int32)
-        if return_scores:
-            return ids, np.stack([r.scores for r in done])
-        return ids
-
 
 # ---------------------------------------------------------------------------
-# zoo system (greedy token serving)
+# zoo system (the zoo trainer, feature retrieval and greedy token serving)
 # ---------------------------------------------------------------------------
+
+_ZOO_CKPT = ("the zoo's checkpoints are not ported to torch yet (ROADMAP.md "
+             "A.9.3)")
 
 
 class ZooExperiment(Experiment):
-    """Greedy token serving for the zoo's dense decoders: prefill once,
-    then one-token decode steps through the rotating KV cache, each token
-    the argmax over the row-sharded class matrix (``train.gspmd``). The
-    trunk is replicated on every ring member; the head's rows are split
-    over the ring, the vocab padded to ``n_model`` (default: the ring
-    size). ``head.backend`` (``"kernel"`` by default) selects the kernels
-    of the whole path: the flash attention of the prefill.
+    """Training and serving for the zoo's dense decoders with any registered
+    softmax head: the loss goes through the head registry
+    (``gspmd.make_head_train_step``), so full / knn / selective / mach /
+    sampled / csoft all train. The trunk is replicated on every ring
+    member and runs the whole batch; the W-heads train the model's own
+    class matrix (the tied embedding or ``params.head``), each member
+    scoring its row block, and the sketch heads (mach, csoft) train
+    head-owned [R, B/P, D] bucket blocks (``head_state.params``). The
+    head's aux (the knn graph, the LSH tables, the hashes) lives in
+    ``head_state.aux`` and ``refresh_head`` rebuilds it on the head's
+    ``rebuild_every`` cadence. The vocab is padded to ``n_model``
+    (default: the ring size).
 
-    The JAX package's constructor arguments are kept; ``fit``,
-    ``evaluate``, ``serve(top_k=...)``, serving engines, the IVF index and
-    ``ckpt_dir`` wait for their slices and raise, naming ROADMAP.md."""
+    ``serve`` decodes tokens greedily (prefill, then one-token steps
+    through the KV cache) or, with ``top_k``, retrieves against the class
+    matrix through the serving engine, exactly or through the IVF index.
+    ``head.backend`` (``"kernel"`` by default) selects the kernels of every
+    path but the trunk's training attention, which runs the ``ref``
+    branches. ``data_fn(t, batch) -> {"tokens", "labels"}`` replaces the
+    synthetic LM stream (``data.synthetic.lm_batch``). ``ckpt_dir`` and
+    ``fit(resume=...)`` wait for the zoo's checkpoints and raise, naming
+    ROADMAP.md."""
 
     def __init__(self, *, arch: str = "smollm_135m", reduced: bool = False,
                  head: Optional[HeadConfig] = None,
                  train: Optional[TrainConfig] = None,
                  batch: int = 64, seq: int = 64, n_model: Optional[int] = None,
+                 data_fn: Optional[Callable[[int, int], dict]] = None,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
                  ckpt_keep: int = 0, log_every: int = 10,
                  seed: int = 0, telemetry=None, device=None):
-        from repro_torch.api.heads import make_head
+        from repro_torch.api.heads import HeadState, make_head, member_aux
+        from repro_torch.data import synthetic
         from repro_torch.models import decoder, lm
 
         if ckpt_dir:
-            raise NotImplementedError(
-                "zoo checkpoints wait for the zoo trainer (ROADMAP.md "
-                "A.9.3)")
+            raise NotImplementedError(_ZOO_CKPT)
         cfg = get_model_config(arch, reduced=reduced)
         decoder.require_ported(cfg)
         self.device = resolve_device(device)
@@ -408,44 +422,194 @@ class ZooExperiment(Experiment):
                                                 cosine_scale=0.0)
         self.train_cfg = train or TrainConfig(optimizer="sgd")
         self.batch, self.seq = batch, seq
+        self.shape = InputShape("experiment", seq, batch, "train")
         self.log_every = log_every
-        self.telemetry = telemetry
+        self.telemetry = telemetry   # Tracer, or None = NULL_TRACER
+        self.history: list = []
+        vocab = effective_vocab(self.model_cfg)
+        self.data_fn = data_fn or (lambda t, b: synthetic.lm_batch(
+            t, b, self.seq, vocab, device=self.device))
         self.head = make_head(self.model_cfg, self.head_cfg)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         with torch.no_grad():
             self.params = lm.init_model(gen, self.model_cfg)
-        self.restores = 0    # bumped on every load_params
-        self._t = 0          # the data cursor a fit would move
+        # head-owned state: the W-heads init only aux (their class matrix
+        # is the model's); the sketch heads keep [R, B/P, D] bucket blocks
+        n, r = dist.world_size(), dist.rank()
+        if self.head.params_are_class_weights:
+            hp = ()
+            aux = member_aux(self.head.init_aux(n), self.head.aux_spec(),
+                             rank=r, world_size=n, device=self.device)
+        else:
+            hgen = torch.Generator(device=self.device)
+            hgen.manual_seed(seed + 1)
+            hp, aux = self.head.init(hgen, n, rank=r, device=self.device)
+        self.head_state = HeadState(hp, aux)
+        # the optimizer's moments and the steps are built on first use, so
+        # a serve-only experiment holds only its params
+        self.opt_state = None
+        self._train_step = None
+        self._eval_step = None
+        self._refreshed = False
+        self._engines: dict = {}
+        self.restores = 0    # bumped on every load_params / load_head_state
+        self._t = 0          # data cursor: the next step fit() takes
 
     @property
     def weights_version(self):
-        """Moves whenever the served weights can have changed."""
+        """Moves whenever the served weights can have changed: on every
+        step and every load."""
         return (self.restores, self._t)
 
     def load_params(self, params) -> None:
         """Install model params (a ``models.layers.ParamDict``, for example
         the JAX package's carried over by
-        ``repro_torch.interop.zoo_params_from_numpy``)."""
+        ``repro_torch.interop.zoo_params_from_numpy``). Training updates
+        them in place."""
         self.params = params
         self.restores += 1
 
-    def fit(self, steps: int, **kw):
-        raise NotImplementedError(
-            "the zoo trainer is not ported to torch yet (ROADMAP.md A.9)")
+    def load_head_state(self, head_state) -> None:
+        """Install this member's ``HeadState`` (for example the JAX
+        package's, carried over by
+        ``repro_torch.interop.zoo_head_state_from_numpy``): the sketch
+        heads' bucket block and the aux, used as they are (no refresh
+        before the next step)."""
+        self.head_state = head_state
+        self._refreshed = True
+        self.restores += 1
+
+    @property
+    def graph(self):
+        """Back-compat: the knn head's graph row (offsets, neighbors,
+        ranks)."""
+        return self.head_state.aux if self.head.name == "knn" else None
+
+    @graph.setter
+    def graph(self, value):
+        """Back-compat: ``exp.graph = None`` forces a rebuild before the
+        next fit / evaluate; a tuple installs it as the head's aux."""
+        from repro_torch.api.heads import HeadState
+        if value is None:
+            self._refreshed = False
+        else:
+            self.head_state = HeadState(self.head_state.params, tuple(value))
+            self._refreshed = True
+
+    def refresh_head(self):
+        """Rebuild the head's aux (the knn graph, the LSH tables) from the
+        CURRENT class weights on the ring: the zoo counterpart of the paper
+        trainer's refresh. A no-op for heads without periodic work."""
+        from repro_torch.api.heads import HeadState
+        from repro_torch.models import lm
+        from repro_torch.train import gspmd
+
+        with torch.no_grad():
+            w = (gspmd.vocab_rows(lm.head_weight(self.params, self.model_cfg))
+                 if self.head.params_are_class_weights
+                 else self.head_state.params)
+            hs = self.head.refresh(HeadState(w, self.head_state.aux))
+        self.head_state = HeadState(self.head_state.params, hs.aux)
+        self._refreshed = True
+        return self.head_state
+
+    def rebuild_graph(self):
+        """Back-compat: refresh the head and return the knn graph row."""
+        self.refresh_head()
+        return self.graph
+
+    def _batch(self, t: int) -> dict:
+        from repro_torch.train.trainer import to_device
+        return to_device(self.data_fn(t, self.batch), self.device)
+
+    def _ensure_opt(self):
+        """The optimizer state over (params, head params) and the train
+        step, built on first use."""
+        from repro_torch.optim import make_optimizer
+        from repro_torch.train import gspmd
+        if self.opt_state is None:
+            self.opt_state = make_optimizer(self.train_cfg).init(
+                (self.params, self.head_state.params))
+        if self._train_step is None:
+            self._train_step = gspmd.make_head_train_step(
+                self.model_cfg, self.head_cfg, self.train_cfg, self.shape,
+                head=self.head)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def fit(self, steps: int, *, lr: float = 0.5, resume=False,
+            step_hook=None, telemetry=None):
+        """Train ``steps`` steps from the current cursor at learning rate
+        ``lr``. Heads with derived aux (the knn graph, the LSH tables)
+        rebuild it from the class weights before the first step, and every
+        ``rebuild_every`` steps. ``step_hook(t)`` fires before each step;
+        ``telemetry=`` installs a ``repro_torch.telemetry.Tracer`` (spans
+        ``train.data``, ``train.step``, ``train.refresh``; counters
+        ``train.steps``, ``train.refreshes``; one metrics row a step).
+        Returns the history rows (step, loss, acc, and the head's own
+        metrics: knn's and selective's ``active_frac`` and
+        ``label_recall``, sampled's ``sample_frac``)."""
+        from repro_torch.telemetry import NULL_TRACER
+
+        if resume:
+            raise NotImplementedError(_ZOO_CKPT)
+        if telemetry is not None:
+            self.telemetry = telemetry
+        tr = self.telemetry or NULL_TRACER
+        if not self._refreshed:
+            self.refresh_head()
+        self._ensure_opt()
+        refresh_every = self.head.refresh_every
+        own = [k for k in self.head.metrics_spec()
+               if k not in ("accuracy", "logz")]
+        start = self._t
+        for t in range(start, start + steps):
+            if step_hook is not None:
+                step_hook(t)
+            with tr.span("train.data"):
+                inputs = self._batch(t)
+            with tr.span("train.step"):
+                self.params, self.head_state, self.opt_state, loss, \
+                    metrics = self._train_step(self.params, self.head_state,
+                                               self.opt_state, inputs, lr)
+                if tr.enabled:
+                    self._sync()
+            tr.count("train.steps")
+            self._t = t + 1
+            if refresh_every and (t + 1) % refresh_every == 0:
+                with tr.span("train.refresh"):
+                    self.refresh_head()
+                tr.count("train.refreshes")
+            row = {"step": t, "loss": float(loss),
+                   "acc": float(metrics["accuracy"])}
+            row.update({k: float(metrics[k]) for k in own})
+            self.history.append(row)
+            tr.log_metrics(row)
+            if self.log_every and t % self.log_every == 0:
+                print(f"[zoo] step={t} loss={row['loss']:.4f} "
+                      f"acc={row['acc']:.3f}")
+        tr.record_peak_memory()
+        return self.history
 
     def evaluate(self, inputs=None) -> float:
-        raise NotImplementedError(
-            "zoo evaluation comes with the zoo trainer (ROADMAP.md A.9)")
+        """Deploy-style top-1 next-token accuracy on a held-out (late
+        stream) batch, through the head's own prediction (§4.5 retrieval
+        for the W-heads, the hashed-bucket decode for mach and csoft)."""
+        from repro_torch.train import gspmd
+        from repro_torch.train.trainer import to_device
 
-    def serving_engine(self, *, top_k: Optional[int] = None, **kw):
-        raise NotImplementedError(
-            "zoo feature retrieval through the serving engine is not ported "
-            "to torch yet (ROADMAP.md A.9)")
-
-    def ivf_index(self, **kw):
-        raise NotImplementedError(
-            "the zoo's IVF path is not ported to torch yet (ROADMAP.md A.9)")
+        if not self._refreshed:
+            self.refresh_head()
+        inputs = (self._batch(10**6) if inputs is None
+                  else to_device(inputs, self.device))
+        if self._eval_step is None:
+            self._eval_step = gspmd.make_head_eval_step(
+                self.model_cfg, self.head_cfg, head=self.head)
+        return float(self._eval_step(self.params, self.head_state.params,
+                                     self.head_state.aux, inputs))
 
     def serve(self, *, prompt_len: int = 32, gen: int = 16,
               batch: Optional[int] = None, top_k: Optional[int] = None,
@@ -457,24 +621,33 @@ class ZooExperiment(Experiment):
         steps through the KV cache and the sharded-vocab argmax. Returns
         the generated tokens [batch, gen] (numpy int32). Spans
         ``serve.prefill`` / ``serve.decode`` and the counter
-        ``serve.decoded_tokens`` go to ``telemetry``."""
+        ``serve.decoded_tokens`` go to ``telemetry``.
+
+        ``top_k=k`` switches to feature retrieval against the model's
+        class matrix (the contract of ``PaperExperiment.serve(top_k=...)``,
+        W-heads only): ``queries`` [b, d_model] embeddings (by default the
+        JAX package's pool, ``np.random.default_rng(0).standard_normal((b,
+        d_model))``) -> ids [b, k] (or (ids, scores) with
+        ``return_scores``), through the serving engine; ``index="ivf"``
+        routes it through the experiment's ``IVFIndex``."""
         from repro_torch.data import synthetic
         from repro_torch.models import decoder, lm
         from repro_torch.telemetry import NULL_TRACER
         from repro_torch.train import gspmd
 
         tr = telemetry or NULL_TRACER
-        _validate_serve_args(effective_vocab(self.model_cfg), batch, top_k)
-        if index not in (None, "none", "ivf"):
-            raise ValueError(f"unknown serving index {index!r}; "
-                             f"expected 'none' or 'ivf'")
-        if index == "ivf" and top_k is None:
-            raise ValueError("index='ivf' serves top-k retrieval; "
+        _validate_serve_args(effective_vocab(self.model_cfg), batch, top_k,
+                             index)
+        if top_k is not None:
+            if queries is None:
+                queries = np.random.default_rng(0).standard_normal(
+                    (batch or self.batch, self.model_cfg.d_model))
+            return self._serve_via_engine(queries, top_k, return_scores,
+                                          index=index, nprobe=nprobe,
+                                          telemetry=telemetry)
+        if queries is not None:
+            raise ValueError("queries= are for top-k feature retrieval; "
                              "pass top_k=...")
-        if top_k is not None or queries is not None:
-            raise NotImplementedError(
-                "zoo feature retrieval (serve(top_k=...)) is not ported to "
-                "torch yet (ROADMAP.md A.9)")
         if prompt_len <= 0 or gen <= 0:
             raise ValueError(
                 f"prompt_len and gen must be positive, got "
@@ -482,14 +655,14 @@ class ZooExperiment(Experiment):
         if not self.head.params_are_class_weights:
             raise NotImplementedError(
                 f"zoo serve() decodes with the model's [V, D] head weight, "
-                f"which the {self.head.name!r} head does not train")
+                f"which the {self.head.name!r} head does not train; use "
+                f"evaluate() (hashed-bucket decode) or a W-head "
+                f"(full/knn/selective/sampled) for token serving")
         cfg = self.model_cfg
         batch = batch or self.batch
         total = prompt_len + gen
         dshape = InputShape("serve-decode", total, batch, "decode")
         backend = self.head_cfg.backend
-        sync = (torch.cuda.synchronize if self.device.type == "cuda"
-                else lambda: None)
         with torch.no_grad():
             prompts = synthetic.lm_batch(0, batch, prompt_len,
                                          effective_vocab(cfg),
@@ -501,7 +674,7 @@ class ZooExperiment(Experiment):
                 tok, caches = prefill(self.params,
                                       {"tokens": prompts["tokens"]})
                 if tr.enabled:
-                    sync()
+                    self._sync()
 
             def grow(c):
                 if c.dim() >= 3 and c.shape[2] == prompt_len:

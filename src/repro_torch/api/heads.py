@@ -211,7 +211,18 @@ def head_state_from_tree(tree, aux_spec, *, rank: int, world_size: int,
     whole (every entry a copy)."""
     if not 0 <= rank < world_size:
         raise ValueError(f"rank {rank} is not on a ring of {world_size}")
-    head_aux = tuple(tree["aux"])
+    aux = member_aux(tree["aux"], aux_spec, rank=rank,
+                     world_size=world_size, device=device)
+    return HeadState(params_block(tree["params"], rank, world_size, device),
+                     aux)
+
+
+def member_aux(head_aux, aux_spec, *, rank: int, world_size: int,
+               device) -> tuple:
+    """Ring member ``rank``'s aux entries from the GLOBAL aux (host
+    arrays), by ``aux_spec``: ``"sharded"`` keeps row ``rank`` of a
+    leading [world_size] axis, ``"replicated"`` keeps the whole."""
+    head_aux = tuple(head_aux)
     aux_spec = tuple(aux_spec)
     if len(aux_spec) != len(head_aux):
         raise ValueError(f"aux_spec {aux_spec} does not name the "
@@ -229,8 +240,7 @@ def head_state_from_tree(tree, aux_spec, *, rank: int, world_size: int,
             raise ValueError(f"head_aux leading axis {a.shape[0]} is not the "
                              f"ring of {world_size}")
         aux.append(torch.tensor(a[rank], device=device))
-    return HeadState(params_block(tree["params"], rank, world_size, device),
-                     tuple(aux))
+    return tuple(aux)
 
 
 HEAD_REGISTRY: dict = {}

@@ -19,6 +19,15 @@ Autograd through the collectives follows JAX's transposes inside
   cotangent (sums it over the ring, keeps this member's slice).
 * ``pmax`` / ``pmin``: no gradient (their results are detached).
 
+The zoo trainer differentiates outside its head's body, as the JAX zoo
+differentiates outside its shard_map, and its gradient is that of the
+mean loss whatever the ring size (the JAX package's, at n_model 1, 2 and
+4): ``pvary`` (the identity, its backward a ``psum``) carries the
+replicated features into the head, ``grad_mean`` (the identity, its
+backward over the ring size) carries the replicated loss out, and
+``shard_rows`` cuts a replicated table's row block, its backward an
+all-gather, so every member's copy gets the whole gradient.
+
 The functions are written by hand, not taken from
 ``torch.distributed.nn``, whose backward rules differ between versions.
 """
@@ -103,6 +112,69 @@ def all_gather(x: torch.Tensor, dim: int = 0, tiled: bool = True):
     if not _active():
         return x if tiled else x.unsqueeze(dim)
     return _AllGather.apply(x, dim, tiled)
+
+
+class _PVary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, tdist.ReduceOp.SUM)
+
+
+class _GradMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / world_size()
+
+
+class _RowBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w):
+        n = w.shape[0] // world_size()
+        return w[rank() * n:(rank() + 1) * n].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, 0, True)
+
+
+def pvary(x: torch.Tensor) -> torch.Tensor:
+    """The identity, whose backward sums the cotangent over the ring (JAX:
+    ``lax.pvary``, the transpose of a shard_map input replicated over the
+    axis): a value every member computes alike and feeds to its own shard
+    of the work gets the gradient of every shard."""
+    return _PVary.apply(x) if _active() else x
+
+
+def grad_mean(x: torch.Tensor) -> torch.Tensor:
+    """The identity, whose backward divides the cotangent by the ring size:
+    a result replicated on every member (a loss completed by ``psum``),
+    each member's copy carrying 1 / P of its cotangent, so that the
+    ``psum`` backwards inside it give every shard its gradient once."""
+    return _GradMean.apply(x) if _active() else x
+
+
+def shard_rows(w: torch.Tensor) -> torch.Tensor:
+    """This member's row block of a replicated [V, ...] tensor whose rows
+    divide the ring. Under grad the block is a copy, whose backward
+    all-gathers the members' block gradients into the whole tensor's (JAX:
+    the transpose of slicing a replicated array into a shard_map input
+    split over the axis), so every member's copy of ``w`` gets the same
+    gradient; otherwise a view."""
+    n = world_size()
+    if n == 1:
+        return w
+    if torch.is_grad_enabled() and w.requires_grad:
+        return _RowBlock.apply(w)
+    v_loc = w.shape[0] // n
+    return w[rank() * v_loc:(rank() + 1) * v_loc]
 
 
 def pmax(x: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,10 @@ port: the cnn trunk's nested params and moments, and DGC's u and v, too. A fitte
 ``state_to_save()``, taken to the host the same way, becomes a ring
 member's ``IVFIndex``, and a zoo model's params (``jax.device_get`` of a
 JAX ``ZooExperiment``'s ``params``, blocks stacked on a leading [L] axis)
-become the port's per-layer modules. Nothing here imports JAX: only numpy
-arrays and plain dicts cross.
+become the port's per-layer modules and back, and its ``head_state`` (the
+sketch heads' bucket weights, the knn graph, the LSH planes and tables,
+the hashes) a ring member's. Nothing here imports JAX: only numpy arrays
+and plain dicts cross.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.api.heads import HeadState, member_aux, params_block
 from repro_torch.configs.base import HeadConfig, ModelConfig
 from repro_torch.models.layers import ParamDict
 from repro_torch.optim import OptState
@@ -144,3 +147,40 @@ def zoo_params_from_numpy(tree: dict, cfg: ModelConfig, *, rank: int = 0,
     params = {k: convert(v) for k, v in tree.items() if k != "blocks"}
     params["blocks"] = [convert(blocks, layer) for layer in range(n_layers)]
     return ParamDict(**params)
+
+
+def zoo_params_to_numpy(params: ParamDict) -> dict:
+    """The inverse of ``zoo_params_from_numpy``: the port's zoo params as
+    the JAX package's tree of numpy arrays, each leaf of ``blocks``
+    stacked on a leading [L] axis."""
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        return node.detach().cpu().numpy()
+
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([x[k] for x in layers]) for k in layers[0]}
+        return np.stack(layers)
+
+    tree = {k: convert(v) for k, v in params.items() if k != "blocks"}
+    tree["blocks"] = stack([convert(b) for b in params.blocks])
+    return tree
+
+
+def zoo_head_state_from_numpy(head, head_params, head_aux, *, rank: int = 0,
+                              world_size: int = 1, device) -> HeadState:
+    """Ring member ``rank``'s zoo ``HeadState`` from the JAX package's
+    ``ZooExperiment.head_state`` as numpy arrays: ``head_params`` is ``()``
+    for the W-heads (their class matrix is the model's) and the GLOBAL
+    [R, B, D] bucket weights for the sketch heads (mach, csoft), of which
+    this member keeps its buckets; ``head_aux`` is laid out by the port
+    head's ``aux_spec()`` (the knn graph and the LSH tables' CSRs with a
+    leading [world_size] axis, the LSH planes and the hashes whole).
+    ``ZooExperiment.load_head_state`` installs it."""
+    aux = member_aux(head_aux, head.aux_spec(), rank=rank,
+                     world_size=world_size, device=device)
+    if head.params_are_class_weights:
+        return HeadState((), aux)
+    return HeadState(params_block(head_params, rank, world_size, device),
+                     aux)

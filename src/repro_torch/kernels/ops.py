@@ -143,14 +143,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     Forward only, as the JAX package's Pallas kernel is (it has no
     ``custom_vjp``): under grad mode with an input that requires grad it
     raises on every device, since the card's output would carry no
-    gradient. Training attention is ROADMAP A.9.1."""
+    gradient. The zoo trainer (ROADMAP A.9.1) trains attention on the ref
+    branches."""
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (q, k, v)):
         raise RuntimeError(
             "flash_attention is forward only (no backward kernel, as the JAX "
             "package's Pallas kernel has none): call it under "
-            "torch.no_grad(), or train attention on the ref backend; "
-            "training through attention is ROADMAP A.9.1")
+            "torch.no_grad(), or train attention on the ref backend, as "
+            "the zoo trainer (ROADMAP A.9.1) does")
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 

@@ -18,9 +18,10 @@ the reported latencies do not include the fit.
 ``--system zoo`` is token serving for the zoo's dense decoders (``--arch``,
 ``--reduced``): prefill ``--prompt-len`` tokens once, then greedy decode
 ``--gen`` tokens through the KV cache and the sharded-vocab argmax; it
-prints the prefill and decode times and tok/s. The zoo's feature retrieval
-(``--topk``, ``--replay``, ``--index``) is not ported yet and exits with
-an argparse error naming ROADMAP.md.
+prints the prefill and decode times and tok/s. With ``--topk K`` (and
+``--index ivf [--nprobe N]``) or ``--replay`` it serves the zoo's feature
+retrieval instead: d_model-wide queries classified against the model's
+class matrix (the tied embedding), as in the JAX launcher.
 
 It runs on the card (``--device cuda``, the default) in one process: a
 ring of one. Every head serves greedy (``--head``): the W-heads (full,
@@ -47,6 +48,8 @@ the JAX package.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --system zoo --arch smollm_135m --reduced --prompt-len 16 --gen 8 \\
       --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --system zoo \\
+      --arch smollm_135m --topk 5 --index ivf --batch 64
 """
 from __future__ import annotations
 
@@ -177,12 +180,7 @@ def main(argv=None):
         p.error(f"--cache must be >= 0, got {args.cache}")
     if args.max_wait_ms < 0:
         p.error(f"--max-wait-ms must be >= 0, got {args.max_wait_ms}")
-    if args.system == "zoo":
-        for flag, on in (("--topk", args.topk), ("--replay", args.replay),
-                         ("--index", args.index != "none")):
-            if on:
-                p.error(f"--system zoo with {flag} (zoo feature retrieval) "
-                        f"is not ported to torch yet (see ROADMAP.md A.9)")
+    if args.system == "zoo" and not (args.topk or args.replay):
         if args.prompt_len <= 0 or args.gen <= 0:
             p.error(f"--prompt-len and --gen must be positive, got "
                     f"{args.prompt_len} and {args.gen}")
@@ -246,6 +244,27 @@ def _serve_zoo(args, tr) -> int:
         system="zoo", arch=args.arch, reduced=args.reduced, batch=args.batch,
         seq=args.prompt_len + args.gen, device=args.device,
         head=HeadConfig(softmax_impl=args.head, backend=args.backend))
+    if args.topk or args.replay > 0:
+        # feature retrieval against the model's class matrix: queries are
+        # d_model embeddings over the (padded) vocab's classes
+        args = argparse.Namespace(**{**vars(args),
+                                     "classes": exp.model_cfg.vocab_size,
+                                     "feat_dim": exp.model_cfg.d_model})
+        if args.index == "ivf":
+            _fit_index(exp, args)
+        if args.replay > 0:
+            return _run_replay(exp, args, telemetry=tr)
+        ids, scores = exp.serve(batch=args.batch, top_k=args.topk,
+                                return_scores=True, index=_index(args),
+                                nprobe=args.nprobe or None, telemetry=tr)
+        compute_ms = tr.span_stats("serve.compute")["total_s"] * 1e3
+        print(f"[serve] zoo {args.head}-head top-{args.topk} retrieval over "
+              f"{args.classes} classes ({args.backend}{_via(args)} on "
+              f"{exp.device}): {ids.shape[0]} queries in {compute_ms:.1f} ms")
+        print("[serve] first query ids:   ", ids[0].tolist())
+        print("[serve] first query scores:",
+              [round(float(s), 3) for s in scores[0]])
+        return 0
     gen = exp.serve(prompt_len=args.prompt_len, gen=args.gen,
                     batch=args.batch, telemetry=tr)
     prefill_ms = tr.span_stats("serve.prefill")["total_s"] * 1e3

@@ -20,9 +20,16 @@ checkpoints; ``--resume`` restores the latest one under ``--ckpt-dir``
 (``--resume CKPT`` names the directory, or a file in it, and implies
 ``--ckpt-dir``) and runs only the rest of ``--steps``, which is then the
 TOTAL; ``--resume-reshard`` (implying ``--resume``) also takes a
-checkpoint written on a ring of another size. What is not ported yet
-exits with an argparse error naming ROADMAP.md: ``--system zoo``, and
-with the checkpoint flags, the zoo's checkpoints (A.9.3).
+checkpoint written on a ring of another size.
+
+``--system zoo`` trains the zoo's dense decoder ``--arch`` (``--reduced``:
+its smoke variant, in fp32) on ``--batch`` x ``--seq`` tokens of the
+synthetic LM stream a step, with any of the six heads (the JAX launcher's
+head settings: k=16, k'=32, 10% active, rebuilt every 100 steps), at
+``--lr`` with ``--optimizer``, and prints ``[zoo] final next-token
+accuracy``. The zoo's checkpoints (``--ckpt-*``, ``--resume*`` with
+``--system zoo``) are not ported yet and exit with an argparse error
+naming ROADMAP.md A.9.3.
 
   PYTHONPATH=src python -m repro_torch.launch.train --system paper \\
       --classes 1020250 --feat-dim 512 --batch 256 --steps 4 --fccs
@@ -38,6 +45,10 @@ with the checkpoint flags, the zoo's checkpoints (A.9.3).
       --ckpt-dir ck --ckpt-every 2 --steps 4
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --ckpt-dir ck --resume --steps 6      # restores t=4, runs steps 4, 5
+  PYTHONPATH=src python -m repro_torch.launch.train --system zoo \\
+      --arch smollm_135m --batch 16 --seq 512 --steps 2 --lr 0.5
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --system zoo --reduced --head knn --batch 4 --seq 16 --steps 4
 """
 from __future__ import annotations
 
@@ -69,6 +80,11 @@ def parse_args(argv=None):
     p.add_argument("--fccs", action="store_true",
                    help="FCCS batch growth (micro-batch accumulation)")
     p.add_argument("--trunk", choices=["feats", "cnn"], default="feats")
+    # zoo system
+    p.add_argument("--arch", default="smollm_135m")
+    p.add_argument("--reduced", action="store_true")
+    p.add_argument("--seq", type=int, default=64)
+    # shared
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--lr", type=float, default=2.0)
@@ -105,11 +121,11 @@ def parse_args(argv=None):
     ckpt_flags = (args.ckpt_dir or args.ckpt_every is not None
                   or args.ckpt_keep is not None or args.resume
                   or args.resume_reshard)
-    if args.system == "zoo":
-        if ckpt_flags:
-            p.error("the zoo's checkpoints (--ckpt-*, --resume*) wait for "
-                    "the zoo trainer: " + _NOT_PORTED.format("A.9.3"))
-        p.error("--system zoo " + _NOT_PORTED.format("A.9"))
+    if args.system == "zoo" and ckpt_flags:
+        p.error("the zoo's checkpoints (--ckpt-*, --resume*) "
+                + _NOT_PORTED.format("A.9.3"))
+    if args.seq <= 0:
+        p.error(f"--seq must be positive, got {args.seq}")
     # --knn is a back-compat alias; an explicit non-default --head wins
     args.head = "knn" if (args.knn and args.head == "full") else args.head
     if args.resume_reshard and not args.resume:
@@ -148,6 +164,8 @@ def main(argv=None):
     if args.trace_out or args.metrics_out:
         telemetry = Tracer(metrics_path=args.metrics_out or None)
     try:
+        if args.system == "zoo":
+            return _train_zoo(args, telemetry)
         # sampled_n below the class count, so that the estimator (a
         # partial draw + the logQ correction) is what runs, as in the JAX
         # launcher
@@ -185,19 +203,49 @@ def main(argv=None):
                   f"accuracy {acc}", file=sys.stderr)
             return 1
         print(f"[train] final eval accuracy: {acc:.4f}")
-        if telemetry is not None:
-            telemetry.record_peak_memory()
-            if args.trace_out:
-                telemetry.write_chrome_trace(args.trace_out)
-                st = telemetry.span_stats("train.step")
-                print(f"[telemetry] {st['count']} train.step spans "
-                      f"({st['total_s']:.2f}s) -> {args.trace_out}")
-            if args.metrics_out:
-                print(f"[telemetry] metrics -> {args.metrics_out}")
+        _finish_telemetry(args, telemetry)
         return 0
     finally:
         if telemetry is not None:
             telemetry.close()
+
+
+def _finish_telemetry(args, telemetry) -> None:
+    if telemetry is None:
+        return
+    telemetry.record_peak_memory()
+    if args.trace_out:
+        telemetry.write_chrome_trace(args.trace_out)
+        st = telemetry.span_stats("train.step")
+        print(f"[telemetry] {st['count']} train.step spans "
+              f"({st['total_s']:.2f}s) -> {args.trace_out}")
+    if args.metrics_out:
+        print(f"[telemetry] metrics -> {args.metrics_out}")
+
+
+def _train_zoo(args, telemetry) -> int:
+    """The zoo trainer on ``--arch`` (``--reduced``: its smoke variant in
+    fp32) over ``--batch`` x ``--seq`` tokens a step, with the JAX
+    launcher's head settings."""
+    from repro_torch.api import Experiment
+    from repro_torch.configs.base import HeadConfig, TrainConfig
+
+    hcfg = HeadConfig(softmax_impl=args.head, backend=args.backend,
+                      knn_k=16, knn_kprime=32, active_frac=0.1,
+                      rebuild_every=100)
+    exp = Experiment.from_config(
+        system="zoo", arch=args.arch, reduced=args.reduced,
+        batch=args.batch, seq=args.seq, head=hcfg,
+        train=TrainConfig(optimizer=args.optimizer), device=args.device)
+    hist = exp.fit(args.steps, lr=args.lr, telemetry=telemetry)
+    acc = exp.evaluate()
+    if not (math.isfinite(hist[-1]["loss"]) and math.isfinite(acc)):
+        print(f"[zoo] non-finite result: loss {hist[-1]['loss']}, "
+              f"accuracy {acc}", file=sys.stderr)
+        return 1
+    print(f"[zoo] final next-token accuracy: {acc:.4f}")
+    _finish_telemetry(args, telemetry)
+    return 0
 
 
 if __name__ == "__main__":

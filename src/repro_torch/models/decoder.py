@@ -2,8 +2,8 @@
 package's ``models/decoder.py``.
 
 The JAX package stacks the layers' params on a leading ``layers`` axis and
-scans over them; here the layers are an ``nn.ModuleList`` and the stack a
-Python loop. The caches keep the JAX layout, stacked over layers:
+scans over them; here the layers are a list of ``ParamDict``s and the
+stack a Python loop. The caches keep the JAX layout, stacked over layers:
 
   {"k": [L,B,W,Hk,Dh], "v": [L,B,W,Hk,Dh]}   (W = rotating window slots)
 
@@ -18,7 +18,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (ParamDict, apply_attention, apply_mlp,
@@ -48,8 +47,8 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:
                      mlp=init_mlp(gen, cfg))
 
 
-def init_blocks(gen: torch.Generator, cfg: ModelConfig) -> nn.ModuleList:
-    return nn.ModuleList(init_block(gen, cfg) for _ in range(cfg.n_layers))
+def init_blocks(gen: torch.Generator, cfg: ModelConfig) -> list:
+    return [init_block(gen, cfg) for _ in range(cfg.n_layers)]
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,8 @@ Conventions, as in the JAX package:
 
 * Parameters keep the JAX package's names and layouts (``wq`` [D, H, Dh],
   ``wk`` / ``wv`` [D, Hk, Dh], ``wo`` [H, Dh, D], MLP matrices [in, out]).
-  They live in ``ParamDict`` modules, the JAX package's nested param dicts
-  as ``nn.Module``s, in fp32 (``cfg.param_dtype``), and are cast to the
+  They live in ``ParamDict``s, the JAX package's nested param dicts with
+  attribute access, in fp32 (``cfg.param_dtype``), and are cast to the
   compute dtype ``cfg.dtype`` where they are used.
 * Norm statistics, softmax and attention logits run in fp32. Where the JAX
   package multiplies bf16 operands with ``preferred_element_type=float32``
@@ -34,32 +34,40 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 
 
-class ParamDict(nn.Module):
+class ParamDict(dict):
     """Named parameters and sub-trees: one node of the JAX package's nested
-    param dict. Tensors become (frozen) parameters, dicts become
-    ``ParamDict``s and lists ``nn.ModuleList``s, so ``p.wq`` reads as the
-    JAX package's ``p["wq"]``."""
+    param dict, a dict whose entries also read as attributes (``p.wq`` is
+    ``p["wq"]``). Nested dicts become ``ParamDict``s and lists of dicts
+    lists of them; the keys are kept in sorted order, so iteration (and
+    ``optim.tree_map`` / ``tree_leaves``) walks the tree in
+    ``jax.tree.flatten``'s order over the JAX package's dicts, a layer list
+    in index order. The leaves are plain fp32 tensors: fresh ones do not
+    require grad, so serving records no graph, and the trainer
+    differentiates a tree of the same tensors made to require grad
+    (``core.pipeline``), the one representation for serving and
+    training."""
 
     def __init__(self, **entries):
         super().__init__()
-        for name, val in entries.items():
-            if isinstance(val, nn.Module):
-                self.add_module(name, val)
-            elif isinstance(val, dict):
-                self.add_module(name, ParamDict(**val))
+        for name in sorted(entries):
+            val = entries[name]
+            if isinstance(val, dict) and not isinstance(val, ParamDict):
+                val = ParamDict(**val)
             elif isinstance(val, (list, tuple)):
-                self.add_module(name, nn.ModuleList(
-                    v if isinstance(v, nn.Module) else ParamDict(**v)
-                    for v in val))
-            else:
-                self.register_parameter(
-                    name, nn.Parameter(val, requires_grad=False))
+                val = [v if isinstance(v, ParamDict) else ParamDict(**v)
+                       for v in val]
+            self[name] = val
+
+    def __getattr__(self, name: str):
+        try:
+            return self[name]
+        except KeyError:
+            raise AttributeError(name) from None
 
 
 # ---------------------------------------------------------------------------

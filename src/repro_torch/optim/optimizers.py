@@ -38,12 +38,14 @@ class OptState(NamedTuple):
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the tensors of ``tree`` (dicts, tuples, NamedTuples,
-    lists), with the matching leaves of ``rest``; ``None`` leaves stay
-    ``None``."""
+    """``fn`` over the tensors of ``tree`` (dicts, the zoo's
+    ``models.layers.ParamDict``s, tuples, NamedTuples, lists), with the
+    matching leaves of ``rest``; ``None`` leaves stay ``None``."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
+        out = {k: tree_map(fn, v, *(r[k] for r in rest))
+               for k, v in tree.items()}
+        # a dict subclass (the zoo's ParamDict) keeps its type
+        return out if type(tree) is dict else type(tree)(**out)
     if isinstance(tree, (tuple, list)):
         out = (tree_map(fn, v, *(r[i] for r in rest))
                for i, v in enumerate(tree))
@@ -57,9 +59,11 @@ def tree_map(fn, tree, *rest):
 
 def tree_leaves(tree) -> list:
     """The tensors of ``tree`` in ``tree_map`` order."""
-    out = []
-    tree_map(out.append, tree)
-    return out
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
 
 
 def _zeros_like_tree(params):
@@ -70,6 +74,14 @@ def _zeros_like_tree(params):
 def apply_updates(params, updates):
     return tree_map(lambda p, u: (p.float() + u).to(p.dtype), params,
                     updates)
+
+
+@torch.no_grad()
+def assign(dst, src) -> None:
+    """Copy the tensors of ``src`` into those of ``dst`` (same tree), in
+    place: the trainers update their params where they live."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        d.copy_(s)
 
 
 def _wd(g, p, weight_decay):

@@ -1,8 +1,8 @@
 """``ServingEngine`` — batched multi-query retrieval behind submit/drain.
 
 The port of the JAX package's engine. One engine wraps one served model (a
-paper-system ``Experiment``; the zoo system is not ported yet)
-and turns the per-head batched top-k / greedy steps into a serving loop:
+paper-system ``Experiment``, or the zoo's classifying backbone features
+against its class matrix) and turns the per-head batched top-k / greedy steps into a serving loop:
 
     engine = ServingEngine.for_experiment(exp, top_k=5,
                                           cache=ScoreCache(1024))
@@ -25,8 +25,8 @@ and turns the per-head batched top-k / greedy steps into a serving loop:
 
 The engine itself is transport-agnostic: it only needs a ``step_fn`` that
 scores a padded query batch. ``for_experiment`` builds that step for the
-paper (hybrid) system: the exact scan, or with ``index="ivf"`` the IVF
-index's probe and rerank.
+paper (hybrid) system and the zoo (``train.gspmd``'s feature steps): the
+exact scan, or with ``index="ivf"`` the IVF index's probe and rerank.
 """
 from __future__ import annotations
 
@@ -229,11 +229,11 @@ class ServingEngine:
                        min_bucket: int = 2, index: Optional[str] = None,
                        nprobe: Optional[int] = None,
                        telemetry=None) -> "ServingEngine":
-        """Build an engine over a paper-system ``Experiment``. Queries are
-        single feature embeddings ``[D]`` (the ``feats`` trunk) or images
-        ``[H, W, 3]`` (the cnn trunk); ``top_k=None`` serves greedy
-        class ids, ``top_k=k`` serves ``(ids [k], scores [k])`` per
-        request.
+        """Build an engine over a paper or zoo ``Experiment``. Queries are
+        single feature embeddings ``[D]`` (the ``feats`` trunk, and the
+        zoo's backbone features) or images ``[H, W, 3]`` (the cnn trunk);
+        ``top_k=None`` serves greedy class ids, ``top_k=k`` serves ``(ids
+        [k], scores [k])`` per request.
 
         ``index="ivf"`` routes the top-k path through the experiment's
         ``IVFIndex`` (fit lazily, refit when ``weights_version`` moves):
@@ -246,8 +246,15 @@ class ServingEngine:
         if use_ivf and top_k is None:
             raise ValueError("index='ivf' serves top-k retrieval; "
                              "pass top_k=...")
-        step_fn = (_paper_ivf_step_fn(exp, top_k, nprobe) if use_ivf
-                   else _paper_step_fn(exp, top_k))
+        if hasattr(exp, "trainer"):                     # paper system
+            step_fn = (_paper_ivf_step_fn(exp, top_k, nprobe) if use_ivf
+                       else _paper_step_fn(exp, top_k))
+        elif hasattr(exp, "head_state"):                # zoo system
+            step_fn = (_zoo_ivf_step_fn(exp, top_k, nprobe) if use_ivf
+                       else _zoo_step_fn(exp, top_k))
+        else:
+            raise TypeError(
+                f"not a paper/zoo Experiment: {type(exp).__name__}")
         # the probe moves on every weight load as well as every train step
         # (weights_version is (loads, step)), so cached scores never outlive
         # the weights that produced them
@@ -303,11 +310,7 @@ def _paper_step_fn(exp, top_k):
 
     def run(queries: np.ndarray, n_valid: int):
         q = torch.from_numpy(queries).to(exp.device)
-        out = step(exp.state, q, n_valid)
-        if top_k is not None:
-            vals, gids = out
-            return gids.cpu().numpy(), vals.cpu().numpy()
-        return out.cpu().numpy(), None
+        return _host(step(exp.state, q, n_valid), top_k)
 
     return run
 
@@ -336,7 +339,59 @@ def _paper_ivf_step_fn(exp, top_k, nprobe):
     def run(queries: np.ndarray, n_valid: int):
         idx, step = ensure()
         q = torch.from_numpy(queries).to(exp.device)
-        vals, gids = step(exp.state, idx.centroids, idx.members, q, n_valid)
+        return _host(step(exp.state, idx.centroids, idx.members, q,
+                          n_valid), top_k)
+
+    return run
+
+
+def _host(out, top_k):
+    """A step's result as the engine's (ids, scores) host arrays."""
+    if top_k is not None:
+        vals, gids = out
         return gids.cpu().numpy(), vals.cpu().numpy()
+    return out.cpu().numpy(), None
+
+
+def _zoo_step_fn(exp, top_k):
+    import torch
+
+    from repro_torch.train import gspmd
+
+    step = gspmd.make_feature_serve_step(exp.model_cfg, exp.head_cfg,
+                                         top_k=top_k, head=exp.head)
+
+    def run(queries: np.ndarray, n_valid: int):
+        q = torch.from_numpy(queries).to(exp.device)
+        return _host(step(exp.params, exp.head_state.params,
+                          exp.head_state.aux, q, n_valid), top_k)
+
+    return run
+
+
+def _zoo_ivf_step_fn(exp, top_k, nprobe):
+    import torch
+
+    from repro_torch.train import gspmd
+
+    built = {}           # (n_clusters, cap, nprobe) -> step
+
+    def ensure():
+        idx = exp.ivf_index()
+        np_eff = idx.resolve_nprobe(nprobe)
+        key = (idx.n_clusters, idx.cap, np_eff)
+        if key not in built:
+            built.clear()
+            built[key] = gspmd.make_feature_ivf_serve_step(
+                exp.model_cfg, exp.head_cfg, top_k, nprobe=np_eff,
+                head=exp.head)
+        return idx, built[key]
+
+    def run(queries: np.ndarray, n_valid: int):
+        idx, step = ensure()
+        q = torch.from_numpy(queries).to(exp.device)
+        return _host(step(exp.params, exp.head_state.params,
+                          exp.head_state.aux, idx.centroids, idx.members, q,
+                          n_valid), top_k)
 
     return run

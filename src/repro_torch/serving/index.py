@@ -72,22 +72,23 @@ def default_nprobe(n_clusters: int) -> int:
 
 
 def _exp_head_geometry(exp):
-    """(this member's [V_loc, D] class block, n_valid) of a paper-system
-    experiment. Sketch heads, which train no [V, D] class matrix, and the
-    zoo system, which is not ported, are refused."""
-    if hasattr(exp, "trainer"):                            # paper system
-        head = exp.head
-        if not head.params_are_class_weights:
-            raise NotImplementedError(
-                f"the IVF index quantizes the [V, D] class matrix, which the "
-                f"{head.name!r} head does not train; use a W-head "
-                f"(full/knn/selective/sampled)")
-        return exp.state.head_params, head.n_valid
-    if hasattr(exp, "par"):                                # zoo system
+    """(this member's [V_loc, D] class block, n_valid) of an experiment's
+    retrieval matrix: the paper system's head shard, or the zoo's row
+    block of ``lm.head_weight`` (the tied embedding or the untied head).
+    Sketch heads, which train no [V, D] class matrix, are refused."""
+    if not hasattr(exp, "trainer") and not hasattr(exp, "head_state"):
+        raise TypeError(f"not a paper/zoo Experiment: {type(exp).__name__}")
+    head = exp.head
+    if not head.params_are_class_weights:
         raise NotImplementedError(
-            "the zoo system's IVF index (gspmd.make_feature_ivf_serve_step) "
-            "is not ported to torch yet (ROADMAP.md queue A.9)")
-    raise TypeError(f"not a paper Experiment: {type(exp).__name__}")
+            f"the IVF index quantizes the [V, D] class matrix, which the "
+            f"{head.name!r} head does not train; use a W-head "
+            f"(full/knn/selective/sampled)")
+    if hasattr(exp, "trainer"):                            # paper system
+        return exp.state.head_params, head.n_valid
+    from repro_torch.models import lm                      # zoo system
+    from repro_torch.train.gspmd import vocab_rows
+    return vocab_rows(lm.head_weight(exp.params, exp.model_cfg)), head.n_valid
 
 
 def _sync(device: torch.device) -> None:

@@ -19,6 +19,8 @@ and ``chip_smoke.py`` run both through the same gates.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -647,6 +649,104 @@ def zoo_serve(tree: dict, *, arch: str, prompts: np.ndarray, gen: int,
         synthetic.lm_batch = real
 
 
+def _zoo_experiment(tree: dict, head_cfg: dict, *, arch: str, batch: int,
+                    seq: int, train_cfg: Optional[dict] = None,
+                    batches=None, head_state=None):
+    """A CPU ``ZooExperiment`` (the reduced ``arch``) on this member with
+    the JAX package's params ``tree`` and, when given, its head state
+    ``{"params", "aux"}`` (the sketch heads' bucket weights, the LSH
+    tables), both carried by ``interop``; ``batches[t]`` (the JAX
+    package's ``lm_batch`` arrays) replace the port's data stream."""
+    from repro_torch import interop
+    from repro_torch.api import Experiment
+    from repro_torch.configs.base import TrainConfig
+
+    cfg = interop.head_config_from_dict(head_cfg)
+    exp = Experiment.from_config(
+        system="zoo", arch=arch, reduced=True, batch=batch, seq=seq,
+        head=cfg, train=TrainConfig(**(train_cfg or {"optimizer": "sgd"})),
+        device="cpu", log_every=0,
+        data_fn=None if batches is None else (lambda t, b: batches[t]))
+    r, n = dist.rank(), dist.world_size()
+    exp.load_params(interop.zoo_params_from_numpy(
+        tree, exp.model_cfg, rank=r, world_size=n, device="cpu"))
+    if head_state is not None:
+        exp.load_head_state(interop.zoo_head_state_from_numpy(
+            exp.head, head_state["params"], head_state["aux"], rank=r,
+            world_size=n, device="cpu"))
+    return exp
+
+
+def zoo_fit(tree: dict, head_cfg: dict, train_cfg: dict, *, arch: str,
+            batch: int, seq: int, steps: int, lr: float, batches: list,
+            eval_inputs: dict, head_state=None, draws=None) -> dict:
+    """``ZooExperiment.fit(steps, lr=lr)`` on this member from the JAX
+    package's params and head state (``_zoo_experiment``) on its batches;
+    ``draws`` maps a sampled draw's salt to the JAX package's draw of each
+    member (``paper_fit``'s). Returns the history, the final params in the
+    JAX package's layout, the sketch heads' bucket weights gathered over
+    the ring, the evaluation accuracy and the weights_version trail."""
+    from repro_torch import interop
+
+    exp = _zoo_experiment(tree, head_cfg, arch=arch, batch=batch, seq=seq,
+                          train_cfg=train_cfg, batches=batches,
+                          head_state=head_state)
+    if draws is not None:
+        exp.head.draw = _injected_draw(draws)
+    versions = [exp.weights_version]
+    hist = exp.fit(steps, lr=lr,
+                   step_hook=lambda t: versions.append(exp.weights_version))
+    hp = exp.head_state.params
+    return {"history": hist,
+            "params": interop.zoo_params_to_numpy(exp.params),
+            "head_params": (None if exp.head.params_are_class_weights
+                            else _np(dist.all_gather(hp, dim=1))),
+            "eval": exp.evaluate(eval_inputs),
+            "versions": versions + [exp.weights_version]}
+
+
+def zoo_grads(tree: dict, head_cfg: dict, *, arch: str, inputs: dict
+              ) -> dict:
+    """One batch's loss and its gradient with respect to the model params
+    through ``gspmd.make_head_loss_fn`` on this member, from the JAX
+    package's params: the loss, and the gradient in the JAX package's
+    layout (every member's should be the same)."""
+    from repro_torch import interop
+    from repro_torch.core.pipeline import microbatched_value_and_grad
+    from repro_torch.train import gspmd
+
+    b, s = np.shape(inputs["tokens"])
+    exp = _zoo_experiment(tree, head_cfg, arch=arch, batch=b, seq=s)
+    loss_fn = gspmd.make_head_loss_fn(exp.model_cfg, exp.head_cfg,
+                                      global_tokens=b * s, head=exp.head)
+    batch = {k: torch.as_tensor(np.asarray(v)) for k, v in inputs.items()}
+    (loss, _), grads = microbatched_value_and_grad(
+        lambda p, x: loss_fn(p, (), exp.head_state.aux, x), exp.params,
+        batch, 1)
+    return {"loss": float(loss), "grads": interop.zoo_params_to_numpy(grads)}
+
+
+def zoo_retrieve(tree: dict, head_cfg: dict, *, arch: str, queries,
+                 top_k: int) -> dict:
+    """The zoo's feature retrieval on this member from the JAX package's
+    params: ``serve(top_k=...)`` on ``queries`` [b, D] exactly, through
+    the IVF index at its default nprobe and at every cluster, and on the
+    default query pool, each (ids, scores); the index's geometry; greedy
+    ids through the engine; and one engine batch with padded rows."""
+    exp = _zoo_experiment(tree, head_cfg, arch=arch, batch=4, seq=8)
+    q = np.asarray(queries, np.float32)
+    kw = dict(top_k=top_k, queries=q, return_scores=True)
+    out = {"exact": exp.serve(**kw), "ivf": exp.serve(index="ivf", **kw),
+           "ivf_all": exp.serve(index="ivf", nprobe=10**6, **kw),
+           "default": exp.serve(top_k=top_k, return_scores=True)}
+    idx = exp.ivf_index()
+    out.update(n_clusters=idx.n_clusters, cap=idx.cap, nprobe=idx.nprobe)
+    out["greedy"] = exp.serving_engine(max_batch=8).step_fn(q, q.shape[0])[0]
+    out["pad"] = exp.serving_engine(top_k=top_k, max_batch=8).step_fn(
+        q[:4], 3)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the dense CE kernels' gates, and TF32 products emulated
 # ---------------------------------------------------------------------------
@@ -1002,6 +1102,8 @@ def run_all(cases: list) -> list:
                "knn_loss_body": knn_loss_body, "ring_shift": ring_shift,
                "ivf_fit": ivf_fit, "ivf_serve": ivf_serve,
                "ivf_recall": ivf_recall, "zoo_serve": zoo_serve,
+               "zoo_fit": zoo_fit, "zoo_retrieve": zoo_retrieve,
+               "zoo_grads": zoo_grads,
                "head_loss_body": head_loss_body,
                "sketch_predict": sketch_predict,
                "sampled_draws": sampled_draws,

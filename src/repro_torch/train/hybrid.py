@@ -39,8 +39,8 @@ from repro_torch.core.sharded_softmax import (_normalize, mask_padded_rows,
                                               serve_topk_local)
 from repro_torch.models import lm
 from repro_torch.models import resnet as resnet_lib
-from repro_torch.optim import (OptState, apply_updates, make_optimizer,
-                               tree_leaves, tree_map)
+from repro_torch.optim import (OptState, apply_updates, assign,
+                               make_optimizer, tree_leaves, tree_map)
 
 
 class HybridState(NamedTuple):
@@ -206,12 +206,6 @@ def _gathered_features(model_cfg, fe_params, inputs):
     return dist.all_gather(f, dim=0, tiled=True)
 
 
-def _assign(dst, src) -> None:
-    """Copy the tensors of ``src`` into those of ``dst`` (same tree)."""
-    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
-        d.copy_(s)
-
-
 def make_train_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
                     train_cfg: TrainConfig, *, n_micro: int = 1,
                     head: Optional[SoftmaxHead] = None):
@@ -266,7 +260,7 @@ def make_train_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
         with torch.no_grad():
             updates, opt_state = opt.update((g_fe, g_hp), state.opt_state,
                                             params, lr)
-            _assign(params, apply_updates(params, updates))
+            assign(params, apply_updates(params, updates))
         metrics = dict(metrics)
         metrics["comm_wire_bytes"] = wire
         metrics["comm_dense_bytes"] = dense

@@ -140,15 +140,15 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
 
 
 def test_unported_parts_say_so():
-    # the zoo serves its dense decoders; its other families, and training,
-    # wait for their slices
+    # the zoo trains and serves its dense decoders; its other families, and
+    # its checkpoints, wait for their slices
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Experiment.from_config(system="zoo", arch="qwen3_moe_30b_a3b",
                                reduced=True, device="cpu")
     zoo = Experiment.from_config(system="zoo", arch="smollm_135m",
                                  reduced=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        zoo.fit(1)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.9.3"):
+        zoo.fit(1, resume=True)
     # the zoo's checkpoints wait for the zoo trainer; the paper system's
     # are ported and want a ckpt_dir to restore from
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.9.3"):
@@ -160,8 +160,8 @@ def test_unported_parts_say_so():
         exp.fit(1, resume=True)
     with pytest.raises(ValueError, match="ckpt_dir"):
         exp.trainer.restore_checkpoint()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        IVFIndex.fit(types.SimpleNamespace(par=None))      # a zoo experiment
+    with pytest.raises(TypeError, match="not a paper/zoo Experiment"):
+        IVFIndex.fit(types.SimpleNamespace(par=None))
 
 
 def _fields(cls):

@@ -263,7 +263,8 @@ def test_launcher_serves_on_the_cpu(tmp_path, capsys):
     ["--classes", "512", "--topk", "513"],
     ["--cache", "-2"],
     ["--max-wait-ms", "-1"],
-    ["--system", "zoo", "--topk", "5"],
+    # the zoo's retrieval is ported; --nprobe still wants --index ivf
+    ["--system", "zoo", "--topk", "5", "--nprobe", "2"],
     ["--index", "ivf"],
     ["--backend", "pallas"],
 ])
@@ -273,7 +274,7 @@ def test_launcher_rejects_bad_and_unported_args(argv, capsys):
     assert e.value.code == 2                   # argparse error, before torch
     err = capsys.readouterr().err
     if "zoo" in argv:
-        assert "not ported" in err
+        assert "--nprobe only applies with --index ivf" in err
     if "ivf" in argv:
         assert "pass --topk" in err
 

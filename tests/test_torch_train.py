@@ -390,7 +390,9 @@ def test_train_launcher_cnn_and_dgc_on_the_cpu(extra, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,queue", [
-    (["--system", "zoo"], "A.9"),
+    # the zoo trains since its slice landed; its checkpoints still wait
+    pytest.param(["--system", "zoo", "--ckpt-every", "2"], "A.9",
+                 id="argv0-A.9"),
     # the paper system's checkpoints are ported; the zoo's wait for its
     # trainer (the ids are kept from when A.7 held every --ckpt-* flag)
     pytest.param(["--system", "zoo", "--ckpt-dir", "x"], "A.9.3",
