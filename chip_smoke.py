@@ -285,6 +285,65 @@ PyTorch built for CUDA. Phases, each of which fails the run:
 18. the train launcher with ``--system zoo`` at the same width for 2 steps
    with the full and the knn head, and the serve launcher's zoo top-5,
    exact and with ``--index ivf``; each must return 0.
+19. the ssm and hybrid families' serving (their main paths): mamba2-370M
+   (48 layers, d_model 1,024, d_state 128, vocab 50,280) and hymba-1.5B
+   (32 layers, d_model 1,600, 25 query heads over 5 KV heads in a sliding
+   window of 1,024 beside 25 SSM heads, vocab 32,001) at their published
+   widths and depths, random weights from seed 0, on the ``kernel``
+   backend: every counter set to 0 just before ``serve(prompt_len=2000,
+   gen=48, batch=8)`` and read just after (``FAM_WANT``: nothing for
+   mamba2, whose greedy head is dense; ``flash_attention`` 32 for hymba,
+   once a layer). A prefill of 2,000 tokens and one decode step against a
+   prefill of 2,001 (``tests/test_decode.py``'s check): in fp32 compute
+   the features within FAM_CONT32_TOL and every greedy token equal; in
+   bf16 the same readings, reported. hymba against the ``ref`` backend:
+   the prefill's last ZOO_TOKEN_ROWS positions (features within
+   FAM_H_TOL, logits within FAM_LOGIT_TOL, tokens equal but where the
+   ref's top-2 gap is below twice the kernel-free bf16 spread of the
+   decode check), and in fp32 compute every served token equal. Prefill
+   and decode times (the median of the main path's serve and FAM_REPS
+   more), one profiled prefill and decode step, peak memory.
+20. ``flash_attention`` at hymba's prefill shapes (q [200, 2,000, 64] over
+   40 KV heads, bf16, causal, window 1,024): the bf16 gate, bit-identical
+   across two runs, timed beside its plain version and SDPA with the
+   window as a boolean mask.
+21. the families' training (their main paths): the full head on 16 x 512
+   tokens a step (the stream's first batch, every step) in FAM_MICRO
+   micro-batches, SGD at lr 0.5, ``fit(5)`` with every counter set to 0
+   just before and read just after (the CE pair once a micro-step);
+   losses finite and falling, the params moved; step 1's loss within
+   ZOO_LOSS_RTOL of the ``ref`` backend's; the step (the median of the
+   fit's steps 2 to 5, their synchronised spans),
+   tokens/s, a profiled step, peak memory; the CE pair at [tokens a
+   micro-batch, V] x D: on the trained batch (where p - 1 may cancel at
+   the labels) the backward through the CE gate with a floor of
+   CE_OWN_ROUNDING times the plain version's own rounding (against itself
+   in fp64), which 1xTF32 products must fail; on a held-out batch
+   through the CE gates and the 1xTF32 emulation, timed beside its bound
+   and ``f @ W.T``; one layer's SSD at chunk 256
+   against the token-by-token recurrence in fp32 (FAM_SCAN_TOL), its
+   gradient finite, and the dt gradient with the JAX package's order (exp
+   before the mask) with its NaN count reported. mamba2's trained state
+   saved and restored into a fresh experiment: the snapshots bit-equal,
+   save and restore seconds by part. On each trained experiment, every
+   counter reset just before each leg and read just after (``FAM_WANT``):
+   ``evaluate``, and top-5 of 64 queries exact and through the IVF index,
+   both against the ``ref`` backend (scores within IVF_TOL, ids equal but
+   at near-ties); then each of the six heads one step at 2 x 512 tokens
+   on a finite loss, and the next batch's loss from that state on the
+   kernel backend within ZOO_LOSS_RTOL of the ref backend's. At
+   hymba's shapes (FAM_GATED) the sparse CE pair (the knn head's active
+   set), ``dist_topk`` (the graph build over all 32,001 rows at D 1,600),
+   ``stage1_topk`` and ``ivf_rerank`` against their plain versions, as
+   the SmolLM-135M phases hold them, timed beside their bounds.
+22. the zoo's checkpoints at SmolLM-135M's width, the full and the knn
+   head, a checkpoint every 2 steps: two uninterrupted ``fit(6)`` runs
+   compared bit for bit set the class ``kill_and_recover`` is held to;
+   killed before step 5, a fresh experiment restores t = 4 and replays 4
+   and 5 with every counter reset just before that leg (``FAM_WANT``);
+   save and restore seconds by part, bytes, host and card peaks. Then the
+   train launcher's ``--system zoo --ckpt-every 2 --steps 4`` and
+   ``--resume --steps 6``. The files are removed at the end.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, one ``{"end_to_end": ...}`` line and, last, ``{"ok": true,
@@ -464,6 +523,87 @@ ZOO_LOSS_RTOL = 1e-4   # one step's loss, kernel vs ref backend
 ZOO_TABLE_GRAD_STEPS = 4
 ZOO_GRAD32_TOL = 1e-5
 ZOO_RET_B = 64         # zoo retrieval: 64 queries, top-5
+# the ssm and hybrid families at their published width and depth, random
+# weights from seed 0, bf16 over fp32 params: mamba2-370M (48 layers,
+# d_model 1,024, 32 SSM heads of 64, d_state 128, vocab 50,280) and
+# hymba-1.5B (32 layers, d_model 1,600, 25 query heads over 5 KV heads of
+# 64 in a sliding window of 1,024 beside 25 SSM heads of 64, d_state 16,
+# d_ff 5,504, vocab 32,001), both at chunk 256. Serving: the zoo serve's 8
+# prompts of 2,000 tokens (past hymba's window: its K/V slots rotate) and
+# 48 greedy tokens. Training: the full head on 16 x 512 tokens a step in
+# FAM_MICRO micro-batches (what fits on 80 GB: without remat every layer
+# keeps its SSD products, [b, 2, 256, 256, heads] fp32, and hymba its fp32
+# attention scores), SGD at lr 0.5, FAM_STEPS steps
+FAMILIES = ("mamba2_370m", "hymba_1_5b")
+_ARCH = {"ssm": "mamba2_370m", "hybrid": "hymba_1_5b"}
+FAM_MICRO = {"mamba2_370m": 4, "hymba_1_5b": 4}
+FAM_STEPS, FAM_REPS = 5, 2
+HYMBA_HEADS, HYMBA_KV_HEADS, HYMBA_WINDOW = 25, 5, 1024
+# a prefill of S tokens and one decode step against a prefill of S + 1 in
+# fp32 compute: the chunked scan's sums against the recurrence's, ~1e-6
+FAM_CONT32_TOL = 1e-4
+# one layer's chunked scan at chunk 256 against the token-by-token
+# recurrence, fp32: outputs and final states, each over its max
+FAM_SCAN_TOL = 1e-4
+# hymba's prefill, kernel vs ref backend in bf16 (the last ZOO_TOKEN_ROWS
+# positions of every row): features over max|h|, greedy logits over
+# max|logit|. bf16 alone moves these deep stacks further than SmolLM's:
+# the decode step against the prefill one token longer (the same
+# arithmetic in another order, no kernel) read 3.5e-2 / 2.6e-2 for hymba
+# and 2.8e-2 / 2.6e-2 for mamba2 on an H100 SXM; the kernel path against
+# ref read 3.0e-2 on the logits. A greedy token may differ only where the
+# ref's top-2 gap is below twice that kernel-free spread, as this run
+# reads it (not twice the bound: that would leave few positions checked).
+# The strict check is in fp32 compute, where every served token must be
+# equal
+FAM_H_TOL, FAM_LOGIT_TOL = 1e-1, 5e-2
+# the family whose retrieval and knn shapes hold sparse_ce, dist_topk,
+# stage1_topk and ivf_rerank against their plain versions: hymba's D of
+# 1,600 and odd vocab of 32,001 are the furthest from the shapes checked
+# before (D 512 and 576)
+FAM_GATED = "hymba_1_5b"
+# the zoo's kill and recover: a checkpoint every 2 steps, killed before
+# step 5 (CKPT_KILL), so t = 4 is restored and steps 4 and 5 replayed
+ZOO_CKPT_EVERY = 2
+# the launches each new path must make, every counter reset just before
+# and read just after (PERF.md §6, written before the first run on the
+# card): mamba2's serve launches no kernel (its greedy head is the dense
+# serve_logits_local, as in the JAX package); hymba's prefill takes the
+# flash kernel once a layer; training the CE pair once a micro-step; the
+# zoo's resumed legs replay 2 steps (knn's graph rebuilt after step 5).
+# On each family's trained experiment: evaluate's argmax (ce_forward; and
+# hymba's 32 layers of flash attention: evaluate runs under no grad), one
+# stage1_topk a top-5 serve, one ivf_rerank an IVF top-5 serve; one step
+# of each head at 2 x 512 tokens (one micro-batch): the CE pair for full,
+# the sparse pair for knn (and dist_topk for the graph built before it),
+# selective and sampled, the CE pair once a repetition (R = 4) for MACH
+# and CSoft
+_FAM_LEGS = {
+    "retrieval": {"stage1_topk": 1},
+    "ivf_retrieval": {"ivf_rerank": 1},
+    "full_step": {"ce_forward": 1, "ce_backward": 1},
+    "knn_step": {"sparse_ce_forward": 1, "sparse_ce_backward": 1,
+                 "dist_topk": 1},
+    "selective_step": {"sparse_ce_forward": 1, "sparse_ce_backward": 1},
+    "sampled_step": {"sparse_ce_forward": 1, "sparse_ce_backward": 1},
+    "mach_step": {"ce_forward": 4, "ce_backward": 4},
+    "csoft_step": {"ce_forward": 4, "ce_backward": 4},
+}
+FAM_WANT = {
+    "ssm_serving": {},
+    "hybrid_serving": {"flash_attention": 32},
+    "ssm_training": {"ce_forward": FAM_STEPS * FAM_MICRO["mamba2_370m"],
+                     "ce_backward": FAM_STEPS * FAM_MICRO["mamba2_370m"]},
+    "hybrid_training": {"ce_forward": FAM_STEPS * FAM_MICRO["hymba_1_5b"],
+                        "ce_backward": FAM_STEPS * FAM_MICRO["hymba_1_5b"]},
+    "ssm_evaluate": {"ce_forward": 1},
+    "hybrid_evaluate": {"ce_forward": 1, "flash_attention": 32},
+    **{f"{fam}_{leg}": want for fam in ("ssm", "hybrid")
+       for leg, want in _FAM_LEGS.items()},
+    "zoo_checkpoint_full": {"ce_forward": 2, "ce_backward": 2},
+    "zoo_checkpoint_knn": {"sparse_ce_forward": 2, "sparse_ce_backward": 2,
+                           "dist_topk": 1},
+}
 
 
 def fail(msg: str) -> None:
@@ -471,8 +611,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke +{time.perf_counter() - _T0:.0f}s] {msg}",
+          flush=True)
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -504,19 +648,25 @@ def host_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def profile_ms(torch, fn, groups=None) -> dict:
+def profile_ms(torch, fn, groups=None, device_only: bool = False) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its host wall-clock,
     the device time of the kernels it ran, the device's idle share, and
     the costliest kernels by name; with ``groups`` ({label: substrings}),
     also the device time of the kernels whose full name holds one of a
-    label's substrings (case-insensitive)."""
+    label's substrings (case-insensitive). ``device_only``: ``fn`` has
+    run before and the tracer has been set up, so the warm-up call and
+    the set-up's profiled call are spared, and the device alone is traced
+    (a step of tens of thousands of host ops otherwise costs the profiler
+    a minute to take apart)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if not device_only:
+        fn()
     torch.cuda.synchronize()
+    activities = [ProfilerActivity.CUDA] + ([] if device_only
+                                            else [ProfilerActivity.CPU])
     # the first profiled call of a process also pays the tracer's set-up
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    for _ in range(1 if device_only else 2):
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -525,7 +675,8 @@ def profile_ms(torch, fn, groups=None) -> dict:
     # by full name: copies (torch's direct_copy kernels, memcpys) and the
     # dtype casts (its <dtype>_copy kernels)
     copy_ms = cast_ms = 0.0
-    for e in prof.key_averages():
+    averages = prof.key_averages()
+    for e in averages:
         if (e.device_type == torch.autograd.DeviceType.CUDA
                 and e.self_device_time_total > 0):
             name = e.key[:90]
@@ -545,7 +696,7 @@ def profile_ms(torch, fn, groups=None) -> dict:
            "top_kernels_ms": dict(top)}
     if groups:
         by = dict.fromkeys(groups, 0.0)
-        for e in prof.key_averages():
+        for e in averages:
             if (e.device_type != torch.autograd.DeviceType.CUDA
                     or e.self_device_time_total <= 0):
                 continue
@@ -3678,17 +3829,18 @@ def zoo_launcher_phase(torch, fa):
 
 
 def _zoo_trainer(backend: str, head=None, train=None, log_every: int = 1,
-                 batch: int = ZOO_TB):
-    """The zoo trainer's experiment: SmolLM-135M at full width on
-    ``batch`` x ``ZOO_TS`` tokens a step, the ``full`` head unless
-    ``head`` (HeadConfig fields) says otherwise, SGD unless ``train``."""
+                 batch: int = ZOO_TB, arch: str = "smollm_135m", **kw):
+    """The zoo trainer's experiment: ``arch`` (SmolLM-135M) at full width
+    on ``batch`` x ``ZOO_TS`` tokens a step, the ``full`` head unless
+    ``head`` (HeadConfig fields) says otherwise, SGD unless ``train``;
+    ``kw`` (``ckpt_dir``, ``ckpt_every``) go to the experiment."""
     from repro_torch.api import Experiment
     from repro_torch.configs.base import HeadConfig, TrainConfig
     return Experiment.from_config(
-        system="zoo", arch="smollm_135m", batch=batch, seq=ZOO_TS, seed=0,
+        system="zoo", arch=arch, batch=batch, seq=ZOO_TS, seed=0,
         device=DEVICE, log_every=log_every,
         head=HeadConfig(backend=backend, **(head or {})),
-        train=train or TrainConfig(optimizer="sgd"))
+        train=train or TrainConfig(optimizer="sgd"), **kw)
 
 
 def _zoo_fit(torch, counters, exp, steps, path):
@@ -3774,24 +3926,24 @@ def zoo_head_grad_check(torch, exp, f, y):
     return out
 
 
-def zoo_ce_rows(torch, ce, f, w, y):
-    """The dense CE pair at the zoo's shapes (f [8,192, 576] the trunk's
-    features, W the trained tied table [49,152, 576], scale 1: raw logits)
-    through the CE gates, bit-identical runs, the emulated 1xTF32 fault
-    (which must fail both gates), times beside the bounds and f @ W.T.
-    Returns (forward row, backward row)."""
-    b, v = f.shape[0], w.shape[0]
-    fwd_err, fwd_z = check_ce(torch, ce, f, w, y, v, 1.0, "zoo shapes")
+def zoo_ce_rows(torch, ce, f, w, y, model="SmolLM-135M", tag="zoo"):
+    """The dense CE pair at a zoo model's shapes (for SmolLM-135M f [8,192,
+    576] the trunk's features, W the trained tied table [49,152, 576],
+    scale 1: raw logits) through the CE gates, bit-identical runs, the
+    emulated 1xTF32 fault (which must fail both gates), times beside the
+    bounds and f @ W.T. Returns (forward row, backward row)."""
+    b, v, d = f.shape[0], w.shape[0], f.shape[1]
+    fwd_err, fwd_z = check_ce(torch, ce, f, w, y, v, 1.0, f"{tag} shapes")
     m, z, _, _ = ce.ce_forward(f, w, y, limit=v, scale=1.0)
     gz = 1.0 / (b * z)
     gc = torch.full_like(z, -1.0 / b)
     parts = {}
     for term, gct in (("loss", gc), ("softmax term", torch.zeros_like(gc))):
         for part, val in check_ce_bwd(torch, ce, f, w, y, m, gz, gct, v, 1.0,
-                                      f"zoo shapes, {term}").items():
+                                      f"{tag} shapes, {term}").items():
             parts[f"{part}, {term}"] = val
     fault = tf32_fault(torch, ce, f, w, y, m, gz, gc, v, 1.0,
-                       "the zoo's shapes")
+                       f"the {tag} shapes")
     fwd_ms = cuda_ms(torch, lambda: ce.ce_forward(f, w, y, limit=v), 10)
     fwd_plain = cuda_ms(torch, lambda: ce.ce_forward_plain(f, w, y, v, 1.0),
                         3)
@@ -3800,16 +3952,15 @@ def zoo_ce_rows(torch, ce, f, w, y):
     bwd_plain = cuda_ms(torch, lambda: ce.ce_backward_plain(
         f, w, y, m, gz, gc, v, 1.0), 2)
     lib = cuda_ms(torch, lambda: f @ w.T, 10)
-    fb = ce_bounds(4 * (b * ZOO_D + v * ZOO_D + b) + 16 * b, 1, b, v, ZOO_D)
-    bb = ce_bounds(4 * (2 * b * ZOO_D + 2 * v * ZOO_D + 4 * b), 3, b, v,
-                   ZOO_D)
-    log(f"zoo training phase: at the zoo's shapes [{b}, {v}] x {ZOO_D}: "
+    fb = ce_bounds(4 * (b * d + v * d + b) + 16 * b, 1, b, v, d)
+    bb = ce_bounds(4 * (2 * b * d + 2 * v * d + 4 * b), 3, b, v, d)
+    log(f"{tag} training phase: at {model}'s shapes [{b}, {v}] x {d}: "
         f"ce_forward {fwd_ms:.3f} ms (3xTF32 bound {fb['bound_ms']:.3f} by "
         f"{fb['bound_by']}), plain {fwd_plain:.3f}; ce_backward {bwd_ms:.3f} "
         f"ms (bound {bb['bound_ms']:.3f} by {bb['bound_by']}), plain "
         f"{bwd_plain:.3f}; f @ W.T {lib:.3f}; m/corr max abs err "
         f"{fwd_err:.3g}, z rel {fwd_z:.3g}; backward by part {parts}")
-    shape = f"f[{b},{ZOO_D}] W[{v},{ZOO_D}] scale 1 (SmolLM-135M tied table)"
+    shape = f"f[{b},{d}] W[{v},{d}] scale 1 ({model} tied table)"
     lib_name = "f @ W.T (cuBLAS fp32, TF32 off)"
     del m, z, gz, gc
     torch.cuda.empty_cache()
@@ -3823,12 +3974,60 @@ def zoo_ce_rows(torch, ce, f, w, y):
                  tf32_fault=fault, **bb, shape=shape))
 
 
-def zoo_sparse_rows(torch, sp, exp, f, y):
-    """The sparse CE pair at the zoo's knn shapes: f the trunk's features
-    [8,192, 576] normalised, the normalised trained table, the active set
-    ``select_active`` draws from the experiment's graph for these labels
-    (A = 4,915, fillers on), scale 16, through the sparse gates,
-    bit-identical runs, times and bounds. Returns (forward, backward)."""
+def ce_trained_batch_gate(torch, ce, f, w, y, tag):
+    """The dense CE pair on the batch the fit trained on (f its trunk's
+    features, W the trained table, scale 1), where p at the labels grows
+    towards 1 and p - 1 may cancel: ce_forward through its gate, bit-equal
+    runs; ce_backward with the loss's cotangents through
+    ``testing.ce_backward_floor_gate`` (each part within CE_BWD_TOL of its
+    max, or CE_OWN_ROUNDING times the plain version's own rounding against
+    itself in fp64, whichever is larger), its relative-gate reading
+    reported; the plain version with 1xTF32 products must fail the floor
+    gate. Returns the readings."""
+    from repro_torch import testing
+    b, v = f.shape[0], w.shape[0]
+    fwd_err, fwd_z = check_ce(torch, ce, f, w, y, v, 1.0,
+                              f"{tag} trained batch")
+    m, z, corr, _ = ce.ce_forward(f, w, y, limit=v, scale=1.0)
+    p_label = torch.exp(corr - m) / z
+    gz, gc = 1.0 / (b * z), torch.full_like(z, -1.0 / b)
+    df, dw = ce.ce_backward(f, w, y, m, gz, gc, limit=v)
+    plain = ce.ce_backward_plain(f, w, y, m, gz, gc, v, 1.0)
+    plain64 = ce.ce_backward_plain(f.double(), w.double(), y, m.double(),
+                                   gz.double(), gc.double(), v, 1.0)
+    rel = testing.ce_backward_gate(df, dw, *plain, y)
+    gate = testing.ce_backward_floor_gate(df, dw, *plain, *plain64, y)
+    del df, dw
+    fault = testing.ce_backward_floor_gate(
+        *testing.ce_backward_tf32(f, w, y, m, gz, gc, v, 1.0, 1), *plain,
+        *plain64, y)
+    out = {"p_label_max": float(p_label.max()),
+           "labels_above_0.99": int((p_label > 0.99).sum()),
+           "forward_m_corr_err": fwd_err, "forward_z_rel_err": fwd_z,
+           "relative_gate_failed": rel["failed"],
+           "parts": gate["parts"], "tf32_fault_failed": fault["failed"]}
+    del plain, plain64
+    torch.cuda.empty_cache()
+    log(f"{tag}: CE pair on the trained batch [{b}, {v}] x {f.shape[1]} "
+        f"(err, err / max, plain's own rounding by part): {out}")
+    if not gate["ok"]:
+        fail(f"{tag}: ce_backward on the trained batch fails "
+             f"{gate['failed']}: {gate['parts']} (within the larger of "
+             f"{testing.CE_BWD_TOL:g} of max|plain| and "
+             f"{testing.CE_OWN_ROUNDING:g} x plain's own rounding)")
+    if fault["ok"]:
+        fail(f"{tag}: the floor gate passes 1xTF32 products on the trained "
+             f"batch: {fault['parts']}")
+    return out
+
+
+def zoo_sparse_rows(torch, sp, exp, f, y, tag="zoo training phase"):
+    """The sparse CE pair at a zoo model's knn shapes: f the trunk's
+    features (SmolLM-135M's [8,192, 576]) normalised, the normalised
+    trained table, the active set ``select_active`` draws from the
+    experiment's graph for these labels (SmolLM-135M's A = 4,915, fillers
+    on), scale 16, through the sparse gates, bit-identical runs, times and
+    bounds. Returns (forward, backward)."""
     from repro_torch.core.knn_softmax import select_active
     from repro_torch.core.sharded_softmax import _normalize
     from repro_torch.models import lm
@@ -3843,13 +4042,13 @@ def zoo_sparse_rows(torch, sp, exp, f, y):
     wn = _normalize(w).contiguous()
     bias = torch.zeros(a, device=f.device)
     valid = valid.to(torch.int32)
-    b = f.shape[0]
+    b, d = f.shape
     m, z, _, _, hit = sp.sparse_ce_forward(fn, wn, ids, ids, bias, valid, y,
                                            scale=16.0)
     gz = 1.0 / (b * z)
     gc = torch.full_like(z, -1.0 / b)
     errs = check_sparse(torch, sp, fn, wn, ids, ids, bias, valid, y, 16.0,
-                        False, gz, gc, "zoo knn shapes")
+                        False, gz, gc, f"{tag}: knn shapes")
     fwd_ms = cuda_ms(torch, lambda: sp.sparse_ce_forward(
         fn, wn, ids, ids, bias, valid, y, scale=16.0), 10)
     fwd_plain = cuda_ms(torch, lambda: sp.sparse_ce_forward_plain(
@@ -3860,17 +4059,16 @@ def zoo_sparse_rows(torch, sp, exp, f, y):
         fn, wn, ids, ids, bias, valid, y, m, gz, gc, hit, 16.0, False), 2)
     lib = cuda_ms(torch, lambda: fn @ wn[ids.long()].T, 10)
     col_bytes = 16 * a
-    fb = ce_bounds(4 * (b * ZOO_D + a * ZOO_D) + col_bytes + 24 * b, 1, b, a,
-                   ZOO_D)
-    bb = ce_bounds(4 * (2 * b * ZOO_D + a * ZOO_D + v * ZOO_D) + col_bytes
-                   + 20 * b, 3, b, a, ZOO_D)
-    log(f"zoo training phase: sparse CE at the zoo's knn shapes (B={b}, "
-        f"A={a}, D={ZOO_D}): forward {fwd_ms:.3f} ms (bound "
+    fb = ce_bounds(4 * (b * d + a * d) + col_bytes + 24 * b, 1, b, a, d)
+    bb = ce_bounds(4 * (2 * b * d + a * d + v * d) + col_bytes + 20 * b, 3,
+                   b, a, d)
+    log(f"{tag}: sparse CE at the knn shapes (B={b}, A={a}, V={v}, D={d}): "
+        f"forward {fwd_ms:.3f} ms (bound "
         f"{fb['bound_ms']:.3f} by {fb['bound_by']}), plain {fwd_plain:.3f}; "
         f"backward {bwd_ms:.3f} ms (bound {bb['bound_ms']:.3f} by "
         f"{bb['bound_by']}), plain {bwd_plain:.3f}; f @ W[ids].T {lib:.3f}; "
         f"errors {errs}")
-    shape = f"f[{b},{ZOO_D}] W[{v},{ZOO_D}] A={a} knn active set, scale 16"
+    shape = f"f[{b},{d}] W[{v},{d}] A={a} knn active set, scale 16"
     lib_name = "f @ W[ids].T (gather + cuBLAS fp32, TF32 off)"
     fwd_err = max(e for k, e in errs.items() if k.startswith("fwd"))
     bwd_err = max(e for k, e in errs.items() if not k.startswith("fwd"))
@@ -3883,24 +4081,24 @@ def zoo_sparse_rows(torch, sp, exp, f, y):
                  rel_err_by_part=errs, **bb, shape=shape))
 
 
-def zoo_dist_topk_row(torch, dk, exp):
-    """dist_topk at the zoo's graph build: pass 1 over all 49,152 unit rows
-    of the trained table in bf16 at D = 576, k' = 32; 1,024 rows held
-    against the plain version, bit-identical runs, the whole pass timed
-    beside the plain version and the library's bf16 q @ K.T in 4,096-row
-    chunks."""
+def zoo_dist_topk_row(torch, dk, exp, tag="zoo training phase"):
+    """dist_topk at a zoo model's graph build (SmolLM-135M: all 49,152
+    unit rows of the trained table at D = 576) in bf16, k' = 32; 1,024
+    rows held against the plain version, bit-identical runs, the whole
+    pass timed beside the plain version and the library's bf16 q @ K.T in
+    4,096-row chunks."""
     from repro_torch.core.sharded_softmax import _normalize
     from repro_torch.models import lm
 
     w16 = _normalize(lm.head_weight(exp.params, exp.model_cfg).detach()).to(
         torch.bfloat16).contiguous()
-    n = w16.shape[0]
+    n, d = w16.shape
     err, swaps = check_dist_topk(torch, dk, w16[:1024], w16, KPRIME, 0,
-                                 "zoo graph build, 1,024 rows")
+                                 f"{tag}: graph build, 1,024 rows")
     first = dk.dist_topk(w16, w16, KPRIME)
     again = dk.dist_topk(w16, w16, KPRIME)
     if not all(torch.equal(a, b) for a, b in zip(first, again)):
-        fail("dist_topk at the zoo's shapes is not bit-identical")
+        fail(f"{tag}: dist_topk at the graph build is not bit-identical")
     del first, again
     ms = cuda_ms(torch, lambda: dk.dist_topk(w16, w16, KPRIME), 3)
 
@@ -3914,17 +4112,17 @@ def zoo_dist_topk_row(torch, dk, exp):
 
     plain_ms = cuda_ms(torch, plain, 1)
     lib_ms = cuda_ms(torch, library, 3)
-    bound, by = bound_ms(2 * 2 * n * ZOO_D + 8 * n * KPRIME,
-                         2.0 * n * n * ZOO_D, BF16_OPS_PER_S)
-    log(f"zoo training phase: dist_topk over the table's {n} unit rows at "
-        f"D={ZOO_D} {ms:.3f} ms (bound {bound:.3f} by {by}), plain "
+    bound, by = bound_ms(2 * 2 * n * d + 8 * n * KPRIME, 2.0 * n * n * d,
+                         BF16_OPS_PER_S)
+    log(f"{tag}: dist_topk over the table's {n} unit rows at D={d} "
+        f"{ms:.3f} ms (bound {bound:.3f} by {by}), plain "
         f"{plain_ms:.2f} ms, bf16 q @ K.T {lib_ms:.3f} ms; 1,024 rows max abs "
         f"err {err:.3g}, near-tie id swaps {swaps}; bit-identical")
     del w16
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library="q @ K.T (cuBLAS bf16) in 4,096-row chunks",
                 max_abs_err=err, near_tie_id_swaps=swaps, bound_ms=bound,
-                bound_by=by, shape=f"q = K [{n},{ZOO_D}] bf16, k'={KPRIME}")
+                bound_by=by, shape=f"q = K [{n},{d}] bf16, k'={KPRIME}")
 
 
 def _knn_label_recall(torch, exp, t):
@@ -4398,6 +4596,66 @@ def zoo_training_phase(torch, np, counters, ce, sp, dk):
     return launches, rows, e2e, exp
 
 
+def retrieval_kernel_rows(torch, np, dc, ivf, exp, idx, tag):
+    """``stage1_topk`` and ``ivf_rerank`` at a zoo model's retrieval
+    shapes (64 random queries against the trained table, raw scores, its
+    IVF index ``idx``): values and ids against the plain versions, times
+    beside the plain versions, the library calls and the bounds. Returns
+    {kernel: row}."""
+    from repro_torch.core import sharded_softmax as sharded
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    cfg = exp.model_cfg
+    b, k, d = ZOO_RET_B, K, cfg.d_model
+    q = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (b, d)).astype(np.float32)).to(DEVICE)
+    w = lm.head_weight(exp.params, cfg).detach()
+    v = w.shape[0]
+    logits = q @ w.T
+    check_topk(torch, dc, logits, k, CHUNK, f"{tag}: serving logits")
+    nch = -(-v // CHUNK)
+    tk_ms = cuda_ms(torch, lambda: dc.stage1_topk(logits, k, chunk=CHUNK), 50)
+    tk_plain = cuda_ms(torch, lambda: dc.stage1_topk_plain(logits, k, CHUNK),
+                       5)
+    padded = torch.nn.functional.pad(logits, (0, nch * CHUNK - v),
+                                     value=float("-inf")).reshape(-1, CHUNK)
+    tk_lib = cuda_ms(torch, lambda: torch.topk(padded, k, dim=1), 50)
+    tk_bound, tk_by = bound_ms(4 * b * v + 8 * b * nch * k, float(b) * v)
+    rows = {"stage1_topk": dict(
+        ms=tk_ms, plain_ms=tk_plain, library_ms=tk_lib,
+        library="torch.topk on the padded chunks", max_abs_err=0.0,
+        bound_ms=tk_bound, bound_by=tk_by,
+        shape=f"x[{b},{v}] chunk {CHUNK} k {k} ({cfg.name} raw logits)")}
+    probe, cand = _probe_candidates(torch, ops, sharded, q, idx, idx.nprobe)
+    members = idx.members
+    err, swaps, _ = check_ivf(torch, ivf, q, w, cand, k,
+                              f"{tag}: serving shapes", members=members,
+                              probe=probe)
+    iv_ms = cuda_ms(torch, lambda: ivf.ivf_rerank_probed(q, w, members,
+                                                         probe, k), 20)
+    iv_plain = cuda_ms(torch, lambda: ivf.ivf_rerank_plain(q, w, cand, k), 3)
+    safe = cand.clamp_min(0).long()
+    iv_lib = cuda_ms(torch, lambda: torch.einsum("bd,bad->ba", q, w[safe]), 3)
+    ub, union, n_real = ivf_union_bytes(torch, members, probe, b, k, d)
+    iv_bound, iv_by = bound_ms(ub, 2.0 * n_real * d)
+    rows["ivf_rerank"] = dict(
+        ms=iv_ms, plain_ms=iv_plain, library_ms=iv_lib,
+        library="einsum('bd,bad->ba', f, W[cand]) (gather + cuBLAS fp32)",
+        max_abs_err=err, near_tie_id_swaps=swaps, bound_ms=iv_bound,
+        bound_by=iv_by, real_candidates=n_real, distinct_rows=union,
+        shape=f"f[{b},{d}] W[{v},{d}] members[{members.shape[0]},"
+              f"{members.shape[1]}] probe[{b},{idx.nprobe}] k={k} (raw)")
+    log(f"{tag}: stage1_topk on [{b}, {v}] {tk_ms:.4f} ms "
+        f"(bound {tk_bound:.4f} by {tk_by}), plain {tk_plain:.3f}, "
+        f"torch.topk {tk_lib:.4f}; ivf_rerank ({n_real} real candidates, "
+        f"{union} distinct rows, D={d}) {iv_ms:.4f} ms (bound "
+        f"{iv_bound:.4f} by {iv_by}), plain {iv_plain:.3f}, gathered einsum "
+        f"{iv_lib:.3f}; values max abs err {err:.3g}, near-tie swaps {swaps}")
+    del logits, padded, safe, cand
+    return rows
+
+
 def zoo_retrieval_phase(torch, np, counters, dc, ivf, exp):
     """The zoo's feature retrieval on the trained full-head experiment:
     exact and IVF top-5 of 64 queries (the JAX package's default pool)
@@ -4407,12 +4665,8 @@ def zoo_retrieval_phase(torch, np, counters, dc, ivf, exp):
     10), and ``stage1_topk`` / ``ivf_rerank`` at these shapes against
     their plain versions. Returns ({path: launches}, {kernel: row},
     numbers)."""
-    from repro_torch.core import sharded_softmax as sharded
-    from repro_torch.kernels import ops
-    from repro_torch.models import lm
-
     t_phase = time.perf_counter()
-    launches, rows = {}, {}
+    launches = {}
     cfg = exp.model_cfg
     b, k = ZOO_RET_B, K
     results = {}
@@ -4458,50 +4712,8 @@ def zoo_retrieval_phase(torch, np, counters, dc, ivf, exp):
     del ref
 
     # -- the kernels at these shapes ----------------------------------------
-    q = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (b, cfg.d_model)).astype(np.float32)).to(DEVICE)
-    w = lm.head_weight(exp.params, cfg).detach()
-    v = w.shape[0]
-    logits = q @ w.T
-    check_topk(torch, dc, logits, k, CHUNK, "zoo serving logits")
-    nch = -(-v // CHUNK)
-    tk_ms = cuda_ms(torch, lambda: dc.stage1_topk(logits, k, chunk=CHUNK), 50)
-    tk_plain = cuda_ms(torch, lambda: dc.stage1_topk_plain(logits, k, CHUNK),
-                       5)
-    padded = torch.nn.functional.pad(logits, (0, nch * CHUNK - v),
-                                     value=float("-inf")).reshape(-1, CHUNK)
-    tk_lib = cuda_ms(torch, lambda: torch.topk(padded, k, dim=1), 50)
-    tk_bound, tk_by = bound_ms(4 * b * v + 8 * b * nch * k, float(b) * v)
-    rows["stage1_topk"] = dict(
-        ms=tk_ms, plain_ms=tk_plain, library_ms=tk_lib,
-        library="torch.topk on the padded chunks", max_abs_err=0.0,
-        bound_ms=tk_bound, bound_by=tk_by,
-        shape=f"x[{b},{v}] chunk {CHUNK} k {k} (zoo raw logits)")
-    probe, cand = _probe_candidates(torch, ops, sharded, q, idx, idx.nprobe)
-    members = idx.members
-    err, swaps, _ = check_ivf(torch, ivf, q, w, cand, k, "zoo serving shapes",
-                              members=members, probe=probe)
-    iv_ms = cuda_ms(torch, lambda: ivf.ivf_rerank_probed(q, w, members,
-                                                         probe, k), 20)
-    iv_plain = cuda_ms(torch, lambda: ivf.ivf_rerank_plain(q, w, cand, k), 3)
-    safe = cand.clamp_min(0).long()
-    iv_lib = cuda_ms(torch, lambda: torch.einsum("bd,bad->ba", q, w[safe]), 3)
-    ub, union, n_real = ivf_union_bytes(torch, members, probe, b, k, ZOO_D)
-    iv_bound, iv_by = bound_ms(ub, 2.0 * n_real * ZOO_D)
-    rows["ivf_rerank"] = dict(
-        ms=iv_ms, plain_ms=iv_plain, library_ms=iv_lib,
-        library="einsum('bd,bad->ba', f, W[cand]) (gather + cuBLAS fp32)",
-        max_abs_err=err, near_tie_id_swaps=swaps, bound_ms=iv_bound,
-        bound_by=iv_by, real_candidates=n_real, distinct_rows=union,
-        shape=f"f[{b},{ZOO_D}] W[{v},{ZOO_D}] members[{members.shape[0]},"
-              f"{members.shape[1]}] probe[{b},{idx.nprobe}] k={k} (raw)")
-    log(f"zoo retrieval phase: stage1_topk on [{b}, {v}] {tk_ms:.4f} ms "
-        f"(bound {tk_bound:.4f} by {tk_by}), plain {tk_plain:.3f}, "
-        f"torch.topk {tk_lib:.4f}; ivf_rerank ({n_real} real candidates, "
-        f"{union} distinct rows) {iv_ms:.4f} ms (bound {iv_bound:.4f} by "
-        f"{iv_by}), plain {iv_plain:.3f}, gathered einsum {iv_lib:.3f}; "
-        f"values max abs err {err:.3g}, near-tie swaps {swaps}")
-    del logits, padded, safe, cand
+    rows = retrieval_kernel_rows(torch, np, dc, ivf, exp, idx,
+                                 "zoo retrieval phase")
     phase_s = time.perf_counter() - t_phase
     log(f"zoo retrieval phase: {phase_s:.1f} s")
     return launches, rows, {
@@ -4562,6 +4774,871 @@ def zoo_train_launchers_phase(torch):
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the ssm and hybrid families (mamba2-370M, hymba-1.5B) at full width, and
+# the zoo's checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _family(arch: str, backend: str, params=None, dtype=None):
+    """A serving experiment of ``arch`` at its published width and depth
+    (random weights from seed 0; ``params`` installs others), the full head
+    on ``backend``; ``dtype`` overrides the compute dtype (``"float32"``:
+    the fp32 checks)."""
+    from repro_torch.api import Experiment
+    from repro_torch.configs.base import HeadConfig
+    exp = Experiment.from_config(system="zoo", arch=arch, batch=ZOO_BATCH,
+                                 seq=ZOO_PROMPT + ZOO_GEN, seed=0,
+                                 device=DEVICE, log_every=0,
+                                 head=HeadConfig(backend=backend))
+    if params is not None:
+        exp.load_params(params)
+    if dtype is not None:
+        exp.model_cfg = dataclasses.replace(exp.model_cfg, dtype=dtype)
+    return exp
+
+
+def _describe(exp) -> str:
+    from repro_torch.models.ssm import ssm_dims
+    from repro_torch.optim import tree_leaves
+    cfg = exp.model_cfg
+    _, n_ssm, _ = ssm_dims(cfg)
+    attn = ("" if cfg.family == "ssm" else
+            f"{cfg.n_heads}/{cfg.n_kv_heads} attention heads of "
+            f"{cfg.resolved_head_dim}, window {cfg.sliding_window}, d_ff "
+            f"{cfg.d_ff}, ")
+    n_params = sum(p.numel() for p in tree_leaves(exp.params))
+    return (f"{cfg.name} ({cfg.family}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {attn}{n_ssm} SSM heads of {cfg.ssm.head_dim}, "
+            f"d_state {cfg.ssm.d_state}, chunk {cfg.ssm.chunk}, vocab "
+            f"{cfg.vocab_size}, {cfg.dtype} over {cfg.param_dtype}), "
+            f"{n_params / 1e6:.1f}M params")
+
+
+def _greedy_logits(torch, exp, h):
+    """The greedy tokens and [b, V] logits of features h [b, D], as the
+    serve's head takes them (``serve_logits_local`` on the features in the
+    compute dtype)."""
+    from repro_torch.core import sharded_softmax as sharded
+    from repro_torch.models import lm
+    cfg = exp.model_cfg
+    return sharded.serve_logits_local(
+        h.to(getattr(torch, cfg.dtype)), lm.head_weight(exp.params, cfg))
+
+
+def _logit_gate(torch, np, exp, h_a, h_b, tol, what, tie=None):
+    """Features h_a against h_b ([b, D]): their max abs difference over
+    max|h_b|, the greedy logits' over max|logit_b| within ``tol``, and the
+    greedy tokens equal but where b's top-2 gap is below twice ``tie`` of
+    max|logit_b| (``tie`` None: ``tol``; ``tol`` None: read and reported,
+    not gated, the near-ties from the reading). Returns (h rel, logit
+    rel, tokens equal, tokens checked)."""
+    ids_a, lg_a = _greedy_logits(torch, exp, h_a)
+    ids_b, lg_b = _greedy_logits(torch, exp, h_b)
+    h_rel = float((h_a.float() - h_b.float()).abs().max()
+                  / h_b.float().abs().max())
+    scale = float(lg_b.abs().max())
+    lg_rel = float((lg_a - lg_b).abs().max()) / scale
+    if not torch.isfinite(lg_a).all():
+        fail(f"{what}: non-finite logits")
+    if tol is not None and lg_rel > tol:
+        fail(f"{what}: logits differ by {lg_rel:.3g} of max|logit| > {tol}")
+    if tie is None:
+        tie = lg_rel if tol is None else tol
+    top2 = lg_b.topk(2, dim=1).values
+    near = (top2[:, 0] - top2[:, 1]).cpu().numpy() < 2 * tie * scale
+    ia, ib = ids_a.cpu().numpy(), ids_b.cpu().numpy()
+    if tol is not None and ((ia != ib) & ~near).any():
+        fail(f"{what}: greedy tokens differ at {int(((ia != ib) & ~near).sum())}"
+             f" rows whose top-2 gap is at least {2 * tie * scale:.3g}")
+    return h_rel, lg_rel, int((ia == ib).sum()), int((~near).sum())
+
+
+def _continuation(torch, exp, prompts, backend="kernel"):
+    """The last position's features of a prefill of all S + 1 prompt
+    tokens, and of a prefill of S then one decode step through the caches
+    (``tests/test_decode.py``'s check of the JAX package)."""
+    from repro_torch.models import decoder, lm
+    cfg = exp.model_cfg
+    s = prompts.shape[1] - 1
+    window = lm.decode_window(cfg, s + 1)
+    with torch.no_grad():
+        full = lm.backbone(exp.params, cfg, {"tokens": prompts},
+                           backend=backend)[0][:, -1]
+        _, _, caches = lm.backbone(exp.params, cfg,
+                                   {"tokens": prompts[:, :s]},
+                                   want_cache=True, cache_window=window,
+                                   backend=backend)
+        slots = decoder.init_cache_slots(
+            cfg, window, prefill_positions=torch.arange(s, device=DEVICE))
+        step = lm.decode(exp.params, cfg, {"token": prompts[:, s:]}, caches,
+                         slots, window=window, backend=backend)[0][:, 0]
+    return full, step
+
+
+def _continuation_checks(torch, np, exp, tag):
+    """Prefill of ZOO_PROMPT tokens and one decode step against a prefill
+    of ZOO_PROMPT + 1 (``tests/test_decode.py``'s check, which holds the
+    JAX package in fp32): in fp32 compute the features within
+    FAM_CONT32_TOL of max|h| and every greedy token equal; in the compute
+    dtype (bf16, where the two paths round in other places) the same
+    readings, reported."""
+    from repro_torch.configs.base import effective_vocab
+    from repro_torch.data import synthetic
+    prompts = synthetic.lm_batch(0, ZOO_BATCH, ZOO_PROMPT + 1,
+                                 effective_vocab(exp.model_cfg),
+                                 device=DEVICE)["tokens"]
+    out = {}
+    for dtype, tol in ((exp.model_cfg.dtype, None),
+                       ("float32", FAM_CONT32_TOL)):
+        cfg0 = exp.model_cfg
+        exp.model_cfg = dataclasses.replace(cfg0, dtype=dtype)
+        try:
+            full, step = _continuation(torch, exp, prompts)
+            h_rel, lg_rel, n_eq, n_chk = _logit_gate(
+                torch, np, exp, step, full, tol,
+                f"{tag}: prefill + one decode step vs prefill of S + 1 "
+                f"({dtype})")
+        finally:
+            exp.model_cfg = cfg0
+        if tol is not None and h_rel > tol:
+            fail(f"{tag}: prefill + one decode step vs prefill of S + 1 "
+                 f"({dtype}): features differ by {h_rel:.3g} of max|h| > "
+                 f"{tol}")
+        if tol is not None and n_eq != ZOO_BATCH:
+            fail(f"{tag}: in fp32 the decode step's greedy tokens differ "
+                 f"from the longer prefill's at {ZOO_BATCH - n_eq} rows")
+        out[dtype] = {"h_rel": h_rel, "logit_rel": lg_rel,
+                      "tokens_equal": n_eq, "tokens_checked": n_chk}
+        del full, step
+    log(f"{tag}: prefill of {ZOO_PROMPT} + one decode step vs prefill of "
+        f"{ZOO_PROMPT + 1}, by compute dtype: {out}")
+    return out
+
+
+def _serve_times(torch, exp, first):
+    """Prefill and decode of ``serve`` (host clock, synchronised spans):
+    the median of the main path's serve (its tracer ``first``) and
+    FAM_REPS more; one profiled prefill and one profiled decode step (idle
+    share, device time, costliest kernels)."""
+    from repro_torch.configs.base import InputShape, effective_vocab
+    from repro_torch.data import synthetic
+    from repro_torch.models import decoder
+    from repro_torch.telemetry import Tracer
+    from repro_torch.train import gspmd
+    pre, dec = [], []
+    for i in range(FAM_REPS + 1):
+        tr = first if i == 0 else Tracer()
+        if i:
+            exp.serve(prompt_len=ZOO_PROMPT, gen=ZOO_GEN, batch=ZOO_BATCH,
+                      telemetry=tr)
+        pre.append(tr.span_stats("serve.prefill")["total_s"] * 1e3)
+        dec.append(tr.span_stats("serve.decode")["total_s"] * 1e3)
+    cfg = exp.model_cfg
+    shape = InputShape("serve-decode", ZOO_PROMPT + ZOO_GEN, ZOO_BATCH,
+                       "decode")
+    backend = exp.head_cfg.backend
+    prefill = gspmd.make_prefill_step(cfg, shape, backend=backend)
+    step = gspmd.make_serve_step(cfg, shape, backend=backend)
+    prompts = synthetic.lm_batch(0, ZOO_BATCH, ZOO_PROMPT,
+                                 effective_vocab(cfg), device=DEVICE)["tokens"]
+    with torch.no_grad():
+        # the prompt fills hymba's window: its K/V need no padding
+        tok, caches = prefill(exp.params, {"tokens": prompts})
+        slots = decoder.init_cache_slots(
+            cfg, _decode_window(cfg),
+            prefill_positions=torch.arange(ZOO_PROMPT, device=DEVICE))
+        prof_pre = profile_ms(torch, lambda: prefill(
+            exp.params, {"tokens": prompts}), device_only=True)
+        # the step writes its token's cache in place: the profiled calls
+        # rewrite the same slot with the same values
+        step(exp.params, caches, slots, tok[:, None])
+        prof_dec = profile_ms(torch, lambda: step(exp.params, caches, slots,
+                                                  tok[:, None]),
+                              device_only=True)
+    prefill_ms, decode_ms = statistics.median(pre), statistics.median(dec)
+    return {"prefill_ms": prefill_ms, "prefill_ms_all": pre,
+            "decode_step_ms": decode_ms / (ZOO_GEN - 1),
+            "decode_ms": decode_ms,
+            "tok_per_s": ZOO_BATCH * ZOO_GEN / ((prefill_ms + decode_ms)
+                                                / 1e3),
+            "prefill_profile": prof_pre, "decode_step_profile": prof_dec}
+
+
+def _decode_window(cfg) -> int:
+    from repro_torch.models import lm
+    return lm.decode_window(cfg, ZOO_PROMPT + ZOO_GEN)
+
+
+def family_serve_phase(torch, np, counters, arch):
+    """``serve(prompt_len=2000, gen=48, batch=8)`` of ``arch`` at full width
+    on the kernel backend, every counter reset just before and read just
+    after (``FAM_WANT``); the decode's continuation of the prefill; for
+    the hybrid family, the tokens against the ref backend's; times,
+    profiles and peak memory. Returns (path, launches, numbers)."""
+    tag = f"{arch} serve phase"
+    t_phase = time.perf_counter()
+    exp = _family(arch, "kernel")
+    cfg = exp.model_cfg
+    log(f"{tag}: {_describe(exp)}; {ZOO_BATCH} prompts of {ZOO_PROMPT} "
+        f"tokens, {ZOO_GEN} greedy tokens, decode window "
+        f"{_decode_window(cfg)}")
+    path = f"{cfg.family}_serving"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    from repro_torch.telemetry import Tracer
+    first = Tracer()
+    _reset(counters)
+    toks = exp.serve(prompt_len=ZOO_PROMPT, gen=ZOO_GEN, batch=ZOO_BATCH,
+                     telemetry=first)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _read(counters).items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{tag}: launches on the main path {launches}; peak {peak_gb:.2f} GB")
+    if launches != FAM_WANT[path]:
+        fail(f"{tag}: the serve launched {launches}, not {FAM_WANT[path]} "
+             f"(PERF.md §6)")
+    if toks.shape != (ZOO_BATCH, ZOO_GEN) or toks.dtype != np.int32 or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"{tag}: tokens {toks.shape} {toks.dtype} out of shape or range")
+    e2e = {"launches": launches, "peak_memory_gb": peak_gb,
+           "first_row": toks[0].tolist()}
+    e2e["continuation"] = _continuation_checks(torch, np, exp, tag)
+    if cfg.family == "hybrid":
+        e2e["vs_ref"] = _hybrid_vs_ref(
+            torch, np, exp, tag,
+            e2e["continuation"][cfg.dtype]["logit_rel"])
+    e2e.update(_serve_times(torch, exp, first))
+    e2e["phase_s"] = time.perf_counter() - t_phase
+    log(f"{tag}: prefill {e2e['prefill_ms']:.2f} ms (all {e2e['prefill_ms_all']}"
+        f"), decode {e2e['decode_step_ms']:.3f} ms a step, "
+        f"{e2e['tok_per_s']:.1f} tok/s; profiled prefill: idle "
+        f"{e2e['prefill_profile']['idle_share']:.3f}, device "
+        f"{e2e['prefill_profile']['device_busy_ms']:.2f} of "
+        f"{e2e['prefill_profile']['wall_ms']:.2f} ms, top "
+        f"{e2e['prefill_profile']['top_kernels_ms']}; profiled decode step: "
+        f"idle {e2e['decode_step_profile']['idle_share']:.3f}, device "
+        f"{e2e['decode_step_profile']['device_busy_ms']:.2f} of "
+        f"{e2e['decode_step_profile']['wall_ms']:.2f} ms; phase "
+        f"{e2e['phase_s']:.1f} s")
+    del exp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path, launches, e2e
+
+
+def _hybrid_vs_ref(torch, np, exp, tag, spread):
+    """The kernel backend's serve against the ref backend's on the same
+    weights and prompts: the prefill's last ZOO_TOKEN_ROWS positions of
+    every row (features within FAM_H_TOL, logits within FAM_LOGIT_TOL,
+    greedy tokens equal but where the ref's top-2 gap is below twice
+    ``spread`` of max|logit|, the kernel-free bf16 spread this run read
+    on the same model (the decode step against the longer prefill); bf16;
+    in bf16 the served sequences part at the first near-tie, after which
+    they are no longer comparable), and in fp32 compute every served
+    token equal."""
+    from repro_torch.configs.base import effective_vocab
+    from repro_torch.data import synthetic
+    from repro_torch.models import lm
+    cfg = exp.model_cfg
+    prompts = synthetic.lm_batch(0, ZOO_BATCH, ZOO_PROMPT,
+                                 effective_vocab(cfg), device=DEVICE)["tokens"]
+    with torch.no_grad():
+        h = {b: lm.backbone(exp.params, cfg, {"tokens": prompts},
+                            backend=b)[0][:, -ZOO_TOKEN_ROWS:].reshape(
+                                -1, cfg.d_model)
+             for b in ("kernel", "ref")}
+    h_rel, lg_rel, n_eq, n_chk = _logit_gate(
+        torch, np, exp, h["kernel"], h["ref"], FAM_LOGIT_TOL,
+        f"{tag}: prefill, kernel vs ref", tie=spread)
+    if h_rel > FAM_H_TOL:
+        fail(f"{tag}: prefill features, kernel vs ref, {h_rel:.3g} of max|h|"
+             f" > {FAM_H_TOL}")
+    del h
+    toks32 = {}
+    for b in ("kernel", "ref"):
+        e32 = _family(_ARCH[cfg.family], b, params=exp.params,
+                      dtype="float32")
+        toks32[b] = e32.serve(prompt_len=ZOO_PROMPT, gen=ZOO_GEN,
+                              batch=ZOO_BATCH)
+        del e32
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not np.array_equal(toks32["kernel"], toks32["ref"]):
+        fail(f"{tag}: in fp32 compute the kernel backend's tokens differ from "
+             f"the ref backend's at "
+             f"{int((toks32['kernel'] != toks32['ref']).sum())} of "
+             f"{toks32['ref'].size}")
+    out = {"prefill_h_rel": h_rel, "prefill_logit_rel": lg_rel,
+           "prefill_tokens_equal": n_eq, "prefill_tokens_checked": n_chk,
+           "near_tie_spread": spread,
+           "prefill_positions": ZOO_BATCH * ZOO_TOKEN_ROWS,
+           "served_tokens_equal_fp32": int(
+               (toks32["kernel"] == toks32["ref"]).sum())}
+    log(f"{tag}: kernel vs ref: prefill features {h_rel:.3g} of max|h|, "
+        f"logits {lg_rel:.3g} of max|logit| (<= {FAM_LOGIT_TOL}), next "
+        f"tokens equal at {n_eq}/{ZOO_BATCH * ZOO_TOKEN_ROWS} ({n_chk} "
+        f"checked: top-2 gap at least twice the kernel-free bf16 spread "
+        f"{spread:.3g}); in fp32 compute all {toks32['ref'].size} served "
+        f"tokens equal")
+    return out
+
+
+def flash_hybrid_check(torch, fa):
+    """``flash_attention`` at hymba-1.5B's prefill shapes: q [8 * 25,
+    2,000, 64] over 8 * 5 KV heads (a group of 5), bf16, causal within a
+    sliding window of 1,024 (rows past the window attend to 1,024 keys):
+    the bf16 gate against its plain version, bit-identical across two
+    runs, timed beside its plain version and SDPA with the window as a
+    boolean mask."""
+    bh, bhkv = ZOO_BATCH * HYMBA_HEADS, ZOO_BATCH * HYMBA_KV_HEADS
+    s, dh, w = ZOO_PROMPT, ZOO_HEAD_DIM, HYMBA_WINDOW
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(9)
+    q, k, v = (torch.randn((h, s, dh), generator=g, device=DEVICE).to(
+        torch.bfloat16) for h in (bh, bhkv, bhkv))
+    out = fa.flash_attention(q, k, v, causal=True, window=w)
+    again = fa.flash_attention(q, k, v, causal=True, window=w)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        fail("flash_attention at hymba's shapes is not bit-identical across "
+             "two runs")
+    plain = fa.flash_attention_plain(q, k, v, causal=True, window=w)
+    err = float((out.float() - plain.float()).abs().max())
+    gate = flash_bf16_gate(torch, out, plain, flash_flip_bound(
+        torch, fa, q, k, v, causal=True, window=w))
+    if not gate["ok"]:
+        fail(f"flash_attention at hymba's shapes: max abs err {err:.3g}, "
+             f"gate {gate}")
+    ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True,
+                                                   window=w), 20)
+    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
+        q, k, v, causal=True, window=w), 2)
+    q4 = q.view(ZOO_BATCH, HYMBA_HEADS, s, dh)
+    k4, v4 = (x.view(ZOO_BATCH, HYMBA_KV_HEADS, s, dh) for x in (k, v))
+    i = torch.arange(s, device=DEVICE)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = cuda_ms(torch, lambda: sdpa(q4, k4, v4, attn_mask=mask,
+                                         enable_gqa=True), 20)
+    lib_out = sdpa(q4, k4, v4, attn_mask=mask,
+                   enable_gqa=True).reshape(bh, s, dh)
+    lib_err = float((lib_out.float() - plain.float()).abs().max())
+    pairs = sum(min(r + 1, w) for r in range(s))
+    bound, by = bound_ms(2 * dh * (2 * s * bh + 2 * s * bhkv),
+                         4.0 * dh * pairs * bh, BF16_OPS_PER_S)
+    log(f"flash at hymba's shapes: BH={bh} over {bhkv} KV heads, S=T={s}, "
+        f"Dh={dh}, bf16, causal, window {w}: max abs err {err:.3g}, bf16 gate "
+        f"ratio {gate['ratio']:.3g} (<= 1), mean {gate['mean_rel']:.3g}; "
+        f"bit-identical; {ms:.4f} ms, bound {bound:.4f} ms by {by}, plain "
+        f"{plain_ms:.3f} ms, SDPA (boolean window mask) {lib_ms:.4f} ms "
+        f"(max abs err {lib_err:.3g})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library="scaled_dot_product_attention(attn_mask=causal "
+                        "window of 1,024, enable_gqa=True)",
+                bound_ms=bound, bound_by=by, max_abs_err=err,
+                library_max_abs_err=lib_err,
+                bf16_gate=(gate["ratio"], gate["mean_rel"]),
+                shape=f"q[{bh},{s},{dh}] k,v[{bhkv},{s},{dh}] bf16 causal "
+                      f"window {w}")
+
+
+def ssd_layer_check(torch, exp):
+    """One layer's SSM at the training micro-batch's shapes (4 x 512
+    tokens, chunk 256) on the card: the chunked scan against the
+    token-by-token ``apply_ssm_step`` recurrence in fp32 compute (outputs
+    and final states within FAM_SCAN_TOL of their max), the gradient of
+    sum(y^2) through the chunked scan in the training dtype finite in
+    every param and the input, and, for the record, the same gradient with
+    the decay taken as the JAX package takes it (the exp of every pair,
+    masked after): its NaN count."""
+    from repro_torch.models import ssm
+    cfg = exp.model_cfg
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p = exp.params.blocks[0].ssm
+    b = ZOO_TB // FAM_MICRO[_ARCH[cfg.family]]
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(12)
+    x = torch.randn((b, ZOO_TS, cfg.d_model), generator=g, device=DEVICE)
+    with torch.no_grad():
+        y, cache = ssm.apply_ssm(p, cfg32, x)
+        st = ssm.init_ssm_cache(cfg32, b, torch.float32, device=DEVICE)
+        ys = []
+        for t in range(ZOO_TS):
+            yt, st = ssm.apply_ssm_step(p, cfg32, x[:, t:t + 1], st)
+            ys.append(yt)
+        rec = torch.cat(ys, dim=1)
+    y_err = float((y - rec).abs().max() / rec.abs().max())
+    s_err = float((cache["ssm_state"] - st["ssm_state"]).abs().max()
+                  / st["ssm_state"].abs().max())
+    if not (y_err <= FAM_SCAN_TOL and s_err <= FAM_SCAN_TOL):
+        fail(f"ssd_chunked at chunk {cfg.ssm.chunk} vs the recurrence: "
+             f"outputs {y_err:.3g}, states {s_err:.3g} > {FAM_SCAN_TOL}")
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+    from repro_torch.models.layers import ParamDict
+    pg = ParamDict(**leaves)
+    xg = x.to(getattr(torch, cfg.dtype)).requires_grad_()
+    (ssm.apply_ssm(pg, cfg, xg)[0].float() ** 2).sum().backward()
+    finite = all(bool(torch.isfinite(t.grad).all())
+                 for t in list(leaves.values()) + [xg])
+    if not finite:
+        fail("the gradient through ssd_chunked at chunk "
+             f"{cfg.ssm.chunk} is not finite")
+    nan_ref = _reference_order_nans(torch, exp, x)
+    log(f"ssd at one layer of {cfg.name} ({b} x {ZOO_TS} tokens, chunk "
+        f"{cfg.ssm.chunk}): chunked vs recurrence, fp32: outputs {y_err:.3g},"
+        f" states {s_err:.3g} of max (<= {FAM_SCAN_TOL}); the gradient in "
+        f"{cfg.dtype} finite; with the JAX package's order (exp, then the "
+        f"mask) the dt gradient has {nan_ref} NaN entries")
+    del leaves, pg, xg
+    return {"scan_vs_recurrence_rel": y_err, "states_rel": s_err,
+            "grad_finite": finite, "reference_order_dt_grad_nans": nan_ref}
+
+
+def _reference_order_nans(torch, exp, x):
+    """The layer's intra-chunk term with the JAX package's order (``ssm.py:
+    96-98``: exp(cums_i - cums_j) of every pair, the upper triangle zeroed
+    after), differentiated with respect to dt in fp32: the NaN entries of
+    that gradient (0 * inf in exp's backward)."""
+    from repro_torch.models import ssm
+    cfg = dataclasses.replace(exp.model_cfg, dtype="float32")
+    p = exp.params.blocks[0].ssm
+    d_inner, h, _ = ssm.ssm_dims(cfg)
+    gn = cfg.ssm.n_groups * cfg.ssm.d_state
+    with torch.no_grad():
+        zx = x @ p.in_proj
+        _, xbc, dt_raw = ssm._split_in_proj(cfg, zx)
+        xbc = torch.nn.functional.silu(ssm._causal_conv(xbc, p.conv_w,
+                                                        p.conv_b))
+    b, s, _ = x.shape
+    c, nc = cfg.ssm.chunk, s // cfg.ssm.chunk
+    dt_raw = dt_raw.detach().requires_grad_()
+    dt = ssm._softplus(dt_raw + p.dt_bias).view(b, nc, c, h)
+    cums = torch.cumsum(dt * -torch.exp(p.A_log), dim=2)
+    ldec = torch.exp(cums[:, :, :, None, :] - cums[:, :, None, :, :])
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=DEVICE))
+    ldec = torch.where(tri[None, None, :, :, None], ldec, 0.0)
+    bm = xbc[..., d_inner:d_inner + gn].reshape(b, nc, c, -1)
+    cm = xbc[..., d_inner + gn:].reshape(b, nc, c, -1)
+    cb = torch.einsum("bcln,bcmn->bclm", cm, bm)
+    xh = xbc[..., :d_inner].reshape(b, nc, c, h, -1)
+    y = torch.einsum("bclm,bclmh,bcmhp->bclhp", cb, ldec, xh * dt[..., None])
+    (y ** 2).sum().backward()
+    n = int(torch.isnan(dt_raw.grad).sum())
+    del ldec, y
+    torch.cuda.empty_cache()
+    return n
+
+
+def family_training_phase(torch, np, counters, ce, arch):
+    """``fit(FAM_STEPS)`` of ``arch`` at full width with the full head on
+    the kernel backend, 16 x 512 tokens a step (the stream's first batch,
+    every step) in ``FAM_MICRO[arch]`` micro-batches, every counter reset
+    just before and read just after (``FAM_WANT``): finite losses that
+    fall, the head and a trunk weight moved. Step 1's loss against the ref backend's (a second experiment
+    from the same seed); the step's time (the median of the fit's steps 2
+    to FAM_STEPS, their synchronised spans),
+    tokens/s, a profiled step (idle share), peak memory; the CE pair at
+    [tokens a micro-batch, V] x D through the CE gates; one layer's SSD at
+    chunk 256 (``ssd_layer_check``). Returns (path, launches, {kernel:
+    row}, numbers, the trained experiment)."""
+    from repro_torch.configs.base import TrainConfig, get_model_config
+    from repro_torch.data import synthetic
+    from repro_torch.models import lm
+    from repro_torch.telemetry import Tracer
+    tag = f"{arch} training phase"
+    t_phase = time.perf_counter()
+    micro = FAM_MICRO[arch]
+    vocab = get_model_config(arch).vocab_size
+
+    def one_batch(t, b):
+        # every step the stream's first batch: on fresh batches the loss
+        # of random weights stays near log V for many more steps than 5
+        return synthetic.lm_batch(0, b, ZOO_TS, vocab, device=DEVICE)
+
+    exp = _zoo_trainer("kernel", arch=arch, log_every=0, data_fn=one_batch,
+                       train=TrainConfig(optimizer="sgd", micro_batch=micro))
+    cfg = exp.model_cfg
+    path = f"{cfg.family}_training"
+    log(f"{tag}: {_describe(exp)}; {ZOO_TB} x {ZOO_TS} tokens a step in "
+        f"{micro} micro-batches, SGD at lr {ZOO_LR}")
+    w0 = lm.head_weight(exp.params, cfg).detach().clone()
+    in0 = exp.params.blocks[0].ssm.in_proj.detach().clone()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Tracer()
+    _reset(counters)
+    t0 = time.perf_counter()
+    hist = exp.fit(FAM_STEPS, lr=ZOO_LR, telemetry=tr)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    exp.telemetry = None
+    # the steps' own spans (synchronised): the first warms up
+    step_all = [e.dur_ns / 1e6 for e in tr.events if e.name == "train.step"]
+    step_ms = statistics.median(step_all[1:])
+    launches = {k: v for k, v in _read(counters).items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r["loss"] for r in hist]
+    log(f"{tag}: fit({FAM_STEPS}) {fit_s:.2f} s, launches {launches}, losses "
+        f"{losses}, peak memory {peak_gb:.2f} GB")
+    if launches != FAM_WANT[path]:
+        fail(f"{tag}: fit launched {launches}, not {FAM_WANT[path]} "
+             f"(PERF.md §6)")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        fail(f"{tag}: the losses {losses} are not finite and falling")
+    moved = (float((lm.head_weight(exp.params, cfg) - w0).abs().max()),
+             float((exp.params.blocks[0].ssm.in_proj - in0).abs().max()))
+    if not min(moved) > 0:
+        fail(f"{tag}: training did not move the params {moved}")
+    del w0, in0
+
+    # -- step 1's loss against the ref backend, from the same seed ---------
+    ref = _zoo_trainer("ref", arch=arch, log_every=0, data_fn=one_batch,
+                       train=TrainConfig(optimizer="sgd", micro_batch=micro))
+    ref_loss = ref.fit(1, lr=ZOO_LR)[0]["loss"]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    if loss_rel > ZOO_LOSS_RTOL:
+        fail(f"{tag}: step 1's loss, kernel {losses[0]} vs ref {ref_loss}: "
+             f"rel {loss_rel:.3g} > {ZOO_LOSS_RTOL:g}")
+
+    # -- a profiled step ------------------------------------------------------
+    inputs = exp._batch(10**5)
+
+    def one_step():
+        exp.params, exp.head_state, exp.opt_state, loss, _ = exp._train_step(
+            exp.params, exp.head_state, exp.opt_state, inputs, ZOO_LR)
+        return float(loss)
+
+    prof = profile_ms(torch, one_step, device_only=True, groups={
+        "CE pair": ("ce_fwd", "ce_bwd", "ce_softmax", "ce_dw", "ce_df"),
+        "matmuls (bf16 + fp32)": ("gemm", "cutlass", "sm90_xmma", "ampere",
+                                  "cublas"),
+        "copies and casts": ("copy",)})
+    tokens = ZOO_TB * ZOO_TS
+    log(f"{tag}: step {step_ms:.2f} ms (median of steps 2-{FAM_STEPS}: "
+        f"{[round(x, 1) for x in step_all]}; {tokens / step_ms * 1e3:.0f} "
+        f"tokens/s); profiled step: idle {prof['idle_share']:.3f}, device "
+        f"{prof['device_busy_ms']:.2f} of {prof['wall_ms']:.2f} ms, by group "
+        f"{prof.get('device_ms_by_group')}; top "
+        + "; ".join(f"{k} {v:.3f}" for k, v in prof["top_kernels_ms"].items()))
+
+    # -- the CE pair at a micro-batch's shapes through the gates ------------
+    # on the trained batch (p - 1 may cancel at its labels: the floor
+    # gate), then on a held-out batch of the stream (the gates, the 1xTF32
+    # fault, the times)
+    n = tokens // micro
+    w = lm.head_weight(exp.params, cfg).detach()
+    f, y, _ = _zoo_batch_features(torch, exp, 0)
+    trained = ce_trained_batch_gate(torch, ce, f[:n].contiguous(),
+                                    w, y[:n].contiguous(), arch)
+    del f, y
+    exp.data_fn = lambda t, b: synthetic.lm_batch(t, b, ZOO_TS, vocab,
+                                                  device=DEVICE)
+    f, y, _ = _zoo_batch_features(torch, exp, 10**5 + 1)
+    f, y = f[:n].contiguous(), y[:n].contiguous()
+    rows = dict(zip(("ce_forward", "ce_backward"), zoo_ce_rows(
+        torch, ce, f, w, y, model=cfg.name, tag=arch)))
+    rows["ce_backward"]["trained_batch"] = trained
+    del f, y, w
+    torch.cuda.empty_cache()
+    scan = ssd_layer_check(torch, exp)
+    torch.cuda.empty_cache()
+    e2e = {"micro_batches": micro, "fit_s": fit_s, "losses": losses,
+           "fit_peak_memory_gb": peak_gb, "step1_loss_ref": ref_loss,
+           "step1_loss_rel_err": loss_rel, "step_ms": step_ms,
+           "step_ms_all": step_all,
+           "tokens_per_s": tokens / step_ms * 1e3, "step_profile": prof,
+           "params_moved": moved, "ssd_layer": scan,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"{tag}: step 1 kernel vs ref loss rel {loss_rel:.3g}; phase "
+        f"{e2e['phase_s']:.1f} s")
+    return path, launches, rows, e2e, exp
+
+
+def _head_loss_vs_ref(torch, exp):
+    """One batch's loss (the stream's next) through the loss the step
+    differentiates (``gspmd.make_head_loss_fn``), on the kernel and the
+    ref backend from exp's params, head params and aux (the knn graph,
+    the LSH tables, the hashes), no grad. Returns (kernel, ref)."""
+    from repro_torch.api.heads import make_head
+    from repro_torch.train import gspmd
+    batch = exp._batch(exp._t)
+    losses = []
+    with torch.no_grad():
+        for backend in ("kernel", "ref"):
+            hcfg = dataclasses.replace(exp.head_cfg, backend=backend)
+            loss_fn = gspmd.make_head_loss_fn(
+                exp.model_cfg, hcfg, global_tokens=batch["labels"].numel(),
+                head=make_head(exp.model_cfg, hcfg))
+            loss, _ = loss_fn(exp.params, exp.head_state.params,
+                              exp.head_state.aux, batch,
+                              step=exp.opt_state.step)
+            losses.append(float(loss))
+    return tuple(losses)
+
+
+def family_heads_check(torch, np, counters, exp, kern, gate_kernels):
+    """The rest of a family's surface at full width, each leg with every
+    counter reset just before it and read just after (``FAM_WANT``):
+    ``evaluate``, and top-5 of 64 queries exact and through the IVF index
+    on the trained full-head experiment ``exp``, those two held against
+    the ref backend on the same params (scores within IVF_TOL, ids equal
+    but at near-ties); then each of the six heads trains one step at 2 x
+    512 tokens (the knn head at the launcher's settings, MACH and CSoft at
+    Table 2's R = 4 x V // 16 buckets, sampled drawing 10% of the
+    classes) on a finite loss, and the next batch's loss on the kernel
+    backend within ZOO_LOSS_RTOL of the ref backend's from the same
+    state. With ``gate_kernels``, the sparse CE pair (the knn head's
+    active set), ``dist_topk`` (the graph build over every row),
+    ``stage1_topk`` and ``ivf_rerank`` (the retrieval) at this family's
+    shapes against their plain versions (``kern``: the kernel modules).
+    Returns ({path: launches}, {kernel: row}, numbers)."""
+    from repro_torch.configs.base import effective_vocab
+    cfg = exp.model_cfg
+    arch = _ARCH[cfg.family]
+    v = effective_vocab(cfg)
+    t0 = time.perf_counter()
+    launches, rows = {}, {}
+
+    def counted(path, fn):
+        torch.cuda.synchronize()
+        _reset(counters)
+        out = fn()
+        torch.cuda.synchronize()
+        launches[path] = {k: n for k, n in _read(counters).items() if n}
+        if launches[path] != FAM_WANT[path]:
+            fail(f"{arch}: the {path} path launched {launches[path]}, not "
+                 f"{FAM_WANT[path]} (PERF.md §6)")
+        return out
+
+    fam = cfg.family
+    out = {"evaluate": counted(f"{fam}_evaluate", exp.evaluate)}
+    idx = exp.ivf_index()                 # the fit is not the serve's
+    got = {index: counted(path, lambda index=index: exp.serve(
+        top_k=K, batch=ZOO_RET_B, return_scores=True, index=index))
+        for path, index in ((f"{fam}_retrieval", None),
+                            (f"{fam}_ivf_retrieval", "ivf"))}
+    if not 0.0 <= out["evaluate"] <= 1.0:
+        fail(f"{arch}: evaluate {out['evaluate']}")
+    for index, (ids, scores) in got.items():
+        if ids.shape != (ZOO_RET_B, K) or not ((ids >= 0) & (ids < v)).all() \
+                or not np.all(np.isfinite(scores)) \
+                or np.any(np.diff(scores, 1) > 0):
+            fail(f"{arch}: top-{K} ({index or 'exact'}) ids {ids.shape} out "
+                 f"of range, or scores not finite and descending")
+    ref = _zoo_trainer("ref", arch=arch, batch=2, log_every=0)
+    ref.load_params(exp.params)
+    out["retrieval_vs_ref_score_max_abs_err"] = {
+        index or "exact": _same_topk(
+            np, *got[index], *ref.serve(top_k=K, batch=ZOO_RET_B,
+                                        return_scores=True, index=index),
+            f"{arch} top-{K} ({index or 'exact'}), kernel vs ref backend")
+        for index in got}
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ivf_top5_overlap"] = float(np.mean([
+        len(set(a) & set(b)) / K for a, b in zip(got[None][0],
+                                                 got["ivf"][0])]))
+    if gate_kernels:
+        rows.update(retrieval_kernel_rows(torch, np, kern["dc"], kern["ivf"],
+                                          exp, idx, f"{arch} retrieval"))
+    heads = {"full": {}, "knn": ZOO_KNN,
+             "selective": dict(softmax_impl="selective"),
+             "mach": dict(softmax_impl="mach", mach_b=v // 16, mach_r=4),
+             "sampled": dict(softmax_impl="sampled", sampled_n=v // 10),
+             "csoft": dict(softmax_impl="csoft", csoft_b=v // 16, csoft_r=4)}
+    for name, head in heads.items():
+        one = _zoo_trainer("kernel", head=head, arch=arch, batch=2,
+                           log_every=0)
+        loss = counted(f"{fam}_{name}_step",
+                       lambda: one.fit(1, lr=ZOO_LR)[0]["loss"])
+        lk, lr = _head_loss_vs_ref(torch, one)
+        rel = abs(lk - lr) / abs(lr)
+        out[name] = {"loss": loss, "next_loss_kernel": lk,
+                     "next_loss_ref": lr, "next_loss_rel": rel}
+        if not (math.isfinite(loss) and rel <= ZOO_LOSS_RTOL):
+            fail(f"{arch} with the {name} head: step loss {loss}; the next "
+                 f"batch's loss, kernel {lk} vs ref {lr}: rel {rel:.3g} > "
+                 f"{ZOO_LOSS_RTOL:g}")
+        if gate_kernels and name == "knn":
+            f, y, _ = _zoo_batch_features(torch, one, 10**5 + 1)
+            rows["sparse_ce_forward"], rows["sparse_ce_backward"] = \
+                zoo_sparse_rows(torch, kern["sp"], one, f, y, arch)
+            rows["dist_topk"] = zoo_dist_topk_row(torch, kern["dk"], one,
+                                                  arch)
+            del f, y
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    log(f"{arch}: evaluate {out['evaluate']:.4f}; top-{K} of {ZOO_RET_B} "
+        f"kernel vs ref {out['retrieval_vs_ref_score_max_abs_err']}, IVF "
+        f"overlap {out['ivf_top5_overlap']:.3f}; launches {launches}; one "
+        f"step with each head, and the next loss kernel vs ref "
+        f"{ {k: r for k, r in out.items() if isinstance(r, dict)} }"
+        f" ({out['s']:.1f} s)")
+    return launches, rows, out
+
+
+def _ckpt_round_trip(torch, exp, root) -> dict:
+    """A trained experiment saved, and restored into a fresh one: the
+    snapshots bit-equal. Save and restore seconds by part, the file's
+    bytes."""
+    from repro_torch.resilience import tree_compare
+    from repro_torch.telemetry import Tracer
+    cfg = exp.model_cfg
+    exp.ckpt_dir = str(root)
+    tr = Tracer()
+    exp.telemetry = tr
+    t0 = time.perf_counter()
+    fname = exp.save_checkpoint()
+    save_s = time.perf_counter() - t0
+    exp.telemetry = None
+    fresh = _zoo_trainer("kernel", arch=_ARCH[cfg.family], log_every=0,
+                         train=exp.train_cfg, ckpt_dir=str(root))
+    ftr = Tracer()
+    fresh.telemetry = ftr
+    t0 = time.perf_counter()
+    step = fresh.restore()
+    restore_s = time.perf_counter() - t0
+    cmp = tree_compare(fresh._snapshot(), exp._snapshot())
+    out = {"step": step, "bitwise": cmp["bitwise"],
+           "max_abs_diff": cmp["max_abs_diff"], "save_s": save_s,
+           "save_fetch_s": tr.counters["train.checkpoint.fetch_s"],
+           "restore_s": restore_s,
+           "restore_read_s": ftr.counters["train.restore.read_s"],
+           "restore_place_s": ftr.counters["train.restore.place_s"],
+           "bytes": os.path.getsize(fname), "host_peak_rss_gb":
+               _host_peak_gb()}
+    log(f"checkpoint round trip of {cfg.name} at t={step}: bitwise "
+        f"{cmp['bitwise']} ({len(cmp['mismatches'])} leaves differ); save "
+        f"{save_s:.2f} s (to the host {out['save_fetch_s']:.2f} s), restore "
+        f"{restore_s:.2f} s (read {out['restore_read_s']:.2f} s, onto the "
+        f"card {out['restore_place_s']:.2f} s), {out['bytes']} bytes")
+    if not cmp["bitwise"] or step != exp._t:
+        fail(f"{cfg.name}: the restored snapshot differs from the saved one "
+             f"at {cmp['mismatches'][:6]} (step {step})")
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_checkpoint_phase(torch, np, counters) -> tuple:
+    """The zoo's checkpoints at SmolLM-135M's full width, the full and the
+    knn head (16 x 512 tokens a step, a checkpoint every 2 steps): two
+    uninterrupted ``fit(6)`` runs compared bit for bit set the class
+    ``kill_and_recover`` is held to; the victim dies before step 5, a
+    fresh experiment restores t = 4 and replays steps 4 and 5, every
+    counter reset just before that leg and read after (``FAM_WANT``).
+    Then the train launcher's ``--system zoo --ckpt-every 2`` and
+    ``--resume``. Returns ({path: launches}, numbers)."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.resilience import kill_and_recover, tree_compare
+
+    root = CKPT_DIR / "zoo"
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = time.perf_counter()
+    launches, out = {}, {}
+    try:
+        for name, head in (("full", None), ("knn", ZOO_KNN)):
+            def make(ckpt_dir, head=head):
+                return _zoo_trainer("kernel", head=head, log_every=0,
+                                    ckpt_dir=ckpt_dir,
+                                    ckpt_every=ZOO_CKPT_EVERY)
+            torch.cuda.reset_peak_memory_stats()
+            ref = make(None)
+            ref.fit(CKPT_TOTAL, lr=ZOO_LR)
+            twin = make(None)
+            twin.fit(CKPT_TOTAL, lr=ZOO_LR)
+            det = tree_compare(twin._snapshot(), ref._snapshot())
+            del twin
+            gc.collect()
+            torch.cuda.empty_cache()
+            equivalence = "bitwise" if det["bitwise"] else "trajectory"
+            rep = kill_and_recover(
+                make, total_steps=CKPT_TOTAL, kill_at=CKPT_KILL,
+                ckpt_dir=str(root / name), equivalence=equivalence,
+                head=f"zoo/{name}", fit_kw={"lr": ZOO_LR}, reference=ref,
+                before_resume=lambda: _reset(counters))
+            torch.cuda.synchronize()
+            path = f"zoo_checkpoint_{name}"
+            launches[path] = {k: v for k, v in _read(counters).items() if v}
+            replayed = [r["step"] for r in rep.resumed_history]
+            res = {"two_runs_bitwise": det["bitwise"],
+                   "two_runs_max_abs_diff": det["max_abs_diff"],
+                   "equivalence": rep.equivalence, "ok": rep.ok,
+                   "bitwise": rep.bitwise, "max_abs_diff": rep.max_abs_diff,
+                   "loss_max_rel": rep.loss_max_rel,
+                   "restored_step": rep.restored_step, "replayed": replayed,
+                   "save_s": rep.save_s, "save_fetch_s": rep.save_fetch_s,
+                   "restore_s": rep.restore_s,
+                   "restore_read_s": rep.restore_read_s,
+                   "restore_place_s": rep.restore_place_s,
+                   "recovery_s": rep.recovery_s,
+                   "ckpt_bytes": rep.ckpt_bytes,
+                   "host_peak_rss_gb": _host_peak_gb(),
+                   "card_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "resumed_launches": launches[path]}
+            out[name] = res
+            log(f"zoo checkpoint phase ({name}): two uninterrupted "
+                f"fit({CKPT_TOTAL}) bitwise {det['bitwise']} (max |diff| "
+                f"{det['max_abs_diff']:.3g}); {rep.summary()}; class "
+                f"{rep.equivalence}; {res}")
+            if not rep.ok or rep.restored_step != CKPT_KILL - 1 or \
+                    replayed != list(range(CKPT_KILL - 1, CKPT_TOTAL)):
+                fail(f"zoo kill and recover ({name}): {rep.summary()}, "
+                     f"replayed {replayed}")
+            if launches[path] != FAM_WANT[path]:
+                fail(f"zoo kill and recover ({name}): the resumed leg "
+                     f"launched {launches[path]}, not {FAM_WANT[path]}")
+            del ref, rep
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the launcher: a checkpoint every 2 steps, then a resume from t=4
+        d = str(root / "launcher")
+        base = ["--system", "zoo", "--arch", "smollm_135m", "--batch", "4",
+                "--seq", str(ZOO_TS), "--lr", str(ZOO_LR), "--ckpt-dir", d,
+                "--ckpt-every", "2", "--device", DEVICE]
+        texts = []
+        for extra in (["--steps", "4"], ["--steps", "6", "--resume"]):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = train_launcher.main(base + extra)
+            texts.append(buf.getvalue())
+            out[f"launcher{len(texts)}_s"] = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"train launcher --system zoo {extra} returned {rc}: "
+                     f"{texts[-1][-500:]}")
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "[zoo] resumed at t=4: 2 steps to 6" not in texts[-1] or \
+                ckpt.all_steps(d) != [2, 4, 6]:
+            fail(f"the zoo launcher's resume: {texts[-1][-500:]}, files "
+                 f"{ckpt.all_steps(d)}")
+        log(f"zoo checkpoint phase: launcher --ckpt-every 2 --steps 4, then "
+            f"--resume --steps 6: resumed at t=4, files "
+            f"{ckpt.all_steps(d)} ({out['launcher1_s']:.1f} + "
+            f"{out['launcher2_s']:.1f} s)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"zoo checkpoint phase: {out['phase_s']:.1f} s")
+    return launches, out
 
 
 def main() -> int:
@@ -4685,6 +5762,40 @@ def main() -> int:
     e2e["zoo_launchers"] = zoo_train_launchers_phase(torch)
     for name, row in {**zoo_rows, **zoo_ret_rows}.items():
         kernels[name]["zoo"] = row
+
+    # the ssm and hybrid families at full width, and the zoo's checkpoints
+    fam_launches, e2e["families"] = {}, {}
+    kern = {"sp": sp, "dk": dk, "dc": dc, "ivf": ivf}
+    for arch in FAMILIES:
+        path, fam_launches[path], e2e["families"][f"{arch}_serve"] = \
+            family_serve_phase(torch, np, counters, arch)
+    kernels["flash_attention"]["hymba"] = flash_hybrid_check(torch, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in FAMILIES:
+        path, fam_launches[path], rows, e2e["families"][f"{arch}_train"], \
+            fexp = family_training_phase(torch, np, counters, ce, arch)
+        for name, row in rows.items():
+            kernels[name][arch] = row
+        paths, rows, e2e["families"][f"{arch}_heads"] = family_heads_check(
+            torch, np, counters, fexp, kern, arch == FAM_GATED)
+        fam_launches.update(paths)
+        for name, row in rows.items():
+            kernels[name][arch] = row
+        if arch == "mamba2_370m":
+            import shutil
+            try:
+                e2e["families"]["mamba2_370m_checkpoint"] = _ckpt_round_trip(
+                    torch, fexp, CKPT_DIR / "mamba2")
+            finally:
+                shutil.rmtree(CKPT_DIR / "mamba2", ignore_errors=True)
+        del fexp
+        gc.collect()
+        torch.cuda.empty_cache()
+    zck_launches, e2e["zoo_checkpoint"] = zoo_checkpoint_phase(
+        torch, np, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
     e2e["build_s"] = build_s
 
     # launches on each main path, from its own reset-and-read of the counters
@@ -4699,7 +5810,8 @@ def main() -> int:
                          for path, n in head_launches.items()},
                       **{path: n.get(name, 0)
                          for path, n in {**zoo_train_launches,
-                                         **zoo_ret_launches}.items()}}
+                                         **zoo_ret_launches, **fam_launches,
+                                         **zck_launches}.items()}}
                for name in kernels}
     rows = []
     for name, k in kernels.items():

@@ -19,6 +19,9 @@ serving paths, and the zoo's greedy token serving.
   >>> zoo.fit(4, lr=0.5)                                     # history rows
   >>> zoo.serve(prompt_len=2000, gen=48, batch=8)            # tokens [8, 48]
   >>> zoo.serve(batch=64, top_k=5, index="ivf")              # feature top-k
+  >>> ssm = Experiment.from_config(system="zoo", arch="mamba2_370m",
+  ...                              ckpt_dir="ck", ckpt_every=2)
+  >>> ssm.fit(6, resume=True)            # restores the latest, runs the rest
 
 The port of the JAX package's ``api/experiment.py`` for the slices landed
 so far: ``fit`` (the FCCS trainer, with full-state checkpoints under
@@ -33,11 +36,13 @@ full, knn, selective, mach, sampled, csoft; the sketch heads mach and
 csoft serve greedy only, since top-k and the IVF index retrieve against a
 [V, D] class matrix they do not train), on the ``feats`` trunk or the
 paper's ResNet (``trunk="cnn"``, or a ``family="cnn"`` model config), with
-or without DGC (``TrainConfig.dgc``); for the zoo's dense decoders the
-zoo trainer (``ZooExperiment.fit`` / ``evaluate``, any of the six heads),
-prefill + greedy decode and feature retrieval (``serve(top_k=...)``,
-exact or through the IVF index, and ``serving_engine``). The zoo's
-checkpoints come with a later slice (ROADMAP.md A.9.3).
+or without DGC (``TrainConfig.dgc``); for the zoo's dense, ssm (mamba2)
+and hybrid (hymba) decoders the zoo trainer (``ZooExperiment.fit`` /
+``evaluate``, any of the six heads), its full-state checkpoints
+(``ckpt_dir``, ``fit(resume=True | "reshard")``, ``restore``) in the JAX
+package's layout, prefill + greedy decode and feature retrieval
+(``serve(top_k=...)``, exact or through the IVF index, and
+``serving_engine``).
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and with no
 GPU present they raise rather than fall back to the CPU. Pass
@@ -363,16 +368,18 @@ class PaperExperiment(Experiment):
 
 
 # ---------------------------------------------------------------------------
-# zoo system (the zoo trainer, feature retrieval and greedy token serving)
+# zoo system (the zoo trainer, checkpoints, feature retrieval and greedy
+# token serving)
 # ---------------------------------------------------------------------------
 
-_ZOO_CKPT = ("the zoo's checkpoints are not ported to torch yet (ROADMAP.md "
-             "A.9.3)")
+
+def _int32(v) -> torch.Tensor:
+    return torch.tensor(int(v), dtype=torch.int32)
 
 
 class ZooExperiment(Experiment):
-    """Training and serving for the zoo's dense decoders with any registered
-    softmax head: the loss goes through the head registry
+    """Training and serving for the zoo's dense, ssm and hybrid decoders
+    with any registered softmax head: the loss goes through the head registry
     (``gspmd.make_head_train_step``), so full / knn / selective / mach /
     sampled / csoft all train. The trunk is replicated on every ring
     member and runs the whole batch; the W-heads train the model's own
@@ -390,9 +397,16 @@ class ZooExperiment(Experiment):
     ``head.backend`` (``"kernel"`` by default) selects the kernels of every
     path but the trunk's training attention, which runs the ``ref``
     branches. ``data_fn(t, batch) -> {"tokens", "labels"}`` replaces the
-    synthetic LM stream (``data.synthetic.lm_batch``). ``ckpt_dir`` and
-    ``fit(resume=...)`` wait for the zoo's checkpoints and raise, naming
-    ROADMAP.md."""
+    synthetic LM stream (``data.synthetic.lm_batch``).
+
+    ``ckpt_dir`` takes full-state checkpoints in the JAX package's layout
+    (``_snapshot``: the model with its blocks stacked on [L], the head's
+    params and aux, the moments, the cursor) every ``ckpt_every`` steps
+    and at the end of every ``fit``, written by member 0 (``ckpt_keep``:
+    retain the newest N); ``fit(resume=True)`` and ``restore`` take the
+    latest back, ``resume="reshard"`` / ``restore(reshard=True)`` one
+    written on a ring of another size (``elastic.reshard_zoo_snapshot``).
+    The ring has no data axis: the geometry counts one data shard."""
 
     def __init__(self, *, arch: str = "smollm_135m", reduced: bool = False,
                  head: Optional[HeadConfig] = None,
@@ -406,8 +420,6 @@ class ZooExperiment(Experiment):
         from repro_torch.data import synthetic
         from repro_torch.models import decoder, lm
 
-        if ckpt_dir:
-            raise NotImplementedError(_ZOO_CKPT)
         cfg = get_model_config(arch, reduced=reduced)
         decoder.require_ported(cfg)
         self.device = resolve_device(device)
@@ -425,6 +437,11 @@ class ZooExperiment(Experiment):
         self.shape = InputShape("experiment", seq, batch, "train")
         self.log_every = log_every
         self.telemetry = telemetry   # Tracer, or None = NULL_TRACER
+        self.ckpt_dir = ckpt_dir or None
+        self.ckpt_every = ckpt_every
+        self.ckpt_keep = ckpt_keep
+        self.seed = seed
+        self.last_reshard = None     # stats dict of the last elastic restore
         self.history: list = []
         vocab = effective_vocab(self.model_cfg)
         self.data_fn = data_fn or (lambda t, b: synthetic.lm_batch(
@@ -453,7 +470,7 @@ class ZooExperiment(Experiment):
         self._eval_step = None
         self._refreshed = False
         self._engines: dict = {}
-        self.restores = 0    # bumped on every load_params / load_head_state
+        self.restores = 0    # bumped on every load and every restore
         self._t = 0          # data cursor: the next step fit() takes
 
     @property
@@ -540,6 +557,160 @@ class ZooExperiment(Experiment):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def load_opt_state(self, opt_state) -> None:
+        """Install this member's optimizer state (for example the JAX
+        package's, carried over by
+        ``repro_torch.interop.zoo_opt_state_from_numpy``), so a run
+        continues mid-stream with its moments."""
+        self._ensure_opt()
+        self.opt_state = opt_state
+        self.restores += 1
+
+    # -- full-state checkpoint / restore ----------------------------------
+
+    @torch.no_grad()
+    def _snapshot(self, gather: bool = True) -> dict:
+        """The checkpoint tree, GLOBAL, in the JAX package's layout: the
+        model params (blocks stacked on [L]), the head's params (the sketch
+        heads' buckets; ``()`` for the W-heads) and aux (``state_to_save``),
+        the optimizer moments, which mirror (model, head params), and the
+        data cursor. A collective on a ring. ``gather=False`` gives the
+        same tree paths over this member's own tensors, with no collective
+        and no copy of the model: the template a restore reads the leaf
+        names from."""
+        from repro_torch.api.heads import HeadState
+        from repro_torch.models import lm
+        from repro_torch.optim import OptState
+
+        self._ensure_opt()
+        hs, opt = self.head_state, self.opt_state
+        if gather:
+            head_tree = self.head.state_to_save(HeadState(hs.params, hs.aux))
+            gather_params = self.head.gather_params
+        else:
+            head_tree = {"params": hs.params, "aux": tuple(hs.aux)}
+            gather_params = (lambda a: a)
+
+        def model(params):
+            return lm.params_tree(params, stacked=gather)
+
+        def moments(pair):
+            if pair is None:
+                return None
+            return (model(pair[0]), gather_params(pair[1]))
+
+        return {"model": model(self.params), "head": head_tree,
+                "opt": OptState(step=_int32(opt.step), mu=moments(opt.mu),
+                                nu=moments(opt.nu)),
+                "extra": {"t": _int32(self._t), "seed": _int32(self.seed)}}
+
+    def geometry(self):
+        """This experiment's ``elastic.MeshGeometry``: the ring counts the
+        vocab row shards, there is one data shard, and the classes are the
+        REAL (unpadded) vocabulary, which is ring-invariant (the padding
+        goes into the checkpoint's meta)."""
+        from repro_torch.elastic import MeshGeometry
+        return MeshGeometry(n_model=dist.world_size(), n_data=1,
+                            n_classes=effective_vocab(self.model_cfg))
+
+    def save_checkpoint(self) -> Optional[str]:
+        """An atomic full-state snapshot at the current cursor, written by
+        member 0 with the geometry and the padded vocab as its meta; every
+        member returns once the file is complete. Returns the file's path
+        on member 0, None on the others. The tracer's counters
+        ``train.checkpoint.fetch_s`` / ``write_s`` take it apart."""
+        from repro_torch import checkpoint as ckpt
+        from repro_torch.telemetry import NULL_TRACER
+        if not self.ckpt_dir:
+            raise ValueError("experiment has no ckpt_dir")
+        tree = self._snapshot()
+        fname = None
+        if dist.rank() == 0:
+            tr = self.telemetry or NULL_TRACER
+            meta = {"system": "zoo", **self.geometry().meta(),
+                    "padded_vocab": self.model_cfg.vocab_size}
+            self._sync()        # the fetches wait on no pending step
+            parts = {}
+            fname = ckpt.save(self.ckpt_dir, tree, step=self._t,
+                              keep=self.ckpt_keep or None, meta=meta,
+                              timings=parts)
+            tr.count("train.checkpoint.fetch_s", parts["fetch_s"])
+            tr.count("train.checkpoint.write_s", parts["write_s"])
+        dist.barrier()
+        return fname
+
+    def restore(self, step: Optional[int] = None, *,
+                missing_ok: bool = False,
+                reshard: bool = False) -> Optional[int]:
+        """Refill the model, the head's state and the optimizer from
+        ``ckpt_dir`` (the latest step by default) and move the cursor. The
+        restored aux is installed as it is, not rebuilt: a run killed
+        mid-refresh-interval resumes with the graph or tables the killed
+        run used. ``reshard=True`` takes a checkpoint written on a ring of
+        another size (``repro_torch.elastic``); without it a ring mismatch
+        raises ``ReshardError`` before any leaf is decoded. Returns the
+        restored step, or None when ``missing_ok`` and there is none."""
+        from repro_torch import checkpoint as ckpt
+        from repro_torch.telemetry import NULL_TRACER
+        if not self.ckpt_dir:
+            raise ValueError("experiment has no ckpt_dir to restore from")
+        if step is None and ckpt.latest_step(self.ckpt_dir) is None:
+            if missing_ok:
+                return None
+            raise FileNotFoundError(f"no checkpoints under {self.ckpt_dir}")
+        tr = self.telemetry or NULL_TRACER
+        with tr.span("train.restore"):
+            return self._do_restore(step, tr, reshard)
+
+    def _do_restore(self, step, tr, reshard: bool) -> int:
+        import time
+
+        from repro_torch import checkpoint as ckpt
+        from repro_torch import elastic, interop
+        from repro_torch.models import lm
+
+        dst = self.geometry()
+        src = ckpt.validate_restore(self.ckpt_dir, dst, step,
+                                    reshard=reshard)
+        src_meta = ckpt.read_meta(self.ckpt_dir, step) or {}
+        parts = {}
+        tree, step = ckpt.restore(self.ckpt_dir, self._snapshot(gather=False),
+                                  step, timings=parts)
+        tr.count("train.restore.read_s", parts["read_s"])
+        needs_refresh = False
+        if (src.n_model, src.n_data) != (dst.n_model, dst.n_data):
+            t0 = time.perf_counter()
+            with tr.span("train.reshard", attrs={"src": src.describe(),
+                                                 "dst": dst.describe()}):
+                tree, needs_refresh, led = elastic.reshard_zoo_snapshot(
+                    tree, self.head, self.model_cfg, src, dst,
+                    padded_vocab_src=int(src_meta.get(
+                        "padded_vocab", self.model_cfg.vocab_size)))
+            tr.count("reshard.bytes_moved", led.total_bytes())
+            self.last_reshard = {
+                "src": src, "dst": dst, "bytes_moved": led.total_bytes(),
+                "ledger": led, "seconds": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        r, n = dist.rank(), dist.world_size()
+        self.params = lm.params_from_tree(tree["model"], self.model_cfg,
+                                          device=self.device)
+        self.head_state = interop.zoo_head_state_from_numpy(
+            self.head, tree["head"]["params"], tree["head"]["aux"], rank=r,
+            world_size=n, device=self.device)
+        opt = tree["opt"]
+        self.opt_state = interop.zoo_opt_state_from_numpy(
+            {"step": opt.step, "mu": opt.mu, "nu": opt.nu}, self.model_cfg,
+            rank=r, world_size=n, device=self.device)
+        self._sync()
+        tr.count("train.restore.place_s", time.perf_counter() - t0)
+        self._t = int(tree["extra"]["t"])
+        self.restores += 1
+        tr.count("train.restores")
+        # the aux came from the snapshot: no rebuild before the next step,
+        # unless the elastic path asked for the head's own refresh
+        self._refreshed = not needs_refresh
+        return step
+
     def fit(self, steps: int, *, lr: float = 0.5, resume=False,
             step_hook=None, telemetry=None):
         """Train ``steps`` steps from the current cursor at learning rate
@@ -547,18 +718,26 @@ class ZooExperiment(Experiment):
         rebuild it from the class weights before the first step, and every
         ``rebuild_every`` steps. ``step_hook(t)`` fires before each step;
         ``telemetry=`` installs a ``repro_torch.telemetry.Tracer`` (spans
-        ``train.data``, ``train.step``, ``train.refresh``; counters
-        ``train.steps``, ``train.refreshes``; one metrics row a step).
+        ``train.data``, ``train.step``, ``train.refresh``,
+        ``train.checkpoint``; counters ``train.steps``,
+        ``train.refreshes``, ``train.checkpoints``; one metrics row a
+        step). ``resume=True`` restores the latest checkpoint under
+        ``ckpt_dir`` first (if there is one) and makes ``steps`` the TOTAL,
+        as ``PaperExperiment.fit`` does; ``resume="reshard"`` also takes
+        one written on a ring of another size.
         Returns the history rows (step, loss, acc, and the head's own
         metrics: knn's and selective's ``active_frac`` and
         ``label_recall``, sampled's ``sample_frac``)."""
         from repro_torch.telemetry import NULL_TRACER
 
-        if resume:
-            raise NotImplementedError(_ZOO_CKPT)
         if telemetry is not None:
             self.telemetry = telemetry
         tr = self.telemetry or NULL_TRACER
+        if resume:
+            self.restore(missing_ok=True, reshard=(resume == "reshard"))
+            steps = steps - self._t
+            if steps <= 0:
+                return self.history
         if not self._refreshed:
             self.refresh_head()
         self._ensure_opt()
@@ -583,6 +762,11 @@ class ZooExperiment(Experiment):
                 with tr.span("train.refresh"):
                     self.refresh_head()
                 tr.count("train.refreshes")
+            if self.ckpt_dir and self.ckpt_every and \
+                    (t + 1) % self.ckpt_every == 0:
+                with tr.span("train.checkpoint"):
+                    self.save_checkpoint()
+                tr.count("train.checkpoints")
             row = {"step": t, "loss": float(loss),
                    "acc": float(metrics["accuracy"])}
             row.update({k: float(metrics[k]) for k in own})
@@ -592,6 +776,13 @@ class ZooExperiment(Experiment):
                 print(f"[zoo] step={t} loss={row['loss']:.4f} "
                       f"acc={row['acc']:.3f}")
         tr.record_peak_memory()
+        if self.ckpt_dir:
+            # the end-of-fit snapshot: the full state (the sketch heads'
+            # buckets included), resumable
+            with tr.span("train.checkpoint"):
+                self.save_checkpoint()
+            if self.log_every:
+                print(f"[zoo] checkpoint written to {self.ckpt_dir}")
         return self.history
 
     def evaluate(self, inputs=None) -> float:
@@ -618,7 +809,7 @@ class ZooExperiment(Experiment):
               telemetry=None):
         """Batched greedy decoding: prefill ``prompt_len`` tokens of the
         synthetic LM stream once, then ``gen - 1`` single-token decode
-        steps through the KV cache and the sharded-vocab argmax. Returns
+        steps through the KV / SSM cache and the sharded-vocab argmax. Returns
         the generated tokens [batch, gen] (numpy int32). Spans
         ``serve.prefill`` / ``serve.decode`` and the counter
         ``serve.decoded_tokens`` go to ``telemetry``.
@@ -677,11 +868,13 @@ class ZooExperiment(Experiment):
                     self._sync()
 
             def grow(c):
-                if c.dim() >= 3 and c.shape[2] == prompt_len:
+                # K/V of a prompt shorter than the window: pad to its slots
+                if c.shape[2] == prompt_len:
                     return torch.nn.functional.pad(
                         c, (0, 0) * (c.dim() - 3) + (0, window - prompt_len))
                 return c
-            caches = {k: grow(c) for k, c in caches.items()}
+            caches = {k: grow(c) if k in ("k", "v") else c
+                      for k, c in caches.items()}
             slots = decoder.init_cache_slots(
                 cfg, window, prefill_positions=torch.arange(
                     prompt_len, device=self.device))

@@ -107,7 +107,11 @@ class SoftmaxHead:
     # -- checkpoint contract ----------------------------------------------
     def gather_params(self, block: torch.Tensor) -> torch.Tensor:
         """The GLOBAL params (or a moment shaped like them) from this
-        member's block: the rows of a W-head, the buckets of a sketch."""
+        member's block: the rows of a W-head, the buckets of a sketch.
+        A head that holds no params of its own (the zoo's W-heads train
+        the model's class matrix: ``()``) gives them back as they are."""
+        if not torch.is_tensor(block):
+            return block
         axis = 0 if self.params_are_class_weights else 1
         return dist.all_gather(block.detach(), dim=axis, tiled=True)
 

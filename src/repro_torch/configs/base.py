@@ -185,9 +185,10 @@ ARCH_IDS = [
     "hymba_1_5b",
 ]
 
-# the dense decoders, whose configs the port carries; the other arch ids
-# wait for their families (ROADMAP.md A.9)
-PORTED_ARCH_IDS = ("smollm_135m", "qwen3_1_7b", "gemma_2b", "phi3_mini_3_8b")
+# the dense, ssm and hybrid decoders, whose configs the port carries; the
+# other arch ids wait for their families (ROADMAP.md A.9)
+PORTED_ARCH_IDS = ("smollm_135m", "qwen3_1_7b", "gemma_2b", "phi3_mini_3_8b",
+                   "mamba2_370m", "hymba_1_5b")
 
 
 def normalize_arch_id(arch: str) -> str:

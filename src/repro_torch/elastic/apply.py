@@ -1,10 +1,9 @@
-"""The snapshot-level reshard of the paper trainer: the port of the
-JAX package's ``elastic/apply.py`` (``reshard_zoo_snapshot`` waits for
-the zoo trainer, ROADMAP.md A.9.3).
+"""The snapshot-level reshards, one per trainer snapshot layout: the port
+of the JAX package's ``elastic/apply.py``.
 
-``reshard_paper_snapshot`` takes the host tree a trainer's ``_snapshot()``
-template restored from disk, the head, and the src/dst geometries, and
-returns ``(tree, needs_refresh, CommLedger)``: the tree rewritten for the
+``reshard_paper_snapshot`` / ``reshard_zoo_snapshot`` take the host tree a
+trainer's ``_snapshot()`` template restored from disk, the head, and the
+src/dst geometries, and return ``(tree, needs_refresh, CommLedger)``: the tree rewritten for the
 dst ring, whether the trainer must run the head's own refresh afterwards
 (the fallback for aux with no exact re-pack rule), and an itemized
 "reshard"-kind ledger of the bytes a multi-host reshard would move. The
@@ -18,7 +17,7 @@ from typing import Tuple
 from repro_torch.elastic.plan import (MeshGeometry, ReshardPlan, plan_reshard,
                                       validate_geometry)
 from repro_torch.elastic.reshard import (leaf_bytes, redistribute_dgc,
-                                         tree_bytes)
+                                         resize_vocab_rows, tree_bytes)
 from repro_torch.optim import tree_leaves, tree_map
 from repro_torch.telemetry.ledger import CommLedger
 
@@ -45,14 +44,18 @@ def _account_head(led: CommLedger, head, old_head_tree, new_head_tree,
         led.add("reshard", "head.aux", tree_bytes(new_head_tree["aux"]))
 
 
-def _reshard_moments(opt, head, src, dst, plan, led: CommLedger):
+def _reshard_moments(opt, head, src, dst, plan, led: CommLedger, *,
+                     model_leaf_fn=None):
     """The moments mirror (trunk params, head params): the trunk's are
-    replicated and kept; the head's get the head's own params
+    replicated and kept (paper) or resized like the model (zoo, through
+    ``model_leaf_fn``); the head's get the head's own params
     transform."""
     def fix(moment):
         if moment is None:
             return None
         trunk_m, hp_m = moment
+        if model_leaf_fn is not None:
+            trunk_m = tree_map(model_leaf_fn, trunk_m)
         if tree_leaves(hp_m):
             new_hp = tree_map(
                 lambda a: head.reshard_params_like(a, src, dst), hp_m)
@@ -87,6 +90,41 @@ def reshard_paper_snapshot(tree: dict, head, src: MeshGeometry,
     if "dgc" in tree:
         out["dgc"] = redistribute_dgc(tree["dgc"], dst.n_model)
         led.add("reshard", "dgc.error_feedback", tree_bytes(out["dgc"]))
+    return out, needs_refresh, led
+
+
+def reshard_zoo_snapshot(tree: dict, head, model_cfg, src: MeshGeometry,
+                         dst: MeshGeometry, *, padded_vocab_src: int
+                         ) -> Tuple[dict, bool, CommLedger]:
+    """Rewrite a zoo snapshot (model / head / opt / extra) for the dst
+    ring: vocab-leading model leaves (the embedding table, an untied head)
+    and their moments are re-padded when the dst ring implies another
+    padded vocab (``padded_vocab_src`` is the checkpoint's, from its
+    meta), and the head and its moments go through the same seam as the
+    paper path."""
+    validate_geometry(src, dst, reshard=True)
+    v_dst = model_cfg.vocab_size
+    n_real = int(model_cfg.real_vocab_size or model_cfg.vocab_size)
+    plan = plan_reshard(src, dst, v_dst)
+    led = CommLedger()
+
+    def fix_model_leaf(a):
+        if padded_vocab_src != v_dst and getattr(a, "shape", ()) \
+                and a.shape[0] == padded_vocab_src:
+            out = resize_vocab_rows(a, padded_vocab_src, v_dst,
+                                    n_real=n_real)
+            led.add("reshard", "model.vocab_pad",
+                    abs(leaf_bytes(out) - leaf_bytes(a)))
+            return out
+        return a
+
+    out = dict(tree)
+    out["model"] = tree_map(fix_model_leaf, tree["model"])
+    new_head, needs_refresh = head.reshard_state(tree["head"], src, dst)
+    _account_head(led, head, tree["head"], new_head, plan)
+    out["head"] = new_head
+    out["opt"] = _reshard_moments(tree["opt"], head, src, dst, plan, led,
+                                  model_leaf_fn=fix_model_leaf)
     return out, needs_refresh, led
 
 

@@ -10,9 +10,10 @@ port: the cnn trunk's nested params and moments, and DGC's u and v, too. A fitte
 ``state_to_save()``, taken to the host the same way, becomes a ring
 member's ``IVFIndex``, and a zoo model's params (``jax.device_get`` of a
 JAX ``ZooExperiment``'s ``params``, blocks stacked on a leading [L] axis)
-become the port's per-layer modules and back, and its ``head_state`` (the
-sketch heads' bucket weights, the knn graph, the LSH planes and tables,
-the hashes) a ring member's. Nothing here imports JAX: only numpy arrays
+become the port's per-layer modules and back, its SGD moments (which
+mirror the params and the head params) likewise, and its ``head_state``
+(the sketch heads' bucket weights, the knn graph, the LSH planes and
+tables, the hashes) a ring member's. Nothing here imports JAX: only numpy arrays
 and plain dicts cross.
 """
 from __future__ import annotations
@@ -25,8 +26,9 @@ import torch
 
 from repro_torch.api.heads import HeadState, member_aux, params_block
 from repro_torch.configs.base import HeadConfig, ModelConfig
+from repro_torch.models import lm
 from repro_torch.models.layers import ParamDict
-from repro_torch.optim import OptState
+from repro_torch.optim import OptState, tree_leaves, tree_map
 from repro_torch.serving.index import IVFIndex
 from repro_torch.train import hybrid
 from repro_torch.train.hybrid import HybridState
@@ -121,51 +123,69 @@ def zoo_params_from_numpy(tree: dict, cfg: ModelConfig, *, rank: int = 0,
                           world_size: int = 1, device) -> ParamDict:
     """Ring member ``rank``'s model params from the JAX package's zoo param
     tree as numpy arrays: ``{"embed": {"table"}, "blocks": {...},
-    "ln_f": {...}[, "head"]}``, each leaf of ``blocks`` stacked on a
-    leading [L] axis, which becomes one ``ParamDict`` a layer. The trunk
-    is replicated, so every member gets all of it; the class matrix's rows
-    must divide the ring, whose members each score their own block."""
+    "ln_f": {...}[, "head"]}``, each leaf of ``blocks`` (the ssm and
+    hybrid families' ``ssm.*``, ``fuse_attn`` and ``fuse_ssm`` too)
+    stacked on a leading [L] axis, which becomes one ``ParamDict`` a
+    layer (``models.lm.params_from_tree``). The trunk is replicated, so
+    every member gets all of it; the class matrix's rows must divide the
+    ring, whose members each score their own block."""
     if not 0 <= rank < world_size:
         raise ValueError(f"rank {rank} is not on a ring of {world_size}")
     if cfg.vocab_size % world_size:
         raise ValueError(f"the vocab of {cfg.vocab_size} rows does not "
                          f"divide the ring of {world_size}")
-
-    def convert(node, layer=None):
-        if isinstance(node, dict):
-            return {k: convert(v, layer) for k, v in node.items()}
-        a = np.asarray(node)
-        # a copy: the JAX package's host arrays are read-only
-        return torch.tensor(a if layer is None else a[layer],
-                            dtype=torch.float32, device=device)
-
-    blocks = tree["blocks"]
-    n_layers = len(np.asarray(blocks["ln1"]["scale"]))
-    if n_layers != cfg.n_layers:
-        raise ValueError(f"{n_layers} stacked layers, config has "
-                         f"{cfg.n_layers}")
-    params = {k: convert(v) for k, v in tree.items() if k != "blocks"}
-    params["blocks"] = [convert(blocks, layer) for layer in range(n_layers)]
-    return ParamDict(**params)
+    return lm.params_from_tree(tree, cfg, device=device)
 
 
 def zoo_params_to_numpy(params: ParamDict) -> dict:
     """The inverse of ``zoo_params_from_numpy``: the port's zoo params as
     the JAX package's tree of numpy arrays, each leaf of ``blocks``
     stacked on a leading [L] axis."""
-    def convert(node):
-        if isinstance(node, dict):
-            return {k: convert(v) for k, v in node.items()}
-        return node.detach().cpu().numpy()
+    return tree_map(lambda a: a.detach().cpu().numpy(),
+                    lm.params_tree(params))
 
-    def stack(layers):
-        if isinstance(layers[0], dict):
-            return {k: stack([x[k] for x in layers]) for k in layers[0]}
-        return np.stack(layers)
 
-    tree = {k: convert(v) for k, v in params.items() if k != "blocks"}
-    tree["blocks"] = stack([convert(b) for b in params.blocks])
-    return tree
+def zoo_opt_state_from_numpy(opt_state: dict, cfg: ModelConfig, *,
+                             rank: int = 0, world_size: int = 1,
+                             device) -> OptState:
+    """Ring member ``rank``'s zoo optimizer state from the JAX package's
+    ``ZooExperiment.opt_state`` as numpy arrays, ``{"step", "mu", "nu"}``
+    (its ``OptState``'s fields): each moment mirrors (model params, head
+    params), the model's part in the stacked layout of
+    ``zoo_params_from_numpy``, the head's ``()`` for the W-heads and the
+    GLOBAL [R, B, D] bucket moment for the sketch heads, of which this
+    member keeps its buckets. ``ZooExperiment.load_opt_state`` installs
+    it."""
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} is not on a ring of {world_size}")
+
+    def moment(pair):
+        if pair is None:
+            return None
+        model, hp = pair
+        return (lm.params_from_tree(model, cfg, device=device),
+                params_block(hp, rank, world_size, device)
+                if tree_leaves(hp) else ())
+
+    return OptState(step=int(np.asarray(opt_state["step"])),
+                    mu=moment(opt_state["mu"]),
+                    nu=moment(opt_state.get("nu")))
+
+
+def zoo_opt_state_to_numpy(opt_state: OptState) -> dict:
+    """The inverse of ``zoo_opt_state_from_numpy`` on a ring of one (the
+    sketch heads' bucket moments are this member's block): the JAX
+    package's ``OptState`` fields as numpy arrays, the model moments
+    stacked on [L]."""
+    def moment(pair):
+        if pair is None:
+            return None
+        model, hp = pair
+        return (zoo_params_to_numpy(model),
+                hp.detach().cpu().numpy() if torch.is_tensor(hp) else ())
+
+    return {"step": int(opt_state.step), "mu": moment(opt_state.mu),
+            "nu": moment(opt_state.nu)}
 
 
 def zoo_head_state_from_numpy(head, head_params, head_aux, *, rank: int = 0,

@@ -15,9 +15,12 @@ latency, QPS, batch occupancy and cache hit rate.
 is fit before the first query, and before the trace under ``--replay``, so
 the reported latencies do not include the fit.
 
-``--system zoo`` is token serving for the zoo's dense decoders (``--arch``,
-``--reduced``): prefill ``--prompt-len`` tokens once, then greedy decode
-``--gen`` tokens through the KV cache and the sharded-vocab argmax; it
+``--system zoo`` is token serving for the zoo's dense, ssm and hybrid
+decoders (``--arch``: smollm_135m, qwen3_1_7b, gemma_2b, phi3_mini_3_8b,
+mamba2_370m, hymba_1_5b; the other arch ids are an argparse error naming
+ROADMAP.md A.9; ``--reduced``): prefill ``--prompt-len`` tokens once, then
+greedy decode ``--gen`` tokens through the KV / SSM cache and the
+sharded-vocab argmax; it
 prints the prefill and decode times and tok/s. With ``--topk K`` (and
 ``--index ivf [--nprobe N]``) or ``--replay`` it serves the zoo's feature
 retrieval instead: d_model-wide queries classified against the model's
@@ -50,6 +53,8 @@ the JAX package.
       --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --system zoo \\
       --arch smollm_135m --topk 5 --index ivf --batch 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --system zoo --arch hymba_1_5b --reduced --prompt-len 40 --gen 8
 """
 from __future__ import annotations
 
@@ -180,6 +185,15 @@ def main(argv=None):
         p.error(f"--cache must be >= 0, got {args.cache}")
     if args.max_wait_ms < 0:
         p.error(f"--max-wait-ms must be >= 0, got {args.max_wait_ms}")
+    if args.system == "zoo":
+        from repro_torch.configs.base import (ARCH_IDS, PORTED_ARCH_IDS,
+                                              normalize_arch_id)
+        arch = normalize_arch_id(args.arch)
+        if arch not in ARCH_IDS:
+            p.error(f"unknown --arch {args.arch!r}; known: {ARCH_IDS}")
+        if arch not in PORTED_ARCH_IDS:
+            p.error(f"--arch {args.arch} is not ported to torch yet (see "
+                    f"ROADMAP.md queue A.9)")
     if args.system == "zoo" and not (args.topk or args.replay):
         if args.prompt_len <= 0 or args.gen <= 0:
             p.error(f"--prompt-len and --gen must be positive, got "

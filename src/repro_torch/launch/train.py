@@ -22,14 +22,15 @@ checkpoints; ``--resume`` restores the latest one under ``--ckpt-dir``
 TOTAL; ``--resume-reshard`` (implying ``--resume``) also takes a
 checkpoint written on a ring of another size.
 
-``--system zoo`` trains the zoo's dense decoder ``--arch`` (``--reduced``:
-its smoke variant, in fp32) on ``--batch`` x ``--seq`` tokens of the
-synthetic LM stream a step, with any of the six heads (the JAX launcher's
-head settings: k=16, k'=32, 10% active, rebuilt every 100 steps), at
-``--lr`` with ``--optimizer``, and prints ``[zoo] final next-token
-accuracy``. The zoo's checkpoints (``--ckpt-*``, ``--resume*`` with
-``--system zoo``) are not ported yet and exit with an argparse error
-naming ROADMAP.md A.9.3.
+``--system zoo`` trains the zoo's decoder ``--arch`` (the dense
+smollm_135m, qwen3_1_7b, gemma_2b, phi3_mini_3_8b, the ssm mamba2_370m or
+the hybrid hymba_1_5b; ``--reduced``: its smoke variant, in fp32; the
+other arch ids are an argparse error naming ROADMAP.md A.9) on ``--batch``
+x ``--seq`` tokens of the synthetic LM stream a step, with any of the six
+heads (the JAX launcher's head settings: k=16, k'=32, 10% active, rebuilt
+every 100 steps), at ``--lr`` with ``--optimizer``, and prints ``[zoo]
+final next-token accuracy``. ``--ckpt-*`` and ``--resume*`` work there as
+they do for the paper system.
 
   PYTHONPATH=src python -m repro_torch.launch.train --system paper \\
       --classes 1020250 --feat-dim 512 --batch 256 --steps 4 --fccs
@@ -49,6 +50,12 @@ naming ROADMAP.md A.9.3.
       --arch smollm_135m --batch 16 --seq 512 --steps 2 --lr 0.5
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --system zoo --reduced --head knn --batch 4 --seq 16 --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --system zoo --arch mamba2_370m --reduced --batch 4 --seq 16 \\
+      --lr 0.5 --ckpt-dir zck --ckpt-every 2 --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --system zoo --arch mamba2_370m --reduced --batch 4 --seq 16 \\
+      --lr 0.5 --ckpt-dir zck --resume --steps 6    # runs steps 4, 5
 """
 from __future__ import annotations
 
@@ -118,12 +125,14 @@ def parse_args(argv=None):
         p.error(f"--steps must be positive, got {args.steps}")
     if args.batch <= 0:
         p.error(f"--batch must be positive, got {args.batch}")
-    ckpt_flags = (args.ckpt_dir or args.ckpt_every is not None
-                  or args.ckpt_keep is not None or args.resume
-                  or args.resume_reshard)
-    if args.system == "zoo" and ckpt_flags:
-        p.error("the zoo's checkpoints (--ckpt-*, --resume*) "
-                + _NOT_PORTED.format("A.9.3"))
+    if args.system == "zoo":
+        from repro_torch.configs.base import (ARCH_IDS, PORTED_ARCH_IDS,
+                                              normalize_arch_id)
+        arch = normalize_arch_id(args.arch)
+        if arch not in ARCH_IDS:
+            p.error(f"unknown --arch {args.arch!r}; known: {ARCH_IDS}")
+        if arch not in PORTED_ARCH_IDS:
+            p.error(f"--arch {args.arch} " + _NOT_PORTED.format("A.9"))
     if args.seq <= 0:
         p.error(f"--seq must be positive, got {args.seq}")
     # --knn is a back-compat alias; an explicit non-default --head wins
@@ -236,8 +245,20 @@ def _train_zoo(args, telemetry) -> int:
     exp = Experiment.from_config(
         system="zoo", arch=args.arch, reduced=args.reduced,
         batch=args.batch, seq=args.seq, head=hcfg,
-        train=TrainConfig(optimizer=args.optimizer), device=args.device)
-    hist = exp.fit(args.steps, lr=args.lr, telemetry=telemetry)
+        train=TrainConfig(optimizer=args.optimizer),
+        ckpt_dir=args.ckpt_dir or None, ckpt_every=args.ckpt_every,
+        ckpt_keep=args.ckpt_keep or 0, device=args.device)
+    resume = "reshard" if args.resume_reshard else bool(args.resume)
+    hist = exp.fit(args.steps, lr=args.lr, resume=resume,
+                   telemetry=telemetry)
+    if resume:
+        start = hist[0]["step"] if hist else args.steps
+        print(f"[zoo] resumed at t={start}: {len(hist)} steps to "
+              f"{args.steps}")
+    if not hist:
+        print(f"[zoo] nothing to run: the checkpoint is at step "
+              f"{args.steps}")
+        return 0
     acc = exp.evaluate()
     if not (math.isfinite(hist[-1]["loss"]) and math.isfinite(acc)):
         print(f"[zoo] non-finite result: loss {hist[-1]['loss']}, "

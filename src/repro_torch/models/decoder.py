@@ -1,17 +1,22 @@
-"""Decoder-layer stack of the dense (and vlm) family: the port of the JAX
-package's ``models/decoder.py``.
+"""Decoder-layer stack of the dense, vlm, ssm and hybrid families: the
+port of the JAX package's ``models/decoder.py``.
 
 The JAX package stacks the layers' params on a leading ``layers`` axis and
 scans over them; here the layers are a list of ``ParamDict``s and the
 stack a Python loop. The caches keep the JAX layout, stacked over layers:
 
-  {"k": [L,B,W,Hk,Dh], "v": [L,B,W,Hk,Dh]}   (W = rotating window slots)
+  attn: {"k": [L,B,W,Hk,Dh], "v": [L,B,W,Hk,Dh]}   (W = rotating window slots)
+  ssm:  {"ssm_state": [L,B,H,N,P] fp32, "conv_state": [L,B,K-1,Dxbc]}
 
-plus the slot bookkeeping shared by all layers: {"pos": int32 scalar,
-"pos_slots": [W] int32}. Decode writes the new token's K/V into the cache
-IN PLACE (the JAX package returns a new cache): a step then moves one
-token's K/V, not the whole cache. The moe, ssm and hybrid families wait
-for their slice (ROADMAP.md A.9).
+(the ssm family has no K/V; the hybrid family has both) plus the slot
+bookkeeping shared by all layers: {"pos": int32 scalar, "pos_slots": [W]
+int32}. Decode writes the new token's K/V, and the new ssm and conv
+states, into the cache IN PLACE (the JAX package returns a new cache): a
+step then moves one token's worth, not the whole cache. The hybrid block
+runs attention and the SSM in parallel on the same normed input and fuses
+``0.5 * (rms_norm(attn) * fuse_attn + rms_norm(ssm) * fuse_ssm)``; the ssm
+block has no MLP sublayer. The moe family waits for its slice (ROADMAP.md
+A.9).
 """
 from __future__ import annotations
 
@@ -20,11 +25,13 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (ParamDict, apply_attention, apply_mlp,
                                        apply_norm, init_attention, init_mlp,
-                                       init_norm, project_kv)
+                                       init_norm, project_kv, rms_norm)
 
-PORTED_FAMILIES = ("dense", "vlm")
+PORTED_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+SSM_CACHE = ("ssm_state", "conv_state")
 
 
 def require_ported(cfg: ModelConfig) -> None:
@@ -41,10 +48,18 @@ def require_ported(cfg: ModelConfig) -> None:
 
 def init_block(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:
     require_ported(cfg)
-    return ParamDict(ln1=init_norm(cfg, device=gen.device),
-                     attn=init_attention(gen, cfg),
-                     ln2=init_norm(cfg, device=gen.device),
-                     mlp=init_mlp(gen, cfg))
+    dev = gen.device
+    if cfg.family == "ssm":
+        return ParamDict(ln1=init_norm(cfg, device=dev),
+                         ssm=ssm_lib.init_ssm(gen, cfg))
+    p = {"ln1": init_norm(cfg, device=dev), "attn": init_attention(gen, cfg),
+         "ln2": init_norm(cfg, device=dev)}
+    if cfg.family == "hybrid":
+        p["ssm"] = ssm_lib.init_ssm(gen, cfg)
+        p["fuse_attn"] = torch.ones(cfg.d_model, device=dev)
+        p["fuse_ssm"] = torch.ones(cfg.d_model, device=dev)
+    p["mlp"] = init_mlp(gen, cfg)
+    return ParamDict(**p)
 
 
 def init_blocks(gen: torch.Generator, cfg: ModelConfig) -> list:
@@ -56,22 +71,38 @@ def init_blocks(gen: torch.Generator, cfg: ModelConfig) -> list:
 # ---------------------------------------------------------------------------
 
 
+def _fuse(p, attn_out, ssm_out, dtype):
+    """The hybrid block's fusion of its two normed mixers."""
+    return 0.5 * (rms_norm(attn_out) * p.fuse_attn.to(dtype)
+                  + rms_norm(ssm_out) * p.fuse_ssm.to(dtype))
+
+
 def _mixer_forward(p, cfg: ModelConfig, x, positions, backend: str = "ref",
                    self_rows: bool = False):
-    """Sequence-mixing sublayer. Returns (mix_out, cache_out_dict)."""
+    """Sequence-mixing sublayer (attn / ssm / parallel attn + ssm).
+    Returns (mix_out, cache_out_dict)."""
     h = apply_norm(p.ln1, x, cfg)
+    if cfg.family == "ssm":
+        return ssm_lib.apply_ssm(p.ssm, cfg, h)
     attn_out, (k, v) = apply_attention(
         p.attn, cfg, h, positions=positions, causal=True,
         window=cfg.sliding_window, backend=backend, self_rows=self_rows)
-    return attn_out, {"k": k, "v": v}
+    cache = {"k": k, "v": v}
+    if cfg.family == "hybrid":
+        ssm_out, ssm_cache = ssm_lib.apply_ssm(p.ssm, cfg, h)
+        cache.update(ssm_cache)
+        return _fuse(p, attn_out, ssm_out, x.dtype), cache
+    return attn_out, cache
 
 
 def _block_forward(p, cfg: ModelConfig, x, positions, backend: str = "ref",
                    self_rows: bool = False):
     """Full block. Returns (x, cache). (The JAX package's third output,
-    the MoE router's auxiliary loss, is 0 for the dense family.)"""
+    the MoE router's auxiliary loss, is 0 for these families.)"""
     mix, cache = _mixer_forward(p, cfg, x, positions, backend, self_rows)
     x = x + mix
+    if cfg.family == "ssm":
+        return x, cache
     x = x + apply_mlp(p.mlp, cfg, apply_norm(p.ln2, x, cfg))
     return x, cache
 
@@ -86,17 +117,16 @@ def apply_stack(blocks, cfg: ModelConfig, x, positions, *,
     ``self_rows``: ``positions`` is arange(S), which the ``kernel``
     backend's attention needs (``layers.multihead_attention``)."""
     require_ported(cfg)
-    ks, vs = [], []
+    layers = []
     for p in blocks:
         x, cache = _block_forward(p, cfg, x, positions, backend, self_rows)
         if want_cache:
-            k, v = cache["k"], cache["v"]
-            if cache_window is not None:
-                k, v = _compress_kv(k, v, positions, cache_window)
-            ks.append(k)
-            vs.append(v)
-    caches = ({"k": torch.stack(ks), "v": torch.stack(vs)} if want_cache
-              else None)
+            if cache_window is not None and "k" in cache:
+                cache["k"], cache["v"] = _compress_kv(
+                    cache["k"], cache["v"], positions, cache_window)
+            layers.append(cache)
+    caches = ({k: torch.stack([c[k] for c in layers]) for k in layers[0]}
+              if want_cache else None)
     return x, torch.zeros((), device=x.device), caches
 
 
@@ -139,11 +169,22 @@ def init_cache_slots(cfg: ModelConfig, window: int, prefill_positions=None,
 # ---------------------------------------------------------------------------
 
 
+def _ssm_decode(p, cfg: ModelConfig, h, layer_cache):
+    """The SSM's decode step; its new states are written into
+    ``layer_cache``'s leaves in place."""
+    out, sc = ssm_lib.apply_ssm_step(p.ssm, cfg, h, layer_cache)
+    for name in SSM_CACHE:
+        layer_cache[name].copy_(sc[name])
+    return out
+
+
 def _block_decode(p, cfg: ModelConfig, x, layer_cache, pos, pos_slots, slot,
                   backend: str = "ref"):
-    """x: [B,1,D]. Writes the token's K/V into ``layer_cache`` at ``slot``
-    in place. Returns (x, layer_cache)."""
+    """x: [B,1,D]. Writes the token's K/V into ``layer_cache`` at ``slot``,
+    and the new ssm and conv states, in place. Returns (x, layer_cache)."""
     h = apply_norm(p.ln1, x, cfg)
+    if cfg.family == "ssm":
+        return x + _ssm_decode(p, cfg, h, layer_cache), layer_cache
     positions = pos[None]
     k_new, v_new = project_kv(p.attn, cfg, h, positions)
     idx = slot.reshape(1).long()
@@ -154,6 +195,9 @@ def _block_decode(p, cfg: ModelConfig, x, layer_cache, pos, pos_slots, slot,
         p.attn, cfg, h, positions=positions, kv=(kc, vc),
         kv_positions=new_slots, causal=True, window=cfg.sliding_window,
         backend=backend)
+    if cfg.family == "hybrid":
+        attn_out = _fuse(p, attn_out, _ssm_decode(p, cfg, h, layer_cache),
+                         x.dtype)
     x = x + attn_out
     x = x + apply_mlp(p.mlp, cfg, apply_norm(p.ln2, x, cfg))
     return x, layer_cache
@@ -163,15 +207,14 @@ def decode_stack(blocks, cfg: ModelConfig, x, caches, slots_state, *,
                  window: int, backend: str = "ref"):
     """One decode step through all layers.
 
-    caches: the stacked {"k", "v"} (updated in place); slots_state:
+    caches: the stacked cache leaves (updated in place); slots_state:
     {"pos", "pos_slots"}. Returns (x, caches, new_slots_state)."""
     require_ported(cfg)
     pos = slots_state["pos"]
     pos_slots = slots_state["pos_slots"]
     slot = pos % window
     for i, p in enumerate(blocks):
-        x, _ = _block_decode(p, cfg, x, {"k": caches["k"][i],
-                                         "v": caches["v"][i]},
+        x, _ = _block_decode(p, cfg, x, {k: c[i] for k, c in caches.items()},
                              pos, pos_slots, slot, backend)
     new_state = {"pos": pos + 1,
                  "pos_slots": pos_slots.index_copy(
@@ -183,7 +226,14 @@ def init_decode_cache(cfg: ModelConfig, batch: int, window: int, dtype, *,
                       device):
     """Fresh (empty) stacked cache."""
     require_ported(cfg)
-    shape = (cfg.n_layers, batch, window, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    c = {}
+    if cfg.family != "ssm":
+        shape = (cfg.n_layers, batch, window, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        c["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if cfg.family in ("ssm", "hybrid"):
+        layer = ssm_lib.init_ssm_cache(cfg, batch, dtype, device=device)
+        c.update({k: a[None].repeat((cfg.n_layers,) + (1,) * a.dim())
+                  for k, a in layer.items()})
+    return c

@@ -113,6 +113,15 @@ def apply_norm(p, x, cfg: ModelConfig):
     return y.to(dt)
 
 
+def rms_norm(x, eps: float = 1e-6):
+    """Scale-free RMS norm (the hybrid family's fusion), at its own eps,
+    not ``cfg.norm_eps``."""
+    dt = x.dtype
+    x = x.float()
+    ms = x.square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(ms + eps)).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------

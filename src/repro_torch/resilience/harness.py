@@ -15,8 +15,10 @@ interrupted:
     ``loss_tol`` (a path with nondeterministic operations, such as a
     convolution backward that picks a nondeterministic algorithm).
 
-``kill_and_recover`` runs the three legs (reference, victim, resume) in
-this process (on a ring, every member runs it; member 0 writes the
+Both systems go through it: the paper system's experiments (their
+``trainer``) and the zoo's (``ZooExperiment``: its own ``_snapshot``,
+cursor, history and telemetry). ``kill_and_recover`` runs the three legs
+(reference, victim, resume) in this process (on a ring, every member runs it; member 0 writes the
 checkpoint). The victim is dropped, and the card's cache emptied, before
 the resumed experiment is built, so no more than two experiments hold the
 card's memory at once. ``tree_compare`` compares tensors where they lie,
@@ -168,6 +170,28 @@ def _loss_divergence(resumed: list, reference: list) -> float:
     return worst
 
 
+def _snapshot_of(exp) -> dict:
+    """The experiment's full-state checkpoint tree (both systems)."""
+    if hasattr(exp, "trainer"):            # paper system
+        return exp.trainer._snapshot()
+    return exp._snapshot()                 # zoo system
+
+
+def _cursor_of(exp) -> int:
+    return exp.trainer._t if hasattr(exp, "trainer") else exp._t
+
+
+def _history_of(exp) -> list:
+    return exp.trainer.history if hasattr(exp, "trainer") else exp.history
+
+
+def _install_tracer(exp, tele) -> None:
+    if hasattr(exp, "trainer"):            # paper system
+        exp.trainer.telemetry = tele
+    else:                                  # zoo system
+        exp.telemetry = tele
+
+
 def _span_s(tracer, name: str) -> float:
     return sum(e.dur_ns for e in tracer.events if e.name == name) * 1e-9
 
@@ -186,7 +210,7 @@ def _run_victim(make_exp, ckpt_dir, total_steps, plan, fit_kw) -> tuple:
     from repro_torch.telemetry import Tracer
     victim = make_exp(ckpt_dir)
     tele = Tracer()
-    victim.trainer.telemetry = tele
+    _install_tracer(victim, tele)
     try:
         victim.fit(total_steps, step_hook=fault_hook(plan), **fit_kw)
         raise AssertionError(
@@ -206,10 +230,10 @@ def _resume(make_exp, ckpt_dir, total_steps, fit_kw, tele, *,
     seconds from its construction to the end of the restore)."""
     t0 = time.perf_counter()
     resumed = make_exp(ckpt_dir)
-    resumed.trainer.telemetry = tele
+    _install_tracer(resumed, tele)
     restored_step = resumed.restore(reshard=reshard)
     recovery_s = time.perf_counter() - t0
-    remaining = total_steps - resumed.trainer._t
+    remaining = total_steps - _cursor_of(resumed)
     if remaining > 0:
         resumed.fit(remaining, **fit_kw)
     return resumed, restored_step, recovery_s
@@ -266,17 +290,17 @@ def kill_and_recover(make_exp: Callable[[Optional[str]], object], *,
     resumed, restored_step, recovery_s = _resume(
         make_exp, ckpt_dir, total_steps, fit_kw, tele, reshard=False)
 
-    cmp = tree_compare(resumed.trainer._snapshot(), ref.trainer._snapshot())
+    cmp = tree_compare(_snapshot_of(resumed), _snapshot_of(ref))
     return RecoveryReport(
         head=head, equivalence=equivalence, kill_at=kill_at,
         restored_step=restored_step,
         steps_replayed=kill_at - restored_step, recovery_s=recovery_s,
         bitwise=cmp["bitwise"], max_abs_diff=cmp["max_abs_diff"],
         mismatches=cmp["mismatches"],
-        loss_max_rel=_loss_divergence(resumed.trainer.history,
-                                      ref.trainer.history),
-        resumed_history=list(resumed.trainer.history),
-        reference_history=list(ref.trainer.history),
+        loss_max_rel=_loss_divergence(_history_of(resumed),
+                                      _history_of(ref)),
+        resumed_history=list(_history_of(resumed)),
+        reference_history=list(_history_of(ref)),
         restore_spans=[e for e in tele.events if e.name == "train.restore"],
         save_s=save_s, save_fetch_s=fetch_s,
         restore_s=_span_s(tele, "train.restore"),
@@ -311,7 +335,7 @@ def _resume_leg(make_exp, ckpt_dir: str, total_steps: int,
     resumed, restored_step, recovery_s = _resume(
         make_exp, ckpt_dir, total_steps, fit_kw, tele, reshard=True)
     return {"restored_step": restored_step, "recovery_s": recovery_s,
-            "history": list(resumed.trainer.history),
+            "history": list(_history_of(resumed)),
             "spans": [e for e in tele.events
                       if e.name in ("train.restore", "train.reshard")],
             "reshard_s": _span_s(tele, "train.reshard"),

@@ -755,6 +755,12 @@ CE_ATOL = 1e-4        # ce_forward m and corr (scores), absolute
 CE_Z_RTOL = 1e-4      # ce_forward z, a sum over V terms, relative
 CE_TIE_GAP = 1e-5     # amax may differ only where the top-2 scores lie closer
 CE_BWD_TOL = 2e-5     # ce_backward: each part within this of its own max|plain|
+# ce_backward on a batch the model has learnt, where p - 1 cancels in the
+# label columns: each part within this many times the plain version's own
+# rounding (its distance from the same formula in fp64) when that is above
+# CE_BWD_TOL of its max. 3xTF32 products read 1.3 times it, 1xTF32 ones
+# about 100 (tests/test_torch_kernels.py)
+CE_OWN_ROUNDING = 4.0
 
 
 def tf32_round(x):
@@ -874,6 +880,34 @@ def ce_backward_gate(df, dw, pdf, pdw, y) -> dict:
     failed, parts = _parts_gate((
         ("df", df, pdf), ("dW label rows", dw[lab], pdw[lab]),
         ("dW other rows", dw[~lab], pdw[~lab])))
+    return {"ok": not failed, "failed": failed, "parts": parts}
+
+
+def ce_backward_floor_gate(df, dw, pdf, pdw, qdf, qdw, y) -> dict:
+    """``ce_backward_gate`` with a floor, for a batch the model has learnt:
+    there p is near 1 at the labels, p - 1 cancels, and the parts shrink
+    to a size where fp32 rounding alone reaches CE_BWD_TOL of their max.
+    Each part (df, dW's label rows, dW's other rows) is held within the
+    larger of CE_BWD_TOL of its own max|plain| and CE_OWN_ROUNDING times
+    the plain version's own rounding: its max distance from (qdf, qdw),
+    the plain version in fp64 on the same inputs. Returns ``ok``, which
+    parts fail, and {part: (max abs err, err / max|plain|, plain's own
+    rounding)}."""
+    lab = torch.zeros(dw.shape[0], dtype=torch.bool, device=dw.device)
+    lab[y[y >= 0].long()] = True
+    failed, parts = [], {}
+    for name, k, p, q in (("df", df, pdf, qdf),
+                          ("dW label rows", dw[lab], pdw[lab], qdw[lab]),
+                          ("dW other rows", dw[~lab], pdw[~lab], qdw[~lab])):
+        if not p.numel():
+            continue
+        top = float(p.abs().max())
+        own = float((p.double() - q.double()).abs().max())
+        err = (float((k - p).abs().max()) if bool(torch.isfinite(k).all())
+               else float("inf"))
+        if not err <= max(CE_BWD_TOL * top, CE_OWN_ROUNDING * own):
+            failed.append(name)
+        parts[name] = (err, err / top if top else err, own)
     return {"ok": not failed, "failed": failed, "parts": parts}
 
 
@@ -1092,6 +1126,95 @@ def elastic_restore(spec: dict, ckpt_dir: str, *, queries=None,
     return out
 
 
+def zoo_ckpt_experiment(spec: dict, ckpt_dir=None):
+    """A CPU ``ZooExperiment`` on this member from ``spec``: ``arch`` (its
+    reduced config), ``head`` (the JAX package's ``HeadConfig`` fields as
+    a dict), ``batch``, ``seq`` and ``ckpt_every``, with SGD,
+    checkpointing under ``ckpt_dir``."""
+    from repro_torch import interop
+    from repro_torch.api import Experiment
+    from repro_torch.configs.base import TrainConfig
+    return Experiment.from_config(
+        system="zoo", arch=spec["arch"], reduced=True,
+        head=interop.head_config_from_dict(spec["head"]),
+        train=TrainConfig(optimizer="sgd"), batch=spec["batch"],
+        seq=spec["seq"], ckpt_dir=ckpt_dir,
+        ckpt_every=spec.get("ckpt_every", 0), log_every=0, device="cpu")
+
+
+def zoo_ckpt_from_jax(spec: dict, jax_dir: str, port_dir: str,
+                      jax_snap: dict) -> dict:
+    """Restore the JAX package's zoo checkpoint under ``jax_dir`` on this
+    member, hold the port's GLOBAL snapshot to the JAX package's
+    (``jax_snap``, host arrays) with ``tree_compare``, then save it under
+    ``port_dir``. Returns the restored step and cursor, the comparison and
+    the weights_version."""
+    from repro_torch.resilience import tree_compare
+    exp = zoo_ckpt_experiment(spec, jax_dir)
+    step = exp.restore()
+    cmp = tree_compare(exp._snapshot(), jax_snap)
+    exp.ckpt_dir = port_dir
+    exp.save_checkpoint()
+    return {"step": step, "t": exp._t, "cmp": cmp,
+            "version": exp.weights_version}
+
+
+def zoo_kill_recover(spec: dict, ckpt_dir: str, *, total_steps: int,
+                     kill_at: int, fit_kw: dict,
+                     equivalence: str = "bitwise"):
+    """``resilience.kill_and_recover`` of the zoo experiment of ``spec``
+    on this member (every member runs it; member 0 writes)."""
+    from repro_torch.resilience import kill_and_recover
+    return kill_and_recover(lambda d: zoo_ckpt_experiment(spec, d),
+                            total_steps=total_steps, kill_at=kill_at,
+                            ckpt_dir=ckpt_dir, equivalence=equivalence,
+                            head="zoo/" + spec["head"]["softmax_impl"],
+                            fit_kw=fit_kw)
+
+
+def _zoo_state(exp) -> dict:
+    """The parts of a zoo snapshot that do not depend on the ring, as host
+    arrays (a collective)."""
+    from repro_torch.optim import tree_map
+    snap = exp._snapshot()
+    # copies: the snapshot shares the live params' top-level tensors
+    return tree_map(lambda t: _np(t).copy(),
+                    {k: snap[k] for k in ("model", "head", "opt")})
+
+
+def zoo_elastic_source(spec: dict, ckpt_dir: str, *, steps: int) -> dict:
+    """``fit(steps)`` on this ring, checkpointing; returns the final
+    snapshot's model, head and opt parts and the history."""
+    exp = zoo_ckpt_experiment(spec, ckpt_dir)
+    exp.fit(steps, lr=0.5)
+    return {"snap": _zoo_state(exp), "history": exp.history}
+
+
+def zoo_elastic_restore(spec: dict, ckpt_dir: str, *, train_to: int
+                        ) -> dict:
+    """On this ring: a restore without ``reshard`` must raise
+    ``ReshardError``; then ``restore(reshard=True)``, the restored
+    snapshot's parts, the reshard's counters, and the losses of the steps
+    on to ``train_to``."""
+    from repro_torch.elastic import ReshardError
+    from repro_torch.telemetry import Tracer
+    exp = zoo_ckpt_experiment(spec, ckpt_dir)
+    try:
+        exp.restore()
+        blocked = None
+    except ReshardError as e:
+        blocked = str(e)
+    tele = Tracer()
+    exp.telemetry = tele
+    step = exp.restore(reshard=True)
+    out = {"blocked": blocked, "step": step, "snap": _zoo_state(exp),
+           "bytes_moved": tele.counters.get("reshard.bytes_moved", 0.0),
+           "spans": sorted({e.name for e in tele.events})}
+    exp.fit(train_to - exp._t, lr=0.5)
+    out["losses"] = [r["loss"] for r in exp.history]
+    return out
+
+
 def run_all(cases: list) -> list:
     """Run ``(worker name, args, kwargs)`` cases in order on this member,
     so one spawned ring serves a whole group of tests."""
@@ -1113,5 +1236,9 @@ def run_all(cases: list) -> list:
                "cnn_serve": cnn_serve, "ckpt_from_jax": ckpt_from_jax,
                "kill_recover": kill_recover,
                "elastic_source": elastic_source,
-               "elastic_restore": elastic_restore}
+               "elastic_restore": elastic_restore,
+               "zoo_ckpt_from_jax": zoo_ckpt_from_jax,
+               "zoo_kill_recover": zoo_kill_recover,
+               "zoo_elastic_source": zoo_elastic_source,
+               "zoo_elastic_restore": zoo_elastic_restore}
     return [workers[name](*args, **kwargs) for name, args, kwargs in cases]

@@ -140,20 +140,22 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
 
 
 def test_unported_parts_say_so():
-    # the zoo trains and serves its dense decoders; its other families, and
-    # its checkpoints, wait for their slices
+    # the zoo trains, serves and checkpoints its dense, ssm and hybrid
+    # decoders; its other families wait for their slices
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Experiment.from_config(system="zoo", arch="qwen3_moe_30b_a3b",
                                reduced=True, device="cpu")
     zoo = Experiment.from_config(system="zoo", arch="smollm_135m",
                                  reduced=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.9.3"):
+    # the zoo's checkpoints are ported: like the paper system's, a resume
+    # wants a ckpt_dir to restore from
+    with pytest.raises(ValueError, match="ckpt_dir"):
         zoo.fit(1, resume=True)
-    # the zoo's checkpoints wait for the zoo trainer; the paper system's
-    # are ported and want a ckpt_dir to restore from
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.9.3"):
-        Experiment.from_config(system="zoo", arch="smollm_135m",
-                               reduced=True, device="cpu", ckpt_dir="ckpt")
+    ck = Experiment.from_config(system="zoo", arch="mamba2_370m",
+                                reduced=True, device="cpu",
+                                ckpt_dir="no_such_ckpt_dir")
+    assert ck.restore(missing_ok=True) is None
+    assert ck.ckpt_dir == "no_such_ckpt_dir"
     exp = Experiment.from_config(system="paper", classes=64, feat_dim=8,
                                  device="cpu")
     with pytest.raises(ValueError, match="ckpt_dir"):

@@ -303,6 +303,49 @@ def test_1xtf32_products_break_the_card_gates():
         assert not gates[f"backward, {term}"]["ok"], gates
 
 
+def _learnt_batch_gates(passes):
+    """A batch the model has learnt (raw logits, scale 1: a third of the
+    rows hold their label's row, so p at the label is 1 to fp32), the
+    loss's cotangents: the products emulated in ``passes``xTF32 against
+    the plain version, through ``ce_backward_gate`` and through
+    ``ce_backward_floor_gate`` with the plain version in fp64."""
+    rng = np.random.default_rng(23)
+    b, v, d = 512, 4000, 256
+    w = torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32)
+                         * 0.05)
+    y = torch.from_numpy(rng.integers(0, v, b).astype(np.int32))
+    f = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
+    learnt = torch.from_numpy(rng.random(b) < 0.3)
+    wy = w[y[learnt].long()]
+    f[learnt] = f[learnt] * 0.1 + 24.0 * wy / (wy * wy).sum(1, keepdim=True)
+    m, z, _, _ = tce.ce_forward_plain(f, w, y, v, 1.0)
+    gz, gc = 1.0 / (b * z), torch.full_like(z, -1.0 / b)
+    p_label = torch.exp((f * w[y.long()]).sum(1) - m) / z
+    assert float(p_label.max()) > 1 - 1e-6
+    plain = tce.ce_backward_plain(f, w, y, m, gz, gc, v, 1.0)
+    plain64 = tce.ce_backward_plain(f.double(), w.double(), y, m.double(),
+                                    gz.double(), gc.double(), v, 1.0)
+    emu = testing.ce_backward_tf32(f, w, y, m, gz, gc, v, 1.0, passes)
+    return (testing.ce_backward_gate(*emu, *plain, y),
+            testing.ce_backward_floor_gate(*emu, *plain, *plain64, y))
+
+
+def test_floor_gate_holds_a_learnt_batch():
+    """On a learnt batch the relative gate rejects even 3xTF32 products
+    (fp32 rounding of p - 1 reaches CE_BWD_TOL of the label rows' max),
+    while the floor of CE_OWN_ROUNDING times the plain version's own
+    rounding passes them with room and still rejects 1xTF32 products."""
+    rel3, floor3 = _learnt_batch_gates(3)
+    assert not rel3["ok"] and "dW label rows" in rel3["failed"], rel3
+    assert floor3["ok"], floor3
+    for err, rel, own in floor3["parts"].values():
+        assert rel <= testing.CE_BWD_TOL or \
+            err <= testing.CE_OWN_ROUNDING / 2 * own
+    rel1, floor1 = _learnt_batch_gates(1)
+    assert not rel1["ok"] and not floor1["ok"], floor1
+    assert set(floor1["failed"]) == {"df", "dW label rows", "dW other rows"}
+
+
 # ---------------------------------------------------------------------------
 # stage1_topk / topk_rows / topk_dc
 # ---------------------------------------------------------------------------

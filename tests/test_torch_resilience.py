@@ -17,10 +17,12 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch import dist, testing
 from repro_torch.api import Experiment
 from repro_torch.launch import train as launcher
+from repro_torch.optim import tree_leaves
 from repro_torch.resilience import (FaultPlan, SimulatedFault, fault_hook,
                                     kill_and_recover, tree_compare)
 from repro_torch.telemetry import Tracer
@@ -264,7 +266,11 @@ def test_fault_plan_validation():
     (["--ckpt-dir", "a", "--resume", "b"], "conflicts"),
     (["--ckpt-dir", "a", "--ckpt-keep", "0"], "--ckpt-keep must be >= 1"),
     (["--ckpt-dir", "a", "--ckpt-every", "-1"], "--ckpt-every must be >= 0"),
-    (["--system", "zoo", "--ckpt-every", "2"], "ROADMAP.md queue A.9.3"),
+    # the zoo's checkpoint flags pass the same checks (the id is kept from
+    # when the zoo refused them, naming ROADMAP.md A.9.3)
+    pytest.param(["--system", "zoo", "--resume"],
+                 "--resume requires --ckpt-dir",
+                 id="argv4-ROADMAP.md queue A.9.3"),
 ])
 def test_launcher_checkpoint_flag_checks(argv, err, capsys):
     with pytest.raises(SystemExit) as e:
@@ -297,7 +303,16 @@ def test_launcher_resumes_from_its_checkpoint(tmp_path, capsys):
     assert "nothing to run" in capsys.readouterr().out
 
 
-def test_zoo_checkpoints_wait_for_the_zoo_trainer():
-    with pytest.raises(NotImplementedError, match="A.9.3"):
-        Experiment.from_config(system="zoo", arch="smollm_135m",
-                               reduced=True, device="cpu", ckpt_dir="ck")
+def test_zoo_checkpoints_wait_for_the_zoo_trainer(tmp_path):
+    """The zoo trainer's checkpoints (the name is kept from when they
+    refused): a save at the end of ``fit`` and a fresh experiment's
+    restore give back the params bit for bit, at the saved cursor."""
+    ck = str(tmp_path / "ck")
+    kw = dict(system="zoo", arch="smollm_135m", reduced=True, device="cpu",
+              batch=2, seq=8, log_every=0, ckpt_dir=ck)
+    exp = Experiment.from_config(**kw)
+    exp.fit(2, lr=0.5)
+    back = Experiment.from_config(**kw)
+    assert back.restore() == 2 and back._t == 2
+    for a, b in zip(tree_leaves(back.params), tree_leaves(exp.params)):
+        assert torch.equal(a, b)

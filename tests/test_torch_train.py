@@ -390,14 +390,15 @@ def test_train_launcher_cnn_and_dgc_on_the_cpu(extra, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,queue", [
-    # the zoo trains since its slice landed; its checkpoints still wait
-    pytest.param(["--system", "zoo", "--ckpt-every", "2"], "A.9",
+    # the zoo trains, and checkpoints, its dense, ssm and hybrid decoders;
+    # its moe and encdec families and the chameleon config still wait
+    # (the ids are kept from when these cases were the zoo's checkpoint
+    # flags, and before that A.7's)
+    pytest.param(["--system", "zoo", "--arch", "qwen3_moe_30b_a3b"], "A.9",
                  id="argv0-A.9"),
-    # the paper system's checkpoints are ported; the zoo's wait for its
-    # trainer (the ids are kept from when A.7 held every --ckpt-* flag)
-    pytest.param(["--system", "zoo", "--ckpt-dir", "x"], "A.9.3",
+    pytest.param(["--system", "zoo", "--arch", "kimi_k2_1t_a32b"], "A.9",
                  id="argv1-A.7"),
-    pytest.param(["--system", "zoo", "--resume", "x"], "A.9.3",
+    pytest.param(["--system", "zoo", "--arch", "whisper_tiny"], "A.9",
                  id="argv2-A.7"),
     (["--backend", "pallas"], None),
     (["--steps", "0"], None),

@@ -120,9 +120,12 @@ def test_arch_registry():
     for arch in ("smollm-135m", "qwen3.1_7b"):
         assert tbase.normalize_arch_id(arch) == jbase.normalize_arch_id(arch)
     assert tbase.get_model_config("smollm-135m").name == "smollm-135m"
-    for arch in set(tbase.ARCH_IDS) - set(DENSE):
+    # the families still unported (moe, encdec) and the chameleon config
+    for arch in set(tbase.ARCH_IDS) - set(tbase.PORTED_ARCH_IDS):
         with pytest.raises(NotImplementedError, match="A.9"):
             tbase.get_model_config(arch, reduced=True)
+    assert set(tbase.PORTED_ARCH_IDS) == set(DENSE) | {"mamba2_370m",
+                                                       "hymba_1_5b"}
     with pytest.raises(ValueError, match="unknown arch"):
         tbase.get_model_config("nope")
 
@@ -471,17 +474,20 @@ def test_zoo_experiment_config_and_unported_parts():
     ids = exp.serve(top_k=5)
     assert ids.shape == (2, 5) and ((0 <= ids) & (ids < 512)).all()
     assert exp.serving_engine(top_k=5).top_k == 5
-    with pytest.raises(NotImplementedError, match="A.9.3"):
+    # the zoo's checkpoints are ported: a resume wants a ckpt_dir
+    with pytest.raises(ValueError, match="ckpt_dir"):
         exp.fit(1, resume=True)
     with pytest.raises(ValueError, match="pass top_k"):
         exp.serve(index="ivf")
     with pytest.raises(ValueError, match="positive"):
         exp.serve(prompt_len=0)
-    with pytest.raises(NotImplementedError, match="A.9.3"):
-        Experiment.from_config(system="zoo", reduced=True, device="cpu",
-                               ckpt_dir="ckpt")
+    ck = Experiment.from_config(system="zoo", reduced=True, device="cpu",
+                                ckpt_dir="no_such_ckpt_dir")
+    assert ck.restore(missing_ok=True) is None
+    assert ck.geometry().meta() == {"n_model": 1, "n_data": 1,
+                                    "n_classes": 512}
     with pytest.raises(NotImplementedError, match="A.9"):
-        Experiment.from_config(system="zoo", arch="mamba2_370m",
+        Experiment.from_config(system="zoo", arch="qwen3_moe_30b_a3b",
                                reduced=True, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -31,8 +31,9 @@ step 2:
   whatever the ring, and so is the port's;
 * ``auto_micro_batches`` over a table of shapes, the two back-compat
   shims, the param tree's order, the spans and counters of ``fit``, and
-  the train launcher with ``--system zoo`` for each head; the zoo's
-  checkpoints still refuse, naming ROADMAP.md A.9.3.
+  the train launcher with ``--system zoo`` for each head, and its
+  checkpoint flags' checks (the zoo's checkpoints themselves are held to
+  the JAX package's in ``tests/test_torch_zoo_checkpoint.py``).
 
 The JAX runs go to four processes of their own while the port's rings
 run in theirs.
@@ -45,7 +46,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from jax.sharding import Mesh, NamedSharding
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from repro.api.experiment import ZooExperiment as JaxZooExperiment
 from repro.api.heads import HeadState as JaxHeadState
@@ -94,13 +95,15 @@ def _host(tree):
     return jax.tree.map(np.asarray, jax.device_get(tree))
 
 
-def _jax_zoo(n, head, n_micro=1):
-    """The JAX ZooExperiment with ``head`` on a (1, n) mesh."""
-    exp = JaxZooExperiment(
-        arch=ARCH, reduced=True, n_model=n, batch=BATCH, seq=SEQ,
-        head=jbase.HeadConfig(**HEADS[head]),
-        train=jbase.TrainConfig(optimizer="sgd", micro_batch=n_micro),
-        log_every=0)
+def jax_zoo_on_ring(n, **kw):
+    """A JAX ``ZooExperiment`` (``kw``: its arguments) rebuilt on a (1, n)
+    mesh, its params and head state moved onto it: the port's ring has no
+    data axis, and the knn, selective and sampled heads pick their classes
+    per data shard. Its optimizer state is made and placed as its restore
+    places it (the moments as the params, the step replicated), so the
+    first step's inputs are committed as every later step's are and the
+    step compiles once."""
+    exp = JaxZooExperiment(n_model=n, log_every=0, **kw)
     mesh = Mesh(np.array(jax.devices()[:n]).reshape(1, n), ("data", "model"))
     par = make_host_parallel_config(1, n)
     params, hp, aux = _host((exp.params, exp.head_state.params,
@@ -112,14 +115,29 @@ def _jax_zoo(n, head, n_micro=1):
             lambda a, s: jax.device_put(a, NamedSharding(mesh, s)), tree,
             spec)
     with jax.set_mesh(mesh):
-        exp.params = jax.tree.map(
-            jax.device_put, params,
-            jgspmd.param_shardings(exp.model_cfg, par, mesh))
+        shards = jgspmd.param_shardings(exp.model_cfg, par, mesh)
+        exp.params = jax.tree.map(jax.device_put, params, shards)
+        hp_spec = exp.head.params_spec(exp._maxis)
         exp.head_state = JaxHeadState(
-            put(hp, exp.head.params_spec(exp._maxis))
-            if jax.tree.leaves(hp) else (),
+            put(hp, hp_spec) if jax.tree.leaves(hp) else (),
             put(aux, exp.head.aux_spec(exp._maxis)))
+        exp._ensure_opt()
+        moments = (shards, jax.tree.map(lambda s: NamedSharding(mesh, s),
+                                        hp_spec)
+                   if jax.tree.leaves(hp) else ())
+        opt = exp.opt_state
+        exp.opt_state = jax.tree.map(jax.device_put, opt, type(opt)(
+            step=NamedSharding(mesh, P()), mu=moments,
+            nu=None if opt.nu is None else moments))
     return exp
+
+
+def _jax_zoo(n, head, n_micro=1):
+    """The JAX ZooExperiment with ``head`` on a (1, n) mesh."""
+    return jax_zoo_on_ring(
+        n, arch=ARCH, reduced=True, batch=BATCH, seq=SEQ,
+        head=jbase.HeadConfig(**HEADS[head]),
+        train=jbase.TrainConfig(optimizer="sgd", micro_batch=n_micro))
 
 
 def _draws(n, n_micro, batches):
@@ -483,11 +501,11 @@ def test_param_tree_walks_in_sorted_key_order():
     assert live["embed"]["table"] is live.embed.table
 
 
-def test_fit_spans_counters_graph_and_refusals():
+def test_fit_spans_counters_graph_and_refusals(tmp_path):
     """``fit``'s spans and counters, one metrics row a step with the knn
     head's own metrics, the refresh cadence, the graph back-compat API;
-    ``fit(resume=...)`` and ``ckpt_dir`` name ROADMAP.md A.9.3; top-k
-    refuses the sketch heads."""
+    ``fit(resume=...)`` wants a ``ckpt_dir``, and with one a checkpoint
+    lands at the end of ``fit``; top-k refuses the sketch heads."""
     from repro_torch.telemetry import Tracer
     exp = Experiment.from_config(
         system="zoo", arch=ARCH, reduced=True, batch=2, seq=8, device="cpu",
@@ -511,11 +529,12 @@ def test_fit_spans_counters_graph_and_refusals():
     assert exp._refreshed
     assert all(a is b for a, b in zip(exp.graph, graph))
     assert 0.0 <= exp.evaluate() <= 1.0
-    with pytest.raises(NotImplementedError, match="A.9.3"):
+    with pytest.raises(ValueError, match="ckpt_dir"):
         exp.fit(1, resume=True)
-    with pytest.raises(NotImplementedError, match="A.9.3"):
-        Experiment.from_config(system="zoo", reduced=True, device="cpu",
-                               ckpt_dir="ck")
+    exp.ckpt_dir = str(tmp_path / "ck")
+    exp.fit(1, telemetry=tr)
+    assert tr.span_stats("train.checkpoint")["count"] == 1
+    assert os.listdir(exp.ckpt_dir) == ["ckpt_3.msgpack.zst"]
     mach = Experiment.from_config(
         system="zoo", arch=ARCH, reduced=True, batch=2, seq=8, device="cpu",
         head=tbase.HeadConfig(softmax_impl="mach", mach_b=32, mach_r=2),
@@ -546,12 +565,18 @@ def test_train_launcher_zoo_on_the_cpu(head, tmp_path, capsys):
     assert len(rows) == 2 and '"loss"' in rows[-1]
 
 
-@pytest.mark.parametrize("argv", [["--ckpt-dir", "ck"],
-                                  ["--ckpt-every", "2"],
-                                  ["--resume", "ck"]])
-def test_train_launcher_refuses_zoo_checkpoints(argv, capsys):
+@pytest.mark.parametrize("argv,err", [
+    (["--ckpt-dir", "ck", "--ckpt-keep", "0"], "--ckpt-keep must be >= 1"),
+    (["--ckpt-dir", "ck", "--ckpt-every", "-1"], "--ckpt-every must be >= 0"),
+    (["--resume"], "--resume requires --ckpt-dir")],
+    ids=["argv0", "argv1", "argv2"])
+def test_train_launcher_refuses_zoo_checkpoints(argv, err, capsys):
+    """The zoo's checkpoint flags run (tests/test_torch_zoo_checkpoint.py)
+    and go through the paper system's checks: bad values are an argparse
+    error (the name is kept from when the zoo refused every one, naming
+    ROADMAP.md A.9.3)."""
     with pytest.raises(SystemExit) as e:
         train_launcher.main(["--device", "cpu", "--system", "zoo",
                              "--reduced"] + argv)
     assert e.value.code == 2
-    assert "A.9.3" in capsys.readouterr().err
+    assert err in capsys.readouterr().err
