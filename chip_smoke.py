@@ -59,7 +59,8 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    within 1e-5, ids equal except at reported near-ties below 1e-5),
    integer-valued inputs with duplicated rows (ids exact: the lowest
    column), k' > Nk, ``col_offset``, a depth of 72 and depths of 1,024,
-   2,048 and 3,072 (600 x 20,000 unit rows), bit-identical across two
+   2,048, 3,072, 7,168 and 8,192 (600 x 20,000 unit rows; kimi-K2's and
+   chameleon-34B's widths), bit-identical across two
    runs; timed on 16,896 rows (the earlier design's one wave of blocks)
    against all keys, the plain version and the library's bf16 ``q @ K.T``
    in 1,024-row chunks. Its main time, pass 1 over all rows, comes from
@@ -187,7 +188,8 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    integer-valued inputs with exact ties: ids exact in candidate-position
    order), each through both entries (the generic one on cand, the probed
    one on cand cut into clusters: the two must agree bit for bit), and at
-   D = 2,048 and 3,072 through the probed entry (clusters with more
+   D = 2,048, 3,072, 7,168 and 8,192 through the probed entry (one
+   query a tile at the widest; clusters with more
    queries than a tile, a cluster nobody probes), bit-identical across two
    runs. Then the same 1M-class experiment as phase 3: the IVF
    index is fit twice (timed by part: Lloyd, scores and short preference
@@ -344,6 +346,37 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    save and restore seconds by part, bytes, host and card peaks. Then the
    train launcher's ``--system zoo --ckpt-every 2 --steps 4`` and
    ``--resume --steps 6``. The files are removed at the end.
+23. the moe and vlm families' serving, training and heads (their main
+   paths), phases 19-21 at qwen3-moe-30B-A3B's published width (2,048
+   wide, 32 / 4 heads of 128, 128 experts top-8 of d_ff 768, vocab
+   151,936; 8 layers to serve, 3 to train) and chameleon-34B's (8,192
+   wide, 64 / 8 heads of 128, d_ff 22,016, vocab 65,536; 8 layers to
+   serve, 2 to train), the cut depths reckoned at ``FAM_LAYERS``: the
+   serve's flash attention once a layer; the decode step against the
+   prefill one token longer (the moe family row by row at a capacity
+   factor of E / k, where nothing drops), kernel vs ref as hymba's;
+   ``flash_attention``
+   at the prefill's shapes, g 8 over 2,000 tokens; ``fit(5)`` at one
+   micro-batch of 16 x 512 tokens, step 1 against the ref backend's loss
+   from the same params, the share of (token, expert) pairs dropped past
+   capacity, and (qwen3-moe) a first ``fit(5)`` run before it that it
+   must equal bit for bit; the CE pair at [8,192, V] x D through the
+   floor gate (the fp32 plain version's own rounding passes 2e-5 of its
+   max over these sums); then ``evaluate``, exact and IVF top-5 and each
+   head one step, the trained params waiting on the host, with the
+   sparse pair, ``dist_topk``, ``stage1_topk`` and ``ivf_rerank`` at
+   these shapes against their plain versions.
+24. the encdec family, whisper-tiny at its published width and depth (4 +
+   4 layers, 384 wide, 6 heads of 64, 1,500 frames, vocab 51,865):
+   ``fit(5)`` at 16 x 448 tokens (its text context) over the stream's
+   frames, ``evaluate`` (the encoder's flash attention non-causal over
+   1,500 frames, the decoder's causal), each head one step and the
+   kernels at its shapes as in phase 23, ``flash_attention`` at its
+   encoder's shapes; a greedy decode of 48 tokens for 8 rows through
+   ``lm.decode`` with the cross caches, every counter reset around it
+   (``FAM_WANT``: the prefill's flash attention a layer), and in fp32 the
+   kernel and ref backends' tokens equal and the decode step against the
+   prefill one token longer.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, one ``{"end_to_end": ...}`` line and, last, ``{"ok": true,
@@ -352,6 +385,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -383,7 +417,10 @@ BF16_OPS_PER_S = 989e12                      # H100 SXM, dense tensor cores
 # blocks of 128 rows (66 blocks of 256 rows now); pass 1 over every row is
 # timed in the knn phase
 QSLICE = 132 * 128
-DEEP_DIMS = (1024, 2048, 3072)   # the zoo's knn heads (ROADMAP A.9.2)
+# the zoo's knn heads' depths (ROADMAP A.9.2): SmolLM-135M's neighbours,
+# qwen3-moe's 2,048, and kimi-K2's 7,168 and chameleon-34B's 8,192, which
+# dist_topk and ivf_rerank take since their D cap was lifted (ROADMAP B)
+DEEP_DIMS = (1024, 2048, 3072, 7168, 8192)
 HOPPER_KERNELS = ("flash_attention", "knn_dist_topk",  # wgmma + TMA
                   "ce_softmax_fwd", "ce_softmax_bwd", "sparse_ce_fwd",
                   "sparse_ce_bwd")
@@ -538,7 +575,6 @@ FAMILIES = ("mamba2_370m", "hymba_1_5b")
 _ARCH = {"ssm": "mamba2_370m", "hybrid": "hymba_1_5b"}
 FAM_MICRO = {"mamba2_370m": 4, "hymba_1_5b": 4}
 FAM_STEPS, FAM_REPS = 5, 2
-HYMBA_HEADS, HYMBA_KV_HEADS, HYMBA_WINDOW = 25, 5, 1024
 # a prefill of S tokens and one decode step against a prefill of S + 1 in
 # fp32 compute: the chunked scan's sums against the recurrence's, ~1e-6
 FAM_CONT32_TOL = 1e-4
@@ -589,6 +625,37 @@ _FAM_LEGS = {
     "mach_step": {"ce_forward": 4, "ce_backward": 4},
     "csoft_step": {"ce_forward": 4, "ce_backward": 4},
 }
+# the moe, vlm and encdec families (ROADMAP A.9.2) at their published
+# widths, random weights from seed 0, bf16 over fp32 params:
+# qwen3-moe-30B-A3B (d_model 2,048, 32 query heads over 4 KV heads of 128,
+# 128 experts top-8 of d_ff 768, vocab 151,936, untied) and chameleon-34B
+# (d_model 8,192, 64 query heads over 8 KV heads of 128, d_ff 22,016,
+# vocab 65,536, untied, qk-norm) at cut depths, and whisper-tiny (4 + 4
+# layers, d_model 384, 6 heads of 64, 1,500 frames, vocab 51,865, tied) at
+# its full depth. A layer holds ~623 M params (qwen3-moe) or ~692 M
+# (chameleon), 2.49 / 2.77 GB in fp32, beside 2.49 / 4.29 GB of embedding
+# and head; training keeps params, gradients and SGD momentum in fp32, the
+# bf16 copies and activations of 8,192 tokens, and the update's new
+# moments and steps (two more copies of the params) at its peak:
+# (serve, train) depths that fit 80 GB with room for the phases' second
+# experiments, and keep the whole script inside its time limit. On an H100
+# SXM qwen3-moe at 4 layers peaked at 77.2 GB alone and ran out in its
+# update after the script's earlier phases (7 GB of the allocator's cache
+# reserved but free), and chameleon at 3 ran out in its update alone: they
+# train 3 and 2
+NEW_FAMILIES = ("qwen3_moe_30b_a3b", "chameleon_34b")
+ENCDEC = "whisper_tiny"
+_ARCH.update(moe="qwen3_moe_30b_a3b", vlm="chameleon_34b", encdec=ENCDEC)
+FAM_LAYERS = {"qwen3_moe_30b_a3b": (8, 3), "chameleon_34b": (8, 2)}
+FAM_MICRO.update({"qwen3_moe_30b_a3b": 1, "chameleon_34b": 1, ENCDEC: 1})
+# the CE pair's gate on the trained batch takes its first 2,048 rows (its
+# fp64 reference holds a few [rows, V] tensors; the families' micro-batch)
+FAM_GATE_ROWS = 2048
+# whisper's text context: 16 rows of 448 tokens a step (7,168 tokens)
+FAM_SEQ = {ENCDEC: 448}
+# whisper's greedy decode through the cross caches: 8 rows of frames, a
+# decoder prompt of 4 tokens, 48 greedy tokens
+WHISPER_B, WHISPER_PROMPT = 8, 4
 FAM_WANT = {
     "ssm_serving": {},
     "hybrid_serving": {"flash_attention": 32},
@@ -599,6 +666,24 @@ FAM_WANT = {
     "ssm_evaluate": {"ce_forward": 1},
     "hybrid_evaluate": {"ce_forward": 1, "flash_attention": 32},
     **{f"{fam}_{leg}": want for fam in ("ssm", "hybrid")
+       for leg, want in _FAM_LEGS.items()},
+    # the new families: the prefill's flash attention once a layer at the
+    # serve depth (8); the CE pair once a step (one micro-batch); evaluate
+    # the CE forward and a flash attention a layer at the train depth
+    # (whisper: 4 encoder layers, non-causal, and 4 decoder layers); the
+    # whisper decode's prefill a flash attention a layer, its decode steps
+    # none (the ref branches over the caches)
+    "moe_serving": {"flash_attention": FAM_LAYERS["qwen3_moe_30b_a3b"][0]},
+    "vlm_serving": {"flash_attention": FAM_LAYERS["chameleon_34b"][0]},
+    **{f"{fam}_training": {"ce_forward": FAM_STEPS, "ce_backward": FAM_STEPS}
+       for fam in ("moe", "vlm", "encdec")},
+    "moe_evaluate": {"ce_forward": 1,
+                     "flash_attention": FAM_LAYERS["qwen3_moe_30b_a3b"][1]},
+    "vlm_evaluate": {"ce_forward": 1,
+                     "flash_attention": FAM_LAYERS["chameleon_34b"][1]},
+    "encdec_evaluate": {"ce_forward": 1, "flash_attention": 8},
+    "encdec_decode": {"flash_attention": 8},
+    **{f"{fam}_{leg}": want for fam in ("moe", "vlm", "encdec")
        for leg, want in _FAM_LEGS.items()},
     "zoo_checkpoint_full": {"ce_forward": 2, "ce_backward": 2},
     "zoo_checkpoint_knn": {"sparse_ce_forward": 2, "sparse_ce_backward": 2,
@@ -958,14 +1043,36 @@ def kernel_phase(torch, ce, dc, sharded):
     }
 
 
-def check_ce_bwd(torch, ce, f, w, y, m, gz, gc, limit, scale, label):
+def ce_bwd_plain64(torch, ce, f, w, y, m, gz, gc, limit, scale, rows=1024):
+    """``ce_backward_plain`` in fp64, a block of rows at a time (df's rows
+    are independent, dW sums the blocks' parts in fp64): the floor gate's
+    reference at shapes whose [B, V] fp64 passes do not fit at once."""
+    w64 = w.double()
+    df = torch.empty(f.shape, dtype=torch.float64, device=f.device)
+    dw = torch.zeros(w.shape, dtype=torch.float64, device=f.device)
+    for r in range(0, f.shape[0], rows):
+        sl = slice(r, r + rows)
+        d_f, d_w = ce.ce_backward_plain(
+            f[sl].double(), w64, y[sl], m[sl].double(), gz[sl].double(),
+            gc[sl].double(), limit, scale)
+        df[sl] = d_f
+        dw += d_w
+        del d_f, d_w
+    return df, dw
+
+
+def check_ce_bwd(torch, ce, f, w, y, m, gz, gc, limit, scale, label,
+                 floor=False):
     """ce_backward's kernel vs ce_backward_plain on the same card tensors,
     twice: the two kernel runs must agree bit for bit. Each part is held
     against its own max|plain|: df, dW's label rows, and dW's other rows,
     whose only term is the softmax one (it is orders of magnitude below the
     one-hot term of the label rows, so a shared scale would not see it).
-    The gate is ``repro_torch.testing.ce_backward_gate`` (BWD_TOL).
-    Returns {part: (max abs err, max abs err / max|plain|)}."""
+    The gate is ``repro_torch.testing.ce_backward_gate`` (BWD_TOL);
+    ``floor``: ``testing.ce_backward_floor_gate`` against the plain version
+    in fp64 (``ce_bwd_plain64``), for sums so long (V = 151,936 or D =
+    8,192) that the fp32 plain version's own rounding passes BWD_TOL of
+    its max. Returns {part: (max abs err, max abs err / max|plain|)}."""
     from repro_torch import testing
     df1, dw1 = ce.ce_backward(f, w, y, m, gz, gc, limit=limit, scale=scale)
     df2, dw2 = ce.ce_backward(f, w, y, m, gz, gc, limit=limit, scale=scale)
@@ -975,6 +1082,20 @@ def check_ce_bwd(torch, ce, f, w, y, m, gz, gc, limit, scale, label):
     torch.cuda.synchronize()
     if not (torch.equal(df1, df2) and torch.equal(dw1, dw2)):
         fail(f"ce_backward {label}: two runs on the same inputs differ")
+    del df2, dw2
+    if floor:
+        rel = testing.ce_backward_gate(df1, dw1, pdf, pdw, yl)
+        gate = testing.ce_backward_floor_gate(
+            df1, dw1, pdf, pdw, *ce_bwd_plain64(torch, ce, f, w, yl, m, gz,
+                                                gc, lim, scale), yl)
+        log(f"ce_backward {label}: floor gate (err, err / max, plain's own "
+            f"rounding against fp64) {gate['parts']}; the relative gate "
+            f"alone fails {rel['failed']}")
+        torch.cuda.empty_cache()
+        if not gate["ok"]:
+            fail(f"ce_backward {label}: {gate['failed']} fail the floor "
+                 f"gate: {gate['parts']}")
+        return {k: (e, r) for k, (e, r, _) in gate["parts"].items()}
     gate = testing.ce_backward_gate(df1, dw1, pdf, pdw, yl)
     if not gate["ok"]:
         fail(f"ce_backward {label}: {gate['failed']} fail; max abs err (of "
@@ -1371,13 +1492,17 @@ def dist_topk_phase(torch, dk, sharded, w_unit=None):
     kr = sharded._normalize(torch.randn((3001, 72), generator=g,
                                         device=dev)).to(bf)
     check_dist_topk(torch, dk, qr, kr, 16, 5, "ragged D=72")
-    # the depths of the zoo's knn heads: Q and K stream over depth
+    # the depths of the zoo's knn heads: Q and K stream over depth. The
+    # queries are among the keys, as in a graph build, so each row's top
+    # score is its own, ~1: there the sums are largest and a drift of the
+    # tensor cores' accumulation over the depth would show
     deep = {}
     for d in DEEP_DIMS:
         qd = sharded._normalize(torch.randn((600, d), generator=g,
                                             device=dev)).to(bf)
         kd = sharded._normalize(torch.randn((20_000, d), generator=g,
                                             device=dev)).to(bf)
+        kd[7_000:7_600] = qd
         deep[d] = check_dist_topk(torch, dk, qd, kd, KPRIME, 0, f"D={d}")
     log(f"kernel phase: dist_topk exact ties, k' > Nk, col_offset, a "
         f"ragged depth and D = {DEEP_DIMS} (600 x 20,000 unit rows: (max "
@@ -3831,16 +3956,35 @@ def zoo_launcher_phase(torch, fa):
 def _zoo_trainer(backend: str, head=None, train=None, log_every: int = 1,
                  batch: int = ZOO_TB, arch: str = "smollm_135m", **kw):
     """The zoo trainer's experiment: ``arch`` (SmolLM-135M) at full width
-    on ``batch`` x ``ZOO_TS`` tokens a step, the ``full`` head unless
-    ``head`` (HeadConfig fields) says otherwise, SGD unless ``train``;
-    ``kw`` (``ckpt_dir``, ``ckpt_every``) go to the experiment."""
+    (and at its train depth in FAM_LAYERS) on ``batch`` x ``ZOO_TS`` tokens
+    a step (FAM_SEQ's for whisper), the ``full`` head unless ``head``
+    (HeadConfig fields) says otherwise, SGD unless ``train``; ``kw``
+    (``ckpt_dir``, ``ckpt_every``, ``data_fn``) go to the experiment."""
     from repro_torch.api import Experiment
     from repro_torch.configs.base import HeadConfig, TrainConfig
-    return Experiment.from_config(
-        system="zoo", arch=arch, batch=batch, seq=ZOO_TS, seed=0,
-        device=DEVICE, log_every=log_every,
-        head=HeadConfig(backend=backend, **(head or {})),
-        train=train or TrainConfig(optimizer="sgd"), **kw)
+    with _at_depth(FAM_LAYERS.get(arch, (None, None))[1]):
+        return Experiment.from_config(
+            system="zoo", arch=arch, batch=batch,
+            seq=FAM_SEQ.get(arch, ZOO_TS), seed=0, device=DEVICE,
+            log_every=log_every,
+            head=HeadConfig(backend=backend, **(head or {})),
+            train=train or TrainConfig(optimizer="sgd"), **kw)
+
+
+@contextlib.contextmanager
+def _at_depth(n_layers):
+    """Within the block, the zoo experiments built take their arch's
+    config with ``n_layers`` layers (None: its published depth), at its
+    published width: a card that cannot hold every layer."""
+    from repro_torch.api import experiment
+    real = experiment.get_model_config
+    if n_layers is not None:
+        experiment.get_model_config = lambda arch, reduced=False: (
+            dataclasses.replace(real(arch, reduced), n_layers=n_layers))
+    try:
+        yield
+    finally:
+        experiment.get_model_config = real
 
 
 def _zoo_fit(torch, counters, exp, steps, path):
@@ -3926,12 +4070,14 @@ def zoo_head_grad_check(torch, exp, f, y):
     return out
 
 
-def zoo_ce_rows(torch, ce, f, w, y, model="SmolLM-135M", tag="zoo"):
+def zoo_ce_rows(torch, ce, f, w, y, model="SmolLM-135M", tag="zoo",
+                floor=False):
     """The dense CE pair at a zoo model's shapes (for SmolLM-135M f [8,192,
     576] the trunk's features, W the trained tied table [49,152, 576],
     scale 1: raw logits) through the CE gates, bit-identical runs, the
     emulated 1xTF32 fault (which must fail both gates), times beside the
-    bounds and f @ W.T. Returns (forward row, backward row)."""
+    bounds and f @ W.T; ``floor``: the backward through the floor gate
+    (``check_ce_bwd``). Returns (forward row, backward row)."""
     b, v, d = f.shape[0], w.shape[0], f.shape[1]
     fwd_err, fwd_z = check_ce(torch, ce, f, w, y, v, 1.0, f"{tag} shapes")
     m, z, _, _ = ce.ce_forward(f, w, y, limit=v, scale=1.0)
@@ -3940,7 +4086,8 @@ def zoo_ce_rows(torch, ce, f, w, y, model="SmolLM-135M", tag="zoo"):
     parts = {}
     for term, gct in (("loss", gc), ("softmax term", torch.zeros_like(gc))):
         for part, val in check_ce_bwd(torch, ce, f, w, y, m, gz, gct, v, 1.0,
-                                      f"{tag} shapes, {term}").items():
+                                      f"{tag} shapes, {term}",
+                                      floor=floor).items():
             parts[f"{part}, {term}"] = val
     fault = tf32_fault(torch, ce, f, w, y, m, gz, gc, v, 1.0,
                        f"the {tag} shapes")
@@ -4784,15 +4931,17 @@ def zoo_train_launchers_phase(torch):
 
 def _family(arch: str, backend: str, params=None, dtype=None):
     """A serving experiment of ``arch`` at its published width and depth
-    (random weights from seed 0; ``params`` installs others), the full head
-    on ``backend``; ``dtype`` overrides the compute dtype (``"float32"``:
-    the fp32 checks)."""
+    (the serve depth in FAM_LAYERS where it is cut; random weights from
+    seed 0; ``params`` installs others), the full head on ``backend``;
+    ``dtype`` overrides the compute dtype (``"float32"``: the fp32
+    checks)."""
     from repro_torch.api import Experiment
     from repro_torch.configs.base import HeadConfig
-    exp = Experiment.from_config(system="zoo", arch=arch, batch=ZOO_BATCH,
-                                 seq=ZOO_PROMPT + ZOO_GEN, seed=0,
-                                 device=DEVICE, log_every=0,
-                                 head=HeadConfig(backend=backend))
+    with _at_depth(FAM_LAYERS.get(arch, (None,))[0]):
+        exp = Experiment.from_config(
+            system="zoo", arch=arch, batch=ZOO_BATCH,
+            seq=ZOO_PROMPT + ZOO_GEN, seed=0, device=DEVICE, log_every=0,
+            head=HeadConfig(backend=backend))
     if params is not None:
         exp.load_params(params)
     if dtype is not None:
@@ -4804,16 +4953,29 @@ def _describe(exp) -> str:
     from repro_torch.models.ssm import ssm_dims
     from repro_torch.optim import tree_leaves
     cfg = exp.model_cfg
-    _, n_ssm, _ = ssm_dims(cfg)
-    attn = ("" if cfg.family == "ssm" else
-            f"{cfg.n_heads}/{cfg.n_kv_heads} attention heads of "
-            f"{cfg.resolved_head_dim}, window {cfg.sliding_window}, d_ff "
-            f"{cfg.d_ff}, ")
+    parts = [f"{cfg.n_layers} layers"]
+    if cfg.family == "encdec":
+        parts.append(f"{cfg.n_enc_layers} encoder layers over {cfg.enc_seq} "
+                     f"frames")
+    parts.append(f"d_model {cfg.d_model}")
+    if cfg.family != "ssm":
+        parts.append(f"{cfg.n_heads}/{cfg.n_kv_heads} attention heads of "
+                     f"{cfg.resolved_head_dim}, window {cfg.sliding_window}")
+    if cfg.moe is not None:
+        parts.append(f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
+                     f"d_ff {cfg.moe.d_ff} (capacity factor "
+                     f"{cfg.moe.capacity_factor}, {cfg.moe.n_shared_experts}"
+                     f" shared)")
+    elif cfg.family != "ssm":
+        parts.append(f"d_ff {cfg.d_ff}")
+    if cfg.ssm is not None:
+        _, n_ssm, _ = ssm_dims(cfg)
+        parts.append(f"{n_ssm} SSM heads of {cfg.ssm.head_dim}, d_state "
+                     f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}")
+    parts.append(f"vocab {cfg.vocab_size}, {cfg.dtype} over "
+                 f"{cfg.param_dtype}")
     n_params = sum(p.numel() for p in tree_leaves(exp.params))
-    return (f"{cfg.name} ({cfg.family}: {cfg.n_layers} layers, d_model "
-            f"{cfg.d_model}, {attn}{n_ssm} SSM heads of {cfg.ssm.head_dim}, "
-            f"d_state {cfg.ssm.d_state}, chunk {cfg.ssm.chunk}, vocab "
-            f"{cfg.vocab_size}, {cfg.dtype} over {cfg.param_dtype}), "
+    return (f"{cfg.name} ({cfg.family}: {', '.join(parts)}), "
             f"{n_params / 1e6:.1f}M params")
 
 
@@ -4884,19 +5046,35 @@ def _continuation_checks(torch, np, exp, tag):
     JAX package in fp32): in fp32 compute the features within
     FAM_CONT32_TOL of max|h| and every greedy token equal; in the compute
     dtype (bf16, where the two paths round in other places) the same
-    readings, reported."""
+    readings, reported. The moe family at a capacity factor of E / k,
+    where no expert can drop a pair, a row at a time: at its own factor
+    the prefill's groups of 2,000 tokens drop pairs past capacity, and the
+    last token first (it sorts last within each expert), where the decode
+    step drops none, so the two are different functions there."""
     from repro_torch.configs.base import effective_vocab
     from repro_torch.data import synthetic
     prompts = synthetic.lm_batch(0, ZOO_BATCH, ZOO_PROMPT + 1,
                                  effective_vocab(exp.model_cfg),
                                  device=DEVICE)["tokens"]
     out = {}
+    moe = exp.model_cfg.moe
+    no_drop = {} if moe is None else {"moe": dataclasses.replace(
+        moe, capacity_factor=moe.n_experts / moe.top_k)}
     for dtype, tol in ((exp.model_cfg.dtype, None),
                        ("float32", FAM_CONT32_TOL)):
         cfg0 = exp.model_cfg
-        exp.model_cfg = dataclasses.replace(cfg0, dtype=dtype)
+        exp.model_cfg = dataclasses.replace(cfg0, dtype=dtype, **no_drop)
         try:
-            full, step = _continuation(torch, exp, prompts)
+            if moe is None:
+                full, step = _continuation(torch, exp, prompts)
+            else:
+                # a row at a time: at E / k every expert's buffer holds the
+                # row's 2,001 tokens, [1, 128, 2,008, 2,048] a layer
+                rows = [_continuation(torch, exp, prompts[i:i + 1])
+                        for i in range(prompts.shape[0])]
+                full = torch.cat([r[0] for r in rows])
+                step = torch.cat([r[1] for r in rows])
+                del rows
             h_rel, lg_rel, n_eq, n_chk = _logit_gate(
                 torch, np, exp, step, full, tol,
                 f"{tag}: prefill + one decode step vs prefill of S + 1 "
@@ -5007,8 +5185,8 @@ def family_serve_phase(torch, np, counters, arch):
     e2e = {"launches": launches, "peak_memory_gb": peak_gb,
            "first_row": toks[0].tolist()}
     e2e["continuation"] = _continuation_checks(torch, np, exp, tag)
-    if cfg.family == "hybrid":
-        e2e["vs_ref"] = _hybrid_vs_ref(
+    if cfg.family != "ssm":
+        e2e["vs_ref"] = _kernel_vs_ref(
             torch, np, exp, tag,
             e2e["continuation"][cfg.dtype]["logit_rel"])
     e2e.update(_serve_times(torch, exp, first))
@@ -5030,7 +5208,7 @@ def family_serve_phase(torch, np, counters, arch):
     return path, launches, e2e
 
 
-def _hybrid_vs_ref(torch, np, exp, tag, spread):
+def _kernel_vs_ref(torch, np, exp, tag, spread):
     """The kernel backend's serve against the ref backend's on the same
     weights and prompts: the prefill's last ZOO_TOKEN_ROWS positions of
     every row (features within FAM_H_TOL, logits within FAM_LOGIT_TOL,
@@ -5087,63 +5265,92 @@ def _hybrid_vs_ref(torch, np, exp, tag, spread):
     return out
 
 
-def flash_hybrid_check(torch, fa):
-    """``flash_attention`` at hymba-1.5B's prefill shapes: q [8 * 25,
-    2,000, 64] over 8 * 5 KV heads (a group of 5), bf16, causal within a
-    sliding window of 1,024 (rows past the window attend to 1,024 keys):
-    the bf16 gate against its plain version, bit-identical across two
-    runs, timed beside its plain version and SDPA with the window as a
-    boolean mask."""
-    bh, bhkv = ZOO_BATCH * HYMBA_HEADS, ZOO_BATCH * HYMBA_KV_HEADS
-    s, dh, w = ZOO_PROMPT, ZOO_HEAD_DIM, HYMBA_WINDOW
+def flash_shape_check(torch, fa, b, heads, kv_heads, s, dh, causal, window,
+                      what, seed=9):
+    """``flash_attention`` at a model's prefill shapes: q [b * heads, s,
+    dh] over b * kv_heads KV heads, bf16 (causal, within ``window`` when it
+    is set; or non-causal): the bf16 gate against its plain version,
+    bit-identical across two runs, timed beside its plain version and
+    SDPA (the window as a boolean mask)."""
+    bh, bhkv = b * heads, b * kv_heads
     g = torch.Generator(device=DEVICE)
-    g.manual_seed(9)
+    g.manual_seed(seed)
     q, k, v = (torch.randn((h, s, dh), generator=g, device=DEVICE).to(
         torch.bfloat16) for h in (bh, bhkv, bhkv))
-    out = fa.flash_attention(q, k, v, causal=True, window=w)
-    again = fa.flash_attention(q, k, v, causal=True, window=w)
+    kw = dict(causal=causal, window=window)
+    out = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     if not torch.equal(out, again):
-        fail("flash_attention at hymba's shapes is not bit-identical across "
-             "two runs")
-    plain = fa.flash_attention_plain(q, k, v, causal=True, window=w)
+        fail(f"flash_attention at {what}'s shapes is not bit-identical across "
+             f"two runs")
+    plain = fa.flash_attention_plain(q, k, v, **kw)
     err = float((out.float() - plain.float()).abs().max())
     gate = flash_bf16_gate(torch, out, plain, flash_flip_bound(
-        torch, fa, q, k, v, causal=True, window=w))
+        torch, fa, q, k, v, causal=causal, window=window))
     if not gate["ok"]:
-        fail(f"flash_attention at hymba's shapes: max abs err {err:.3g}, "
+        fail(f"flash_attention at {what}'s shapes: max abs err {err:.3g}, "
              f"gate {gate}")
-    ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True,
-                                                   window=w), 20)
-    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
-        q, k, v, causal=True, window=w), 2)
-    q4 = q.view(ZOO_BATCH, HYMBA_HEADS, s, dh)
-    k4, v4 = (x.view(ZOO_BATCH, HYMBA_KV_HEADS, s, dh) for x in (k, v))
-    i = torch.arange(s, device=DEVICE)
-    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), 20)
+    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **kw),
+                       2)
+    q4 = q.view(b, heads, s, dh)
+    k4, v4 = (x.view(b, kv_heads, s, dh) for x in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = cuda_ms(torch, lambda: sdpa(q4, k4, v4, attn_mask=mask,
-                                         enable_gqa=True), 20)
-    lib_out = sdpa(q4, k4, v4, attn_mask=mask,
-                   enable_gqa=True).reshape(bh, s, dh)
+    if window:
+        i = torch.arange(s, device=DEVICE)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        lib_kw, lib = (dict(attn_mask=mask),
+                       f"attn_mask=causal window of {window:,}")
+    else:
+        lib_kw, lib = dict(is_causal=causal), f"is_causal={causal}"
+    lib_ms = cuda_ms(torch, lambda: sdpa(q4, k4, v4, enable_gqa=True,
+                                         **lib_kw), 20)
+    lib_out = sdpa(q4, k4, v4, enable_gqa=True, **lib_kw).reshape(bh, s, dh)
     lib_err = float((lib_out.float() - plain.float()).abs().max())
-    pairs = sum(min(r + 1, w) for r in range(s))
+    if not causal:
+        pairs = s * s
+    elif window:
+        pairs = sum(min(r + 1, window) for r in range(s))
+    else:
+        pairs = s * (s + 1) // 2
     bound, by = bound_ms(2 * dh * (2 * s * bh + 2 * s * bhkv),
                          4.0 * dh * pairs * bh, BF16_OPS_PER_S)
-    log(f"flash at hymba's shapes: BH={bh} over {bhkv} KV heads, S=T={s}, "
-        f"Dh={dh}, bf16, causal, window {w}: max abs err {err:.3g}, bf16 gate "
-        f"ratio {gate['ratio']:.3g} (<= 1), mean {gate['mean_rel']:.3g}; "
+    mode = ("non-causal" if not causal else
+            "causal" + (f", window {window}" if window else ""))
+    log(f"flash at {what}'s shapes: BH={bh} over {bhkv} KV heads, S=T={s}, "
+        f"Dh={dh}, bf16, {mode}: max abs err {err:.3g}, bf16 gate ratio "
+        f"{gate['ratio']:.3g} (<= 1), mean {gate['mean_rel']:.3g}; "
         f"bit-identical; {ms:.4f} ms, bound {bound:.4f} ms by {by}, plain "
-        f"{plain_ms:.3f} ms, SDPA (boolean window mask) {lib_ms:.4f} ms "
-        f"(max abs err {lib_err:.3g})")
+        f"{plain_ms:.3f} ms, SDPA ({lib}) {lib_ms:.4f} ms (max abs err "
+        f"{lib_err:.3g})")
+    del q, k, v, out, again, plain, lib_out
+    torch.cuda.empty_cache()
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                library="scaled_dot_product_attention(attn_mask=causal "
-                        "window of 1,024, enable_gqa=True)",
+                library=f"scaled_dot_product_attention({lib}, "
+                        f"enable_gqa=True)",
                 bound_ms=bound, bound_by=by, max_abs_err=err,
                 library_max_abs_err=lib_err,
                 bf16_gate=(gate["ratio"], gate["mean_rel"]),
-                shape=f"q[{bh},{s},{dh}] k,v[{bhkv},{s},{dh}] bf16 causal "
-                      f"window {w}")
+                shape=f"q[{bh},{s},{dh}] k,v[{bhkv},{s},{dh}] bf16 {mode}")
+
+
+def flash_family_check(torch, fa, arch):
+    """``flash_attention`` at a family's shapes: a serve's prefill (8
+    prompts of 2,000 tokens; hymba's 25 query heads over 5 KV heads of 64
+    in its window of 1,024, qwen3-moe's 32 over 4 of 128 and chameleon's
+    64 over 8: groups of 8, causal) or whisper's encoder over 16 rows of
+    1,500 frames (6 heads of 64, non-causal)."""
+    from repro_torch.configs.base import get_model_config
+    cfg = get_model_config(arch)
+    if cfg.family == "encdec":
+        return flash_shape_check(torch, fa, ZOO_TB, cfg.n_heads,
+                                 cfg.n_kv_heads, cfg.enc_seq,
+                                 cfg.resolved_head_dim, False, 0, arch)
+    return flash_shape_check(torch, fa, ZOO_BATCH, cfg.n_heads,
+                             cfg.n_kv_heads, ZOO_PROMPT,
+                             cfg.resolved_head_dim, True,
+                             cfg.sliding_window or 0, arch)
 
 
 def ssd_layer_check(torch, exp):
@@ -5233,47 +5440,191 @@ def _reference_order_nans(torch, exp, x):
     return n
 
 
-def family_training_phase(torch, np, counters, ce, arch):
-    """``fit(FAM_STEPS)`` of ``arch`` at full width with the full head on
-    the kernel backend, 16 x 512 tokens a step (the stream's first batch,
-    every step) in ``FAM_MICRO[arch]`` micro-batches, every counter reset
-    just before and read just after (``FAM_WANT``): finite losses that
-    fall, the head and a trunk weight moved. Step 1's loss against the ref backend's (a second experiment
-    from the same seed); the step's time (the median of the fit's steps 2
-    to FAM_STEPS, their synchronised spans),
-    tokens/s, a profiled step (idle share), peak memory; the CE pair at
-    [tokens a micro-batch, V] x D through the CE gates; one layer's SSD at
-    chunk 256 (``ssd_layer_check``). Returns (path, launches, {kernel:
-    row}, numbers, the trained experiment)."""
-    from repro_torch.configs.base import TrainConfig, get_model_config
-    from repro_torch.data import synthetic
+def _trunk_leaf(exp):
+    """A trunk weight of layer 0 that every training step moves: the SSM's
+    input projection, an expert's gate (moe), the decoder's self-attention
+    query (encdec) or the attention's query."""
+    cfg = exp.model_cfg
+    if cfg.family == "encdec":
+        return exp.params.encdec.dec_blocks[0].self_attn.wq
+    blk = exp.params.blocks[0]
+    if cfg.family == "ssm":
+        return blk.ssm.in_proj
+    return blk.moe.wi_gate if cfg.family == "moe" else blk.attn.wq
+
+
+def _step1_ref_loss(torch, exp, micro):
+    """Step 1's loss on the ref backend from the experiment's present
+    (initial) params and head state: the loss the train step
+    differentiates, micro-batch by micro-batch under no grad, averaged as
+    the step averages them. (A second experiment trained one step would
+    hold a second copy of the model, its gradients and moments.)"""
+    from repro_torch.api.heads import make_head
+    from repro_torch.core.pipeline import split_microbatches
+    from repro_torch.train import gspmd
+    hcfg = dataclasses.replace(exp.head_cfg, backend="ref")
+    batch = exp._batch(0)
+    parts = split_microbatches(batch, micro)
+    loss_fn = gspmd.make_head_loss_fn(
+        exp.model_cfg, hcfg, global_tokens=parts[0]["labels"].numel(),
+        head=make_head(exp.model_cfg, hcfg))
+    total = 0.0
+    with torch.no_grad():
+        for part in parts:
+            loss, _ = loss_fn(exp.params, exp.head_state.params,
+                              exp.head_state.aux, part,
+                              step=torch.zeros((), dtype=torch.int32))
+            total += float(loss) / micro
+    return total
+
+
+def _params_host(exp):
     from repro_torch.models import lm
+    from repro_torch.optim import tree_map
+    return tree_map(lambda t: t.detach().cpu(), lm.params_tree(exp.params))
+
+
+def _first_fit(torch, arch, micro):
+    """An uninterrupted ``fit(FAM_STEPS)`` of the training phase's
+    experiment, run before it on the card alone: its losses and its
+    params on the host, which the phase's own fit from the same seed must
+    equal bit for bit (the moe combine sums in a fixed order, and no
+    backward adds into one place from two threads)."""
+    from repro_torch.configs.base import TrainConfig
+    twin = _zoo_trainer("kernel", arch=arch, log_every=0,
+                        train=TrainConfig(optimizer="sgd", micro_batch=micro))
+    twin.data_fn = lambda t, b: twin._synthetic_batch(0, b)
+    losses = [r["loss"] for r in twin.fit(FAM_STEPS, lr=ZOO_LR)]
+    first = _params_host(twin)
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, first
+
+
+@contextlib.contextmanager
+def _routing_record(torch, moe_lib):
+    """Within the block, every call of the MoE router (``moe.routing``,
+    wrapped here and restored after) appends to the list it yields, on the
+    device: the call's pairs per expert [E], the pairs its dispatch drops
+    past capacity (in each batch row, an expert's pairs past ``cap``, as
+    ``moe._dispatch_group`` keeps the first ``cap``), the pairs routed,
+    and the mean cosine of a token's router input to its row's mean."""
+    calls = []
+    real = moe_lib.routing
+
+    def routing(p, cfg, x):
+        out = real(p, cfg, x)
+        b, s, _ = x.shape
+        n_e = cfg.moe.n_experts
+        top_i = out[2].reshape(b, -1).long()
+        per_row = torch.zeros((b, n_e), dtype=torch.int64,
+                              device=x.device).scatter_add_(
+            1, top_i, torch.ones_like(top_i))
+        cap = moe_lib.capacity_for(s, cfg)
+        xf = x.detach().float()
+        cos = torch.nn.functional.cosine_similarity(
+            xf, xf.mean(dim=1, keepdim=True), dim=-1).mean()
+        calls.append((per_row.sum(0), (per_row - cap).clamp_min(0).sum(),
+                      top_i.numel(), cos))
+        return out
+
+    moe_lib.routing = routing
+    try:
+        yield calls
+    finally:
+        moe_lib.routing = real
+
+
+def _routing_summary(torch, calls, steps, micro, n_layers):
+    """What ``_routing_record`` saw over a fit of ``steps`` steps of
+    ``micro`` micro-batches through ``n_layers`` MoE layers (one router
+    call a layer and micro-batch, layer 0 first): the drop share in all,
+    by step, and by layer at the first and last step; at step 1 by layer,
+    the share of the pairs on the 8 busiest experts and on experts 0-7
+    (ties to the lowest index would load these), the fewest experts that
+    carry half the pairs, the cosine of a token's router input to its
+    row's mean, and the pairs per expert."""
+    if len(calls) != steps * micro * n_layers:
+        fail(f"the fit made {len(calls)} router calls, not {steps} x "
+             f"{micro} x {n_layers}")
+    counts = torch.stack([c[0] for c in calls]).cpu().view(
+        steps, micro, n_layers, -1).sum(1)                 # [step, L, E]
+    dropped = torch.stack([c[1] for c in calls]).cpu().view(
+        steps, micro, n_layers).sum(1)                     # [step, L]
+    routed = calls[0][2] * micro
+    cos = torch.stack([c[3] for c in calls]).cpu().view(
+        steps, micro, n_layers).mean(1)
+    first = counts[0].double()
+    srt = first.sort(dim=1, descending=True).values
+    half = (srt.cumsum(1) < srt.sum(1, keepdim=True) / 2).sum(1) + 1
+
+    def r(v):
+        return [round(float(x), 4) for x in v]
+
+    return {
+        "dropped": int(dropped.sum()), "routed": routed * steps * n_layers,
+        "dropped_share": float(dropped.sum()) / (routed * steps * n_layers),
+        "dropped_share_by_step": r(dropped.sum(1).double()
+                                   / (routed * n_layers)),
+        "last_step_dropped_by_layer": r(dropped[-1].double() / routed),
+        "step1_by_layer": {
+            "dropped_share": r(dropped[0].double() / routed),
+            "busiest8_share": r(srt[:, :8].sum(1) / srt.sum(1)),
+            "lowest8_share": r(first[:, :8].sum(1) / first.sum(1)),
+            "experts_for_half": [int(x) for x in half],
+            "cos_to_row_mean": r(cos[0]),
+            "pairs_per_expert": first.long().tolist()},
+    }
+
+
+def family_training_phase(torch, np, counters, ce, arch):
+    """``fit(FAM_STEPS)`` of ``arch`` at full width (the train depth in
+    FAM_LAYERS where it is cut) with the full head on the kernel backend,
+    16 x 512 tokens a step (whisper 16 x 448, with its frames; the
+    stream's first batch, every step) in ``FAM_MICRO[arch]``
+    micro-batches, every counter reset just before and read just after
+    (``FAM_WANT``): finite losses that fall, the head and a trunk weight
+    moved. Step 1's loss against the ref backend's from the same params
+    (``_step1_ref_loss``); the step's time (the median of the fit's steps
+    2 to FAM_STEPS, their synchronised spans), tokens/s, a profiled step
+    (idle share), peak memory; the CE pair at [tokens a micro-batch, V] x
+    D through the CE gates; one layer's SSD at chunk 256 where there is
+    one (``ssd_layer_check``). The moe family: the share of (token,
+    expert) pairs dropped past capacity over the fit, and a first fit run
+    before it (``_first_fit``) bit-equal to it. Returns (path, launches, {kernel: row},
+    numbers, the trained experiment)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_lib
     from repro_torch.telemetry import Tracer
+    from repro_torch.optim import tree_leaves
     tag = f"{arch} training phase"
     t_phase = time.perf_counter()
     micro = FAM_MICRO[arch]
-    vocab = get_model_config(arch).vocab_size
-
-    def one_batch(t, b):
-        # every step the stream's first batch: on fresh batches the loss
-        # of random weights stays near log V for many more steps than 5
-        return synthetic.lm_batch(0, b, ZOO_TS, vocab, device=DEVICE)
-
-    exp = _zoo_trainer("kernel", arch=arch, log_every=0, data_fn=one_batch,
+    first = (_first_fit(torch, arch, micro) if arch == _ARCH["moe"]
+             else None)
+    exp = _zoo_trainer("kernel", arch=arch, log_every=0,
                        train=TrainConfig(optimizer="sgd", micro_batch=micro))
+    # every step the stream's first batch: on fresh batches the loss of
+    # random weights stays near log V for many more steps than 5
+    exp.data_fn = lambda t, b: exp._synthetic_batch(0, b)
     cfg = exp.model_cfg
     path = f"{cfg.family}_training"
-    log(f"{tag}: {_describe(exp)}; {ZOO_TB} x {ZOO_TS} tokens a step in "
+    tokens = ZOO_TB * exp.seq
+    log(f"{tag}: {_describe(exp)}; {ZOO_TB} x {exp.seq} tokens a step in "
         f"{micro} micro-batches, SGD at lr {ZOO_LR}")
+    ref_loss = _step1_ref_loss(torch, exp, micro)
     w0 = lm.head_weight(exp.params, cfg).detach().clone()
-    in0 = exp.params.blocks[0].ssm.in_proj.detach().clone()
+    in0 = _trunk_leaf(exp).detach().clone()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     tr = Tracer()
     _reset(counters)
     t0 = time.perf_counter()
-    hist = exp.fit(FAM_STEPS, lr=ZOO_LR, telemetry=tr)
+    with _routing_record(torch, moe_lib) as calls:
+        hist = exp.fit(FAM_STEPS, lr=ZOO_LR, telemetry=tr)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     exp.telemetry = None
@@ -5291,23 +5642,46 @@ def family_training_phase(torch, np, counters, ce, arch):
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         fail(f"{tag}: the losses {losses} are not finite and falling")
     moved = (float((lm.head_weight(exp.params, cfg) - w0).abs().max()),
-             float((exp.params.blocks[0].ssm.in_proj - in0).abs().max()))
+             float((_trunk_leaf(exp) - in0).abs().max()))
     if not min(moved) > 0:
         fail(f"{tag}: training did not move the params {moved}")
     del w0, in0
+    routing = (_routing_summary(torch, calls, FAM_STEPS, micro,
+                                cfg.n_layers) if calls else None)
+    drop_share = routing["dropped_share"] if routing else None
+    if routing:
+        log(f"{tag}: {routing['dropped']} of {routing['routed']} (token, "
+            f"expert) pairs dropped past capacity over the fit (share "
+            f"{drop_share:.4f}); by step {routing['dropped_share_by_step']}; "
+            f"by layer at step 1 {routing['step1_by_layer']['dropped_share']}"
+            f", at step {FAM_STEPS} {routing['last_step_dropped_by_layer']}; "
+            f"at step 1 by layer: the 8 busiest experts' share "
+            f"{routing['step1_by_layer']['busiest8_share']}, experts 0-7's "
+            f"{routing['step1_by_layer']['lowest8_share']}, experts "
+            f"carrying half the pairs "
+            f"{routing['step1_by_layer']['experts_for_half']}, a token's "
+            f"router input against its row's mean (cosine) "
+            f"{routing['step1_by_layer']['cos_to_row_mean']}")
 
-    # -- step 1's loss against the ref backend, from the same seed ---------
-    ref = _zoo_trainer("ref", arch=arch, log_every=0, data_fn=one_batch,
-                       train=TrainConfig(optimizer="sgd", micro_batch=micro))
-    ref_loss = ref.fit(1, lr=ZOO_LR)[0]["loss"]
-    del ref
-    gc.collect()
-    torch.cuda.empty_cache()
+    det = None
+    if first is not None:
+        pairs = list(zip(tree_leaves(_params_host(exp)),
+                         tree_leaves(first[1])))
+        differ = sum(not torch.equal(x, y) for x, y in pairs)
+        det = {"bitwise": differ == 0 and first[0] == losses,
+               "leaves_differ": differ, "leaves": len(pairs),
+               "first_losses": first[0]}
+        del pairs, first
+        log(f"{tag}: two uninterrupted fit({FAM_STEPS}) from the same seed: "
+            f"bitwise {det['bitwise']} ({det['leaves_differ']} of "
+            f"{det['leaves']} leaves differ; losses {det['first_losses']} "
+            f"and {losses})")
+        if not det["bitwise"]:
+            fail(f"{tag}: two uninterrupted fits differ: {det}")
     loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
     if loss_rel > ZOO_LOSS_RTOL:
         fail(f"{tag}: step 1's loss, kernel {losses[0]} vs ref {ref_loss}: "
              f"rel {loss_rel:.3g} > {ZOO_LOSS_RTOL:g}")
-
     # -- a profiled step ------------------------------------------------------
     inputs = exp._batch(10**5)
 
@@ -5321,7 +5695,6 @@ def family_training_phase(torch, np, counters, ce, arch):
         "matmuls (bf16 + fp32)": ("gemm", "cutlass", "sm90_xmma", "ampere",
                                   "cublas"),
         "copies and casts": ("copy",)})
-    tokens = ZOO_TB * ZOO_TS
     log(f"{tag}: step {step_ms:.2f} ms (median of steps 2-{FAM_STEPS}: "
         f"{[round(x, 1) for x in step_all]}; {tokens / step_ms * 1e3:.0f} "
         f"tokens/s); profiled step: idle {prof['idle_share']:.3f}, device "
@@ -5334,21 +5707,30 @@ def family_training_phase(torch, np, counters, ce, arch):
     # gate), then on a held-out batch of the stream (the gates, the 1xTF32
     # fault, the times)
     n = tokens // micro
+    if arch in FAM_LAYERS:
+        # a model of tens of GB: its moments go before the gates' [n, V]
+        # passes (the heads check drops them anyway)
+        exp.opt_state, exp._train_step = None, None
+        gc.collect()
+        torch.cuda.empty_cache()
     w = lm.head_weight(exp.params, cfg).detach()
     f, y, _ = _zoo_batch_features(torch, exp, 0)
-    trained = ce_trained_batch_gate(torch, ce, f[:n].contiguous(),
-                                    w, y[:n].contiguous(), arch)
+    # the trained batch's first rows: the gate's fp64 reference holds a
+    # few [rows, V] tensors (2,048 rows, as the families' micro-batches)
+    g = min(n, FAM_GATE_ROWS)
+    trained = ce_trained_batch_gate(torch, ce, f[:g].contiguous(),
+                                    w, y[:g].contiguous(), arch)
     del f, y
-    exp.data_fn = lambda t, b: synthetic.lm_batch(t, b, ZOO_TS, vocab,
-                                                  device=DEVICE)
+    exp.data_fn = exp._synthetic_batch
     f, y, _ = _zoo_batch_features(torch, exp, 10**5 + 1)
     f, y = f[:n].contiguous(), y[:n].contiguous()
     rows = dict(zip(("ce_forward", "ce_backward"), zoo_ce_rows(
-        torch, ce, f, w, y, model=cfg.name, tag=arch)))
+        torch, ce, f, w, y, model=cfg.name, tag=arch,
+        floor=arch in FAM_LAYERS)))
     rows["ce_backward"]["trained_batch"] = trained
     del f, y, w
     torch.cuda.empty_cache()
-    scan = ssd_layer_check(torch, exp)
+    scan = ssd_layer_check(torch, exp) if cfg.ssm is not None else None
     torch.cuda.empty_cache()
     e2e = {"micro_batches": micro, "fit_s": fit_s, "losses": losses,
            "fit_peak_memory_gb": peak_gb, "step1_loss_ref": ref_loss,
@@ -5356,6 +5738,7 @@ def family_training_phase(torch, np, counters, ce, arch):
            "step_ms_all": step_all,
            "tokens_per_s": tokens / step_ms * 1e3, "step_profile": prof,
            "params_moved": moved, "ssd_layer": scan,
+           "dropped_share": drop_share, "routing": routing, "two_fits": det,
            "phase_s": time.perf_counter() - t_phase}
     log(f"{tag}: step 1 kernel vs ref loss rel {loss_rel:.3g}; phase "
         f"{e2e['phase_s']:.1f} s")
@@ -5384,7 +5767,8 @@ def _head_loss_vs_ref(torch, exp):
     return tuple(losses)
 
 
-def family_heads_check(torch, np, counters, exp, kern, gate_kernels):
+def family_heads_check(torch, np, counters, exp, kern, gate_kernels,
+                       park=False):
     """The rest of a family's surface at full width, each leg with every
     counter reset just before it and read just after (``FAM_WANT``):
     ``evaluate``, and top-5 of 64 queries exact and through the IVF index
@@ -5399,7 +5783,11 @@ def family_heads_check(torch, np, counters, exp, kern, gate_kernels):
     active set), ``dist_topk`` (the graph build over every row),
     ``stage1_topk`` and ``ivf_rerank`` (the retrieval) at this family's
     shapes against their plain versions (``kern``: the kernel modules).
-    Returns ({path: launches}, {kernel: row}, numbers)."""
+    ``park``: after the retrieval legs the trained experiment's optimizer
+    state is dropped and its params wait on the host, and each one-step
+    experiment drops its moments after its step (a model of tens of GB
+    cannot have two trained copies on the card). Returns ({path: launches}, {kernel: row},
+    numbers)."""
     from repro_torch.configs.base import effective_vocab
     cfg = exp.model_cfg
     arch = _ARCH[cfg.family]
@@ -5447,9 +5835,16 @@ def family_heads_check(torch, np, counters, exp, kern, gate_kernels):
     out["ivf_top5_overlap"] = float(np.mean([
         len(set(a) & set(b)) / K for a, b in zip(got[None][0],
                                                  got["ivf"][0])]))
+
     if gate_kernels:
         rows.update(retrieval_kernel_rows(torch, np, kern["dc"], kern["ivf"],
                                           exp, idx, f"{arch} retrieval"))
+    if park:
+        from repro_torch.optim import tree_map
+        exp.opt_state, exp._train_step = None, None
+        exp.params = tree_map(lambda t: t.cpu(), exp.params)
+        gc.collect()
+        torch.cuda.empty_cache()
     heads = {"full": {}, "knn": ZOO_KNN,
              "selective": dict(softmax_impl="selective"),
              "mach": dict(softmax_impl="mach", mach_b=v // 16, mach_r=4),
@@ -5461,6 +5856,10 @@ def family_heads_check(torch, np, counters, exp, kern, gate_kernels):
         loss = counted(f"{fam}_{name}_step",
                        lambda: one.fit(1, lr=ZOO_LR)[0]["loss"])
         lk, lr = _head_loss_vs_ref(torch, one)
+        if park:
+            one.opt_state, one._train_step = None, None
+            gc.collect()
+            torch.cuda.empty_cache()
         rel = abs(lk - lr) / abs(lr)
         out[name] = {"loss": loss, "next_loss_kernel": lk,
                      "next_loss_ref": lr, "next_loss_rel": rel}
@@ -5486,6 +5885,133 @@ def family_heads_check(torch, np, counters, exp, kern, gate_kernels):
         f"{ {k: r for k, r in out.items() if isinstance(r, dict)} }"
         f" ({out['s']:.1f} s)")
     return launches, rows, out
+
+
+def _encdec_greedy(torch, exp, frames, prompt, gen, backend):
+    """Greedy decoding of the encoder-decoder: the prefill of ``prompt``
+    [b, P] over ``frames`` through ``lm.backbone`` (the decoder's self K/V
+    and the cross K/V), the self K/V padded to P + ``gen`` slots, then
+    ``gen - 1`` one-token ``lm.decode`` steps through the caches, each
+    token the argmax of the tied head (``serve_logits_local``). Returns
+    (tokens [b, gen], the last prefill position's features)."""
+    from repro_torch.models import decoder, lm
+    cfg = exp.model_cfg
+    p = prompt.shape[1]
+    window = p + gen
+    with torch.no_grad():
+        h, _, c = lm.backbone(exp.params, cfg, {"tokens": prompt,
+                                                "frames": frames},
+                              want_cache=True, backend=backend)
+        pad = (0, 0, 0, 0, 0, window - p)
+        caches = {"k": torch.nn.functional.pad(c["k"], pad),
+                  "v": torch.nn.functional.pad(c["v"], pad),
+                  "cross_k": c["cross_k"], "cross_v": c["cross_v"]}
+        del c
+        slots = decoder.init_cache_slots(
+            cfg, window, prefill_positions=torch.arange(p, device=DEVICE))
+        tok = _greedy_logits(torch, exp, h[:, -1])[0]
+        out = [tok]
+        for _ in range(gen - 1):
+            hd, caches, slots = lm.decode(exp.params, cfg,
+                                          {"token": tok[:, None]}, caches,
+                                          slots, window=window,
+                                          backend=backend)
+            tok = _greedy_logits(torch, exp, hd[:, 0])[0]
+            out.append(tok)
+        toks = torch.stack(out, dim=1)
+    return toks, h[:, -1]
+
+
+def encdec_decode_phase(torch, np, counters, exp):
+    """whisper-tiny's greedy decode of ZOO_GEN tokens through ``lm.decode``
+    with the cross caches, on the trained experiment: WHISPER_B rows of
+    the stream's frames and a decoder prompt of WHISPER_PROMPT tokens, on
+    the kernel backend, every counter reset just before and read just
+    after (``FAM_WANT``: the prefill's flash attention, 4 encoder layers
+    non-causal and 4 decoder layers causal; the decode steps take the ref
+    branches over the caches). Then in fp32 compute: the kernel and the
+    ref backend's tokens equal, and a prefill of P tokens and one decode
+    step against a prefill of P + 1 (features within FAM_CONT32_TOL, the
+    greedy tokens equal). Prefill and decode times. Returns (path,
+    launches, numbers)."""
+    cfg = exp.model_cfg
+    tag = f"{cfg.name} decode phase"
+    t_phase = time.perf_counter()
+    batch = exp._synthetic_batch(0, WHISPER_B)
+    frames = batch["frames"]
+    prompt = batch["tokens"][:, :WHISPER_PROMPT + 1]
+    path = "encdec_decode"
+    torch.cuda.synchronize()
+    _reset(counters)
+    t0 = time.perf_counter()
+    toks, _ = _encdec_greedy(torch, exp, frames, prompt[:, :-1], ZOO_GEN,
+                             "kernel")
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = {k: v for k, v in _read(counters).items() if v}
+    if launches != FAM_WANT[path]:
+        fail(f"{tag}: the decode launched {launches}, not {FAM_WANT[path]}")
+    if toks.shape != (WHISPER_B, ZOO_GEN) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"{tag}: tokens {tuple(toks.shape)} out of shape or range")
+    cfg0 = exp.model_cfg
+    exp.model_cfg = dataclasses.replace(cfg0, dtype="float32")
+    try:
+        t32 = {b: _encdec_greedy(torch, exp, frames, prompt[:, :-1],
+                                 ZOO_GEN, b)[0] for b in ("kernel", "ref")}
+        # a prefill of P + 1 against a prefill of P and one decode step:
+        # the decode's first step reads the prompt's last token
+        _, h_full = _encdec_greedy(torch, exp, frames, prompt, 1, "kernel")
+        from repro_torch.models import decoder, lm
+        p = WHISPER_PROMPT
+        with torch.no_grad():
+            _, _, c = lm.backbone(exp.params, exp.model_cfg,
+                                  {"tokens": prompt[:, :p], "frames": frames},
+                                  want_cache=True, backend="kernel")
+            pad = (0, 0, 0, 0, 0, 1)
+            caches = {"k": torch.nn.functional.pad(c["k"], pad),
+                      "v": torch.nn.functional.pad(c["v"], pad),
+                      "cross_k": c["cross_k"], "cross_v": c["cross_v"]}
+            slots = decoder.init_cache_slots(
+                exp.model_cfg, p + 1,
+                prefill_positions=torch.arange(p, device=DEVICE))
+            h_step = lm.decode(exp.params, exp.model_cfg,
+                               {"token": prompt[:, p:]}, caches, slots,
+                               window=p + 1, backend="kernel")[0][:, 0]
+        h_rel, lg_rel, n_eq, _ = _logit_gate(
+            torch, np, exp, h_step, h_full, FAM_CONT32_TOL,
+            f"{tag}: prefill + one decode step vs prefill of P + 1 (fp32)")
+    finally:
+        exp.model_cfg = cfg0
+    if h_rel > FAM_CONT32_TOL or n_eq != WHISPER_B:
+        fail(f"{tag}: prefill + one decode step vs prefill of P + 1: "
+             f"features {h_rel:.3g} of max|h|, tokens equal at {n_eq}")
+    same = int((t32["kernel"] == t32["ref"]).sum())
+    if same != t32["ref"].numel():
+        fail(f"{tag}: in fp32 compute the kernel backend's tokens differ "
+             f"from the ref backend's at {t32['ref'].numel() - same}")
+    reps = []
+    for _ in range(FAM_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _encdec_greedy(torch, exp, frames, prompt[:, :-1], ZOO_GEN, "kernel")
+        torch.cuda.synchronize()
+        reps.append(time.perf_counter() - t0)
+    out = {"launches": launches, "first_row": toks[0].tolist(),
+           "decode_s_counted": decode_s, "decode_s_reps": reps,
+           "tok_per_s": WHISPER_B * ZOO_GEN / statistics.median(reps),
+           "continuation_fp32": {"h_rel": h_rel, "logit_rel": lg_rel,
+                                 "tokens_equal": n_eq},
+           "fp32_kernel_vs_ref_tokens_equal": same,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"{tag}: {WHISPER_B} rows of {cfg.enc_seq} frames, a prompt of "
+        f"{WHISPER_PROMPT} tokens, {ZOO_GEN} greedy tokens: launches "
+        f"{launches}; first row {toks[0].tolist()[:12]}...; the whole "
+        f"decode {statistics.median(reps):.3f} s "
+        f"({out['tok_per_s']:.0f} tok/s); fp32 kernel vs ref tokens equal "
+        f"{same}/{t32['ref'].numel()}; prefill + one step vs the longer "
+        f"prefill {h_rel:.3g} of max|h|; phase {out['phase_s']:.1f} s")
+    return path, launches, out
 
 
 def _ckpt_round_trip(torch, exp, root) -> dict:
@@ -5769,7 +6295,8 @@ def main() -> int:
     for arch in FAMILIES:
         path, fam_launches[path], e2e["families"][f"{arch}_serve"] = \
             family_serve_phase(torch, np, counters, arch)
-    kernels["flash_attention"]["hymba"] = flash_hybrid_check(torch, fa)
+    kernels["flash_attention"]["hymba"] = flash_family_check(torch, fa,
+                                                            "hymba_1_5b")
     gc.collect()
     torch.cuda.empty_cache()
     for arch in FAMILIES:
@@ -5796,6 +6323,30 @@ def main() -> int:
         torch, np, counters)
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the moe, vlm and encdec families at their published widths
+    for arch in NEW_FAMILIES + (ENCDEC,):
+        if arch != ENCDEC:
+            path, fam_launches[path], e2e["families"][f"{arch}_serve"] = \
+                family_serve_phase(torch, np, counters, arch)
+        kernels["flash_attention"][arch] = flash_family_check(torch, fa, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        path, fam_launches[path], rows, e2e["families"][f"{arch}_train"], \
+            fexp = family_training_phase(torch, np, counters, ce, arch)
+        for name, row in rows.items():
+            kernels[name][arch] = row
+        paths, rows, e2e["families"][f"{arch}_heads"] = family_heads_check(
+            torch, np, counters, fexp, kern, True, park=arch != ENCDEC)
+        fam_launches.update(paths)
+        for name, row in rows.items():
+            kernels[name][arch] = row
+        if arch == ENCDEC:
+            path, fam_launches[path], e2e["families"][f"{arch}_decode"] = \
+                encdec_decode_phase(torch, np, counters, fexp)
+        del fexp
+        gc.collect()
+        torch.cuda.empty_cache()
     e2e["build_s"] = build_s
 
     # launches on each main path, from its own reset-and-read of the counters

@@ -36,11 +36,13 @@ full, knn, selective, mach, sampled, csoft; the sketch heads mach and
 csoft serve greedy only, since top-k and the IVF index retrieve against a
 [V, D] class matrix they do not train), on the ``feats`` trunk or the
 paper's ResNet (``trunk="cnn"``, or a ``family="cnn"`` model config), with
-or without DGC (``TrainConfig.dgc``); for the zoo's dense, ssm (mamba2)
-and hybrid (hymba) decoders the zoo trainer (``ZooExperiment.fit`` /
-``evaluate``, any of the six heads), its full-state checkpoints
-(``ckpt_dir``, ``fit(resume=True | "reshard")``, ``restore``) in the JAX
-package's layout, prefill + greedy decode and feature retrieval
+or without DGC (``TrainConfig.dgc``); for every arch id of the zoo (the
+dense and vlm decoders, the moe family's qwen3-moe and kimi-K2, the ssm
+mamba2, the hybrid hymba and the encdec whisper) the zoo trainer
+(``ZooExperiment.fit`` / ``evaluate``, any of the six heads), its
+full-state checkpoints (``ckpt_dir``, ``fit(resume=True | "reshard")``,
+``restore``) in the JAX package's layout, prefill + greedy decode (not
+for encdec, as in the JAX package) and feature retrieval
 (``serve(top_k=...)``, exact or through the IVF index, and
 ``serving_engine``).
 
@@ -378,8 +380,8 @@ def _int32(v) -> torch.Tensor:
 
 
 class ZooExperiment(Experiment):
-    """Training and serving for the zoo's dense, ssm and hybrid decoders
-    with any registered softmax head: the loss goes through the head registry
+    """Training and serving for the zoo's dense, vlm, moe, ssm and hybrid
+    decoders and its encoder-decoder with any registered softmax head: the loss goes through the head registry
     (``gspmd.make_head_train_step``), so full / knn / selective / mach /
     sampled / csoft all train. The trunk is replicated on every ring
     member and runs the whole batch; the W-heads train the model's own
@@ -396,8 +398,12 @@ class ZooExperiment(Experiment):
     matrix through the serving engine, exactly or through the IVF index.
     ``head.backend`` (``"kernel"`` by default) selects the kernels of every
     path but the trunk's training attention, which runs the ``ref``
-    branches. ``data_fn(t, batch) -> {"tokens", "labels"}`` replaces the
-    synthetic LM stream (``data.synthetic.lm_batch``).
+    branches. ``data_fn(t, batch) -> {"tokens", "labels"}`` (the encdec
+    family's with ``"frames"`` [batch, enc_seq, D]) replaces the synthetic
+    stream (``_synthetic_batch``). The moe family's router losses enter
+    the loss once, beside the head's; the encdec family trains, evaluates,
+    retrieves and checkpoints, and its ``serve(prompt_len=...)`` raises,
+    as the JAX package's does.
 
     ``ckpt_dir`` takes full-state checkpoints in the JAX package's layout
     (``_snapshot``: the model with its blocks stacked on [L], the head's
@@ -417,11 +423,10 @@ class ZooExperiment(Experiment):
                  ckpt_keep: int = 0, log_every: int = 10,
                  seed: int = 0, telemetry=None, device=None):
         from repro_torch.api.heads import HeadState, make_head, member_aux
-        from repro_torch.data import synthetic
-        from repro_torch.models import decoder, lm
+        from repro_torch.models import lm
 
         cfg = get_model_config(arch, reduced=reduced)
-        decoder.require_ported(cfg)
+        lm.require_ported(cfg)
         self.device = resolve_device(device)
         if reduced:
             cfg = dataclasses.replace(cfg, dtype="float32")
@@ -443,9 +448,7 @@ class ZooExperiment(Experiment):
         self.seed = seed
         self.last_reshard = None     # stats dict of the last elastic restore
         self.history: list = []
-        vocab = effective_vocab(self.model_cfg)
-        self.data_fn = data_fn or (lambda t, b: synthetic.lm_batch(
-            t, b, self.seq, vocab, device=self.device))
+        self.data_fn = data_fn or self._synthetic_batch
         self.head = make_head(self.model_cfg, self.head_cfg)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
@@ -535,6 +538,19 @@ class ZooExperiment(Experiment):
         """Back-compat: refresh the head and return the knn graph row."""
         self.refresh_head()
         return self.graph
+
+    def _synthetic_batch(self, t: int, b: int) -> dict:
+        """The synthetic LM stream's batch t (``data.synthetic.lm_batch``);
+        the encdec family's also carries ``frames`` [b, enc_seq, D]
+        (``data.synthetic.frame_batch``)."""
+        from repro_torch.data import synthetic
+        cfg = self.model_cfg
+        out = synthetic.lm_batch(t, b, self.seq, effective_vocab(cfg),
+                                 device=self.device)
+        if cfg.family == "encdec":
+            out["frames"] = synthetic.frame_batch(
+                t, b, cfg.enc_seq, cfg.d_model, device=self.device)
+        return out
 
     def _batch(self, t: int) -> dict:
         from repro_torch.train.trainer import to_device
@@ -843,6 +859,11 @@ class ZooExperiment(Experiment):
             raise ValueError(
                 f"prompt_len and gen must be positive, got "
                 f"prompt_len={prompt_len} gen={gen}")
+        if self.model_cfg.family == "encdec":
+            raise NotImplementedError(
+                "serve() decodes decoder-only archs, as the JAX package's "
+                "does; the encoder-decoder's greedy decode runs through "
+                "models.lm.decode with the cross caches (models.encdec)")
         if not self.head.params_are_class_weights:
             raise NotImplementedError(
                 f"zoo serve() decodes with the model's [V, D] head weight, "

@@ -185,11 +185,6 @@ ARCH_IDS = [
     "hymba_1_5b",
 ]
 
-# the dense, ssm and hybrid decoders, whose configs the port carries; the
-# other arch ids wait for their families (ROADMAP.md A.9)
-PORTED_ARCH_IDS = ("smollm_135m", "qwen3_1_7b", "gemma_2b", "phi3_mini_3_8b",
-                   "mamba2_370m", "hymba_1_5b")
-
 
 def normalize_arch_id(arch: str) -> str:
     return arch.replace("-", "_").replace(".", "_")
@@ -199,10 +194,6 @@ def get_model_config(arch: str, reduced: bool = False) -> ModelConfig:
     arch = normalize_arch_id(arch)
     if arch not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"the {arch!r} config is not ported to torch yet (ported: "
-            f"{list(PORTED_ARCH_IDS)}; see ROADMAP.md A.9)")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.reduced() if reduced else mod.config()
 

@@ -118,3 +118,15 @@ def lm_batch(step: int, batch_size: int, seq_len: int, vocab: int,
     tokens = torch.where(noise, rnd, tokens).to(device)
     return {"tokens": tokens[:, :seq_len],
             "labels": tokens[:, 1:seq_len + 1]}
+
+
+def frame_batch(step: int, batch_size: int, enc_seq: int, d_model: int,
+                seed: int = 0, *, device="cpu"):
+    """The encoder-decoder family's stubbed frontend output: standard
+    normal frame embeddings [b, enc_seq, d_model] fp32, drawn on ``device``
+    from a generator seeded by (seed, step). (The JAX package draws them
+    from ``jax.random.normal(PRNGKey(step))``, which torch cannot
+    reproduce; tests inject the JAX frames through ``data_fn``.)"""
+    g = _generator(device, seed + 9001, step)
+    return torch.randn((batch_size, enc_seq, d_model), generator=g,
+                       device=device)

@@ -39,11 +39,13 @@
 //     7 rows x 512 floats with 1-D bulk copies (TMA, one per row and stage,
 //     completing on the stage's mbarrier), skipping pads and clipping ids,
 //     and runs ahead into the next item; rows wider than 512 floats come in
-//     512-float pieces, so D up to 4,096 needs no more shared memory;
+//     512-float pieces, so wide rows need no more ring;
 //   - the cluster's queries wait in shared memory, up to 8 at a time
-//     (fewer for wide rows: 2 at D = 4,096); a cluster with more (skew: 64
-//     queries on the same clusters, or nprobe = C) streams its segment
-//     again for each tile of queries, mostly from L2;
+//     (fewer for wide rows: 2 at D = 4,096, 1 at 8,192, whose one query
+//     takes 32 KB beside the ring's 56 KB: two blocks an SM still); a
+//     cluster with more (skew: 64 queries on the same clusters, or nprobe
+//     = C) streams its segment again for each tile of queries, mostly
+//     from L2;
 //   - 7 consumer warps take one row of a stage each and score it against
 //     every query of the tile in fp32 FMA (no TF32): lane j sums its float4
 //     pieces j, j + 32, ... in order, then the lanes' sums of the tile's
@@ -58,7 +60,7 @@
 //     turns positions into row ids. Nothing is summed by atomics and every
 //     order is fixed: two runs give the same bits.
 //
-// Requires D % 4 == 0, 4 <= D <= 4,096, 16-byte aligned f and w, 1 <= k <=
+// Requires D % 4 == 0, 4 <= D <= 8,192, 16-byte aligned f and w, 1 <= k <=
 // 32, P * L < 2^31 (checked by the wrapper). Probe entries outside [0, G)
 // probe nothing.
 
@@ -80,7 +82,7 @@ constexpr int STAGES = 4;
 constexpr int QMAX = 8;                // queries a tile
 constexpr int SEG = 128;               // slots of a group a block takes
 constexpr int DCH = 512;               // floats of a row a stage holds
-constexpr int MAX_D = 4096;
+constexpr int MAX_D = 8192;       // one query a tile: 32 KB
 constexpr int MERGE_WARPS = 8;
 constexpr int PLAN_THREADS = 1024;
 

@@ -60,6 +60,23 @@
 //     device memory.
 //   - Columns at or past Nk are masked in the kernel; rows past Nq are not
 //     written, and get a k'-th value of +inf so nothing of theirs passes.
+//   - Depth past 2,048 (PROMOTE): the tensor cores add each wgmma's
+//     products into its fp32 accumulator truncating, not rounding, so a
+//     sum carried through D / 16 instructions drifts towards zero by up to
+//     about D / 16 units in the last place: at D = 8,192 a graph build's
+//     self score of ~1 came 2.6e-5 below the plain fp32 product (an H100
+//     SXM). There each 64-deep chunk's products go, one 64-row half at a
+//     time, into an accumulator that starts from zero, and are added to
+//     the half's fp32 sum by ordinary (round-to-nearest) adds; the two
+//     halves' sums and the chunk's take 192 registers a thread. The chunk
+//     is waited on before its adds, so the products no longer overlap the
+//     next stage's; below 2,048 deep the drift stays under 8e-6 of a score
+//     of 1 and the sums stay in the wgmma accumulators. Two bodies, since
+//     the deep one costs time where the fold dominates: on 16,896 rows of
+//     a graph build (scripts/chip_dist_topk_depth.py with PROMOTE_KC = 0,
+//     an H100 SXM at 700 W) it took 59.7 ms against the overlapped body's
+//     49.5 at D 512 over 1,020,250 keys, and the same (34.9 / 34.6 ms,
+//     51.6 / 51.7 ms) at D 2,048 and 3,072 over 151,936.
 // One launch per ring hop; the wrapper shifts the ids by the hop's column
 // offset.
 //
@@ -139,6 +156,9 @@ __device__ __noinline__ float merge_row(float* list_v, int* list_c,
   return kv;
 }
 
+constexpr int PROMOTE_KC = 32;   // 64-deep chunks past which sums promote
+
+template <bool PROMOTE>
 __global__ void __launch_bounds__(THREADS, 1)
 dist_topk_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk, int Nq, int Nk,
@@ -226,27 +246,53 @@ dist_topk_kernel(const __grid_constant__ CUtensorMap tq,
       const unsigned char* qsl = base + st * STAGE_BYTES +
                                  wc * ht::slab_bytes(128);
       const unsigned char* ksl = base + st * STAGE_BYTES + Q_SLAB;
-      ht::wgmma_fence();
+      if constexpr (PROMOTE) {
+        // the chunk's products from zero, one half at a time, then added
+        // to the half's sums with round-to-nearest adds
 #pragma unroll
-      for (int k4 = 0; k4 < 4; ++k4) {
-        const uint64_t db = ht::desc_k(ksl, k4);
-        ht::wgmma_ss_n128(acc[0], ht::desc_k(qsl, k4), db, kc | k4);
-        ht::wgmma_ss_n128(acc[1], ht::desc_k(qsl + ht::slab_bytes(64), k4),
-                          db, kc | k4);
-      }
-      ht::wgmma_commit();
-      ht::wgmma_wait<1>();                  // the previous stage is read
-      if (prev >= 0) {
+        for (int h = 0; h < 2; ++h) {
+          float part[BN / 2];
+          ht::wgmma_fence();
+#pragma unroll
+          for (int k4 = 0; k4 < 4; ++k4)
+            ht::wgmma_ss_n128(part,
+                              ht::desc_k(qsl + h * ht::slab_bytes(64), k4),
+                              ht::desc_k(ksl, k4), k4);
+          ht::wgmma_commit();
+          ht::wgmma_wait<0>();
+          ht::fence_regs(part);
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc[h][i] += part[i];
+        }
         __syncwarp();
-        if (lane == 0) ht::mbar_arrive(&empty[prev]);
+        if (lane == 0) ht::mbar_arrive(&empty[st]);
+        continue;
+      } else {
+        ht::wgmma_fence();
+#pragma unroll
+        for (int k4 = 0; k4 < 4; ++k4) {
+          const uint64_t db = ht::desc_k(ksl, k4);
+          ht::wgmma_ss_n128(acc[0], ht::desc_k(qsl, k4), db, kc | k4);
+          ht::wgmma_ss_n128(acc[1],
+                            ht::desc_k(qsl + ht::slab_bytes(64), k4), db,
+                            kc | k4);
+        }
+        ht::wgmma_commit();
+        ht::wgmma_wait<1>();                  // the previous stage is read
+        if (prev >= 0) {
+          __syncwarp();
+          if (lane == 0) ht::mbar_arrive(&empty[prev]);
+        }
+        prev = st;
       }
-      prev = st;
     }
-    ht::wgmma_wait<0>();
-    ht::fence_regs(acc[0]);
-    ht::fence_regs(acc[1]);
-    __syncwarp();
-    if (lane == 0) ht::mbar_arrive(&empty[prev]);
+    if constexpr (!PROMOTE) {
+      ht::wgmma_wait<0>();
+      ht::fence_regs(acc[0]);
+      ht::fence_regs(acc[1]);
+      __syncwarp();
+      if (lane == 0) ht::mbar_arrive(&empty[prev]);
+    }
 
     // -- fold this tile's scores into the rows' top-k' ---------------------
     const int n0 = t * BN;
@@ -325,11 +371,13 @@ extern "C" int dist_topk_launch(const void* q, const void* k, int Nq, int Nk,
   int err = ht::tmap_bf16(&tq, q, 2, D, Nq, 1, row, 0, BQ);
   if (!err) err = ht::tmap_bf16(&tk, k, 2, D, Nk, 1, row, 0, BN);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(
-      dist_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int n_kc = (D + 63) / 64;
-  dist_topk_kernel<<<(Nq + BQ - 1) / BQ, THREADS, SMEM, st>>>(
+  auto kernel = n_kc > PROMOTE_KC ? dist_topk_kernel<true>
+                                  : dist_topk_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<(Nq + BQ - 1) / BQ, THREADS, SMEM, st>>>(
       tq, tk, Nq, Nk, n_kc, kp, static_cast<float*>(vals),
       static_cast<int*>(ids));
   return static_cast<int>(cudaGetLastError());

@@ -33,7 +33,8 @@ from repro_torch.kernels import build
 
 LAUNCHES = 0          # kernel launches (one per call on the card)
 MAX_K = 32            # the CUDA kernel keeps a row's slots one per lane
-MAX_DIM = 4096        # rows stream in 512-float pieces; queries in tiles
+MAX_DIM = 8192        # rows stream in 512-float pieces; queries in tiles
+#                       (one query a tile at 8,192: 32 KB of shared memory)
 _PLAIN_ELEMS = 1 << 28   # gathered floats per chunk of the plain version
 
 

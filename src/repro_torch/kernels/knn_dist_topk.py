@@ -8,8 +8,11 @@ On CUDA tensors it launches the hand-written kernel in
 key row in tiles of 128: a producer warp streams 64-deep slabs of the
 block's Q rows and the tile's K rows by TMA, two consumer warpgroups take
 the bf16 products by ``wgmma`` with fp32 sums and fold the scores that beat
-a row's k'-th entry into its running top-k'); on CPU tensors it runs
-``dist_topk_plain``, the same function in plain torch ops.
+a row's k'-th entry into its running top-k'; past a depth of 2,048 each
+64-deep chunk's products are added to fp32 sums by round-to-nearest adds,
+since the tensor cores' own accumulation truncates and would drift a
+score of ~1 by up to D / 16 units in the last place); on CPU tensors it
+runs ``dist_topk_plain``, the same function in plain torch ops.
 
 Bound on an H100 SXM at the graph build's shapes (Q = K = the 1,020,250
 unit class rows in bf16, D = 512, k' = 32): 1.066 PFLOP of bf16 products,
@@ -26,7 +29,8 @@ from repro_torch.kernels import build
 
 LAUNCHES = 0          # kernel launches (one per dist_topk call on the card)
 MAX_KPRIME = 32       # the CUDA kernel keeps a row's slots one per lane
-MAX_DIM = 4096        # Q and K stream over depth: no cap from shared memory
+MAX_DIM = 8192        # Q and K stream over depth: no cap from shared memory;
+#                       the widest the card has checked (chameleon-34B)
 
 
 def dist_topk_plain(q, kmat, kprime: int, col_offset: int = 0):

@@ -15,10 +15,10 @@ latency, QPS, batch occupancy and cache hit rate.
 is fit before the first query, and before the trace under ``--replay``, so
 the reported latencies do not include the fit.
 
-``--system zoo`` is token serving for the zoo's dense, ssm and hybrid
-decoders (``--arch``: smollm_135m, qwen3_1_7b, gemma_2b, phi3_mini_3_8b,
-mamba2_370m, hymba_1_5b; the other arch ids are an argparse error naming
-ROADMAP.md A.9; ``--reduced``): prefill ``--prompt-len`` tokens once, then
+``--system zoo`` is token serving for the zoo's decoders (``--arch``: any
+arch id but the encoder-decoder whisper_tiny, which is an argparse error
+without ``--topk`` or ``--replay``, as the JAX package's serve refuses
+it; ``--reduced``): prefill ``--prompt-len`` tokens once, then
 greedy decode ``--gen`` tokens through the KV / SSM cache and the
 sharded-vocab argmax; it
 prints the prefill and decode times and tok/s. With ``--topk K`` (and
@@ -186,14 +186,16 @@ def main(argv=None):
     if args.max_wait_ms < 0:
         p.error(f"--max-wait-ms must be >= 0, got {args.max_wait_ms}")
     if args.system == "zoo":
-        from repro_torch.configs.base import (ARCH_IDS, PORTED_ARCH_IDS,
+        from repro_torch.configs.base import (ARCH_IDS, get_model_config,
                                               normalize_arch_id)
         arch = normalize_arch_id(args.arch)
         if arch not in ARCH_IDS:
             p.error(f"unknown --arch {args.arch!r}; known: {ARCH_IDS}")
-        if arch not in PORTED_ARCH_IDS:
-            p.error(f"--arch {args.arch} is not ported to torch yet (see "
-                    f"ROADMAP.md queue A.9)")
+        if get_model_config(arch).family == "encdec" and not (
+                args.topk or args.replay):
+            p.error(f"--arch {args.arch}: token serving decodes decoder-only "
+                    f"archs, as the JAX package's does; pass --topk (or "
+                    f"--replay) for its feature retrieval")
     if args.system == "zoo" and not (args.topk or args.replay):
         if args.prompt_len <= 0 or args.gen <= 0:
             p.error(f"--prompt-len and --gen must be positive, got "

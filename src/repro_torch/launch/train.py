@@ -22,11 +22,12 @@ checkpoints; ``--resume`` restores the latest one under ``--ckpt-dir``
 TOTAL; ``--resume-reshard`` (implying ``--resume``) also takes a
 checkpoint written on a ring of another size.
 
-``--system zoo`` trains the zoo's decoder ``--arch`` (the dense
-smollm_135m, qwen3_1_7b, gemma_2b, phi3_mini_3_8b, the ssm mamba2_370m or
-the hybrid hymba_1_5b; ``--reduced``: its smoke variant, in fp32; the
-other arch ids are an argparse error naming ROADMAP.md A.9) on ``--batch``
-x ``--seq`` tokens of the synthetic LM stream a step, with any of the six
+``--system zoo`` trains the zoo's ``--arch`` (any arch id: the dense
+smollm_135m, qwen3_1_7b, gemma_2b, phi3_mini_3_8b, the vlm chameleon_34b,
+the moe qwen3_moe_30b_a3b and kimi_k2_1t_a32b, the ssm mamba2_370m, the
+hybrid hymba_1_5b, the encdec whisper_tiny with its stubbed frames;
+``--reduced``: its smoke variant, in fp32) on ``--batch`` x ``--seq``
+tokens of the synthetic LM stream a step, with any of the six
 heads (the JAX launcher's head settings: k=16, k'=32, 10% active, rebuilt
 every 100 steps), at ``--lr`` with ``--optimizer``, and prints ``[zoo]
 final next-token accuracy``. ``--ckpt-*`` and ``--resume*`` work there as
@@ -64,7 +65,6 @@ import math
 import os
 import sys
 
-_NOT_PORTED = "is not ported to torch yet (see ROADMAP.md queue {})"
 
 
 def parse_args(argv=None):
@@ -126,13 +126,9 @@ def parse_args(argv=None):
     if args.batch <= 0:
         p.error(f"--batch must be positive, got {args.batch}")
     if args.system == "zoo":
-        from repro_torch.configs.base import (ARCH_IDS, PORTED_ARCH_IDS,
-                                              normalize_arch_id)
-        arch = normalize_arch_id(args.arch)
-        if arch not in ARCH_IDS:
+        from repro_torch.configs.base import ARCH_IDS, normalize_arch_id
+        if normalize_arch_id(args.arch) not in ARCH_IDS:
             p.error(f"unknown --arch {args.arch!r}; known: {ARCH_IDS}")
-        if arch not in PORTED_ARCH_IDS:
-            p.error(f"--arch {args.arch} " + _NOT_PORTED.format("A.9"))
     if args.seq <= 0:
         p.error(f"--seq must be positive, got {args.seq}")
     # --knn is a back-compat alias; an explicit non-default --head wins

@@ -1,4 +1,4 @@
-"""Decoder-layer stack of the dense, vlm, ssm and hybrid families: the
+"""Decoder-layer stack of the dense, vlm, moe, ssm and hybrid families: the
 port of the JAX package's ``models/decoder.py``.
 
 The JAX package stacks the layers' params on a leading ``layers`` axis and
@@ -15,8 +15,9 @@ states, into the cache IN PLACE (the JAX package returns a new cache): a
 step then moves one token's worth, not the whole cache. The hybrid block
 runs attention and the SSM in parallel on the same normed input and fuses
 ``0.5 * (rms_norm(attn) * fuse_attn + rms_norm(ssm) * fuse_ssm)``; the ssm
-block has no MLP sublayer. The moe family waits for its slice (ROADMAP.md
-A.9).
+block has no MLP sublayer; the moe block's feed-forward is the
+token-choice MoE (``models/moe.py``), whose router losses the stack sums.
+The encoder-decoder family is ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -25,20 +26,22 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (ParamDict, apply_attention, apply_mlp,
                                        apply_norm, init_attention, init_mlp,
                                        init_norm, project_kv, rms_norm)
 
-PORTED_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 SSM_CACHE = ("ssm_state", "conv_state")
 
 
 def require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported to torch yet (ported: "
-            f"{list(PORTED_FAMILIES)}; see ROADMAP.md A.9)")
+            f"the {cfg.family!r} family has no decoder stack (decoder "
+            f"stacks: {list(PORTED_FAMILIES)}; the encoder-decoder family is "
+            f"models/encdec.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -58,7 +61,10 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:
         p["ssm"] = ssm_lib.init_ssm(gen, cfg)
         p["fuse_attn"] = torch.ones(cfg.d_model, device=dev)
         p["fuse_ssm"] = torch.ones(cfg.d_model, device=dev)
-    p["mlp"] = init_mlp(gen, cfg)
+    if cfg.family == "moe":
+        p["moe"] = moe_lib.init_moe(gen, cfg)
+    else:
+        p["mlp"] = init_mlp(gen, cfg)
     return ParamDict(**p)
 
 
@@ -95,22 +101,30 @@ def _mixer_forward(p, cfg: ModelConfig, x, positions, backend: str = "ref",
     return attn_out, cache
 
 
+def _feed_forward(p, cfg: ModelConfig, h):
+    """The MLP, or the moe family's MoE: (out, router aux loss or None)."""
+    if cfg.family == "moe":
+        return moe_lib.apply_moe(p.moe, cfg, h)
+    return apply_mlp(p.mlp, cfg, h), None
+
+
 def _block_forward(p, cfg: ModelConfig, x, positions, backend: str = "ref",
                    self_rows: bool = False):
-    """Full block. Returns (x, cache). (The JAX package's third output,
-    the MoE router's auxiliary loss, is 0 for these families.)"""
+    """Full block. Returns (x, aux, cache): aux the MoE router's
+    auxiliary loss, None for the other families."""
     mix, cache = _mixer_forward(p, cfg, x, positions, backend, self_rows)
     x = x + mix
     if cfg.family == "ssm":
-        return x, cache
-    x = x + apply_mlp(p.mlp, cfg, apply_norm(p.ln2, x, cfg))
-    return x, cache
+        return x, None, cache
+    ff, aux = _feed_forward(p, cfg, apply_norm(p.ln2, x, cfg))
+    return x + ff, aux, cache
 
 
 def apply_stack(blocks, cfg: ModelConfig, x, positions, *,
                 want_cache: bool = False, cache_window: Optional[int] = None,
                 backend: str = "ref", self_rows: bool = False):
-    """Run the layer stack. Returns (x, aux (0: no MoE), caches or None).
+    """Run the layer stack. Returns (x, aux (the MoE router losses summed
+    over the layers; 0 for the other families), caches or None).
 
     ``caches`` leaves are stacked [L, ...]; attention K/V are
     slot-compressed to ``cache_window`` rotating slots when given.
@@ -118,8 +132,11 @@ def apply_stack(blocks, cfg: ModelConfig, x, positions, *,
     backend's attention needs (``layers.multihead_attention``)."""
     require_ported(cfg)
     layers = []
+    aux = torch.zeros((), device=x.device)
     for p in blocks:
-        x, cache = _block_forward(p, cfg, x, positions, backend, self_rows)
+        x, a, cache = _block_forward(p, cfg, x, positions, backend, self_rows)
+        if a is not None:
+            aux = aux + a
         if want_cache:
             if cache_window is not None and "k" in cache:
                 cache["k"], cache["v"] = _compress_kv(
@@ -127,7 +144,7 @@ def apply_stack(blocks, cfg: ModelConfig, x, positions, *,
             layers.append(cache)
     caches = ({k: torch.stack([c[k] for c in layers]) for k in layers[0]}
               if want_cache else None)
-    return x, torch.zeros((), device=x.device), caches
+    return x, aux, caches
 
 
 def _compress_kv(k, v, positions, window: int):
@@ -199,8 +216,7 @@ def _block_decode(p, cfg: ModelConfig, x, layer_cache, pos, pos_slots, slot,
         attn_out = _fuse(p, attn_out, _ssm_decode(p, cfg, h, layer_cache),
                          x.dtype)
     x = x + attn_out
-    x = x + apply_mlp(p.mlp, cfg, apply_norm(p.ln2, x, cfg))
-    return x, layer_cache
+    return x + _feed_forward(p, cfg, apply_norm(p.ln2, x, cfg))[0], layer_cache
 
 
 def decode_stack(blocks, cfg: ModelConfig, x, caches, slots_state, *,

@@ -1,0 +1,162 @@
+"""Whisper-style encoder-decoder transformer backbone: the port of the JAX
+package's ``models/encdec.py``.
+
+The mel-spectrogram and conv frontend are stubbed, as in the JAX package:
+the encoder takes precomputed frame embeddings [B, enc_seq, d_model]
+(what the two conv layers would emit). Downstream of them: sinusoidal
+encoder positions, the encoder's non-causal self-attention, the decoder's
+causal self-attention and cross-attention over the encoder's output, and
+learned decoder positions (4,096, tiled).
+
+The layers are lists of ``ParamDict``s (``enc_blocks``, ``dec_blocks``)
+where the JAX package stacks them on [L] and scans. Self-attention over a
+sequence's rows (the encoder's, non-causal; the decoder's, causal) goes
+through the ``kernel`` backend's flash attention; cross-attention and the
+decode step over the caches take the ``ref`` branches. Decode writes the
+token's self-attention K/V into the cache in place; the cross caches
+[L, B, enc_seq, Hk, Dh] are built once from the encoder's output.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (ParamDict, _embed_init,
+                                       apply_attention, apply_mlp,
+                                       apply_norm, init_attention, init_mlp,
+                                       init_norm, project_kv,
+                                       sinusoid_positions)
+
+DEC_POS = 4096    # learned decoder positions, tiled beyond
+
+
+def init_enc_block(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:
+    dev = gen.device
+    return ParamDict(ln1=init_norm(cfg, device=dev),
+                     attn=init_attention(gen, cfg),
+                     ln2=init_norm(cfg, device=dev), mlp=init_mlp(gen, cfg))
+
+
+def init_dec_block(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:
+    dev = gen.device
+    return ParamDict(ln1=init_norm(cfg, device=dev),
+                     self_attn=init_attention(gen, cfg),
+                     ln2=init_norm(cfg, device=dev),
+                     cross_attn=init_attention(gen, cfg),
+                     ln3=init_norm(cfg, device=dev), mlp=init_mlp(gen, cfg))
+
+
+def init_encdec(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:
+    dev = gen.device
+    return ParamDict(
+        enc_blocks=[init_enc_block(gen, cfg)
+                    for _ in range(cfg.n_enc_layers)],
+        enc_ln=init_norm(cfg, device=dev),
+        dec_blocks=[init_dec_block(gen, cfg) for _ in range(cfg.n_layers)],
+        dec_ln=init_norm(cfg, device=dev),
+        dec_pos=_embed_init(gen, (DEC_POS, cfg.d_model)))
+
+
+def encode(p, cfg: ModelConfig, frames, *, backend: str = "ref"):
+    """frames: [B, enc_seq, D] stubbed conv features -> encoder output."""
+    dt = frames.dtype
+    s = frames.shape[1]
+    x = frames + sinusoid_positions(s, cfg.d_model,
+                                    device=frames.device).to(dt)
+    positions = torch.arange(s, device=frames.device)
+    for lp in p.enc_blocks:
+        h = apply_norm(lp.ln1, x, cfg)
+        a, _ = apply_attention(lp.attn, cfg, h, positions=positions,
+                               causal=False, backend=backend, self_rows=True)
+        x = x + a
+        x = x + apply_mlp(lp.mlp, cfg, apply_norm(lp.ln2, x, cfg))
+    return apply_norm(p.enc_ln, x, cfg)
+
+
+def _dec_positions_embed(p, positions, dt):
+    idx = (positions % p.dec_pos.shape[0]).long()
+    return p.dec_pos[idx].to(dt)
+
+
+def decode_train(p, cfg: ModelConfig, tokens_emb, enc_out, positions,
+                 want_cache: bool = False, *, backend: str = "ref"):
+    """Teacher-forced decoder forward. tokens_emb: [B,S,D] (embedded),
+    ``positions`` arange(S). Returns (hidden [B,S,D], caches or None):
+    caches {"k", "v", "cross_k", "cross_v"} stacked [L, ...]."""
+    dt = tokens_emb.dtype
+    x = tokens_emb + _dec_positions_embed(p, positions, dt)[None]
+    enc_pos = torch.arange(enc_out.shape[1], device=enc_out.device)
+    layers = []
+    for lp in p.dec_blocks:
+        h = apply_norm(lp.ln1, x, cfg)
+        a, (k, v) = apply_attention(lp.self_attn, cfg, h, positions=positions,
+                                    causal=True, backend=backend,
+                                    self_rows=True)
+        x = x + a
+        h = apply_norm(lp.ln2, x, cfg)
+        c, _ = apply_attention(lp.cross_attn, cfg, h, positions=positions,
+                               kv={"x": enc_out}, kv_positions=enc_pos,
+                               causal=False, backend=backend)
+        x = x + c
+        x = x + apply_mlp(lp.mlp, cfg, apply_norm(lp.ln3, x, cfg))
+        if want_cache:
+            ck, cv = project_kv(lp.cross_attn, cfg, enc_out, enc_pos)
+            layers.append({"k": k, "v": v, "cross_k": ck, "cross_v": cv})
+    caches = ({n: torch.stack([c[n] for c in layers]) for n in layers[0]}
+              if want_cache else None)
+    return apply_norm(p.dec_ln, x, cfg), caches
+
+
+def build_cross_cache(p, cfg: ModelConfig, enc_out):
+    """Per-layer cross-attention K/V of the encoder's output: (ck, cv)
+    [L, B, T_enc, Hk, Dh]."""
+    enc_pos = torch.arange(enc_out.shape[1], device=enc_out.device)
+    kv = [project_kv(lp.cross_attn, cfg, enc_out, enc_pos)
+          for lp in p.dec_blocks]
+    return (torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv]))
+
+
+def decode_step(p, cfg: ModelConfig, x, caches, slots_state, *, window: int,
+                backend: str = "ref"):
+    """One decoder token x [B,1,D] (embedded). caches: stacked {"k", "v",
+    "cross_k", "cross_v"}, the self-attention K/V written at the token's
+    slot in place. Returns (hidden [B,1,D], caches, new slots_state)."""
+    pos = slots_state["pos"]
+    pos_slots = slots_state["pos_slots"]
+    slot = pos % window
+    idx = slot.reshape(1).long()
+    positions = pos[None]
+    x = x + _dec_positions_embed(p, positions, x.dtype)[None]
+    enc_pos = torch.arange(caches["cross_k"].shape[2], device=x.device)
+    new_slots = pos_slots.index_copy(0, idx, pos.reshape(1))
+    for i, lp in enumerate(p.dec_blocks):
+        h = apply_norm(lp.ln1, x, cfg)
+        k_new, v_new = project_kv(lp.self_attn, cfg, h, positions)
+        kc = caches["k"][i].index_copy_(1, idx, k_new)
+        vc = caches["v"][i].index_copy_(1, idx, v_new)
+        a, _ = apply_attention(lp.self_attn, cfg, h, positions=positions,
+                               kv=(kc, vc), kv_positions=new_slots,
+                               causal=True, backend=backend)
+        x = x + a
+        h = apply_norm(lp.ln2, x, cfg)
+        c, _ = apply_attention(lp.cross_attn, cfg, h, positions=positions,
+                               kv=(caches["cross_k"][i], caches["cross_v"][i]),
+                               kv_positions=enc_pos, causal=False,
+                               backend=backend)
+        x = x + c
+        x = x + apply_mlp(lp.mlp, cfg, apply_norm(lp.ln3, x, cfg))
+    x = apply_norm(p.dec_ln, x, cfg)
+    return x, caches, {"pos": pos + 1, "pos_slots": new_slots}
+
+
+def init_encdec_decode_cache(cfg: ModelConfig, batch: int, window: int,
+                             dtype, *, device) -> dict:
+    """Fresh (empty) stacked caches: self-attention K/V over ``window``
+    slots, cross K/V over the encoder's ``enc_seq`` frames."""
+    hk, dh, n = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
+
+    def zeros(t):
+        return torch.zeros((n, batch, t, hk, dh), dtype=dtype, device=device)
+
+    return {"k": zeros(window), "v": zeros(window),
+            "cross_k": zeros(cfg.enc_seq), "cross_v": zeros(cfg.enc_seq)}

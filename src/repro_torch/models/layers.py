@@ -147,6 +147,19 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoid_positions(length: int, dim: int, *, device=None):
+    """Whisper-style fixed sinusoidal embeddings [length, dim] fp32, with
+    the JAX package's fp32 step log(10000) / (dim // 2 - 1)."""
+    half = dim // 2
+    step = float(np.float32(np.log(np.float32(10000.0)))
+                 / np.float32(max(half - 1, 1)))
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=device) * step)
+    ang = torch.arange(length, dtype=torch.float32,
+                       device=device)[:, None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
@@ -325,17 +338,25 @@ def apply_attention(p, cfg: ModelConfig, x, *, positions, kv=None,
     """Full attention sublayer. ``kv`` overrides the K/V source:
     - None: self-attention over x;
     - (k_cache, v_cache): a pre-projected (and pre-roped) cache [B,T,Hk,Dh]
-      at ``kv_positions``.
+      at ``kv_positions``;
+    - {"x": enc_out}: cross-attention: K and V projected from ``enc_out``
+      [B,T,D] at ``kv_positions``, k qk-normed when the config asks for it,
+      and no rope on q or k.
     Returns (out [B,S,D], (k_new, v_new) projected K/V of x for the cache,
-    or None when a cache was given). ``self_rows``: ``positions`` is
+    or None when ``kv`` was given). ``self_rows``: ``positions`` is
     arange(S), which the ``kernel`` backend needs for self-attention (see
     ``multihead_attention``); it raises on causal self-attention without
-    it rather than run the ``ref`` branches. (The JAX package's cross-attention
-    source, ``kv={"x": ...}``, comes with the encdec family, ROADMAP.md
-    A.9.)"""
+    it rather than run the ``ref`` branches. Cross-attention and decode
+    over a cache take the ``ref`` branches on either backend."""
     dt = x.dtype
+    cross = isinstance(kv, dict)
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
-    if kv is None:
+    if cross:
+        src = kv["x"]
+        k = torch.einsum("bsd,dhk->bshk", src, p.wk.to(dt))
+        v = torch.einsum("bsd,dhk->bshk", src, p.wv.to(dt))
+        k_pos = kv_positions
+    elif kv is None:
         if backend == "kernel" and causal and not self_rows:
             raise ValueError("the kernel backend runs causal self-attention "
                              "over a sequence's rows only: pass self_rows="
@@ -347,11 +368,14 @@ def apply_attention(p, cfg: ModelConfig, x, *, positions, kv=None,
         k_pos = kv_positions
     if cfg.qk_norm:
         q = _qk_norm(q, p.q_norm, cfg.norm_eps)
-    if cfg.rope_theta > 0:
+        if cross:
+            k = _qk_norm(k, p.k_norm, cfg.norm_eps)
+    if cfg.rope_theta > 0 and not cross:
         q = rope(q, positions, cfg.rope_theta)
     out = multihead_attention(q, k, v, q_positions=positions,
                               k_positions=k_pos, causal=causal, window=window,
-                              backend=backend, self_rows=self_rows)
+                              backend=backend,
+                              self_rows=self_rows and kv is None)
     out = torch.einsum("bshk,hkd->bsd", out, p.wo.to(dt))
     if kv is None:
         return out, (k, v)

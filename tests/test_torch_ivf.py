@@ -21,7 +21,7 @@ through the JAX package and through the port:
   ``members[probe].reshape(B, -1)``: probes repeated across queries, a
   cluster no query probes, clusters with -1 pads, ids past the shard, exact
   ties (ids exact; values exact in the ties case); the CUDA kernel's limits
-  (D % 4 == 0 up to 4,096, k up to 32);
+  (D % 4 == 0 up to 8,192, k up to 32);
 * ``serve_topk_ivf_local`` / ``_batched_local`` on both backends, the
   engine's IVF step and ``serve(..., index="ivf")`` against the JAX
   package at rings 1 and 2, with the ``full`` and ``knn`` heads, from one
@@ -455,10 +455,13 @@ def test_rerank_refuses_bad_arguments():
         tops.ivf_rerank_probed(f, w, members, probe[:1], 2)
     with pytest.raises(ValueError):
         tops.ivf_rerank_probed(f, w, members, probe, 0)
-    # the CUDA kernel's limits: D % 4 == 0 up to 4,096, k up to 32
-    for d, k in ((4, 1), (512, 5), (2048, 32), (3072, 5), (4096, 5)):
+    # the CUDA kernel's limits: D % 4 == 0 up to 8,192 (kimi-K2's 7,168
+    # and chameleon-34B's 8,192 among them), k up to 32
+    for d, k in ((4, 1), (512, 5), (2048, 32), (3072, 5), (4096, 5),
+                 (7168, 5), (8192, 5)):
         tivf.check_cuda_limits(d, k)
-    for d, k in ((4100, 5), (8192, 5), (6, 5), (0, 5), (512, 33), (512, 0)):
+    for d, k in ((8196, 5), (16384, 5), (6, 5), (0, 5), (512, 33),
+                 (512, 0)):
         with pytest.raises(ValueError):
             tivf.check_cuda_limits(d, k)
 

@@ -120,12 +120,17 @@ def test_arch_registry():
     for arch in ("smollm-135m", "qwen3.1_7b"):
         assert tbase.normalize_arch_id(arch) == jbase.normalize_arch_id(arch)
     assert tbase.get_model_config("smollm-135m").name == "smollm-135m"
-    # the families still unported (moe, encdec) and the chameleon config
-    for arch in set(tbase.ARCH_IDS) - set(tbase.PORTED_ARCH_IDS):
-        with pytest.raises(NotImplementedError, match="A.9"):
-            tbase.get_model_config(arch, reduced=True)
-    assert set(tbase.PORTED_ARCH_IDS) == set(DENSE) | {"mamba2_370m",
-                                                       "hymba_1_5b"}
+    # every arch id the JAX package knows builds, full and reduced, field
+    # for field, and its model initialises (reduced)
+    for arch in tbase.ARCH_IDS:
+        for reduced in (False, True):
+            assert (dataclasses.asdict(tbase.get_model_config(arch, reduced))
+                    == dataclasses.asdict(jbase.get_model_config(arch,
+                                                                 reduced)))
+        cfg = tbase.get_model_config(arch, reduced=True)
+        params = tlm.init_model(torch.Generator().manual_seed(0), cfg)
+        assert tlm.head_weight(params, cfg).shape == (cfg.vocab_size,
+                                                      cfg.d_model)
     with pytest.raises(ValueError, match="unknown arch"):
         tbase.get_model_config("nope")
 
@@ -486,9 +491,11 @@ def test_zoo_experiment_config_and_unported_parts():
     assert ck.restore(missing_ok=True) is None
     assert ck.geometry().meta() == {"n_model": 1, "n_data": 1,
                                     "n_classes": 512}
-    with pytest.raises(NotImplementedError, match="A.9"):
-        Experiment.from_config(system="zoo", arch="qwen3_moe_30b_a3b",
-                               reduced=True, device="cpu")
+    # the encoder-decoder's token serving refuses, as the JAX package's
+    with pytest.raises(NotImplementedError, match="decoder-only"):
+        Experiment.from_config(system="zoo", arch="whisper_tiny",
+                               reduced=True, device="cpu").serve(
+            prompt_len=4, gen=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Experiment.from_config(system="zoo")
