@@ -377,6 +377,28 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    (``FAM_WANT``: the prefill's flash attention a layer), and in fp32 the
    kernel and ref backends' tokens equal and the decode step against the
    prefill one token longer.
+25. remat: SmolLM-135M ``fit(5)`` at 16 x 512 tokens in one micro-batch
+   with ``remat`` none and full (``ParallelConfig.remat`` through the
+   step builder's ``par``), every counter reset around each fit
+   (``REMAT_WANT``): the launches, the losses (bit-equal, or the first
+   step where they part, reported), peaks and steps; mamba2-370M and
+   hymba-1.5B in one micro-batch with remat: peak and step.
+26. the dry run against the card: ``launch.dryrun.lower_paper_one`` of
+   the paper's full step (1,020,250 x 512, B 256, SGD, kernel backend)
+   and ``lower_one`` of SmolLM's step (remat none and full), on the
+   host's meta device: argument bytes and the predicted peak beside the
+   real step's bytes and ``torch.cuda.max_memory_allocated``, the ledger
+   held to the counted collectives; then one member's bytes at 10^8
+   classes x 512 on rings of 64 and 256 (B 4,096).
+27. the roofline of real steps: one paper full step and one SmolLM step
+   (each remat) counted on the card by ``roofline.counter.WorkCounter``
+   (the kernels charged by their cost functions): compute and memory
+   terms against the measured step, the share of the roofline it
+   reaches; the collective term is 0 on a ring of one.
+
+The kernels' bounds (``bound_ms``, ``ce_bounds``, ``_flash_bound``,
+``ivf_union_bytes``) are their modules' cost functions'
+(``repro_torch.kernels.cost``), the counts the roofline counter charges.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, one ``{"end_to_end": ...}`` line and, last, ``{"ok": true,
@@ -409,10 +431,7 @@ BTRAIN = 256                                 # training micro-batch
 BWD_TOL = 2e-5
 FIT_STEPS, FIT_LAUNCHES = 6, 1 + 1 + 1 + 2 + 4 + 4   # n_micro per step
 CHUNK = 2048                                 # ops.topk_rows' chunk
-HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12                       # H100 SXM, outside tensor cores
-TF32_OPS_PER_S = 494.7e12                    # H100 SXM data sheet, dense
-BF16_OPS_PER_S = 989e12                      # H100 SXM, dense tensor cores
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet (roofline.hardware)
 # dist_topk timing slice, kept from the earlier design's one wave of 132
 # blocks of 128 rows (66 blocks of 256 rows now); pass 1 over every row is
 # timed in the knn phase
@@ -794,23 +813,22 @@ def profile_ms(torch, fn, groups=None, device_only: bool = False) -> dict:
     return out
 
 
-def bound_ms(n_bytes: float, n_ops: float,
-             ops_per_s: float = FP32_OPS_PER_S):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound_ms(cost):
+    """(least ms, "bytes" or "operations") of a kernel call's cost: the
+    kernel module's own cost function (``repro_torch.kernels.cost``), the
+    one count of its work that the roofline counter also charges."""
+    from repro_torch.kernels.cost import bound_ms as cost_bound
+    return cost_bound(cost)
 
 
-def ce_bounds(n_bytes: float, n_products: int, b: int,
-              cols: int = V, d: int = D) -> dict:
-    """A CE kernel's bounds at batch b over ``cols`` class columns of width
-    d (the V x D shard, or the sparse kernels' A gathered rows): its
-    n_products fp32 products of 2 b cols d operations as 3xTF32 on the
+def ce_bounds(cost) -> dict:
+    """A CE kernel's bounds from its cost (``forward_cost`` /
+    ``backward_cost`` of its module): its products as 3xTF32 on the
     tensor cores (three TF32 products each; the kernels' design), and on
     CUDA cores in fp32 FMA, each against its bytes."""
-    ops = n_products * 2.0 * b * cols * d
-    t32, by32 = bound_ms(n_bytes, 3 * ops, TF32_OPS_PER_S)
-    fma, by_fma = bound_ms(n_bytes, ops)
+    from repro_torch.kernels.cost import as_fp32_fma
+    t32, by32 = bound_ms(cost)
+    fma, by_fma = bound_ms(as_fp32_fma(cost))
     return {"bound_ms": t32, "bound_by": by32, "bound_fp32_fma_ms": fma,
             "bound_fp32_fma_by": by_fma}
 
@@ -1002,19 +1020,18 @@ def kernel_phase(torch, ce, dc, sharded):
     dgc_plain = cuda_ms(torch, lambda: dc.stage1_topk_plain(grp, DGC_K,
                                                            DGC_CHUNK), 1)
     dgc_lib = cuda_ms(torch, lambda: torch.topk(grp, DGC_K, dim=1), 50)
-    dgc_bound, dgc_by = bound_ms(4 * grp.numel() + 8 * DGC_ROWS * DGC_K,
-                                 float(grp.numel()))
+    dgc_bound, dgc_by = bound_ms(dc.cost(DGC_ROWS, DGC_CHUNK, DGC_K,
+                                         DGC_CHUNK))
     ce_lib = cuda_ms(torch, lambda: fs @ ws.T, 20)     # the product alone
 
-    ce_bound = ce_bounds(4 * (B * D + V * D + B) + 16 * B, 1, B)
+    ce_bound = ce_bounds(ce.forward_cost(B, V, D))
     log(f"kernel phase: ce_forward at B={B} {ce_ms:.3f} ms (3xTF32 bound "
         f"{ce_bound['bound_ms']:.3f} ms by {ce_bound['bound_by']}, fp32-FMA "
         f"{ce_bound['bound_fp32_fma_ms']:.3f}), plain {ce_plain:.3f} ms, "
         f"f @ W.T {ce_lib:.3f} ms")
     # the logits read once and the candidates written; one compare an
     # element (the selection's least work, whatever k is)
-    tk_bytes = 4 * B * V + 8 * B * nch * K
-    tk_bound, tk_by = bound_ms(tk_bytes, float(B) * V)
+    tk_bound, tk_by = bound_ms(dc.cost(B, V, K, CHUNK))
     log(f"kernel phase: stage1_topk k={K} on [{B}, {V}] {tk_ms:.4f} ms "
         f"(bound {tk_bound:.4f} by {tk_by}), plain {tk_plain:.3f}, torch.topk "
         f"{tk_lib:.3f}; k={DGC_K} on [{DGC_ROWS}, {DGC_CHUNK}] {dgc_ms:.4f} ms "
@@ -1176,10 +1193,8 @@ def backward_kernel_phase(torch, ce, sharded):
     lib = cuda_ms(torch, lambda: ft @ wt.T, 10)
     fwd = cuda_ms(torch, lambda: ce.ce_forward(ft, wt, yt, limit=V,
                                                scale=16.0), 10)
-    bound = ce_bounds(4 * (2 * BTRAIN * D + 2 * V * D + 4 * BTRAIN), 3,
-                      BTRAIN)
-    fwd_bound = ce_bounds(4 * (BTRAIN * D + V * D + BTRAIN) + 16 * BTRAIN, 1,
-                          BTRAIN)
+    bound = ce_bounds(ce.backward_cost(BTRAIN, V, D))
+    fwd_bound = ce_bounds(ce.forward_cost(BTRAIN, V, D))
     log(f"kernel phase: ce_backward {ms:.3f} ms (3xTF32 bound "
         f"{bound['bound_ms']:.3f} ms by {bound['bound_by']}, fp32-FMA "
         f"{bound['bound_fp32_fma_ms']:.3f}), plain {plain:.3f} ms, f @ W.T "
@@ -1402,11 +1417,8 @@ def sparse_kernel_phase(torch, sp):
         ft, wt, idt, idt, bias, valid, yt, m, gz, gc, hit, 16.0, False), 3)
     # the dense dW zero-fill that the backward's timed window includes
     fill_ms = cuda_ms(torch, lambda: torch.zeros_like(wt), 10)
-    col_bytes = 16 * a
-    fb = ce_bounds(4 * (BTRAIN * D + a * D) + col_bytes + 24 * BTRAIN, 1,
-                   BTRAIN, a)
-    bb = ce_bounds(4 * (2 * BTRAIN * D + a * D + V * D) + col_bytes
-                   + 20 * BTRAIN, 3, BTRAIN, a)
+    fb = ce_bounds(sp.forward_cost(BTRAIN, a, D))
+    bb = ce_bounds(sp.backward_cost(BTRAIN, a, V, D))
     log(f"kernel phase: sparse_ce_forward {fwd_ms:.3f} ms (3xTF32 bound "
         f"{fb['bound_ms']:.3f} by {fb['bound_by']}, fp32-FMA "
         f"{fb['bound_fp32_fma_ms']:.3f}), plain {fwd_plain:.3f}, f @ "
@@ -1536,8 +1548,7 @@ def dist_topk_phase(torch, dk, sharded, w_unit=None):
 
     plain_ms = cuda_ms(torch, plain, 1)
     lib_ms = cuda_ms(torch, library, 3)
-    n_bytes = 2 * (QSLICE * D + V * D) + 8 * QSLICE * KPRIME
-    bound, by = bound_ms(n_bytes, 2.0 * QSLICE * V * D, BF16_OPS_PER_S)
+    bound, by = bound_ms(dk.cost(QSLICE, V, D, KPRIME))
     log(f"kernel phase: dist_topk {QSLICE} x {V} rows {ms:.2f} ms (bound "
         f"{bound:.2f} ms by {by}), plain {plain_ms:.1f} ms (1,024-row "
         f"chunks), bf16 q @ k.T {lib_ms:.2f} ms; bit-identical")
@@ -2056,10 +2067,8 @@ def ce_mach_rows(torch, ce, exp):
     bwd_plain = cuda_ms(torch, lambda: ce.ce_backward_plain(
         f, w, y, m, gz, gc, b_loc, 1.0), 5)
     lib = cuda_ms(torch, lambda: f @ w.T, 20)
-    fb = ce_bounds(4 * (BTRAIN * D + b_loc * D + BTRAIN) + 16 * BTRAIN, 1,
-                   BTRAIN, b_loc)
-    bb = ce_bounds(4 * (2 * BTRAIN * D + 2 * b_loc * D + 4 * BTRAIN), 3,
-                   BTRAIN, b_loc)
+    fb = ce_bounds(ce.forward_cost(BTRAIN, b_loc, D))
+    bb = ce_bounds(ce.backward_cost(BTRAIN, b_loc, D))
     log(f"heads phase: at MACH's shard [{BTRAIN}, {b_loc}] x {D}: ce_forward "
         f"{fwd_ms:.4f} ms (3xTF32 bound {fb['bound_ms']:.4f} by "
         f"{fb['bound_by']}), plain {fwd_plain:.4f}; ce_backward {bwd_ms:.4f} "
@@ -2117,11 +2126,8 @@ def sparse_sampled_rows(torch, sp, exp):
         bwd_plain = cuda_ms(torch, lambda: sp.sparse_ce_backward_plain(
             f, w, ids, ids, bias, valid, y, m, gz, gc, hit, 16.0, True), 3)
         lib = cuda_ms(torch, lambda: f @ w[ids.long()].T, 20)
-        col_bytes = 16 * a
-        fb = ce_bounds(4 * (BTRAIN * D + a * D) + col_bytes + 24 * BTRAIN, 1,
-                       BTRAIN, a)
-        bb = ce_bounds(4 * (2 * BTRAIN * D + a * D + V * D) + col_bytes
-                       + 20 * BTRAIN, 3, BTRAIN, a)
+        fb = ce_bounds(sp.forward_cost(BTRAIN, a, D))
+        bb = ce_bounds(sp.backward_cost(BTRAIN, a, V, D))
         rep = {"distinct_ids": int(counts.numel()),
                "most_repeated": int(counts.max())}
         log(f"heads phase: sparse CE at the sampled {name} draw (A={a}, "
@@ -2413,8 +2419,8 @@ def ce_cnn_rows(torch, ce, exp):
     bwd_plain = cuda_ms(torch, lambda: ce.ce_backward_plain(
         f, w, y, m, gz, gc_, v, scale), 3)
     lib = cuda_ms(torch, lambda: f @ w.T, 10)
-    fb = ce_bounds(4 * (b * D + v * D + b) + 16 * b, 1, b, v)
-    bb = ce_bounds(4 * (2 * b * D + 2 * v * D + 4 * b), 3, b, v)
+    fb = ce_bounds(ce.forward_cost(b, v, D))
+    bb = ce_bounds(ce.backward_cost(b, v, D))
     log(f"cnn phase: CE pair on the trunk's features [{b}, {D}] x W [{v}, "
         f"{D}] scale {scale:g}: ce_forward {fwd_ms:.3f} ms (3xTF32 bound "
         f"{fb['bound_ms']:.3f} by {fb['bound_by']}), plain {fwd_plain:.3f}; "
@@ -2451,7 +2457,7 @@ def dgc_selection_times(torch, dc, exp, g_fe):
     leaves, _ = sp_.flatten(g_fe)
     u_l, _ = sp_.flatten(exp.state.dgc.u)
     v_l, _ = sp_.flatten(exp.state.dgc.v)
-    rows, full_sort, checked = [], [], set()
+    rows, full_sort, checked, costs = [], [], set(), []
     n_max = max(sum(leaves[i].numel() for i in grp)
                 for grp in sp_.group_leaves(leaves, cfg.group_bytes))
     for grp in sp_.group_leaves(leaves, cfg.group_bytes):
@@ -2479,6 +2485,7 @@ def dgc_selection_times(torch, dc, exp, g_fe):
                                          value=float("-inf"))
         lib = cuda_ms(torch, lambda: torch.topk(padded.view(nch, -1), kk,
                                                 dim=1), 5)
+        costs.append(dc.cost(1, n, kk, cfg.chunk))
         rows.append({"n": n, "k": k, "kk": kk, "survivors": flat.numel(),
                      "stage1_ms": s1, "stage2_ms": s2, "library_ms": lib})
         del vflat, x, sub_v, flat, padded
@@ -2489,7 +2496,8 @@ def dgc_selection_times(torch, dc, exp, g_fe):
         f"{sorted(checked)} entries")
     n_all = sum(r["n"] for r in rows)
     surv = sum(r["survivors"] for r in rows)
-    bound, by = bound_ms(4 * n_all + 8 * surv, float(n_all))
+    bound, by = bound_ms(costs[0]._replace(
+        ops=sum(c.ops for c in costs), bytes=sum(c.bytes for c in costs)))
     return rows, full_sort, {
         "groups": len(rows), "entries": n_all, "survivors": surv,
         "stage1_ms": sum(r["stage1_ms"] for r in rows),
@@ -3226,15 +3234,17 @@ def ivf_ragged_checks(torch, ivf):
 
 
 def ivf_union_bytes(torch, members, probe, b, k, d=D):
-    """Bytes a rerank of these probes must move at least: every real row of
-    the probed clusters once, f, the probe and the result; and the real
-    candidates (the FMA work's count)."""
+    """The cost of a rerank of these probes (``ivf_rerank.cost``: every
+    real row of the probed clusters read once, f, the probe and the
+    result; 2 d operations a real candidate), the distinct rows and the
+    real candidates."""
+    from repro_torch.kernels import ivf_rerank
     used = torch.unique(probe[:b])
     rows = members[used.long()]
     union = int((rows >= 0).sum())
     n_real = int((members[probe[:b].long()] >= 0).sum())
-    return 4 * d * union + 4 * b * d + 4 * probe[:b].numel() + 8 * b * k, \
-        union, n_real
+    return (ivf_rerank.cost(b, d, k, union, n_real, probe[:b].numel()),
+            union, n_real)
 
 
 def _probe_candidates(torch, ops, sharded, f, idx, nprobe):
@@ -3368,17 +3378,18 @@ def ivf_phase(torch, np, ivf, sharded):
     safe = cand.clamp_min(0).long()
     lib_ms = cuda_ms(torch, lambda: torch.einsum("bd,bad->ba", f, wn[safe]), 3)
     del safe
-    union_bytes, union, n_real = ivf_union_bytes(torch, members, probe, B, K)
+    union_cost, union, n_real = ivf_union_bytes(torch, members, probe, B, K)
+    union_bytes = union_cost.bytes
     gathered_bytes = 4 * D * n_real + union_bytes - 4 * D * union
-    bound, by = bound_ms(union_bytes, 2.0 * n_real * D)
+    bound, by = bound_ms(union_cost)
     gathered_ms = gathered_bytes / HBM_BYTES_PER_S * 1e3
     b1 = []
     for i in range(B):
-        ub, _, nr = ivf_union_bytes(torch, members, probe[i:i + 1], 1, K)
-        b1.append(bound_ms(ub, 2.0 * nr * D)[0])
+        b1.append(bound_ms(ivf_union_bytes(torch, members, probe[i:i + 1], 1,
+                                           K)[0])[0])
     b1_bound = statistics.mean(b1)
-    sk_bytes, _, sk_real = ivf_union_bytes(torch, members, probe_sk, B, K)
-    skew_bound, skew_by = bound_ms(sk_bytes, 2.0 * sk_real * D)
+    skew_bound, skew_by = bound_ms(ivf_union_bytes(torch, members, probe_sk,
+                                                   B, K)[0])
     log(f"IVF phase: ivf_rerank (probed entry) at B={B}, P={nprobe} x cap "
         f"{members.shape[1]} ({n_real} real candidates, {union} distinct "
         f"rows) agrees (values max abs err {err:.3g}, ids swapped at "
@@ -3484,16 +3495,15 @@ def ivf_launcher_phase(torch, ivf):
 # ---------------------------------------------------------------------------
 
 
-def _flash_bound(bh, s, t, dh, elem_bytes, bhkv=None, causal=True):
-    """Least time of a causal (or full) attention: q and o of bh heads and
-    k and v of bhkv heads moved once; 2 Dh flops for q.k and 2 Dh for p.v
-    per (query, valid key) pair."""
-    bhkv = bh if bhkv is None else bhkv
-    pairs = (s * (s + 1) // 2 if causal and s == t else s * t)
-    n_ops = 4.0 * dh * pairs * bh
-    ops_rate = BF16_OPS_PER_S if elem_bytes == 2 else FP32_OPS_PER_S
-    return bound_ms(elem_bytes * dh * (2 * s * bh + 2 * t * bhkv), n_ops,
-                    ops_rate)
+def _flash_bound(bh, s, t, dh, elem_bytes, bhkv=None, causal=True,
+                 window=0):
+    """Least time of a causal (or full) attention
+    (``flash_attention.cost``: q and o of bh heads and k and v of bhkv
+    heads moved once; 2 Dh flops for q.k and 2 Dh for p.v per (query,
+    valid key) pair)."""
+    from repro_torch.kernels import flash_attention
+    return bound_ms(flash_attention.cost(bh, s, t, dh, elem_bytes, bhkv,
+                                         causal, window))
 
 
 def flash_flip_bound(torch, fa, q, k, v, causal=True, window=0,
@@ -4099,8 +4109,8 @@ def zoo_ce_rows(torch, ce, f, w, y, model="SmolLM-135M", tag="zoo",
     bwd_plain = cuda_ms(torch, lambda: ce.ce_backward_plain(
         f, w, y, m, gz, gc, v, 1.0), 2)
     lib = cuda_ms(torch, lambda: f @ w.T, 10)
-    fb = ce_bounds(4 * (b * d + v * d + b) + 16 * b, 1, b, v, d)
-    bb = ce_bounds(4 * (2 * b * d + 2 * v * d + 4 * b), 3, b, v, d)
+    fb = ce_bounds(ce.forward_cost(b, v, d))
+    bb = ce_bounds(ce.backward_cost(b, v, d))
     log(f"{tag} training phase: at {model}'s shapes [{b}, {v}] x {d}: "
         f"ce_forward {fwd_ms:.3f} ms (3xTF32 bound {fb['bound_ms']:.3f} by "
         f"{fb['bound_by']}), plain {fwd_plain:.3f}; ce_backward {bwd_ms:.3f} "
@@ -4205,10 +4215,8 @@ def zoo_sparse_rows(torch, sp, exp, f, y, tag="zoo training phase"):
     bwd_plain = cuda_ms(torch, lambda: sp.sparse_ce_backward_plain(
         fn, wn, ids, ids, bias, valid, y, m, gz, gc, hit, 16.0, False), 2)
     lib = cuda_ms(torch, lambda: fn @ wn[ids.long()].T, 10)
-    col_bytes = 16 * a
-    fb = ce_bounds(4 * (b * d + a * d) + col_bytes + 24 * b, 1, b, a, d)
-    bb = ce_bounds(4 * (2 * b * d + a * d + v * d) + col_bytes + 20 * b, 3,
-                   b, a, d)
+    fb = ce_bounds(sp.forward_cost(b, a, d))
+    bb = ce_bounds(sp.backward_cost(b, a, v, d))
     log(f"{tag}: sparse CE at the knn shapes (B={b}, A={a}, V={v}, D={d}): "
         f"forward {fwd_ms:.3f} ms (bound "
         f"{fb['bound_ms']:.3f} by {fb['bound_by']}), plain {fwd_plain:.3f}; "
@@ -4259,8 +4267,7 @@ def zoo_dist_topk_row(torch, dk, exp, tag="zoo training phase"):
 
     plain_ms = cuda_ms(torch, plain, 1)
     lib_ms = cuda_ms(torch, library, 3)
-    bound, by = bound_ms(2 * 2 * n * d + 8 * n * KPRIME, 2.0 * n * n * d,
-                         BF16_OPS_PER_S)
+    bound, by = bound_ms(dk.cost(n, n, d, KPRIME))
     log(f"{tag}: dist_topk over the table's {n} unit rows at D={d} "
         f"{ms:.3f} ms (bound {bound:.3f} by {by}), plain "
         f"{plain_ms:.2f} ms, bf16 q @ K.T {lib_ms:.3f} ms; 1,024 rows max abs "
@@ -4477,10 +4484,8 @@ def zoo_mach_checks(torch, ce, mach, rows):
     bwd_plain = cuda_ms(torch, lambda: ce.ce_backward_plain(
         f, w, yb, m, gz, gc, b_loc, 1.0), 3)
     lib = cuda_ms(torch, lambda: f @ w.T, 20)
-    fb = ce_bounds(4 * (b * ZOO_D + b_loc * ZOO_D + b) + 16 * b, 1, b, b_loc,
-                   ZOO_D)
-    bb = ce_bounds(4 * (2 * b * ZOO_D + 2 * b_loc * ZOO_D + 4 * b), 3, b,
-                   b_loc, ZOO_D)
+    fb = ce_bounds(ce.forward_cost(b, b_loc, ZOO_D))
+    bb = ce_bounds(ce.backward_cost(b, b_loc, ZOO_D))
     shape = (f"f[{b},{ZOO_D}] W[{b_loc},{ZOO_D}] (rep 1 of [R,B,D]) scale 1 "
              f"(zoo MACH)")
     rows["ce_forward"]["mach_rep1"] = dict(
@@ -4768,7 +4773,7 @@ def retrieval_kernel_rows(torch, np, dc, ivf, exp, idx, tag):
     padded = torch.nn.functional.pad(logits, (0, nch * CHUNK - v),
                                      value=float("-inf")).reshape(-1, CHUNK)
     tk_lib = cuda_ms(torch, lambda: torch.topk(padded, k, dim=1), 50)
-    tk_bound, tk_by = bound_ms(4 * b * v + 8 * b * nch * k, float(b) * v)
+    tk_bound, tk_by = bound_ms(dc.cost(b, v, k, CHUNK))
     rows = {"stage1_topk": dict(
         ms=tk_ms, plain_ms=tk_plain, library_ms=tk_lib,
         library="torch.topk on the padded chunks", max_abs_err=0.0,
@@ -4784,8 +4789,8 @@ def retrieval_kernel_rows(torch, np, dc, ivf, exp, idx, tag):
     iv_plain = cuda_ms(torch, lambda: ivf.ivf_rerank_plain(q, w, cand, k), 3)
     safe = cand.clamp_min(0).long()
     iv_lib = cuda_ms(torch, lambda: torch.einsum("bd,bad->ba", q, w[safe]), 3)
-    ub, union, n_real = ivf_union_bytes(torch, members, probe, b, k, d)
-    iv_bound, iv_by = bound_ms(ub, 2.0 * n_real * d)
+    iv_cost, union, n_real = ivf_union_bytes(torch, members, probe, b, k, d)
+    iv_bound, iv_by = bound_ms(iv_cost)
     rows["ivf_rerank"] = dict(
         ms=iv_ms, plain_ms=iv_plain, library_ms=iv_lib,
         library="einsum('bd,bad->ba', f, W[cand]) (gather + cuBLAS fp32)",
@@ -5308,14 +5313,7 @@ def flash_shape_check(torch, fa, b, heads, kv_heads, s, dh, causal, window,
                                          **lib_kw), 20)
     lib_out = sdpa(q4, k4, v4, enable_gqa=True, **lib_kw).reshape(bh, s, dh)
     lib_err = float((lib_out.float() - plain.float()).abs().max())
-    if not causal:
-        pairs = s * s
-    elif window:
-        pairs = sum(min(r + 1, window) for r in range(s))
-    else:
-        pairs = s * (s + 1) // 2
-    bound, by = bound_ms(2 * dh * (2 * s * bh + 2 * s * bhkv),
-                         4.0 * dh * pairs * bh, BF16_OPS_PER_S)
+    bound, by = _flash_bound(bh, s, s, dh, 2, bhkv, causal, window)
     mode = ("non-causal" if not causal else
             "causal" + (f", window {window}" if window else ""))
     log(f"flash at {what}'s shapes: BH={bh} over {bhkv} KV heads, S=T={s}, "
@@ -6167,6 +6165,274 @@ def zoo_checkpoint_phase(torch, np, counters) -> tuple:
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# remat, the dry run against the card, and the roofline of real steps
+# ---------------------------------------------------------------------------
+
+REMAT_STEPS = 5
+REMAT_WANT = {"ce_forward": REMAT_STEPS, "ce_backward": REMAT_STEPS}
+FAM_REMAT_STEPS = 3
+# the paper's 100M classes over its cluster's rings; the global batch is
+# FCCS's initial one (FCCSConfig.b0)
+DRY_RINGS, DRY_BATCH = (64, 256), 4096
+
+
+def _with_remat(exp, remat: str):
+    """Point a zoo experiment's train step at ``remat`` (the step
+    builder's ``par``; ``ZooExperiment`` has no knob of its own, as the JAX
+    package's has none)."""
+    from repro_torch.configs.base import ring_parallel_config
+    from repro_torch.train import gspmd
+    exp._ensure_opt()
+    exp._train_step = gspmd.make_head_train_step(
+        exp.model_cfg, exp.head_cfg, exp.train_cfg, exp.shape, head=exp.head,
+        par=ring_parallel_config(1, remat))
+
+
+def _timed_fit(torch, exp, steps):
+    """``exp.fit(steps)``, the card synchronised before each step: (history,
+    each step's ms, peak GB over the fit)."""
+    marks = []
+
+    def hook(t):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist = exp.fit(steps, lr=ZOO_LR, step_hook=hook)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    return (hist, [(b - a) * 1e3 for a, b in zip(marks, marks[1:])],
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _roofline(wc, step_ms: float) -> dict:
+    """A counted step's roofline terms (``roofline.counter``) against its
+    measured time; the share is the roofline time (the largest term) over
+    the measured one."""
+    res = wc.result()
+    terms = res["terms_s"]
+    roof_ms = max(terms.values()) * 1e3
+    return {"compute_ms": terms["compute"] * 1e3,
+            "memory_ms": terms["memory"] * 1e3,
+            "collective_ms": terms["collective"] * 1e3,
+            "roofline_ms": roof_ms, "step_ms": step_ms,
+            "roofline_share": roof_ms / step_ms,
+            "flops_by_rate": res["counted"]["flops_by_rate"],
+            "bytes": res["counted"]["bytes"], "ops": res["counted"]["ops"],
+            "kernels": {k: v["calls"] for k, v in res["kernels"].items()}}
+
+
+def remat_phase(torch, np, counters) -> dict:
+    """SmolLM-135M ``fit(5)`` at 16 x 512 tokens in one micro-batch with
+    ``remat`` none and full (each experiment from seed 0): the launches
+    (the same both ways), the losses (bit-equal, or the first step where
+    they part, reported), the peaks and the step times (median of steps
+    2-5); one more step of each counted (``roofline.counter``) for the
+    roofline. Then mamba2-370M and hymba-1.5B in one micro-batch with
+    ``remat="full"`` (they take 4 without it): their peak and step."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.roofline.counter import WorkCounter
+    out, losses = {}, {}
+    for remat in ("none", "full"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        exp = _zoo_trainer("kernel", log_every=0,
+                           train=TrainConfig(optimizer="sgd", micro_batch=1))
+        _with_remat(exp, remat)
+        _reset(counters)
+        hist, ms, peak = _timed_fit(torch, exp, REMAT_STEPS)
+        launches = {k: v for k, v in _read(counters).items() if v}
+        if launches != REMAT_WANT:
+            fail(f"SmolLM fit({REMAT_STEPS}) with remat {remat} launched "
+                 f"{launches}, not {REMAT_WANT}")
+        losses[remat] = [r["loss"] for r in hist]
+        if not all(map(math.isfinite, losses[remat])):
+            fail(f"SmolLM with remat {remat}: losses {losses[remat]}")
+        step = statistics.median(ms[1:])
+        batch = exp._batch(REMAT_STEPS)
+        torch.cuda.synchronize()
+        with WorkCounter() as wc:
+            exp._train_step(exp.params, exp.head_state, exp.opt_state, batch,
+                            ZOO_LR)
+            torch.cuda.synchronize()
+        roof = _roofline(wc, step)
+        out[f"smollm_{remat}"] = dict(
+            step_ms=step, step_ms_each=ms, peak_gb=peak,
+            peak_over_base_gb=peak - base / 1e9, base_gb=base / 1e9,
+            launches=launches, losses=losses[remat], roofline=roof)
+        log(f"remat phase: SmolLM-135M remat {remat}: fit({REMAT_STEPS}) "
+            f"launches {launches}, step {step:.1f} ms (steps {ms}), peak "
+            f"{peak:.2f} GB ({peak - base / 1e9:.2f} over the "
+            f"{base / 1e9:.2f} GB held before), losses {losses[remat]}; "
+            f"counted step: compute {roof['compute_ms']:.2f} ms, memory "
+            f"{roof['memory_ms']:.2f} ms, roofline share "
+            f"{roof['roofline_share']:.3f} of {step:.1f} ms")
+        del exp, batch
+    parted = next((i for i, (a, b) in enumerate(zip(losses["none"],
+                                                   losses["full"]))
+                   if a != b), None)
+    out["smollm_losses_bit_equal"] = parted is None
+    out["smollm_losses_part_at_step"] = parted
+    log(f"remat phase: SmolLM losses with and without remat "
+        + ("bit-equal over every step" if parted is None else
+           f"part at step {parted}: {losses['none'][parted]!r} vs "
+           f"{losses['full'][parted]!r}"))
+    want = {"ce_forward": FAM_REMAT_STEPS, "ce_backward": FAM_REMAT_STEPS}
+    for arch in FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        exp = _zoo_trainer("kernel", arch=arch, log_every=0,
+                           train=TrainConfig(optimizer="sgd", micro_batch=1))
+        exp.data_fn = lambda t, b, exp=exp: exp._synthetic_batch(0, b)
+        _with_remat(exp, "full")
+        _reset(counters)
+        hist, ms, peak = _timed_fit(torch, exp, FAM_REMAT_STEPS)
+        launches = {k: v for k, v in _read(counters).items() if v}
+        fam_losses = [r["loss"] for r in hist]
+        if launches != want or not all(map(math.isfinite, fam_losses)):
+            fail(f"{arch} with remat full in one micro-batch: launches "
+                 f"{launches} (want {want}), losses {fam_losses}")
+        step = statistics.median(ms[1:])
+        out[f"{arch}_remat_full_n1"] = dict(step_ms=step, step_ms_each=ms,
+                                            peak_gb=peak, losses=fam_losses)
+        log(f"remat phase: {arch} remat full, one micro-batch of "
+            f"{ZOO_TB} x {exp.seq}: step {step:.1f} ms (steps {ms}), peak "
+            f"{peak:.2f} GB, losses {fam_losses}")
+        del exp
+    return out
+
+
+def _paper_step(torch):
+    """The paper system's full-head step at 1,020,250 x 512 on the kernel
+    backend with SGD, the dry run's step, on a ring of one: (its state, the
+    step, a batch of B = 256, the bytes allocated before the state). The
+    state is ``hybrid.init_state``'s, what the experiment trains, without
+    the experiment's data stream (whose class prototypes are another [V,
+    D])."""
+    from repro_torch.api.experiment import paper_model_config
+    from repro_torch.api.heads import make_head
+    from repro_torch.configs.base import HeadConfig, TrainConfig
+    from repro_torch.train import hybrid
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    mcfg = paper_model_config("feats", V, D)
+    hcfg, tcfg = HeadConfig(backend="kernel"), TrainConfig(optimizer="sgd")
+    head = make_head(mcfg, hcfg)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    state = hybrid.init_state(g, mcfg, hcfg, tcfg, 1, device=DEVICE,
+                              head=head)
+    inputs = {"features": torch.randn((BTRAIN, D), generator=g,
+                                      device=DEVICE),
+              "labels": torch.randint(0, V, (BTRAIN,), generator=g,
+                                      device=DEVICE, dtype=torch.int32)}
+    step = hybrid.make_train_step(mcfg, hcfg, tcfg, head=head)
+    return state, step, inputs, base
+
+
+def dryrun_roofline_phase(torch, remat_rows) -> tuple:
+    """The dry run against the card, and the roofline of real steps.
+    (b) ``lower_paper_one`` of the paper's full step at 1,020,250 x 512 (B
+    = 256, one member, kernel backend, SGD) and ``lower_one`` of SmolLM's
+    step at 16 x 512 (remat none and full) on the meta device: their
+    argument bytes and predicted peak beside the real step's bytes and
+    ``torch.cuda.max_memory_allocated``, each over what was allocated
+    before; then ``lower_paper_one(classes=10**8)`` on rings of 64 and 256
+    at D 512, B 4,096: one member's bytes. (c) one real step of the paper
+    head counted on the card (the kernels charged by their cost
+    functions): its compute and memory terms against its measured time.
+    Returns (the dry run's rows, the roofline rows)."""
+    from repro_torch.configs.base import HeadConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.counter import WorkCounter
+    dry, roof = {}, {}
+    state, step, inputs, base = _paper_step(torch)
+    args_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    state, _, _ = step(state, inputs, 0.1)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, loss, _ = step(state, inputs, 0.1)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    if not math.isfinite(float(loss)):
+        fail(f"the paper step's loss {float(loss)}")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _, _ = step(state, inputs, 0.1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with WorkCounter() as wc:
+        state, _, _ = step(state, inputs, 0.1)
+        torch.cuda.synchronize()
+    roof["paper_full_b256"] = _roofline(wc, statistics.median(times))
+    del state, step, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = dryrun.lower_paper_one(classes=V, feat_dim=D, batch=BTRAIN,
+                                 n_dev=1, backend="kernel")
+    if rec["ledger_divergence"]:
+        fail(f"the paper dry run diverges from the ledger: "
+             f"{rec['ledger_divergence']}")
+    dry["paper_full_b256"] = dict(
+        argument_gb=rec["memory"]["argument_bytes"] / 1e9,
+        predicted_peak_gb=rec["memory"]["peak_bytes"] / 1e9,
+        real_argument_gb=args_gb, real_peak_gb=peak_gb,
+        lower_s=rec["lower_s"])
+    r = roof["paper_full_b256"]
+    log(f"dry run: paper full step 1,020,250 x 512, B {BTRAIN}: arguments "
+        f"{dry['paper_full_b256']['argument_gb']:.3f} GB predicted, "
+        f"{args_gb:.3f} on the card; peak "
+        f"{dry['paper_full_b256']['predicted_peak_gb']:.3f} GB predicted, "
+        f"{peak_gb:.3f} GB measured (over the bytes held before); roofline: "
+        f"compute {r['compute_ms']:.3f} ms, memory {r['memory_ms']:.3f} ms, "
+        f"collective 0 (a ring of one), the step {r['step_ms']:.2f} ms: "
+        f"share {r['roofline_share']:.3f}; kernels {r['kernels']}")
+    for remat in ("none", "full"):
+        rec = dryrun.lower_one("smollm_135m", "train_4k", n_dev=1,
+                               remat=remat, batch=ZOO_TB, seq=ZOO_TS,
+                               head_cfg=HeadConfig(backend="kernel"))
+        real = remat_rows[f"smollm_{remat}"]
+        dry[f"smollm_{remat}"] = dict(
+            argument_gb=rec["memory"]["argument_bytes"] / 1e9,
+            predicted_peak_gb=rec["memory"]["peak_bytes"] / 1e9,
+            real_peak_gb=real["peak_over_base_gb"],
+            predicted_flops=rec["counted"]["flops"],
+            lower_s=rec["lower_s"])
+        roof[f"smollm_{remat}"] = real["roofline"]
+        r = real["roofline"]
+        log(f"dry run: SmolLM step 16 x 512, remat {remat}: arguments "
+            f"{dry[f'smollm_{remat}']['argument_gb']:.3f} GB, peak "
+            f"{dry[f'smollm_{remat}']['predicted_peak_gb']:.3f} GB "
+            f"predicted, {real['peak_over_base_gb']:.3f} GB measured; "
+            f"roofline: compute {r['compute_ms']:.2f} ms, memory "
+            f"{r['memory_ms']:.2f} ms, the step {r['step_ms']:.1f} ms: "
+            f"share {r['roofline_share']:.3f}")
+    for n in DRY_RINGS:
+        rec = dryrun.lower_paper_one(classes=10**8, feat_dim=D,
+                                     batch=DRY_BATCH, n_dev=n,
+                                     backend="kernel")
+        if rec["ledger_divergence"]:
+            fail(f"the 10^8 dry run on {n} diverges from the ledger: "
+                 f"{rec['ledger_divergence']}")
+        dry[f"paper_1e8_ring{n}"] = dict(
+            argument_gb=rec["memory"]["argument_bytes"] / 1e9,
+            predicted_peak_gb=rec["memory"]["peak_bytes"] / 1e9,
+            collective_bytes=rec["collectives"]["total_bytes"],
+            counted_flops=rec["counted"]["flops"], lower_s=rec["lower_s"])
+        log(f"dry run: paper step at 10^8 classes x {D} on a ring of {n}, "
+            f"B {DRY_BATCH}: one member's arguments "
+            f"{rec['memory']['argument_bytes'] / 1e9:.3f} GB, peak "
+            f"{rec['memory']['peak_bytes'] / 1e9:.3f} GB, collectives "
+            f"{rec['collectives']['total_bytes']:.0f} B a step, "
+            f"{rec['lower_s']:.2f} s on the host")
+    return dry, roof
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -6232,8 +6498,7 @@ def main() -> int:
     knn_launches, knn_e2e = knn_training_phase(torch, sp, dk)
     e2e.update(knn_e2e)
     # dist_topk's main time: pass 1 of the graph build over every row
-    pass1_bound, _ = bound_ms(2 * 2 * V * D + 8 * V * KPRIME,
-                              2.0 * V * V * D, BF16_OPS_PER_S)
+    pass1_bound, _ = bound_ms(dk.cost(V, V, D, KPRIME))
     kernels["dist_topk"].update(
         pass1_ms=knn_e2e["knn_graph_build"]["pass1_dist_topk_s"] * 1e3,
         pass1_bound_ms=pass1_bound)
@@ -6347,6 +6612,12 @@ def main() -> int:
         del fexp
         gc.collect()
         torch.cuda.empty_cache()
+    # remat, the dry run against the card, the roofline of real steps
+    e2e["remat"] = remat_phase(torch, np, counters)
+    e2e["dryrun"], e2e["roofline"] = dryrun_roofline_phase(torch,
+                                                           e2e["remat"])
+    gc.collect()
+    torch.cuda.empty_cache()
     e2e["build_s"] = build_s
 
     # launches on each main path, from its own reset-and-read of the counters

@@ -1,9 +1,14 @@
-from repro_torch.configs.base import (ARCH_IDS, DGCConfig, FCCSConfig,
-                                      HeadConfig, InputShape, ModelConfig,
+from repro_torch.configs.base import (ARCH_IDS, INPUT_SHAPES,
+                                      LONG_CONTEXT_SKIP, DGCConfig,
+                                      FCCSConfig, HeadConfig, InputShape,
+                                      ModelConfig, ParallelConfig,
                                       TrainConfig, effective_vocab,
-                                      get_model_config, normalize_arch_id,
-                                      pad_vocab)
+                                      for_shape, get_model_config,
+                                      normalize_arch_id, pad_vocab,
+                                      ring_parallel_config)
 
-__all__ = ["ARCH_IDS", "DGCConfig", "FCCSConfig", "HeadConfig", "InputShape",
-           "ModelConfig", "TrainConfig", "effective_vocab",
-           "get_model_config", "normalize_arch_id", "pad_vocab"]
+__all__ = ["ARCH_IDS", "INPUT_SHAPES", "LONG_CONTEXT_SKIP", "DGCConfig",
+           "FCCSConfig", "HeadConfig", "InputShape", "ModelConfig",
+           "ParallelConfig", "TrainConfig", "effective_vocab", "for_shape",
+           "get_model_config", "normalize_arch_id", "pad_vocab",
+           "ring_parallel_config"]

@@ -128,6 +128,70 @@ class HeadConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """The JAX package's mesh and sharding policy, field for field.
+
+    The port's ring is one axis (``repro_torch.dist``): the trunk is
+    replicated and the vocab split over the ring, the (1, n) case of the
+    JAX (data, model) mesh. ``remat`` is applied (``"full"``: each layer's
+    activations recomputed in the backward, ``torch.utils.checkpoint``);
+    ``rules`` and ``param_rules`` are carried and looked up as there, but
+    nothing shards by them yet: tensor-parallel trunks are ROADMAP.md A
+    item 4."""
+    mesh_shape: tuple = (16, 16)
+    axis_names: tuple = ("data", "model")
+    # logical axis -> mesh axis rules (MaxText-style)
+    rules: tuple = (
+        ("batch", ("pod", "data")),
+        ("vocab", "model"),
+        ("heads", "model"),
+        ("kv_heads", "model"),
+        ("mlp", "model"),
+        ("experts", "model"),
+        ("expert_mlp", None),
+        ("head_dim", None),
+        ("inner", "model"),        # ssm d_inner
+        ("embed", None),
+        ("seq", None),
+        ("layers", None),
+    )
+    remat: str = "none"            # none | full
+    # FSDP / ZeRO: rules for the params (and moments); None: ``rules``
+    param_rules: Optional[tuple] = None
+
+    @property
+    def batch_axes(self) -> tuple:
+        return tuple(a for a in ("pod", "data") if a in self.axis_names)
+
+    @property
+    def model_axis(self) -> str:
+        return "model"
+
+    def _lookup(self, rules, logical: str):
+        for k, v in rules:
+            if k == logical:
+                if isinstance(v, tuple):
+                    return tuple(a for a in v if a in self.axis_names) or None
+                if v is not None and v not in self.axis_names:
+                    return None
+                return v
+        return None
+
+    def mesh_axis_for(self, logical: str):
+        return self._lookup(self.rules, logical)
+
+    def mesh_axis_for_param(self, logical: str):
+        return self._lookup(self.param_rules or self.rules, logical)
+
+
+def ring_parallel_config(n: int = 1, remat: str = "none") -> ParallelConfig:
+    """The port's ring of ``n`` members as a (data, model) mesh of (1, n):
+    the trainers' default."""
+    return ParallelConfig(mesh_shape=(1, n), axis_names=("data", "model"),
+                          remat=remat)
+
+
+@dataclass(frozen=True)
 class FCCSConfig:
     """Fast continuous convergence strategy (paper §3.4)."""
     eta0: float = 0.4
@@ -179,6 +243,17 @@ class InputShape:
     mode: str                      # train | prefill | decode
 
 
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,   32, "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",  524_288,    1, "decode"),
+}
+
+# long_500k: ssm / hybrid natively, dense / moe / vlm in the sliding-window
+# variant, whisper (448-token decoder) skipped, as in the JAX package
+LONG_CONTEXT_SKIP = {"whisper_tiny"}
+
 ARCH_IDS = [
     "mamba2_370m", "kimi_k2_1t_a32b", "qwen3_moe_30b_a3b", "phi3_mini_3_8b",
     "qwen3_1_7b", "gemma_2b", "whisper_tiny", "chameleon_34b", "smollm_135m",
@@ -210,3 +285,11 @@ def pad_vocab(cfg: ModelConfig, multiple: int = 128) -> ModelConfig:
 
 def effective_vocab(cfg: ModelConfig) -> int:
     return cfg.real_vocab_size or cfg.vocab_size
+
+
+def for_shape(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
+    """A model config adapted to an input shape (the sliding window for
+    the long context)."""
+    if shape.name == "long_500k" and cfg.family in ("dense", "moe", "vlm"):
+        return cfg.with_sliding_window(4096)
+    return cfg

@@ -30,9 +30,22 @@ all-gather, so every member's copy gets the whole gradient.
 
 The functions are written by hand, not taken from
 ``torch.distributed.nn``, whose backward rules differ between versions.
+
+``count_collectives()`` counts the bytes of every collective called
+inside it, where it is called, as the comm ledger charges them (the
+output's bytes, by kind: all-reduce for ``psum`` / ``pmax`` / ``pmin``
+and the backward of ``psum`` / ``pvary``; all-gather for ``all_gather``
+and ``shard_rows``' backward; reduce-scatter for ``all_gather``'s
+backward; collective-permute for ``ppermute``). ``simulated_ring(n, r)``
+makes this process member r of a ring of n that exists only in shapes:
+on meta tensors every collective returns an empty meta tensor of its
+output's shape and is counted, and on any other tensor it raises. The dry
+run (``launch.dryrun``) lowers one member's step on it, where the JAX
+package compiles for placeholder devices.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import tempfile
@@ -41,17 +54,74 @@ import traceback
 import torch
 import torch.distributed as tdist
 
+# (n, r) while a simulated ring is active (``simulated_ring``)
+_SIM = None
+# the active collective counts (``count_collectives``)
+_COUNTS: list = []
+
 
 def _active() -> bool:
-    return tdist.is_available() and tdist.is_initialized()
+    return _SIM is not None or (tdist.is_available()
+                                and tdist.is_initialized())
 
 
 def world_size() -> int:
+    if _SIM is not None:
+        return _SIM[0]
     return tdist.get_world_size() if _active() else 1
 
 
 def rank() -> int:
+    if _SIM is not None:
+        return _SIM[1]
     return tdist.get_rank() if _active() else 0
+
+
+@contextlib.contextmanager
+def simulated_ring(n: int, r: int = 0):
+    """Act as member ``r`` of a ring of ``n`` whose collectives move
+    shapes only (meta tensors; module docstring)."""
+    global _SIM
+    if not 0 <= r < n:
+        raise ValueError(f"rank {r} is not on a ring of {n}")
+    if tdist.is_available() and tdist.is_initialized():
+        raise RuntimeError("a simulated ring inside a process group")
+    prev, _SIM = _SIM, (n, r)
+    try:
+        yield
+    finally:
+        _SIM = prev
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Yields a dict that fills, as collectives run inside, with
+    ``{kind: {"bytes", "count"}}`` and ``"total_bytes"``: the layout of
+    ``telemetry.CommLedger.per_kind``, so the two compare directly."""
+    counts = {"total_bytes": 0.0}
+    _COUNTS.append(counts)
+    try:
+        yield counts
+    finally:
+        _COUNTS.remove(counts)
+
+
+def _charge(kind: str, out: torch.Tensor) -> torch.Tensor:
+    nbytes = float(out.numel() * out.element_size())
+    for counts in _COUNTS:
+        slot = counts.setdefault(kind, {"bytes": 0.0, "count": 0})
+        slot["bytes"] += nbytes
+        slot["count"] += 1
+        counts["total_bytes"] += nbytes
+    return out
+
+
+def _simulated(x: torch.Tensor, shape) -> torch.Tensor:
+    """A collective's output on the simulated ring."""
+    if x.device.type != "meta":
+        raise RuntimeError(f"the simulated ring moves meta tensors only, "
+                           f"got one on {x.device}")
+    return torch.empty(shape, dtype=x.dtype, device="meta")
 
 
 def flat_axis_index() -> int:
@@ -62,21 +132,32 @@ def flat_axis_index() -> int:
 def barrier() -> None:
     """Wait until every member reaches this point (a checkpoint's readers
     wait for its writer); nothing to wait for on a ring of one."""
-    if _active():
+    if _active() and _SIM is None:
         tdist.barrier()
 
 
 def _all_reduce(x: torch.Tensor, op) -> torch.Tensor:
+    if _SIM is not None:
+        return _charge("all-reduce", _simulated(x, x.shape))
     out = x.detach().clone().contiguous()
     tdist.all_reduce(out, op=op)
-    return out
+    return _charge("all-reduce", out)
 
 
 def _gather(x: torch.Tensor, dim: int, tiled: bool) -> torch.Tensor:
+    n = world_size()
+    if _SIM is not None:
+        shape = list(x.shape)
+        if tiled:
+            shape[dim] *= n
+        else:
+            shape.insert(dim if dim >= 0 else dim + x.dim() + 1, n)
+        return _charge("all-gather", _simulated(x, shape))
     x = x.detach().contiguous()
-    parts = [torch.empty_like(x) for _ in range(world_size())]
+    parts = [torch.empty_like(x) for _ in range(n)]
     tdist.all_gather(parts, x)
-    return torch.cat(parts, dim=dim) if tiled else torch.stack(parts, dim=dim)
+    return _charge("all-gather", torch.cat(parts, dim=dim) if tiled
+                   else torch.stack(parts, dim=dim))
 
 
 class _PSum(torch.autograd.Function):
@@ -100,9 +181,13 @@ class _AllGather(torch.autograd.Function):
         g = g.detach()
         parts = (g.split(ctx.n, dim=ctx.dim) if ctx.tiled
                  else g.unbind(ctx.dim))
-        out = torch.empty_like(parts[rank()], memory_format=torch.contiguous_format)
-        tdist.reduce_scatter(out, [p.contiguous() for p in parts])
-        return out, None, None
+        if _SIM is not None:
+            out = _simulated(g, parts[rank()].shape)
+        else:
+            out = torch.empty_like(parts[rank()],
+                                   memory_format=torch.contiguous_format)
+            tdist.reduce_scatter(out, [p.contiguous() for p in parts])
+        return _charge("reduce-scatter", out), None, None
 
 
 def all_gather(x: torch.Tensor, dim: int = 0, tiled: bool = True):
@@ -206,6 +291,8 @@ def ppermute(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
     x = x.detach()
     if n == 1 or shift % n == 0:
         return x
+    if _SIM is not None:
+        return _charge("collective-permute", _simulated(x, x.shape))
     r = rank()
     x = x.contiguous()
     out = torch.empty_like(x)
@@ -214,7 +301,7 @@ def ppermute(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
         tdist.P2POp(tdist.irecv, out, (r - shift) % n)])
     for req in reqs:
         req.wait()
-    return out
+    return _charge("collective-permute", out)
 
 
 # ---------------------------------------------------------------------------

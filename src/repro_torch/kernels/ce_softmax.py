@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import Cost, charges, tf32x3
 
 LAUNCHES = 0          # kernel launches (one per ce_forward call on the card)
 BWD_LAUNCHES = 0      # kernel launches (one per ce_backward call on the card)
@@ -45,6 +46,18 @@ def _segments(n_vtiles: int, blocks: int):
     empty."""
     seg_tiles = -(-n_vtiles // max(1, min(n_vtiles, blocks)))
     return seg_tiles, -(-n_vtiles // seg_tiles)
+
+
+def forward_cost(b: int, v: int, d: int) -> Cost:
+    """``ce_forward`` at f [b, d], W [v, d]: one product, f, W and y read,
+    the four [b] statistics written."""
+    return tf32x3(4 * (b * d + v * d + b) + 16 * b, 1, b, v, d)
+
+
+def backward_cost(b: int, v: int, d: int) -> Cost:
+    """``ce_backward``: three products (the scores again, df, dW); f, W, y,
+    m, gz, gc read, df and dW written."""
+    return tf32x3(4 * (2 * b * d + 2 * v * d + 4 * b), 3, b, v, d)
 
 
 def _sms(dev) -> int:
@@ -108,7 +121,8 @@ def _check(what, f, w, y, rows, limit):
     """The checks that ``ce_forward`` and ``ce_backward`` share. ``rows``
     maps the names of the other [B] inputs to them. Returns the clamped
     limit, the labels with those off the shard mapped to -1 (they must fold
-    nothing), and whether the tensors are on the card (else on the CPU)."""
+    nothing), and where the tensors lie: "cuda" (launch the kernel), "cpu"
+    (run the plain version) or "meta" (shapes only: the dry run)."""
     if f.dtype != torch.float32 or w.dtype != torch.float32:
         raise TypeError(f"{what} takes float32, got {f.dtype}/{w.dtype}")
     rows = {"y": y, **rows}
@@ -124,8 +138,8 @@ def _check(what, f, w, y, rows, limit):
             raise ValueError(f"{what}: {k} on {t.device}, not on {f.device}")
     lim = v if limit is None else max(0, min(int(limit), v))
     y = torch.where((y >= 0) & (y < v), y, -1).to(torch.int32)
-    if f.device.type == "cpu" and w.device.type == "cpu":
-        return lim, y, False
+    if f.device.type == w.device.type and f.device.type in ("cpu", "meta"):
+        return lim, y, f.device.type
     if f.device.type != "cuda" or w.device != f.device:
         raise ValueError(f"{what}: tensors on {f.device} and {w.device}")
     if not (f.is_contiguous() and w.is_contiguous()):
@@ -136,17 +150,23 @@ def _check(what, f, w, y, rows, limit):
     if not (b and v and f.shape[1]):
         raise ValueError(f"the CUDA {what} needs B, V and D >= 1, got f "
                          f"{tuple(f.shape)}, w {tuple(w.shape)}")
-    return lim, y.contiguous(), True
+    return lim, y.contiguous(), "cuda"
 
 
+@charges("ce_forward", lambda f, w, *a, **k: forward_cost(
+    f.shape[0], w.shape[0], f.shape[1]))
 def ce_forward(f, w, y, *, limit=None, scale: float = 1.0):
     """f [B,D] fp32, w [V,D] fp32, y [B] local ids (out of range = not
     owned by this shard). ``limit`` (default V) masks columns >= limit —
     vocab padding on the owning shard. Returns per-row fp32 (m, z, corr)
     and int32 amax: running max, partition sum relative to m, label logit,
     argmax column (-1 when every column is masked)."""
-    lim, y, on_card = _check("ce_forward", f, w, y, {}, limit)
-    if not on_card:
+    lim, y, where = _check("ce_forward", f, w, y, {}, limit)
+    if where == "meta":
+        m = torch.empty(f.shape[:1], device="meta")
+        return m, torch.empty_like(m), torch.empty_like(m), torch.empty_like(
+            m, dtype=torch.int32)
+    if where == "cpu":
         return ce_forward_plain(f, w, y, lim, scale)
     return _launch(f, w, y, lim, scale)
 
@@ -203,6 +223,8 @@ def _bwd_launch(f, w, y, m, gz, gc, lim: int, scale: float):
     return df, dw
 
 
+@charges("ce_backward", lambda f, w, *a, **k: backward_cost(
+    f.shape[0], w.shape[0], f.shape[1]))
 def ce_backward(f, w, y, m, gz, gc, *, limit=None, scale: float = 1.0):
     """Streamed backward from per-row cotangents. f [B,D], w [V,D] fp32,
     y [B] local ids (out of range = not owned by this shard), m [B] the
@@ -211,9 +233,11 @@ def ce_backward(f, w, y, m, gz, gc, *, limit=None, scale: float = 1.0):
     term; the label one-hot is not masked. Returns (df [B,D], dw [V,D])
     fp32. Deterministic: no floating-point atomics on the card."""
     m, gz, gc = (t.float() for t in (m, gz, gc))
-    lim, y, on_card = _check("ce_backward", f, w, y,
-                             {"m": m, "gz": gz, "gc": gc}, limit)
-    if not on_card:
+    lim, y, where = _check("ce_backward", f, w, y,
+                           {"m": m, "gz": gz, "gc": gc}, limit)
+    if where == "meta":
+        return torch.empty_like(f), torch.empty_like(w)
+    if where == "cpu":
         return ce_backward_plain(f, w, y, m, gz, gc, lim, scale)
     return _bwd_launch(f, w, y, m.contiguous(), gz.contiguous(),
                        gc.contiguous(), lim, scale)

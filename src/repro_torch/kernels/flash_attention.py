@@ -28,6 +28,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import Cost, charges
 
 LAUNCHES = 0          # kernel launches (one per flash_attention call on the card)
 MAX_HEAD_DIM = 256    # the CUDA kernel pads Dh to at most 256 in shared memory
@@ -46,6 +47,27 @@ def q_tile(dh: int, dtype=torch.bfloat16) -> int:
     blocks an SM) for bf16 up to Dh 64, two warpgroups of 64 for wider bf16
     heads, 64 rows for fp32."""
     return 128 if dtype == torch.bfloat16 and dh > 64 else 64
+
+
+def valid_pairs(s: int, t: int, causal: bool = True, window: int = 0) -> int:
+    """(query, key) pairs a head scores: all s t, the causal triangle when
+    s == t, within it the last ``window`` keys of each row."""
+    if not (causal and s == t):
+        return s * t
+    w = min(window, s) if window > 0 else s
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def cost(bh: int, s: int, t: int, dh: int, elem_bytes: int, bhkv=None,
+         causal: bool = True, window: int = 0) -> Cost:
+    """``flash_attention`` of bh query heads over bhkv KV heads: 2 Dh
+    operations for q.k and 2 Dh for p.v a valid pair; q and o of bh heads
+    and k and v of bhkv heads moved once, at ``elem_bytes`` an element
+    (bf16 on the tensor cores, fp32 on the CUDA cores)."""
+    bhkv = bh if bhkv is None else bhkv
+    n_ops = 4.0 * dh * valid_pairs(s, t, causal, window) * bh
+    return Cost(n_ops, float(elem_bytes * dh * (2 * s * bh + 2 * t * bhkv)),
+                "bf16" if elem_bytes == 2 else "fp32")
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -107,6 +129,9 @@ def _lib():
     return fn
 
 
+@charges("flash_attention", lambda q, k, v, causal=True, window=0: cost(
+    q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.element_size(),
+    k.shape[0], causal, window))
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q [BH, Sq, Dh]; k, v [BH / g, T, Dh] (query head h reads KV head
     h // g), all float32 or all bfloat16, Dh a multiple of 16 up to 256 ->
@@ -132,6 +157,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     devices = {x.device.type for x in (q, k, v)}
     if devices == {"cpu"}:
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if devices == {"meta"}:
+        return torch.empty_like(q)
     if devices != {"cuda"} or len({q.device, k.device, v.device}) != 1:
         raise ValueError(f"flash_attention: tensors on {q.device}, "
                          f"{k.device}, {v.device}")

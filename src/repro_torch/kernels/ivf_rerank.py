@@ -30,12 +30,35 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import Cost, charges
 
 LAUNCHES = 0          # kernel launches (one per call on the card)
 MAX_K = 32            # the CUDA kernel keeps a row's slots one per lane
 MAX_DIM = 8192        # rows stream in 512-float pieces; queries in tiles
 #                       (one query a tile at 8,192: 32 KB of shared memory)
 _PLAIN_ELEMS = 1 << 28   # gathered floats per chunk of the plain version
+
+
+def cost(b: int, d: int, k: int, union: int, n_real: int,
+         n_entries: int) -> Cost:
+    """A rerank of b queries at depth d: 2 d operations for each of its
+    ``n_real`` real candidates (CUDA cores, fp32); every distinct row it
+    scores (``union``) read once, f, the ``n_entries`` candidate entries
+    (the probe's, for the probed entry) and the [b, k] result."""
+    return Cost(2.0 * n_real * d, 4.0 * d * union + 4.0 * b * d
+                + 4.0 * n_entries + 8.0 * b * k, "fp32")
+
+
+def _cand_cost(f, w, cand, k: int) -> Cost:
+    real = cand[cand >= 0]
+    return cost(f.shape[0], f.shape[1], k, int(torch.unique(real).numel()),
+                int(real.numel()), cand.numel())
+
+
+def _probed_cost(f, w, members, probe, k: int) -> Cost:
+    union = int((members[torch.unique(probe).long()] >= 0).sum())
+    n_real = int((members[probe.long()] >= 0).sum())
+    return cost(f.shape[0], f.shape[1], k, union, n_real, probe.numel())
 
 
 def ivf_rerank_plain(f, w, cand, k: int):
@@ -162,6 +185,7 @@ def _launch(f, w, groups, probe, k: int):
     return vals, ids
 
 
+@charges("ivf_rerank", _cand_cost)
 def ivf_rerank(f, w, cand, k: int):
     """f [B, D] fp32; w [V, D] fp32 (rows gathered in the kernel); cand
     [B, A] int32 local row ids, -1 marking padding. Returns (vals [B, k]
@@ -176,6 +200,7 @@ def ivf_rerank(f, w, cand, k: int):
     return _launch(f, w, cand, None, k)
 
 
+@charges("ivf_rerank", _probed_cost)
 def ivf_rerank_probed(f, w, members, probe, k: int):
     """``ivf_rerank`` of ``members[probe].reshape(B, P * cap)``, the
     candidates of the IVF serve, without building them: members [C, cap]

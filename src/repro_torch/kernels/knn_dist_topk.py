@@ -26,11 +26,20 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import Cost, charges
 
 LAUNCHES = 0          # kernel launches (one per dist_topk call on the card)
 MAX_KPRIME = 32       # the CUDA kernel keeps a row's slots one per lane
 MAX_DIM = 8192        # Q and K stream over depth: no cap from shared memory;
 #                       the widest the card has checked (chameleon-34B)
+
+
+def cost(nq: int, nk: int, d: int, kprime: int) -> Cost:
+    """``dist_topk`` of nq queries over nk keys at depth d: the bf16
+    product's 2 nq nk d operations; q and k read (bf16), the [nq, k']
+    values and ids written."""
+    return Cost(2.0 * nq * nk * d, 2.0 * (nq * d + nk * d) + 8.0 * nq * kprime,
+                "bf16")
 
 
 def dist_topk_plain(q, kmat, kprime: int, col_offset: int = 0):
@@ -58,6 +67,8 @@ def _lib():
     return fn
 
 
+@charges("dist_topk", lambda q, kmat, kprime, **k: cost(
+    q.shape[0], kmat.shape[0], q.shape[1], kprime))
 def dist_topk(q, kmat, kprime: int, *, col_offset: int = 0):
     """q [Nq, D] x kmat [Nk, D], both bf16 -> (vals [Nq, k'] fp32
     descending, ids [Nq, k'] int32 columns + ``col_offset``). Ties go to

@@ -41,6 +41,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import Cost, charges, tf32x3
 from repro_torch.kernels.ce_softmax import _segments, _sms
 
 LAUNCHES = 0          # kernel launches (one per sparse_ce_forward on the card)
@@ -102,11 +103,27 @@ def sparse_ce_backward_plain(f, w, ids, gids, bias, valid, y, m, gz, gc,
     return dl @ wa, dw
 
 
+def forward_cost(b: int, a: int, d: int) -> Cost:
+    """``sparse_ce_forward`` at f [b, d] over A = ``a`` gathered rows: one
+    product; f, the A rows, the four [A] columns (ids, gids, bias, valid)
+    and y read, the five [b] outputs written."""
+    return tf32x3(4 * (b * d + a * d) + 16 * a + 24 * b, 1, b, a, d)
+
+
+def backward_cost(b: int, a: int, v: int, d: int) -> Cost:
+    """``sparse_ce_backward``: three products over the A rows; f and the A
+    rows read, df and the dense dW [v, d] written, the columns and the
+    five [b] inputs read."""
+    return tf32x3(4 * (2 * b * d + a * d + v * d) + 16 * a + 20 * b, 3, b,
+                  a, d)
+
+
 def _check(what, f, w, ids, gids, bias, valid, y, rows):
     """The checks both directions share. ``rows`` maps the names of the
     other [B] inputs to them. Returns (ids clipped into [0, V) as int32,
-    gids, bias, valid, y, rows) on f's device, and whether that is the
-    card (else the CPU)."""
+    gids, bias, valid, y, rows) on f's device, and where that is: "cuda"
+    (launch the kernel), "cpu" (the plain version) or "meta" (shapes
+    only)."""
     if f.dtype != torch.float32 or w.dtype != torch.float32:
         raise TypeError(f"{what} takes float32, got {f.dtype}/{w.dtype}")
     b, v = f.shape[0], w.shape[0]
@@ -129,8 +146,8 @@ def _check(what, f, w, ids, gids, bias, valid, y, rows):
     bias = bias.float()
     rows = {k: t.float() if t.is_floating_point() else t.to(torch.int32)
             for k, t in rows.items() if k != "y"}
-    if f.device.type == "cpu" and w.device.type == "cpu":
-        return ids, gids, bias, valid, y, rows, False
+    if f.device.type == w.device.type and f.device.type in ("cpu", "meta"):
+        return ids, gids, bias, valid, y, rows, f.device.type
     if f.device.type != "cuda" or w.device != f.device:
         raise ValueError(f"{what}: tensors on {f.device} and {w.device}")
     if not (f.is_contiguous() and w.is_contiguous()):
@@ -141,7 +158,7 @@ def _check(what, f, w, ids, gids, bias, valid, y, rows):
     ids, gids, bias, valid, y = (t.contiguous()
                                  for t in (ids, gids, bias, valid, y))
     return ids, gids, bias, valid, y, {k: t.contiguous()
-                                       for k, t in rows.items()}, True
+                                       for k, t in rows.items()}, "cuda"
 
 
 def _fwd_lib():
@@ -154,6 +171,8 @@ def _fwd_lib():
     return fn
 
 
+@charges("sparse_ce_forward", lambda f, w, ids, *a, **k: forward_cost(
+    f.shape[0], ids.shape[0], f.shape[1]))
 def sparse_ce_forward(f, w, ids, gids, bias, valid, y, *, scale: float = 1.0,
                       mask_hits: bool = False):
     """f [B,D] fp32; w [V,D] fp32, the whole shard; ids [A] rows of w;
@@ -163,9 +182,14 @@ def sparse_ce_forward(f, w, ids, gids, bias, valid, y, *, scale: float = 1.0,
     without a hit), the best kept column (-1 when none is kept) and the
     first hit column (-1 without one, always with ``mask_hits``)."""
     global LAUNCHES
-    ids, gids, bias, valid, y, _, on_card = _check(
+    ids, gids, bias, valid, y, _, where = _check(
         "sparse_ce_forward", f, w, ids, gids, bias, valid, y, {})
-    if not on_card:
+    if where == "meta":
+        m = torch.empty(f.shape[:1], device="meta")
+        amax = torch.empty_like(m, dtype=torch.int32)
+        return (m, torch.empty_like(m), torch.empty_like(m), amax,
+                torch.empty_like(amax))
+    if where == "cpu":
         return sparse_ce_forward_plain(f, w, ids, gids, bias, valid, y,
                                        scale, mask_hits)
     b, d = f.shape
@@ -205,6 +229,8 @@ def _bwd_lib():
     return fn
 
 
+@charges("sparse_ce_backward", lambda f, w, ids, *a, **k: backward_cost(
+    f.shape[0], ids.shape[0], w.shape[0], f.shape[1]))
 def sparse_ce_backward(f, w, ids, gids, bias, valid, y, m, gz, gc, hit, *,
                        scale: float = 1.0, mask_hits: bool = False):
     """Backward from per-row cotangents. The inputs are the forward's; m
@@ -216,11 +242,13 @@ def sparse_ce_backward(f, w, ids, gids, bias, valid, y, m, gz, gc, hit, *,
     positions and then the pieces in order; invalid columns, whose rows are
     0, are left out)."""
     global BWD_LAUNCHES
-    ids, gids, bias, valid, y, rows, on_card = _check(
+    ids, gids, bias, valid, y, rows, where = _check(
         "sparse_ce_backward", f, w, ids, gids, bias, valid, y,
         {"m": m, "gz": gz, "gc": gc, "hit": hit})
     m, gz, gc, hit = rows["m"], rows["gz"], rows["gc"], rows["hit"]
-    if not on_card:
+    if where == "meta":
+        return torch.empty_like(f), torch.empty_like(w)
+    if where == "cpu":
         return sparse_ce_backward_plain(f, w, ids, gids, bias, valid, y, m,
                                         gz, gc, hit, scale, mask_hits)
     b, d = f.shape

@@ -21,9 +21,18 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import Cost, charges
 
 LAUNCHES = 0          # kernel launches (one per stage1_topk call on the card)
 MAX_SMEM = 232448     # shared memory a block may use on an H100 (227 KB)
+
+
+def cost(m: int, n: int, k: int, chunk=None) -> Cost:
+    """``stage1_topk`` of x [m, n] in chunks of ``chunk`` columns: x read
+    once and each chunk's k candidates written (8 bytes each); one compare
+    an element, the selection's least work whatever k is."""
+    nch = -(-n // (chunk or n)) if n else 0
+    return Cost(float(m) * n, 4.0 * m * n + 8.0 * m * nch * k, "fp32")
 
 
 def stage1_topk_plain(x, k: int, chunk=None):
@@ -81,6 +90,8 @@ def _lib():
     return fn
 
 
+@charges("stage1_topk", lambda x, k, chunk=None: cost(
+    x.shape[0], x.shape[1], k, chunk))
 def stage1_topk(x, k: int, *, chunk=None):
     """x [M, N] float32 -> (vals [M*nch, k] float32 desc, idx [M*nch, k]
     int32 in-chunk indices) over chunks of ``chunk`` columns (default N;

@@ -18,12 +18,21 @@ runs attention and the SSM in parallel on the same normed input and fuses
 block has no MLP sublayer; the moe block's feed-forward is the
 token-choice MoE (``models/moe.py``), whose router losses the stack sums.
 The encoder-decoder family is ``models/encdec.py``.
+
+``remat="full"`` (``ParallelConfig.remat``) runs each layer under
+``torch.utils.checkpoint`` where the JAX package wraps the scan body in
+``jax.checkpoint``: the layer keeps only its input for the backward and
+runs again there, with the same ops, so values and gradients are
+bit-equal to ``remat="none"``. A checkpointed layer returns its output
+and, for the moe family, its router loss, and writes no cache: remat
+applies where a gradient is taken and no cache is wanted.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_lib
@@ -120,21 +129,54 @@ def _block_forward(p, cfg: ModelConfig, x, positions, backend: str = "ref",
     return x + ff, aux, cache
 
 
+def remat_wanted(remat: str, want_cache: bool) -> bool:
+    """Whether layers run checkpointed: ``remat="full"``, under grad, and
+    no cache wanted."""
+    if remat not in ("none", "full"):
+        raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
+    return remat == "full" and not want_cache and torch.is_grad_enabled()
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant; the
+    bodies draw no random numbers, so no RNG state is kept)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _block_remat(p, cfg: ModelConfig, x, positions, backend, self_rows):
+    """``_block_forward`` checkpointed: (x, aux, None)."""
+    if cfg.family == "moe":
+        def body(xc):
+            xo, a, _ = _block_forward(p, cfg, xc, positions, backend,
+                                      self_rows)
+            return xo, a
+        x, a = checkpointed(body, x)
+        return x, a, None
+    return checkpointed(
+        lambda xc: _block_forward(p, cfg, xc, positions, backend,
+                                  self_rows)[0], x), None, None
+
+
 def apply_stack(blocks, cfg: ModelConfig, x, positions, *,
                 want_cache: bool = False, cache_window: Optional[int] = None,
-                backend: str = "ref", self_rows: bool = False):
+                backend: str = "ref", self_rows: bool = False,
+                remat: str = "none"):
     """Run the layer stack. Returns (x, aux (the MoE router losses summed
     over the layers; 0 for the other families), caches or None).
 
     ``caches`` leaves are stacked [L, ...]; attention K/V are
     slot-compressed to ``cache_window`` rotating slots when given.
     ``self_rows``: ``positions`` is arange(S), which the ``kernel``
-    backend's attention needs (``layers.multihead_attention``)."""
+    backend's attention needs (``layers.multihead_attention``).
+    ``remat``: ``"full"`` checkpoints each layer (``remat_wanted``)."""
     require_ported(cfg)
     layers = []
     aux = torch.zeros((), device=x.device)
+    block = (_block_remat if remat_wanted(remat, want_cache)
+             else _block_forward)
     for p in blocks:
-        x, a, cache = _block_forward(p, cfg, x, positions, backend, self_rows)
+        x, a, cache = block(p, cfg, x, positions, backend, self_rows)
         if a is not None:
             aux = aux + a
         if want_cache:

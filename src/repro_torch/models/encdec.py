@@ -15,12 +15,16 @@ through the ``kernel`` backend's flash attention; cross-attention and the
 decode step over the caches take the ``ref`` branches. Decode writes the
 token's self-attention K/V into the cache in place; the cross caches
 [L, B, enc_seq, Hk, Dh] are built once from the encoder's output.
+``remat="full"`` checkpoints each encoder layer, and each decoder layer
+when no cache is wanted (``decoder.remat_wanted``), as the JAX package
+wraps its scan bodies in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.decoder import checkpointed, remat_wanted
 from repro_torch.models.layers import (ParamDict, _embed_init,
                                        apply_attention, apply_mlp,
                                        apply_norm, init_attention, init_mlp,
@@ -57,19 +61,30 @@ def init_encdec(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:
         dec_pos=_embed_init(gen, (DEC_POS, cfg.d_model)))
 
 
-def encode(p, cfg: ModelConfig, frames, *, backend: str = "ref"):
+def _enc_block(lp, cfg: ModelConfig, x, positions, backend: str):
+    h = apply_norm(lp.ln1, x, cfg)
+    a, _ = apply_attention(lp.attn, cfg, h, positions=positions,
+                           causal=False, backend=backend, self_rows=True)
+    x = x + a
+    return x + apply_mlp(lp.mlp, cfg, apply_norm(lp.ln2, x, cfg))
+
+
+def encode(p, cfg: ModelConfig, frames, *, backend: str = "ref",
+           remat: str = "none"):
     """frames: [B, enc_seq, D] stubbed conv features -> encoder output."""
     dt = frames.dtype
     s = frames.shape[1]
     x = frames + sinusoid_positions(s, cfg.d_model,
                                     device=frames.device).to(dt)
     positions = torch.arange(s, device=frames.device)
+    remat = remat_wanted(remat, False)
     for lp in p.enc_blocks:
-        h = apply_norm(lp.ln1, x, cfg)
-        a, _ = apply_attention(lp.attn, cfg, h, positions=positions,
-                               causal=False, backend=backend, self_rows=True)
-        x = x + a
-        x = x + apply_mlp(lp.mlp, cfg, apply_norm(lp.ln2, x, cfg))
+        if remat:
+            x = checkpointed(
+                lambda xc, lp=lp: _enc_block(lp, cfg, xc, positions,
+                                             backend), x)
+        else:
+            x = _enc_block(lp, cfg, x, positions, backend)
     return apply_norm(p.enc_ln, x, cfg)
 
 
@@ -78,8 +93,24 @@ def _dec_positions_embed(p, positions, dt):
     return p.dec_pos[idx].to(dt)
 
 
+def _dec_block(lp, cfg: ModelConfig, x, enc_out, positions, enc_pos,
+               backend: str):
+    """One decoder layer: (x, (k, v)) of its self-attention."""
+    h = apply_norm(lp.ln1, x, cfg)
+    a, (k, v) = apply_attention(lp.self_attn, cfg, h, positions=positions,
+                                causal=True, backend=backend, self_rows=True)
+    x = x + a
+    h = apply_norm(lp.ln2, x, cfg)
+    c, _ = apply_attention(lp.cross_attn, cfg, h, positions=positions,
+                           kv={"x": enc_out}, kv_positions=enc_pos,
+                           causal=False, backend=backend)
+    x = x + c
+    return x + apply_mlp(lp.mlp, cfg, apply_norm(lp.ln3, x, cfg)), (k, v)
+
+
 def decode_train(p, cfg: ModelConfig, tokens_emb, enc_out, positions,
-                 want_cache: bool = False, *, backend: str = "ref"):
+                 want_cache: bool = False, *, backend: str = "ref",
+                 remat: str = "none"):
     """Teacher-forced decoder forward. tokens_emb: [B,S,D] (embedded),
     ``positions`` arange(S). Returns (hidden [B,S,D], caches or None):
     caches {"k", "v", "cross_k", "cross_v"} stacked [L, ...]."""
@@ -87,18 +118,16 @@ def decode_train(p, cfg: ModelConfig, tokens_emb, enc_out, positions,
     x = tokens_emb + _dec_positions_embed(p, positions, dt)[None]
     enc_pos = torch.arange(enc_out.shape[1], device=enc_out.device)
     layers = []
+    remat = remat_wanted(remat, want_cache)
     for lp in p.dec_blocks:
-        h = apply_norm(lp.ln1, x, cfg)
-        a, (k, v) = apply_attention(lp.self_attn, cfg, h, positions=positions,
-                                    causal=True, backend=backend,
-                                    self_rows=True)
-        x = x + a
-        h = apply_norm(lp.ln2, x, cfg)
-        c, _ = apply_attention(lp.cross_attn, cfg, h, positions=positions,
-                               kv={"x": enc_out}, kv_positions=enc_pos,
-                               causal=False, backend=backend)
-        x = x + c
-        x = x + apply_mlp(lp.mlp, cfg, apply_norm(lp.ln3, x, cfg))
+        if remat:
+            x = checkpointed(
+                lambda xc, eo, lp=lp: _dec_block(lp, cfg, xc, eo, positions,
+                                                 enc_pos, backend)[0],
+                x, enc_out)
+            continue
+        x, (k, v) = _dec_block(lp, cfg, x, enc_out, positions, enc_pos,
+                               backend)
         if want_cache:
             ck, cv = project_kv(lp.cross_attn, cfg, enc_out, enc_pos)
             layers.append({"k": k, "v": v, "cross_k": ck, "cross_v": cv})

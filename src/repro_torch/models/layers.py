@@ -75,15 +75,30 @@ class ParamDict(dict):
 # ---------------------------------------------------------------------------
 
 
+class MetaGenerator:
+    """Stands in for the ``torch.Generator`` an init takes, where the init
+    should build shapes only: every tensor of the params lands on the meta
+    device (no storage, nothing drawn), so a model of any size is built in
+    milliseconds (``lm.abstract_model``)."""
+    device = torch.device("meta")
+
+
+def randn(gen, shape):
+    """N(0, 1) fp32 on ``gen``'s device, drawn from ``gen`` (or, from a
+    ``MetaGenerator``, an empty meta tensor)."""
+    if isinstance(gen, MetaGenerator):
+        return torch.empty(shape, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
 def _dense_init(gen: torch.Generator, shape, in_axis: int = -2):
     """LeCun-normal-ish fan-in init, fp32."""
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
-    return torch.randn(shape, generator=gen, device=gen.device) / math.sqrt(
-        fan_in)
+    return randn(gen, shape) / math.sqrt(fan_in)
 
 
 def _embed_init(gen: torch.Generator, shape):
-    return torch.randn(shape, generator=gen, device=gen.device) * 0.02
+    return randn(gen, shape) * 0.02
 
 
 # ---------------------------------------------------------------------------

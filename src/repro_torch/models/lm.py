@@ -3,6 +3,7 @@ head. The port of the JAX package's ``models/lm.py`` for the dense, vlm,
 moe, ssm, hybrid, encdec and cnn families:
 
   init_model(generator, cfg)               -> params (a ``ParamDict``)
+  abstract_model(cfg)                      -> the same on the meta device
   backbone(params, cfg, inputs, ...)       -> (hidden [B,S,D], aux, caches)
   head_weight(params, cfg)                 -> W [V, D] (the class matrix)
   decode(params, cfg, inputs, caches, slots, window) -> (hidden, caches, slots)
@@ -35,7 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import decoder as dec_lib
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import resnet as resnet_lib
-from repro_torch.models.layers import (ParamDict, _dense_init,
+from repro_torch.models.layers import (MetaGenerator, ParamDict, _dense_init,
                                        apply_embedding, apply_norm,
                                        init_embedding, init_norm)
 
@@ -73,6 +74,12 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:
     return ParamDict(**p)
 
 
+def abstract_model(cfg: ModelConfig) -> ParamDict:
+    """``init_model``'s params as meta tensors: every shape and dtype, no
+    storage (the dry run and ``roofline.analysis.active_params``)."""
+    return init_model(MetaGenerator(), cfg)
+
+
 def head_weight(params, cfg: ModelConfig):
     """The classification head W [V, D]."""
     if cfg.family == "cnn":
@@ -83,12 +90,16 @@ def head_weight(params, cfg: ModelConfig):
 
 
 def backbone(params, cfg: ModelConfig, inputs, *, want_cache: bool = False,
-             cache_window: Optional[int] = None, backend: str = "ref"):
+             cache_window: Optional[int] = None, backend: str = "ref",
+             remat: str = "none"):
     """-> (hidden [B,S,D], aux scalar (the MoE router losses), caches or
     None). ``backend`` selects the attention's kernels
     (``layers.multihead_attention``). The encdec family's caches are its
     decoder's self-attention K/V over the S tokens and the cross K/V over
-    the encoder's frames (``cache_window`` does not apply)."""
+    the encoder's frames (``cache_window`` does not apply). ``remat``
+    (``ParallelConfig.remat``): ``"full"`` checkpoints each layer of the
+    decoder stacks and the encoder-decoder under grad (the cnn trunk
+    takes none, as in the JAX package)."""
     require_ported(cfg)
     if cfg.family == "cnn":
         feat = resnet_lib.apply_resnet(params["trunk"], cfg,
@@ -101,16 +112,17 @@ def backbone(params, cfg: ModelConfig, inputs, *, want_cache: bool = False,
     if cfg.family == "encdec":
         enc_out = encdec_lib.encode(
             params.encdec, cfg,
-            inputs["frames"].to(getattr(torch, cfg.dtype)), backend=backend)
+            inputs["frames"].to(getattr(torch, cfg.dtype)), backend=backend,
+            remat=remat)
         x, caches = encdec_lib.decode_train(params.encdec, cfg, x, enc_out,
                                             positions, want_cache,
-                                            backend=backend)
+                                            backend=backend, remat=remat)
         return x, torch.zeros((), device=x.device), caches
     win = cache_window or (cfg.sliding_window or tokens.shape[1])
     x, aux, caches = dec_lib.apply_stack(
         params.blocks, cfg, x, positions, want_cache=want_cache,
         cache_window=win if want_cache else None, backend=backend,
-        self_rows=True)
+        self_rows=True, remat=remat)
     return apply_norm(params.ln_f, x, cfg), aux, caches
 
 

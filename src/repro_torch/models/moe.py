@@ -135,8 +135,12 @@ def routing(p, cfg: ModelConfig, x):
     top_p, top_i = topk_stable(probs, m.top_k)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
     me = probs.mean(dim=(0, 1))
-    counts = torch.bincount(top_i.reshape(-1).long(),
-                            minlength=m.n_experts).float()
+    # integer counts by scatter-add (exact in any order; unlike bincount
+    # it has a meta kernel, so the dry run can route shapes)
+    idx = top_i.reshape(-1).long()
+    counts = torch.zeros(m.n_experts, dtype=torch.long,
+                         device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx)).float()
     fe = counts / (b * s * m.top_k)
     aux = m.n_experts * (fe * me).sum() * m.router_aux_coef
     return probs, top_p, top_i, aux

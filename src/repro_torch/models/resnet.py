@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import randn
 
 STAGES_50 = ((64, 3), (128, 4), (256, 6), (512, 3))
 STAGES_REDUCED = ((32, 1), (64, 1))
@@ -47,8 +48,7 @@ def stages_for(cfg: ModelConfig):
 
 def _conv_init(gen: torch.Generator, shape):
     fan_in = shape[0] * shape[1] * shape[2]
-    return torch.randn(shape, generator=gen, device=gen.device) / math.sqrt(
-        fan_in / 2)
+    return randn(gen, shape) / math.sqrt(fan_in / 2)
 
 
 def _gn_params(c: int, device):
@@ -135,8 +135,7 @@ def init_resnet(gen: torch.Generator, cfg: ModelConfig) -> dict:
             stride = 2 if (si > 0 and bi == 0) else 1
             blocks.append(init_bottleneck(gen, c_in, c_mid, stride))
             c_in = c_mid * 4
-    head_w = torch.randn((c_in, cfg.d_model), generator=gen,
-                         device=gen.device) / math.sqrt(c_in)
+    head_w = randn(gen, (c_in, cfg.d_model)) / math.sqrt(c_in)
     return {"blocks": blocks, "gn_stem": _gn_params(64, gen.device),
             "head_w": head_w, "stem": stem}
 

@@ -7,6 +7,11 @@ API, as there:
     updates, state = opt.update(grads, state, params, lr)
     params = apply_updates(params, updates)
 
+and, what the trainers call, ``state = opt.update_(grads, state, params,
+lr)``: the same values written into the params and the moments leaf by
+leaf, so a step holds one leaf's transients, not whole new trees of the
+moments, the updates and the params.
+
 ``params``, ``grads`` and the moments are trees of dicts, tuples and lists
 over tensors (the trainer passes ``(fe_params, head_params)``). All states
 are fp32, the paper's master-copy discipline. The arithmetic is the JAX
@@ -29,6 +34,9 @@ from repro_torch.configs.base import TrainConfig
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[..., Any]  # (grads, state, params, lr) -> (updates, state)
+    # (grads, state, params, lr) -> state, params and moments updated in
+    # place leaf by leaf: the same values as ``update`` + ``apply_updates``
+    update_: Callable[..., Any]
 
 
 class OptState(NamedTuple):
@@ -91,23 +99,72 @@ def _wd(g, p, weight_decay):
     return g
 
 
+def _leaf_args(grads, moments, params):
+    """(g, *moments, p) for each leaf, in ``tree_leaves`` order."""
+    return zip(tree_leaves(grads), *map(tree_leaves, moments),
+               tree_leaves(params))
+
+
+def _rebuild(tree, leaves):
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def _tree_update(leaf_fn, grads, moments, params, lr):
+    """``leaf_fn(g, *moments, p, lr) -> (new moments, update)`` over the
+    trees: (new moment trees, the update tree)."""
+    outs = [leaf_fn(*args, lr) for args in _leaf_args(grads, moments, params)]
+    new = tuple(_rebuild(m, [o[0][i] for o in outs])
+                for i, m in enumerate(moments))
+    return new, _rebuild(params, [o[1] for o in outs])
+
+
+@torch.no_grad()
+def _update_in_place(leaf_fn, grads, moments, params, lr) -> None:
+    """The same arithmetic as ``_tree_update`` + ``apply_updates``, one
+    leaf at a time, written into the moments and the params: the only
+    transients are one leaf's."""
+    for args in _leaf_args(grads, moments, params):
+        ms, p = args[1:-1], args[-1]
+        new_ms, u = leaf_fn(*args, lr)
+        for m, m_new in zip(ms, new_ms):
+            m.copy_(m_new)
+        p.copy_((p.float() + u).to(p.dtype))
+
+
+def _optimizer(init, make_leaf, n_moments: int) -> Optimizer:
+    """An optimizer from its per-leaf rule: ``make_leaf(t)`` is the rule of
+    step ``t`` (adam's bias corrections depend on it)."""
+    def moments(state):
+        return (state.mu,) if n_moments == 1 else (state.mu, state.nu)
+
+    def update(grads, state, params, lr):
+        t = state.step + 1
+        new, upd = _tree_update(make_leaf(t), grads, moments(state), params,
+                                lr)
+        return upd, OptState(step=t, mu=new[0],
+                             nu=new[1] if n_moments == 2 else None)
+
+    def update_(grads, state, params, lr):
+        t = state.step + 1
+        _update_in_place(make_leaf(t), grads, moments(state), params, lr)
+        return state._replace(step=t)
+
+    return Optimizer(init, update, update_)
+
+
 def sgd(momentum: float = 0.9, weight_decay: float = 0.0,
         nesterov: bool = False) -> Optimizer:
     def init(params):
         return OptState(step=0, mu=_zeros_like_tree(params))
 
-    def update(grads, state, params, lr):
-        mu = tree_map(lambda g, m, p: momentum * m + _wd(g, p, weight_decay),
-                      grads, state.mu, params)
+    def leaf(g, m, p, lr):
+        m = momentum * m + _wd(g, p, weight_decay)
         if nesterov:
-            upd = tree_map(
-                lambda g, m, p: -lr * (_wd(g, p, weight_decay) + momentum * m),
-                grads, mu, params)
-        else:
-            upd = tree_map(lambda m: -lr * m, mu)
-        return upd, OptState(step=state.step + 1, mu=mu)
+            return (m,), -lr * (_wd(g, p, weight_decay) + momentum * m)
+        return (m,), -lr * m
 
-    return Optimizer(init, update)
+    return _optimizer(init, lambda t: leaf, 1)
 
 
 def lars(momentum: float = 0.9, weight_decay: float = 1e-4,
@@ -121,21 +178,17 @@ def lars(momentum: float = 0.9, weight_decay: float = 1e-4,
     def init(params):
         return OptState(step=0, mu=_zeros_like_tree(params))
 
-    def update(grads, state, params, lr):
-        def new_m(g, m, p):
-            g = _wd(g, p, weight_decay)
-            wn = torch.linalg.vector_norm(p.float())
-            gn = torch.linalg.vector_norm(g)
-            trust = torch.where((wn > 0) & (gn > 0),
-                                trust_coef * wn / (gn + eps),
-                                torch.ones_like(wn))
-            return momentum * m + (lr * trust) * g
+    def leaf(g, m, p, lr):
+        g = _wd(g, p, weight_decay)
+        wn = torch.linalg.vector_norm(p.float())
+        gn = torch.linalg.vector_norm(g)
+        trust = torch.where((wn > 0) & (gn > 0),
+                            trust_coef * wn / (gn + eps),
+                            torch.ones_like(wn))
+        m = momentum * m + (lr * trust) * g
+        return (m,), -m
 
-        mu = tree_map(new_m, grads, state.mu, params)
-        upd = tree_map(lambda m: -m, mu)
-        return upd, OptState(step=state.step + 1, mu=mu)
-
-    return Optimizer(init, update)
+    return _optimizer(init, lambda t: leaf, 1)
 
 
 def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -144,23 +197,22 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return OptState(step=0, mu=_zeros_like_tree(params),
                         nu=_zeros_like_tree(params))
 
-    def update(grads, state, params, lr):
-        t = state.step + 1
+    def make_leaf(t):
         # bias corrections in fp32, as the JAX package computes them
         c1 = 1 - torch.tensor(b1, dtype=torch.float32) ** t
         c2 = 1 - torch.tensor(b2, dtype=torch.float32) ** t
-        mu = tree_map(
-            lambda g, m, p: b1 * m + (1 - b1) * _wd(g, p, weight_decay),
-            grads, state.mu, params)
-        nu = tree_map(
-            lambda g, v, p: b2 * v + (1 - b2) * _wd(g, p, weight_decay) ** 2,
-            grads, state.nu, params)
-        upd = tree_map(
-            lambda m, v: -lr * (m / c1.to(m.device))
-            / (torch.sqrt(v / c2.to(v.device)) + eps), mu, nu)
-        return upd, OptState(step=t, mu=mu, nu=nu)
 
-    return Optimizer(init, update)
+        def leaf(g, m, v, p, lr):
+            g = _wd(g, p, weight_decay)
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g ** 2
+            u = -lr * (m / c1.to(m.device)) / (torch.sqrt(v / c2.to(v.device))
+                                               + eps)
+            return (m, v), u
+
+        return leaf
+
+    return _optimizer(init, make_leaf, 2)
 
 
 def make_optimizer(cfg: TrainConfig) -> Optimizer:

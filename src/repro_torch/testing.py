@@ -101,6 +101,40 @@ def numpy_batch(t: int, b: int, *, classes: int, dim: int,
             "labels": labels}
 
 
+def step_collectives(cases: list, *, classes: int, batch: int,
+                     feat_dim: int, hw: int) -> list:
+    """One hybrid train step on this member for each ``(trunk, head,
+    backend, n_micro)`` case, its collectives counted at the ``dist``
+    wrappers (``dist.count_collectives``). The state is fresh (the knn
+    head's warm-start graph) and the batch ``numpy_batch`` /
+    ``numpy_image_batch`` at step 0. Returns each case's counts."""
+    from repro_torch.api.heads import make_head
+    from repro_torch.api.experiment import paper_model_config
+    from repro_torch.configs.base import HeadConfig, TrainConfig
+    from repro_torch.train import hybrid
+
+    out = []
+    for trunk, head, backend, n_micro in cases:
+        mcfg = paper_model_config(trunk, classes, feat_dim)
+        hcfg = HeadConfig(softmax_impl=head, backend=backend,
+                          active_frac=0.1)
+        tcfg = TrainConfig(optimizer="sgd")
+        h = make_head(mcfg, hcfg)
+        state = hybrid.init_state(torch.Generator().manual_seed(0), mcfg,
+                                  hcfg, tcfg, dist.world_size(),
+                                  rank=dist.rank(), device="cpu", head=h)
+        data = (numpy_image_batch(0, batch, classes=classes, hw=hw)
+                if trunk == "cnn" else
+                numpy_batch(0, batch, classes=classes, dim=feat_dim))
+        inputs = {k: torch.from_numpy(v) for k, v in data.items()}
+        step = hybrid.make_train_step(mcfg, hcfg, tcfg, n_micro=n_micro,
+                                      head=h)
+        with dist.count_collectives() as counts:
+            step(state, inputs, 0.1)
+        out.append(dict(counts))
+    return out
+
+
 def numpy_image_batch(t: int, b: int, *, classes: int, hw: int,
                       seed: int = 0) -> dict:
     """A deterministic image batch for step ``t`` of ``b`` rows, made with
@@ -1233,6 +1267,7 @@ def run_all(cases: list) -> list:
                "sampled_full_draw": sampled_full_draw,
                "selective_refresh": selective_refresh,
                "dgc_rounds": dgc_rounds, "cnn_fit": cnn_fit,
+               "step_collectives": step_collectives,
                "cnn_serve": cnn_serve, "ckpt_from_jax": ckpt_from_jax,
                "kill_recover": kill_recover,
                "elastic_source": elastic_source,

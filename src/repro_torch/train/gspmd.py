@@ -29,6 +29,10 @@ has no backward, as the Pallas kernel has none); evaluation and serving
 take ``head_cfg.backend``'s, the flash kernel on ``kernel``. The greedy
 token's head is the dense ``serve_logits_local`` on both backends, as in
 the JAX package.
+
+The step builders take the JAX package's ``par: ParallelConfig``, of
+which they read ``remat`` (``"full"``: each trunk layer checkpointed,
+``models.decoder``); the default is the ring as it is, with no remat.
 """
 from __future__ import annotations
 
@@ -40,14 +44,15 @@ import torch
 from repro_torch import dist
 from repro_torch.api.heads import HeadState, SoftmaxHead, make_head
 from repro_torch.configs.base import (HeadConfig, InputShape, ModelConfig,
-                                      TrainConfig, effective_vocab)
+                                      ParallelConfig, TrainConfig,
+                                      effective_vocab, ring_parallel_config)
 from repro_torch.core.pipeline import microbatched_value_and_grad
 from repro_torch.core.sharded_softmax import (_normalize, mask_padded_rows,
                                               serve_logits_local,
                                               serve_topk_batched_local,
                                               serve_topk_ivf_batched_local)
 from repro_torch.models import lm
-from repro_torch.optim import apply_updates, assign, make_optimizer
+from repro_torch.optim import make_optimizer
 
 def vocab_rows(w):
     """This ring member's row block of the class matrix W [V, D]: a view,
@@ -87,9 +92,15 @@ def _class_params(head: SoftmaxHead, model_cfg: ModelConfig, params,
 # ---------------------------------------------------------------------------
 
 
+def _par(par: Optional[ParallelConfig]) -> ParallelConfig:
+    return par if par is not None else ring_parallel_config(
+        dist.world_size())
+
+
 def make_head_loss_fn(model_cfg: ModelConfig, head_cfg: HeadConfig, *,
                       global_tokens: int,
-                      head: Optional[SoftmaxHead] = None):
+                      head: Optional[SoftmaxHead] = None,
+                      par: Optional[ParallelConfig] = None):
     """Zoo loss through any registered ``SoftmaxHead``:
     ``loss_fn(params, head_params, head_aux, inputs, step=None) -> (loss,
     metrics)``. For W-heads the class matrix is the model's own
@@ -99,10 +110,12 @@ def make_head_loss_fn(model_cfg: ModelConfig, head_cfg: HeadConfig, *,
     loss is the mean over ``global_tokens`` tokens, the same on every
     member; its gradient is the JAX package's (module docstring)."""
     head = head or make_head(model_cfg, head_cfg)
+    remat = _par(par).remat
 
     def loss_fn(params, head_params, head_aux, inputs, step=None):
         # training attention: the ref branches (the kernel has no backward)
-        h, aux_l, _ = lm.backbone(params, model_cfg, inputs, backend="ref")
+        h, aux_l, _ = lm.backbone(params, model_cfg, inputs, backend="ref",
+                                  remat=remat)
         f = dist.pvary(h.reshape(-1, h.shape[-1]))
         labels = inputs["labels"].reshape(-1)
         hp = _class_params(head, model_cfg, params, head_params)
@@ -170,7 +183,8 @@ def _step_tokens(model_cfg: ModelConfig, shape: InputShape) -> int:
 
 def make_head_train_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
                          train_cfg: TrainConfig, shape: InputShape, *,
-                         head: Optional[SoftmaxHead] = None):
+                         head: Optional[SoftmaxHead] = None,
+                         par: Optional[ParallelConfig] = None):
     """Registry-routed zoo train step for any registered softmax head:
 
         step(params, head_state, opt_state, inputs, lr)
@@ -188,7 +202,8 @@ def make_head_train_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
     n_micro = train_cfg.micro_batch or auto_micro_batches(model_cfg, shape)
     loss_fn = make_head_loss_fn(
         model_cfg, head_cfg,
-        global_tokens=_step_tokens(model_cfg, shape) // n_micro, head=head)
+        global_tokens=_step_tokens(model_cfg, shape) // n_micro, head=head,
+        par=par)
     opt = make_optimizer(train_cfg)
     metric_names = list(head.metrics_spec())
 
@@ -200,8 +215,7 @@ def make_head_train_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
                                  step=step_no),
             trainable, inputs, n_micro, metric_names)
         with torch.no_grad():
-            updates, opt_state = opt.update(grads, opt_state, trainable, lr)
-            assign(trainable, apply_updates(trainable, updates))
+            opt_state = opt.update_(grads, opt_state, trainable, lr)
         return params, head_state, opt_state, loss, metrics
 
     return train_step
@@ -237,7 +251,8 @@ def make_train_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
 
 
 def make_head_eval_step(model_cfg: ModelConfig, head_cfg: HeadConfig, *,
-                        head: Optional[SoftmaxHead] = None):
+                        head: Optional[SoftmaxHead] = None,
+                        par: Optional[ParallelConfig] = None):
     """Deploy-style top-1 accuracy over the batch's tokens through the
     head's own ``eval_logits_local`` (§4.5 retrieval for the W-heads, the
     hashed-bucket decode for the sketch heads):
@@ -245,11 +260,12 @@ def make_head_eval_step(model_cfg: ModelConfig, head_cfg: HeadConfig, *,
     0-dim tensor). The trunk's attention takes ``head_cfg.backend``'s
     kernels (no grad here)."""
     head = head or make_head(model_cfg, head_cfg)
+    remat = _par(par).remat
 
     @torch.inference_mode()
     def eval_fn(params, head_params, head_aux, inputs):
         h, _, _ = lm.backbone(params, model_cfg, inputs,
-                              backend=head_cfg.backend)
+                              backend=head_cfg.backend, remat=remat)
         f = h.reshape(-1, h.shape[-1])
         labels = inputs["labels"].reshape(-1)
         hp = _class_params(head, model_cfg, params, head_params)
@@ -344,16 +360,20 @@ def _greedy(params, model_cfg: ModelConfig, f):
 
 
 def make_prefill_step(model_cfg: ModelConfig, shape: InputShape, *,
-                      backend: str = "ref"):
+                      backend: str = "ref",
+                      par: Optional[ParallelConfig] = None):
     """Prefill: full forward + caches + last-position greedy token.
     ``step(params, inputs) -> (token [B] int32, caches)``. ``backend``
     selects the attention's kernels (``"kernel"``: the hand-written flash
-    attention)."""
+    attention). ``par.remat`` is passed on; a prefill wants its caches,
+    so no layer is checkpointed."""
     window = lm.decode_window(model_cfg, shape.seq_len)
+    remat = _par(par).remat
 
     def prefill_step(params, inputs):
         h, _, caches = lm.backbone(params, model_cfg, inputs, want_cache=True,
-                                   cache_window=window, backend=backend)
+                                   cache_window=window, backend=backend,
+                                   remat=remat)
         return _greedy(params, model_cfg, h[:, -1, :]), caches
 
     return prefill_step

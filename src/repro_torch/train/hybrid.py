@@ -39,8 +39,8 @@ from repro_torch.core.sharded_softmax import (_normalize, mask_padded_rows,
                                               serve_topk_local)
 from repro_torch.models import lm
 from repro_torch.models import resnet as resnet_lib
-from repro_torch.optim import (OptState, apply_updates, assign,
-                               make_optimizer, tree_leaves, tree_map)
+from repro_torch.optim import (OptState, make_optimizer, tree_leaves,
+                               tree_map)
 
 
 class HybridState(NamedTuple):
@@ -258,9 +258,8 @@ def make_train_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
         # head gradient: LOCAL, never crosses members (paper §3.1 step 6)
         params = (state.fe_params, state.head_params)
         with torch.no_grad():
-            updates, opt_state = opt.update((g_fe, g_hp), state.opt_state,
-                                            params, lr)
-            assign(params, apply_updates(params, updates))
+            opt_state = opt.update_((g_fe, g_hp), state.opt_state, params,
+                                    lr)
         metrics = dict(metrics)
         metrics["comm_wire_bytes"] = wire
         metrics["comm_dense_bytes"] = dense

@@ -38,6 +38,14 @@ CKPT_MODULES = ("repro_torch.checkpoint.checkpoint",
                 "repro_torch.resilience.faults",
                 "repro_torch.resilience.harness",
                 "repro_torch.telemetry.ledger")
+ROOFLINE_MODULES = ("repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+                    "repro_torch.optim.scale", "repro_torch.kernels.cost",
+                    "repro_torch.roofline.analysis",
+                    "repro_torch.roofline.counter",
+                    "repro_torch.roofline.hardware",
+                    "repro_torch.roofline.report")
+SLICE_MODULES = (KNN_MODULES + IVF_MODULES + ZOO_MODULES + CKPT_MODULES
+                 + ROOFLINE_MODULES)
 
 
 def test_importing_the_port_loads_no_jax():
@@ -53,7 +61,7 @@ def test_importing_the_port_loads_no_jax():
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         f"missing = set("
-        f"{KNN_MODULES + IVF_MODULES + ZOO_MODULES + CKPT_MODULES!r}) "
+        f"{SLICE_MODULES!r}) "
         f"- set(sys.modules)\n"
         "assert not missing, missing\n"
         "print('modules', len([m for m in sys.modules "
@@ -178,7 +186,8 @@ def _fields(cls):
 
 @pytest.mark.parametrize("name", ["ModelConfig", "HeadConfig", "TrainConfig",
                                   "FCCSConfig", "DGCConfig", "MoEConfig",
-                                  "SSMConfig"])
+                                  "SSMConfig", "ParallelConfig",
+                                  "InputShape"])
 def test_configs_match_the_jax_package_field_for_field(name):
     """Same field names and defaults, so one dict drives both packages;
     only the head's default backend differs (the port defaults to its

@@ -26,6 +26,7 @@ Tolerances: kernel bodies ``rtol=atol=1e-5`` (fp32 sums in another
 order); ids, masks and graphs exact; trajectories ``rtol=1e-4`` as in
 ``test_torch_train.py``. One ring per ring size is spawned for the module.
 """
+import concurrent.futures
 import dataclasses
 import functools
 
@@ -546,12 +547,10 @@ def _jax_fit(n):
             "eval": exp.evaluate(_eval_inputs())}
 
 
-@functools.lru_cache(maxsize=None)
-def jax_results():
-    return {n: {"bodies": {(tb, pad): _jax_body(n, jb, pad)
-                           for jb, tb in BACKENDS for pad in (False, True)},
-                "fit": _jax_fit(n)}
-            for n in RINGS}
+def _jax_ring(n):
+    return {"bodies": {(tb, pad): _jax_body(n, jb, pad)
+                       for jb, tb in BACKENDS for pad in (False, True)},
+            "fit": _jax_fit(n)}
 
 
 # ---------------------------------------------------------------------------
@@ -559,32 +558,49 @@ def jax_results():
 # ---------------------------------------------------------------------------
 
 
+def _port_ring(n, jr):
+    f, y, w = _problem()
+    graph = _graph(n)
+    fill = np.stack([_jax_fillers(y, _m_local(n), N // n)] * n)
+    cases = [("ring_shift", (), {}),
+             ("knn_graph_build", (w,), dict(k=K, kprime=KPRIME))]
+    cases += [("knn_loss_body", (f, y, w, graph),
+               dict(m_local=_m_local(n), k_cap=K, backend=tb,
+                    pad_random=pad, fillers=fill if pad else None))
+              for tb, pad in BODY_CASES]
+    fit = jr["fit"]
+    cases += [("paper_fit", (fit["head_cfg"], TRAIN, FCCS, fit["w0"],
+                             fit["mu0"]),
+               dict(steps=STEPS, batch=HW_BATCH,
+                    eval_inputs=_eval_inputs(), head_aux=fit["aux0"]))]
+    per_rank = dist.spawn_ring(testing.run_all, n, cases)
+    first = per_rank[0]
+    return {"ranks": per_rank, "shift": [r[0] for r in per_rank],
+            "graph": [r[1] for r in per_rank],
+            "bodies": dict(zip(BODY_CASES, first[2:2 + len(BODY_CASES)])),
+            "fit": [r[-1] for r in per_rank]}
+
+
+@functools.lru_cache(maxsize=None)
+def _results():
+    """(JAX results, port results) by ring size. Each spawned ring starts
+    as soon as its JAX reference is made, and runs while this process
+    makes the next one; the ring of one (in this process) comes last."""
+    jr, port = {}, {}
+    with concurrent.futures.ThreadPoolExecutor(len(RINGS)) as pool:
+        for n in sorted(RINGS, reverse=True):
+            jr[n] = _jax_ring(n)
+            port[n] = pool.submit(_port_ring, n, jr[n])
+        return jr, {n: f.result() for n, f in port.items()}
+
+
+def jax_results():
+    return _results()[0]
+
+
 @pytest.fixture(scope="module")
 def port_results():
-    jr = jax_results()
-    f, y, w = _problem()
-    res = {}
-    for n in RINGS:
-        graph = _graph(n)
-        fill = np.stack([_jax_fillers(y, _m_local(n), N // n)] * n)
-        cases = [("ring_shift", (), {}),
-                 ("knn_graph_build", (w,), dict(k=K, kprime=KPRIME))]
-        cases += [("knn_loss_body", (f, y, w, graph),
-                   dict(m_local=_m_local(n), k_cap=K, backend=tb,
-                        pad_random=pad, fillers=fill if pad else None))
-                  for tb, pad in BODY_CASES]
-        fit = jr[n]["fit"]
-        cases += [("paper_fit", (fit["head_cfg"], TRAIN, FCCS, fit["w0"],
-                                 fit["mu0"]),
-                   dict(steps=STEPS, batch=HW_BATCH,
-                        eval_inputs=_eval_inputs(), head_aux=fit["aux0"]))]
-        per_rank = dist.spawn_ring(testing.run_all, n, cases)
-        first = per_rank[0]
-        res[n] = {"ranks": per_rank, "shift": [r[0] for r in per_rank],
-                  "graph": [r[1] for r in per_rank],
-                  "bodies": dict(zip(BODY_CASES, first[2:2 + len(BODY_CASES)])),
-                  "fit": [r[-1] for r in per_rank]}
-    return res
+    return _results()[1]
 
 
 @pytest.mark.parametrize("n", RINGS)

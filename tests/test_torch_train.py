@@ -18,6 +18,7 @@
 The Pallas kernels run in interpret mode, as the JAX package's own tests
 run them. One ring per ring size is spawned for the whole module.
 """
+import concurrent.futures
 import dataclasses
 import functools
 import json
@@ -124,15 +125,10 @@ def _jax_fit(jb, n):
             "eval": exp.evaluate(_eval_inputs())}
 
 
-@functools.lru_cache(maxsize=None)
-def jax_results():
-    res = {}
-    for n in RINGS:
-        res[n] = {
-            "bodies": {(c, tb): _jax_body(c, jb, n)
+def _jax_ring(n):
+    return {"bodies": {(c, tb): _jax_body(c, jb, n)
                        for c in BODY_CASES for jb, tb in BACKENDS},
             "fit": {tb: _jax_fit(jb, n) for jb, tb in BACKENDS}}
-    return res
 
 
 # ---------------------------------------------------------------------------
@@ -140,31 +136,47 @@ def jax_results():
 # ---------------------------------------------------------------------------
 
 
+def _port_ring(n, jr):
+    body_keys = [(c, tb) for c in BODY_CASES for _, tb in BACKENDS]
+    cases = [("collective_grads", (), {})]
+    cases += [("loss_body", _body_inputs(c),
+               dict(cosine_scale=BODY_CASES[c][0],
+                    n_valid=BODY_CASES[c][1], backend=tb))
+              for c, tb in body_keys]
+    fits = [tb for _, tb in BACKENDS]
+    cases += [("paper_fit", (jr["fit"][tb]["head_cfg"], TRAIN, FCCS,
+                             jr["fit"][tb]["w0"], jr["fit"][tb]["mu0"]),
+               dict(steps=STEPS, batch=HW_BATCH,
+                    eval_inputs=_eval_inputs()))
+              for tb in fits]
+    per_rank = dist.spawn_ring(testing.run_all, n, cases)
+    first = per_rank[0]
+    return {"ranks": per_rank,
+            "grads": [r[0] for r in per_rank],
+            "bodies": dict(zip(body_keys, first[1:1 + len(body_keys)])),
+            "fit": dict(zip(fits, first[1 + len(body_keys):]))}
+
+
+@functools.lru_cache(maxsize=None)
+def _results():
+    """(JAX results, port results) by ring size. Each spawned ring starts
+    as soon as its JAX reference is made, and runs while this process
+    makes the next one; the ring of one (in this process) comes last."""
+    jr, port = {}, {}
+    with concurrent.futures.ThreadPoolExecutor(len(RINGS)) as pool:
+        for n in sorted(RINGS, reverse=True):
+            jr[n] = _jax_ring(n)
+            port[n] = pool.submit(_port_ring, n, jr[n])
+        return jr, {n: f.result() for n, f in port.items()}
+
+
+def jax_results():
+    return _results()[0]
+
+
 @pytest.fixture(scope="module")
 def port_results():
-    jr = jax_results()
-    res = {}
-    for n in RINGS:
-        body_keys = [(c, tb) for c in BODY_CASES for _, tb in BACKENDS]
-        cases = [("collective_grads", (), {})]
-        cases += [("loss_body", _body_inputs(c),
-                   dict(cosine_scale=BODY_CASES[c][0],
-                        n_valid=BODY_CASES[c][1], backend=tb))
-                  for c, tb in body_keys]
-        fits = [tb for _, tb in BACKENDS]
-        cases += [("paper_fit", (jr[n]["fit"][tb]["head_cfg"], TRAIN, FCCS,
-                                 jr[n]["fit"][tb]["w0"],
-                                 jr[n]["fit"][tb]["mu0"]),
-                   dict(steps=STEPS, batch=HW_BATCH,
-                        eval_inputs=_eval_inputs()))
-                  for tb in fits]
-        per_rank = dist.spawn_ring(testing.run_all, n, cases)
-        first = per_rank[0]
-        res[n] = {"ranks": per_rank,
-                  "grads": [r[0] for r in per_rank],
-                  "bodies": dict(zip(body_keys, first[1:1 + len(body_keys)])),
-                  "fit": dict(zip(fits, first[1 + len(body_keys):]))}
-    return res
+    return _results()[1]
 
 
 @pytest.mark.parametrize("n", RINGS)
