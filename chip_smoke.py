@@ -395,6 +395,24 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    (the kernels charged by their cost functions): compute and memory
    terms against the measured step, the share of the roofline it
    reaches; the collective term is 0 on a ring of one.
+28. the grid (``dist.grid``): SmolLM-135M at full width ``fit(3)`` at 16 x
+   512 tokens, SGD at lr 0.5, on the ring and on a (1, 1) grid in this
+   process, every counter reset around each fit (``GRID_WANT``), losses
+   bit-equal; then a (1, 2) grid of two gloo processes on this card (the
+   grid's collectives staged through pinned host memory), each member's
+   losses against the (1, 1) grid's (within GRID_LOSS_RTOL, the members
+   equal) and the norm of its fit's whole change to the params against
+   the (1, 1) grid's (within GRID_UPDATE_RTOL), its peak beside the dry run's prediction for member (0, 0) of
+   (1, 2) (``launch.dryrun.lower_deep``, remat none); then on each member
+   ``evaluate``, exact and IVF top-5 and a knn ``fit(1)``, every counter
+   reset around each leg (``GRID_LEGS``: every kernel on the member's
+   shard), the members' answers equal. The host-only dry runs
+   (``GRID_DRY``, ``lower_deep`` on the meta device, remat full,
+   ``train_4k``, FSDP: SmolLM-135M, qwen3-moe-30B-A3B and kimi-K2 on 16 x
+   16, kimi-K2 on 2 x 16 x 16) run in one subprocess started after the
+   build, beside the card's phases: each one's member rows,
+   micro-batches, argument and peak bytes, and whether the peak fits the
+   card.
 
 The kernels' bounds (``bound_ms``, ``ce_bounds``, ``_flash_bound``,
 ``ivf_union_bytes``) are their modules' cost functions'
@@ -6171,6 +6189,31 @@ def zoo_checkpoint_phase(torch, np, counters) -> tuple:
 
 REMAT_STEPS = 5
 REMAT_WANT = {"ce_forward": REMAT_STEPS, "ce_backward": REMAT_STEPS}
+GRID_STEPS = 3
+GRID_WANT = {"ce_forward": GRID_STEPS, "ce_backward": GRID_STEPS}
+# a (1, 2) member's legs after its fit: each kernel of the path, launched
+# on the member's shard (dist_topk once a hop of the ring build: 2)
+GRID_LEGS = {"grid_training": GRID_WANT,
+             "grid_evaluate": {"ce_forward": 1, "flash_attention": 30},
+             "grid_retrieval": {"stage1_topk": 1},
+             "grid_ivf_retrieval": {"ivf_rerank": 1},
+             "grid_knn_training": {"sparse_ce_forward": 1,
+                                   "sparse_ce_backward": 1, "dist_topk": 2}}
+# a (1, 2) member's losses against one member's: the row-parallel MLP's
+# two bf16 partial products are each rounded to bf16 before their psum
+# (GSPMD's all-reduce of a bf16 dot's partials rounds so too), and the
+# CE's sums run in another order; read up to 6.2e-6 on the card (PERF.md),
+# while a step moves the loss by 3.5e-4 or more
+GRID_LOSS_RTOL = 5e-5
+# the norm of fit(3)'s whole change to the params (every step's update,
+# the last one's too, which no loss shows), a (1, 2) member's against the
+# (1, 1) grid's: a step skipped or a leaf's update wrong moves it by a
+# third or more
+GRID_UPDATE_RTOL = 2e-3
+# the host-only dry runs: (arch, mesh), train_4k, remat full, FSDP
+GRID_DRY = (("smollm_135m", "16x16"), ("qwen3_moe_30b_a3b", "16x16"),
+            ("kimi_k2_1t_a32b", "16x16"), ("kimi_k2_1t_a32b", "2x16x16"))
+CARD_BYTES = 80e9
 FAM_REMAT_STEPS = 3
 # the paper's 100M classes over its cluster's rings; the global batch is
 # FCCS's initial one (FCCSConfig.b0)
@@ -6433,6 +6476,238 @@ def dryrun_roofline_phase(torch, remat_rows) -> tuple:
     return dry, roof
 
 
+_GRID_DRY_CODE = """
+import json, sys
+sys.path.insert(0, "src")
+from repro_torch.launch import dryrun
+for arch, mesh, kw in json.loads(sys.argv[1]):
+    r = dryrun.lower_deep(arch, "train_4k", mesh=mesh, **kw)
+    print(json.dumps({"arch": arch, "mesh": mesh, "kw": kw,
+                      "member_rows": r["member_rows"],
+                      "n_micro": r["n_micro"], "n_layers": r["n_layers"],
+                      "memory": r["memory"], "lower_s": r["lower_s"],
+                      "collectives": r["collectives"]}), flush=True)
+"""
+
+
+def start_grid_dryruns():
+    """The grid phase's host-only dry runs (``GRID_DRY``, and the (1, 2)
+    prediction at the grid fit's shape), one after another in one
+    subprocess on the host's meta device, beside the card's phases."""
+    runs = [(arch, mesh, {"remat": "full"}) for arch, mesh in GRID_DRY]
+    runs.insert(0, ("smollm_135m", "1x2",
+                    {"remat": "none", "batch": ZOO_TB, "seq": ZOO_TS,
+                     "backend": "kernel"}))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-c", _GRID_DRY_CODE, json.dumps(runs)], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _host_params(exp) -> list:
+    """A host copy of this member's params, before a fit."""
+    from repro_torch.optim import tree_leaves
+    return [t.detach().to("cpu", copy=True) for t in tree_leaves(exp.params)]
+
+
+def _update_norm(exp, before: list) -> float:
+    """The norm of the whole model's change since ``before``
+    (``_host_params``), from this member's slices: the leaves split over
+    ``model`` summed over it, the replicated ones once."""
+    import torch
+    from repro_torch import dist
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import gspmd
+    split = rep = 0.0
+    for p, q, spec in zip(tree_leaves(exp.params), before,
+                          gspmd.leaf_specs(exp.specs, ())):
+        sq = float((p.detach().double() - q.to(p.device).double())
+                   .pow(2).sum())
+        if "model" in dist.spec_axes(spec):
+            split += sq
+        else:
+            rep += sq
+    split = float(dist.psum(torch.tensor(split, dtype=torch.float64,
+                                         device=exp.device)))
+    return math.sqrt(split + rep)
+
+
+def _grid_member():
+    """One member of the (1, 2) grid (``dist.spawn_grid``): SmolLM-135M at
+    full width, ``fit(GRID_STEPS)`` from seed 0 (its peak), then on the
+    trained experiment ``evaluate``, exact and IVF top-5 of 64 queries, and
+    a knn experiment's ``fit(1)``; every kernel counter reset just before
+    each leg and read just after (``GRID_LEGS``)."""
+    import torch
+    from repro_torch import dist
+    from repro_torch.kernels import ce_softmax as ce
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ivf_rerank as ivf
+    from repro_torch.kernels import knn_dist_topk as dk
+    from repro_torch.kernels import sparse_ce as sp
+    from repro_torch.kernels import topk_dc as dc
+    from repro_torch.optim import tree_leaves
+    counters = {"ce_forward": (ce, "LAUNCHES"),
+                "ce_backward": (ce, "BWD_LAUNCHES"),
+                "sparse_ce_forward": (sp, "LAUNCHES"),
+                "sparse_ce_backward": (sp, "BWD_LAUNCHES"),
+                "dist_topk": (dk, "LAUNCHES"), "stage1_topk": (dc, "LAUNCHES"),
+                "ivf_rerank": (ivf, "LAUNCHES"),
+                "flash_attention": (fa, "LAUNCHES")}
+    legs = {}
+
+    def leg(name, fn):
+        torch.cuda.synchronize()
+        _reset(counters)
+        out = fn()
+        torch.cuda.synchronize()
+        legs[name] = {k: v for k, v in _read(counters).items() if v}
+        return out
+
+    exp = _zoo_trainer("kernel", log_every=0)
+    before = _host_params(exp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist = leg("grid_training", lambda: exp.fit(GRID_STEPS, lr=ZOO_LR))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    update = _update_norm(exp, before)
+    del before
+    acc = leg("grid_evaluate", exp.evaluate)
+    ids = leg("grid_retrieval", lambda: exp.serve(top_k=5, batch=64))
+    exp.ivf_index()
+    ivf_ids = leg("grid_ivf_retrieval",
+                  lambda: exp.serve(top_k=5, batch=64, index="ivf"))
+    param_gb = sum(t.numel() * 4 for t in tree_leaves(exp.params)) / 1e9
+    split = {"embed": tuple(exp.params.embed.table.shape),
+             "mlp": tuple(exp.params.blocks[0].mlp.wo.shape),
+             "attn": tuple(exp.params.blocks[0].attn.wq.shape)}
+    del exp
+    knn = _zoo_trainer("kernel", head=ZOO_KNN, log_every=0)
+    knn_hist = leg("grid_knn_training", lambda: knn.fit(1, lr=ZOO_LR))
+    return {"index": (dist.rank("data"), dist.rank("model")),
+            "losses": [r["loss"] for r in hist], "update": update,
+            "legs": legs,
+            "peak_gb": peak, "param_gb": param_gb, "split": split,
+            "eval": acc, "ids": ids[:4].tolist(),
+            "ivf_ids": ivf_ids[:4].tolist(),
+            "knn": {k: knn_hist[0][k] for k in ("loss", "label_recall")}}
+
+
+def grid_phase(torch, np, counters, dry_proc) -> tuple:
+    """Phase 28 (module docstring). Returns (the launches by path, the
+    phase's rows)."""
+    from repro_torch import dist
+    out, launches = {}, {}
+    runs = {}
+    for name in ("ring", "grid_1x1"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name == "grid_1x1":
+            dist.grid(1, 1)
+        try:
+            exp = _zoo_trainer("kernel", log_every=0)
+            if (exp.specs is None) != (name == "ring"):
+                fail(f"grid phase: the {name} experiment's layout is not "
+                     f"the {name}'s")
+            before = _host_params(exp) if name == "grid_1x1" else None
+            _reset(counters)
+            hist = exp.fit(GRID_STEPS, lr=ZOO_LR)
+            torch.cuda.synchronize()
+            launches[f"grid_{name}" if name == "ring" else name] = got = {
+                k: v for k, v in _read(counters).items() if v}
+            if before is not None:
+                update = _update_norm(exp, before)
+                del before
+        finally:
+            dist.release_grid()
+        if got != GRID_WANT:
+            fail(f"grid phase: the {name} fit({GRID_STEPS}) launched {got}, "
+                 f"not {GRID_WANT}")
+        runs[name] = [r["loss"] for r in hist]
+        del exp
+    if runs["ring"] != runs["grid_1x1"]:
+        fail(f"grid phase: the (1, 1) grid's losses {runs['grid_1x1']} are "
+             f"not the ring's {runs['ring']} bit for bit")
+    out["ring_losses"] = runs["ring"]
+    out["grid_1x1_losses_bit_equal"] = True
+    out["grid_1x1_update"] = update
+    log(f"grid phase: SmolLM-135M fit({GRID_STEPS}) on the ring and on a "
+        f"(1, 1) grid: losses {runs['ring']} bit-equal, launches "
+        f"{launches['grid_1x1']} each")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    members = dist.spawn_grid(_grid_member, 1, 2)
+    out["grid_1x2_s"] = time.perf_counter() - t0
+    ref = np.asarray(runs["grid_1x1"])
+    for m in members:
+        rel = np.abs(np.asarray(m["losses"]) - ref) / np.abs(ref)
+        m["loss_rel_vs_1x1"] = rel.tolist()
+        m["update_rel_vs_1x1"] = urel = abs(m["update"] - update) / update
+        for name, want in GRID_LEGS.items():
+            launches[f"{name}_member{m['index'][1]}"] = m["legs"][name]
+        if m["legs"] != GRID_LEGS:
+            fail(f"grid phase: (1, 2) member {m['index']} launched "
+                 f"{m['legs']}, not {GRID_LEGS}")
+        if not (math.isfinite(m["knn"]["loss"]) and 0 <= m["eval"] <= 1):
+            fail(f"grid phase: (1, 2) member {m['index']}: knn loss "
+                 f"{m['knn']}, evaluate {m['eval']}")
+        if not rel.max() <= GRID_LOSS_RTOL:
+            fail(f"grid phase: (1, 2) member {m['index']}'s losses "
+                 f"{m['losses']} are {rel.max():.2e} from the (1, 1) "
+                 f"grid's {runs['grid_1x1']}")
+        if not urel <= GRID_UPDATE_RTOL:
+            fail(f"grid phase: (1, 2) member {m['index']}'s update norm "
+                 f"{m['update']} is {urel:.2e} from the (1, 1) grid's "
+                 f"{update}")
+    for key in ("losses", "eval", "ids", "ivf_ids", "knn"):
+        if members[0][key] != members[1][key]:
+            fail(f"grid phase: the (1, 2) members' {key} differ: "
+                 f"{members[0][key]} / {members[1][key]}")
+    if members[0]["split"]["mlp"][0] * 2 != 1536 or \
+            members[0]["split"]["embed"][0] * 2 != 49152:
+        fail(f"grid phase: a (1, 2) member's MLP / vocab are not split in "
+             f"two: {members[0]['split']}")
+    out["grid_1x2"] = members
+    try:
+        stdout, stderr = dry_proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        dry_proc.kill()
+        dry_proc.communicate()
+        fail("grid phase: the host-only dry runs took over 600 s more")
+    if dry_proc.returncode:
+        fail(f"grid phase: the host-only dry runs failed:\n{stderr[-3000:]}")
+    dry = [json.loads(line) for line in stdout.splitlines()
+           if line.startswith("{")]
+    if len(dry) != len(GRID_DRY) + 1:
+        fail(f"grid phase: {len(dry)} dry-run records, not "
+             f"{len(GRID_DRY) + 1}")
+    pred = dry[0]["memory"]
+    for m in members:
+        log(f"grid phase: (1, 2) member {m['index']}: losses {m['losses']} "
+            f"(relative to the (1, 1) grid's {m['loss_rel_vs_1x1']}), "
+            f"update norm {m['update']} (the (1, 1) grid's {update}, "
+            f"relative {m['update_rel_vs_1x1']:.2e}), "
+            f"launches by leg {m['legs']}, evaluate {m['eval']:.4f}, knn "
+            f"{m['knn']}, its params {m['param_gb']:.3f} GB "
+            f"(split {m['split']}), peak {m['peak_gb']:.2f} GB against the "
+            f"dry run's {pred['peak_bytes'] / 1e9:.2f} GB (arguments "
+            f"{pred['argument_bytes'] / 1e9:.3f} GB)")
+    out["dryrun_1x2_member"] = dry[0]
+    out["dryruns"] = dry[1:]
+    for rec in dry[1:]:
+        mem = rec["memory"]
+        rec["fits_card"] = mem["peak_bytes"] <= CARD_BYTES
+        log(f"grid phase: dry run {rec['arch']} train_4k on {rec['mesh']} "
+            f"(member (0, 0); FSDP, remat full; {rec['member_rows']} rows "
+            f"in {rec['n_micro']} micro-batches, {rec['n_layers']} layers "
+            f"from 1 and 2): arguments {mem['argument_bytes'] / 1e9:.2f} "
+            f"GB, peak {mem['peak_bytes'] / 1e9:.2f} GB, fits "
+            f"{CARD_BYTES / 1e9:.0f} GB: {rec['fits_card']} (lowered in "
+            f"{rec['lower_s']:.1f} s)")
+    return launches, out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -6468,6 +6743,18 @@ def main() -> int:
             log(f"ptxas: {line.strip()}")
     hopper_path_check(build)
     fma_kernel_check(build)
+    dry_proc = start_grid_dryruns()
+    try:
+        return _main_phases(torch, np, smi, build_s, dry_proc, sharded, ce,
+                            fa, ivf, dk, sp, dc)
+    finally:
+        if dry_proc.poll() is None:
+            dry_proc.kill()
+            dry_proc.communicate()
+
+
+def _main_phases(torch, np, smi, build_s, dry_proc, sharded, ce, fa, ivf,
+                 dk, sp, dc) -> int:
 
     kernels = kernel_phase(torch, ce, dc, sharded)
     kernels["ce_backward"] = backward_kernel_phase(torch, ce, sharded)
@@ -6618,6 +6905,7 @@ def main() -> int:
                                                            e2e["remat"])
     gc.collect()
     torch.cuda.empty_cache()
+    grid_launches, e2e["grid"] = grid_phase(torch, np, counters, dry_proc)
     e2e["build_s"] = build_s
 
     # launches on each main path, from its own reset-and-read of the counters
@@ -6633,7 +6921,8 @@ def main() -> int:
                       **{path: n.get(name, 0)
                          for path, n in {**zoo_train_launches,
                                          **zoo_ret_launches, **fam_launches,
-                                         **zck_launches}.items()}}
+                                         **zck_launches,
+                                         **grid_launches}.items()}}
                for name in kernels}
     rows = []
     for name, k in kernels.items():

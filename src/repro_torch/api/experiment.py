@@ -61,8 +61,9 @@ import torch
 
 from repro_torch import dist
 from repro_torch.configs.base import (HeadConfig, InputShape, ModelConfig,
-                                      TrainConfig, effective_vocab,
-                                      get_model_config, pad_vocab)
+                                      ParallelConfig, TrainConfig,
+                                      effective_vocab, get_model_config,
+                                      pad_vocab, ring_parallel_config)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -411,8 +412,21 @@ class ZooExperiment(Experiment):
     and at the end of every ``fit``, written by member 0 (``ckpt_keep``:
     retain the newest N); ``fit(resume=True)`` and ``restore`` take the
     latest back, ``resume="reshard"`` / ``restore(reshard=True)`` one
-    written on a ring of another size (``elastic.reshard_zoo_snapshot``).
-    The ring has no data axis: the geometry counts one data shard."""
+    written on a ring of another size (``elastic.reshard_zoo_snapshot``;
+    between grids of other shapes it is ROADMAP.md A item 4). The ring has
+    no data axis: its geometry counts one data shard.
+
+    On a grid (``dist.grid(n_data, n_model)``, every member building the
+    experiment) the dense, vlm and moe trunks are split as the JAX
+    package's ``param_pspecs`` places them under ``par`` (by default the
+    JAX host tests' policy on the grid's shape; FSDP where its
+    ``param_rules`` say so): each member holds its slices (``specs``), the
+    batch's rows go over ``data`` as the JAX pipeline cuts them (each
+    micro-batch of the GLOBAL batch split over the data shards,
+    ``_member_rows``), checkpoints gather every leaf into the JAX layout
+    and cut it again on restore, the geometry counts the data shards, and
+    token serving decodes each data shard's prompts. Retrieval serves the
+    same queries on every data member, over ``model``."""
 
     def __init__(self, *, arch: str = "smollm_135m", reduced: bool = False,
                  head: Optional[HeadConfig] = None,
@@ -421,12 +435,15 @@ class ZooExperiment(Experiment):
                  data_fn: Optional[Callable[[int, int], dict]] = None,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
                  ckpt_keep: int = 0, log_every: int = 10,
-                 seed: int = 0, telemetry=None, device=None):
+                 seed: int = 0, telemetry=None, device=None,
+                 par: Optional[ParallelConfig] = None):
         from repro_torch.api.heads import HeadState, make_head, member_aux
         from repro_torch.models import lm
+        from repro_torch.train import gspmd
 
         cfg = get_model_config(arch, reduced=reduced)
-        lm.require_ported(cfg)
+        on_grid = dist.grid_declared()
+        lm.require_ported(cfg, grid=on_grid)
         self.device = resolve_device(device)
         if reduced:
             cfg = dataclasses.replace(cfg, dtype="float32")
@@ -450,10 +467,15 @@ class ZooExperiment(Experiment):
         self.history: list = []
         self.data_fn = data_fn or self._synthetic_batch
         self.head = make_head(self.model_cfg, self.head_cfg)
+        # the grid's layout (None on the ring: the trunk replicated)
+        self.par = (gspmd.grid_parallel_config(par) if on_grid
+                    else par or ring_parallel_config(dist.world_size()))
+        self.specs = (gspmd.member_specs(self.model_cfg, self.par)
+                      if on_grid else None)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         with torch.no_grad():
-            self.params = lm.init_model(gen, self.model_cfg)
+            self.params = lm.init_model(gen, self.model_cfg, self.specs)
         # head-owned state: the W-heads init only aux (their class matrix
         # is the model's); the sketch heads keep [R, B/P, D] bucket blocks
         n, r = dist.world_size(), dist.rank()
@@ -526,7 +548,8 @@ class ZooExperiment(Experiment):
         from repro_torch.train import gspmd
 
         with torch.no_grad():
-            w = (gspmd.vocab_rows(lm.head_weight(self.params, self.model_cfg))
+            w = (gspmd.vocab_rows(lm.head_weight(self.params, self.model_cfg,
+                                                 self.specs))
                  if self.head.params_are_class_weights
                  else self.head_state.params)
             hs = self.head.refresh(HeadState(w, self.head_state.aux))
@@ -552,9 +575,35 @@ class ZooExperiment(Experiment):
                 t, b, cfg.enc_seq, cfg.d_model, device=self.device)
         return out
 
+    def _n_micro(self) -> int:
+        from repro_torch.train import gspmd
+        return (self.train_cfg.micro_batch
+                or gspmd.auto_micro_batches(self.model_cfg, self.shape,
+                                            self.par))
+
+    def _member_rows(self, batch: dict, n_micro: int = 1) -> dict:
+        """This member's rows of a GLOBAL batch: on a grid, as the JAX
+        pipeline takes them, each of the ``n_micro`` micro-batches
+        (consecutive row blocks) split over the data shards, the member's
+        part of each in turn; the whole batch on the ring, or where a
+        micro-batch's rows do not split over the data shards, which the
+        JAX trunk then runs replicated (the train step's loss takes each
+        shard's share of the tokens, ``gspmd.token_share``)."""
+        from repro_torch.train import gspmd
+        n_data, d = dist.world_size(dist.BATCH), dist.rank(dist.BATCH)
+        b = next(iter(batch.values())).shape[0]
+        if n_data == 1 or not gspmd.rows_split(b // n_micro, self.par):
+            return batch
+        per = b // (n_micro * n_data)
+        return {k: v.reshape((n_micro, n_data, per) + tuple(v.shape[1:]))[
+                    :, d].reshape((n_micro * per,) + tuple(v.shape[1:]))
+                for k, v in batch.items()}
+
     def _batch(self, t: int) -> dict:
         from repro_torch.train.trainer import to_device
-        return to_device(self.data_fn(t, self.batch), self.device)
+        return self._member_rows(
+            to_device(self.data_fn(t, self.batch), self.device),
+            self._n_micro())
 
     def _ensure_opt(self):
         """The optimizer state over (params, head params) and the train
@@ -567,7 +616,7 @@ class ZooExperiment(Experiment):
         if self._train_step is None:
             self._train_step = gspmd.make_head_train_step(
                 self.model_cfg, self.head_cfg, self.train_cfg, self.shape,
-                head=self.head)
+                head=self.head, par=self.par, specs=self.specs)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -608,6 +657,8 @@ class ZooExperiment(Experiment):
             gather_params = (lambda a: a)
 
         def model(params):
+            if gather and self.specs is not None:
+                params = lm.gather_params(params, self.specs)
             return lm.params_tree(params, stacked=gather)
 
         def moments(pair):
@@ -626,7 +677,8 @@ class ZooExperiment(Experiment):
         REAL (unpadded) vocabulary, which is ring-invariant (the padding
         goes into the checkpoint's meta)."""
         from repro_torch.elastic import MeshGeometry
-        return MeshGeometry(n_model=dist.world_size(), n_data=1,
+        return MeshGeometry(n_model=dist.world_size(),
+                            n_data=dist.world_size(dist.BATCH),
                             n_classes=effective_vocab(self.model_cfg))
 
     def save_checkpoint(self) -> Optional[str]:
@@ -641,7 +693,7 @@ class ZooExperiment(Experiment):
             raise ValueError("experiment has no ckpt_dir")
         tree = self._snapshot()
         fname = None
-        if dist.rank() == 0:
+        if dist.rank(dist.ALL) == 0:
             tr = self.telemetry or NULL_TRACER
             meta = {"system": "zoo", **self.geometry().meta(),
                     "padded_vocab": self.model_cfg.vocab_size}
@@ -695,6 +747,10 @@ class ZooExperiment(Experiment):
         tr.count("train.restore.read_s", parts["read_s"])
         needs_refresh = False
         if (src.n_model, src.n_data) != (dst.n_model, dst.n_data):
+            if self.specs is not None:
+                raise NotImplementedError(
+                    f"an elastic restore between grids ({src.describe()} "
+                    f"-> {dst.describe()}) is ROADMAP.md A item 4")
             t0 = time.perf_counter()
             with tr.span("train.reshard", attrs={"src": src.describe(),
                                                  "dst": dst.describe()}):
@@ -708,15 +764,16 @@ class ZooExperiment(Experiment):
                 "ledger": led, "seconds": time.perf_counter() - t0}
         t0 = time.perf_counter()
         r, n = dist.rank(), dist.world_size()
-        self.params = lm.params_from_tree(tree["model"], self.model_cfg,
-                                          device=self.device)
+        self.params = interop.zoo_params_from_numpy(
+            tree["model"], self.model_cfg, rank=r, world_size=n,
+            device=self.device, specs=self.specs)
         self.head_state = interop.zoo_head_state_from_numpy(
             self.head, tree["head"]["params"], tree["head"]["aux"], rank=r,
             world_size=n, device=self.device)
         opt = tree["opt"]
         self.opt_state = interop.zoo_opt_state_from_numpy(
             {"step": opt.step, "mu": opt.mu, "nu": opt.nu}, self.model_cfg,
-            rank=r, world_size=n, device=self.device)
+            rank=r, world_size=n, device=self.device, specs=self.specs)
         self._sync()
         tr.count("train.restore.place_s", time.perf_counter() - t0)
         self._t = int(tree["extra"]["t"])
@@ -810,11 +867,13 @@ class ZooExperiment(Experiment):
 
         if not self._refreshed:
             self.refresh_head()
-        inputs = (self._batch(10**6) if inputs is None
-                  else to_device(inputs, self.device))
+        inputs = self._member_rows(to_device(
+            self.data_fn(10**6, self.batch) if inputs is None else inputs,
+            self.device))
         if self._eval_step is None:
             self._eval_step = gspmd.make_head_eval_step(
-                self.model_cfg, self.head_cfg, head=self.head)
+                self.model_cfg, self.head_cfg, head=self.head, par=self.par,
+                specs=self.specs)
         return float(self._eval_step(self.params, self.head_state.params,
                                      self.head_state.aux, inputs))
 
@@ -876,12 +935,14 @@ class ZooExperiment(Experiment):
         dshape = InputShape("serve-decode", total, batch, "decode")
         backend = self.head_cfg.backend
         with torch.no_grad():
-            prompts = synthetic.lm_batch(0, batch, prompt_len,
-                                         effective_vocab(cfg),
-                                         device=self.device)
+            prompts = self._member_rows(synthetic.lm_batch(
+                0, batch, prompt_len, effective_vocab(cfg),
+                device=self.device))
             window = lm.decode_window(cfg, total)
-            prefill = gspmd.make_prefill_step(cfg, dshape, backend=backend)
-            serve = gspmd.make_serve_step(cfg, dshape, backend=backend)
+            prefill = gspmd.make_prefill_step(cfg, dshape, backend=backend,
+                                              specs=self.specs)
+            serve = gspmd.make_serve_step(cfg, dshape, backend=backend,
+                                          specs=self.specs)
             with tr.span("serve.prefill"):
                 tok, caches = prefill(self.params,
                                       {"tokens": prompts["tokens"]})
@@ -906,6 +967,9 @@ class ZooExperiment(Experiment):
                     tok, caches, slots = serve(self.params, caches, slots,
                                                tok)
                     out.append(tok[:, 0])
-                toks = torch.stack(out, dim=1).cpu().numpy()
+                toks = torch.stack(out, dim=1)
+                if toks.shape[0] != batch:     # each data shard's prompts
+                    toks = dist.all_gather(toks, axis=dist.BATCH)
+                toks = toks.cpu().numpy()
         tr.count("serve.decoded_tokens", float(toks.shape[0] * gen))
         return toks

@@ -71,10 +71,13 @@ class SoftmaxHead:
         raise NotImplementedError
 
     def loss_local(self, f_all, y_all, params, aux, *, global_batch: int,
-                   step=None):
+                   step=None, batch_axes=()):
         """Distributed CE on this member's shard. ``f_all`` / ``y_all`` are
-        the ring-gathered batch; ``step`` is the training step (for heads
-        with per-step randomness; may be None). Returns (loss, metrics)."""
+        the ring-gathered batch, or this data shard's rows of it when
+        ``batch_axes`` name the axes the rows are split over (the loss and
+        the metrics are then completed over them, as the JAX registry's
+        ``batch_axes``); ``step`` is the training step (for heads with
+        per-step randomness; may be None). Returns (loss, metrics)."""
         raise NotImplementedError
 
     def eval_logits_local(self, f_all, params, aux):
@@ -275,11 +278,11 @@ class FullSoftmaxHead(SoftmaxHead):
                          aux=())
 
     def loss_local(self, f_all, y_all, params, aux, *, global_batch: int,
-                   step=None):
+                   step=None, batch_axes=()):
         return full_softmax_local(
             f_all, y_all, params, global_batch=global_batch,
             cosine_scale=self.head_cfg.cosine_scale, n_valid=self.n_valid,
-            backend=self.backend)
+            backend=self.backend, batch_axes=batch_axes)
 
     def eval_logits_local(self, f_all, params, aux):
         f = f_all.float()
@@ -341,7 +344,7 @@ class KNNSoftmaxHead(FullSoftmaxHead):
             (cg.offsets, cg.neighbors, cg.ranks), dist.rank(), w.device))
 
     def loss_local(self, f_all, y_all, params, aux, *, global_batch: int,
-                   step=None):
+                   step=None, batch_axes=()):
         offsets, neighbors, ranks = aux
         v_loc = params.shape[0]
         m_local = max(8, int(v_loc * self.head_cfg.active_frac))
@@ -351,7 +354,7 @@ class KNNSoftmaxHead(FullSoftmaxHead):
             k_cap=self.head_cfg.knn_k,
             cosine_scale=self.head_cfg.cosine_scale,
             pad_random=self.head_cfg.knn_pad_random, n_valid=self.n_valid,
-            backend=self.backend)
+            backend=self.backend, batch_axes=batch_axes)
 
     def aux_spec(self) -> tuple:
         return ("sharded",) * 3
@@ -418,7 +421,7 @@ class SelectiveSoftmaxHead(FullSoftmaxHead):
             self._planes(g, w.device), w.detach()))
 
     def loss_local(self, f_all, y_all, params, aux, *, global_batch: int,
-                   step=None):
+                   step=None, batch_axes=()):
         planes, offsets, classes = aux
         v_loc = params.shape[0]
         m_local = max(8, int(v_loc * self.head_cfg.active_frac))
@@ -426,7 +429,8 @@ class SelectiveSoftmaxHead(FullSoftmaxHead):
             f_all, y_all, params, planes, offsets, classes,
             global_batch=global_batch, m_local=m_local,
             cap=self.head_cfg.selective_cap,
-            cosine_scale=self.head_cfg.cosine_scale, backend=self.backend)
+            cosine_scale=self.head_cfg.cosine_scale, backend=self.backend,
+            batch_axes=batch_axes)
 
     def metrics_spec(self) -> dict:
         return {"accuracy": "replicated", "logz": "replicated",
@@ -532,11 +536,12 @@ class MACHSoftmaxHead(SoftmaxHead):
         return rebucket_sketch(a, h_old, h_new, b_dst)
 
     def loss_local(self, f_all, y_all, params, aux, *, global_batch: int,
-                   step=None):
+                   step=None, batch_axes=()):
         (hashes,) = aux
         return bl.mach_softmax_local(f_all, y_all, params, hashes,
                                      global_batch=global_batch,
-                                     backend=self.backend)
+                                     backend=self.backend,
+                                     batch_axes=batch_axes)
 
     def eval_logits_local(self, f_all, params, aux):
         (hashes,) = aux
@@ -566,11 +571,12 @@ class SampledSoftmaxHead(FullSoftmaxHead):
             seed=self.head_cfg.sampled_seed, n_valid=self.n_valid, step=step)
 
     def loss_local(self, f_all, y_all, params, aux, *, global_batch: int,
-                   step=None):
+                   step=None, batch_axes=()):
         return bl.sampled_softmax_loss(
             f_all, y_all, params, self.draw(y_all, params.shape[0], step),
             global_batch=global_batch,
-            cosine_scale=self.head_cfg.cosine_scale, backend=self.backend)
+            cosine_scale=self.head_cfg.cosine_scale, backend=self.backend,
+            batch_axes=batch_axes)
 
     def metrics_spec(self) -> dict:
         return {"accuracy": "replicated", "logz": "replicated",

@@ -131,13 +131,14 @@ class HeadConfig:
 class ParallelConfig:
     """The JAX package's mesh and sharding policy, field for field.
 
-    The port's ring is one axis (``repro_torch.dist``): the trunk is
-    replicated and the vocab split over the ring, the (1, n) case of the
-    JAX (data, model) mesh. ``remat`` is applied (``"full"``: each layer's
-    activations recomputed in the backward, ``torch.utils.checkpoint``);
-    ``rules`` and ``param_rules`` are carried and looked up as there, but
-    nothing shards by them yet: tensor-parallel trunks are ROADMAP.md A
-    item 4."""
+    On a grid (``repro_torch.dist.grid``) ``rules`` and ``param_rules``
+    place every param as the JAX package's do (``train.gspmd.
+    param_pspecs``): the dense, vlm and moe trunks tensor- and
+    expert-parallel over ``model``, FSDP over ``data`` where
+    ``param_rules`` say so, the batch over ``batch_axes``. The port's
+    plain ring keeps the trunk replicated with the vocab over the ring.
+    ``remat`` is applied (``"full"``: each layer's activations recomputed
+    in the backward, ``torch.utils.checkpoint``)."""
     mesh_shape: tuple = (16, 16)
     axis_names: tuple = ("data", "model")
     # logical axis -> mesh axis rules (MaxText-style)

@@ -39,7 +39,8 @@ import torch
 
 from repro_torch import dist
 from repro_torch.core.sharded_softmax import (NEG_INF, _finish_ce,
-                                              _finish_ce_stats, _normalize)
+                                              _finish_ce_stats, _normalize,
+                                              batch_mean, batch_sum)
 from repro_torch.kernels import ops
 
 _M32 = (1 << 32) - 1
@@ -161,7 +162,7 @@ def selective_softmax_ce(f, labels, w, tables: LSHTables, *, m: int,
 def selective_softmax_local(f_loc, y_loc, w_loc, planes, offsets_loc,
                             classes_loc, *, global_batch: int, m_local: int,
                             cap: int, cosine_scale: float = 16.0,
-                            backend: str = "ref"):
+                            backend: str = "ref", batch_axes=()):
     """The selective-softmax loss body of one ring member (counterpart of
     ``full_softmax_local``).
 
@@ -211,7 +212,7 @@ def selective_softmax_local(f_loc, y_loc, w_loc, planes, offsets_loc,
         corr = torch.where(owned, corr, 0.0)
         pred_gid = torch.where(amax >= 0, gids[amax.clamp_min(0).long()], -1)
         loss, metrics = _finish_ce_stats(m, z, corr, pred_gid, y_loc, owned,
-                                         1.0 / global_batch)
+                                         1.0 / global_batch, batch_axes)
     else:
         dt = f_loc.dtype
         f = _normalize(f_loc)
@@ -220,11 +221,13 @@ def selective_softmax_local(f_loc, y_loc, w_loc, planes, offsets_loc,
         logits = (f.float() @ w_act.to(dt).float().T) * cosine_scale
         logits = torch.where(mask[None, :], logits, -1e30)
         lpos = hit.float().argmax(dim=1)
-        loss, metrics = _finish_ce(logits, lpos, owned, 1.0 / global_batch)
+        loss, metrics = _finish_ce(logits, lpos, owned, 1.0 / global_batch,
+                                   batch_axes)
     with torch.no_grad():
-        metrics["active_frac"] = dist.pmean(mask.float().mean())
-        metrics["label_recall"] = (dist.psum(owned.float()).sum()
-                                   / global_batch)
+        metrics["active_frac"] = batch_mean(
+            dist.pmean(mask.float().mean()), batch_axes)
+        metrics["label_recall"] = (batch_sum(dist.psum(owned.float()).sum(),
+                                             batch_axes) / global_batch)
     return loss, metrics
 
 
@@ -284,7 +287,7 @@ def mach_predict(head: MACHHead, f):
 
 
 def mach_softmax_local(f_loc, y_loc, w_loc, hashes, *, global_batch: int,
-                       backend: str = "ref"):
+                       backend: str = "ref", batch_axes=()):
     """The MACH loss body of one ring member: R independent B-way softmaxes
     with the BUCKET axis split over the ring. ``w_loc`` [R, B_loc, D] is
     this member's bucket block, ``hashes`` [R, N] replicated. Each
@@ -316,13 +319,13 @@ def mach_softmax_local(f_loc, y_loc, w_loc, hashes, *, global_batch: int,
         pred_gid = torch.where(amax >= 0, b_start + amax.long(), -1)
         loss, metrics = _finish_ce_stats(
             m, z, corr, pred_gid, ybuck.reshape(n_rep * b),
-            owned.reshape(n_rep * b), 1.0 / global_batch)
+            owned.reshape(n_rep * b), 1.0 / global_batch, batch_axes)
     else:
         logits = torch.einsum("bd,rkd->rbk", fl, w_loc.float())  # [R,b,B_loc]
         loss, metrics = _finish_ce(
             logits.reshape(n_rep * b, b_loc),
             rel.clamp(0, b_loc - 1).reshape(n_rep * b),
-            owned.reshape(n_rep * b), 1.0 / global_batch)
+            owned.reshape(n_rep * b), 1.0 / global_batch, batch_axes)
     metrics = dict(metrics)
     # the CE tail counted a hit per (rep, sample): report the mean per rep
     metrics["accuracy"] = metrics["accuracy"] / n_rep
@@ -455,7 +458,7 @@ def sampled_draw(y_loc, *, v_loc: int, n_samples: int,
 
 def sampled_softmax_loss(f_loc, y_loc, w_loc, draw: SampledDraw, *,
                          global_batch: int, cosine_scale: float = 16.0,
-                         backend: str = "ref"):
+                         backend: str = "ref", batch_axes=()):
     """The sampled-softmax loss body of one ring member, given its
     ``draw``: CE over the true label (scored by the member that owns it)
     plus the drawn candidates, each logit less its logQ, with accidental
@@ -499,7 +502,8 @@ def sampled_softmax_loss(f_loc, y_loc, w_loc, draw: SampledDraw, *,
             torch.where(amax_s >= 0, gids[amax_s.clamp_min(0).long()].long(),
                         -1))
         loss, metrics = _finish_ce_stats(m_row, z_row, corr_row, pred_gid,
-                                         y_loc, owned, 1.0 / global_batch)
+                                         y_loc, owned, 1.0 / global_batch,
+                                         batch_axes)
     else:
         logits_s = (f.float() @ w[ids].to(dt).float().T) * scale
         logits_s = logits_s - draw.logq[None, :]
@@ -510,7 +514,7 @@ def sampled_softmax_loss(f_loc, y_loc, w_loc, draw: SampledDraw, *,
         label_col = torch.full((f_loc.shape[0],), logits_s.shape[1],
                                dtype=torch.long, device=logits.device)
         loss, metrics = _finish_ce(logits, label_col, owned,
-                                   1.0 / global_batch)
+                                   1.0 / global_batch, batch_axes)
     metrics = dict(metrics)
     metrics["sample_frac"] = draw.sample_frac
     return loss, metrics
@@ -519,7 +523,8 @@ def sampled_softmax_loss(f_loc, y_loc, w_loc, draw: SampledDraw, *,
 def sampled_softmax_local(f_loc, y_loc, w_loc, *, global_batch: int,
                           n_samples: int, distribution: str = "uniform",
                           seed: int = 17, cosine_scale: float = 16.0,
-                          n_valid: int = 0, step=None, backend: str = "ref"):
+                          n_valid: int = 0, step=None, backend: str = "ref",
+                          batch_axes=()):
     """``sampled_draw`` then ``sampled_softmax_loss``: the body the sampled
     head runs (counterpart of the JAX package's ``sampled_softmax_local``)."""
     draw = sampled_draw(y_loc, v_loc=w_loc.shape[0], n_samples=n_samples,
@@ -527,7 +532,8 @@ def sampled_softmax_local(f_loc, y_loc, w_loc, *, global_batch: int,
                         n_valid=n_valid, step=step)
     return sampled_softmax_loss(f_loc, y_loc, w_loc, draw,
                                 global_batch=global_batch,
-                                cosine_scale=cosine_scale, backend=backend)
+                                cosine_scale=cosine_scale, backend=backend,
+                                batch_axes=batch_axes)
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,8 @@ import torch
 
 from repro_torch import dist
 from repro_torch.core.sharded_softmax import (_finish_ce, _finish_ce_stats,
-                                              _normalize)
+                                              _normalize, batch_mean,
+                                              batch_sum)
 from repro_torch.kernels import ops
 
 BIG_RANK = 1 << 20
@@ -122,7 +123,7 @@ def knn_softmax_local(f_loc, y_loc, w_loc, offsets_loc, neighbors_loc,
                       ranks_loc=None, *, global_batch: int, m_local: int,
                       k_cap: int, cosine_scale: float = 16.0,
                       pad_random: bool = True, n_valid: int = 0,
-                      backend: str = "ref", fillers=None):
+                      backend: str = "ref", fillers=None, batch_axes=()):
     """The KNN-softmax loss body of one ring member (counterpart of
     ``full_softmax_local``). ``offsets_loc`` / ``neighbors_loc`` /
     ``ranks_loc`` are this member's rows of the ``CompressedGraph``
@@ -160,7 +161,7 @@ def knn_softmax_local(f_loc, y_loc, w_loc, offsets_loc, neighbors_loc,
         corr = torch.where(owned, corr, 0.0)
         pred_gid = torch.where(amax >= 0, gids[amax.clamp_min(0).long()], -1)
         loss, metrics = _finish_ce_stats(m, z, corr, pred_gid, y_loc, owned,
-                                         1.0 / global_batch)
+                                         1.0 / global_batch, batch_axes)
     else:
         dt = f_loc.dtype
         f = _normalize(f_loc)
@@ -169,11 +170,13 @@ def knn_softmax_local(f_loc, y_loc, w_loc, offsets_loc, neighbors_loc,
         logits = (f.float() @ w_act.to(dt).float().T) * cosine_scale
         logits = torch.where(valid[None, :], logits, -1e30)
         pos = hit.float().argmax(dim=1)          # the first hit
-        loss, metrics = _finish_ce(logits, pos, owned, 1.0 / global_batch)
+        loss, metrics = _finish_ce(logits, pos, owned, 1.0 / global_batch,
+                                   batch_axes)
     with torch.no_grad():
-        metrics["active_frac"] = dist.pmean(valid.float().mean())
-        metrics["label_recall"] = (dist.psum(owned.float()).sum()
-                                   / global_batch)
+        metrics["active_frac"] = batch_mean(
+            dist.pmean(valid.float().mean()), batch_axes)
+        metrics["label_recall"] = (batch_sum(dist.psum(owned.float()).sum(),
+                                             batch_axes) / global_batch)
     return loss, metrics
 
 

@@ -14,8 +14,10 @@ against the ring-gathered batch and the softmax is completed with small
 collectives — global max (``pmax``), partition sum and label logit
 (``psum``). The class-weight gradient stays local to its shard. The JAX
 trainer calls these bodies with ``batch_axes=()`` (its loss psum is the
-identity), so the port has no batch axes: the loss is
-``sum(per-sample) / global_batch`` on every member.
+identity) and the zoo trainer with the mesh's residual batch axes
+(``("data",)``, ``("pod", "data")``): the loss is ``psum(sum(per-sample)
+/ global_batch)`` over ``batch_axes``, every data shard's rows counted
+once, and ``logz`` their ``pmean``.
 """
 from __future__ import annotations
 
@@ -57,7 +59,18 @@ def ce_ref(features, labels, w, *, cosine_scale: float = 0.0,
     return loss, {"accuracy": acc, "logz": logz.mean()}
 
 
-def _finish_ce(logits, owned_label_pos, owned, batch_weight: float):
+def batch_sum(x, batch_axes):
+    """``psum`` over the batch axes (none: the identity)."""
+    return dist.psum(x, tuple(batch_axes)) if batch_axes else x
+
+
+def batch_mean(x, batch_axes):
+    """``pmean`` over the batch axes (none: the identity)."""
+    return dist.pmean(x, tuple(batch_axes)) if batch_axes else x
+
+
+def _finish_ce(logits, owned_label_pos, owned, batch_weight: float,
+               batch_axes=()):
     """Distributed-CE tail over dense local logits [b, C_local] (already
     scaled). ``owned_label_pos`` [b] is each label's local column (only
     meaningful where ``owned``); exactly one member owns each label.
@@ -68,7 +81,7 @@ def _finish_ce(logits, owned_label_pos, owned, batch_weight: float):
     corr_loc = logits.gather(1, owned_label_pos.long()[:, None])[:, 0]
     corr = dist.psum(torch.where(owned, corr_loc, 0.0))
     per_sample = torch.log(z) + m - corr
-    loss = per_sample.sum() * batch_weight
+    loss = batch_sum(per_sample.sum() * batch_weight, batch_axes)
 
     # distributed top-1 accuracy (metrics only: no gradient)
     with torch.no_grad():
@@ -78,13 +91,13 @@ def _finish_ce(logits, owned_label_pos, owned, batch_weight: float):
         is_best = vmax_loc >= dist.pmax(vmax_loc)
         pred_here = owned & is_best & (amax_loc == owned_label_pos.long())
         correct = dist.psum(pred_here.float()) > 0
-        acc = correct.float().sum() * batch_weight
-        logz = (torch.log(z) + m).mean()
+        acc = batch_sum(correct.float().sum() * batch_weight, batch_axes)
+        logz = batch_mean((torch.log(z) + m).mean(), batch_axes)
     return loss, {"accuracy": acc, "logz": logz}
 
 
 def _finish_ce_stats(m_loc, z_loc, corr_loc, pred_gid, y, owned,
-                     batch_weight: float):
+                     batch_weight: float, batch_axes=()):
     """Distributed-CE tail from per-shard online-softmax statistics (the
     kernel backend's counterpart of ``_finish_ce``). ``m_loc`` / ``z_loc``
     / ``corr_loc`` [b]: each shard's running max, partition sum relative to
@@ -98,27 +111,29 @@ def _finish_ce_stats(m_loc, z_loc, corr_loc, pred_gid, y, owned,
     z = dist.psum(z_loc * z_resc)
     corr = dist.psum(corr_loc)
     per_sample = torch.log(z) + m - corr
-    loss = per_sample.sum() * batch_weight
+    loss = batch_sum(per_sample.sum() * batch_weight, batch_axes)
 
     with torch.no_grad():
         is_best = m_sg >= m      # ties: >=; duplicates across shards unlikely
         pred_here = owned & is_best & (pred_gid.long() == y.long())
         correct = dist.psum(pred_here.float()) > 0
-        acc = correct.float().sum() * batch_weight
-        logz = (torch.log(z.detach()) + m).mean()
+        acc = batch_sum(correct.float().sum() * batch_weight, batch_axes)
+        logz = batch_mean((torch.log(z.detach()) + m).mean(), batch_axes)
     return loss, {"accuracy": acc, "logz": logz}
 
 
 def full_softmax_local(f_loc, y_loc, w_loc, *, global_batch: int,
                        cosine_scale: float = 0.0, n_valid: int = 0,
-                       backend: str = "ref"):
+                       backend: str = "ref", batch_axes=()):
     """The full-softmax loss body of one ring member. ``f_loc`` [b, D] is
     the ring-gathered batch (the same on every member), ``y_loc`` [b]
     global class ids, ``w_loc`` [V_loc, D] this member's class shard (row
     offset from its ring index). ``n_valid > 0`` masks padded vocab rows.
     ``backend="kernel"`` streams the scoring through ``ops.ce_shard_stats``
     (no [b, V_loc] logits on the card, forward or backward); ``"ref"``
-    forms dense logits. Returns (loss, {"accuracy", "logz"})."""
+    forms dense logits. ``batch_axes``: the axes the batch's rows are split
+    over (``f_loc`` / ``y_loc`` this data shard's). Returns (loss,
+    {"accuracy", "logz"})."""
     v_loc = w_loc.shape[0]
     v_start = dist.flat_axis_index() * v_loc
     pos = (y_loc.long() - v_start)
@@ -134,7 +149,7 @@ def full_softmax_local(f_loc, y_loc, w_loc, *, global_batch: int,
             scale)
         pred_gid = torch.where(amax >= 0, v_start + amax.long(), -1)
         return _finish_ce_stats(m, z, corr, pred_gid, y_loc, owned,
-                                1.0 / global_batch)
+                                1.0 / global_batch, batch_axes)
     dt = f_loc.dtype
     f, w = ((_normalize(f_loc), _normalize(w_loc)) if cosine_scale > 0
             else (f_loc, w_loc.to(dt)))
@@ -147,7 +162,7 @@ def full_softmax_local(f_loc, y_loc, w_loc, *, global_batch: int,
         col = v_start + torch.arange(v_loc, device=logits.device)
         logits = torch.where((col < n_valid)[None, :], logits, NEG_INF)
     return _finish_ce(logits, pos.clamp(0, v_loc - 1), owned,
-                      1.0 / global_batch)
+                      1.0 / global_batch, batch_axes)
 
 
 def _shard_limit(v_start: int, v_loc: int, n_valid: int) -> int:

@@ -1,35 +1,52 @@
-"""The ring: the port's counterpart of the JAX package's ``"hybrid"`` mesh
-axis.
+"""The ring and the grid: the port's counterparts of the JAX package's mesh
+axes.
 
 One process per device in a ``torch.distributed`` group (NCCL on the card,
 gloo on the CPU). Where JAX's shard_map bodies call ``lax.pmax`` /
-``psum`` / ``all_gather`` / ``axis_index`` over the axis, the port calls
-the functions below. With no process group initialised the ring has one
-member and every collective is the identity, so the same bodies run in a
-single process.
+``psum`` / ``all_gather`` / ``axis_index`` over a mesh axis, the port calls
+the functions below with ``axis=``: ``"model"`` (the default), ``"data"``,
+``"pod"`` or a tuple of them in that order of nesting, ``("pod", "data",
+"model")`` (``ALL``) being the whole group.
+
+Without ``grid`` the group is the ring: its one axis is ``"model"`` and
+every other axis has size 1. ``grid(n_data, n_model, n_pod=1)`` splits the
+group into one sub-group per mesh axis (and per tuple of axes): member
+(p, d, m) is process ``(p * n_data + d) * n_model + m``, the JAX mesh's
+row-major device order, so it holds what JAX device ``d * n_model + m``
+holds. With no process group initialised every axis has size 1 and every
+collective is the identity, so the same bodies run in a single process
+(``grid(1, 1)`` there declares a grid of one).
 
 Autograd through the collectives follows JAX's transposes inside
 ``shard_map(..., check_vma=False)``, which the JAX trainer runs under:
 
-* ``psum``: the backward sums the cotangent over the ring. A loss that is
+* ``psum``: the backward sums the cotangent over the axis. A loss that is
   replicated on every member therefore contributes one cotangent per
   member, and the head gradient grows with the ring size (ROADMAP.md C.1);
   the port keeps that, as the reference does.
 * ``all_gather`` (tiled or stacked): the backward reduce-scatters the
-  cotangent (sums it over the ring, keeps this member's slice).
+  cotangent (sums it over the axis, keeps this member's slice).
 * ``pmax`` / ``pmin``: no gradient (their results are detached).
 
 The zoo trainer differentiates outside its head's body, as the JAX zoo
 differentiates outside its shard_map, and its gradient is that of the
-mean loss whatever the ring size (the JAX package's, at n_model 1, 2 and
-4): ``pvary`` (the identity, its backward a ``psum``) carries the
-replicated features into the head, ``grad_mean`` (the identity, its
-backward over the ring size) carries the replicated loss out, and
-``shard_rows`` cuts a replicated table's row block, its backward an
-all-gather, so every member's copy gets the whole gradient.
+mean loss whatever the grid (the JAX package's, at n_model 1, 2 and 4):
+``pvary`` (the identity, its backward a ``psum``) carries the replicated
+features into the head, ``grad_mean`` (the identity, its backward over
+the axes' size) carries the replicated loss out, and ``shard_rows`` cuts
+a replicated table's row block, its backward an all-gather, so every
+member's copy gets the whole gradient. Inside a tensor-parallel trunk
+every member holds the whole cotangent of a value the model axis holds
+alike: ``pvary`` opens a region where members work on their own slices
+(a column-parallel product), and ``psum_invariant`` (a sum whose backward
+is the identity) closes it (a row-parallel product).
 
 The functions are written by hand, not taken from
-``torch.distributed.nn``, whose backward rules differ between versions.
+``torch.distributed.nn``, whose backward rules differ between versions. A
+gloo group cannot run every collective on CUDA tensors (two processes on
+one card, where NCCL refuses the pair, take gloo): on a gloo group a CUDA
+tensor's collective is staged through pinned host memory, its result
+copied back to the card; an NCCL group never takes that branch.
 
 ``count_collectives()`` counts the bytes of every collective called
 inside it, where it is called, as the comm ledger charges them (the
@@ -37,15 +54,18 @@ output's bytes, by kind: all-reduce for ``psum`` / ``pmax`` / ``pmin``
 and the backward of ``psum`` / ``pvary``; all-gather for ``all_gather``
 and ``shard_rows``' backward; reduce-scatter for ``all_gather``'s
 backward; collective-permute for ``ppermute``). ``simulated_ring(n, r)``
-makes this process member r of a ring of n that exists only in shapes:
-on meta tensors every collective returns an empty meta tensor of its
+makes this process member r of a ring of n that exists only in shapes,
+``simulated_grid(n_data, n_model, n_pod)`` member (0, 0, 0) of such a
+grid: on meta tensors every collective returns an empty meta tensor of its
 output's shape and is counted, and on any other tensor it raises. The dry
-run (``launch.dryrun``) lowers one member's step on it, where the JAX
+run (``launch.dryrun``) lowers one member's step on them, where the JAX
 package compiles for placeholder devices.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
+import math
 import os
 import queue
 import tempfile
@@ -54,27 +74,172 @@ import traceback
 import torch
 import torch.distributed as tdist
 
-# (n, r) while a simulated ring is active (``simulated_ring``)
+AXES = ("pod", "data", "model")
+ALL = AXES
+# the axes a batch's rows are split over
+BATCH = ("pod", "data")
+# {"sizes": {axis: n}, "index": {axis: i}} while a simulated ring or grid
+# is active (``simulated_ring``, ``simulated_grid``)
 _SIM = None
+# {"sizes", "index", "groups": {axes: ProcessGroup}} once ``grid`` ran
+_GRID = None
 # the active collective counts (``count_collectives``)
 _COUNTS: list = []
 
 
+def _pg_active() -> bool:
+    return tdist.is_available() and tdist.is_initialized()
+
+
 def _active() -> bool:
-    return _SIM is not None or (tdist.is_available()
-                                and tdist.is_initialized())
+    return _SIM is not None or _pg_active()
 
 
-def world_size() -> int:
+def _axes(axis) -> tuple:
+    """An axis name or a tuple of them, as a tuple in the grid's nesting
+    order."""
+    names = (axis,) if isinstance(axis, str) else tuple(axis)
+    for a in names:
+        if a not in AXES:
+            raise ValueError(f"unknown mesh axis {a!r}; axes: {AXES}")
+    if list(names) != sorted(names, key=AXES.index):
+        raise ValueError(f"axes {names} are not in the order {AXES}")
+    return names
+
+
+def _layout() -> tuple:
+    """({axis: size}, {axis: index}) of this process."""
     if _SIM is not None:
-        return _SIM[0]
-    return tdist.get_world_size() if _active() else 1
+        return _SIM["sizes"], _SIM["index"]
+    if _GRID is not None:
+        return _GRID["sizes"], _GRID["index"]
+    if _pg_active():
+        return ({"pod": 1, "data": 1, "model": tdist.get_world_size()},
+                {"pod": 0, "data": 0, "model": tdist.get_rank()})
+    return {a: 1 for a in AXES}, {a: 0 for a in AXES}
 
 
-def rank() -> int:
+def grid_shape() -> tuple:
+    """(n_pod, n_data, n_model) of this process's grid (the ring: (1, 1,
+    its size))."""
+    sizes, _ = _layout()
+    return tuple(sizes[a] for a in AXES)
+
+
+def grid_declared() -> bool:
+    """Whether ``grid`` (or ``simulated_grid``) laid this process out on a
+    (pod, data, model) grid, rather than the plain ring."""
+    return _GRID is not None or (_SIM is not None and _SIM["grid"])
+
+
+def world_size(axis="model") -> int:
+    """The size of ``axis`` (a name or a tuple of names; ``ALL``: the
+    whole group)."""
+    sizes, _ = _layout()
+    return math.prod(sizes[a] for a in _axes(axis))
+
+
+def rank(axis="model") -> int:
+    """This member's index on ``axis``; over a tuple of axes the row-major
+    flat index (JAX's ``axis_index`` over several axes)."""
+    sizes, index = _layout()
+    idx = 0
+    for a in _axes(axis):
+        idx = idx * sizes[a] + index[a]
+    return idx
+
+
+def flat_axis_index(axis="model") -> int:
+    """This member's index on ``axis`` (JAX: ``lax.axis_index``)."""
+    return rank(axis)
+
+
+def _trivial(axes: tuple) -> bool:
+    """Whether a collective over ``axes`` is the identity: no group, or
+    axes of size 1, except the plain ring's, whose collectives run even on
+    a ring of one, as they always have, so their counts hold."""
+    if not _active():
+        return True
+    if axes == ("model",) and not grid_declared():
+        return False
+    return world_size(axes) == 1
+
+
+def _global_rank(index: dict) -> int:
+    sizes, _ = _layout()
+    r = 0
+    for a in AXES:
+        r = r * sizes[a] + index[a]
+    return r
+
+
+def grid(n_data: int, n_model: int, n_pod: int = 1) -> tuple:
+    """Lay this process group out as a (pod, data, model) grid of
+    ``n_pod * n_data * n_model`` members (every member calls it, in the
+    same order as any other group call): one sub-group per axis and per
+    tuple of axes whose size is neither 1 nor the whole group. Without a
+    process group, only the grid of one. Returns this member's (pod,
+    data, model) index."""
+    global _GRID
+    sizes = {"pod": n_pod, "data": n_data, "model": n_model}
+    if min(sizes.values()) < 1:
+        raise ValueError(f"grid sizes must be positive, got {sizes}")
+    world = math.prod(sizes.values())
     if _SIM is not None:
-        return _SIM[1]
-    return tdist.get_rank() if _active() else 0
+        raise RuntimeError("a grid inside a simulated one")
+    if not _pg_active():
+        if world != 1:
+            raise RuntimeError(f"a grid of {world} members needs a process "
+                               f"group of {world}")
+        _GRID = {"sizes": sizes, "index": {a: 0 for a in AXES},
+                 "groups": {}}
+        return (0, 0, 0)
+    if tdist.get_world_size() != world:
+        raise ValueError(f"a ({n_pod}, {n_data}, {n_model}) grid needs "
+                         f"{world} processes, the group has "
+                         f"{tdist.get_world_size()}")
+    me = tdist.get_rank()
+    index, r = {}, me
+    for a in reversed(AXES):
+        index[a] = r % sizes[a]
+        r //= sizes[a]
+    groups = {}
+    for k in range(1, len(AXES) + 1):
+        for combo in itertools.combinations(AXES, k):
+            n = math.prod(sizes[a] for a in combo)
+            if n in (1, world):
+                continue
+            rest = [a for a in AXES if a not in combo]
+            for fixed in itertools.product(*(range(sizes[a]) for a in rest)):
+                members = []
+                for vals in itertools.product(*(range(sizes[a])
+                                                for a in combo)):
+                    idx = dict(zip(rest, fixed))
+                    idx.update(zip(combo, vals))
+                    rr = 0
+                    for a in AXES:
+                        rr = rr * sizes[a] + idx[a]
+                    members.append(rr)
+                g = tdist.new_group(sorted(members))
+                if me in members:
+                    groups[combo] = g
+    _GRID = {"sizes": sizes, "index": index, "groups": groups}
+    return tuple(index[a] for a in AXES)
+
+
+def release_grid() -> None:
+    """Forget the grid (the process group stays): the plain ring again."""
+    global _GRID
+    _GRID = None
+
+
+def _group(axes: tuple):
+    """The process group of ``axes`` (None: the whole group)."""
+    if world_size(axes) == tdist.get_world_size():
+        return None
+    if _GRID is None:
+        raise RuntimeError(f"no grid: axes {axes} name no group")
+    return _GRID["groups"][axes]
 
 
 @contextlib.contextmanager
@@ -84,9 +249,27 @@ def simulated_ring(n: int, r: int = 0):
     global _SIM
     if not 0 <= r < n:
         raise ValueError(f"rank {r} is not on a ring of {n}")
-    if tdist.is_available() and tdist.is_initialized():
+    if _pg_active():
         raise RuntimeError("a simulated ring inside a process group")
-    prev, _SIM = _SIM, (n, r)
+    prev, _SIM = _SIM, {"sizes": {"pod": 1, "data": 1, "model": n},
+                        "index": {"pod": 0, "data": 0, "model": r},
+                        "grid": False}
+    try:
+        yield
+    finally:
+        _SIM = prev
+
+
+@contextlib.contextmanager
+def simulated_grid(n_data: int, n_model: int, n_pod: int = 1):
+    """Act as member (0, 0, 0) of a (pod, data, model) grid whose
+    collectives move shapes only (meta tensors; module docstring)."""
+    global _SIM
+    if _pg_active():
+        raise RuntimeError("a simulated grid inside a process group")
+    prev, _SIM = _SIM, {"sizes": {"pod": n_pod, "data": n_data,
+                                  "model": n_model},
+                        "index": {a: 0 for a in AXES}, "grid": True}
     try:
         yield
     finally:
@@ -124,28 +307,41 @@ def _simulated(x: torch.Tensor, shape) -> torch.Tensor:
     return torch.empty(shape, dtype=x.dtype, device="meta")
 
 
-def flat_axis_index() -> int:
-    """This member's index on the ring (JAX: ``lax.axis_index``)."""
-    return rank()
+def _staged(group, x: torch.Tensor) -> bool:
+    """Whether ``x``'s collective on ``group`` goes through host memory: a
+    CUDA tensor on a gloo group (module docstring)."""
+    return x.is_cuda and tdist.get_backend(group) == "gloo"
+
+
+def _host(x: torch.Tensor) -> torch.Tensor:
+    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return h.copy_(x)
 
 
 def barrier() -> None:
-    """Wait until every member reaches this point (a checkpoint's readers
-    wait for its writer); nothing to wait for on a ring of one."""
-    if _active() and _SIM is None:
+    """Wait until every member of the group reaches this point (a
+    checkpoint's readers wait for its writer); nothing to wait for alone."""
+    if _pg_active() and _SIM is None:
         tdist.barrier()
 
 
-def _all_reduce(x: torch.Tensor, op) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, op, axes: tuple = ("model",)):
     if _SIM is not None:
         return _charge("all-reduce", _simulated(x, x.shape))
     out = x.detach().clone().contiguous()
-    tdist.all_reduce(out, op=op)
+    group = _group(axes)
+    if _staged(group, out):
+        h = _host(out)
+        tdist.all_reduce(h, op=op, group=group)
+        out.copy_(h)
+    else:
+        tdist.all_reduce(out, op=op, group=group)
     return _charge("all-reduce", out)
 
 
-def _gather(x: torch.Tensor, dim: int, tiled: bool) -> torch.Tensor:
-    n = world_size()
+def _gather(x: torch.Tensor, dim: int, tiled: bool,
+            axes: tuple = ("model",)) -> torch.Tensor:
+    n = world_size(axes)
     if _SIM is not None:
         shape = list(x.shape)
         if tiled:
@@ -154,154 +350,255 @@ def _gather(x: torch.Tensor, dim: int, tiled: bool) -> torch.Tensor:
             shape.insert(dim if dim >= 0 else dim + x.dim() + 1, n)
         return _charge("all-gather", _simulated(x, shape))
     x = x.detach().contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    tdist.all_gather(parts, x)
-    return _charge("all-gather", torch.cat(parts, dim=dim) if tiled
-                   else torch.stack(parts, dim=dim))
+    group = _group(axes)
+    src = _host(x) if _staged(group, x) else x
+    parts = [torch.empty_like(src) for _ in range(n)]
+    tdist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim) if tiled else torch.stack(parts, dim=dim)
+    return _charge("all-gather", out.to(x.device))
+
+
+def _reduce_scatter(parts: list, axes: tuple) -> torch.Tensor:
+    if _SIM is not None:
+        return _simulated(parts[0], parts[rank(axes)].shape)
+    group = _group(axes)
+    parts = [p.contiguous() for p in parts]
+    if _staged(group, parts[0]):
+        hp = [_host(p) for p in parts]
+        out = torch.empty_like(hp[0])
+        tdist.reduce_scatter(out, hp, group=group)
+        return out.to(parts[0].device)
+    out = torch.empty_like(parts[0], memory_format=torch.contiguous_format)
+    tdist.reduce_scatter(out, parts, group=group)
+    return out
 
 
 class _PSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        return _all_reduce(x, tdist.ReduceOp.SUM)
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        return _all_reduce(x, tdist.ReduceOp.SUM, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, tdist.ReduceOp.SUM)
+        return _all_reduce(g, tdist.ReduceOp.SUM, ctx.axes), None
+
+
+class _PSumInvariant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        return _all_reduce(x, tdist.ReduceOp.SUM, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, tiled):
-        ctx.dim, ctx.tiled, ctx.n = dim, tiled, x.shape[dim] if tiled else 1
-        return _gather(x, dim, tiled)
+    def forward(ctx, x, dim, tiled, axes):
+        ctx.dim, ctx.tiled, ctx.axes = dim, tiled, axes
+        ctx.n = x.shape[dim] if tiled else 1
+        return _gather(x, dim, tiled, axes)
 
     @staticmethod
     def backward(ctx, g):
         g = g.detach()
         parts = (g.split(ctx.n, dim=ctx.dim) if ctx.tiled
                  else g.unbind(ctx.dim))
-        if _SIM is not None:
-            out = _simulated(g, parts[rank()].shape)
-        else:
-            out = torch.empty_like(parts[rank()],
-                                   memory_format=torch.contiguous_format)
-            tdist.reduce_scatter(out, [p.contiguous() for p in parts])
-        return _charge("reduce-scatter", out), None, None
+        out = _reduce_scatter(list(parts), ctx.axes)
+        return _charge("reduce-scatter", out), None, None, None
 
 
-def all_gather(x: torch.Tensor, dim: int = 0, tiled: bool = True):
-    """Gather ``x`` from every member, in rank order. ``tiled=True``
-    concatenates along ``dim``; otherwise stacks a new axis at ``dim``.
-    The backward reduce-scatters the cotangent."""
-    if not _active():
+def all_gather(x: torch.Tensor, dim: int = 0, tiled: bool = True,
+               axis="model"):
+    """Gather ``x`` from every member of ``axis``, in index order.
+    ``tiled=True`` concatenates along ``dim``; otherwise stacks a new axis
+    at ``dim``. The backward reduce-scatters the cotangent."""
+    axes = _axes(axis)
+    if _trivial(axes):
         return x if tiled else x.unsqueeze(dim)
-    return _AllGather.apply(x, dim, tiled)
+    return _AllGather.apply(x, dim, tiled, axes)
 
 
 class _PVary(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, axes):
+        ctx.axes = axes
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, tdist.ReduceOp.SUM)
+        return _all_reduce(g, tdist.ReduceOp.SUM, ctx.axes), None
 
 
 class _GradMean(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, n):
+        ctx.n = n
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return g / world_size()
+        return g / ctx.n, None
 
 
 class _RowBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w):
-        n = w.shape[0] // world_size()
-        return w[rank() * n:(rank() + 1) * n].clone()
+    def forward(ctx, w, axes):
+        ctx.axes = axes
+        n = w.shape[0] // world_size(axes)
+        r = rank(axes)
+        return w[r * n:(r + 1) * n].clone()
 
     @staticmethod
     def backward(ctx, g):
-        return _gather(g, 0, True)
+        return _gather(g, 0, True, ctx.axes), None
 
 
-def pvary(x: torch.Tensor) -> torch.Tensor:
-    """The identity, whose backward sums the cotangent over the ring (JAX:
+def pvary(x: torch.Tensor, axis="model") -> torch.Tensor:
+    """The identity, whose backward sums the cotangent over ``axis`` (JAX:
     ``lax.pvary``, the transpose of a shard_map input replicated over the
     axis): a value every member computes alike and feeds to its own shard
     of the work gets the gradient of every shard."""
-    return _PVary.apply(x) if _active() else x
+    axes = _axes(axis)
+    return x if _trivial(axes) else _PVary.apply(x, axes)
 
 
-def grad_mean(x: torch.Tensor) -> torch.Tensor:
-    """The identity, whose backward divides the cotangent by the ring size:
-    a result replicated on every member (a loss completed by ``psum``),
-    each member's copy carrying 1 / P of its cotangent, so that the
-    ``psum`` backwards inside it give every shard its gradient once."""
-    return _GradMean.apply(x) if _active() else x
+def grad_mean(x: torch.Tensor, axis="model") -> torch.Tensor:
+    """The identity, whose backward divides the cotangent by the size of
+    ``axis``: a result replicated on every member (a loss completed by
+    ``psum``), each member's copy carrying 1 / P of its cotangent, so that
+    the ``psum`` backwards inside it give every shard its gradient once."""
+    axes = _axes(axis)
+    return x if _trivial(axes) else _GradMean.apply(x, world_size(axes))
 
 
-def shard_rows(w: torch.Tensor) -> torch.Tensor:
+def shard_rows(w: torch.Tensor, axis="model") -> torch.Tensor:
     """This member's row block of a replicated [V, ...] tensor whose rows
-    divide the ring. Under grad the block is a copy, whose backward
+    divide ``axis``. Under grad the block is a copy, whose backward
     all-gathers the members' block gradients into the whole tensor's (JAX:
     the transpose of slicing a replicated array into a shard_map input
     split over the axis), so every member's copy of ``w`` gets the same
     gradient; otherwise a view."""
-    n = world_size()
+    axes = _axes(axis)
+    n = world_size(axes)
     if n == 1:
         return w
     if torch.is_grad_enabled() and w.requires_grad:
-        return _RowBlock.apply(w)
+        return _RowBlock.apply(w, axes)
     v_loc = w.shape[0] // n
-    return w[rank() * v_loc:(rank() + 1) * v_loc]
+    r = rank(axes)
+    return w[r * v_loc:(r + 1) * v_loc]
 
 
-def pmax(x: torch.Tensor) -> torch.Tensor:
-    """Elementwise max over the ring; carries no gradient."""
-    return _all_reduce(x, tdist.ReduceOp.MAX) if _active() else x.detach()
+def pmax(x: torch.Tensor, axis="model") -> torch.Tensor:
+    """Elementwise max over ``axis``; carries no gradient."""
+    axes = _axes(axis)
+    return (x.detach() if _trivial(axes)
+            else _all_reduce(x, tdist.ReduceOp.MAX, axes))
 
 
-def pmin(x: torch.Tensor) -> torch.Tensor:
-    """Elementwise min over the ring; carries no gradient."""
-    return _all_reduce(x, tdist.ReduceOp.MIN) if _active() else x.detach()
+def pmin(x: torch.Tensor, axis="model") -> torch.Tensor:
+    """Elementwise min over ``axis``; carries no gradient."""
+    axes = _axes(axis)
+    return (x.detach() if _trivial(axes)
+            else _all_reduce(x, tdist.ReduceOp.MIN, axes))
 
 
-def psum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the ring; the backward sums the cotangent over the ring."""
-    return _PSum.apply(x) if _active() else x
+def psum(x: torch.Tensor, axis="model") -> torch.Tensor:
+    """Sum over ``axis``; the backward sums the cotangent over it."""
+    axes = _axes(axis)
+    return x if _trivial(axes) else _PSum.apply(x, axes)
 
 
-def pmean(x: torch.Tensor) -> torch.Tensor:
-    """Mean over the ring (``psum`` over the ring size)."""
-    return psum(x) / world_size()
+def psum_invariant(x: torch.Tensor, axis="model") -> torch.Tensor:
+    """Sum over ``axis`` into a value every member then uses alike (the end
+    of a row-parallel product); the backward passes each member's
+    cotangent through, since inside a tensor-parallel trunk every member
+    holds that value's whole cotangent."""
+    axes = _axes(axis)
+    return x if _trivial(axes) else _PSumInvariant.apply(x, axes)
+
+
+def pmean(x: torch.Tensor, axis="model") -> torch.Tensor:
+    """Mean over ``axis`` (``psum`` over its size)."""
+    return psum(x, axis) / world_size(axis)
 
 
 def ppermute(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
-    """Ring shift (JAX: ``lax.ppermute`` with the permutation
-    ``[(i, (i + shift) % n)]``): member r sends ``x`` to r + shift and
-    returns what r - shift sent. Carries no gradient; the identity on a
-    ring of one."""
+    """Shift along the model axis (JAX: ``lax.ppermute`` with the
+    permutation ``[(i, (i + shift) % n)]``): member r sends ``x`` to r +
+    shift and returns what r - shift sent. Carries no gradient; the
+    identity on a ring of one."""
     n = world_size()
     x = x.detach()
     if n == 1 or shift % n == 0:
         return x
     if _SIM is not None:
         return _charge("collective-permute", _simulated(x, x.shape))
-    r = rank()
+    _, index = _layout()
+    r = index["model"]
+    dst = _global_rank(dict(index, model=(r + shift) % n))
+    src = _global_rank(dict(index, model=(r - shift) % n))
     x = x.contiguous()
-    out = torch.empty_like(x)
-    reqs = tdist.batch_isend_irecv([
-        tdist.P2POp(tdist.isend, x, (r + shift) % n),
-        tdist.P2POp(tdist.irecv, out, (r - shift) % n)])
+    staged = _staged(_group(("model",)), x)
+    send = _host(x) if staged else x
+    out = torch.empty_like(send)
+    reqs = tdist.batch_isend_irecv([tdist.P2POp(tdist.isend, send, dst),
+                                    tdist.P2POp(tdist.irecv, out, src)])
     for req in reqs:
         req.wait()
-    return _charge("collective-permute", out)
+    return _charge("collective-permute", out.to(x.device))
+
+
+# ---------------------------------------------------------------------------
+# a leaf's block on the grid, by its spec
+# ---------------------------------------------------------------------------
+
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def member_block(x: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """This member's block of the whole tensor ``x`` laid out by ``spec``
+    (a tuple of mesh-axis entries, one a dim, as ``train.gspmd.fit_spec``
+    makes them: None, an axis name or a tuple of names; missing trailing
+    entries are None): a view."""
+    for dim, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if not axes:
+            continue
+        n = world_size(axes)
+        size = x.shape[dim] // n
+        x = x.narrow(dim, rank(axes) * size, size)
+    return x
+
+
+def gather_block(x: torch.Tensor, spec: tuple, axis=None) -> torch.Tensor:
+    """The inverse of ``member_block``: the whole tensor from every
+    member's block (a collective), or, with ``axis``, only the dims split
+    over it gathered (the FSDP gather over ``"data"``). Differentiable:
+    the backward reduce-scatters."""
+    only = None if axis is None else set(_axes(axis))
+    for dim, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if not axes or (only is not None and not only & set(axes)):
+            continue
+        if only is not None and not set(axes) <= only:
+            raise NotImplementedError(
+                f"dim {dim} is split over {axes}: gather it whole")
+        x = all_gather(x, dim=dim, axis=axes)
+    return x
+
+
+def spec_axes(spec) -> tuple:
+    """The mesh axes a spec splits its tensor over, in the grid's order."""
+    names = {a for e in (spec or ()) for a in _entry_axes(e)}
+    return tuple(a for a in AXES if a in names)
 
 
 # ---------------------------------------------------------------------------
@@ -320,6 +617,7 @@ def _ring_worker(r, n, init_file, fn, args, out_q):
         try:
             out_q.put((r, True, fn(*args)))
         finally:
+            release_grid()
             tdist.destroy_process_group()
     except BaseException:
         # report to the parent, which raises it, rather than leave it
@@ -370,3 +668,22 @@ def spawn_ring(fn, n: int, *args) -> list:
         if errors:
             raise RuntimeError("ring worker failed\n" + "\n".join(errors))
     return [results[r] for r in range(n)]
+
+
+def _on_grid(n_pod: int, n_data: int, n_model: int, fn, *args):
+    """``fn(*args)`` on this member of a (pod, data, model) grid."""
+    grid(n_data, n_model, n_pod)
+    try:
+        return fn(*args)
+    finally:
+        release_grid()
+
+
+def spawn_grid(fn, n_data: int, n_model: int, *args, n_pod: int = 1
+               ) -> list:
+    """``spawn_ring`` of ``n_pod * n_data * n_model`` processes laid out as
+    a (pod, data, model) grid (``grid``) before ``fn(*args)`` runs on each:
+    the results in the group's rank order, member (p, d, m) at ``(p *
+    n_data + d) * n_model + m``. A grid of one runs in this process."""
+    return spawn_ring(_on_grid, n_pod * n_data * n_model, n_pod, n_data,
+                      n_model, fn, *args)

@@ -120,21 +120,24 @@ def ivf_index_from_numpy(tree: dict, *, rank: int = 0, world_size: int = 1,
 
 
 def zoo_params_from_numpy(tree: dict, cfg: ModelConfig, *, rank: int = 0,
-                          world_size: int = 1, device) -> ParamDict:
+                          world_size: int = 1, device,
+                          specs=None) -> ParamDict:
     """Ring member ``rank``'s model params from the JAX package's zoo param
     tree as numpy arrays: ``{"embed": {"table"}, "blocks": {...},
     "ln_f": {...}[, "head"]}``, each leaf of ``blocks`` (the ssm and
     hybrid families' ``ssm.*``, ``fuse_attn`` and ``fuse_ssm`` too)
     stacked on a leading [L] axis, which becomes one ``ParamDict`` a
-    layer (``models.lm.params_from_tree``). The trunk is replicated, so
-    every member gets all of it; the class matrix's rows must divide the
-    ring, whose members each score their own block."""
+    layer (``models.lm.params_from_tree``). On the ring the trunk is
+    replicated, so every member gets all of it; the class matrix's rows
+    must divide the ring, whose members each score their own block. On a
+    grid (``specs``: ``train.gspmd.member_specs``, by the JAX
+    ``param_pspecs``) each leaf is cut to this grid member's slice."""
     if not 0 <= rank < world_size:
         raise ValueError(f"rank {rank} is not on a ring of {world_size}")
     if cfg.vocab_size % world_size:
         raise ValueError(f"the vocab of {cfg.vocab_size} rows does not "
                          f"divide the ring of {world_size}")
-    return lm.params_from_tree(tree, cfg, device=device)
+    return lm.cut(lm.params_from_tree(tree, cfg, device=device), specs)
 
 
 def zoo_params_to_numpy(params: ParamDict) -> dict:
@@ -147,15 +150,16 @@ def zoo_params_to_numpy(params: ParamDict) -> dict:
 
 def zoo_opt_state_from_numpy(opt_state: dict, cfg: ModelConfig, *,
                              rank: int = 0, world_size: int = 1,
-                             device) -> OptState:
+                             device, specs=None) -> OptState:
     """Ring member ``rank``'s zoo optimizer state from the JAX package's
     ``ZooExperiment.opt_state`` as numpy arrays, ``{"step", "mu", "nu"}``
     (its ``OptState``'s fields): each moment mirrors (model params, head
     params), the model's part in the stacked layout of
     ``zoo_params_from_numpy``, the head's ``()`` for the W-heads and the
     GLOBAL [R, B, D] bucket moment for the sketch heads, of which this
-    member keeps its buckets. ``ZooExperiment.load_opt_state`` installs
-    it."""
+    member keeps its buckets; on a grid (``specs``) the model moments are
+    cut as ``zoo_params_from_numpy`` cuts the params.
+    ``ZooExperiment.load_opt_state`` installs it."""
     if not 0 <= rank < world_size:
         raise ValueError(f"rank {rank} is not on a ring of {world_size}")
 
@@ -163,7 +167,8 @@ def zoo_opt_state_from_numpy(opt_state: dict, cfg: ModelConfig, *,
         if pair is None:
             return None
         model, hp = pair
-        return (lm.params_from_tree(model, cfg, device=device),
+        return (lm.cut(lm.params_from_tree(model, cfg, device=device),
+                       specs),
                 params_block(hp, rank, world_size, device)
                 if tree_leaves(hp) else ())
 

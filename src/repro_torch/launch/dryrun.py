@@ -16,12 +16,17 @@ HLO), ``collectives``, and for the paper step the ``ledger`` and
 ``lower_paper_one`` is the paper system's simulated 100M-class step
 (Table 8): one hybrid train step at any class count, the head's row
 block of W [classes / n_dev, D] on each member. ``lower_one`` is the zoo
-on the port's ring (trunk replicated, vocab over the ring): the (1, n)
-case of the JAX mesh. The production meshes ``16x16`` and ``2x16x16``
-shard the trunk over a data and a model axis, which is ROADMAP.md A item
-4, and raise ``NotImplementedError``.
+on the port's ring (trunk replicated, vocab over the ring: the (1, n)
+case of the JAX mesh) or, with ``mesh="16x16"`` / ``"2x16x16"``, member
+(0, 0) of the production grid under ``make_parallel_config(fsdp=True)``
+(``dist.simulated_grid``): the dense, vlm and moe trunks tensor-, expert-
+and FSDP-split as the JAX ``param_pspecs`` places them, the batch over
+``data`` (and ``pod``) in ``auto_micro_batches`` micro-batches. The ssm,
+hybrid and encdec trunks are not split yet (ROADMAP.md A item 4) and
+raise.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm_135m --shape train_4k --n-dev 16
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch kimi_k2_1t_a32b --shape train_4k --mesh single
   PYTHONPATH=src python -m repro_torch.launch.dryrun --paper-classes 100000000 --n-dev 256
 """
 from __future__ import annotations
@@ -47,7 +52,35 @@ from repro_torch.optim import make_optimizer, tree_leaves
 from repro_torch.roofline.counter import WorkCounter
 
 META = torch.device("meta")
+# the production grids (FSDP), by name; any other "DxM" / "PxDxM" is a
+# (pod, data, model) grid under the host tests' policy
 MESHES = {"ring": None, "16x16": (16, 16), "2x16x16": (2, 16, 16)}
+
+
+def _grid_of(mesh: str):
+    """(the (pod, data, model) sizes, its ParallelConfig at ``remat``) of
+    a mesh name; (None, None) for the ring."""
+    from repro_torch.launch.mesh import (make_host_parallel_config,
+                                         make_parallel_config)
+    if mesh == "ring":
+        return None, None
+    try:
+        sizes = tuple(int(x) for x in mesh.split("x"))
+    except ValueError:
+        sizes = ()
+    if not 2 <= len(sizes) <= 3 or min(sizes) < 1:
+        raise ValueError(f"unknown mesh {mesh!r}: 'ring', or DxM / PxDxM "
+                         f"({list(MESHES)} are the production grids)")
+    grid = (1,) * (3 - len(sizes)) + sizes
+    if mesh in MESHES:
+        return grid, lambda remat: make_parallel_config(
+            multi_pod=grid[0] > 1, remat=remat, fsdp=True)
+    if grid[0] > 1:
+        from repro_torch.configs.base import ParallelConfig
+        return grid, lambda remat: ParallelConfig(
+            mesh_shape=grid, axis_names=dist.AXES, remat=remat)
+    return grid, lambda remat: make_host_parallel_config(grid[1], grid[2],
+                                                         remat)
 
 
 def _meta(shape, dtype=torch.float32):
@@ -67,11 +100,21 @@ def _tree_bytes(*trees) -> int:
     return n
 
 
-def _count(fn, held, n_dev: int):
-    """Run ``fn()`` as member 0 of a simulated ring of ``n_dev`` under a
-    counter that holds ``held``. Returns (counter, seconds)."""
+def _simulated(n_dev: int, grid: Optional[tuple] = None):
+    """Member 0 of a simulated ring of ``n_dev``, or member (0, 0, 0) of
+    a simulated grid of (pod, data, model) sizes ``grid``."""
+    if grid is None:
+        return dist.simulated_ring(n_dev, 0)
+    n_pod, n_data, n_model = grid
+    return dist.simulated_grid(n_data, n_model, n_pod)
+
+
+def _count(fn, held, n_dev: int, grid: Optional[tuple] = None):
+    """Run ``fn()`` as member 0 of a simulated ring of ``n_dev`` (or of
+    ``grid``) under a counter that holds ``held``. Returns (counter,
+    seconds)."""
     t0 = time.perf_counter()
-    with dist.simulated_ring(n_dev, 0), WorkCounter(track_memory=True) as wc:
+    with _simulated(n_dev, grid), WorkCounter(track_memory=True) as wc:
         wc.hold(held)
         fn()
     return wc, time.perf_counter() - t0
@@ -180,27 +223,29 @@ def lower_one(arch: str, shape_name: str, *, n_dev: int = 16,
               remat: str = "full", batch: int = 0, seq: int = 0,
               n_layers: int = 0, backend: str = "kernel",
               head_cfg: Optional[HeadConfig] = None):
-    """One zoo step (train / prefill / decode, as the shape says) of ring
-    member 0 of ``n_dev`` in shapes only, the ring's (1, n) mesh: the
-    trunk replicated, every member running the whole batch (``batch`` and
-    ``seq`` override the shape's), the vocab over the ring. ``n_layers``
-    cuts the depth (0: the published one). The head is the JAX dry run's
-    (full, raw logits; knn with ``use_knn``) unless ``head_cfg`` says
-    otherwise. ``mesh`` other than ``"ring"`` raises
-    ``NotImplementedError``."""
+    """One zoo step (train / prefill / decode, as the shape says) in shapes
+    only. ``mesh="ring"``: member 0 of a ring of ``n_dev``, the ring's
+    (1, n) mesh: the trunk replicated, every member running the whole
+    batch, the vocab over the ring, one micro-batch. ``mesh="16x16"`` /
+    ``"2x16x16"``: member (0, 0) of the production grid under
+    ``make_parallel_config(remat=remat, fsdp=True)`` (any other ``"DxM"``:
+    of that grid under ``make_host_parallel_config``; ``n_dev`` unused),
+    its slices of the params, its data shard's rows in
+    ``auto_micro_batches`` micro-batches, its KV heads in the decode
+    caches; the ssm, hybrid and encdec families raise
+    (``lm.require_ported``). ``batch`` and ``seq`` override the shape's,
+    ``n_layers`` cuts the depth (0: the published one). The head is the
+    JAX dry run's (full, raw logits; knn with ``use_knn``) unless
+    ``head_cfg`` says otherwise."""
     import dataclasses
 
     from repro_torch.api.heads import HeadState, make_head
     from repro_torch.models import lm
     from repro_torch.train import gspmd
 
-    if mesh not in MESHES:
-        raise ValueError(f"unknown mesh {mesh!r}; known: {list(MESHES)}")
-    if mesh != "ring":
-        raise NotImplementedError(
-            f"the {mesh} mesh shards the trunk over (data, model) axes: "
-            f"tensor-parallel trunks are ROADMAP.md A item 4; the port's "
-            f"dry run takes the ring (mesh='ring', the (1, n_dev) case)")
+    grid, grid_par = _grid_of(mesh)
+    if grid is not None:
+        n_dev = grid[0] * grid[1] * grid[2]
     shape = INPUT_SHAPES[shape_name]
     if batch or seq:
         shape = dataclasses.replace(shape,
@@ -209,8 +254,15 @@ def lower_one(arch: str, shape_name: str, *, n_dev: int = 16,
     cfg = for_shape(get_model_config(arch), shape)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    cfg = pad_vocab(cfg, 128 * n_dev // math.gcd(128, n_dev))
-    par = ring_parallel_config(n_dev, remat)
+    n_model = n_dev if grid is None else grid[2]
+    cfg = pad_vocab(cfg, 128 * n_model // math.gcd(128, n_model))
+    if grid is None:
+        par, specs, micro = ring_parallel_config(n_dev, remat), None, 1
+    else:
+        lm.require_ported(cfg, grid=True)
+        par = grid_par(remat)
+        specs = gspmd.member_specs(cfg, par)
+        micro = 0                  # auto_micro_batches, as the JAX run
     hcfg = head_cfg or HeadConfig(softmax_impl="knn" if use_knn else "full",
                                   backend=backend,
                                   cosine_scale=16.0 if use_knn else 0.0)
@@ -221,28 +273,36 @@ def lower_one(arch: str, shape_name: str, *, n_dev: int = 16,
     if shape.mode != "train":
         # serving runs on inference-dtype weights, not fp32 masters
         params = type(params)(**_cast(params, dt))
-    inputs = _zoo_inputs(cfg, shape, shape.global_batch)
-    with dist.simulated_ring(n_dev, 0):
+    n_shards = 1 if grid is None else grid[0] * grid[1]
+    rows = shape.global_batch
+    if rows % n_shards == 0:       # else replicated, as fit_spec leaves it
+        rows //= n_shards
+    inputs = _zoo_inputs(cfg, shape, rows)
+    n_kv = cfg.n_kv_heads
+    if grid is not None and n_kv % n_model == 0:
+        n_kv //= n_model
+    with _simulated(n_dev, grid):
+        params = lm.cut(params, specs)
         if shape.mode == "train":
             head = make_head(cfg, hcfg)
             aux = ()
             if use_knn:
                 v = cfg.vocab_size
-                nnz = v * hcfg.knn_k // n_dev
+                nnz = v * hcfg.knn_k // n_model
                 aux = (_meta((v + 1,), torch.int32),
                        _meta((nnz,), torch.int32), _meta((nnz,), torch.int32))
             hs = HeadState((), aux)
-            tcfg = TrainConfig(optimizer="sgd", micro_batch=1)
+            tcfg = TrainConfig(optimizer="sgd", micro_batch=micro)
             opt_state = make_optimizer(tcfg).init((params, ()))
             step = gspmd.make_head_train_step(cfg, hcfg, tcfg, shape,
-                                              head=head, par=par)
+                                              head=head, par=par, specs=specs)
             held = (params, aux, opt_state, inputs)
 
             def run():
                 step(params, hs, opt_state, inputs, 0.1)
         elif shape.mode == "prefill":
             step = gspmd.make_prefill_step(cfg, shape, backend=backend,
-                                           par=par)
+                                           par=par, specs=specs)
             held = (params, inputs)
 
             def run():
@@ -250,23 +310,60 @@ def lower_one(arch: str, shape_name: str, *, n_dev: int = 16,
                     step(params, inputs)
         else:
             caches, slots, _ = lm.init_decode_state(
-                cfg, shape.global_batch, shape.seq_len, device=META)
-            step = gspmd.make_serve_step(cfg, shape, backend=backend)
+                cfg, rows, shape.seq_len, device=META, n_kv=n_kv)
+            step = gspmd.make_serve_step(cfg, shape, backend=backend,
+                                         specs=specs)
             held = (params, caches, slots, inputs)
 
             def run():
                 with torch.no_grad():
                     step(params, caches, slots, inputs["token"])
+        n_micro = (gspmd.auto_micro_batches(cfg, shape, par)
+                   if shape.mode == "train" and not micro else 1)
     arg_bytes = _tree_bytes(held)
-    wc, secs = _count(run, held, n_dev)
+    wc, secs = _count(run, held, n_dev, grid)
     return {
         "arch": normalize_arch_id(arch), "shape": shape_name,
-        "mesh": f"1x{n_dev}", "mode": shape.mode, "knn": use_knn,
-        "remat": remat, "batch": shape.global_batch,
+        "mesh": f"1x{n_dev}" if grid is None else mesh, "mode": shape.mode,
+        "knn": use_knn, "remat": remat, "batch": shape.global_batch,
+        "member_rows": rows, "n_micro": n_micro,
         "n_layers": cfg.n_layers, "n_params": int(n_params),
         "lower_s": round(secs, 3), "memory": _memory(arg_bytes, wc),
         **wc.result(),
     }
+
+
+def _linear(a, b, n: int):
+    """``a + (n - 1) * (b - a)`` over the numbers of two records' matching
+    dicts (ints stay ints); other values are ``b``'s."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return {k: _linear(a[k], b[k], n) if k in a else b[k] for k in b}
+    if isinstance(a, (int, float)) and isinstance(b, (int, float)) \
+            and not isinstance(a, bool):
+        return a + (n - 1) * (b - a)
+    return b
+
+
+def lower_deep(arch: str, shape_name: str, *, mesh: str, **kw) -> dict:
+    """``lower_one`` at the arch's published depth, from two lowerings at 1
+    and 2 layers: every layer of a decoder stack is the same, so the
+    argument bytes, the peak, the counted FLOPs and bytes and the
+    collectives are linear in the depth (``tests/test_torch_grid_specs.py``
+    holds the extrapolation to a direct lowering exactly), and a meta step
+    of the whole depth (61 layers of kimi-K2 in 8 micro-batches) takes
+    tens of minutes of the host. The record is the deep one, with
+    ``"extrapolated_from": [1, 2]`` and the two probes' ``lower_s``."""
+    depth = get_model_config(arch).n_layers
+    one = lower_one(arch, shape_name, mesh=mesh, n_layers=1, **kw)
+    two = lower_one(arch, shape_name, mesh=mesh, n_layers=2, **kw)
+    rec = {k: _linear(one[k], two[k], depth)
+           for k in ("memory", "counted", "collectives", "terms_s",
+                     "kernels")}
+    return {**two, **rec, "n_layers": depth,
+            "n_params": int(_linear(one["n_params"], two["n_params"],
+                                    depth)),
+            "extrapolated_from": [1, 2],
+            "lower_s": round(one["lower_s"] + two["lower_s"], 3)}
 
 
 def _cast(tree, dt):
@@ -296,8 +393,9 @@ def main(argv=None):
     p.add_argument("--shape", default="", choices=[""] + list(INPUT_SHAPES))
     p.add_argument("--mesh", default="ring",
                    choices=["ring", "single", "multi", "both"],
-                   help="ring: the port's (1, n-dev) ring; single / multi "
-                        "raise (ROADMAP.md A item 4)")
+                   help="ring: the port's (1, n-dev) ring; single / multi: "
+                        "member (0, 0) of the 16x16 / 2x16x16 grid (the "
+                        "ssm, hybrid and encdec families raise)")
     p.add_argument("--n-dev", type=int, default=16)
     p.add_argument("--knn", action="store_true",
                    help="lower the KNN-softmax train step variant")
@@ -345,10 +443,12 @@ def main(argv=None):
                 continue
             tag = f"{arch} x {shape_name} x {mesh_name}" + \
                   (" [knn]" if args.knn else "")
+            # a grid's step at the published depth: from 1 and 2 layers
+            lower = lower_one if mesh == "ring" else lower_deep
             try:
-                res = lower_one(arch, shape_name, n_dev=args.n_dev,
-                                mesh=mesh, use_knn=args.knn,
-                                remat=args.remat, batch=args.batch)
+                res = lower(arch, shape_name, n_dev=args.n_dev,
+                            mesh=mesh, use_knn=args.knn,
+                            remat=args.remat, batch=args.batch)
                 n_ok += 1
                 mem = res["memory"]
                 print(f"[dryrun] OK   {tag}: {res['lower_s']:.1f}s "

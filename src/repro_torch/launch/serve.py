@@ -127,6 +127,13 @@ def main(argv=None):
     # zoo
     p.add_argument("--arch", default="smollm_135m")
     p.add_argument("--reduced", action="store_true")
+    p.add_argument("--n-model", type=int, default=None,
+                   help="zoo under torchrun: the grid's model axis (default "
+                        "min(4, processes), as the JAX ZooExperiment's)")
+    p.add_argument("--share-cards", action="store_true",
+                   help="zoo under torchrun with more processes than "
+                        "cards: take gloo, its collectives staged through "
+                        "host memory")
     p.add_argument("--prompt-len", type=int, default=32)
     p.add_argument("--gen", type=int, default=16)
     # paper
@@ -253,6 +260,20 @@ def _serve(args, tr) -> int:
 
 
 def _serve_zoo(args, tr) -> int:
+    """The zoo's serving, under ``torchrun`` on a (data, model) grid of its
+    processes (``launch.mesh.launch_grid``; ``--n-model``): token serving
+    decodes each data shard's prompts, retrieval serves every query on
+    every data shard."""
+    from repro_torch.launch.mesh import launch_grid
+
+    with launch_grid(args.device, args.n_model,
+                     args.share_cards) as (shape, backend):
+        if shape != (1, 1):
+            print(f"[serve] grid (data, model) = {shape} over {backend}")
+        return _serve_zoo_member(args, tr)
+
+
+def _serve_zoo_member(args, tr) -> int:
     from repro_torch.api import Experiment
     from repro_torch.configs.base import HeadConfig
 

@@ -91,6 +91,13 @@ def parse_args(argv=None):
     p.add_argument("--arch", default="smollm_135m")
     p.add_argument("--reduced", action="store_true")
     p.add_argument("--seq", type=int, default=64)
+    p.add_argument("--n-model", type=int, default=None,
+                   help="under torchrun: the grid's model axis (default "
+                        "min(4, processes), as the JAX ZooExperiment's)")
+    p.add_argument("--share-cards", action="store_true",
+                   help="under torchrun with more processes than cards: "
+                        "take gloo, its collectives staged through host "
+                        "memory")
     # shared
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch", type=int, default=64)
@@ -231,7 +238,18 @@ def _finish_telemetry(args, telemetry) -> None:
 def _train_zoo(args, telemetry) -> int:
     """The zoo trainer on ``--arch`` (``--reduced``: its smoke variant in
     fp32) over ``--batch`` x ``--seq`` tokens a step, with the JAX
-    launcher's head settings."""
+    launcher's head settings; under ``torchrun`` on a (data, model) grid
+    of its processes (``launch.mesh.launch_grid``; ``--n-model``)."""
+    from repro_torch.launch.mesh import launch_grid
+
+    with launch_grid(args.device, args.n_model,
+                     args.share_cards) as (shape, backend):
+        if shape != (1, 1):
+            print(f"[zoo] grid (data, model) = {shape} over {backend}")
+        return _train_zoo_member(args, telemetry)
+
+
+def _train_zoo_member(args, telemetry) -> int:
     from repro_torch.api import Experiment
     from repro_torch.configs.base import HeadConfig, TrainConfig
 

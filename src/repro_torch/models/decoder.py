@@ -19,6 +19,14 @@ block has no MLP sublayer; the moe block's feed-forward is the
 token-choice MoE (``models/moe.py``), whose router losses the stack sums.
 The encoder-decoder family is ``models/encdec.py``.
 
+On a grid the layers' params are the member's slices
+(``train.gspmd.member_specs``): the tensor-parallel layers read them as
+they are (``models.layers``, ``models.moe``), and a leaf FSDP split over
+``data`` is all-gathered over it inside the layer's body (``gather_layer``,
+the JAX ``make_layer_param_sharder``'s per-layer gather), so under remat
+inside its checkpoint too; the gather's backward is the reduce-scatter.
+The caches then hold the member's KV heads.
+
 ``remat="full"`` (``ParallelConfig.remat``) runs each layer under
 ``torch.utils.checkpoint`` where the JAX package wraps the scan body in
 ``jax.checkpoint``: the layer keeps only its input for the backward and
@@ -34,12 +42,15 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (ParamDict, apply_attention, apply_mlp,
-                                       apply_norm, init_attention, init_mlp,
-                                       init_norm, project_kv, rms_norm)
+                                       apply_norm, attention_axes,
+                                       init_attention, init_mlp, init_norm,
+                                       mlp_axes, norm_axes, project_kv,
+                                       rms_norm)
 
 PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 SSM_CACHE = ("ssm_state", "conv_state")
@@ -77,6 +88,38 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:
     return ParamDict(**p)
 
 
+def block_axes(cfg: ModelConfig):
+    """Logical axes of one layer's params (``init_block``'s tree)."""
+    fam = cfg.family
+    if fam == "ssm":
+        return {"ln1": norm_axes(cfg), "ssm": ssm_lib.ssm_axes(cfg)}
+    a = {"ln1": norm_axes(cfg), "attn": attention_axes(cfg),
+         "ln2": norm_axes(cfg)}
+    if fam == "hybrid":
+        a["ssm"] = ssm_lib.ssm_axes(cfg)
+        a["fuse_attn"] = ("embed",)
+        a["fuse_ssm"] = ("embed",)
+        a["mlp"] = mlp_axes(cfg)
+    elif fam == "moe":
+        a["moe"] = moe_lib.moe_axes(cfg)
+    else:
+        a["mlp"] = mlp_axes(cfg)
+    return a
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical axes of the stacked cache leaves (leading ``"layers"``)."""
+    c = {}
+    if cfg.family != "ssm":
+        c["k"] = ("layers", "batch", "seq", "kv_heads", "head_dim")
+        c["v"] = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    if cfg.family in ("ssm", "hybrid"):
+        sa = ssm_lib.ssm_cache_axes(cfg)
+        c["ssm_state"] = ("layers",) + sa["ssm_state"]
+        c["conv_state"] = ("layers",) + sa["conv_state"]
+    return c
+
+
 def init_blocks(gen: torch.Generator, cfg: ModelConfig) -> list:
     return [init_block(gen, cfg) for _ in range(cfg.n_layers)]
 
@@ -92,8 +135,12 @@ def _fuse(p, attn_out, ssm_out, dtype):
                   + rms_norm(ssm_out) * p.fuse_ssm.to(dtype))
 
 
+def _sub(spec, key):
+    return None if spec is None else spec[key]
+
+
 def _mixer_forward(p, cfg: ModelConfig, x, positions, backend: str = "ref",
-                   self_rows: bool = False):
+                   self_rows: bool = False, spec=None):
     """Sequence-mixing sublayer (attn / ssm / parallel attn + ssm).
     Returns (mix_out, cache_out_dict)."""
     h = apply_norm(p.ln1, x, cfg)
@@ -101,7 +148,8 @@ def _mixer_forward(p, cfg: ModelConfig, x, positions, backend: str = "ref",
         return ssm_lib.apply_ssm(p.ssm, cfg, h)
     attn_out, (k, v) = apply_attention(
         p.attn, cfg, h, positions=positions, causal=True,
-        window=cfg.sliding_window, backend=backend, self_rows=self_rows)
+        window=cfg.sliding_window, backend=backend, self_rows=self_rows,
+        spec=_sub(spec, "attn"))
     cache = {"k": k, "v": v}
     if cfg.family == "hybrid":
         ssm_out, ssm_cache = ssm_lib.apply_ssm(p.ssm, cfg, h)
@@ -110,22 +158,40 @@ def _mixer_forward(p, cfg: ModelConfig, x, positions, backend: str = "ref",
     return attn_out, cache
 
 
-def _feed_forward(p, cfg: ModelConfig, h):
+def _feed_forward(p, cfg: ModelConfig, h, spec=None):
     """The MLP, or the moe family's MoE: (out, router aux loss or None)."""
     if cfg.family == "moe":
-        return moe_lib.apply_moe(p.moe, cfg, h)
-    return apply_mlp(p.mlp, cfg, h), None
+        return moe_lib.apply_moe(p.moe, cfg, h, spec=_sub(spec, "moe"))
+    return apply_mlp(p.mlp, cfg, h, _sub(spec, "mlp")), None
+
+
+def gather_layer(p, spec):
+    """The layer's params with every leaf FSDP split over the batch axes
+    all-gathered over them (``spec``: the layer's specs; None: the params
+    as they are)."""
+    if spec is None:
+        return p
+
+    def walk(node, sp):
+        if isinstance(node, dict):
+            return ParamDict(**{k: walk(v, sp[k]) for k, v in node.items()})
+        return dist.gather_block(node, sp, dist.BATCH)
+    return walk(p, spec)
 
 
 def _block_forward(p, cfg: ModelConfig, x, positions, backend: str = "ref",
-                   self_rows: bool = False):
+                   self_rows: bool = False, spec=None):
     """Full block. Returns (x, aux, cache): aux the MoE router's
-    auxiliary loss, None for the other families."""
-    mix, cache = _mixer_forward(p, cfg, x, positions, backend, self_rows)
+    auxiliary loss, None for the other families. ``spec``: the layer's
+    specs on a grid (``gather_layer``), by which its layers read what they
+    hold."""
+    p = gather_layer(p, spec)
+    mix, cache = _mixer_forward(p, cfg, x, positions, backend, self_rows,
+                                spec)
     x = x + mix
     if cfg.family == "ssm":
         return x, None, cache
-    ff, aux = _feed_forward(p, cfg, apply_norm(p.ln2, x, cfg))
+    ff, aux = _feed_forward(p, cfg, apply_norm(p.ln2, x, cfg), spec)
     return x + ff, aux, cache
 
 
@@ -144,24 +210,25 @@ def checkpointed(fn, *args):
                       preserve_rng_state=False)
 
 
-def _block_remat(p, cfg: ModelConfig, x, positions, backend, self_rows):
+def _block_remat(p, cfg: ModelConfig, x, positions, backend, self_rows,
+                 spec=None):
     """``_block_forward`` checkpointed: (x, aux, None)."""
     if cfg.family == "moe":
         def body(xc):
             xo, a, _ = _block_forward(p, cfg, xc, positions, backend,
-                                      self_rows)
+                                      self_rows, spec)
             return xo, a
         x, a = checkpointed(body, x)
         return x, a, None
     return checkpointed(
         lambda xc: _block_forward(p, cfg, xc, positions, backend,
-                                  self_rows)[0], x), None, None
+                                  self_rows, spec)[0], x), None, None
 
 
 def apply_stack(blocks, cfg: ModelConfig, x, positions, *,
                 want_cache: bool = False, cache_window: Optional[int] = None,
                 backend: str = "ref", self_rows: bool = False,
-                remat: str = "none"):
+                remat: str = "none", specs=None):
     """Run the layer stack. Returns (x, aux (the MoE router losses summed
     over the layers; 0 for the other families), caches or None).
 
@@ -169,14 +236,16 @@ def apply_stack(blocks, cfg: ModelConfig, x, positions, *,
     slot-compressed to ``cache_window`` rotating slots when given.
     ``self_rows``: ``positions`` is arange(S), which the ``kernel``
     backend's attention needs (``layers.multihead_attention``).
-    ``remat``: ``"full"`` checkpoints each layer (``remat_wanted``)."""
+    ``remat``: ``"full"`` checkpoints each layer (``remat_wanted``).
+    ``specs``: the layers' specs on a grid (``gather_layer``)."""
     require_ported(cfg)
     layers = []
     aux = torch.zeros((), device=x.device)
     block = (_block_remat if remat_wanted(remat, want_cache)
              else _block_forward)
-    for p in blocks:
-        x, a, cache = block(p, cfg, x, positions, backend, self_rows)
+    for i, p in enumerate(blocks):
+        x, a, cache = block(p, cfg, x, positions, backend, self_rows,
+                            None if specs is None else specs[i])
         if a is not None:
             aux = aux + a
         if want_cache:
@@ -238,14 +307,15 @@ def _ssm_decode(p, cfg: ModelConfig, h, layer_cache):
 
 
 def _block_decode(p, cfg: ModelConfig, x, layer_cache, pos, pos_slots, slot,
-                  backend: str = "ref"):
+                  backend: str = "ref", spec=None):
     """x: [B,1,D]. Writes the token's K/V into ``layer_cache`` at ``slot``,
     and the new ssm and conv states, in place. Returns (x, layer_cache)."""
+    p = gather_layer(p, spec)
     h = apply_norm(p.ln1, x, cfg)
     if cfg.family == "ssm":
         return x + _ssm_decode(p, cfg, h, layer_cache), layer_cache
     positions = pos[None]
-    k_new, v_new = project_kv(p.attn, cfg, h, positions)
+    k_new, v_new = project_kv(p.attn, cfg, h, positions, _sub(spec, "attn"))
     idx = slot.reshape(1).long()
     kc = layer_cache["k"].index_copy_(1, idx, k_new)
     vc = layer_cache["v"].index_copy_(1, idx, v_new)
@@ -253,16 +323,17 @@ def _block_decode(p, cfg: ModelConfig, x, layer_cache, pos, pos_slots, slot,
     attn_out, _ = apply_attention(
         p.attn, cfg, h, positions=positions, kv=(kc, vc),
         kv_positions=new_slots, causal=True, window=cfg.sliding_window,
-        backend=backend)
+        backend=backend, spec=_sub(spec, "attn"))
     if cfg.family == "hybrid":
         attn_out = _fuse(p, attn_out, _ssm_decode(p, cfg, h, layer_cache),
                          x.dtype)
     x = x + attn_out
-    return x + _feed_forward(p, cfg, apply_norm(p.ln2, x, cfg))[0], layer_cache
+    return (x + _feed_forward(p, cfg, apply_norm(p.ln2, x, cfg), spec)[0],
+            layer_cache)
 
 
 def decode_stack(blocks, cfg: ModelConfig, x, caches, slots_state, *,
-                 window: int, backend: str = "ref"):
+                 window: int, backend: str = "ref", specs=None):
     """One decode step through all layers.
 
     caches: the stacked cache leaves (updated in place); slots_state:
@@ -273,7 +344,8 @@ def decode_stack(blocks, cfg: ModelConfig, x, caches, slots_state, *,
     slot = pos % window
     for i, p in enumerate(blocks):
         x, _ = _block_decode(p, cfg, x, {k: c[i] for k, c in caches.items()},
-                             pos, pos_slots, slot, backend)
+                             pos, pos_slots, slot, backend,
+                             None if specs is None else specs[i])
     new_state = {"pos": pos + 1,
                  "pos_slots": pos_slots.index_copy(
                      0, slot.reshape(1).long(), pos.reshape(1))}
@@ -281,12 +353,13 @@ def decode_stack(blocks, cfg: ModelConfig, x, caches, slots_state, *,
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, window: int, dtype, *,
-                      device):
-    """Fresh (empty) stacked cache."""
+                      device, n_kv: Optional[int] = None):
+    """Fresh (empty) stacked cache (``n_kv``: the KV heads a member holds;
+    all of them by default)."""
     require_ported(cfg)
     c = {}
     if cfg.family != "ssm":
-        shape = (cfg.n_layers, batch, window, cfg.n_kv_heads,
+        shape = (cfg.n_layers, batch, window, n_kv or cfg.n_kv_heads,
                  cfg.resolved_head_dim)
         c["k"] = torch.zeros(shape, dtype=dtype, device=device)
         c["v"] = torch.zeros(shape, dtype=dtype, device=device)

@@ -27,8 +27,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.decoder import checkpointed, remat_wanted
 from repro_torch.models.layers import (ParamDict, _embed_init,
                                        apply_attention, apply_mlp,
-                                       apply_norm, init_attention, init_mlp,
-                                       init_norm, project_kv,
+                                       apply_norm, attention_axes,
+                                       init_attention, init_mlp, init_norm,
+                                       mlp_axes, norm_axes, project_kv,
                                        sinusoid_positions)
 
 DEC_POS = 4096    # learned decoder positions, tiled beyond
@@ -48,6 +49,40 @@ def init_dec_block(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:
                      ln2=init_norm(cfg, device=dev),
                      cross_attn=init_attention(gen, cfg),
                      ln3=init_norm(cfg, device=dev), mlp=init_mlp(gen, cfg))
+
+
+def enc_block_axes(cfg: ModelConfig):
+    return {"ln1": norm_axes(cfg), "attn": attention_axes(cfg),
+            "ln2": norm_axes(cfg), "mlp": mlp_axes(cfg)}
+
+
+def dec_block_axes(cfg: ModelConfig):
+    return {"ln1": norm_axes(cfg), "self_attn": attention_axes(cfg),
+            "ln2": norm_axes(cfg), "cross_attn": attention_axes(cfg),
+            "ln3": norm_axes(cfg), "mlp": mlp_axes(cfg)}
+
+
+def _stack_axes(ax):
+    """Logical axes of a layer list stacked on [L] (``lm.params_tree``)."""
+    if isinstance(ax, dict):
+        return {k: _stack_axes(v) for k, v in ax.items()}
+    return ("layers",) + ax
+
+
+def encdec_axes(cfg: ModelConfig):
+    """Logical axes of ``init_encdec``'s params, layer lists stacked."""
+    return {
+        "enc_blocks": _stack_axes(enc_block_axes(cfg)),
+        "enc_ln": norm_axes(cfg),
+        "dec_blocks": _stack_axes(dec_block_axes(cfg)),
+        "dec_ln": norm_axes(cfg),
+        "dec_pos": (None, "embed"),
+    }
+
+
+def encdec_cache_axes(cfg: ModelConfig):
+    ax = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    return {"k": ax, "v": ax, "cross_k": ax, "cross_v": ax}
 
 
 def init_encdec(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:

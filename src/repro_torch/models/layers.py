@@ -17,6 +17,20 @@ Conventions, as in the JAX package:
 * Sequence ops take absolute positions, so the same code serves prefill
   and rotating-cache decode.
 
+On a grid (``repro_torch.dist``) a member holds its slices of the
+tensor-parallel params (``train.gspmd.param_pspecs``): the attention's
+``heads`` / ``kv_heads`` of ``wq`` / ``wk`` / ``wv`` (column-parallel) and
+of ``wo`` (row-parallel, its output summed over ``model``), the MLP's
+hidden columns (``wo``'s output summed, then ``bo`` added once) and the
+embedding table's vocab rows (a masked local lookup, then summed). A
+layer reads what it holds from its ``spec`` (the member's specs of its
+params, ``train.gspmd.member_specs``; None off a grid), so a dim the
+model axis does not divide stays whole (SmolLM's 9 heads on 2 members)
+and the same code runs the replicated ring. Values the model
+axis holds alike carry their whole cotangent on every member:
+``dist.pvary`` opens each column-parallel product and
+``dist.psum_invariant`` closes each row-parallel one.
+
 ``multihead_attention`` takes the path's ``backend``: ``"ref"`` runs the
 JAX package's two branches as it chooses them; ``"kernel"`` sends
 self-attention over a sequence's rows (the caller says so with
@@ -35,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 
@@ -112,6 +127,15 @@ def init_norm(cfg: ModelConfig, dim: Optional[int] = None, *, device):
     if cfg.norm == "layernorm":
         p["bias"] = torch.zeros(dim, device=device)
     return ParamDict(**p)
+
+
+def norm_axes(cfg: ModelConfig):
+    """Logical axes of ``init_norm``'s params (the JAX package's, leaf for
+    leaf; ``train.gspmd.param_pspecs`` maps them onto the grid)."""
+    a = {"scale": ("embed",)}
+    if cfg.norm == "layernorm":
+        a["bias"] = ("embed",)
+    return a
 
 
 def apply_norm(p, x, cfg: ModelConfig):
@@ -200,6 +224,19 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
         p["q_norm"] = torch.ones(d.head_dim, device=gen.device)
         p["k_norm"] = torch.ones(d.head_dim, device=gen.device)
     return ParamDict(**p)
+
+
+def attention_axes(cfg: ModelConfig):
+    a = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if cfg.qk_norm:
+        a["q_norm"] = ("head_dim",)
+        a["k_norm"] = ("head_dim",)
+    return a
 
 
 def _qk_norm(x, scale, eps):
@@ -335,21 +372,51 @@ def multihead_attention(q, k, v, *, q_positions, k_positions, causal=True,
     return out.reshape(b, hq, sq, dh).to(q.dtype).transpose(1, 2)
 
 
-def project_kv(p, cfg: ModelConfig, x, positions):
-    """Project (and qk-norm + rope) K/V of x for self-attention/caching."""
+def model_split(spec, leaf: str) -> bool:
+    """Whether the param ``leaf`` of a layer's ``spec`` (None: off a grid)
+    is split over the model axis."""
+    return spec is not None and "model" in dist.spec_axes(spec[leaf])
+
+
+def project_kv(p, cfg: ModelConfig, x, positions, spec=None):
+    """Project (and qk-norm + rope) K/V of x for self-attention/caching:
+    the member's KV heads where ``spec`` splits ``wk`` / ``wv`` over the
+    model axis, all of them where they are whole."""
     dt = x.dtype
+    split = model_split(spec, "wk")
+    if split:
+        x = dist.pvary(x)
     k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(dt))
     v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(dt))
     if cfg.qk_norm:
-        k = _qk_norm(k, p.k_norm, cfg.norm_eps)
+        k = _qk_norm(k, dist.pvary(p.k_norm) if split else p.k_norm,
+                     cfg.norm_eps)
     if cfg.rope_theta > 0:
         k = rope(k, positions, cfg.rope_theta)
     return k, v
 
 
+def _kv_for_heads(k, v, cfg: ModelConfig, hq_loc: int):
+    """The KV heads this member's ``hq_loc`` query heads read, where the
+    query heads are split over the model axis and the KV heads whole (MQA
+    and GQA with fewer KV heads than members): a contiguous run of them,
+    each still read by a whole group of the member's query heads. Their
+    cotangents sum over the model axis (``pvary``), since every member's
+    copy holds the whole K and V."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    lo = dist.rank() * hq_loc // g
+    hi = ((dist.rank() + 1) * hq_loc - 1) // g + 1
+    if hq_loc % (hi - lo):
+        raise NotImplementedError(
+            f"{hq_loc} query heads a member over groups of {g} read KV "
+            f"heads {lo}..{hi - 1} unevenly")
+    return dist.pvary(k)[:, :, lo:hi], dist.pvary(v)[:, :, lo:hi]
+
+
 def apply_attention(p, cfg: ModelConfig, x, *, positions, kv=None,
                     kv_positions=None, causal=True, window=None,
-                    backend: str = "ref", self_rows: bool = False):
+                    backend: str = "ref", self_rows: bool = False,
+                    spec=None):
     """Full attention sublayer. ``kv`` overrides the K/V source:
     - None: self-attention over x;
     - (k_cache, v_cache): a pre-projected (and pre-roped) cache [B,T,Hk,Dh]
@@ -365,7 +432,9 @@ def apply_attention(p, cfg: ModelConfig, x, *, positions, kv=None,
     over a cache take the ``ref`` branches on either backend."""
     dt = x.dtype
     cross = isinstance(kv, dict)
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
+    split = model_split(spec, "wq")
+    q = torch.einsum("bsd,dhk->bshk", dist.pvary(x) if split else x,
+                     p.wq.to(dt))
     if cross:
         src = kv["x"]
         k = torch.einsum("bsd,dhk->bshk", src, p.wk.to(dt))
@@ -376,22 +445,28 @@ def apply_attention(p, cfg: ModelConfig, x, *, positions, kv=None,
             raise ValueError("the kernel backend runs causal self-attention "
                              "over a sequence's rows only: pass self_rows="
                              "True with positions arange(S)")
-        k, v = project_kv(p, cfg, x, positions)
+        k, v = project_kv(p, cfg, x, positions, spec)
         k_pos = positions
     else:
         k, v = kv
         k_pos = kv_positions
     if cfg.qk_norm:
-        q = _qk_norm(q, p.q_norm, cfg.norm_eps)
+        q = _qk_norm(q, dist.pvary(p.q_norm) if split else p.q_norm,
+                     cfg.norm_eps)
         if cross:
             k = _qk_norm(k, p.k_norm, cfg.norm_eps)
     if cfg.rope_theta > 0 and not cross:
         q = rope(q, positions, cfg.rope_theta)
-    out = multihead_attention(q, k, v, q_positions=positions,
+    ks, vs = k, v
+    if split and not model_split(spec, "wk"):
+        ks, vs = _kv_for_heads(k, v, cfg, q.shape[2])
+    out = multihead_attention(q, ks, vs, q_positions=positions,
                               k_positions=k_pos, causal=causal, window=window,
                               backend=backend,
                               self_rows=self_rows and kv is None)
     out = torch.einsum("bshk,hkd->bsd", out, p.wo.to(dt))
+    if split:
+        out = dist.psum_invariant(out)
     if kv is None:
         return out, (k, v)
     return out, None
@@ -417,17 +492,32 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
         bo=torch.zeros(cfg.d_model, device=gen.device))
 
 
-def apply_mlp(p, cfg: ModelConfig, x):
-    """jax.nn.gelu defaults to the tanh approximation; so does this."""
+def mlp_axes(cfg: ModelConfig):
+    if cfg.activation in ("swiglu", "geglu"):
+        return {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"),
+                "wo": ("mlp", "embed")}
+    return {"wi": ("embed", "mlp"), "bi": ("mlp",),
+            "wo": ("mlp", "embed"), "bo": ("embed",)}
+
+
+def apply_mlp(p, cfg: ModelConfig, x, spec=None):
+    """jax.nn.gelu defaults to the tanh approximation; so does this. Where
+    ``spec`` splits the hidden dim over the model axis, the member's
+    columns, its product summed over the axis."""
     dt = x.dtype
+    split = model_split(spec, "wo")
+    if split:
+        x = dist.pvary(x)
     if cfg.activation in ("swiglu", "geglu"):
         g = x @ p.wi_gate.to(dt)
         u = x @ p.wi_up.to(dt)
         act = (F.silu(g) if cfg.activation == "swiglu"
                else F.gelu(g, approximate="tanh"))
-        return (act * u) @ p.wo.to(dt)
+        out = (act * u) @ p.wo.to(dt)
+        return dist.psum_invariant(out) if split else out
     h = F.gelu(x @ p.wi.to(dt) + p.bi.to(dt), approximate="tanh")
-    return h @ p.wo.to(dt) + p.bo.to(dt)
+    out = h @ p.wo.to(dt)
+    return (dist.psum_invariant(out) if split else out) + p.bo.to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +529,24 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig):
     return ParamDict(table=_embed_init(gen, (cfg.vocab_size, cfg.d_model)))
 
 
-def apply_embedding(p, cfg: ModelConfig, tokens):
+def embedding_axes(cfg: ModelConfig):
+    return {"table": ("vocab", "embed")}
+
+
+def apply_embedding(p, cfg: ModelConfig, tokens, spec=None):
     """The table's rows in the compute dtype (gathered, then cast: the same
-    values as the JAX package's cast of the whole table, then gather)."""
-    return p.table[tokens.long()].to(getattr(torch, cfg.dtype))
+    values as the JAX package's cast of the whole table, then gather).
+    Where ``spec`` splits the table's rows over the model axis, each
+    member looks up the tokens it holds (zeros for the rest) and the rows
+    are summed over the axis."""
+    dt = getattr(torch, cfg.dtype)
+    table = p.table
+    if not model_split(spec, "table"):
+        return table[tokens.long()].to(dt)
+    v_loc = table.shape[0]
+    rel = tokens.long() - dist.rank() * v_loc
+    own = (rel >= 0) & (rel < v_loc)
+    rows = table[rel.clamp(0, v_loc - 1)].to(dt)
+    return dist.psum_invariant(torch.where(own[..., None], rows,
+                                           torch.zeros((), dtype=dt,
+                                                       device=rows.device)))

@@ -19,6 +19,15 @@ and its ``backbone`` takes ``{"frames": [B, enc_seq, D], "tokens"}``. The
 feats family raises: the paper system's ``feats`` trunk lives in
 ``train.hybrid``.
 
+On a grid (``repro_torch.dist``) ``init_model(gen, cfg, specs)`` draws the
+whole tree from the generator, as on the ring, and keeps the member's
+slice of each leaf (``specs``: ``train.gspmd.member_specs``), a layer at a
+time, so a grid's model is the ring's model, cut; ``backbone``,
+``decode`` and ``head_weight`` take the same specs and gather what FSDP
+split over the batch axes (the head's W: the member's [V / n_model, D]
+block). The ssm, hybrid and encdec trunks stay replicated: a grid refuses
+them (``require_ported(cfg, grid=True)``).
+
 ``params_tree`` lays the params out as the JAX package does, each leaf of
 a layer list (``blocks``; the encdec family's ``enc_blocks`` and
 ``dec_blocks``) stacked on a leading [L] axis (the checkpoint's and
@@ -32,46 +41,114 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import decoder as dec_lib
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import resnet as resnet_lib
 from repro_torch.models.layers import (MetaGenerator, ParamDict, _dense_init,
                                        apply_embedding, apply_norm,
-                                       init_embedding, init_norm)
+                                       embedding_axes, init_embedding,
+                                       init_norm, norm_axes)
 
 
 # the layer lists, stacked on [L] in the JAX package's layout
 STACKED = ("blocks", "enc_blocks", "dec_blocks")
 
 
-def require_ported(cfg: ModelConfig) -> None:
+# the families whose trunks a grid splits (tensor-, expert- and
+# FSDP-parallel); the rest stay replicated, ROADMAP.md A item 4
+GRID_FAMILIES = ("dense", "vlm", "moe")
+
+
+def require_ported(cfg: ModelConfig, grid: bool = False) -> None:
     """Raise for a family this module cannot build: it builds the cnn
     trunk, the encoder-decoder and the decoder stacks ``models.decoder``
-    has."""
+    has; on a grid (``grid=True``) only the families of
+    ``GRID_FAMILIES``."""
     if cfg.family not in ("cnn", "encdec"):
         dec_lib.require_ported(cfg)
+    if grid and cfg.family not in GRID_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family!r} family's trunk is not split over a (data, "
+            f"model) grid yet: tensor-parallel ssm, hybrid and encdec "
+            f"trunks are ROADMAP.md A item 4 (grid families: "
+            f"{list(GRID_FAMILIES)})")
 
 
-def init_model(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:
+def cut(tree, specs):
+    """This member's slice of every leaf of ``tree`` by ``specs`` (a tree
+    of the same layout, ``dist.member_block``), each a copy of its own;
+    ``specs=None``: the tree as it is."""
+    if specs is None:
+        return tree
+    if isinstance(tree, list):
+        return [cut(t, s) for t, s in zip(tree, specs)]
+    if isinstance(tree, dict):
+        out = {k: cut(v, specs[k]) for k, v in tree.items()}
+        return out if type(tree) is dict else type(tree)(**out)
+    return dist.member_block(tree, specs).clone()
+
+
+def gather_params(params, specs):
+    """The whole params from every member's slices by ``specs`` (a
+    collective over the grid; ``cut``'s inverse)."""
+    if isinstance(params, list):
+        return [gather_params(t, s) for t, s in zip(params, specs)]
+    if isinstance(params, dict):
+        out = {k: gather_params(v, specs[k]) for k, v in params.items()}
+        return out if type(params) is dict else type(params)(**out)
+    return dist.gather_block(params.detach(), specs)
+
+
+def init_model(gen: torch.Generator, cfg: ModelConfig,
+               specs=None) -> ParamDict:
     """Random params on ``gen``'s device: embedding, blocks, ``ln_f`` (the
     encdec family: embedding and ``encdec``) and, for untied embeddings,
     ``head`` [V, D]. The cnn family: a dict of the ``trunk`` and the
-    ``head`` [V, D]."""
-    require_ported(cfg)
+    ``head`` [V, D]. ``specs`` (``train.gspmd.member_specs``): the
+    member's slices of the same draws, cut a layer at a time."""
+    require_ported(cfg, grid=specs is not None)
+    sp = specs or {}
     if cfg.family == "cnn":
         return {"head": _dense_init(gen, (cfg.vocab_size, cfg.d_model),
                                     in_axis=1),
                 "trunk": resnet_lib.init_resnet(gen, cfg)}
-    p = {"embed": init_embedding(gen, cfg)}
+    p = {"embed": cut(init_embedding(gen, cfg), sp.get("embed"))}
     if cfg.family == "encdec":
         p["encdec"] = encdec_lib.init_encdec(gen, cfg)
     else:
-        p["blocks"] = dec_lib.init_blocks(gen, cfg)
-        p["ln_f"] = init_norm(cfg, device=gen.device)
+        p["blocks"] = [cut(dec_lib.init_block(gen, cfg),
+                           None if specs is None else specs["blocks"][i])
+                       for i in range(cfg.n_layers)]
+        p["ln_f"] = cut(init_norm(cfg, device=gen.device), sp.get("ln_f"))
     if not cfg.tie_embeddings:
-        p["head"] = _dense_init(gen, (cfg.vocab_size, cfg.d_model), in_axis=1)
+        p["head"] = cut(_dense_init(gen, (cfg.vocab_size, cfg.d_model),
+                                    in_axis=1), sp.get("head"))
     return ParamDict(**p)
+
+
+def model_axes(cfg: ModelConfig):
+    """Logical axes of every param, in ``params_tree``'s layout (the layer
+    lists stacked, a leading ``"layers"``): the JAX package's
+    ``model_axes``, leaf for leaf."""
+    if cfg.family == "cnn":
+        return {"trunk": None, "head": ("vocab", "embed")}
+    a = {"embed": embedding_axes(cfg)}
+    if cfg.family == "encdec":
+        a["encdec"] = encdec_lib.encdec_axes(cfg)
+    else:
+        a["blocks"] = encdec_lib._stack_axes(dec_lib.block_axes(cfg))
+        a["ln_f"] = norm_axes(cfg)
+    if not cfg.tie_embeddings:
+        a["head"] = ("vocab", "embed")
+    return a
+
+
+def cache_logical_axes(cfg: ModelConfig):
+    if cfg.family == "encdec":
+        return encdec_lib.encdec_cache_axes(cfg)
+    return dec_lib.cache_axes(cfg)
 
 
 def abstract_model(cfg: ModelConfig) -> ParamDict:
@@ -80,18 +157,26 @@ def abstract_model(cfg: ModelConfig) -> ParamDict:
     return init_model(MetaGenerator(), cfg)
 
 
-def head_weight(params, cfg: ModelConfig):
-    """The classification head W [V, D]."""
+def head_weight(params, cfg: ModelConfig, specs=None):
+    """The classification head W [V, D]; on a grid (``specs``) the
+    member's [V / n_model, D] block, gathered over the batch axes where
+    FSDP split it."""
     if cfg.family == "cnn":
         return params["head"]
     if not cfg.tie_embeddings:
-        return params.head
-    return params.embed.table
+        w, spec = params.head, specs and specs["head"]
+    else:
+        w, spec = params.embed.table, specs and specs["embed"]["table"]
+    return w if spec is None else dist.gather_block(w, spec, dist.BATCH)
+
+
+def _gathered(p, spec):
+    return p if spec is None else dec_lib.gather_layer(p, spec)
 
 
 def backbone(params, cfg: ModelConfig, inputs, *, want_cache: bool = False,
              cache_window: Optional[int] = None, backend: str = "ref",
-             remat: str = "none"):
+             remat: str = "none", specs=None):
     """-> (hidden [B,S,D], aux scalar (the MoE router losses), caches or
     None). ``backend`` selects the attention's kernels
     (``layers.multihead_attention``). The encdec family's caches are its
@@ -99,16 +184,19 @@ def backbone(params, cfg: ModelConfig, inputs, *, want_cache: bool = False,
     the encoder's frames (``cache_window`` does not apply). ``remat``
     (``ParallelConfig.remat``): ``"full"`` checkpoints each layer of the
     decoder stacks and the encoder-decoder under grad (the cnn trunk
-    takes none, as in the JAX package)."""
-    require_ported(cfg)
+    takes none, as in the JAX package). ``specs``: the member's param
+    specs on a grid (module docstring)."""
+    require_ported(cfg, grid=specs is not None)
     if cfg.family == "cnn":
         feat = resnet_lib.apply_resnet(params["trunk"], cfg,
                                        inputs["images"].to(
                                            getattr(torch, cfg.dtype)))
         return feat, torch.zeros((), device=feat.device), None
+    sp = specs or {}
     tokens = inputs["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = apply_embedding(params.embed, cfg, tokens)
+    x = apply_embedding(_gathered(params.embed, sp.get("embed")), cfg,
+                        tokens, sp.get("embed"))
     if cfg.family == "encdec":
         enc_out = encdec_lib.encode(
             params.encdec, cfg,
@@ -122,23 +210,27 @@ def backbone(params, cfg: ModelConfig, inputs, *, want_cache: bool = False,
     x, aux, caches = dec_lib.apply_stack(
         params.blocks, cfg, x, positions, want_cache=want_cache,
         cache_window=win if want_cache else None, backend=backend,
-        self_rows=True, remat=remat)
-    return apply_norm(params.ln_f, x, cfg), aux, caches
+        self_rows=True, remat=remat, specs=sp.get("blocks"))
+    return (apply_norm(_gathered(params.ln_f, sp.get("ln_f")), x, cfg), aux,
+            caches)
 
 
 def decode(params, cfg: ModelConfig, inputs, caches, slots_state, *,
-           window: int, backend: str = "ref"):
+           window: int, backend: str = "ref", specs=None):
     """One-token decode. inputs: {"token": [B,1]}. The caches are updated
     in place. -> (hidden [B,1,D], caches, new slots_state)."""
-    x = apply_embedding(params.embed, cfg, inputs["token"])
+    sp = specs or {}
+    x = apply_embedding(_gathered(params.embed, sp.get("embed")), cfg,
+                        inputs["token"], sp.get("embed"))
     if cfg.family == "encdec":
         return encdec_lib.decode_step(params.encdec, cfg, x, caches,
                                       slots_state, window=window,
                                       backend=backend)
     x, caches, slots_state = dec_lib.decode_stack(
         params.blocks, cfg, x, caches, slots_state, window=window,
-        backend=backend)
-    return apply_norm(params.ln_f, x, cfg), caches, slots_state
+        backend=backend, specs=sp.get("blocks"))
+    return (apply_norm(_gathered(params.ln_f, sp.get("ln_f")), x, cfg),
+            caches, slots_state)
 
 
 def decode_window(cfg: ModelConfig, seq_len: int) -> int:
@@ -153,13 +245,17 @@ def decode_window(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *,
-                      device):
-    """Fresh caches + slot bookkeeping for decoding at seq_len."""
+                      device, n_kv: Optional[int] = None):
+    """Fresh caches + slot bookkeeping for decoding at seq_len (``n_kv``:
+    the KV heads a grid member holds)."""
     window = decode_window(cfg, seq_len)
-    init = (encdec_lib.init_encdec_decode_cache if cfg.family == "encdec"
-            else dec_lib.init_decode_cache)
-    caches = init(cfg, batch, window, getattr(torch, cfg.dtype),
-                  device=device)
+    if cfg.family == "encdec":
+        caches = encdec_lib.init_encdec_decode_cache(
+            cfg, batch, window, getattr(torch, cfg.dtype), device=device)
+    else:
+        caches = dec_lib.init_decode_cache(cfg, batch, window,
+                                           getattr(torch, cfg.dtype),
+                                           device=device, n_kv=n_kv)
     slots = dec_lib.init_cache_slots(cfg, window, device=device)
     return caches, slots, window
 

@@ -21,6 +21,16 @@ are bit-equal (``index_add_`` on CUDA sums in no fixed order).
   appended to the experts' output), weighted by its router probability in
   fp32; the inverse permutation takes the entries back to token order and
   each token sums its k in expert-rank order.
+
+On a grid the experts are split over the model axis (``moe_axes``,
+``train.gspmd.param_pspecs``): a member holds E / n_model of them, as
+its ``spec`` says. The router runs on the replicated tokens, as the dispatch's
+sort and capacity do, so the dropped pairs are the JAX dispatch's (each
+batch row's); a member fills and runs only its experts' slots, combines
+their contributions in fp32 and the sum goes over the model axis (only
+the combine's order of summation differs from one member's). The Switch
+loss's ``fe`` and ``me`` are means over the GLOBAL batch, as in JAX: over
+the batch axes on a grid.
 """
 from __future__ import annotations
 
@@ -29,9 +39,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import topk_stable
-from repro_torch.models.layers import ParamDict, _dense_init
+from repro_torch.models.layers import ParamDict, _dense_init, model_split
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:
@@ -54,6 +65,21 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:
     return ParamDict(**p)
 
 
+def moe_axes(cfg: ModelConfig):
+    """Logical axes of ``init_moe``'s params: the experts over
+    ``"experts"``, the shared experts' hidden dim over ``"mlp"``."""
+    a = {
+        "router": ("embed", None),
+        "wi_gate": ("experts", "embed", "expert_mlp"),
+        "wi_up": ("experts", "embed", "expert_mlp"),
+        "wo": ("experts", "expert_mlp", "embed"),
+    }
+    if cfg.moe.n_shared_experts > 0:
+        a["shared"] = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"),
+                       "wo": ("mlp", "embed")}
+    return a
+
+
 def capacity_for(n_tokens: int, cfg: ModelConfig,
                  capacity_factor: Optional[float] = None) -> int:
     m = cfg.moe
@@ -62,12 +88,15 @@ def capacity_for(n_tokens: int, cfg: ModelConfig,
     return max(8, -(-c // 8) * 8)  # round up to 8
 
 
-def _dispatch_group(xg, top_i, cap: int, n_experts: int, k: int):
+def _dispatch_group(xg, top_i, cap: int, n_experts: int, k: int,
+                    e0: int = 0, e_loc: Optional[int] = None):
     """Sort-based dispatch of groups. xg [G, t, d], top_i [G, t, k] ->
-    (buf [G, E, cap, d], meta) with meta = (dest [G, t*k]: each sorted
-    entry's slot e * cap + rank, E * cap where it is dropped; keep; order
-    [G, t*k]: the stable sort's permutation)."""
+    (buf [G, e_loc, cap, d] for experts [e0, e0 + e_loc) (all E by
+    default), meta) with meta = (dest [G, t*k]: each sorted entry's slot
+    (e - e0) * cap + rank, e_loc * cap where it is dropped or another
+    member's; keep; order [G, t*k]: the stable sort's permutation)."""
     g, t, d = xg.shape
+    e_loc = n_experts if e_loc is None else e_loc
     flat_e = top_i.reshape(g, t * k).long()
     order = torch.argsort(flat_e, dim=1, stable=True)
     sorted_e = flat_e.gather(1, order)
@@ -77,7 +106,9 @@ def _dispatch_group(xg, top_i, cap: int, n_experts: int, k: int):
     rank = (torch.arange(t * k, device=xg.device)[None]
             - starts.gather(1, sorted_e))
     keep = rank < cap
-    dest = torch.where(keep, sorted_e * cap + rank, n_experts * cap)
+    mine = keep & (sorted_e >= e0) & (sorted_e < e0 + e_loc)
+    dest = torch.where(mine, (sorted_e - e0) * cap + rank, e_loc * cap)
+    starts, ends = starts[:, e0:e0 + e_loc], ends[:, e0:e0 + e_loc]
     # each token's row k times (an expand: its backward sums the k), then
     # in the sorted order (a permutation: its backward adds each row into
     # one place), and a zero row last, which the empty slots read
@@ -87,7 +118,7 @@ def _dispatch_group(xg, top_i, cap: int, n_experts: int, k: int):
     slot = starts[..., None] + torch.arange(cap, device=xg.device)  # [G,E,cap]
     pos = torch.where(slot < ends[..., None], slot, t * k)
     buf = xs.gather(1, pos.reshape(g, -1, 1).expand(-1, -1, d))
-    return buf.reshape(g, n_experts, cap, d), (dest, keep, order)
+    return buf.reshape(g, e_loc, cap, d), (dest, keep, order)
 
 
 def _combine_group(eo, meta, top_p, t: int, k: int):
@@ -113,14 +144,21 @@ def _gated(x, wi_gate, wi_up, wo, cfg: ModelConfig, eq_in: str, eq_out: str):
     return torch.einsum(eq_out, act * u, wo)
 
 
-def _shared(p, cfg: ModelConfig, x):
+def _shared(p, cfg: ModelConfig, x, spec=None):
+    """The shared experts: a gated MLP of hidden dim d_ff * n_shared, its
+    columns split over the model axis where ``spec`` (the MoE's) splits
+    them."""
     dt = x.dtype
     sp = p.shared
+    split = spec is not None and model_split(spec["shared"], "wo")
+    if split:
+        x = dist.pvary(x)
     g = x @ sp.wi_gate.to(dt)
     u = x @ sp.wi_up.to(dt)
     act = (F.silu(g) if cfg.activation == "swiglu"
            else F.gelu(g, approximate="tanh"))
-    return (act * u) @ sp.wo.to(dt)
+    out = (act * u) @ sp.wo.to(dt)
+    return dist.psum_invariant(out) if split else out
 
 
 def routing(p, cfg: ModelConfig, x):
@@ -134,39 +172,49 @@ def routing(p, cfg: ModelConfig, x):
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = topk_stable(probs, m.top_k)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
-    me = probs.mean(dim=(0, 1))
+    # the means over the global batch: over the batch axes on a grid
+    me = dist.pmean(probs.mean(dim=(0, 1)), dist.BATCH)
     # integer counts by scatter-add (exact in any order; unlike bincount
     # it has a meta kernel, so the dry run can route shapes)
     idx = top_i.reshape(-1).long()
     counts = torch.zeros(m.n_experts, dtype=torch.long,
                          device=idx.device).scatter_add_(
         0, idx, torch.ones_like(idx)).float()
-    fe = counts / (b * s * m.top_k)
+    counts = dist.psum(counts, dist.BATCH).detach()
+    fe = counts / (b * s * m.top_k * dist.world_size(dist.BATCH))
     aux = m.n_experts * (fe * me).sum() * m.router_aux_coef
     return probs, top_p, top_i, aux
 
 
 def apply_moe(p, cfg: ModelConfig, x, *,
-              capacity_factor: Optional[float] = None):
+              capacity_factor: Optional[float] = None, spec=None):
     """x: [B, S, D] -> (out [B, S, D], aux loss scalar fp32).
 
     Each batch row is a dispatch group; a decode step (S == 1, B > 1) is
-    ONE group of B tokens, or every token would pay E x cap slots."""
+    ONE group of B tokens, or every token would pay E x cap slots.
+    ``spec``: the member's specs of ``p`` on a grid (None off one)."""
     m = cfg.moe
     b, s, d = x.shape
     if s == 1 and b > 1:
         out, aux = apply_moe(p, cfg, x.reshape(1, b, d),
-                             capacity_factor=capacity_factor)
+                             capacity_factor=capacity_factor, spec=spec)
         return out.reshape(b, s, d), aux
     k, dt = m.top_k, x.dtype
     _, top_p, top_i, aux = routing(p, cfg, x)
     cap = capacity_for(s, cfg, capacity_factor)
-    buf, meta = _dispatch_group(x, top_i, cap, m.n_experts, k)
+    e_loc = p.wi_gate.shape[0]
+    split = model_split(spec, "wi_gate")
+    e0 = dist.rank() * e_loc if split else 0
+    # on a grid the experts' branch is the member's: the tokens' and the
+    # router weights' cotangents sum over the model axis
+    xe, pe = (dist.pvary(x), dist.pvary(top_p)) if split else (x, top_p)
+    buf, meta = _dispatch_group(xe, top_i, cap, m.n_experts, k, e0, e_loc)
     eo = _gated(buf, p.wi_gate.to(dt), p.wi_up.to(dt), p.wo.to(dt), cfg,
                 "becd,edf->becf", "becf,efd->becd")
-    out = _combine_group(eo, meta, top_p, s, k).to(dt)
+    out = _combine_group(eo, meta, pe, s, k)
+    out = (dist.psum_invariant(out) if split else out).to(dt)
     if m.n_shared_experts > 0:
-        out = out + _shared(p, cfg, x)
+        out = out + _shared(p, cfg, x, spec)
     return out, aux
 
 

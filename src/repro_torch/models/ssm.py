@@ -194,6 +194,25 @@ def _conv_tail_from_prefill(p, cfg: ModelConfig, x):
     return xbc
 
 
+def ssm_axes(cfg: ModelConfig):
+    """Logical axes of ``init_ssm``'s params."""
+    return {
+        "in_proj": ("embed", "inner"),
+        "conv_w": (None, "inner"),
+        "conv_b": ("inner",),
+        "dt_bias": ("heads",),
+        "A_log": ("heads",),
+        "D": ("heads",),
+        "norm_scale": ("inner",),
+        "out_proj": ("inner", "embed"),
+    }
+
+
+def ssm_cache_axes(cfg: ModelConfig):
+    return {"ssm_state": ("batch", "heads", None, None),
+            "conv_state": ("batch", None, "inner")}
+
+
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, *, device) -> dict:
     s = cfg.ssm
     _, n_heads, d_xbc = ssm_dims(cfg)

@@ -20,7 +20,10 @@ package's, expression for expression, so the two agree to fp32 rounding.
 Inside the hybrid step each ring member updates its own row block of the
 head, and LARS takes that member's LOCAL ``||w||`` and ``||g||`` (the JAX
 update runs inside the shard_map body): the norms are never reduced over
-the ring.
+the ring. The zoo's update runs on the JAX package's global arrays: on a
+grid the step passes ``leaf_axes`` (each leaf's mesh axes, those its
+spec splits it over) and LARS sums a split leaf's squares over them, the
+norm of the whole leaf.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch import dist
 from repro_torch.configs.base import TrainConfig
 
 
@@ -110,23 +114,31 @@ def _rebuild(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
-def _tree_update(leaf_fn, grads, moments, params, lr):
-    """``leaf_fn(g, *moments, p, lr) -> (new moments, update)`` over the
-    trees: (new moment trees, the update tree)."""
-    outs = [leaf_fn(*args, lr) for args in _leaf_args(grads, moments, params)]
+def _axes_of(leaf_axes, n: int) -> list:
+    return [()] * n if leaf_axes is None else list(leaf_axes)
+
+
+def _tree_update(leaf_fn, grads, moments, params, lr, leaf_axes=None):
+    """``leaf_fn(g, *moments, p, lr, axes) -> (new moments, update)`` over
+    the trees: (new moment trees, the update tree)."""
+    args_all = list(_leaf_args(grads, moments, params))
+    outs = [leaf_fn(*args, lr, axes) for args, axes in
+            zip(args_all, _axes_of(leaf_axes, len(args_all)))]
     new = tuple(_rebuild(m, [o[0][i] for o in outs])
                 for i, m in enumerate(moments))
     return new, _rebuild(params, [o[1] for o in outs])
 
 
 @torch.no_grad()
-def _update_in_place(leaf_fn, grads, moments, params, lr) -> None:
+def _update_in_place(leaf_fn, grads, moments, params, lr,
+                     leaf_axes=None) -> None:
     """The same arithmetic as ``_tree_update`` + ``apply_updates``, one
     leaf at a time, written into the moments and the params: the only
     transients are one leaf's."""
-    for args in _leaf_args(grads, moments, params):
+    args_all = list(_leaf_args(grads, moments, params))
+    for args, axes in zip(args_all, _axes_of(leaf_axes, len(args_all))):
         ms, p = args[1:-1], args[-1]
-        new_ms, u = leaf_fn(*args, lr)
+        new_ms, u = leaf_fn(*args, lr, axes)
         for m, m_new in zip(ms, new_ms):
             m.copy_(m_new)
         p.copy_((p.float() + u).to(p.dtype))
@@ -138,16 +150,17 @@ def _optimizer(init, make_leaf, n_moments: int) -> Optimizer:
     def moments(state):
         return (state.mu,) if n_moments == 1 else (state.mu, state.nu)
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, leaf_axes=None):
         t = state.step + 1
         new, upd = _tree_update(make_leaf(t), grads, moments(state), params,
-                                lr)
+                                lr, leaf_axes)
         return upd, OptState(step=t, mu=new[0],
                              nu=new[1] if n_moments == 2 else None)
 
-    def update_(grads, state, params, lr):
+    def update_(grads, state, params, lr, leaf_axes=None):
         t = state.step + 1
-        _update_in_place(make_leaf(t), grads, moments(state), params, lr)
+        _update_in_place(make_leaf(t), grads, moments(state), params, lr,
+                         leaf_axes)
         return state._replace(step=t)
 
     return Optimizer(init, update, update_)
@@ -158,7 +171,7 @@ def sgd(momentum: float = 0.9, weight_decay: float = 0.0,
     def init(params):
         return OptState(step=0, mu=_zeros_like_tree(params))
 
-    def leaf(g, m, p, lr):
+    def leaf(g, m, p, lr, axes=()):
         m = momentum * m + _wd(g, p, weight_decay)
         if nesterov:
             return (m,), -lr * (_wd(g, p, weight_decay) + momentum * m)
@@ -173,15 +186,22 @@ def lars(momentum: float = 0.9, weight_decay: float = 1e-4,
     trust ratio: lr_local = trust * ||w|| / (||g|| + wd*||w||), from this
     member's own block, each norm over the whole local tensor (the sketch
     heads' [R, B/P, D] block included, as the JAX package's norm of the
-    flattened leaf)."""
+    flattened leaf), or, for a leaf split over the mesh ``axes``, over the
+    whole leaf: its squares summed over them (what GSPMD computes on the
+    global array)."""
 
     def init(params):
         return OptState(step=0, mu=_zeros_like_tree(params))
 
-    def leaf(g, m, p, lr):
+    def norm(x, axes):
+        if not axes:
+            return torch.linalg.vector_norm(x)
+        return torch.sqrt(dist.psum(x.square().sum(), axes))
+
+    def leaf(g, m, p, lr, axes=()):
         g = _wd(g, p, weight_decay)
-        wn = torch.linalg.vector_norm(p.float())
-        gn = torch.linalg.vector_norm(g)
+        wn = norm(p.float(), axes)
+        gn = norm(g, axes)
         trust = torch.where((wn > 0) & (gn > 0),
                             trust_coef * wn / (gn + eps),
                             torch.ones_like(wn))
@@ -202,7 +222,7 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         c1 = 1 - torch.tensor(b1, dtype=torch.float32) ** t
         c2 = 1 - torch.tensor(b2, dtype=torch.float32) ** t
 
-        def leaf(g, m, v, p, lr):
+        def leaf(g, m, v, p, lr, axes=()):
             g = _wd(g, p, weight_decay)
             m = b1 * m + (1 - b1) * g
             v = b2 * v + (1 - b2) * g ** 2

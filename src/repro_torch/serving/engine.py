@@ -359,7 +359,8 @@ def _zoo_step_fn(exp, top_k):
     from repro_torch.train import gspmd
 
     step = gspmd.make_feature_serve_step(exp.model_cfg, exp.head_cfg,
-                                         top_k=top_k, head=exp.head)
+                                         top_k=top_k, head=exp.head,
+                                         specs=exp.specs)
 
     def run(queries: np.ndarray, n_valid: int):
         q = torch.from_numpy(queries).to(exp.device)
@@ -384,7 +385,7 @@ def _zoo_ivf_step_fn(exp, top_k, nprobe):
             built.clear()
             built[key] = gspmd.make_feature_ivf_serve_step(
                 exp.model_cfg, exp.head_cfg, top_k, nprobe=np_eff,
-                head=exp.head)
+                head=exp.head, specs=exp.specs)
         return idx, built[key]
 
     def run(queries: np.ndarray, n_valid: int):

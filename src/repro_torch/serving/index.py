@@ -88,7 +88,8 @@ def _exp_head_geometry(exp):
         return exp.state.head_params, head.n_valid
     from repro_torch.models import lm                      # zoo system
     from repro_torch.train.gspmd import vocab_rows
-    return vocab_rows(lm.head_weight(exp.params, exp.model_cfg)), head.n_valid
+    return (vocab_rows(lm.head_weight(exp.params, exp.model_cfg, exp.specs)),
+            head.n_valid)
 
 
 def _sync(device: torch.device) -> None:

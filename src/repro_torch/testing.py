@@ -1,8 +1,10 @@
-"""Parity workers: what each member of a ring runs when the port is held
-against the JAX package on the same numpy arrays.
+"""Parity workers: what each member of a ring or a grid runs when the port
+is held against the JAX package on the same numpy arrays.
 
-``repro_torch.dist.spawn_ring`` re-imports a worker by name in fresh
-processes, so workers live here rather than in test files. Each takes
+``repro_torch.dist.spawn_ring`` (and ``spawn_grid``, which lays the same
+``file://`` rendezvous out as a (data, model) grid before a worker runs)
+re-imports a worker by name in fresh processes, so workers live here
+rather than in test files. Each takes
 numpy arrays and plain dicts (the GLOBAL class matrix; every member keeps
 its own row block) and returns numpy arrays, so the caller can compare
 them with the JAX package's shard_map results directly. Both run on the
@@ -658,10 +660,11 @@ def ivf_recall(protos: np.ndarray, queries: np.ndarray, *, k: int,
 
 def zoo_serve(tree: dict, *, arch: str, prompts: np.ndarray, gen: int,
               backend: str) -> np.ndarray:
-    """A CPU ``ZooExperiment`` (the reduced ``arch``) on this member,
-    serving the JAX package's params ``tree`` (carried over by
-    ``interop``) on the JAX package's ``prompts`` [b, s], which replace
-    the port's ``lm_batch`` for the call. Returns the greedy tokens."""
+    """A CPU ``ZooExperiment`` (the reduced ``arch``) on this member (of
+    the ring or the grid), serving the JAX package's params ``tree``
+    (carried over by ``interop``) on the JAX package's ``prompts`` [b, s],
+    which replace the port's ``lm_batch`` for the call. Returns the greedy
+    tokens."""
     from repro_torch import interop
     from repro_torch.api import Experiment
     from repro_torch.configs.base import HeadConfig
@@ -673,7 +676,7 @@ def zoo_serve(tree: dict, *, arch: str, prompts: np.ndarray, gen: int,
                                  head=HeadConfig(backend=backend))
     exp.load_params(interop.zoo_params_from_numpy(
         tree, exp.model_cfg, rank=dist.rank(), world_size=dist.world_size(),
-        device="cpu"))
+        device="cpu", specs=exp.specs))
     real = synthetic.lm_batch
     synthetic.lm_batch = lambda *a, **kw: {
         "tokens": torch.tensor(prompts, dtype=torch.long)}
@@ -685,8 +688,9 @@ def zoo_serve(tree: dict, *, arch: str, prompts: np.ndarray, gen: int,
 
 def _zoo_experiment(tree: dict, head_cfg: dict, *, arch: str, batch: int,
                     seq: int, train_cfg: Optional[dict] = None,
-                    batches=None, head_state=None):
-    """A CPU ``ZooExperiment`` (the reduced ``arch``) on this member with
+                    batches=None, head_state=None, par=None):
+    """A CPU ``ZooExperiment`` (the reduced ``arch``) on this member (of
+    the ring, or of the grid ``dist.grid`` laid out, under ``par``) with
     the JAX package's params ``tree`` and, when given, its head state
     ``{"params", "aux"}`` (the sketch heads' bucket weights, the LSH
     tables), both carried by ``interop``; ``batches[t]`` (the JAX
@@ -699,11 +703,12 @@ def _zoo_experiment(tree: dict, head_cfg: dict, *, arch: str, batch: int,
     exp = Experiment.from_config(
         system="zoo", arch=arch, reduced=True, batch=batch, seq=seq,
         head=cfg, train=TrainConfig(**(train_cfg or {"optimizer": "sgd"})),
-        device="cpu", log_every=0,
+        device="cpu", log_every=0, par=par,
         data_fn=None if batches is None else (lambda t, b: batches[t]))
     r, n = dist.rank(), dist.world_size()
     exp.load_params(interop.zoo_params_from_numpy(
-        tree, exp.model_cfg, rank=r, world_size=n, device="cpu"))
+        tree, exp.model_cfg, rank=r, world_size=n, device="cpu",
+        specs=exp.specs))
     if head_state is not None:
         exp.load_head_state(interop.zoo_head_state_from_numpy(
             exp.head, head_state["params"], head_state["aux"], rank=r,
@@ -713,26 +718,34 @@ def _zoo_experiment(tree: dict, head_cfg: dict, *, arch: str, batch: int,
 
 def zoo_fit(tree: dict, head_cfg: dict, train_cfg: dict, *, arch: str,
             batch: int, seq: int, steps: int, lr: float, batches: list,
-            eval_inputs: dict, head_state=None, draws=None) -> dict:
-    """``ZooExperiment.fit(steps, lr=lr)`` on this member from the JAX
-    package's params and head state (``_zoo_experiment``) on its batches;
-    ``draws`` maps a sampled draw's salt to the JAX package's draw of each
-    member (``paper_fit``'s). Returns the history, the final params in the
-    JAX package's layout, the sketch heads' bucket weights gathered over
-    the ring, the evaluation accuracy and the weights_version trail."""
+            eval_inputs: dict, head_state=None, draws=None,
+            par=None) -> dict:
+    """``ZooExperiment.fit(steps, lr=lr)`` on this member (of the ring or
+    the grid) from the JAX package's params and head state
+    (``_zoo_experiment``) on its batches; ``draws`` maps a sampled draw's
+    salt to the JAX package's draw of each member (``paper_fit``'s).
+    Returns the history, the final params in the JAX package's layout
+    (gathered over the grid), the member's own slices (``"member"``), the
+    sketch heads' bucket weights gathered over the ring, the evaluation
+    accuracy and the weights_version trail."""
     from repro_torch import interop
+    from repro_torch.models import lm
 
     exp = _zoo_experiment(tree, head_cfg, arch=arch, batch=batch, seq=seq,
                           train_cfg=train_cfg, batches=batches,
-                          head_state=head_state)
+                          head_state=head_state, par=par)
     if draws is not None:
         exp.head.draw = _injected_draw(draws)
     versions = [exp.weights_version]
     hist = exp.fit(steps, lr=lr,
                    step_hook=lambda t: versions.append(exp.weights_version))
     hp = exp.head_state.params
+    whole = (exp.params if exp.specs is None
+             else lm.gather_params(exp.params, exp.specs))
     return {"history": hist,
-            "params": interop.zoo_params_to_numpy(exp.params),
+            "params": interop.zoo_params_to_numpy(whole),
+            "member": (None if exp.specs is None
+                       else interop.zoo_params_to_numpy(exp.params)),
             "head_params": (None if exp.head.params_are_class_weights
                             else _np(dist.all_gather(hp, dim=1))),
             "eval": exp.evaluate(eval_inputs),
@@ -779,6 +792,118 @@ def zoo_retrieve(tree: dict, head_cfg: dict, *, arch: str, queries,
     out["pad"] = exp.serving_engine(top_k=top_k, max_batch=8).step_fn(
         q[:4], 3)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the grid: what one member of a (data, model) grid holds and computes
+# ---------------------------------------------------------------------------
+
+
+def grid_moe(params: dict, arch: str, x: np.ndarray, cot: np.ndarray,
+             capacity_factor) -> dict:
+    """``models.moe.apply_moe`` on this grid member: the reduced ``arch``'s
+    MoE params (the JAX package's tree, numpy) cut by the layer's specs
+    (the experts over ``model``), ``x`` [b, s, D]'s rows split over the
+    data axis, and the gradient of ``sum(out * cot) + aux``. Returns the
+    output and the input's gradient gathered over the data axis, the
+    router loss, the params' gradients summed over the data axis and
+    gathered whole, and the (token, expert) pairs kept, summed over the
+    data axis."""
+    import dataclasses as dc
+
+    from repro_torch import interop
+    from repro_torch.configs.base import get_model_config
+    from repro_torch.models import lm, moe
+    from repro_torch.models.layers import ParamDict
+    from repro_torch.optim import tree_map
+    from repro_torch.train import gspmd
+
+    cfg = dc.replace(get_model_config(arch, reduced=True), dtype="float32")
+    specs = gspmd.member_specs(cfg, gspmd.grid_parallel_config())[
+        "blocks"][0]["moe"]
+    whole = ParamDict(**tree_map(lambda a: torch.tensor(np.asarray(a)),
+                                 params))
+    p = tree_map(lambda t: t.detach().requires_grad_(), lm.cut(whole, specs))
+    n_data, d = dist.world_size(dist.BATCH), dist.rank(dist.BATCH)
+    rows = x.shape[0] // n_data
+    tx = torch.tensor(x[d * rows:(d + 1) * rows]).requires_grad_()
+    out, aux = moe.apply_moe(p, cfg, tx, capacity_factor=capacity_factor,
+                             spec=specs)
+    loss = ((out * torch.tensor(cot[d * rows:(d + 1) * rows])).sum()
+            + dist.grad_mean(aux, dist.BATCH))
+    loss.backward()
+    grads = lm.gather_params(tree_map(lambda t: t.grad, p), specs)
+    grads = interop.zoo_params_to_numpy(
+        tree_map(lambda g: dist.psum(g, dist.BATCH), grads))
+    with torch.no_grad():      # a row is a dispatch group (s > 1)
+        top_i = moe.routing(p, cfg, tx)[2]
+        cap = moe.capacity_for(tx.shape[1], cfg, capacity_factor)
+        keep = moe._dispatch_group(tx, top_i, cap, cfg.moe.n_experts,
+                                   cfg.moe.top_k)[1][1]
+        kept = int(dist.psum(keep.sum().float(), dist.BATCH))
+    return {"out": _np(dist.all_gather(out.detach(), axis=dist.BATCH)),
+            "dx": _np(dist.all_gather(tx.grad, axis=dist.BATCH)),
+            "aux": float(aux.detach()), "grads": grads, "kept": kept,
+            "experts": int(p.wi_gate.shape[0])}
+
+
+def grid_collectives() -> dict:
+    """This grid member's (data, model) index and the collectives over each
+    axis of ``x = [its flat index]``: ``psum`` over ``data``, ``model``
+    and the whole grid, the all-gather over (data, model), the model
+    axis's ``ppermute``, and the gradient of ``psum_d + 2 psum_m + 3
+    psum_all + sum(gather)`` (each backward a psum, the gather's a
+    reduce-scatter)."""
+    r = dist.rank(dist.ALL)
+    x = torch.tensor([float(r)], requires_grad=True)
+    a, b = dist.psum(x, "data"), dist.psum(x, "model")
+    c = dist.psum(x, dist.ALL)
+    g = dist.all_gather(x, axis=("data", "model"))
+    (a + 2 * b + 3 * c + g.sum()).sum().backward()
+    return {"index": (dist.rank("data"), dist.rank("model")),
+            "sums": (float(a), float(b), float(c)), "gather": _np(g),
+            "grad": float(x.grad), "shift": float(dist.ppermute(x)),
+            "invariant_grad": _invariant_grad()}
+
+
+def _invariant_grad() -> float:
+    y = torch.tensor([1.0], requires_grad=True)
+    dist.psum_invariant(y * (dist.rank() + 1), "model").sum().backward()
+    return float(y.grad)
+
+
+def grid_lars(w: np.ndarray, g: np.ndarray, spec: tuple) -> dict:
+    """One LARS step (momentum 0.9, weight decay 1e-4, lr 0.5) on this
+    member's block of ``w`` by ``spec``, with the leaf's mesh axes
+    (``leaf_axes``) and without: the updated blocks gathered whole."""
+    from repro_torch.optim import lars
+
+    opt = lars(momentum=0.9, weight_decay=1e-4)
+    out = {}
+    for name, axes in (("whole", [dist.spec_axes(spec)]), ("local", None)):
+        p = dist.member_block(torch.tensor(w), spec).clone()
+        gb = dist.member_block(torch.tensor(g), spec).clone()
+        state = opt.init([p])
+        opt.update_([gb], state, [p], 0.5, leaf_axes=axes)
+        out[name] = _np(dist.gather_block(p, spec))
+    return out
+
+
+def grid_member_bytes(arch: str) -> dict:
+    """The params a fresh ``ZooExperiment`` of the reduced ``arch`` holds
+    on this grid member: each leaf's shape in the JAX layout and the
+    element count, beside the whole model's."""
+    from repro_torch.api import Experiment
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_leaves, tree_map
+
+    exp = Experiment.from_config(system="zoo", arch=arch, reduced=True,
+                                 batch=4, seq=8, device="cpu", log_every=0)
+    whole = lm.abstract_model(exp.model_cfg)
+    return {"shapes": tree_map(lambda t: tuple(t.shape),
+                               lm.params_tree(exp.params)),
+            "numel": sum(t.numel() for t in tree_leaves(exp.params)),
+            "whole": sum(t.numel() for t in tree_leaves(whole))}
 
 
 # ---------------------------------------------------------------------------
@@ -1275,5 +1400,8 @@ def run_all(cases: list) -> list:
                "zoo_ckpt_from_jax": zoo_ckpt_from_jax,
                "zoo_kill_recover": zoo_kill_recover,
                "zoo_elastic_source": zoo_elastic_source,
-               "zoo_elastic_restore": zoo_elastic_restore}
+               "zoo_elastic_restore": zoo_elastic_restore,
+               "grid_moe": grid_moe, "grid_lars": grid_lars,
+               "grid_collectives": grid_collectives,
+               "grid_member_bytes": grid_member_bytes}
     return [workers[name](*args, **kwargs) for name, args, kwargs in cases]

@@ -65,6 +65,16 @@ STEP = 5
 LSH_MARGIN = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The file's CPU ops are small: on one intra-op thread they run as
+    fast alone and stop contending with the suite's other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _problem():
     rng = np.random.default_rng(0)
     f = rng.standard_normal((B, D)).astype(np.float32)

@@ -63,6 +63,16 @@ BACKENDS = ["ref", "kernel"]
 S = 17                 # deliberately not a multiple of any tile
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The file's CPU ops are small: on one intra-op thread they run as
+    fast alone and stop contending with the suite's other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(t):
     return t.detach().cpu().numpy()
 

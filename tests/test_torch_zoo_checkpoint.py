@@ -36,6 +36,7 @@ import jax.numpy as jnp
 import msgpack
 import numpy as np
 import pytest
+import torch
 import zstandard
 
 from repro.api.heads import HeadState as JaxHeadState
@@ -56,6 +57,16 @@ HEADS = ("full", "knn", "selective", "mach", "sampled", "csoft")
 # tests/test_resilience.py's ZOO_EQUIVALENCE
 ZOO_EQUIVALENCE = {"full": "bitwise", "knn": "bitwise",
                    "sampled": "bitwise", "csoft": "bitwise"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The file's CPU ops are small: on one intra-op thread they run as
+    fast alone and stop contending with the suite's other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _spec(head, arch="smollm_135m", **kw):

@@ -103,12 +103,21 @@ def jax_zoo_on_ring(n, **kw):
     places it (the moments as the params, the step replicated), so the
     first step's inputs are committed as every later step's are and the
     step compiles once."""
-    exp = JaxZooExperiment(n_model=n, log_every=0, **kw)
-    mesh = Mesh(np.array(jax.devices()[:n]).reshape(1, n), ("data", "model"))
-    par = make_host_parallel_config(1, n)
+    return jax_zoo_on_grid(1, n, **kw)
+
+
+def jax_zoo_on_grid(n_data, n_model, par=None, **kw):
+    """``jax_zoo_on_ring`` on an (n_data, n_model) mesh of the first
+    n_data * n_model devices, the port's grid, under ``par`` (by default
+    ``make_host_parallel_config(n_data, n_model)``)."""
+    n = n_data * n_model
+    exp = JaxZooExperiment(n_model=n_model, log_every=0, **kw)
+    mesh = Mesh(np.array(jax.devices()[:n]).reshape(n_data, n_model),
+                ("data", "model"))
+    par = par or make_host_parallel_config(n_data, n_model)
     params, hp, aux = _host((exp.params, exp.head_state.params,
                              exp.head_state.aux))
-    exp.mesh, exp.par, exp._n_data = mesh, par, 1
+    exp.mesh, exp.par, exp._n_data = mesh, par, n_data
 
     def put(tree, spec):
         return jax.tree.map(
@@ -388,7 +397,7 @@ def test_auto_micro_batches_matches_jax(arch, reduced):
             assert got == want, (batch, seq, n_model)
             assert (tgspmd._step_tokens(tcfg, tbase.InputShape(
                 "x", seq, batch, "train")) == batch * seq)
-    assert tgspmd.vocab_axes() == ("ring", ("ring",), ())
+    assert tgspmd.vocab_axes() == ("model", ("model",), ("data",))
     assert tgspmd.n_vocab_shards() == 1
 
 
