@@ -309,9 +309,10 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    40 KV heads, bf16, causal, window 1,024): the bf16 gate, bit-identical
    across two runs, timed beside its plain version and SDPA with the
    window as a boolean mask.
-21. the families' training (their main paths): the full head on 16 x 512
-   tokens a step (the stream's first batch, every step) in FAM_MICRO
-   micro-batches, SGD at lr 0.5, ``fit(5)`` with every counter set to 0
+21. the families' training (their main paths), at FAM_TRAIN_DEPTH (24
+   of mamba2's layers, 16 of hymba's): the
+   full head on 16 x 512 tokens a step (the stream's first batch, every
+   step) in FAM_MICRO micro-batches, SGD at lr 0.5, ``fit(5)`` with every counter set to 0
    just before and read just after (the CE pair once a micro-step);
    losses finite and falling, the params moved; step 1's loss within
    ZOO_LOSS_RTOL of the ``ref`` backend's; the step (the median of the
@@ -413,6 +414,24 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    build, beside the card's phases: each one's member rows,
    micro-batches, argument and peak bytes, and whether the peak fits the
    card.
+29. the grid's families (``grid_families_phase``): mamba2-370M and
+   hymba-1.5B at full width and FAM_TRAIN_DEPTH (24 and 16 layers) and
+   whisper-tiny at full width and depth, ``fit(3)`` in one
+   micro-batch of 16 x 512 tokens (whisper 16 x 448 over 1,500 frames)
+   with remat full, SGD at lr 0.5, on a (1, 1) grid in this process (the
+   vocab padded as on (1, 2)), then the three in turn on one (1, 2) grid
+   of two gloo processes: each member's leaves its ``param_pspecs``
+   blocks (mamba2's ``in_proj`` 2,192 columns, hymba's whole with its
+   ``norm_scale`` 800, whisper's MLP 768), its losses and the norm of its
+   whole update against the (1, 1) grid's (``GRID_FAM_LOSS_RTOL``,
+   ``GRID_FAM_UPDATE_RTOL``), its launches by leg (``GRID_FAM_LEGS``:
+   fit, evaluate, exact and IVF top-5, and for mamba2 and hymba 64 x
+   2,000 prompts and 48 greedy tokens), its peak beside the dry run's
+   (1, 2) prediction at the same depth, the members' answers equal; then the (1, 2) save of
+   whisper restored on a (1, 1) grid (``restore(reshard=True)``): the
+   params bit-equal to the gathered save, the next step's loss within the
+   same limit. The dry runs add mamba2 and hymba
+   ``train_4k`` as member (0, 0) of 16 x 16.
 
 The kernels' bounds (``bound_ms``, ``ce_bounds``, ``_flash_bound``,
 ``ivf_union_bytes``) are their modules' cost functions'
@@ -612,6 +631,10 @@ FAMILIES = ("mamba2_370m", "hymba_1_5b")
 _ARCH = {"ssm": "mamba2_370m", "hybrid": "hymba_1_5b"}
 FAM_MICRO = {"mamba2_370m": 4, "hymba_1_5b": 4}
 FAM_STEPS, FAM_REPS = 5, 2
+# their training and heads phases, and the grid families phase, run half
+# the layers, to keep the script inside its time limit (PERF.md §4);
+# their serving and remat phases run all of them
+FAM_TRAIN_DEPTH = {"mamba2_370m": 24, "hymba_1_5b": 16}
 # a prefill of S tokens and one decode step against a prefill of S + 1 in
 # fp32 compute: the chunked scan's sums against the recurrence's, ~1e-6
 FAM_CONT32_TOL = 1e-4
@@ -645,7 +668,8 @@ ZOO_CKPT_EVERY = 2
 # flash kernel once a layer; training the CE pair once a micro-step; the
 # zoo's resumed legs replay 2 steps (knn's graph rebuilt after step 5).
 # On each family's trained experiment: evaluate's argmax (ce_forward; and
-# hymba's 32 layers of flash attention: evaluate runs under no grad), one
+# a flash attention for each of hymba's trained layers: evaluate runs
+# under no grad), one
 # stage1_topk a top-5 serve, one ivf_rerank an IVF top-5 serve; one step
 # of each head at 2 x 512 tokens (one micro-batch): the CE pair for full,
 # the sparse pair for knn (and dist_topk for the graph built before it),
@@ -701,7 +725,8 @@ FAM_WANT = {
     "hybrid_training": {"ce_forward": FAM_STEPS * FAM_MICRO["hymba_1_5b"],
                         "ce_backward": FAM_STEPS * FAM_MICRO["hymba_1_5b"]},
     "ssm_evaluate": {"ce_forward": 1},
-    "hybrid_evaluate": {"ce_forward": 1, "flash_attention": 32},
+    "hybrid_evaluate": {"ce_forward": 1,
+                        "flash_attention": FAM_TRAIN_DEPTH["hymba_1_5b"]},
     **{f"{fam}_{leg}": want for fam in ("ssm", "hybrid")
        for leg, want in _FAM_LEGS.items()},
     # the new families: the prefill's flash attention once a layer at the
@@ -6212,7 +6237,60 @@ GRID_LOSS_RTOL = 5e-5
 GRID_UPDATE_RTOL = 2e-3
 # the host-only dry runs: (arch, mesh), train_4k, remat full, FSDP
 GRID_DRY = (("smollm_135m", "16x16"), ("qwen3_moe_30b_a3b", "16x16"),
-            ("kimi_k2_1t_a32b", "16x16"), ("kimi_k2_1t_a32b", "2x16x16"))
+            ("kimi_k2_1t_a32b", "16x16"), ("kimi_k2_1t_a32b", "2x16x16"),
+            ("mamba2_370m", "16x16"), ("hymba_1_5b", "16x16"))
+# the grid's families phase: the ssm, hybrid and encdec trunks at full
+# width (mamba2 and hymba at FAM_TRAIN_DEPTH), fit(GRID_STEPS) in one
+# micro-batch with remat full, on a (1, 1) grid here and a (1, 2) grid of
+# two gloo processes
+GRID_FAMILIES = ("mamba2_370m", "hymba_1_5b", ENCDEC)
+# each (1, 2) member's token serving after its legs: rows x prompt, greedy
+# tokens
+GRID_FAM_SERVE = (64, ZOO_PROMPT, ZOO_GEN)
+# each member's launches by leg, every counter reset around the leg: the
+# CE pair once a step, evaluate's CE forward and a flash attention a layer
+# (hymba's 16; whisper's 4 encoder and 4 decoder layers), a stage-1 top-k
+# and an IVF rerank for the top-5 legs, the prefill's flash attention a
+# layer (the decode steps and the greedy head take no kernel)
+GRID_FAM_LEGS = {
+    arch: {"fit": GRID_WANT,
+           "evaluate": {"ce_forward": 1, **({"flash_attention": n}
+                                             if n else {})},
+           "top5": {"stage1_topk": 1}, "ivf_top5": {"ivf_rerank": 1},
+           **({"serve": {"flash_attention": n} if n else {}}
+              if arch != ENCDEC else {})}
+    for arch, n in (("mamba2_370m", 0),
+                    ("hymba_1_5b", FAM_TRAIN_DEPTH["hymba_1_5b"]),
+                    (ENCDEC, 8))}
+# each member's split leaves, against the layout of the (1, 2) grid:
+# (path in the member's params, the member's shape)
+GRID_FAM_SPLIT = {
+    # in_proj's 4,384 fused columns: member 0 all of z and x[0:144]
+    "mamba2_370m": (("blocks.0.ssm.in_proj", (1024, 2192)),
+                    ("blocks.0.ssm.norm_scale", (1024,))),
+    # in_proj (3,257 columns, odd) whole; norm_scale cuts head 12 in half
+    "hymba_1_5b": (("blocks.0.ssm.in_proj", (1600, 3257)),
+                   ("blocks.0.ssm.norm_scale", (800,))),
+    ENCDEC: (("encdec.enc_blocks.0.mlp.wi", (384, 768)),
+             ("encdec.dec_blocks.0.cross_attn.wq", (384, 3, 64))),
+}
+# a (1, 2) member's losses against the (1, 1) grid's: bf16 products of
+# other shapes (a member's columns, heads and rows) rounded apart through
+# the layers and two updates read up to 5.0e-5 at this phase's depths
+# (1.43e-4 for mamba2 at its full 48 layers; PERF.md §6); a wrong layout
+# moves the first loss by more (dropping the norm's psum moved it 9e-4 at
+# the CPU tests' width; not read at the card's), and hymba's step moves its
+# loss 1e-3. A mamba2 step at this lr moves its loss only 3e-5 to 1.4e-4,
+# under this limit, so mamba2's steps are held by the update norm alone
+GRID_FAM_LOSS_RTOL = 5e-4
+# the norm of fit(3)'s whole change to the params against the (1, 1)
+# grid's: read 2.75e-5 to 1.14e-4 at this phase's depths; a step skipped
+# or a leaf's update wrong moves it by a third or more
+GRID_FAM_UPDATE_RTOL = 2e-3
+# the restore leg's experiment (a small checkpoint); on (1, 1) its vocab
+# padded as on (1, 2): the reshard plans the vocab's rows over both model
+# axes, which 51,865 rows do not divide, in the JAX package as here
+GRID_FAM_RESTORE = ENCDEC
 CARD_BYTES = 80e9
 FAM_REMAT_STEPS = 3
 # the paper's 100M classes over its cluster's rings; the global batch is
@@ -6481,7 +6559,8 @@ import json, sys
 sys.path.insert(0, "src")
 from repro_torch.launch import dryrun
 for arch, mesh, kw in json.loads(sys.argv[1]):
-    r = dryrun.lower_deep(arch, "train_4k", mesh=mesh, **kw)
+    lower = dryrun.lower_one if "n_layers" in kw else dryrun.lower_deep
+    r = lower(arch, "train_4k", mesh=mesh, **kw)
     print(json.dumps({"arch": arch, "mesh": mesh, "kw": kw,
                       "member_rows": r["member_rows"],
                       "n_micro": r["n_micro"], "n_layers": r["n_layers"],
@@ -6491,13 +6570,19 @@ for arch, mesh, kw in json.loads(sys.argv[1]):
 
 
 def start_grid_dryruns():
-    """The grid phase's host-only dry runs (``GRID_DRY``, and the (1, 2)
-    prediction at the grid fit's shape), one after another in one
-    subprocess on the host's meta device, beside the card's phases."""
+    """The grid phases' host-only dry runs (the (1, 2) predictions at the
+    grid fits' shapes: SmolLM's, then ``GRID_FAMILIES``'; then
+    ``GRID_DRY``), one after another in one subprocess on the host's meta
+    device, beside the card's phases."""
     runs = [(arch, mesh, {"remat": "full"}) for arch, mesh in GRID_DRY]
-    runs.insert(0, ("smollm_135m", "1x2",
-                    {"remat": "none", "batch": ZOO_TB, "seq": ZOO_TS,
-                     "backend": "kernel"}))
+    runs[0:0] = [("smollm_135m", "1x2",
+                  {"remat": "none", "batch": ZOO_TB, "seq": ZOO_TS,
+                   "backend": "kernel"})] + [
+        (arch, "1x2", {"remat": "full", "batch": ZOO_TB,
+                       "seq": FAM_SEQ.get(arch, ZOO_TS), "backend": "kernel",
+                       **({"n_layers": FAM_TRAIN_DEPTH[arch]}
+                          if arch in FAM_TRAIN_DEPTH else {})})
+        for arch in GRID_FAMILIES]
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.Popen(
         [sys.executable, "-c", _GRID_DRY_CODE, json.dumps(runs)], cwd=ROOT,
@@ -6679,9 +6764,10 @@ def grid_phase(torch, np, counters, dry_proc) -> tuple:
         fail(f"grid phase: the host-only dry runs failed:\n{stderr[-3000:]}")
     dry = [json.loads(line) for line in stdout.splitlines()
            if line.startswith("{")]
-    if len(dry) != len(GRID_DRY) + 1:
+    n_pred = 1 + len(GRID_FAMILIES)
+    if len(dry) != len(GRID_DRY) + n_pred:
         fail(f"grid phase: {len(dry)} dry-run records, not "
-             f"{len(GRID_DRY) + 1}")
+             f"{len(GRID_DRY) + n_pred}")
     pred = dry[0]["memory"]
     for m in members:
         log(f"grid phase: (1, 2) member {m['index']}: losses {m['losses']} "
@@ -6694,8 +6780,9 @@ def grid_phase(torch, np, counters, dry_proc) -> tuple:
             f"dry run's {pred['peak_bytes'] / 1e9:.2f} GB (arguments "
             f"{pred['argument_bytes'] / 1e9:.3f} GB)")
     out["dryrun_1x2_member"] = dry[0]
-    out["dryruns"] = dry[1:]
-    for rec in dry[1:]:
+    out["dryrun_1x2_families"] = dry[1:n_pred]
+    out["dryruns"] = dry[n_pred:]
+    for rec in dry[n_pred:]:
         mem = rec["memory"]
         rec["fits_card"] = mem["peak_bytes"] <= CARD_BYTES
         log(f"grid phase: dry run {rec['arch']} train_4k on {rec['mesh']} "
@@ -6705,6 +6792,305 @@ def grid_phase(torch, np, counters, dry_proc) -> tuple:
             f"GB, peak {mem['peak_bytes'] / 1e9:.2f} GB, fits "
             f"{CARD_BYTES / 1e9:.0f} GB: {rec['fits_card']} (lowered in "
             f"{rec['lower_s']:.1f} s)")
+    return launches, out
+
+
+def _grid_fam_par(n_model: int):
+    """The families' grid layout: (1, n_model), remat full."""
+    from repro_torch.configs.base import ParallelConfig
+    return ParallelConfig(mesh_shape=(1, n_model),
+                          axis_names=("data", "model"), remat="full")
+
+
+def _grid_fam_trainer(arch: str, model_size: int, **kw):
+    """``arch`` at full width (at FAM_TRAIN_DEPTH where it has one) on
+    this process's grid (its model axis ``model_size``), one micro-batch
+    of ``ZOO_TB`` rows a step with remat full, the full head on the kernel
+    backend; ``kw`` go to the experiment."""
+    from repro_torch.configs.base import TrainConfig
+    with _at_depth(FAM_TRAIN_DEPTH.get(arch)):
+        return _zoo_trainer("kernel", arch=arch, log_every=0,
+                            train=TrainConfig(optimizer="sgd",
+                                              micro_batch=1),
+                            par=_grid_fam_par(model_size), **kw)
+
+
+def _leaf(params, path: str):
+    node = params
+    for key in path.split("."):
+        node = node[int(key)] if key.isdigit() else node[key]
+    return node
+
+
+def _param_digest(tree) -> str:
+    """sha1 over every leaf's bytes of a param tree (host copies, in
+    ``tree_leaves`` order)."""
+    import hashlib
+    from repro_torch.optim import tree_leaves
+    h = hashlib.sha1()
+    for t in tree_leaves(tree):
+        h.update(t.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _blocks_as_specs(exp) -> bool:
+    """Whether every leaf this member holds is its ``param_pspecs`` block
+    of the whole model's leaf (the whole one from the meta device)."""
+    from repro_torch import dist
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import gspmd
+    whole = tree_leaves(lm.abstract_model(exp.model_cfg))
+    mine = tree_leaves(exp.params)
+    specs = gspmd.leaf_specs(exp.specs, ())
+    if not len(whole) == len(mine) == len(specs):
+        return False
+    n = dist.world_size()
+    for w, p, spec in zip(whole, mine, specs):
+        entries = tuple(spec) + (None,) * (w.dim() - len(spec))
+        want = tuple(d // (n if e == "model" else 1)
+                     for d, e in zip(w.shape, entries))
+        if tuple(p.shape) != want:
+            return False
+    return True
+
+
+def _grid_family_member(ckpt_dir: str):
+    """One member of the families' (1, 2) grid (``dist.spawn_grid``): each
+    of ``GRID_FAMILIES`` at full width in turn, ``fit(GRID_STEPS)`` from
+    seed 0 (its peak and the norm of its whole update), then
+    ``evaluate``, exact and IVF top-5 of ``ZOO_RET_B`` queries and, for the
+    ssm and hybrid trunks, a prefill and greedy tokens (``GRID_FAM_SERVE``);
+    every kernel counter reset just before each leg and read just after
+    (``GRID_FAM_LEGS``). ``GRID_FAM_RESTORE`` then saves its state under
+    ``ckpt_dir`` (member 0 writes), gives the digest of its gathered
+    params, and takes one more step."""
+    import torch
+    from repro_torch import dist
+    from repro_torch.kernels import ce_softmax as ce
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ivf_rerank as ivf
+    from repro_torch.kernels import knn_dist_topk as dk
+    from repro_torch.kernels import sparse_ce as sp
+    from repro_torch.kernels import topk_dc as dc
+    from repro_torch.models import lm
+    counters = {"ce_forward": (ce, "LAUNCHES"),
+                "ce_backward": (ce, "BWD_LAUNCHES"),
+                "sparse_ce_forward": (sp, "LAUNCHES"),
+                "sparse_ce_backward": (sp, "BWD_LAUNCHES"),
+                "dist_topk": (dk, "LAUNCHES"), "stage1_topk": (dc, "LAUNCHES"),
+                "ivf_rerank": (ivf, "LAUNCHES"),
+                "flash_attention": (fa, "LAUNCHES")}
+    out = {"index": (dist.rank("data"), dist.rank("model"))}
+    for arch in GRID_FAMILIES:
+        legs, secs = {}, {}
+
+        def leg(name, fn):
+            torch.cuda.synchronize()
+            _reset(counters)
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            legs[name] = {k: v for k, v in _read(counters).items() if v}
+            log(f"grid families phase: {arch} (1, 2) member "
+                f"{out['index'][1]}: {name} {secs[name]:.1f} s")
+            return res
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        exp = _grid_fam_trainer(arch, 2)
+        before = _host_params(exp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hist = leg("fit", lambda: exp.fit(GRID_STEPS, lr=ZOO_LR))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        update = _update_norm(exp, before)
+        del before
+        row = {"losses": [r["loss"] for r in hist], "update": update,
+               "peak_gb": peak, "blocks_ok": _blocks_as_specs(exp),
+               "split": {path: tuple(_leaf(exp.params, path).shape)
+                         for path, _ in GRID_FAM_SPLIT[arch]}}
+        row["eval"] = leg("evaluate", exp.evaluate)
+        row["ids"] = leg("top5", lambda: exp.serve(
+            top_k=5, batch=ZOO_RET_B))[:4].tolist()
+        exp.ivf_index()
+        row["ivf_ids"] = leg("ivf_top5", lambda: exp.serve(
+            top_k=5, batch=ZOO_RET_B, index="ivf"))[:4].tolist()
+        if arch != ENCDEC:
+            b, prompt, gen = GRID_FAM_SERVE
+            torch.cuda.reset_peak_memory_stats()
+            toks = leg("serve", lambda: exp.serve(prompt_len=prompt,
+                                                  gen=gen, batch=b))
+            row["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            row["tokens"] = toks[:2].tolist()
+            row["tokens_in_range"] = bool(
+                ((toks >= 0) & (toks < exp.model_cfg.vocab_size)).all())
+        if arch == GRID_FAM_RESTORE:
+            exp.ckpt_dir = ckpt_dir
+            exp.save_checkpoint()
+            row["saved_digest"] = _param_digest(lm.params_tree(
+                lm.gather_params(exp.params, exp.specs)))
+            exp.ckpt_dir = None
+            row["next_loss"] = exp.fit(1, lr=ZOO_LR)[-1]["loss"]
+            log(f"grid families phase: {arch} (1, 2) member "
+                f"{out['index'][1]}: saved, digested, one more step")
+        row["legs"], row["leg_s"] = legs, secs
+        out[arch] = row
+        del exp
+    return out
+
+
+def grid_families_phase(torch, np, counters, preds) -> tuple:
+    """Phase 29 (module docstring): the ssm, hybrid and encdec trunks on a
+    (1, 1) grid here and a (1, 2) grid of two gloo processes on this card.
+    ``preds``: the dry run's (1, 2) records of ``GRID_FAMILIES``. Returns
+    (the launches by path, the phase's rows)."""
+    import shutil
+
+    from repro_torch import dist
+    from repro_torch.models import lm
+    t_phase = time.perf_counter()
+    out, launches, ref = {}, {}, {}
+    for arch in GRID_FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.grid(1, 1)
+        try:
+            # the vocab padded to 2 as on (1, 2): the same draws, the same
+            # model (hymba's 32,001 and whisper's 51,865 are odd)
+            exp = _grid_fam_trainer(arch, 1, n_model=2)
+            before = _host_params(exp)
+            _reset(counters)
+            t0 = time.perf_counter()
+            hist = exp.fit(GRID_STEPS, lr=ZOO_LR)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches[f"grid_fam_{arch}_1x1"] = got = {
+                k: v for k, v in _read(counters).items() if v}
+            update = _update_norm(exp, before)
+            del before, exp
+        finally:
+            dist.release_grid()
+        losses = [r["loss"] for r in hist]
+        if got != GRID_WANT or not all(map(math.isfinite, losses)):
+            fail(f"grid families phase: {arch} fit({GRID_STEPS}) on (1, 1) "
+                 f"launched {got} (want {GRID_WANT}), losses {losses}")
+        ref[arch] = {"losses": losses, "update": update, "fit_s": fit_s}
+        log(f"grid families phase: {arch} on a (1, 1) grid, fit("
+            f"{GRID_STEPS}) in {fit_s:.1f} s: losses {losses}, update norm "
+            f"{update}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = CKPT_DIR / "grid_families"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        members = dist.spawn_grid(_grid_family_member, 1, 2, str(ckpt))
+        out["grid_1x2_s"] = time.perf_counter() - t0
+        for arch, pred in zip(GRID_FAMILIES, preds):
+            want_split = dict(GRID_FAM_SPLIT[arch])
+            r = ref[arch]
+            for m in members:
+                row = m[arch]
+                tag = f"grid families phase: {arch} (1, 2) member {m['index']}"
+                serving = (f"(serving {row['serve_peak_gb']:.2f} GB) "
+                           if "serve_peak_gb" in row else "")
+                rel = np.abs(np.asarray(row["losses"]) - r["losses"]) \
+                    / np.abs(r["losses"])
+                row["loss_rel_vs_1x1"] = rel.tolist()
+                row["update_rel_vs_1x1"] = urel = abs(
+                    row["update"] - r["update"]) / r["update"]
+                for name, got in row["legs"].items():
+                    launches[f"grid_fam_{arch}_{name}_member"
+                             f"{m['index'][1]}"] = got
+                if row["legs"] != GRID_FAM_LEGS[arch]:
+                    fail(f"{tag} launched {row['legs']}, not "
+                         f"{GRID_FAM_LEGS[arch]}")
+                if not row["blocks_ok"] or row["split"] != want_split:
+                    fail(f"{tag}: its leaves are not their param_pspecs "
+                         f"blocks ({row['split']}, want {want_split})")
+                if not rel.max() <= GRID_FAM_LOSS_RTOL:
+                    fail(f"{tag}: losses {row['losses']} are {rel.max():.2e} "
+                         f"from the (1, 1) grid's {r['losses']}")
+                if not urel <= GRID_FAM_UPDATE_RTOL:
+                    fail(f"{tag}: update norm {row['update']} is "
+                         f"{urel:.2e} from the (1, 1) grid's {r['update']}")
+                if not (0 <= row["eval"] <= 1
+                        and row.get("tokens_in_range", True)):
+                    fail(f"{tag}: evaluate {row['eval']}, tokens out of "
+                         f"range")
+                log(f"{tag}: losses {row['losses']} (relative to the "
+                    f"(1, 1) grid's {row['loss_rel_vs_1x1']}), update norm "
+                    f"{row['update']} (relative {urel:.2e}), launches by "
+                    f"leg {row['legs']}, leg seconds "
+                    f"{ {k: round(v, 2) for k, v in row['leg_s'].items()} }, "
+                    f"split {row['split']}, peak {row['peak_gb']:.2f} GB "
+                    f"{serving}"
+                    f"against the dry run's "
+                    f"{pred['memory']['peak_bytes'] / 1e9:.2f} GB "
+                    f"(arguments {pred['memory']['argument_bytes'] / 1e9:.3f}"
+                    f" GB), evaluate {row['eval']:.4f}")
+            for key in ("losses", "eval", "ids", "ivf_ids", "tokens",
+                        "update"):
+                a, b = members[0][arch].get(key), members[1][arch].get(key)
+                if key == "update":
+                    if abs(a - b) > 1e-9 * abs(a):
+                        fail(f"grid families phase: {arch}'s members' "
+                             f"update norms differ: {a} / {b}")
+                elif a != b:
+                    fail(f"grid families phase: {arch}'s (1, 2) members' "
+                         f"{key} differ: {a} / {b}")
+            out[arch] = {"ref_1x1": r, "members": [m[arch] for m in members],
+                         "dryrun_1x2": pred}
+        # the restore leg: the (1, 2) save on a (1, 1) grid
+        saved = members[0][GRID_FAM_RESTORE]
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.grid(1, 1)
+        try:
+            exp = _grid_fam_trainer(GRID_FAM_RESTORE, 1, n_model=2,
+                                    ckpt_dir=str(ckpt))
+            t0 = time.perf_counter()
+            step = exp.restore(reshard=True)
+            restore_s = time.perf_counter() - t0
+            digest = _param_digest(lm.params_tree(exp.params))
+            exp.ckpt_dir = None
+            _reset(counters)
+            next_loss = exp.fit(1, lr=ZOO_LR)[-1]["loss"]
+            launches["grid_fam_restore_1x1"] = {
+                k: v for k, v in _read(counters).items() if v}
+            reshard = exp.last_reshard
+            del exp
+        finally:
+            dist.release_grid()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rel = abs(next_loss - saved["next_loss"]) / abs(saved["next_loss"])
+    out["restore"] = {"step": step, "bit_equal": digest ==
+                      saved["saved_digest"], "next_loss": next_loss,
+                      "member_next_loss": saved["next_loss"],
+                      "next_loss_rel": rel, "restore_s": restore_s,
+                      "reshard": None if reshard is None else
+                      (reshard["src"].describe(), reshard["dst"].describe())}
+    log(f"grid families phase: the (1, 2) save of {GRID_FAM_RESTORE} at "
+        f"step {step} "
+        f"restored on a (1, 1) grid in {restore_s:.1f} s "
+        f"({out['restore']['reshard']}): params bit-equal to the gathered "
+        f"save: {out['restore']['bit_equal']}; the next step's loss "
+        f"{next_loss} against the member's {saved['next_loss']} (relative "
+        f"{rel:.2e})")
+    if not out["restore"]["bit_equal"] or step != GRID_STEPS or \
+            reshard is None:
+        fail(f"grid families phase: the restore on (1, 1): step {step}, "
+             f"reshard {out['restore']['reshard']}, params bit-equal "
+             f"{out['restore']['bit_equal']}")
+    if not rel <= GRID_FAM_LOSS_RTOL:
+        fail(f"grid families phase: the restored step's loss {next_loss} is "
+             f"{rel:.2e} from the member's {saved['next_loss']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"grid families phase: {out['phase_s']:.1f} s (the (1, 2) grid "
+        f"{out['grid_1x2_s']:.1f} s)")
     return launches, out
 
 
@@ -6852,22 +7238,25 @@ def _main_phases(torch, np, smi, build_s, dry_proc, sharded, ce, fa, ivf,
     gc.collect()
     torch.cuda.empty_cache()
     for arch in FAMILIES:
-        path, fam_launches[path], rows, e2e["families"][f"{arch}_train"], \
-            fexp = family_training_phase(torch, np, counters, ce, arch)
-        for name, row in rows.items():
-            kernels[name][arch] = row
-        paths, rows, e2e["families"][f"{arch}_heads"] = family_heads_check(
-            torch, np, counters, fexp, kern, arch == FAM_GATED)
-        fam_launches.update(paths)
-        for name, row in rows.items():
-            kernels[name][arch] = row
-        if arch == "mamba2_370m":
-            import shutil
-            try:
-                e2e["families"]["mamba2_370m_checkpoint"] = _ckpt_round_trip(
-                    torch, fexp, CKPT_DIR / "mamba2")
-            finally:
-                shutil.rmtree(CKPT_DIR / "mamba2", ignore_errors=True)
+        with _at_depth(FAM_TRAIN_DEPTH[arch]):
+            path, fam_launches[path], rows, \
+                e2e["families"][f"{arch}_train"], fexp = \
+                family_training_phase(torch, np, counters, ce, arch)
+            for name, row in rows.items():
+                kernels[name][arch] = row
+            paths, rows, e2e["families"][f"{arch}_heads"] = \
+                family_heads_check(torch, np, counters, fexp, kern,
+                                   arch == FAM_GATED)
+            fam_launches.update(paths)
+            for name, row in rows.items():
+                kernels[name][arch] = row
+            if arch == "mamba2_370m":
+                import shutil
+                try:
+                    e2e["families"]["mamba2_370m_checkpoint"] = \
+                        _ckpt_round_trip(torch, fexp, CKPT_DIR / "mamba2")
+                finally:
+                    shutil.rmtree(CKPT_DIR / "mamba2", ignore_errors=True)
         del fexp
         gc.collect()
         torch.cuda.empty_cache()
@@ -6906,6 +7295,11 @@ def _main_phases(torch, np, smi, build_s, dry_proc, sharded, ce, fa, ivf,
     gc.collect()
     torch.cuda.empty_cache()
     grid_launches, e2e["grid"] = grid_phase(torch, np, counters, dry_proc)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam_grid_launches, e2e["grid_families"] = grid_families_phase(
+        torch, np, counters, e2e["grid"]["dryrun_1x2_families"])
+    grid_launches.update(fam_grid_launches)
     e2e["build_s"] = build_s
 
     # launches on each main path, from its own reset-and-read of the counters

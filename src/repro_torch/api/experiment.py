@@ -412,13 +412,13 @@ class ZooExperiment(Experiment):
     and at the end of every ``fit``, written by member 0 (``ckpt_keep``:
     retain the newest N); ``fit(resume=True)`` and ``restore`` take the
     latest back, ``resume="reshard"`` / ``restore(reshard=True)`` one
-    written on a ring of another size (``elastic.reshard_zoo_snapshot``;
-    between grids of other shapes it is ROADMAP.md A item 4). The ring has
-    no data axis: its geometry counts one data shard.
+    written on a ring or grid of another shape
+    (``elastic.reshard_zoo_snapshot``, then the member's cut). The ring
+    has no data axis: its geometry counts one data shard.
 
     On a grid (``dist.grid(n_data, n_model)``, every member building the
-    experiment) the dense, vlm and moe trunks are split as the JAX
-    package's ``param_pspecs`` places them under ``par`` (by default the
+    experiment) every family's trunk is split as the JAX package's
+    ``param_pspecs`` places them under ``par`` (by default the
     JAX host tests' policy on the grid's shape; FSDP where its
     ``param_rules`` say so): each member holds its slices (``specs``), the
     batch's rows go over ``data`` as the JAX pipeline cuts them (each
@@ -747,10 +747,9 @@ class ZooExperiment(Experiment):
         tr.count("train.restore.read_s", parts["read_s"])
         needs_refresh = False
         if (src.n_model, src.n_data) != (dst.n_model, dst.n_data):
-            if self.specs is not None:
-                raise NotImplementedError(
-                    f"an elastic restore between grids ({src.describe()} "
-                    f"-> {dst.describe()}) is ROADMAP.md A item 4")
+            # the tree is GLOBAL in the JAX layout: resharded for the dst
+            # geometry, then cut by this member's specs below, as the JAX
+            # _do_restore places it by the new mesh's shardings
             t0 = time.perf_counter()
             with tr.span("train.reshard", attrs={"src": src.describe(),
                                                  "dst": dst.describe()}):

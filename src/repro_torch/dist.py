@@ -39,7 +39,9 @@ member's copy gets the whole gradient. Inside a tensor-parallel trunk
 every member holds the whole cotangent of a value the model axis holds
 alike: ``pvary`` opens a region where members work on their own slices
 (a column-parallel product), and ``psum_invariant`` (a sum whose backward
-is the identity) closes it (a row-parallel product).
+is the identity) closes it (a row-parallel product), or
+``all_gather_invariant`` (a gather whose backward keeps the member's
+block) where the next step needs every member's columns.
 
 The functions are written by hand, not taken from
 ``torch.distributed.nn``, whose backward rules differ between versions. A
@@ -51,10 +53,11 @@ copied back to the card; an NCCL group never takes that branch.
 ``count_collectives()`` counts the bytes of every collective called
 inside it, where it is called, as the comm ledger charges them (the
 output's bytes, by kind: all-reduce for ``psum`` / ``pmax`` / ``pmin``
-and the backward of ``psum`` / ``pvary``; all-gather for ``all_gather``
-and ``shard_rows``' backward; reduce-scatter for ``all_gather``'s
-backward; collective-permute for ``ppermute``). ``simulated_ring(n, r)``
-makes this process member r of a ring of n that exists only in shapes,
+and the backward of ``psum`` / ``pvary``; all-gather for ``all_gather``,
+``all_gather_invariant`` and ``shard_rows``' backward; reduce-scatter
+for ``all_gather``'s backward; collective-permute for ``ppermute``).
+``simulated_ring(n, r)`` makes this process member r of a ring of n that
+exists only in shapes,
 ``simulated_grid(n_data, n_model, n_pod)`` member (0, 0, 0) of such a
 grid: on meta tensors every collective returns an empty meta tensor of its
 output's shape and is counted, and on any other tensor it raises. The dry
@@ -419,6 +422,29 @@ def all_gather(x: torch.Tensor, dim: int = 0, tiled: bool = True,
     if _trivial(axes):
         return x if tiled else x.unsqueeze(dim)
     return _AllGather.apply(x, dim, tiled, axes)
+
+
+class _AllGatherInvariant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axes):
+        ctx.dim, ctx.n, ctx.axes = dim, x.shape[dim], axes
+        return _gather(x, dim, True, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, rank(ctx.axes) * ctx.n, ctx.n), None, None
+
+
+def all_gather_invariant(x: torch.Tensor, dim: int = -1, axis="model"):
+    """Every member's block of ``x`` concatenated along ``dim`` into a
+    value every member then uses alike (the end of a column-parallel
+    product whose next step needs the whole dim); the backward keeps this
+    member's block of the cotangent, since inside a tensor-parallel trunk
+    every member holds that value's whole cotangent."""
+    axes = _axes(axis)
+    if _trivial(axes):
+        return x
+    return _AllGatherInvariant.apply(x, dim % x.dim(), axes)
 
 
 class _PVary(torch.autograd.Function):

@@ -19,11 +19,12 @@ block of W [classes / n_dev, D] on each member. ``lower_one`` is the zoo
 on the port's ring (trunk replicated, vocab over the ring: the (1, n)
 case of the JAX mesh) or, with ``mesh="16x16"`` / ``"2x16x16"``, member
 (0, 0) of the production grid under ``make_parallel_config(fsdp=True)``
-(``dist.simulated_grid``): the dense, vlm and moe trunks tensor-, expert-
-and FSDP-split as the JAX ``param_pspecs`` places them, the batch over
-``data`` (and ``pod``) in ``auto_micro_batches`` micro-batches. The ssm,
-hybrid and encdec trunks are not split yet (ROADMAP.md A item 4) and
-raise.
+(``dist.simulated_grid``): every family's trunk tensor-, expert- and
+FSDP-split as the JAX ``param_pspecs`` places it (the ssm mixer and the
+hybrid block in their leaves' layouts, ``models.ssm``; the encoder-
+decoder's attentions and MLPs over ``model``), the batch over ``data``
+(and ``pod``) in ``auto_micro_batches`` micro-batches, as the live grid
+splits them.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm_135m --shape train_4k --n-dev 16
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch kimi_k2_1t_a32b --shape train_4k --mesh single
@@ -231,9 +232,8 @@ def lower_one(arch: str, shape_name: str, *, n_dev: int = 16,
     ``make_parallel_config(remat=remat, fsdp=True)`` (any other ``"DxM"``:
     of that grid under ``make_host_parallel_config``; ``n_dev`` unused),
     its slices of the params, its data shard's rows in
-    ``auto_micro_batches`` micro-batches, its KV heads in the decode
-    caches; the ssm, hybrid and encdec families raise
-    (``lm.require_ported``). ``batch`` and ``seq`` override the shape's,
+    ``auto_micro_batches`` micro-batches, its KV heads and SSM blocks in
+    the decode caches. ``batch`` and ``seq`` override the shape's,
     ``n_layers`` cuts the depth (0: the published one). The head is the
     JAX dry run's (full, raw logits; knn with ``use_knn``) unless
     ``head_cfg`` says otherwise."""
@@ -278,9 +278,6 @@ def lower_one(arch: str, shape_name: str, *, n_dev: int = 16,
     if rows % n_shards == 0:       # else replicated, as fit_spec leaves it
         rows //= n_shards
     inputs = _zoo_inputs(cfg, shape, rows)
-    n_kv = cfg.n_kv_heads
-    if grid is not None and n_kv % n_model == 0:
-        n_kv //= n_model
     with _simulated(n_dev, grid):
         params = lm.cut(params, specs)
         if shape.mode == "train":
@@ -310,7 +307,7 @@ def lower_one(arch: str, shape_name: str, *, n_dev: int = 16,
                     step(params, inputs)
         else:
             caches, slots, _ = lm.init_decode_state(
-                cfg, rows, shape.seq_len, device=META, n_kv=n_kv)
+                cfg, rows, shape.seq_len, device=META, specs=specs)
             step = gspmd.make_serve_step(cfg, shape, backend=backend,
                                          specs=specs)
             held = (params, caches, slots, inputs)
@@ -394,8 +391,7 @@ def main(argv=None):
     p.add_argument("--mesh", default="ring",
                    choices=["ring", "single", "multi", "both"],
                    help="ring: the port's (1, n-dev) ring; single / multi: "
-                        "member (0, 0) of the 16x16 / 2x16x16 grid (the "
-                        "ssm, hybrid and encdec families raise)")
+                        "member (0, 0) of the 16x16 / 2x16x16 grid")
     p.add_argument("--n-dev", type=int, default=16)
     p.add_argument("--knn", action="store_true",
                    help="lower the KNN-softmax train step variant")

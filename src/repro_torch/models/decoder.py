@@ -21,11 +21,14 @@ The encoder-decoder family is ``models/encdec.py``.
 
 On a grid the layers' params are the member's slices
 (``train.gspmd.member_specs``): the tensor-parallel layers read them as
-they are (``models.layers``, ``models.moe``), and a leaf FSDP split over
+they are (``models.layers``, ``models.moe``, ``models.ssm``; the hybrid
+block's attention and SSM mixer each in its own layout, side by side on
+the same input), and a leaf FSDP split over
 ``data`` is all-gathered over it inside the layer's body (``gather_layer``,
 the JAX ``make_layer_param_sharder``'s per-layer gather), so under remat
 inside its checkpoint too; the gather's backward is the reduce-scatter.
-The caches then hold the member's KV heads.
+The caches then hold the member's KV heads and its blocks of the SSM
+state and conv tail.
 
 ``remat="full"`` (``ParallelConfig.remat``) runs each layer under
 ``torch.utils.checkpoint`` where the JAX package wraps the scan body in
@@ -49,8 +52,8 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (ParamDict, apply_attention, apply_mlp,
                                        apply_norm, attention_axes,
                                        init_attention, init_mlp, init_norm,
-                                       mlp_axes, norm_axes, project_kv,
-                                       rms_norm)
+                                       mlp_axes, model_split, norm_axes,
+                                       project_kv, rms_norm)
 
 PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 SSM_CACHE = ("ssm_state", "conv_state")
@@ -145,14 +148,15 @@ def _mixer_forward(p, cfg: ModelConfig, x, positions, backend: str = "ref",
     Returns (mix_out, cache_out_dict)."""
     h = apply_norm(p.ln1, x, cfg)
     if cfg.family == "ssm":
-        return ssm_lib.apply_ssm(p.ssm, cfg, h)
+        return ssm_lib.apply_ssm(p.ssm, cfg, h, spec=_sub(spec, "ssm"))
     attn_out, (k, v) = apply_attention(
         p.attn, cfg, h, positions=positions, causal=True,
         window=cfg.sliding_window, backend=backend, self_rows=self_rows,
         spec=_sub(spec, "attn"))
     cache = {"k": k, "v": v}
     if cfg.family == "hybrid":
-        ssm_out, ssm_cache = ssm_lib.apply_ssm(p.ssm, cfg, h)
+        ssm_out, ssm_cache = ssm_lib.apply_ssm(p.ssm, cfg, h,
+                                               spec=_sub(spec, "ssm"))
         cache.update(ssm_cache)
         return _fuse(p, attn_out, ssm_out, x.dtype), cache
     return attn_out, cache
@@ -297,10 +301,11 @@ def init_cache_slots(cfg: ModelConfig, window: int, prefill_positions=None,
 # ---------------------------------------------------------------------------
 
 
-def _ssm_decode(p, cfg: ModelConfig, h, layer_cache):
+def _ssm_decode(p, cfg: ModelConfig, h, layer_cache, spec=None):
     """The SSM's decode step; its new states are written into
     ``layer_cache``'s leaves in place."""
-    out, sc = ssm_lib.apply_ssm_step(p.ssm, cfg, h, layer_cache)
+    out, sc = ssm_lib.apply_ssm_step(p.ssm, cfg, h, layer_cache,
+                                     spec=_sub(spec, "ssm"))
     for name in SSM_CACHE:
         layer_cache[name].copy_(sc[name])
     return out
@@ -313,7 +318,7 @@ def _block_decode(p, cfg: ModelConfig, x, layer_cache, pos, pos_slots, slot,
     p = gather_layer(p, spec)
     h = apply_norm(p.ln1, x, cfg)
     if cfg.family == "ssm":
-        return x + _ssm_decode(p, cfg, h, layer_cache), layer_cache
+        return x + _ssm_decode(p, cfg, h, layer_cache, spec), layer_cache
     positions = pos[None]
     k_new, v_new = project_kv(p.attn, cfg, h, positions, _sub(spec, "attn"))
     idx = slot.reshape(1).long()
@@ -325,8 +330,8 @@ def _block_decode(p, cfg: ModelConfig, x, layer_cache, pos, pos_slots, slot,
         kv_positions=new_slots, causal=True, window=cfg.sliding_window,
         backend=backend, spec=_sub(spec, "attn"))
     if cfg.family == "hybrid":
-        attn_out = _fuse(p, attn_out, _ssm_decode(p, cfg, h, layer_cache),
-                         x.dtype)
+        attn_out = _fuse(p, attn_out,
+                         _ssm_decode(p, cfg, h, layer_cache, spec), x.dtype)
     x = x + attn_out
     return (x + _feed_forward(p, cfg, apply_norm(p.ln2, x, cfg), spec)[0],
             layer_cache)
@@ -352,19 +357,31 @@ def decode_stack(blocks, cfg: ModelConfig, x, caches, slots_state, *,
     return x, caches, new_state
 
 
+def member_kv_heads(cfg: ModelConfig, attn_spec) -> int:
+    """The KV heads a member's cache holds: its block where ``attn_spec``
+    (a layer's attention specs on a grid; None off one) splits ``wk``
+    over the model axis, else all of them."""
+    n = cfg.n_kv_heads
+    return n // dist.world_size() if model_split(attn_spec, "wk") else n
+
+
 def init_decode_cache(cfg: ModelConfig, batch: int, window: int, dtype, *,
-                      device, n_kv: Optional[int] = None):
-    """Fresh (empty) stacked cache (``n_kv``: the KV heads a member holds;
-    all of them by default)."""
+                      device, specs=None):
+    """Fresh (empty) stacked cache; on a grid (``specs``: the layers'
+    member specs) the member's KV heads and its blocks of the SSM caches
+    (``ssm.init_ssm_cache``)."""
     require_ported(cfg)
     c = {}
+    spec = None if specs is None else specs[0]
     if cfg.family != "ssm":
-        shape = (cfg.n_layers, batch, window, n_kv or cfg.n_kv_heads,
+        shape = (cfg.n_layers, batch, window,
+                 member_kv_heads(cfg, _sub(spec, "attn")),
                  cfg.resolved_head_dim)
         c["k"] = torch.zeros(shape, dtype=dtype, device=device)
         c["v"] = torch.zeros(shape, dtype=dtype, device=device)
     if cfg.family in ("ssm", "hybrid"):
-        layer = ssm_lib.init_ssm_cache(cfg, batch, dtype, device=device)
+        layer = ssm_lib.init_ssm_cache(cfg, batch, dtype, device=device,
+                                       spec=_sub(spec, "ssm"))
         c.update({k: a[None].repeat((cfg.n_layers,) + (1,) * a.dim())
                   for k, a in layer.items()})
     return c

@@ -18,13 +18,24 @@ token's self-attention K/V into the cache in place; the cross caches
 ``remat="full"`` checkpoints each encoder layer, and each decoder layer
 when no cache is wanted (``decoder.remat_wanted``), as the JAX package
 wraps its scan bodies in ``jax.checkpoint``.
+
+On a grid (``specs``: the member specs of ``init_encdec``'s tree,
+``train.gspmd.member_specs``) the self- and cross-attentions are column-
+then row-parallel over the heads the model axis divides (whisper-tiny's 6
+heads, 3 a member on 2), the MLP over its hidden columns, the encoder's
+self-attention through the flash kernel on the member's heads, and a
+leaf FSDP split over ``data`` is gathered inside its layer
+(``decoder.gather_layer``; the JAX package leaves the encdec out of its
+per-layer sharder, which moves the gathers, not the numbers). The cross
+caches hold the member's KV heads, as K and V do.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.decoder import checkpointed, remat_wanted
+from repro_torch.models.decoder import (checkpointed, gather_layer,
+                                        member_kv_heads, remat_wanted)
 from repro_torch.models.layers import (ParamDict, _embed_init,
                                        apply_attention, apply_mlp,
                                        apply_norm, attention_axes,
@@ -96,16 +107,27 @@ def init_encdec(gen: torch.Generator, cfg: ModelConfig) -> ParamDict:
         dec_pos=_embed_init(gen, (DEC_POS, cfg.d_model)))
 
 
-def _enc_block(lp, cfg: ModelConfig, x, positions, backend: str):
+def _sp(specs, key, i=None):
+    """The specs of ``key`` (layer ``i`` of a layer list) or None."""
+    if specs is None:
+        return None
+    return specs[key] if i is None else specs[key][i]
+
+
+def _enc_block(lp, cfg: ModelConfig, x, positions, backend: str,
+               spec=None):
+    lp = gather_layer(lp, spec)
     h = apply_norm(lp.ln1, x, cfg)
     a, _ = apply_attention(lp.attn, cfg, h, positions=positions,
-                           causal=False, backend=backend, self_rows=True)
+                           causal=False, backend=backend, self_rows=True,
+                           spec=_sp(spec, "attn"))
     x = x + a
-    return x + apply_mlp(lp.mlp, cfg, apply_norm(lp.ln2, x, cfg))
+    return x + apply_mlp(lp.mlp, cfg, apply_norm(lp.ln2, x, cfg),
+                         _sp(spec, "mlp"))
 
 
 def encode(p, cfg: ModelConfig, frames, *, backend: str = "ref",
-           remat: str = "none"):
+           remat: str = "none", specs=None):
     """frames: [B, enc_seq, D] stubbed conv features -> encoder output."""
     dt = frames.dtype
     s = frames.shape[1]
@@ -113,75 +135,89 @@ def encode(p, cfg: ModelConfig, frames, *, backend: str = "ref",
                                     device=frames.device).to(dt)
     positions = torch.arange(s, device=frames.device)
     remat = remat_wanted(remat, False)
-    for lp in p.enc_blocks:
+    for i, lp in enumerate(p.enc_blocks):
+        spec = _sp(specs, "enc_blocks", i)
         if remat:
             x = checkpointed(
-                lambda xc, lp=lp: _enc_block(lp, cfg, xc, positions,
-                                             backend), x)
+                lambda xc, lp=lp, spec=spec: _enc_block(
+                    lp, cfg, xc, positions, backend, spec), x)
         else:
-            x = _enc_block(lp, cfg, x, positions, backend)
-    return apply_norm(p.enc_ln, x, cfg)
+            x = _enc_block(lp, cfg, x, positions, backend, spec)
+    return apply_norm(gather_layer(p.enc_ln, _sp(specs, "enc_ln")), x, cfg)
 
 
-def _dec_positions_embed(p, positions, dt):
-    idx = (positions % p.dec_pos.shape[0]).long()
-    return p.dec_pos[idx].to(dt)
+def _dec_positions_embed(p, positions, dt, specs=None):
+    table = gather_layer(p.dec_pos, _sp(specs, "dec_pos"))
+    idx = (positions % table.shape[0]).long()
+    return table[idx].to(dt)
 
 
 def _dec_block(lp, cfg: ModelConfig, x, enc_out, positions, enc_pos,
-               backend: str):
+               backend: str, spec=None):
     """One decoder layer: (x, (k, v)) of its self-attention."""
+    lp = gather_layer(lp, spec)
     h = apply_norm(lp.ln1, x, cfg)
     a, (k, v) = apply_attention(lp.self_attn, cfg, h, positions=positions,
-                                causal=True, backend=backend, self_rows=True)
+                                causal=True, backend=backend, self_rows=True,
+                                spec=_sp(spec, "self_attn"))
     x = x + a
     h = apply_norm(lp.ln2, x, cfg)
     c, _ = apply_attention(lp.cross_attn, cfg, h, positions=positions,
                            kv={"x": enc_out}, kv_positions=enc_pos,
-                           causal=False, backend=backend)
+                           causal=False, backend=backend,
+                           spec=_sp(spec, "cross_attn"))
     x = x + c
-    return x + apply_mlp(lp.mlp, cfg, apply_norm(lp.ln3, x, cfg)), (k, v)
+    return x + apply_mlp(lp.mlp, cfg, apply_norm(lp.ln3, x, cfg),
+                         _sp(spec, "mlp")), (k, v)
 
 
 def decode_train(p, cfg: ModelConfig, tokens_emb, enc_out, positions,
                  want_cache: bool = False, *, backend: str = "ref",
-                 remat: str = "none"):
+                 remat: str = "none", specs=None):
     """Teacher-forced decoder forward. tokens_emb: [B,S,D] (embedded),
     ``positions`` arange(S). Returns (hidden [B,S,D], caches or None):
     caches {"k", "v", "cross_k", "cross_v"} stacked [L, ...]."""
     dt = tokens_emb.dtype
-    x = tokens_emb + _dec_positions_embed(p, positions, dt)[None]
+    x = tokens_emb + _dec_positions_embed(p, positions, dt, specs)[None]
     enc_pos = torch.arange(enc_out.shape[1], device=enc_out.device)
     layers = []
     remat = remat_wanted(remat, want_cache)
-    for lp in p.dec_blocks:
+    for i, lp in enumerate(p.dec_blocks):
+        spec = _sp(specs, "dec_blocks", i)
         if remat:
             x = checkpointed(
-                lambda xc, eo, lp=lp: _dec_block(lp, cfg, xc, eo, positions,
-                                                 enc_pos, backend)[0],
+                lambda xc, eo, lp=lp, spec=spec: _dec_block(
+                    lp, cfg, xc, eo, positions, enc_pos, backend, spec)[0],
                 x, enc_out)
             continue
         x, (k, v) = _dec_block(lp, cfg, x, enc_out, positions, enc_pos,
-                               backend)
+                               backend, spec)
         if want_cache:
-            ck, cv = project_kv(lp.cross_attn, cfg, enc_out, enc_pos)
+            ck, cv = project_kv(gather_layer(lp.cross_attn,
+                                             _sp(spec, "cross_attn")),
+                                cfg, enc_out, enc_pos,
+                                _sp(spec, "cross_attn"))
             layers.append({"k": k, "v": v, "cross_k": ck, "cross_v": cv})
     caches = ({n: torch.stack([c[n] for c in layers]) for n in layers[0]}
               if want_cache else None)
-    return apply_norm(p.dec_ln, x, cfg), caches
+    return (apply_norm(gather_layer(p.dec_ln, _sp(specs, "dec_ln")), x, cfg),
+            caches)
 
 
-def build_cross_cache(p, cfg: ModelConfig, enc_out):
+def build_cross_cache(p, cfg: ModelConfig, enc_out, specs=None):
     """Per-layer cross-attention K/V of the encoder's output: (ck, cv)
-    [L, B, T_enc, Hk, Dh]."""
+    [L, B, T_enc, Hk, Dh] (the member's KV heads on a grid)."""
     enc_pos = torch.arange(enc_out.shape[1], device=enc_out.device)
-    kv = [project_kv(lp.cross_attn, cfg, enc_out, enc_pos)
-          for lp in p.dec_blocks]
+    kv = []
+    for i, lp in enumerate(p.dec_blocks):
+        spec = _sp(_sp(specs, "dec_blocks", i), "cross_attn")
+        kv.append(project_kv(gather_layer(lp.cross_attn, spec), cfg,
+                             enc_out, enc_pos, spec))
     return (torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv]))
 
 
 def decode_step(p, cfg: ModelConfig, x, caches, slots_state, *, window: int,
-                backend: str = "ref"):
+                backend: str = "ref", specs=None):
     """One decoder token x [B,1,D] (embedded). caches: stacked {"k", "v",
     "cross_k", "cross_v"}, the self-attention K/V written at the token's
     slot in place. Returns (hidden [B,1,D], caches, new slots_state)."""
@@ -190,37 +226,46 @@ def decode_step(p, cfg: ModelConfig, x, caches, slots_state, *, window: int,
     slot = pos % window
     idx = slot.reshape(1).long()
     positions = pos[None]
-    x = x + _dec_positions_embed(p, positions, x.dtype)[None]
+    x = x + _dec_positions_embed(p, positions, x.dtype, specs)[None]
     enc_pos = torch.arange(caches["cross_k"].shape[2], device=x.device)
     new_slots = pos_slots.index_copy(0, idx, pos.reshape(1))
     for i, lp in enumerate(p.dec_blocks):
+        spec = _sp(specs, "dec_blocks", i)
+        lp = gather_layer(lp, spec)
         h = apply_norm(lp.ln1, x, cfg)
-        k_new, v_new = project_kv(lp.self_attn, cfg, h, positions)
+        k_new, v_new = project_kv(lp.self_attn, cfg, h, positions,
+                                  _sp(spec, "self_attn"))
         kc = caches["k"][i].index_copy_(1, idx, k_new)
         vc = caches["v"][i].index_copy_(1, idx, v_new)
         a, _ = apply_attention(lp.self_attn, cfg, h, positions=positions,
                                kv=(kc, vc), kv_positions=new_slots,
-                               causal=True, backend=backend)
+                               causal=True, backend=backend,
+                               spec=_sp(spec, "self_attn"))
         x = x + a
         h = apply_norm(lp.ln2, x, cfg)
         c, _ = apply_attention(lp.cross_attn, cfg, h, positions=positions,
                                kv=(caches["cross_k"][i], caches["cross_v"][i]),
                                kv_positions=enc_pos, causal=False,
-                               backend=backend)
+                               backend=backend, spec=_sp(spec, "cross_attn"))
         x = x + c
-        x = x + apply_mlp(lp.mlp, cfg, apply_norm(lp.ln3, x, cfg))
-    x = apply_norm(p.dec_ln, x, cfg)
+        x = x + apply_mlp(lp.mlp, cfg, apply_norm(lp.ln3, x, cfg),
+                          _sp(spec, "mlp"))
+    x = apply_norm(gather_layer(p.dec_ln, _sp(specs, "dec_ln")), x, cfg)
     return x, caches, {"pos": pos + 1, "pos_slots": new_slots}
 
 
 def init_encdec_decode_cache(cfg: ModelConfig, batch: int, window: int,
-                             dtype, *, device) -> dict:
+                             dtype, *, device, specs=None) -> dict:
     """Fresh (empty) stacked caches: self-attention K/V over ``window``
-    slots, cross K/V over the encoder's ``enc_seq`` frames."""
-    hk, dh, n = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
+    slots, cross K/V over the encoder's ``enc_seq`` frames; on a grid
+    (``specs``) the member's KV heads of each."""
+    spec = _sp(specs, "dec_blocks", 0)
+    dh, n = cfg.resolved_head_dim, cfg.n_layers
 
-    def zeros(t):
+    def zeros(t, attn):
+        hk = member_kv_heads(cfg, _sp(spec, attn))
         return torch.zeros((n, batch, t, hk, dh), dtype=dtype, device=device)
 
-    return {"k": zeros(window), "v": zeros(window),
-            "cross_k": zeros(cfg.enc_seq), "cross_v": zeros(cfg.enc_seq)}
+    return {"k": zeros(window, "self_attn"), "v": zeros(window, "self_attn"),
+            "cross_k": zeros(cfg.enc_seq, "cross_attn"),
+            "cross_v": zeros(cfg.enc_seq, "cross_attn")}

@@ -436,7 +436,8 @@ def apply_attention(p, cfg: ModelConfig, x, *, positions, kv=None,
     q = torch.einsum("bsd,dhk->bshk", dist.pvary(x) if split else x,
                      p.wq.to(dt))
     if cross:
-        src = kv["x"]
+        # column-parallel over the KV heads where wk is split
+        src = dist.pvary(kv["x"]) if model_split(spec, "wk") else kv["x"]
         k = torch.einsum("bsd,dhk->bshk", src, p.wk.to(dt))
         v = torch.einsum("bsd,dhk->bshk", src, p.wv.to(dt))
         k_pos = kv_positions
@@ -454,7 +455,9 @@ def apply_attention(p, cfg: ModelConfig, x, *, positions, kv=None,
         q = _qk_norm(q, dist.pvary(p.q_norm) if split else p.q_norm,
                      cfg.norm_eps)
         if cross:
-            k = _qk_norm(k, p.k_norm, cfg.norm_eps)
+            k = _qk_norm(k, dist.pvary(p.k_norm)
+                         if model_split(spec, "wk") else p.k_norm,
+                         cfg.norm_eps)
     if cfg.rope_theta > 0 and not cross:
         q = rope(q, positions, cfg.rope_theta)
     ks, vs = k, v

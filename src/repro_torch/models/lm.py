@@ -25,8 +25,9 @@ slice of each leaf (``specs``: ``train.gspmd.member_specs``), a layer at a
 time, so a grid's model is the ring's model, cut; ``backbone``,
 ``decode`` and ``head_weight`` take the same specs and gather what FSDP
 split over the batch axes (the head's W: the member's [V / n_model, D]
-block). The ssm, hybrid and encdec trunks stay replicated: a grid refuses
-them (``require_ported(cfg, grid=True)``).
+block). Every zoo family splits: the dense, vlm and moe trunks, the ssm
+mixer (``models.ssm``) and the hybrid block, and the encoder-decoder
+(``models.encdec``).
 
 ``params_tree`` lays the params out as the JAX package does, each leaf of
 a layer list (``blocks``; the encdec family's ``enc_blocks`` and
@@ -56,24 +57,17 @@ from repro_torch.models.layers import (MetaGenerator, ParamDict, _dense_init,
 STACKED = ("blocks", "enc_blocks", "dec_blocks")
 
 
-# the families whose trunks a grid splits (tensor-, expert- and
-# FSDP-parallel); the rest stay replicated, ROADMAP.md A item 4
-GRID_FAMILIES = ("dense", "vlm", "moe")
-
-
 def require_ported(cfg: ModelConfig, grid: bool = False) -> None:
     """Raise for a family this module cannot build: it builds the cnn
     trunk, the encoder-decoder and the decoder stacks ``models.decoder``
-    has; on a grid (``grid=True``) only the families of
-    ``GRID_FAMILIES``."""
+    has; a grid (``grid=True``) splits every zoo family, and refuses the
+    paper's cnn trunk, which the paper trainer runs data-parallel."""
     if cfg.family not in ("cnn", "encdec"):
         dec_lib.require_ported(cfg)
-    if grid and cfg.family not in GRID_FAMILIES:
+    if grid and cfg.family == "cnn":
         raise NotImplementedError(
-            f"the {cfg.family!r} family's trunk is not split over a (data, "
-            f"model) grid yet: tensor-parallel ssm, hybrid and encdec "
-            f"trunks are ROADMAP.md A item 4 (grid families: "
-            f"{list(GRID_FAMILIES)})")
+            "the cnn trunk is not split over a (data, model) grid: the "
+            "paper trainer runs it data-parallel")
 
 
 def cut(tree, specs):
@@ -116,7 +110,7 @@ def init_model(gen: torch.Generator, cfg: ModelConfig,
                 "trunk": resnet_lib.init_resnet(gen, cfg)}
     p = {"embed": cut(init_embedding(gen, cfg), sp.get("embed"))}
     if cfg.family == "encdec":
-        p["encdec"] = encdec_lib.init_encdec(gen, cfg)
+        p["encdec"] = cut(encdec_lib.init_encdec(gen, cfg), sp.get("encdec"))
     else:
         p["blocks"] = [cut(dec_lib.init_block(gen, cfg),
                            None if specs is None else specs["blocks"][i])
@@ -201,10 +195,11 @@ def backbone(params, cfg: ModelConfig, inputs, *, want_cache: bool = False,
         enc_out = encdec_lib.encode(
             params.encdec, cfg,
             inputs["frames"].to(getattr(torch, cfg.dtype)), backend=backend,
-            remat=remat)
+            remat=remat, specs=sp.get("encdec"))
         x, caches = encdec_lib.decode_train(params.encdec, cfg, x, enc_out,
                                             positions, want_cache,
-                                            backend=backend, remat=remat)
+                                            backend=backend, remat=remat,
+                                            specs=sp.get("encdec"))
         return x, torch.zeros((), device=x.device), caches
     win = cache_window or (cfg.sliding_window or tokens.shape[1])
     x, aux, caches = dec_lib.apply_stack(
@@ -225,7 +220,8 @@ def decode(params, cfg: ModelConfig, inputs, caches, slots_state, *,
     if cfg.family == "encdec":
         return encdec_lib.decode_step(params.encdec, cfg, x, caches,
                                       slots_state, window=window,
-                                      backend=backend)
+                                      backend=backend,
+                                      specs=sp.get("encdec"))
     x, caches, slots_state = dec_lib.decode_stack(
         params.blocks, cfg, x, caches, slots_state, window=window,
         backend=backend, specs=sp.get("blocks"))
@@ -245,17 +241,20 @@ def decode_window(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *,
-                      device, n_kv: Optional[int] = None):
-    """Fresh caches + slot bookkeeping for decoding at seq_len (``n_kv``:
-    the KV heads a grid member holds)."""
+                      device, specs=None):
+    """Fresh caches + slot bookkeeping for decoding at seq_len (``specs``:
+    a grid member's, whose caches hold its KV heads and SSM blocks)."""
     window = decode_window(cfg, seq_len)
+    sp = specs or {}
     if cfg.family == "encdec":
         caches = encdec_lib.init_encdec_decode_cache(
-            cfg, batch, window, getattr(torch, cfg.dtype), device=device)
+            cfg, batch, window, getattr(torch, cfg.dtype), device=device,
+            specs=sp.get("encdec"))
     else:
         caches = dec_lib.init_decode_cache(cfg, batch, window,
                                            getattr(torch, cfg.dtype),
-                                           device=device, n_kv=n_kv)
+                                           device=device,
+                                           specs=sp.get("blocks"))
     slots = dec_lib.init_cache_slots(cfg, window, device=device)
     return caches, slots, window
 

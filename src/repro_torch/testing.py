@@ -21,6 +21,8 @@ and ``chip_smoke.py`` run both through the same gates.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -659,21 +661,22 @@ def ivf_recall(protos: np.ndarray, queries: np.ndarray, *, k: int,
 
 
 def zoo_serve(tree: dict, *, arch: str, prompts: np.ndarray, gen: int,
-              backend: str) -> np.ndarray:
-    """A CPU ``ZooExperiment`` (the reduced ``arch``) on this member (of
-    the ring or the grid), serving the JAX package's params ``tree``
-    (carried over by ``interop``) on the JAX package's ``prompts`` [b, s],
-    which replace the port's ``lm_batch`` for the call. Returns the greedy
-    tokens."""
+              backend: str, variant: Optional[dict] = None) -> np.ndarray:
+    """A CPU ``ZooExperiment`` (the reduced ``arch``, its fields replaced
+    by ``variant``, ``model_variant``) on this member (of the ring or the
+    grid), serving the JAX package's params ``tree`` (carried over by
+    ``interop``) on the JAX package's ``prompts`` [b, s], which replace
+    the port's ``lm_batch`` for the call. Returns the greedy tokens."""
     from repro_torch import interop
     from repro_torch.api import Experiment
     from repro_torch.configs.base import HeadConfig
     from repro_torch.data import synthetic
 
     b, s = prompts.shape
-    exp = Experiment.from_config(system="zoo", arch=arch, reduced=True,
-                                 batch=b, device="cpu",
-                                 head=HeadConfig(backend=backend))
+    with model_variant(variant):
+        exp = Experiment.from_config(system="zoo", arch=arch, reduced=True,
+                                     batch=b, device="cpu",
+                                     head=HeadConfig(backend=backend))
     exp.load_params(interop.zoo_params_from_numpy(
         tree, exp.model_cfg, rank=dist.rank(), world_size=dist.world_size(),
         device="cpu", specs=exp.specs))
@@ -686,25 +689,55 @@ def zoo_serve(tree: dict, *, arch: str, prompts: np.ndarray, gen: int,
         synthetic.lm_batch = real
 
 
+@contextlib.contextmanager
+def model_variant(fields: Optional[dict]):
+    """Zoo experiments built inside take their arch's config with
+    ``fields`` replaced (``"ssm"``: a dict of ``SSMConfig`` fields); None:
+    the config as it is. The layout cases of the grid's tests use it."""
+    from repro_torch.api import experiment
+
+    if not fields:
+        yield
+        return
+    real = experiment.get_model_config
+
+    def variant(arch, reduced=False):
+        cfg = real(arch, reduced)
+        top = {k: v for k, v in fields.items() if k != "ssm"}
+        if "ssm" in fields:
+            top["ssm"] = dataclasses.replace(cfg.ssm, **fields["ssm"])
+        return dataclasses.replace(cfg, **top)
+
+    experiment.get_model_config = variant
+    try:
+        yield
+    finally:
+        experiment.get_model_config = real
+
+
 def _zoo_experiment(tree: dict, head_cfg: dict, *, arch: str, batch: int,
                     seq: int, train_cfg: Optional[dict] = None,
-                    batches=None, head_state=None, par=None):
-    """A CPU ``ZooExperiment`` (the reduced ``arch``) on this member (of
-    the ring, or of the grid ``dist.grid`` laid out, under ``par``) with
-    the JAX package's params ``tree`` and, when given, its head state
-    ``{"params", "aux"}`` (the sketch heads' bucket weights, the LSH
-    tables), both carried by ``interop``; ``batches[t]`` (the JAX
-    package's ``lm_batch`` arrays) replace the port's data stream."""
+                    batches=None, head_state=None, par=None,
+                    variant: Optional[dict] = None):
+    """A CPU ``ZooExperiment`` (the reduced ``arch``, its fields replaced
+    by ``variant``, ``model_variant``) on this member (of the ring, or of
+    the grid ``dist.grid`` laid out, under ``par``) with the JAX
+    package's params ``tree`` and, when given, its head state ``{"params",
+    "aux"}`` (the sketch heads' bucket weights, the LSH tables), both
+    carried by ``interop``; ``batches[t]`` (the JAX package's ``lm_batch``
+    arrays) replace the port's data stream."""
     from repro_torch import interop
     from repro_torch.api import Experiment
     from repro_torch.configs.base import TrainConfig
 
     cfg = interop.head_config_from_dict(head_cfg)
-    exp = Experiment.from_config(
-        system="zoo", arch=arch, reduced=True, batch=batch, seq=seq,
-        head=cfg, train=TrainConfig(**(train_cfg or {"optimizer": "sgd"})),
-        device="cpu", log_every=0, par=par,
-        data_fn=None if batches is None else (lambda t, b: batches[t]))
+    with model_variant(variant):
+        exp = Experiment.from_config(
+            system="zoo", arch=arch, reduced=True, batch=batch, seq=seq,
+            head=cfg,
+            train=TrainConfig(**(train_cfg or {"optimizer": "sgd"})),
+            device="cpu", log_every=0, par=par,
+            data_fn=None if batches is None else (lambda t, b: batches[t]))
     r, n = dist.rank(), dist.world_size()
     exp.load_params(interop.zoo_params_from_numpy(
         tree, exp.model_cfg, rank=r, world_size=n, device="cpu",
@@ -719,7 +752,7 @@ def _zoo_experiment(tree: dict, head_cfg: dict, *, arch: str, batch: int,
 def zoo_fit(tree: dict, head_cfg: dict, train_cfg: dict, *, arch: str,
             batch: int, seq: int, steps: int, lr: float, batches: list,
             eval_inputs: dict, head_state=None, draws=None,
-            par=None) -> dict:
+            par=None, variant: Optional[dict] = None) -> dict:
     """``ZooExperiment.fit(steps, lr=lr)`` on this member (of the ring or
     the grid) from the JAX package's params and head state
     (``_zoo_experiment``) on its batches; ``draws`` maps a sampled draw's
@@ -733,7 +766,7 @@ def zoo_fit(tree: dict, head_cfg: dict, train_cfg: dict, *, arch: str,
 
     exp = _zoo_experiment(tree, head_cfg, arch=arch, batch=batch, seq=seq,
                           train_cfg=train_cfg, batches=batches,
-                          head_state=head_state, par=par)
+                          head_state=head_state, par=par, variant=variant)
     if draws is not None:
         exp.head.draw = _injected_draw(draws)
     versions = [exp.weights_version]
@@ -1374,6 +1407,130 @@ def zoo_elastic_restore(spec: dict, ckpt_dir: str, *, train_to: int
     return out
 
 
+def zoo_grid_restore(spec: dict, src_dir: str, *, batches: list,
+                     dst_dir: Optional[str] = None, steps: int = 1) -> dict:
+    """On this member (of the ring or the grid): ``restore(reshard=True)``
+    of the zoo checkpoint under ``src_dir`` (written on a grid of another
+    shape), its GLOBAL snapshot as host arrays, the reshard's record; then
+    a save of the restored state under ``dst_dir`` (when given), and
+    ``fit(steps)`` on ``batches[t]`` from the restored cursor, with no
+    checkpoint: its losses and the params gathered whole."""
+    from repro_torch import interop
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_map
+    from repro_torch.telemetry import Tracer
+
+    exp = zoo_ckpt_experiment(spec, src_dir)
+    exp.data_fn = lambda t, b: batches[t]
+    tele = Tracer()
+    exp.telemetry = tele
+    step = exp.restore(reshard=True)
+    # copies: the snapshot shares the live params' unsplit leaves
+    snap = tree_map(lambda t: _np(t).copy(), exp._snapshot())
+    out = {"step": step, "t": exp._t, "snap": snap,
+           "bytes_moved": tele.counters.get("reshard.bytes_moved", 0.0),
+           "spans": sorted({e.name for e in tele.events}),
+           "last_reshard": (exp.last_reshard["src"].describe(),
+                            exp.last_reshard["dst"].describe())}
+    exp.telemetry = None
+    if dst_dir:
+        exp.ckpt_dir = dst_dir
+        exp.save_checkpoint()
+    exp.ckpt_dir = None
+    hist = exp.fit(steps, lr=0.1)
+    whole = (exp.params if exp.specs is None
+             else lm.gather_params(exp.params, exp.specs))
+    out.update(losses=[r["loss"] for r in hist],
+               params=interop.zoo_params_to_numpy(whole))
+    return out
+
+
+def encdec_decode(tree: dict, *, arch: str, frames, prompt, gen: int
+                  ) -> np.ndarray:
+    """The encoder-decoder's greedy decode through ``models.lm.decode`` on
+    this member (of the ring or the grid, every member decoding every
+    row) from the JAX package's params: the encoder over ``frames`` [b, T,
+    D], the cross caches (``encdec.build_cross_cache``), the decoder fed
+    ``prompt`` [b, P] token by token, then ``gen`` greedy tokens through
+    the sharded-vocab argmax. Returns the greedy tokens [b, gen]."""
+    from repro_torch.models import encdec, lm
+    from repro_torch.train import gspmd
+
+    b, n_prompt = np.shape(prompt)
+    exp = _zoo_experiment(tree, {"softmax_impl": "full"}, arch=arch,
+                          batch=b, seq=n_prompt)
+    cfg, params, specs = exp.model_cfg, exp.params, exp.specs
+    sp = None if specs is None else specs["encdec"]
+    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.long)
+    with torch.no_grad():
+        enc = encdec.encode(params.encdec, cfg, torch.as_tensor(
+            np.asarray(frames)).to(getattr(torch, cfg.dtype)), specs=sp)
+        caches, slots, window = lm.init_decode_state(
+            cfg, b, n_prompt + gen, device="cpu", specs=specs)
+        caches["cross_k"], caches["cross_v"] = encdec.build_cross_cache(
+            params.encdec, cfg, enc, sp)
+        tok, out = prompt[:, :1], []
+        for t in range(n_prompt + gen - 1):
+            h, caches, slots = lm.decode(params, cfg, {"token": tok}, caches,
+                                         slots, window=window, specs=specs)
+            if t + 1 < n_prompt:
+                tok = prompt[:, t + 1:t + 2]
+                continue
+            tok = gspmd._greedy(params, cfg, h[:, 0, :], specs)[:, None]
+            out.append(tok[:, 0])
+    return _np(torch.stack(out, dim=1))
+
+
+def grid_step_collectives(archs: list, *, batch: int, seq: int) -> list:
+    """One zoo train step (the full head, ``ref`` kernels, ``remat="full"``,
+    SGD) of each reduced arch on this grid member, built as
+    ``launch.dryrun.lower_one`` builds it on ``"DxM"`` (the grid's shape)
+    but on real CPU tensors, its collectives counted at the ``dist``
+    wrappers. Returns each arch's counts."""
+    import math
+
+    from repro_torch.api.heads import HeadState, make_head
+    from repro_torch.configs.base import (INPUT_SHAPES, HeadConfig,
+                                          TrainConfig, for_shape,
+                                          get_model_config, pad_vocab)
+    from repro_torch.launch.mesh import make_host_parallel_config
+    from repro_torch.models import lm
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import gspmd
+
+    _, n_data, n_model = dist.grid_shape()
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"],
+                                global_batch=batch, seq_len=seq)
+    out = []
+    for arch in archs:
+        cfg = for_shape(get_model_config(arch, True), shape)
+        cfg = pad_vocab(cfg, 128 * n_model // math.gcd(128, n_model))
+        par = make_host_parallel_config(n_data, n_model, "full")
+        specs = gspmd.member_specs(cfg, par)
+        gen = torch.Generator().manual_seed(0)
+        params = lm.init_model(gen, cfg, specs)
+        hcfg = HeadConfig(softmax_impl="full", backend="ref",
+                          cosine_scale=0.0)
+        tcfg = TrainConfig(optimizer="sgd", micro_batch=0)
+        rows = batch // n_data
+        g = torch.Generator().manual_seed(1)
+        inputs = {k: torch.randint(0, 512, (rows, seq), generator=g,
+                                   dtype=torch.int32)
+                  for k in ("tokens", "labels")}
+        if cfg.family == "encdec":
+            inputs["frames"] = torch.randn(
+                (rows, cfg.enc_seq, cfg.d_model), generator=g).to(
+                    getattr(torch, cfg.dtype))
+        step = gspmd.make_head_train_step(cfg, hcfg, tcfg, shape,
+                                          head=make_head(cfg, hcfg),
+                                          par=par, specs=specs)
+        opt_state = make_optimizer(tcfg).init((params, ()))
+        with dist.count_collectives() as counts:
+            step(params, HeadState((), ()), opt_state, inputs, 0.1)
+        out.append(dict(counts))
+    return out
+
+
 def run_all(cases: list) -> list:
     """Run ``(worker name, args, kwargs)`` cases in order on this member,
     so one spawned ring serves a whole group of tests."""
@@ -1399,6 +1556,9 @@ def run_all(cases: list) -> list:
                "elastic_restore": elastic_restore,
                "zoo_ckpt_from_jax": zoo_ckpt_from_jax,
                "zoo_kill_recover": zoo_kill_recover,
+               "zoo_grid_restore": zoo_grid_restore,
+               "grid_step_collectives": grid_step_collectives,
+               "encdec_decode": encdec_decode,
                "zoo_elastic_source": zoo_elastic_source,
                "zoo_elastic_restore": zoo_elastic_restore,
                "grid_moe": grid_moe, "grid_lars": grid_lars,

@@ -9,7 +9,12 @@ with and without DGC, against the JAX ``PaperTrainer``, on the CPU.
   0.99, 256 KiB groups, the threshold on ``ops.topk_threshold``), where
   entries within rounding of a group's threshold may be sent by one
   package and kept by the other: the test counts those flips in the final
-  residual.
+  residual. ATen's CPU GroupNorm backward sums in an order that depends
+  on the intra-op thread count, so every ring runs at a fixed count and
+  its result is one on every machine: each spawned member at one thread,
+  the ring of one, in this process, at two (at one thread its trunk's
+  conv3 and proj weights move up to 1.35e-5 from the two-thread run's
+  and miss rtol 1e-4 by 5.2e-6 to 9.6e-6).
 * ``evaluate``, greedy and top-k ``serve`` of image queries, explicit and
   through the serving engine's padded micro-batches, from the trained JAX
   state, against the JAX experiment's.
@@ -21,6 +26,7 @@ import functools
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.api import Experiment as JaxExperiment
 from repro.configs.base import DGCConfig as JaxDGCConfig
@@ -93,6 +99,17 @@ def jax_results():
     return res
 
 
+def _pinned(threads, fn, *args, **kwargs):
+    """``fn`` at ``threads`` intra-op threads (the ring of one runs in this
+    process, where the count is otherwise the machine's)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        torch.set_num_threads(prev)
+
+
 @pytest.fixture(scope="module")
 def port_results():
     jr = jax_results()
@@ -111,7 +128,8 @@ def port_results():
                                     dataclasses.asdict(HEAD)),
                       dict(classes=CLASSES, images=images, labels=labels,
                            k=TOP_K)))
-        per_rank = dist.spawn_ring(testing.run_all, n, cases)
+        # the thread count of the ring of one, which runs in this process
+        per_rank = _pinned(2, dist.spawn_ring, testing.run_all, n, cases)
         res[(n, False)], res[(n, True)] = per_rank[0][0], per_rank[0][1]
         res[(n, "serve")] = per_rank[0][2]
         res[(n, "ranks")] = per_rank

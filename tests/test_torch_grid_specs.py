@@ -17,8 +17,11 @@ production grids, on the CPU, in shapes only.
   for the dense, vlm and moe families, kimi-K2 at full width (depth cut)
   among them: member (0, 0)'s argument bytes equal its params' blocks by
   ``param_pspecs`` (with the SGD momentum in training) plus its data
-  shard's inputs, exactly; the ssm, hybrid and encdec families raise,
-  naming ROADMAP.md A item 4.
+  shard's inputs, exactly; so does every family the grid once refused
+  (mamba2-370M, hymba-1.5B, whisper-tiny, their frames counted).
+* ``lower_one`` of those three at the reduced width on ``"2x2"`` equals
+  a real step of member (0, 0) of a (2, 2) gloo grid in its collectives,
+  by kind, bytes and count, exactly.
 """
 import jax
 import pytest
@@ -115,12 +118,66 @@ def test_lower_one_on_the_production_grids(arch, mesh):
         assert r["mesh"] == mesh and r["memory"]["peak_bytes"] > 0
 
 
-@pytest.mark.parametrize("arch", ["mamba2_370m", "hymba_1_5b",
-                                  "whisper_tiny"])
+FAMILIES = ["mamba2_370m", "hymba_1_5b", "whisper_tiny"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
 def test_lower_one_refuses_the_families_not_split_yet(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A item 4"):
-        dryrun.lower_one(arch, "train_4k", mesh="16x16", n_layers=1,
-                         batch=32, seq=64)
+    """The ssm, hybrid and encdec families, which the grid once refused,
+    lower now on 16 x 16 (member (0, 0), FSDP, remat) at full width with
+    the depth cut to one layer: member (0, 0)'s argument bytes are its
+    blocks by ``param_pspecs`` plus its data shard's inputs exactly (with
+    whisper's frames); a prefill and a decode step run. None is refused."""
+    rec = dryrun.lower_one(arch, "train_4k", mesh="16x16", n_layers=1,
+                           batch=32, seq=64)
+    assert rec["mesh"] == "16x16" and rec["member_rows"] == 2
+    cfg = tbase.pad_vocab(tbase.get_model_config(arch).__class__(
+        **{**tbase.get_model_config(arch).__dict__, "n_layers": 1}), 128)
+    frames = (2 * cfg.enc_seq * cfg.d_model * 2 if cfg.family == "encdec"
+              else 0)
+    assert rec["memory"]["argument_bytes"] == _member_bytes(
+        cfg, tmesh.make_parallel_config(), (1, 16, 16), 2, 64,
+        True) + frames
+    for shape in ("prefill_32k", "decode_32k"):
+        r = dryrun.lower_one(arch, shape, mesh="16x16", n_layers=1,
+                             batch=32, seq=64)
+        assert r["memory"]["peak_bytes"] > 0
+
+
+@pytest.fixture(scope="module")
+def grid_counts():
+    """The collectives of one real train step of each reduced family on
+    every member of a (2, 2) gloo grid."""
+    return [r[0] for r in dist.spawn_grid(
+        testing.run_all, 2, 2, [("grid_step_collectives", (FAMILIES,),
+                                 dict(batch=8, seq=16))])]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_lower_one_of_the_families_is_a_real_members_step(grid_counts,
+                                                          arch, monkeypatch):
+    """``lower_one`` at the reduced config on ``"2x2"`` (the host policy,
+    remat, the full head on ``ref``) against a direct run of the same
+    step on a (2, 2) gloo grid: the simulated member's collectives equal
+    every real member's by kind, bytes and count, exactly, and its
+    argument bytes are its blocks plus its rows. The record splits the
+    ssm mixer, the hybrid block and the encoder-decoder as the live grid
+    does."""
+    monkeypatch.setattr(dryrun, "get_model_config",
+                        lambda a: tbase.get_model_config(a, True))
+    rec = dryrun.lower_one(arch, "train_4k", mesh="2x2", batch=8, seq=16,
+                           backend="ref")
+    i = FAMILIES.index(arch)
+    for member in grid_counts:
+        assert member[i] == rec["collectives"]
+    cfg = tbase.pad_vocab(tbase.get_model_config(arch, True), 128)
+    if cfg.family != "encdec":    # the ssm mixer's gathered columns
+        assert rec["collectives"]["all-gather"]["count"] > 0
+    frames = (4 * cfg.enc_seq * cfg.d_model * 2 if cfg.family == "encdec"
+              else 0)
+    assert rec["memory"]["argument_bytes"] == _member_bytes(
+        cfg, tmesh.make_host_parallel_config(2, 2), (1, 2, 2), 4, 16,
+        True) + frames
 
 
 def test_lower_deep_is_the_direct_lowering():

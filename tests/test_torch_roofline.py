@@ -395,8 +395,8 @@ def test_lower_one_on_the_ring():
     are the fp32 params, the momentum and the batch, the vocab's head
     work is a quarter of the table's, remat recomputes (more FLOPs, a
     lower peak), the prefill runs the flash kernel's meta path; the
-    production meshes raise for a family whose trunk no grid splits yet
-    (their dense, vlm and moe records: tests/test_torch_grid_specs.py)."""
+    production meshes take every family, the ssm trunk too (their
+    records: tests/test_torch_grid_specs.py)."""
     kw = dict(n_dev=4, batch=2, seq=512)
     rows = {r: dryrun.lower_one("smollm_135m", "train_4k", remat=r, **kw)
             for r in ("none", "full")}
@@ -410,8 +410,9 @@ def test_lower_one_on_the_ring():
     assert rows["none"]["collectives"]["total_bytes"] > 0
     pre = dryrun.lower_one("smollm_135m", "prefill_32k", **kw)
     assert pre["kernels"]["flash_attention"]["calls"] == 30
-    with pytest.raises(NotImplementedError, match="A item 4"):
-        dryrun.lower_one("mamba2_370m", "train_4k", mesh="16x16")
+    ssm = dryrun.lower_one("mamba2_370m", "train_4k", mesh="16x16",
+                           n_layers=1, batch=32, seq=64)
+    assert ssm["mesh"] == "16x16" and ssm["member_rows"] == 2
 
 
 @pytest.mark.parametrize("arch", tbase.ARCH_IDS)
