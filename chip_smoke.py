@@ -291,10 +291,11 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    (48 layers, d_model 1,024, d_state 128, vocab 50,280) and hymba-1.5B
    (32 layers, d_model 1,600, 25 query heads over 5 KV heads in a sliding
    window of 1,024 beside 25 SSM heads, vocab 32,001) at their published
-   widths and depths, random weights from seed 0, on the ``kernel``
+   widths and half their depths (FAM_LAYERS: 24 and 16 layers), random
+   weights from seed 0, on the ``kernel``
    backend: every counter set to 0 just before ``serve(prompt_len=2000,
    gen=48, batch=8)`` and read just after (``FAM_WANT``: nothing for
-   mamba2, whose greedy head is dense; ``flash_attention`` 32 for hymba,
+   mamba2, whose greedy head is dense; ``flash_attention`` 16 for hymba,
    once a layer). A prefill of 2,000 tokens and one decode step against a
    prefill of 2,001 (``tests/test_decode.py``'s check): in fp32 compute
    the features within FAM_CONT32_TOL and every greedy token equal; in
@@ -309,8 +310,8 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    40 KV heads, bf16, causal, window 1,024): the bf16 gate, bit-identical
    across two runs, timed beside its plain version and SDPA with the
    window as a boolean mask.
-21. the families' training (their main paths), at FAM_TRAIN_DEPTH (24
-   of mamba2's layers, 16 of hymba's): the
+21. the families' training (their main paths), at FAM_TRAIN_DEPTH (12
+   of mamba2's layers, 8 of hymba's): the
    full head on 16 x 512 tokens a step (the stream's first batch, every
    step) in FAM_MICRO micro-batches, SGD at lr 0.5, ``fit(5)`` with every counter set to 0
    just before and read just after (the CE pair once a micro-step);
@@ -350,8 +351,8 @@ PyTorch built for CUDA. Phases, each of which fails the run:
 23. the moe and vlm families' serving, training and heads (their main
    paths), phases 19-21 at qwen3-moe-30B-A3B's published width (2,048
    wide, 32 / 4 heads of 128, 128 experts top-8 of d_ff 768, vocab
-   151,936; 8 layers to serve, 3 to train) and chameleon-34B's (8,192
-   wide, 64 / 8 heads of 128, d_ff 22,016, vocab 65,536; 8 layers to
+   151,936; 4 layers to serve, 3 to train) and chameleon-34B's (8,192
+   wide, 64 / 8 heads of 128, d_ff 22,016, vocab 65,536; 4 layers to
    serve, 2 to train), the cut depths reckoned at ``FAM_LAYERS``: the
    serve's flash attention once a layer; the decode step against the
    prefill one token longer (the moe family row by row at a capacity
@@ -415,7 +416,7 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    micro-batches, argument and peak bytes, and whether the peak fits the
    card.
 29. the grid's families (``grid_families_phase``): mamba2-370M and
-   hymba-1.5B at full width and FAM_TRAIN_DEPTH (24 and 16 layers) and
+   hymba-1.5B at full width and FAM_TRAIN_DEPTH (12 and 8 layers) and
    whisper-tiny at full width and depth, ``fit(3)`` in one
    micro-batch of 16 x 512 tokens (whisper 16 x 448 over 1,500 frames)
    with remat full, SGD at lr 0.5, on a (1, 1) grid in this process (the
@@ -432,6 +433,27 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    params bit-equal to the gathered save, the next step's loss within the
    same limit. The dry runs add mamba2 and hymba
    ``train_4k`` as member (0, 0) of 16 x 16.
+30. the paper system on a ring of two processes (``paper_ring_phase``):
+   the ring of one in this process, then ``dist.spawn_ring`` of two gloo
+   processes on this card (collectives staged through pinned host
+   memory), each holding 510,125 of the 1,020,250 x 512 rows, every
+   counter reset around each leg (``RING_LEGS``): the full head
+   ``fit(4)`` of 256 a step in two micro-batches (LARS, FCCS held), in
+   turn and overlapped (``hybrid.make_train_step(overlap=)``): losses, W
+   shards and LARS moments bit-equal, every loss within RING_LOSS_RTOL of
+   the ring of one's, step times and ``train.gather_wait_s`` of both;
+   greedy, exact top-5 and IVF top-5 of 64 queries (the IVF index also
+   probed at every cluster), the ids equal to the ring of one's on the
+   gathered W; ResNet-50 + DGC ``fit(3)`` at 224 x 224, 64 images a
+   member a micro-batch, both schedules bit-equal (trunk, W, moments,
+   DGC u and v); the knn head ``fit(2)`` with its graph built over the
+   ring (``label_recall``); each member's peaks. Then the train launcher
+   (``--system paper --share-cards --classes 1020250 --feat-dim 512
+   --batch 256 --steps 4 --fccs``) and the serve launcher's ``--topk 5``
+   and ``--topk 5 --index ivf`` under ``torchrun --standalone
+   --nproc-per-node 2``, the three at once: each exits 0 and prints its
+   result line once. kimi-K2's peak after the in-place accumulation is
+   the grid phase's dry run.
 
 The kernels' bounds (``bound_ms``, ``ce_bounds``, ``_flash_bound``,
 ``ivf_union_bytes``) are their modules' cost functions'
@@ -631,10 +653,10 @@ FAMILIES = ("mamba2_370m", "hymba_1_5b")
 _ARCH = {"ssm": "mamba2_370m", "hybrid": "hymba_1_5b"}
 FAM_MICRO = {"mamba2_370m": 4, "hymba_1_5b": 4}
 FAM_STEPS, FAM_REPS = 5, 2
-# their training and heads phases, and the grid families phase, run half
-# the layers, to keep the script inside its time limit (PERF.md §4);
-# their serving and remat phases run all of them
-FAM_TRAIN_DEPTH = {"mamba2_370m": 24, "hymba_1_5b": 16}
+# their training and heads phases, and the grid families phase, run a
+# quarter of the layers, their serving half (FAM_LAYERS), to keep the
+# script inside its time limit (PERF.md §4); their remat phase runs all
+FAM_TRAIN_DEPTH = {"mamba2_370m": 12, "hymba_1_5b": 8}
 # a prefill of S tokens and one decode step against a prefill of S + 1 in
 # fp32 compute: the chunked scan's sums against the recurrence's, ~1e-6
 FAM_CONT32_TOL = 1e-4
@@ -707,7 +729,8 @@ _FAM_LEGS = {
 NEW_FAMILIES = ("qwen3_moe_30b_a3b", "chameleon_34b")
 ENCDEC = "whisper_tiny"
 _ARCH.update(moe="qwen3_moe_30b_a3b", vlm="chameleon_34b", encdec=ENCDEC)
-FAM_LAYERS = {"qwen3_moe_30b_a3b": (8, 3), "chameleon_34b": (8, 2)}
+FAM_LAYERS = {"qwen3_moe_30b_a3b": (4, 3), "chameleon_34b": (4, 2),
+              "mamba2_370m": (24, None), "hymba_1_5b": (16, None)}
 FAM_MICRO.update({"qwen3_moe_30b_a3b": 1, "chameleon_34b": 1, ENCDEC: 1})
 # the CE pair's gate on the trained batch takes its first 2,048 rows (its
 # fp64 reference holds a few [rows, V] tensors; the families' micro-batch)
@@ -719,7 +742,7 @@ FAM_SEQ = {ENCDEC: 448}
 WHISPER_B, WHISPER_PROMPT = 8, 4
 FAM_WANT = {
     "ssm_serving": {},
-    "hybrid_serving": {"flash_attention": 32},
+    "hybrid_serving": {"flash_attention": FAM_LAYERS["hymba_1_5b"][0]},
     "ssm_training": {"ce_forward": FAM_STEPS * FAM_MICRO["mamba2_370m"],
                      "ce_backward": FAM_STEPS * FAM_MICRO["mamba2_370m"]},
     "hybrid_training": {"ce_forward": FAM_STEPS * FAM_MICRO["hymba_1_5b"],
@@ -730,7 +753,7 @@ FAM_WANT = {
     **{f"{fam}_{leg}": want for fam in ("ssm", "hybrid")
        for leg, want in _FAM_LEGS.items()},
     # the new families: the prefill's flash attention once a layer at the
-    # serve depth (8); the CE pair once a step (one micro-batch); evaluate
+    # serve depth (4); the CE pair once a step (one micro-batch); evaluate
     # the CE forward and a flash attention a layer at the train depth
     # (whisper: 4 encoder layers, non-causal, and 4 decoder layers); the
     # whisper decode's prefill a flash attention a layer, its decode steps
@@ -7094,6 +7117,355 @@ def grid_families_phase(torch, np, counters, preds) -> tuple:
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# the paper system on a ring of two processes (phase 30)
+# ---------------------------------------------------------------------------
+
+# two gloo processes share the card (NCCL refuses two ranks on one card;
+# gloo stages the collectives through pinned host memory), each holding
+# 510,125 of the 1,020,250 x 512 rows
+RING_N = 2
+# a step's global batch of 256 in RING_MICRO micro-batches of RING_HW over
+# the ring: 64 rows a member a micro-batch (FCCS held at 256)
+RING_HW, RING_MICRO = 128, 2
+RING_STEPS, RING_CNN_STEPS, RING_KNN_STEPS = 4, 3, 2
+# every step's loss, the ring of two against the ring of one from the same
+# seed: the z and corr psums over two shards add in another order (fp32
+# rounding, ~1e-7), and LARS takes each member's trust ratio off its own
+# shard's norms, not the whole W's; the CPU at 65,536 x 512 read <= 1.7e-7
+# over the same four steps (PERF.md §6)
+RING_LOSS_RTOL = 1e-5
+_RING_FULL = {"ce_forward": RING_MICRO * RING_STEPS,
+              "ce_backward": RING_MICRO * RING_STEPS}
+_RING_CNN = {"ce_forward": RING_MICRO * RING_CNN_STEPS,
+             "ce_backward": RING_MICRO * RING_CNN_STEPS,
+             "stage1_topk": RES_DGC_GROUPS * RING_CNN_STEPS}
+# the launches each member must make on each leg: the knn experiment's
+# graph build (one dist_topk a hop of the ring) counts with its fit
+RING_LEGS = {"ring_full_turn": _RING_FULL, "ring_full_overlap": _RING_FULL,
+             "ring_serve_greedy": {"ce_forward": 1},
+             "ring_serve_top5": {"stage1_topk": 1},
+             "ring_serve_ivf": {"ivf_rerank": 1},
+             "ring_serve_ivf_all": {"ivf_rerank": 1},
+             "ring_cnn_turn": _RING_CNN, "ring_cnn_overlap": _RING_CNN,
+             "ring_knn": {"sparse_ce_forward": RING_MICRO * RING_KNN_STEPS,
+                          "sparse_ce_backward": RING_MICRO * RING_KNN_STEPS,
+                          "dist_topk": RING_N}}
+RING_LAUNCH_TIMEOUT_S = 400
+
+
+def _ring_experiment(impl: str = "full", trunk: str = "feats",
+                     overlap: bool = True, data_fn=None):
+    """The ring phase's experiment at the paper's width: ``impl`` head on
+    the kernel backend, LARS, FCCS held at RING_MICRO micro-batches of
+    RING_HW; the ``feats`` trunk, or ResNet-50 (bf16 over fp32 params) on
+    224 x 224 images with DGC at its defaults. ``overlap=False`` puts the
+    in-turn schedule in the trainer's step."""
+    from repro_torch.api import Experiment
+    from repro_torch.configs import sku100m_resnet
+    from repro_torch.configs.base import (DGCConfig, FCCSConfig, HeadConfig,
+                                          TrainConfig)
+    from repro_torch.data.synthetic import sku_image_batch
+    from repro_torch.train import hybrid
+
+    b = RING_HW * RING_MICRO
+    fccs = FCCSConfig(eta0=0.4, t_warm=2, b0=b, b_min=b, b_max=b, t_ini=2,
+                      t_final=6)
+    kw = dict(classes=V, feat_dim=D, data_fn=data_fn)
+    dgc = DGCConfig()
+    if trunk == "cnn":
+        kw = dict(model=dataclasses.replace(sku100m_resnet.config_1m(),
+                                            dtype="bfloat16"),
+                  data_fn=data_fn or (lambda t, n: sku_image_batch(
+                      t, n, V, hw=RES_HW, device=DEVICE)))
+        dgc = DGCConfig(enabled=True, backend="kernel")
+    knn = (dict(knn_k=KNN_K, knn_kprime=KPRIME, active_frac=ACTIVE_FRAC)
+           if impl == "knn" else {})
+    exp = Experiment.from_config(
+        system="paper", batch=RING_HW, seed=0, device=DEVICE, log_every=0,
+        head=HeadConfig(softmax_impl=impl, backend="kernel", **knn),
+        train=TrainConfig(optimizer="lars", fccs=fccs, dgc=dgc), **kw)
+    if not overlap:
+        exp.trainer._steps[RING_MICRO] = hybrid.make_train_step(
+            exp.model_cfg, exp.head_cfg, exp.train_cfg, n_micro=RING_MICRO,
+            head=exp.head, overlap=False)
+    return exp
+
+
+def _ring_fit(torch, exp, steps: int) -> dict:
+    """``fit(steps)`` under a tracer (whose live spans sync the card):
+    the losses, each step's ms and the seconds blocked in the gathers'
+    ``wait()`` (``train.gather_wait_s``)."""
+    from repro_torch.telemetry import Tracer
+    tr = Tracer()
+    hist = exp.fit(steps, use_fccs_batch=True, telemetry=tr)
+    if [r["batch"] for r in hist] != [RING_HW * RING_MICRO] * steps:
+        fail(f"ring phase: batches {[r['batch'] for r in hist]}")
+    return {"losses": [r["loss"] for r in hist],
+            "label_recall": [r.get("label_recall") for r in hist],
+            "step_ms": [e.dur_ns / 1e6 for e in tr.events
+                        if e.name == "train.step"],
+            "gather_wait_s": tr.counters.get("train.gather_wait_s", 0.0)}
+
+
+def _ring_member(shard_dir: str) -> dict:
+    """One member of the ring of two: on each leg every kernel counter is
+    set to 0 just before and read just after. The full head ``fit``s in
+    turn and overlapped (bit-equal losses, W shards and LARS moments);
+    greedy, exact and IVF top-5 of 64 queries on the trained experiment
+    (its W shard saved for the parent's ring of one); ResNet-50 + DGC in
+    both schedules (bit-equal); the knn head."""
+    import torch
+    from repro_torch import dist
+    from repro_torch.kernels import ce_softmax as ce
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ivf_rerank as ivf
+    from repro_torch.kernels import knn_dist_topk as dk
+    from repro_torch.kernels import sparse_ce as sp
+    from repro_torch.kernels import topk_dc as dc
+    from repro_torch.resilience import tree_compare
+    counters = {"ce_forward": (ce, "LAUNCHES"),
+                "ce_backward": (ce, "BWD_LAUNCHES"),
+                "sparse_ce_forward": (sp, "LAUNCHES"),
+                "sparse_ce_backward": (sp, "BWD_LAUNCHES"),
+                "dist_topk": (dk, "LAUNCHES"), "stage1_topk": (dc, "LAUNCHES"),
+                "ivf_rerank": (ivf, "LAUNCHES"),
+                "flash_attention": (fa, "LAUNCHES")}
+    legs, out = {}, {"rank": dist.rank()}
+
+    def bitwise(a, b) -> bool:
+        return tree_compare(a, b)["bitwise"]
+
+    def leg(name, fn):
+        torch.cuda.synchronize()
+        _reset(counters)
+        got = fn()
+        torch.cuda.synchronize()
+        legs[name] = {k: v for k, v in _read(counters).items() if v}
+        return got
+
+    # the full head, feats trunk: in turn, then overlapped
+    torch.cuda.reset_peak_memory_stats()
+    turn = _ring_experiment(overlap=False)
+    out["full_turn"] = leg("ring_full_turn",
+                           lambda: _ring_fit(torch, turn, RING_STEPS))
+    exp = _ring_experiment(data_fn=turn.data_fn)
+    out["full_overlap"] = leg("ring_full_overlap",
+                              lambda: _ring_fit(torch, exp, RING_STEPS))
+    out["full_bit_equal"] = {
+        "losses": out["full_turn"]["losses"] == out["full_overlap"]["losses"],
+        "w": bitwise(turn.state.w_head, exp.state.w_head),
+        "lars_moments": bitwise(turn.state.opt_state.mu,
+                                exp.state.opt_state.mu)}
+    out["w_shard"] = list(exp.state.w_head.shape)
+    del turn
+    gc.collect()
+    torch.cuda.empty_cache()
+    # serving on the trained ring: greedy, exact top-5, IVF top-5 at the
+    # default nprobe and at every cluster (exact by construction)
+    out["greedy"] = leg("ring_serve_greedy",
+                        lambda: exp.serve(batch=64)).tolist()
+    out["top5"] = leg("ring_serve_top5",
+                      lambda: exp.serve(batch=64, top_k=5)).tolist()
+    idx = exp.ivf_index()
+    out["ivf_index"] = {"clusters": idx.n_clusters, "cap": idx.cap,
+                        "nprobe": idx.nprobe}
+    out["ivf"] = leg("ring_serve_ivf", lambda: exp.serve(
+        batch=64, top_k=5, index="ivf")).tolist()
+    out["ivf_all"] = leg("ring_serve_ivf_all", lambda: exp.serve(
+        batch=64, top_k=5, index="ivf", nprobe=idx.n_clusters)).tolist()
+    torch.save(exp.state.w_head.cpu(), os.path.join(
+        shard_dir, f"w{dist.rank()}.pt"))
+    out["full_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del exp, idx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ResNet-50 + DGC, 64 images a member a micro-batch, both schedules
+    torch.cuda.reset_peak_memory_stats()
+    turn = _ring_experiment(trunk="cnn", overlap=False)
+    out["cnn_turn"] = leg("ring_cnn_turn",
+                          lambda: _ring_fit(torch, turn, RING_CNN_STEPS))
+    cnn = _ring_experiment(trunk="cnn", data_fn=turn.data_fn)
+    out["cnn_overlap"] = leg("ring_cnn_overlap",
+                             lambda: _ring_fit(torch, cnn, RING_CNN_STEPS))
+    a, b = turn.state, cnn.state
+    out["cnn_bit_equal"] = {
+        "losses": out["cnn_turn"]["losses"] == out["cnn_overlap"]["losses"],
+        "fe": bitwise(a.fe_params, b.fe_params),
+        "w": bitwise(a.w_head, b.w_head),
+        "lars_moments": bitwise(a.opt_state.mu, b.opt_state.mu),
+        "dgc": bitwise(a.dgc, b.dgc)}
+    out["cnn_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del turn, cnn, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the knn head: its graph built over the ring, then fit
+    def knn_leg():
+        knn = _ring_experiment(impl="knn")
+        return _ring_fit(torch, knn, RING_KNN_STEPS)
+
+    out["knn"] = leg("ring_knn", knn_leg)
+    out["legs"] = legs
+    return out
+
+
+def _torchrun(argv: list):
+    """A launcher of the port under ``torchrun`` on two processes sharing
+    this card, started in the background."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(RING_N), "-m"] + argv, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def paper_ring_phase(torch, np, counters) -> tuple:
+    """Phase 30 (module docstring). Returns (the launches by path, the
+    phase's rows)."""
+    import shutil
+
+    from repro_torch import dist
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    # the ring of one, from the same seed
+    exp = _ring_experiment()
+    _reset(counters)
+    one = _ring_fit(torch, exp, RING_STEPS)
+    torch.cuda.synchronize()
+    launches["ring_of_one"] = got = {k: v for k, v in _read(counters).items()
+                                     if v}
+    if got != _RING_FULL:
+        fail(f"ring phase: the ring of one launched {got}, not {_RING_FULL}")
+    out["ring_of_one"] = one
+    del exp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    shard_dir = ROOT / "build" / "chip_ring"
+    shutil.rmtree(shard_dir, ignore_errors=True)
+    shard_dir.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        members = dist.spawn_ring(_ring_member, RING_N, str(shard_dir))
+        out["ring_s"] = time.perf_counter() - t0
+        w = torch.cat([torch.load(shard_dir / f"w{r}.pt")
+                       for r in range(RING_N)]).to(DEVICE)
+    finally:
+        shutil.rmtree(shard_dir, ignore_errors=True)
+    ref = np.asarray(one["losses"])
+    for m in members:
+        r = m["rank"]
+        for name in RING_LEGS:
+            launches[f"{name}_member{r}"] = m["legs"].get(name, {})
+        if m["legs"] != RING_LEGS:
+            fail(f"ring phase: member {r} launched {m['legs']}, not "
+                 f"{RING_LEGS}")
+        for key in ("full_bit_equal", "cnn_bit_equal"):
+            if not all(m[key].values()):
+                fail(f"ring phase: member {r}'s schedules are not "
+                     f"bit-equal: {key} {m[key]}")
+        rel = np.abs(np.asarray(m["full_overlap"]["losses"]) - ref) / ref
+        m["loss_rel_vs_ring_of_one"] = rel.tolist()
+        if not rel.max() <= RING_LOSS_RTOL:
+            fail(f"ring phase: member {r}'s losses "
+                 f"{m['full_overlap']['losses']} are {rel.max():.2e} from "
+                 f"the ring of one's {one['losses']}")
+        for key in ("full_overlap", "cnn_overlap", "knn"):
+            if not all(map(math.isfinite, m[key]["losses"])):
+                fail(f"ring phase: member {r}'s {key} losses "
+                     f"{m[key]['losses']}")
+    for key in ("full_overlap", "cnn_overlap", "knn", "greedy", "top5",
+                "ivf", "ivf_all"):
+        a, b = (members[0][key], members[1][key])
+        if key in ("full_overlap", "cnn_overlap", "knn"):
+            a, b = a["losses"], b["losses"]
+        if a != b:
+            fail(f"ring phase: the members' {key} differ: {a} / {b}")
+
+    # the ring of one serving the gathered W: the same ids
+    exp = _ring_experiment()
+    exp.load_state(exp.state._replace(head_params=w))
+    greedy = exp.serve(batch=64).tolist()
+    top5 = exp.serve(batch=64, top_k=5).tolist()
+    n_all = exp.ivf_index().n_clusters
+    ivf_all = exp.serve(batch=64, top_k=5, index="ivf",
+                        nprobe=n_all).tolist()
+    m = members[0]
+    same = {"greedy": m["greedy"] == greedy, "top5": m["top5"] == top5,
+            "ivf_all_vs_exact": m["ivf_all"] == top5,
+            "ring_of_one_ivf_all_vs_exact": ivf_all == top5}
+    recall = float(np.mean([len(set(a) & set(b)) / 5
+                            for a, b in zip(m["ivf"], top5)]))
+    out["serve"] = {"same_ids": same, "ivf_recall_at_5": recall,
+                    "ivf_index_member": m["ivf_index"]}
+    del exp, w
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"ring phase: serving 64 queries on the ring of two against the "
+        f"ring of one on the gathered W: {same}; IVF top-5 recall@5 "
+        f"{recall:.3f} at the members' default nprobe "
+        f"({m['ivf_index']})")
+    if not all(same.values()):
+        fail(f"ring phase: the ring's ids are not the ring of one's: {same}")
+
+    # the launchers under torchrun, two processes on this card each
+    base = ["--system", "paper", "--share-cards", "--classes", str(V),
+            "--feat-dim", str(D)]
+    runs = {"train": (["repro_torch.launch.train"] + base + [
+        "--batch", "256", "--steps", "4", "--fccs"], "final eval accuracy"),
+        "serve_top5": (["repro_torch.launch.serve"] + base + [
+            "--batch", "64", "--topk", "5"], "first query ids"),
+        "serve_ivf": (["repro_torch.launch.serve"] + base + [
+            "--batch", "64", "--topk", "5", "--index", "ivf"],
+            "first query ids")}
+    t0 = time.perf_counter()
+    procs = {name: _torchrun(argv) for name, (argv, _) in runs.items()}
+    try:
+        out["launchers"] = {}
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=RING_LAUNCH_TIMEOUT_S)
+            lines = [line for line in stdout.splitlines()
+                     if runs[name][1] in line]
+            out["launchers"][name] = {"rc": proc.returncode, "lines": lines}
+            if proc.returncode or len(lines) != 1:
+                fail(f"ring phase: the {name} launcher under torchrun: exit "
+                     f"{proc.returncode}, {len(lines)} result lines:\n"
+                     f"{stdout[-2000:]}\n{stderr[-3000:]}")
+            log(f"ring phase: torchrun {name}: {lines[0].strip()}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    out["launchers_s"] = time.perf_counter() - t0
+
+    for m in members:
+        for key in ("full_turn", "full_overlap", "cnn_turn", "cnn_overlap"):
+            st = m[key]["step_ms"]
+            log(f"ring phase: member {m['rank']} {key}: losses "
+                f"{m[key]['losses']}, steps {[round(s, 2) for s in st]} ms "
+                f"(median of steps 1+ {statistics.median(st[1:]):.2f}), "
+                f"train.gather_wait_s {m[key]['gather_wait_s']:.4f}")
+        log(f"ring phase: member {m['rank']}: losses relative to the ring "
+            f"of one's {one['losses']}: {m['loss_rel_vs_ring_of_one']}; "
+            f"bit-equal {m['full_bit_equal']}, cnn {m['cnn_bit_equal']}; "
+            f"knn losses {m['knn']['losses']}, label_recall "
+            f"{m['knn']['label_recall']}; launches {m['legs']}; peaks full "
+            f"{m['full_peak_gb']:.2f} GB, cnn {m['cnn_peak_gb']:.2f} GB; W "
+            f"shard {m['w_shard']}")
+    out["members"] = [{k: v for k, v in m.items()
+                       if k not in ("greedy", "top5", "ivf", "ivf_all")}
+                      for m in members]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"ring phase: {out['phase_s']:.1f} s (the ring of two "
+        f"{out['ring_s']:.1f} s, the launchers {out['launchers_s']:.1f} s); "
+        f"the ring of one's steps {[round(s, 2) for s in one['step_ms']]} "
+        f"ms")
+    return launches, out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -7300,6 +7672,10 @@ def _main_phases(torch, np, smi, build_s, dry_proc, sharded, ce, fa, ivf,
     fam_grid_launches, e2e["grid_families"] = grid_families_phase(
         torch, np, counters, e2e["grid"]["dryrun_1x2_families"])
     grid_launches.update(fam_grid_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ring_launches, e2e["paper_ring"] = paper_ring_phase(torch, np, counters)
+    grid_launches.update(ring_launches)
     e2e["build_s"] = build_s
 
     # launches on each main path, from its own reset-and-read of the counters
@@ -7326,6 +7702,7 @@ def _main_phases(torch, np, smi, build_s, dry_proc, sharded, ce, fa, ivf,
         rows.append({**k, "launches": by_path[name][path],
                      "launches_path": path, "launches_by_path": by_path[name],
                      "kernel_ms": k["ms"], "max_err": k["max_abs_err"]})
+    log("every phase passed; the results follow")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"end_to_end": e2e, "card": smi}))

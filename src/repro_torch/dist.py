@@ -50,6 +50,13 @@ one card, where NCCL refuses the pair, take gloo): on a gloo group a CUDA
 tensor's collective is staged through pinned host memory, its result
 copied back to the card; an NCCL group never takes that branch.
 
+``all_gather_start`` / ``reduce_scatter_start`` start the tiled gather
+and its backward's reduce-scatter in the background and return a
+``Pending`` whose ``wait()`` gives the result, so a schedule can compute
+while they are in flight (``core.pipeline``); ``record_async()`` records
+the order of starts and waits, ``wait_seconds()`` the host's time blocked
+in the gathers.
+
 ``count_collectives()`` counts the bytes of every collective called
 inside it, where it is called, as the comm ledger charges them (the
 output's bytes, by kind: all-reduce for ``psum`` / ``pmax`` / ``pmin``
@@ -72,6 +79,7 @@ import math
 import os
 import queue
 import tempfile
+import time
 import traceback
 
 import torch
@@ -88,6 +96,9 @@ _SIM = None
 _GRID = None
 # the active collective counts (``count_collectives``)
 _COUNTS: list = []
+# host seconds this process spent blocked in gathers and reduce-scatters
+# (``wait_seconds``)
+_WAIT_S = [0.0]
 
 
 def _pg_active() -> bool:
@@ -293,13 +304,16 @@ def count_collectives():
 
 
 def _charge(kind: str, out: torch.Tensor) -> torch.Tensor:
-    nbytes = float(out.numel() * out.element_size())
+    _charge_bytes(kind, float(out.numel() * out.element_size()))
+    return out
+
+
+def _charge_bytes(kind: str, nbytes: float) -> None:
     for counts in _COUNTS:
         slot = counts.setdefault(kind, {"bytes": 0.0, "count": 0})
         slot["bytes"] += nbytes
         slot["count"] += 1
         counts["total_bytes"] += nbytes
-    return out
 
 
 def _simulated(x: torch.Tensor, shape) -> torch.Tensor:
@@ -352,27 +366,34 @@ def _gather(x: torch.Tensor, dim: int, tiled: bool,
         else:
             shape.insert(dim if dim >= 0 else dim + x.dim() + 1, n)
         return _charge("all-gather", _simulated(x, shape))
+    t0 = time.perf_counter()
     x = x.detach().contiguous()
     group = _group(axes)
     src = _host(x) if _staged(group, x) else x
     parts = [torch.empty_like(src) for _ in range(n)]
     tdist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim) if tiled else torch.stack(parts, dim=dim)
-    return _charge("all-gather", out.to(x.device))
+    out = out.to(x.device)
+    _WAIT_S[0] += time.perf_counter() - t0
+    return _charge("all-gather", out)
 
 
 def _reduce_scatter(parts: list, axes: tuple) -> torch.Tensor:
     if _SIM is not None:
         return _simulated(parts[0], parts[rank(axes)].shape)
+    t0 = time.perf_counter()
     group = _group(axes)
     parts = [p.contiguous() for p in parts]
     if _staged(group, parts[0]):
         hp = [_host(p) for p in parts]
         out = torch.empty_like(hp[0])
         tdist.reduce_scatter(out, hp, group=group)
-        return out.to(parts[0].device)
-    out = torch.empty_like(parts[0], memory_format=torch.contiguous_format)
-    tdist.reduce_scatter(out, parts, group=group)
+        out = out.to(parts[0].device)
+    else:
+        out = torch.empty_like(parts[0],
+                               memory_format=torch.contiguous_format)
+        tdist.reduce_scatter(out, parts, group=group)
+    _WAIT_S[0] += time.perf_counter() - t0
     return out
 
 
@@ -422,6 +443,129 @@ def all_gather(x: torch.Tensor, dim: int = 0, tiled: bool = True,
     if _trivial(axes):
         return x if tiled else x.unsqueeze(dim)
     return _AllGather.apply(x, dim, tiled, axes)
+
+
+# ---------------------------------------------------------------------------
+# collectives in the background: a start / wait pair
+# ---------------------------------------------------------------------------
+
+
+# the lists ``record_async`` yields: ("start" | "wait", kind, tag) in order
+_ASYNC_LOGS: list = []
+
+
+def _log_async(event: str, kind: str, tag) -> None:
+    for log in _ASYNC_LOGS:
+        log.append((event, kind, tag))
+
+
+@contextlib.contextmanager
+def record_async():
+    """Yields a list that fills with ``("start" | "wait", kind, tag)`` as
+    the start / wait pairs below are started and waited inside: the
+    order in which a schedule issues and consumes its collectives."""
+    log: list = []
+    _ASYNC_LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _ASYNC_LOGS.remove(log)
+
+
+def wait_seconds() -> float:
+    """Host seconds this process has spent blocked in the ring's gathers
+    and reduce-scatters: a blocking call's whole time, a started one's
+    ``Pending.wait`` (a running total: read it before and after a
+    step)."""
+    return _WAIT_S[0]
+
+
+class Pending:
+    """A collective started in the background (``all_gather_start``,
+    ``reduce_scatter_start``); ``wait()`` returns its result, ordered on
+    the current CUDA stream before anything reads it, and returns it again
+    on a second call."""
+
+    def __init__(self, kind: str, tag, work=None, finish=None):
+        self.kind, self.tag = kind, tag
+        self._work, self._finish = work, finish
+        self._value = None
+        _log_async("start", kind, tag)
+
+    def wait(self) -> torch.Tensor:
+        if self._finish is not None:
+            t0 = time.perf_counter()
+            if self._work is not None:
+                # NCCL: the current stream waits, the host does not; gloo:
+                # the host waits for the collective's thread
+                self._work.wait()
+            self._value = self._finish()
+            self._work = self._finish = None
+            _WAIT_S[0] += time.perf_counter() - t0
+            _log_async("wait", self.kind, self.tag)
+        return self._value
+
+
+def all_gather_start(x: torch.Tensor, dim: int = 0, axis="model",
+                     tag=None) -> Pending:
+    """Start ``all_gather(x, dim, tiled=True, axis)`` in the background;
+    ``wait()`` gives the gathered tensor. No gradient flows through it.
+    Charged to ``count_collectives`` when it starts, as the blocking call
+    charges it.
+
+    What runs beside it: on NCCL the collective runs on NCCL's stream
+    while the card goes on with the kernels queued after the start, and
+    ``wait()`` orders the result on the current stream without blocking
+    the host. On gloo the collective runs on gloo's thread while this
+    thread queues the next kernels; a CUDA tensor is first copied to
+    pinned host memory, a copy that waits for the kernel that made ``x``,
+    and ``wait()`` copies the result back. The identity where the blocking
+    call is one (``_trivial``)."""
+    axes = _axes(axis)
+    x = x.detach()
+    if _trivial(axes):
+        return Pending("all-gather", tag, finish=lambda: x)
+    n = world_size(axes)
+    if _SIM is not None:
+        shape = list(x.shape)
+        shape[dim] *= n
+        out = _charge("all-gather", _simulated(x, shape))
+        return Pending("all-gather", tag, finish=lambda: out)
+    x = x.contiguous()
+    group = _group(axes)
+    src = _host(x) if _staged(group, x) else x
+    parts = [torch.empty_like(src) for _ in range(n)]
+    work = tdist.all_gather(parts, src, group=group, async_op=True)
+    _charge_bytes("all-gather", float(n * x.numel() * x.element_size()))
+    return Pending("all-gather", tag, work,
+                   lambda: torch.cat(parts, dim=dim).to(x.device))
+
+
+def reduce_scatter_start(x: torch.Tensor, dim: int = 0, axis="model",
+                         tag=None) -> Pending:
+    """Start the backward of ``all_gather_start`` in the background: the
+    sum over ``axis`` of every member's ``x``, split along ``dim`` into
+    the axis's blocks, this member's block given by ``wait()`` (what
+    ``all_gather``'s backward does to the gathered cotangent). Charged and
+    overlapped as ``all_gather_start``; the identity where the gather is
+    one."""
+    axes = _axes(axis)
+    x = x.detach()
+    if _trivial(axes):
+        return Pending("reduce-scatter", tag, finish=lambda: x)
+    n = world_size(axes)
+    parts = list(x.split(x.shape[dim] // n, dim=dim))
+    if _SIM is not None:
+        out = _charge("reduce-scatter", _simulated(x, parts[0].shape))
+        return Pending("reduce-scatter", tag, finish=lambda: out)
+    group = _group(axes)
+    parts = [p.contiguous() for p in parts]
+    if _staged(group, parts[0]):
+        parts = [_host(p) for p in parts]
+    out = torch.empty_like(parts[0])
+    work = tdist.reduce_scatter(out, parts, group=group, async_op=True)
+    _charge_bytes("reduce-scatter", float(out.numel() * out.element_size()))
+    return Pending("reduce-scatter", tag, work, lambda: out.to(x.device))
 
 
 class _AllGatherInvariant(torch.autograd.Function):

@@ -26,8 +26,17 @@ prints the prefill and decode times and tok/s. With ``--topk K`` (and
 retrieval instead: d_model-wide queries classified against the model's
 class matrix (the tied embedding), as in the JAX launcher.
 
-It runs on the card (``--device cuda``, the default) in one process: a
-ring of one. Every head serves greedy (``--head``): the W-heads (full,
+It runs on the card (``--device cuda``, the default). Alone the paper
+system is a ring of one; under ``torchrun --nproc-per-node N`` it serves
+on one ring of N (``launch.mesh.launch_ring``; ``--share-cards`` for
+processes that share a card): every member takes the same queries, holds
+its row block of the class matrix and its own IVF index over it, the ring
+merges the members' answers, and member 0 alone prints. ``--replay`` runs
+the engine on every member over the same trace and virtual clock, which
+cut the same micro-batches at the same trace times, so the members serve
+each one together, in lockstep (the latencies printed are member 0's).
+The zoo takes a (data, model) grid there (``launch_grid``). Every head
+serves greedy (``--head``): the W-heads (full,
 knn, selective, sampled) through the nearest class weight, which knn,
 selective and sampled inherit from the full head, as in the JAX package
 (knn builds its graph and selective its tables once when the experiment
@@ -46,6 +55,9 @@ the JAX package.
       --classes 4096 --head csoft --batch 64
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --classes 4096 --topk 5 --index ivf
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.serve --share-cards --classes 1020250 \\
+      --feat-dim 512 --topk 5 --batch 64        # a ring of two, one card
   PYTHONPATH=src python -m repro_torch.launch.serve --system zoo \\
       --arch smollm_135m --prompt-len 2000 --gen 48 --batch 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -60,6 +72,14 @@ from __future__ import annotations
 
 import argparse
 import sys
+
+
+def _say(*a, **kw) -> None:
+    """``print`` on the group's member 0 (every process alone)."""
+    from repro_torch import dist
+    if dist.rank(dist.ALL) == 0:
+        print(*a, **kw)
+
 
 def _run_replay(exp, args, telemetry=None) -> int:
     """Trace-driven serving through the engine."""
@@ -91,15 +111,15 @@ def _run_replay(exp, args, telemetry=None) -> int:
             "n_batches": st["n_batches"],
             "mean_batch_occupancy": st["mean_batch_occupancy"],
             "cache_hit_rate": st["cache_hit_rate"]})
-    print(f"[serve] replayed {lat['n']} requests over {args.replay:.1f}s "
-          f"of trace ({args.head} head, top-{args.topk or 1}{_via(args)}, "
-          f"{args.backend} on {exp.device}): "
-          f"p50={lat['p50_ms']:.2f}ms p95={lat['p95_ms']:.2f}ms "
-          f"p99={lat['p99_ms']:.2f}ms qps={lat['n'] / max(span, 1e-9):.1f}")
-    print(f"[serve] batches={st['n_batches']} "
-          f"occupancy={st['mean_batch_occupancy']:.2f} "
-          f"cache_hit_rate={st['cache_hit_rate']:.2f}")
-    print("[serve] first result ids:", np.atleast_1d(done[0].ids).tolist())
+    _say(f"[serve] replayed {lat['n']} requests over {args.replay:.1f}s "
+         f"of trace ({args.head} head, top-{args.topk or 1}{_via(args)}, "
+         f"{args.backend} on {exp.device}): "
+         f"p50={lat['p50_ms']:.2f}ms p95={lat['p95_ms']:.2f}ms "
+         f"p99={lat['p99_ms']:.2f}ms qps={lat['n'] / max(span, 1e-9):.1f}")
+    _say(f"[serve] batches={st['n_batches']} "
+         f"occupancy={st['mean_batch_occupancy']:.2f} "
+         f"cache_hit_rate={st['cache_hit_rate']:.2f}")
+    _say("[serve] first result ids:", np.atleast_1d(done[0].ids).tolist())
     return 0
 
 
@@ -115,8 +135,8 @@ def _fit_index(exp, args) -> None:
     """Fit the IVF index up front, so no serve latency includes it."""
     idx = exp.ivf_index(nprobe=args.nprobe)
     parts = ", ".join(f"{k[:-2]} {v:.2f} s" for k, v in idx.fit_s.items())
-    print(f"[serve] ivf index: {idx.n_clusters} clusters of cap {idx.cap}, "
-          f"nprobe {idx.resolve_nprobe(args.nprobe or None)}; fit {parts}")
+    _say(f"[serve] ivf index: {idx.n_clusters} clusters of cap {idx.cap}, "
+         f"nprobe {idx.resolve_nprobe(args.nprobe or None)}; fit {parts}")
 
 
 def main(argv=None):
@@ -131,9 +151,9 @@ def main(argv=None):
                    help="zoo under torchrun: the grid's model axis (default "
                         "min(4, processes), as the JAX ZooExperiment's)")
     p.add_argument("--share-cards", action="store_true",
-                   help="zoo under torchrun with more processes than "
-                        "cards: take gloo, its collectives staged through "
-                        "host memory")
+                   help="under torchrun with more processes than cards: "
+                        "take gloo, its collectives staged through host "
+                        "memory")
     p.add_argument("--prompt-len", type=int, default=32)
     p.add_argument("--gen", type=int, default=16)
     # paper
@@ -208,19 +228,34 @@ def main(argv=None):
             p.error(f"--prompt-len and --gen must be positive, got "
                     f"{args.prompt_len} and {args.gen}")
 
+    from repro_torch.launch.mesh import launch_ring
+
+    if args.system == "zoo":
+        return _traced(args, _serve_zoo)
+    with launch_ring(args.device, args.share_cards) as (n, backend):
+        if n > 1:
+            _say(f"[serve] ring of {n} over {backend}")
+        return _traced(args, _serve_paper)
+
+
+def _traced(args, serve) -> int:
+    """``serve(args, tracer)`` with the run's ``Tracer``, whose metrics
+    and trace files the group's member 0 writes."""
+    from repro_torch import dist
     from repro_torch.telemetry import Tracer
 
-    tr = Tracer(metrics_path=args.metrics_out or None)
+    lead = dist.rank(dist.ALL) == 0
+    tr = Tracer(metrics_path=(args.metrics_out if lead else "") or None)
     try:
-        return _serve(args, tr)
+        return serve(args, tr)
     finally:
-        if args.trace_out:
+        if args.trace_out and lead:
             tr.write_chrome_trace(args.trace_out)
             print(f"[telemetry] trace -> {args.trace_out}")
         tr.close()
 
 
-def _serve(args, tr) -> int:
+def _serve_paper(args, tr) -> int:
     from repro_torch.api import Experiment
     from repro_torch.configs.base import HeadConfig
 
@@ -229,8 +264,6 @@ def _serve(args, tr) -> int:
         serve.compute spans."""
         return tr.span_stats("serve.compute")["total_s"] * 1e3
 
-    if args.system == "zoo":
-        return _serve_zoo(args, tr)
     exp = Experiment.from_config(
         system="paper", classes=args.classes, feat_dim=args.feat_dim,
         batch=args.batch, device=args.device,
@@ -243,19 +276,19 @@ def _serve(args, tr) -> int:
         ids, scores = exp.serve(batch=args.batch, top_k=args.topk,
                                 return_scores=True, index=_index(args),
                                 nprobe=args.nprobe or None, telemetry=tr)
-        print(f"[serve] {args.head}-head top-{args.topk} retrieval over "
-              f"{args.classes} classes ({args.backend}{_via(args)} on "
-              f"{exp.device}): {ids.shape[0]} queries in "
-              f"{compute_ms():.1f} ms")
-        print("[serve] first query ids:   ", ids[0].tolist())
-        print("[serve] first query scores:",
-              [round(float(s), 3) for s in scores[0]])
+        _say(f"[serve] {args.head}-head top-{args.topk} retrieval over "
+             f"{args.classes} classes ({args.backend}{_via(args)} on "
+             f"{exp.device}): {ids.shape[0]} queries in "
+             f"{compute_ms():.1f} ms")
+        _say("[serve] first query ids:   ", ids[0].tolist())
+        _say("[serve] first query scores:",
+             [round(float(s), 3) for s in scores[0]])
         return 0
     preds = exp.serve(batch=args.batch, telemetry=tr)
-    print(f"[serve] {args.head}-head retrieval over {args.classes} classes "
-          f"({args.backend} on {exp.device}): {preds.shape[0]} queries in "
-          f"{compute_ms():.1f} ms")
-    print("[serve] first predictions:", preds[:8].tolist())
+    _say(f"[serve] {args.head}-head retrieval over {args.classes} classes "
+         f"({args.backend} on {exp.device}): {preds.shape[0]} queries in "
+         f"{compute_ms():.1f} ms")
+    _say("[serve] first predictions:", preds[:8].tolist())
     return 0
 
 
@@ -269,7 +302,7 @@ def _serve_zoo(args, tr) -> int:
     with launch_grid(args.device, args.n_model,
                      args.share_cards) as (shape, backend):
         if shape != (1, 1):
-            print(f"[serve] grid (data, model) = {shape} over {backend}")
+            _say(f"[serve] grid (data, model) = {shape} over {backend}")
         return _serve_zoo_member(args, tr)
 
 
@@ -295,22 +328,22 @@ def _serve_zoo_member(args, tr) -> int:
                                 return_scores=True, index=_index(args),
                                 nprobe=args.nprobe or None, telemetry=tr)
         compute_ms = tr.span_stats("serve.compute")["total_s"] * 1e3
-        print(f"[serve] zoo {args.head}-head top-{args.topk} retrieval over "
-              f"{args.classes} classes ({args.backend}{_via(args)} on "
-              f"{exp.device}): {ids.shape[0]} queries in {compute_ms:.1f} ms")
-        print("[serve] first query ids:   ", ids[0].tolist())
-        print("[serve] first query scores:",
-              [round(float(s), 3) for s in scores[0]])
+        _say(f"[serve] zoo {args.head}-head top-{args.topk} retrieval over "
+             f"{args.classes} classes ({args.backend}{_via(args)} on "
+             f"{exp.device}): {ids.shape[0]} queries in {compute_ms:.1f} ms")
+        _say("[serve] first query ids:   ", ids[0].tolist())
+        _say("[serve] first query scores:",
+             [round(float(s), 3) for s in scores[0]])
         return 0
     gen = exp.serve(prompt_len=args.prompt_len, gen=args.gen,
                     batch=args.batch, telemetry=tr)
     prefill_ms = tr.span_stats("serve.prefill")["total_s"] * 1e3
     decode_s = tr.span_stats("serve.decode")["total_s"]
-    print(f"[serve] {exp.model_cfg.name} ({args.backend} on {exp.device}): "
-          f"generated {gen.shape} tokens: prefill {prefill_ms:.1f} ms"
-          f" + decode {decode_s * 1e3:.1f} ms "
-          f"({args.batch * args.gen / max(decode_s, 1e-9):.1f} tok/s)")
-    print("[serve] first row:", gen[0].tolist())
+    _say(f"[serve] {exp.model_cfg.name} ({args.backend} on {exp.device}): "
+         f"generated {gen.shape} tokens: prefill {prefill_ms:.1f} ms"
+         f" + decode {decode_s * 1e3:.1f} ms "
+         f"({args.batch * args.gen / max(decode_s, 1e-9):.1f} tok/s)")
+    _say("[serve] first row:", gen[0].tolist())
     return 0
 
 

@@ -9,8 +9,15 @@ replicas + class-row shards) with any of the six softmax heads
 classes for knn and selective, the graph and the LSH tables rebuilt every
 100 steps, ``sampled_n = max(64, classes // 4)``, and the config's
 defaults for the rest. It runs the FCCS learning rate and, with
-``--fccs``, its batch growth through micro-batch accumulation, on the card
-(``--device cuda``, the default) in one process: a ring of one.
+``--fccs``, its batch growth through micro-batch accumulation, in
+§3.3.1's pipelined schedule, on the card (``--device cuda``, the
+default). Alone it is a ring of one; under ``torchrun --nproc-per-node
+N`` the N processes are one ring of N (``launch.mesh.launch_ring``: NCCL
+with a card a process, gloo on the CPU, and gloo with the collectives
+staged through host memory with ``--share-cards``, for processes that
+share a card): every member draws the same global batch, member 0 writes
+the checkpoints and alone prints the result lines and writes
+``--metrics-out`` / ``--trace-out``.
 ``--trunk cnn`` trains the reduced SKU ResNet on 32 x 32 synthetic images
 (its width is the config's; ``--feat-dim`` is not read), and ``--dgc``
 sparsifies the feature extractor's gradients as the JAX launcher does
@@ -47,6 +54,12 @@ they do for the paper system.
       --ckpt-dir ck --ckpt-every 2 --steps 4
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --ckpt-dir ck --resume --steps 6      # restores t=4, runs steps 4, 5
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.train --device cpu --classes 512 \\
+      --feat-dim 32 --steps 8 --batch 32 --fccs      # a ring of two
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.train --share-cards --classes 1020250 \\
+      --feat-dim 512 --batch 256 --steps 4 --fccs    # two on one card
   PYTHONPATH=src python -m repro_torch.launch.train --system zoo \\
       --arch smollm_135m --batch 16 --seq 512 --steps 2 --lr 0.5
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -167,17 +180,42 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
 
+    from repro_torch.launch.mesh import launch_ring
+
+    if args.system == "zoo":
+        telemetry = _tracer(args, lead=True)
+        try:
+            return _train_zoo(args, telemetry)
+        finally:
+            if telemetry is not None:
+                telemetry.close()
+    with launch_ring(args.device, args.share_cards) as (n, backend):
+        return _train_paper(args, n, backend)
+
+
+def _tracer(args, *, lead: bool):
+    """The run's ``Tracer`` when ``--trace-out`` or ``--metrics-out`` asks
+    for one (else None), writing ``--metrics-out`` only where ``lead``."""
+    from repro_torch.telemetry import Tracer
+    if not (args.trace_out or args.metrics_out):
+        return None
+    return Tracer(metrics_path=(args.metrics_out if lead else "") or None)
+
+
+def _train_paper(args, n: int, backend) -> int:
+    """The paper system on this member of a ring of ``n``
+    (``launch.mesh.launch_ring``); member 0 prints."""
+    from repro_torch import dist
     from repro_torch.api import Experiment
     from repro_torch.configs.base import (DGCConfig, FCCSConfig, HeadConfig,
                                           TrainConfig)
-    from repro_torch.telemetry import Tracer
 
-    telemetry = None
-    if args.trace_out or args.metrics_out:
-        telemetry = Tracer(metrics_path=args.metrics_out or None)
+    lead = dist.rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+    if n > 1:
+        say(f"[train] ring of {n} over {backend}")
+    telemetry = _tracer(args, lead=lead)
     try:
-        if args.system == "zoo":
-            return _train_zoo(args, telemetry)
         # sampled_n below the class count, so that the estimator (a
         # partial draw + the logQ correction) is what runs, as in the JAX
         # launcher
@@ -203,19 +241,20 @@ def main(argv=None):
                        resume=resume, telemetry=telemetry)
         if resume:
             start = hist[0]["step"] if hist else args.steps
-            print(f"[train] resumed at t={start}: {len(hist)} steps to "
-                  f"{args.steps}")
+            say(f"[train] resumed at t={start}: {len(hist)} steps to "
+                f"{args.steps}")
         if not hist:
-            print(f"[train] nothing to run: the checkpoint is at step "
-                  f"{args.steps}")
+            say(f"[train] nothing to run: the checkpoint is at step "
+                f"{args.steps}")
             return 0
         acc = exp.evaluate(eval_batch=args.batch * 4)
         if not (math.isfinite(hist[-1]["loss"]) and math.isfinite(acc)):
             print(f"[train] non-finite result: loss {hist[-1]['loss']}, "
                   f"accuracy {acc}", file=sys.stderr)
             return 1
-        print(f"[train] final eval accuracy: {acc:.4f}")
-        _finish_telemetry(args, telemetry)
+        say(f"[train] final eval accuracy: {acc:.4f}")
+        if lead:
+            _finish_telemetry(args, telemetry)
         return 0
     finally:
         if telemetry is not None:

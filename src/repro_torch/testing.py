@@ -139,6 +139,106 @@ def step_collectives(cases: list, *, classes: int, batch: int,
     return out
 
 
+def _schedule_recorder(head, log: list):
+    """Record ("fe",) at each feature-extractor forward and ("head",) at
+    each head loss into ``log`` (beside ``dist.record_async``'s
+    events); returns the function that undoes it."""
+    from repro_torch.train import hybrid
+    features, loss_local = hybrid._features, head.loss_local
+
+    def fe(*a, **kw):
+        log.append(("fe",))
+        return features(*a, **kw)
+
+    def loss(*a, **kw):
+        log.append(("head",))
+        return loss_local(*a, **kw)
+
+    def undo():
+        hybrid._features = features
+        del head.loss_local          # the class's method again
+
+    hybrid._features, head.loss_local = fe, loss
+    return undo
+
+
+def pipeline_schedules(cases: list, *, classes: int, batch: int,
+                       feat_dim: int, hw: int, steps: int = 2) -> list:
+    """The paper step's two schedules on this member, for each ``(trunk,
+    head, n_micro, dgc)`` case, from two states made alike from seed 0 on
+    ``numpy_batch`` / ``numpy_image_batch`` data: one micro-batched value
+    and gradient each (``hybrid.make_value_and_grad``, overlap off and on),
+    with their collectives counted and the pipelined one's schedule
+    recorded (``dist.record_async`` and ``_schedule_recorder``), then
+    ``steps`` train steps each. Returns, for each case, the paths of the
+    loss, metrics, gradient leaves and next-state leaves whose bits differ
+    between the two (``resilience.tree_compare``), both collective
+    counts, the schedule and the losses."""
+    from repro_torch.api.experiment import paper_model_config
+    from repro_torch.api.heads import make_head
+    from repro_torch.configs.base import DGCConfig, HeadConfig, TrainConfig
+    from repro_torch.optim import tree_leaves
+    from repro_torch.resilience import tree_compare
+    from repro_torch.train import hybrid
+
+    def data(trunk, t):
+        d = (numpy_image_batch(t, batch, classes=classes, hw=hw)
+             if trunk == "cnn" else
+             numpy_batch(t, batch, classes=classes, dim=feat_dim))
+        return {k: torch.from_numpy(v) for k, v in d.items()}
+
+    def unequal(prefix, a, b):
+        return [f"{prefix} {p}" for p in tree_compare(a, b)["mismatches"]]
+
+    out = []
+    for trunk, head_name, n_micro, dgc in cases:
+        mcfg = paper_model_config(trunk, classes, feat_dim)
+        hcfg = HeadConfig(softmax_impl=head_name, backend="ref",
+                          active_frac=0.5)
+        tcfg = TrainConfig(optimizer="lars", dgc=DGCConfig(
+            enabled=dgc, sparsity=0.9, chunk=256))
+        head = make_head(mcfg, hcfg)
+        states = [hybrid.init_state(torch.Generator().manual_seed(0), mcfg,
+                                    hcfg, tcfg, dist.world_size(),
+                                    rank=dist.rank(), device="cpu",
+                                    head=head) for _ in range(2)]
+        local = {k: hybrid._local_rows(v) for k, v in data(trunk, 0).items()}
+        res, counts = [], []
+        for overlap, st in zip((False, True), states):
+            vg = hybrid.make_value_and_grad(mcfg, head, n_micro=n_micro,
+                                            overlap=overlap)
+            with dist.count_collectives() as c, dist.record_async() as log:
+                undo = _schedule_recorder(head, log)
+                try:
+                    res.append(vg(st, local))
+                finally:
+                    undo()
+            counts.append(dict(c))
+        (la, ma), ga = res[0]
+        (lb, mb), gb = res[1]
+        diff = unequal("loss", la, lb) + unequal("grad", ga, gb)
+        diff += unequal("metrics", ma, mb)
+        losses = []
+        for overlap, st in zip((False, True), states):
+            step = hybrid.make_train_step(mcfg, hcfg, tcfg, n_micro=n_micro,
+                                          head=head, overlap=overlap)
+            run = []
+            for t in range(steps):
+                st, loss, _ = step(st, data(trunk, t), 0.1)
+                run.append(loss)
+            losses.append(run)
+            states[overlap] = st
+        a, b = states
+        diff += unequal("step loss", losses[0], losses[1])
+        diff += unequal("next state", (a.fe_params, a.head_params,
+                                       a.opt_state, a.dgc),
+                        (b.fe_params, b.head_params, b.opt_state, b.dgc))
+        out.append({"unequal": diff, "counts": counts, "schedule": log,
+                    "losses": [float(x) for x in losses[1]],
+                    "n_grad_leaves": len(tree_leaves(ga))})
+    return out
+
+
 def numpy_image_batch(t: int, b: int, *, classes: int, hw: int,
                       seed: int = 0) -> dict:
     """A deterministic image batch for step ``t`` of ``b`` rows, made with
@@ -1531,6 +1631,19 @@ def grid_step_collectives(archs: list, *, batch: int, seq: int) -> list:
     return out
 
 
+def run_launcher(module: str, argv: list) -> tuple:
+    """``repro_torch.launch.<module>.main(argv)`` on this member (a ring's
+    launcher joins the member's group as it is): (exit code, what it
+    printed)."""
+    import importlib
+    import io
+    main = importlib.import_module(f"repro_torch.launch.{module}").main
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue()
+
+
 def run_all(cases: list) -> list:
     """Run ``(worker name, args, kwargs)`` cases in order on this member,
     so one spawned ring serves a whole group of tests."""
@@ -1563,5 +1676,6 @@ def run_all(cases: list) -> list:
                "zoo_elastic_restore": zoo_elastic_restore,
                "grid_moe": grid_moe, "grid_lars": grid_lars,
                "grid_collectives": grid_collectives,
-               "grid_member_bytes": grid_member_bytes}
+               "grid_member_bytes": grid_member_bytes,
+               "pipeline_schedules": pipeline_schedules}
     return [workers[name](*args, **kwargs) for name, args, kwargs in cases]

@@ -14,6 +14,11 @@ a dense all-reduce, or with ``TrainConfig.dgc.enabled`` the DGC exchange
 (``core.sparsify.dgc_exchange``), whose u and v are this member's
 ``HybridState.dgc``.
 
+A step's micro-batches run in §3.3.1's pipeline by default
+(``make_value_and_grad``, ``core.pipeline.pipelined_value_and_grad``):
+one micro-batch's gathers are in flight while another's feature extractor
+or head runs, bit-equal to running them in turn (``overlap=False``).
+
 ``snapshot_tree`` gathers a member's state into the GLOBAL tree a
 checkpoint stores, laid out as the JAX package's trainer snapshot, and
 ``state_from_snapshot`` cuts a member's state back out of such a tree;
@@ -32,7 +37,8 @@ from repro_torch.api.heads import (HeadState, SoftmaxHead,
                                    params_block)
 from repro_torch.configs.base import HeadConfig, ModelConfig, TrainConfig
 from repro_torch.core import sparsify as sp
-from repro_torch.core.pipeline import microbatched_value_and_grad
+from repro_torch.core.pipeline import (microbatched_value_and_grad,
+                                       pipelined_value_and_grad)
 from repro_torch.core.sharded_softmax import (_normalize, mask_padded_rows,
                                               serve_topk_batched_local,
                                               serve_topk_ivf_batched_local,
@@ -206,41 +212,69 @@ def _gathered_features(model_cfg, fe_params, inputs):
     return dist.all_gather(f, dim=0, tiled=True)
 
 
+def make_value_and_grad(model_cfg: ModelConfig, head: SoftmaxHead, *,
+                        n_micro: int = 1, overlap: bool = True):
+    """``fn(state, local_inputs) -> ((loss, metrics), (g_fe, g_hp))``: the
+    mean loss, the head's metrics and this member's gradients over its
+    rows ``local_inputs`` in ``n_micro`` micro-batches, each all-gathered
+    over the ring: with ``overlap`` in §3.3.1's pipelined schedule
+    (``core.pipeline.pipelined_value_and_grad``), else one micro-batch
+    after another; the two give the same bits."""
+    metric_names = list(head.metrics_spec())
+
+    def fn(state: HybridState, local_inputs: dict):
+        def fe_fn(fe_p, micro_inputs):
+            return _features(model_cfg, fe_p, micro_inputs)
+
+        def head_fn(hp, f_all, y_all):
+            return head.loss_local(f_all, y_all, hp, state.head_aux,
+                                   global_batch=f_all.shape[0],
+                                   step=state.step)
+
+        params = (state.fe_params, state.head_params)
+        if overlap:
+            return pipelined_value_and_grad(fe_fn, head_fn, params,
+                                            local_inputs, n_micro,
+                                            metric_names)
+
+        def loss_fn(params, micro_inputs):
+            f = fe_fn(params[0], micro_inputs)
+            # hybrid parallel: gather every replica's features along the ring
+            return head_fn(params[1], dist.all_gather(f, dim=0, tiled=True),
+                           dist.all_gather(micro_inputs["labels"], dim=0,
+                                           tiled=True))
+
+        return microbatched_value_and_grad(loss_fn, params, local_inputs,
+                                           n_micro, metric_names)
+
+    return fn
+
+
 def make_train_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
                     train_cfg: TrainConfig, *, n_micro: int = 1,
-                    head: Optional[SoftmaxHead] = None):
+                    head: Optional[SoftmaxHead] = None,
+                    overlap: bool = True):
     """Returns ``step(state, inputs, lr) -> (state, loss, metrics)``.
 
     ``inputs`` is the GLOBAL batch (every member passes the same); each
     member takes its rows, splits them into ``n_micro`` micro-batches and
-    all-gathers each over the ring. ``metrics`` holds the head's metrics
-    plus ``comm_dense_bytes`` (FE gradient bytes all-reduced) and
+    all-gathers each over the ring, with ``overlap`` in §3.3.1's pipelined
+    schedule (``make_value_and_grad``). ``metrics`` holds the head's
+    metrics plus ``comm_dense_bytes`` (FE gradient bytes all-reduced) and
     ``comm_wire_bytes`` (the bytes DGC sends; 0 without DGC)."""
     head = head or make_head(model_cfg, head_cfg)
     opt = make_optimizer(train_cfg)
     dcfg = train_cfg.dgc
-    metric_names = list(head.metrics_spec())
+    value_and_grad = make_value_and_grad(model_cfg, head, n_micro=n_micro,
+                                         overlap=overlap)
 
     def step(state: HybridState, inputs: dict, lr: float):
         if state.opt_state is None:
             raise ValueError("the state carries no optimizer state (pass "
                              "opt_state= to interop.paper_state_from_numpy)")
         n_dev = dist.world_size()
-
-        def loss_fn(params, micro_inputs):
-            fe_p, hp = params
-            f = _features(model_cfg, fe_p, micro_inputs)
-            # hybrid parallel: gather every replica's features along the ring
-            f_all = dist.all_gather(f, dim=0, tiled=True)
-            y_all = dist.all_gather(micro_inputs["labels"], dim=0, tiled=True)
-            return head.loss_local(f_all, y_all, hp, state.head_aux,
-                                   global_batch=f_all.shape[0],
-                                   step=state.step)
-
         local = {k: _local_rows(v) for k, v in inputs.items()}
-        (loss, metrics), (g_fe, g_hp) = microbatched_value_and_grad(
-            loss_fn, (state.fe_params, state.head_params), local, n_micro,
-            metric_names)
+        (loss, metrics), (g_fe, g_hp) = value_and_grad(state, local)
         zero = torch.zeros((), dtype=torch.float32, device=loss.device)
         dgc = state.dgc
         if dcfg.enabled:
@@ -256,10 +290,9 @@ def make_train_step(model_cfg: ModelConfig, head_cfg: HeadConfig,
             dense = zero + float(sum(g.numel() * 4
                                      for g in tree_leaves(g_fe)))
         # head gradient: LOCAL, never crosses members (paper §3.1 step 6)
-        params = (state.fe_params, state.head_params)
         with torch.no_grad():
-            opt_state = opt.update_((g_fe, g_hp), state.opt_state, params,
-                                    lr)
+            opt_state = opt.update_((g_fe, g_hp), state.opt_state,
+                                    (state.fe_params, state.head_params), lr)
         metrics = dict(metrics)
         metrics["comm_wire_bytes"] = wire
         metrics["comm_dense_bytes"] = dense

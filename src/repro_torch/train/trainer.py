@@ -7,6 +7,15 @@ where each value is one compiled step), the head's periodic refresh,
 periodic checkpoints and evaluation. The trainer never branches on the
 head kind.
 
+On a ring every member runs the loop in lockstep on the same global
+batches, so every member records the same spans and counters (the
+checkpoint's write times are member 0's, the others count 0); the
+counter ``train.gather_wait_s`` adds the host seconds a step spent
+blocked in the ring's gathers and reduce-scatters (``dist.wait_seconds``:
+a blocking call's whole time, a started one's ``wait()``), which the
+pipelined schedule (``core.pipeline``) shrinks by what it hides. Member 0
+alone prints the step lines.
+
 Checkpoints are FULL-state snapshots in the JAX package's format
 (``repro_torch.checkpoint``): the FE params, the head's params AND aux
 (the knn graph, the LSH tables, the sketch hashes), the optimizer
@@ -130,16 +139,16 @@ class PaperTrainer:
             raise ValueError("trainer has no ckpt_dir")
         tree = self._snapshot()
         fname = None
+        parts = {"fetch_s": 0.0, "write_s": 0.0}
         if dist.rank() == 0:
-            tr = self.telemetry or NULL_TRACER
             meta = {"system": "paper", **self.geometry().meta()}
             self._sync()        # the fetches wait on no pending step
-            parts = {}
             fname = ckpt_lib.save(self.ckpt_dir, tree, step=self._t,
                                   keep=self.ckpt_keep or None, meta=meta,
                                   timings=parts)
-            tr.count("train.checkpoint.fetch_s", parts["fetch_s"])
-            tr.count("train.checkpoint.write_s", parts["write_s"])
+        tr = self.telemetry or NULL_TRACER
+        tr.count("train.checkpoint.fetch_s", parts["fetch_s"])
+        tr.count("train.checkpoint.write_s", parts["write_s"])
         dist.barrier()
         return fname
 
@@ -224,13 +233,16 @@ class PaperTrainer:
                 inputs = to_device(self.data_fn(t, self.hw_batch * n),
                                    self.device)
                 step = self._get_step(n)
+            waited = dist.wait_seconds()
             with tr.span("train.step"):
                 self.state, loss, metrics = step(self.state, inputs, lr)
                 if tr.enabled:
                     # kernels run asynchronously: only a live tracer pays
                     # for the sync that makes the span cover them
                     self._sync()
+            waited = dist.wait_seconds() - waited
             tr.count("train.steps")
+            tr.count("train.gather_wait_s", waited)
             self._t = t + 1
             if refresh_every and (t + 1) % refresh_every == 0:
                 self.refresh_head()
@@ -248,8 +260,9 @@ class PaperTrainer:
             row.update({k: float(metrics[k]) for k in self.head.metrics_spec()
                         if k not in ("accuracy", "logz")})
             self.history.append(row)
-            tr.log_metrics(row)
-            if self.log_every and t % self.log_every == 0:
+            tr.log_metrics({**row, "gather_wait_s": waited})
+            if self.log_every and t % self.log_every == 0 and \
+                    dist.rank() == 0:
                 print(f"[train] step={t} lr={lr:.4f} B={row['batch']} "
                       f"loss={row['loss']:.4f} acc={row['acc']:.3f}")
         tr.record_peak_memory()

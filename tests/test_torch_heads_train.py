@@ -215,6 +215,18 @@ def test_selective_refresh_is_the_member_build(results, n):
 NEW_HEADS = ("selective", "mach", "sampled", "csoft")
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a launcher's small ops: beside the other
+    test processes a pool of threads waits on busy cores (the sampled
+    head's run took 13.5 s at eight threads there, 0.15 s at one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("head", NEW_HEADS)
 def test_train_launcher_head_on_the_cpu(head, tmp_path, capsys):
     metrics = tmp_path / "m.jsonl"
@@ -233,6 +245,7 @@ def test_train_launcher_head_on_the_cpu(head, tmp_path, capsys):
         assert '"sample_frac": 0.25' in rows[-1]
 
 
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("head", NEW_HEADS)
 def test_serve_launcher_head_on_the_cpu(head, capsys):
     base = ["--system", "paper", "--device", "cpu", "--classes", "512",

@@ -368,6 +368,18 @@ def test_fit_on_the_cpu_moves_weights_and_version():
     assert 0.0 <= exp.evaluate() <= 1.0
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: the launcher's small convolutions
+    run under a second alone, but ~300 s beside five other busy test
+    processes, whose cores their thread pools wait on."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_thread")
 def test_train_launcher_on_the_cpu(tmp_path, capsys):
     metrics, trace = tmp_path / "m.jsonl", tmp_path / "t.json"
     rc = port_launcher.main([
@@ -379,17 +391,6 @@ def test_train_launcher_on_the_cpu(tmp_path, capsys):
     assert "final eval accuracy" in out and "8 train.step spans" in out
     rows = metrics.read_text().splitlines()
     assert len(rows) == 8 and '"batch": 256' in rows[-1]
-
-
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for the test: the launcher's small convolutions
-    run under a second alone, but ~300 s beside five other busy test
-    processes, whose cores their thread pools wait on."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("extra", [["--trunk", "cnn"], ["--dgc"],
@@ -426,6 +427,7 @@ def test_train_launcher_cnn_and_dgc_on_the_cpu(extra, tmp_path, capsys,
     (["--backend", "pallas"], None),
     (["--steps", "0"], None),
 ])
+@pytest.mark.usefixtures("one_thread")
 def test_train_launcher_rejects_unported_args(argv, queue, capsys):
     if queue == "train":
         rc = port_launcher.main(argv + [

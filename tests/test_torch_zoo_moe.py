@@ -667,7 +667,20 @@ def _runs(root):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def started(tmp_path_factory):
+def one_thread():
+    """One intra-op thread for this module's work in this process: its
+    ops are small, and beside the JAX processes ``started`` keeps busy a
+    pool of threads waits on their cores (every test passes at either
+    count; ``test_every_head_trains_evaluates_and_serves`` took 127 s at
+    eight threads beside them, 3 s at one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def started(one_thread, tmp_path_factory):
     """``_runs`` in a thread from the module's start, so the JAX
     processes work while the tests that need none run."""
     root = str(tmp_path_factory.mktemp("zoo_moe"))
