@@ -454,6 +454,22 @@ PyTorch built for CUDA. Phases, each of which fails the run:
    --nproc-per-node 2``, the three at once: each exits 0 and prints its
    result line once. kimi-K2's peak after the in-place accumulation is
    the grid phase's dry run.
+31. the examples (``examples_phase``), in this process: first every
+   kernel against its plain version at the small shapes of
+   ``scripts/smoke_torch.sh``'s legs (``SMALL_SHAPES``: class shards of
+   16 to 128 rows, D 16 to 64, k' 16; ivf_rerank through both entries),
+   then ``examples/quickstart_torch.py`` as it is (4,096 classes, the knn
+   head, 150 steps of FCCS growth to 1,024),
+   ``examples/train_sku_cnn_torch.py --classes 1020250 --steps 20`` (the
+   reduced ResNet at D 128 under a 0.52 GB head, knn at 20% active, DGC)
+   and ``examples/serve_lm_torch.py`` for smollm_135m and mamba2_370m,
+   every counter reset around each (``EXAMPLES_WANT``). Each kernel
+   entry copies the inputs of its first call at each distinct shape
+   during an example (``captured_calls``), and after the example each
+   copy is held against the kernel's plain version on the same inputs
+   (``check_captured``): the examples' own shapes. Then the results'
+   lines and finite values; the quickstart's accuracy is logged beside
+   the JAX example's CPU figure (``JAX_CPU_ACC``).
 
 The kernels' bounds (``bound_ms``, ``ce_bounds``, ``_flash_bound``,
 ``ivf_union_bytes``) are their modules' cost functions'
@@ -7466,6 +7482,336 @@ def paper_ring_phase(torch, np, counters) -> tuple:
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# the examples on the card (phase 31)
+# ---------------------------------------------------------------------------
+
+# every kernel at the shapes of scripts/smoke_torch.sh's legs, which the
+# phases above never use: (B, class rows of a member's shard, D). The paper
+# legs on rings of 8 (512 classes at D 64: 64 rows; 256 at D 32: 32),
+# the elastic restores on 4 and 16 (64 and 16 rows), the IVF leg (1,024
+# at D 16 on 8: 128 rows)
+SMALL_SHAPES = ((32, 64, 64), (16, 32, 32), (16, 16, 32), (16, 64, 32),
+                (16, 128, 16))
+SMALL_KPRIME = 16             # the smoke legs' knn_kprime
+SMALL_ACTIVE = 8              # a shard's active rows there (k' + labels)
+# flash_attention in fp32 at the reduced SmolLM's prefill (3 heads of 32):
+# serve_lm's 8 prompts of 24 tokens, the smoke grid's 2 a data shard of 16
+SMALL_FLASH = ((24, 24, 32), (6, 16, 32))
+EX_CNN_ARGV = ["--classes", str(V), "--steps", "20"]
+EX_SERVE_ARCHS = ("smollm_135m", "mamba2_370m")
+# launches of each example, every counter reset just before it:
+# quickstart: the knn head's micro-batches over 150 FCCS steps at a
+# hardware batch of 128 (1 x 43, 2 x 25, 4 x 23, 8 x 59 steps: 657), the
+# graph built at start and after steps 49, 99 and 149 (one dist_topk a
+# build on a ring of one), evaluate and the greedy serve one ce_forward
+# each. train_sku_cnn: 20 steps of one micro-batch, the graph built at
+# start (rebuild_every 60), DGC's threshold once a step over the reduced
+# trunk's one group of leaves, evaluate one ce_forward. serve_lm: the
+# prefill's self-attention once a layer (2 layers; decode runs the ref
+# branches), mamba2 none (its SSD mixer has no kernel)
+EXAMPLES_WANT = {
+    "examples_quickstart": {"sparse_ce_forward": 657,
+                            "sparse_ce_backward": 657, "dist_topk": 4,
+                            "ce_forward": 2},
+    "examples_train_sku_cnn": {"sparse_ce_forward": 20,
+                               "sparse_ce_backward": 20, "dist_topk": 1,
+                               "stage1_topk": 20, "ce_forward": 1},
+    "examples_serve_lm_smollm_135m": {"flash_attention": 2},
+    "examples_serve_lm_mamba2_370m": {}}
+# the JAX quickstart's accuracy on the CPU (examples/quickstart.py as
+# committed, on 8 host devices: a ring of 8), logged beside the port's.
+# The JAX ring of 8 takes head steps 8 times the ring of one's at the same
+# lr (ROADMAP C.1): the port's quickstart on a ring of one learns faster
+# than on a ring of 8
+JAX_CPU_ACC = {"quickstart": 0.3184}
+# the kernel wrappers an example's calls are captured from, by counter:
+# (the counter's module, its entries)
+EX_ENTRIES = {"ce_forward": ("ce_forward",), "ce_backward": ("ce_backward",),
+              "sparse_ce_forward": ("sparse_ce_forward",),
+              "sparse_ce_backward": ("sparse_ce_backward",),
+              "dist_topk": ("dist_topk",), "stage1_topk": ("stage1_topk",),
+              "ivf_rerank": ("ivf_rerank", "ivf_rerank_probed"),
+              "flash_attention": ("flash_attention",)}
+EX_CAPTURE = 3      # distinct input shapes of an entry held, per example
+EX_DIST_ROWS = 512  # dist_topk queries held at each end of a larger call
+
+
+def _example(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def captured_calls(torch, counters):
+    """For the body, each kernel entry (``EX_ENTRIES``) copies the inputs
+    of its first call at each distinct signature (the tensors' shapes and
+    dtypes, the other arguments' values), up to ``EX_CAPTURE`` of them,
+    before it runs. Yields {entry: [bound arguments]}, filled as the body
+    runs; the entries are restored on exit."""
+    import inspect
+    calls, saved = {}, []
+
+    def wrap(mod, entry):
+        fn = getattr(mod, entry)
+        sig = inspect.signature(fn)
+        seen = set()
+        calls[entry] = []
+
+        def rec(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            key = tuple((tuple(x.shape), x.dtype)
+                        if isinstance(x, torch.Tensor) else x
+                        for x in bound.arguments.values())
+            if key not in seen and len(seen) < EX_CAPTURE:
+                seen.add(key)
+                calls[entry].append(
+                    {k: x.detach().clone() if isinstance(x, torch.Tensor)
+                     else x for k, x in bound.arguments.items()})
+            return fn(*args, **kwargs)
+
+        saved.append((mod, entry, fn))
+        setattr(mod, entry, rec)
+
+    try:
+        for name, entries in EX_ENTRIES.items():
+            for entry in entries:
+                wrap(counters[name][0], entry)
+        yield calls
+    finally:
+        for mod, entry, fn in saved:
+            setattr(mod, entry, fn)
+
+
+def check_captured(torch, kern, calls, what) -> dict:
+    """Each captured call (``captured_calls``) held against its kernel's
+    plain version on the same inputs, through the gates of the phases
+    above; dist_topk on its first and last ``EX_DIST_ROWS`` queries over
+    every key. Returns {entry: {"shapes": [...], "max_err": x}}."""
+    ce, sp, dk, dc, ivf, fa = kern
+    out = {}
+
+    def shape(a):
+        return {k: list(x.shape) if isinstance(x, torch.Tensor) else x
+                for k, x in a.items()
+                if isinstance(x, (torch.Tensor, int, float, bool))}
+
+    for entry, bound in calls.items():
+        for a in bound:
+            label = f"{what}, {entry} at {shape(a)}"
+            if entry == "ce_forward":
+                lim = a["w"].shape[0] if a["limit"] is None else a["limit"]
+                err = max(check_ce(torch, ce, a["f"], a["w"], a["y"], lim,
+                                   a["scale"], label))
+            elif entry == "ce_backward":
+                lim = a["w"].shape[0] if a["limit"] is None else a["limit"]
+                parts = check_ce_bwd(torch, ce, a["f"], a["w"], a["y"],
+                                     a["m"], a["gz"], a["gc"], lim,
+                                     a["scale"], label)
+                err = max(r for _, r in parts.values())
+            elif entry.startswith("sparse_ce"):
+                cols = (a["f"], a["w"], a["ids"], a["gids"], a["bias"],
+                        a["valid"], a["y"])
+                if entry == "sparse_ce_forward":
+                    z = sp.sparse_ce_forward(*cols, scale=a["scale"],
+                                             mask_hits=a["mask_hits"])[1]
+                    b = a["f"].shape[0]
+                    gz, gc_ = 1.0 / (b * z), torch.full_like(z, -1.0 / b)
+                else:
+                    gz, gc_ = a["gz"], a["gc"]
+                err = max(check_sparse(torch, sp, *cols, a["scale"],
+                                       a["mask_hits"], gz, gc_,
+                                       label).values())
+            elif entry == "dist_topk":
+                q = a["q"]
+                if q.shape[0] > 2 * EX_DIST_ROWS:
+                    q = torch.cat([q[:EX_DIST_ROWS], q[-EX_DIST_ROWS:]])
+                err, _ = check_dist_topk(torch, dk, q, a["kmat"],
+                                         a["kprime"], a["col_offset"],
+                                         label)
+            elif entry == "stage1_topk":
+                err = check_topk(torch, dc, a["x"], a["k"], a["chunk"],
+                                 label)
+            elif entry == "ivf_rerank":
+                err = check_ivf(torch, ivf, a["f"], a["w"], a["cand"],
+                                a["k"], label)[0]
+            elif entry == "ivf_rerank_probed":
+                cand = a["members"][a["probe"].long()].reshape(
+                    a["f"].shape[0], -1).contiguous()
+                err = check_ivf(torch, ivf, a["f"], a["w"], cand, a["k"],
+                                label, members=a["members"],
+                                probe=a["probe"])[0]
+            else:                                   # flash_attention
+                q, k = a["q"], a["k"]
+                err, gate = check_flash(
+                    torch, fa, q.shape[0], q.shape[1], k.shape[1],
+                    q.shape[2], a["causal"], a["window"], q.dtype, 31,
+                    group=q.shape[0] // k.shape[0])
+                if not gate["ok"]:
+                    fail(f"flash_attention {label}: max abs err {err:.3g}, "
+                         f"gate {gate}")
+            row = out.setdefault(entry, {"shapes": [], "max_err": 0.0})
+            row["shapes"].append(shape(a))
+            row["max_err"] = max(row["max_err"], float(err))
+        torch.cuda.empty_cache()
+    return out
+
+
+def small_shapes_check(torch, ce, sp, dk, dc, ivf, fa) -> dict:
+    """Each kernel against its plain version at ``SMALL_SHAPES``: class
+    shards below one tile, through the gates of the phases above. Returns
+    the largest error of each kernel over the shapes."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    errs = {}
+
+    def keep(name, err):
+        errs[name] = max(errs.get(name, 0.0), float(err))
+
+    for b, v, d in SMALL_SHAPES:
+        what = f"smoke shape B={b} V={v} D={d}"
+        f = torch.nn.functional.normalize(
+            torch.randn((b, d), generator=g, device=dev), dim=1)
+        w = torch.nn.functional.normalize(
+            torch.randn((v, d), generator=g, device=dev), dim=1)
+        y = torch.randint(0, v, (b,), generator=g, device=dev,
+                          dtype=torch.int32)
+        y[0] = -1                                   # a label off the shard
+        m_corr, z_rel = check_ce(torch, ce, f, w, y, v, 16.0, what)
+        keep("ce_forward", max(m_corr, z_rel))
+        m, z = ce.ce_forward(f, w, y, limit=v, scale=16.0)[:2]
+        gz, gc = 1.0 / (b * z), torch.full_like(z, -1.0 / b)
+        parts = check_ce_bwd(torch, ce, f, w, y, m, gz, gc, v, 16.0, what)
+        keep("ce_backward", max(r for _, r in parts.values()))
+        keep("stage1_topk", check_topk(torch, dc, f @ w.T, 5, label=what))
+        wb = w.to(torch.bfloat16)       # the graph build's rows
+        err, _ = check_dist_topk(torch, dk, wb, wb, SMALL_KPRIME, label=what)
+        keep("dist_topk", err)
+        a = min(SMALL_ACTIVE + b // 4, v)
+        fs, ws, ids, ys = sparse_problem(torch, g, b, v, d, a, n_dup=1,
+                                         unit=True, dev=dev)
+        bias = torch.zeros(a, device=dev)
+        valid = torch.ones(a, dtype=torch.int32, device=dev)
+        ms, zs = sp.sparse_ce_forward(fs, ws, ids, ids, bias, valid, ys,
+                                      scale=16.0)[:2]
+        for part, e in check_sparse(
+                torch, sp, fs, ws, ids, ids, bias, valid, ys, 16.0, False,
+                1.0 / (b * zs), torch.full_like(zs, -1.0 / b), what).items():
+            keep(f"sparse_ce_{'forward' if part.startswith('fwd') else 'backward'}",
+                 e)
+        cand = torch.randint(0, v, (b, min(v, 40)), generator=g,
+                             device=dev, dtype=torch.int32)
+        cand[torch.rand(cand.shape, generator=g, device=dev) < 0.2] = -1
+        keep("ivf_rerank", check_ivf_both(torch, ivf, f, w, cand, 5, what,
+                                          4))
+    for bh, s, dh in SMALL_FLASH:
+        err, gate = check_flash(torch, fa, bh, s, s, dh, True, 0,
+                                torch.float32, 31, group=1)
+        if not gate["ok"]:
+            fail(f"flash_attention fp32 at q [{bh}, {s}, {dh}]: max abs err "
+                 f"{err:.3g} (tolerance {FLASH_FP32_TOL:g})")
+        keep("flash_attention", err)
+    log(f"examples phase: every kernel agrees with its plain version at the "
+        f"smoke script's shapes {SMALL_SHAPES} (B, V, D), k' "
+        f"{SMALL_KPRIME}, flash fp32 {SMALL_FLASH}: largest errors {errs}")
+    return errs
+
+
+def examples_phase(torch, np, counters, kern) -> tuple:
+    """Phase 31 (module docstring). Returns (the launches by example, the
+    phase's rows)."""
+    import contextlib
+    import io
+
+    t_phase = time.perf_counter()
+    out = {"small_shapes": small_shapes_check(torch, *kern)}
+    launches = {}
+
+    def run(name, fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        text = io.StringIO()
+        with captured_calls(torch, counters) as calls:
+            _reset(counters)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                got = fn()
+            torch.cuda.synchronize()
+            launches[name] = {k: v for k, v in _read(counters).items() if v}
+        out[name] = {"s": time.perf_counter() - t0,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": launches[name]}
+        lines = text.getvalue().strip().splitlines()
+        log(f"examples phase: {name}: {out[name]['s']:.1f} s, peak "
+            f"{out[name]['peak_gb']:.2f} GB, launches {launches[name]}; "
+            f"its last lines: {lines[-3:]}")
+        if launches[name] != EXAMPLES_WANT[name]:
+            fail(f"examples phase: {name} launched {launches[name]}, not "
+                 f"{EXAMPLES_WANT[name]}")
+        out[name]["captured"] = check_captured(torch, kern, calls, name)
+        log(f"examples phase: {name}: every kernel agrees with its plain "
+            f"version on the inputs of its calls: {out[name]['captured']}")
+        return got, text.getvalue()
+
+    (exp, acc), text = run("examples_quickstart",
+                           lambda: _example("quickstart_torch").main([]))
+    hist = exp.trainer.history
+    if (len(hist) != 150 or hist[-1]["batch"] != 1024
+            or not all(math.isfinite(r["loss"]) for r in hist)
+            or not 0.0 <= acc <= 1.0
+            or "serve() returned 64 retrieval ids" not in text):
+        fail(f"examples phase: quickstart: {len(hist)} steps, final batch "
+             f"{hist[-1]['batch']}, accuracy {acc}:\n{text[-2000:]}")
+    out["examples_quickstart"].update(
+        accuracy=acc, losses=[hist[0]["loss"], hist[-1]["loss"]],
+        label_recall=min(r["label_recall"] for r in hist))
+    del exp
+
+    (trainer, acc), text = run(
+        "examples_train_sku_cnn",
+        lambda: _example("train_sku_cnn_torch").main(EX_CNN_ARGV))
+    hist = trainer.history
+    w = trainer.state.w_head
+    if (len(hist) != 20 or tuple(w.shape) != (V, 128)
+            or not all(math.isfinite(r["loss"]) for r in hist)
+            or not 0.0 <= acc <= 1.0 or "final accuracy" not in text):
+        fail(f"examples phase: train_sku_cnn: {len(hist)} steps, W "
+             f"{tuple(w.shape)}, accuracy {acc}:\n{text[-2000:]}")
+    out["examples_train_sku_cnn"].update(
+        accuracy=acc, losses=[hist[0]["loss"], hist[-1]["loss"]],
+        head_gb=w.numel() * w.element_size() / 1e9,
+        label_recall=min(r["label_recall"] for r in hist))
+    del trainer, w
+
+    for arch in EX_SERVE_ARCHS:
+        rc, text = run(f"examples_serve_lm_{arch}",
+                       lambda: _example("serve_lm_torch").main(
+                           ["--arch", arch]))
+        line = [x for x in text.splitlines() if "generated (8, 12)" in x]
+        if rc != 0 or len(line) != 1:
+            fail(f"examples phase: serve_lm {arch}: exit {rc}:\n"
+                 f"{text[-2000:]}")
+        out[f"examples_serve_lm_{arch}"]["line"] = line[0]
+    out["jax_cpu_accuracy"] = JAX_CPU_ACC
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"examples phase: quickstart accuracy "
+        f"{out['examples_quickstart']['accuracy']:.4f} (the JAX example on "
+        f"the CPU on a ring of 8 {JAX_CPU_ACC['quickstart']:.4f}), "
+        f"train_sku_cnn at {V:,} classes "
+        f"{out['examples_train_sku_cnn']['accuracy']:.4f}; the phase "
+        f"{out['phase_s']:.1f} s")
+    return launches, out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -7676,6 +8022,11 @@ def _main_phases(torch, np, smi, build_s, dry_proc, sharded, ce, fa, ivf,
     torch.cuda.empty_cache()
     ring_launches, e2e["paper_ring"] = paper_ring_phase(torch, np, counters)
     grid_launches.update(ring_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ex_launches, e2e["examples"] = examples_phase(
+        torch, np, counters, (ce, sp, dk, dc, ivf, fa))
+    grid_launches.update(ex_launches)
     e2e["build_s"] = build_s
 
     # launches on each main path, from its own reset-and-read of the counters

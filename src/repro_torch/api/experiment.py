@@ -816,6 +816,7 @@ class ZooExperiment(Experiment):
         refresh_every = self.head.refresh_every
         own = [k for k in self.head.metrics_spec()
                if k not in ("accuracy", "logz")]
+        lead = dist.rank(dist.ALL) == 0     # the group's member 0 prints
         start = self._t
         for t in range(start, start + steps):
             if step_hook is not None:
@@ -844,7 +845,7 @@ class ZooExperiment(Experiment):
             row.update({k: float(metrics[k]) for k in own})
             self.history.append(row)
             tr.log_metrics(row)
-            if self.log_every and t % self.log_every == 0:
+            if self.log_every and t % self.log_every == 0 and lead:
                 print(f"[zoo] step={t} loss={row['loss']:.4f} "
                       f"acc={row['acc']:.3f}")
         tr.record_peak_memory()
@@ -853,7 +854,7 @@ class ZooExperiment(Experiment):
             # buckets included), resumable
             with tr.span("train.checkpoint"):
                 self.save_checkpoint()
-            if self.log_every:
+            if self.log_every and lead:
                 print(f"[zoo] checkpoint written to {self.ckpt_dir}")
         return self.history
 

@@ -231,7 +231,7 @@ def main(argv=None):
     from repro_torch.launch.mesh import launch_ring
 
     if args.system == "zoo":
-        return _traced(args, _serve_zoo)
+        return _serve_zoo(args)
     with launch_ring(args.device, args.share_cards) as (n, backend):
         if n > 1:
             _say(f"[serve] ring of {n} over {backend}")
@@ -292,18 +292,19 @@ def _serve_paper(args, tr) -> int:
     return 0
 
 
-def _serve_zoo(args, tr) -> int:
+def _serve_zoo(args) -> int:
     """The zoo's serving, under ``torchrun`` on a (data, model) grid of its
     processes (``launch.mesh.launch_grid``; ``--n-model``): token serving
     decodes each data shard's prompts, retrieval serves every query on
-    every data shard."""
+    every data shard. The tracer is made once the grid is joined, so that
+    only its member 0 writes the metrics and the trace."""
     from repro_torch.launch.mesh import launch_grid
 
     with launch_grid(args.device, args.n_model,
                      args.share_cards) as (shape, backend):
         if shape != (1, 1):
             _say(f"[serve] grid (data, model) = {shape} over {backend}")
-        return _serve_zoo_member(args, tr)
+        return _traced(args, _serve_zoo_member)
 
 
 def _serve_zoo_member(args, tr) -> int:

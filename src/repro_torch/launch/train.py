@@ -183,12 +183,7 @@ def main(argv=None):
     from repro_torch.launch.mesh import launch_ring
 
     if args.system == "zoo":
-        telemetry = _tracer(args, lead=True)
-        try:
-            return _train_zoo(args, telemetry)
-        finally:
-            if telemetry is not None:
-                telemetry.close()
+        return _train_zoo(args)
     with launch_ring(args.device, args.share_cards) as (n, backend):
         return _train_paper(args, n, backend)
 
@@ -274,24 +269,34 @@ def _finish_telemetry(args, telemetry) -> None:
         print(f"[telemetry] metrics -> {args.metrics_out}")
 
 
-def _train_zoo(args, telemetry) -> int:
+def _train_zoo(args) -> int:
     """The zoo trainer on ``--arch`` (``--reduced``: its smoke variant in
     fp32) over ``--batch`` x ``--seq`` tokens a step, with the JAX
     launcher's head settings; under ``torchrun`` on a (data, model) grid
     of its processes (``launch.mesh.launch_grid``; ``--n-model``)."""
+    from repro_torch import dist
     from repro_torch.launch.mesh import launch_grid
 
     with launch_grid(args.device, args.n_model,
                      args.share_cards) as (shape, backend):
-        if shape != (1, 1):
+        # the group's member 0 alone prints and writes --metrics-out and
+        # --trace-out
+        lead = dist.rank(dist.ALL) == 0
+        if shape != (1, 1) and lead:
             print(f"[zoo] grid (data, model) = {shape} over {backend}")
-        return _train_zoo_member(args, telemetry)
+        telemetry = _tracer(args, lead=lead)
+        try:
+            return _train_zoo_member(args, telemetry, lead)
+        finally:
+            if telemetry is not None:
+                telemetry.close()
 
 
-def _train_zoo_member(args, telemetry) -> int:
+def _train_zoo_member(args, telemetry, lead: bool) -> int:
     from repro_torch.api import Experiment
     from repro_torch.configs.base import HeadConfig, TrainConfig
 
+    say = print if lead else (lambda *a, **k: None)
     hcfg = HeadConfig(softmax_impl=args.head, backend=args.backend,
                       knn_k=16, knn_kprime=32, active_frac=0.1,
                       rebuild_every=100)
@@ -306,19 +311,20 @@ def _train_zoo_member(args, telemetry) -> int:
                    telemetry=telemetry)
     if resume:
         start = hist[0]["step"] if hist else args.steps
-        print(f"[zoo] resumed at t={start}: {len(hist)} steps to "
-              f"{args.steps}")
+        say(f"[zoo] resumed at t={start}: {len(hist)} steps to "
+            f"{args.steps}")
     if not hist:
-        print(f"[zoo] nothing to run: the checkpoint is at step "
-              f"{args.steps}")
+        say(f"[zoo] nothing to run: the checkpoint is at step "
+            f"{args.steps}")
         return 0
     acc = exp.evaluate()
     if not (math.isfinite(hist[-1]["loss"]) and math.isfinite(acc)):
         print(f"[zoo] non-finite result: loss {hist[-1]['loss']}, "
               f"accuracy {acc}", file=sys.stderr)
         return 1
-    print(f"[zoo] final next-token accuracy: {acc:.4f}")
-    _finish_telemetry(args, telemetry)
+    say(f"[zoo] final next-token accuracy: {acc:.4f}")
+    if lead:
+        _finish_telemetry(args, telemetry)
     return 0
 
 

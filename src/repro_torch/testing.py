@@ -885,6 +885,21 @@ def zoo_fit(tree: dict, head_cfg: dict, train_cfg: dict, *, arch: str,
             "versions": versions + [exp.weights_version]}
 
 
+def zoo_launcher(module: str, argv: list) -> dict:
+    """``repro_torch.launch.<module>.main(argv)`` with ``--system zoo`` on
+    this member of the grid already laid out (``launch_grid`` finds no
+    ``torchrun`` and keeps it): its exit code and what it printed."""
+    import contextlib
+    import importlib
+    import io
+
+    launcher = importlib.import_module(f"repro_torch.launch.{module}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = launcher.main(argv)
+    return {"rc": rc, "stdout": out.getvalue()}
+
+
 def zoo_grads(tree: dict, head_cfg: dict, *, arch: str, inputs: dict
               ) -> dict:
     """One batch's loss and its gradient with respect to the model params
@@ -1655,6 +1670,7 @@ def run_all(cases: list) -> list:
                "ivf_fit": ivf_fit, "ivf_serve": ivf_serve,
                "ivf_recall": ivf_recall, "zoo_serve": zoo_serve,
                "zoo_fit": zoo_fit, "zoo_retrieve": zoo_retrieve,
+               "zoo_launcher": zoo_launcher,
                "zoo_grads": zoo_grads,
                "head_loss_body": head_loss_body,
                "sketch_predict": sketch_predict,

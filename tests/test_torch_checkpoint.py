@@ -44,6 +44,7 @@ from repro_torch.checkpoint import checkpoint as ckpt_mod
 from repro_torch.checkpoint import codec
 from repro_torch.optim import OptState
 from repro_torch.serving import IVFIndex
+from tests.torch_threads import one_thread  # noqa: F401
 
 RINGS = (1, 2)
 V, D, B, STEPS, HW = 240, 16, 24, 6, 16
@@ -52,7 +53,6 @@ HEAD = dict(backend="ref", knn_k=8, knn_kprime=16, active_frac=0.25,
             csoft_r=2)
 FCCS = dict(eta0=0.5, t_warm=2, b0=B, b_min=B, b_max=2 * B, t_ini=2,
             t_final=8)
-
 
 def _spec(head, *, dgc=False, trunk="feats", batch=B):
     return {"head": dict(HEAD, softmax_impl=head),

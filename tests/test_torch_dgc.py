@@ -35,6 +35,7 @@ from repro_torch.core import sparsify as sp
 from repro_torch.kernels import ops
 from repro_torch.models import resnet
 from repro_torch.optim import tree_leaves, tree_map
+from tests.torch_threads import one_thread  # noqa: F401
 
 RINGS = (1, 2, 4)
 ROUNDS = 3
@@ -53,7 +54,6 @@ UPDATE_TOL = 1e-6
 # ---------------------------------------------------------------------------
 # thresholds
 # ---------------------------------------------------------------------------
-
 
 def _abs_values(n, seed, ties=False):
     x = np.abs(np.random.default_rng(seed).standard_normal(n)).astype(

@@ -30,6 +30,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro.elastic as jel
 from repro.api import Experiment as JaxExperiment
@@ -43,6 +44,7 @@ from repro_torch import dist, elastic, testing
 from repro_torch.checkpoint import checkpoint as ckpt_mod
 from repro_torch.core import baselines as bl
 from repro_torch.resilience import elastic_kill_and_recover, tree_compare
+from tests.torch_threads import one_thread  # noqa: F401
 
 V, D, B, STEPS = 240, 16, 24, 8
 HEAD = dict(backend="ref", knn_k=8, knn_kprime=16, active_frac=0.25,
@@ -53,7 +55,6 @@ SKETCH = ("mach", "csoft")
 MOVES = [(4, 2), (2, 4), (4, 3)]
 ROUNDTRIP = ("full", "knn", "selective")
 CROSS = ("knn", "selective", "mach")
-
 
 def _spec(head, dgc=False, trunk="feats", batch=B):
     return {"head": dict(HEAD, softmax_impl=head),

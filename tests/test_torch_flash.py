@@ -28,6 +28,7 @@ import torch
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
+from tests.torch_threads import one_thread  # noqa: F401
 
 FP32_ATOL = 2e-5
 BF16_ATOL = 3e-2
@@ -43,7 +44,6 @@ SWEEP = [
     (1, 130, 130, 256, True, 0, 64, 64),    # gemma's head dim
     (2, 300, 100, 32, True, 50, 64, 64),    # rows >= 149: no valid key
 ]
-
 
 def _inputs(bh, s, t, dh, seed):
     rng = np.random.default_rng(seed)

@@ -45,9 +45,17 @@ knn runs without fillers:
 * A (1, 2) member holds its slices only: each leaf's shape is its
   ``param_pspecs`` block, and the member's element count is under the
   whole model's.
+* The reduced SmolLM on a (2, 4) grid of 8 processes, ``default_grid``'s
+  layout of 8 and the one ``scripts/smoke_torch.sh`` trains: its 3 heads
+  and 3 KV heads do not split over a model axis of 4 and stay whole on
+  every member, its MLP and vocab split. ``fit(3)`` of the full head
+  against the JAX zoo on a (2, 4) mesh as the (2, 2) cases are held; and
+  both launchers' zoo runs on that grid print their lines and write
+  their metrics and traces once, on member 0.
 
 The JAX runs go to four processes of their own; the port's (2, 2) grid
-runs every case of its shape in one spawn, and the (1, 2) grid its own.
+runs every case of its shape in one spawn, and the (1, 2) and (2, 4)
+grids theirs.
 """
 import concurrent.futures
 import dataclasses
@@ -74,6 +82,9 @@ from tests.test_torch_zoo_train import HEADS, TRAJ_TOL, _host, jax_zoo_on_grid
 ARCH, MOE_ARCH = "qwen3_1_7b", "qwen3_moe_30b_a3b"
 BATCH, SEQ, STEPS, LR = 8, 8, 3, 0.1
 GRID = (2, 2)
+# the (2, 4) grid's run: the reduced SmolLM, the full head, one micro-batch
+WIDE = (2, 4)
+WIDE_KEY = ("smollm_135m", "full", 1, False, BATCH, WIDE)
 BACKENDS = ("ref", "kernel")
 # (head, n_micro): every head in one micro-batch, full and knn in two
 CASES = [(h, 1) for h in HEADS] + [("full", 2), ("knn", 2)]
@@ -106,12 +117,13 @@ def _batches(batch=BATCH):
 
 def _jax_exp(key, **kw):
     """The JAX experiment of ``key`` = (arch, head, n_micro, fsdp[,
-    batch]) on the (2, 2) mesh, its selective tables refreshed, its
-    batches the test's."""
+    batch[, grid]]) on the (2, 2) mesh or ``grid``, its selective tables
+    refreshed, its batches the test's."""
     arch, head, n_micro, fsdp, *rest = key
     batch = rest[0] if rest else BATCH
+    grid = rest[1] if len(rest) > 1 else GRID
     exp = jax_zoo_on_grid(
-        *GRID, par=_fsdp(True) if fsdp else None, arch=arch, reduced=True,
+        *grid, par=_fsdp(True) if fsdp else None, arch=arch, reduced=True,
         batch=batch, seq=SEQ, head=jbase.HeadConfig(**HEADS[head]),
         train=jbase.TrainConfig(optimizer="sgd", micro_batch=n_micro), **kw)
     if head == "selective":
@@ -280,7 +292,7 @@ def runs(tmp_path_factory):
     batches = _batches()
     fit_keys = ([(ARCH, h, m, False) for h, m in CASES]
                 + [(MOE_ARCH, "full", 1, False), (ARCH, "full", 1, True)]
-                + [(ARCH, h, m, False, b) for h, m, b in ODD])
+                + [(ARCH, h, m, False, b) for h, m, b in ODD] + [WIDE_KEY])
     ctx = torch.multiprocessing.get_context("spawn")
     flags = os.environ.get("XLA_FLAGS", "")
     os.environ["XLA_FLAGS"] = (
@@ -346,19 +358,35 @@ def runs(tmp_path_factory):
             np.float32)
         g = np.random.default_rng(10).standard_normal((8, 6)).astype(
             np.float32)
-        with concurrent.futures.ThreadPoolExecutor(1) as side:
+        zoo = ["--device", "cpu", "--system", "zoo", "--arch", WIDE_KEY[0],
+               "--reduced", "--batch", str(BATCH)]
+        train_argv = zoo + ["--seq", str(SEQ), "--steps", "2", "--lr", "0.5",
+                            "--metrics-out", os.path.join(root, "wide.jsonl"),
+                            "--trace-out", os.path.join(root, "wide.json")]
+        serve_argv = zoo + ["--prompt-len", "4", "--gen", "2", "--trace-out",
+                            os.path.join(root, "wide_serve.json")]
+        with concurrent.futures.ThreadPoolExecutor(2) as side:
             small = side.submit(_port, (1, 2), [
                 ("apply_moe", moe_case),
                 ("lars", ("grid_lars", (w, g, ("model", None)), {})),
                 ("bytes", ("grid_member_bytes", (ARCH,), {}))])
+            wide = side.submit(_port, WIDE, [
+                ("fit", _fit_case(starts[WIDE_KEY], "full", 1, "kernel",
+                                  batches, arch=WIDE_KEY[0])),
+                ("train_launcher", ("zoo_launcher", ("train", train_argv),
+                                    {})),
+                ("serve_launcher", ("zoo_launcher", ("serve", serve_argv),
+                                    {}))])
             port = _port(GRID, cases)
             port_small = small.result()
+            port_wide = wide.result()
         backs = {h: pools[i].submit(_jax_restore, h,
                                     os.path.join(root, f"port_{h}"),
                                     saved[h][1])
                  for i, h in enumerate(CKPT_HEADS)}
         refs = dict(f.result() for f in fits)
         out = {"refs": refs, "port": port, "small": port_small,
+               "wide": port_wide,
                "tokens": toks,
                "moe": moe, "retrieval": ret.result(), "saved": saved,
                "back": {h: f.result() for h, f in backs.items()},
@@ -374,10 +402,10 @@ def _flat(tree):
     return jax.tree.leaves(tree)
 
 
-def _member_slice(leaf, spec, d, m):
+def _member_slice(leaf, spec, d, m, grid=GRID):
     """Grid member (d, m)'s block of a whole leaf by ``spec``."""
     idx = {"data": d, "model": m}
-    size = dict(zip(("data", "model"), GRID))
+    size = dict(zip(("data", "model"), grid))
     out = leaf
     for dim, entry in enumerate(spec):
         if entry is None:
@@ -388,7 +416,7 @@ def _member_slice(leaf, spec, d, m):
     return out
 
 
-def _check_fit(ref, members, arch=ARCH, par=None):
+def _check_fit(ref, members, arch=ARCH, par=None, grid=GRID):
     port = members[0]
     for key in ("loss", "acc"):
         np.testing.assert_allclose([r[key] for r in port["history"]],
@@ -405,17 +433,17 @@ def _check_fit(ref, members, arch=ARCH, par=None):
     # every member holds its slice of the JAX leaf
     cfg = dataclasses.replace(tbase.get_model_config(arch, True),
                               dtype="float32")
-    specs = tgspmd.param_pspecs(tbase.pad_vocab(cfg, GRID[1]), par or
-                                tmesh.make_host_parallel_config(*GRID))
+    specs = tgspmd.param_pspecs(tbase.pad_vocab(cfg, grid[1]), par or
+                                tmesh.make_host_parallel_config(*grid))
     for i, member in enumerate(members):
-        d, m = divmod(i, GRID[1])
+        d, m = divmod(i, grid[1])
         assert member["history"] == port["history"]
         for leaf, mine, spec in zip(
                 _flat(ref["params"]), _flat(member["member"]),
                 jax.tree.leaves(specs, is_leaf=lambda x: isinstance(
                     x, tuple))):
-            np.testing.assert_allclose(mine, _member_slice(leaf, spec, d, m),
-                                       **TRAJ_TOL)
+            np.testing.assert_allclose(
+                mine, _member_slice(leaf, spec, d, m, grid), **TRAJ_TOL)
 
 
 def test_the_grid_splits_heads_mlp_and_vocab():
@@ -582,3 +610,41 @@ def test_a_member_holds_its_slices_only(runs):
             want = tuple(s // (2 if e == "model" else 1)
                          for s, e in zip(leaf.shape, spec + (None,) * 9))
             assert shape == want
+
+
+def test_smollm_on_a_2x4_grid_matches_the_jax_zoo(runs):
+    """The reduced SmolLM on (2, 4): its attention whole on every member
+    (3 heads over 4), its MLP and vocab split; fit(3) of the full head on
+    the kernel backend against the JAX zoo on a (2, 4) mesh: losses,
+    accuracies, the params gathered whole and every member's slices within
+    TRAJ_TOL, evaluate equal, every member's history the same."""
+    specs = tgspmd.param_pspecs(
+        tbase.pad_vocab(tbase.get_model_config(WIDE_KEY[0], True), WIDE[1]),
+        tmesh.make_host_parallel_config(*WIDE))
+    assert set(specs["blocks"]["attn"].values()) == {(None,) * 4}
+    assert specs["blocks"]["mlp"]["wo"] == (None, "model", None)
+    assert specs["embed"]["table"] == ("model", None)
+    members = runs["wide"]["fit"]
+    assert len(members) == 8
+    _check_fit(runs["refs"][WIDE_KEY], members, arch=WIDE_KEY[0],
+               grid=WIDE)
+
+
+def test_the_zoo_launchers_print_and_write_once_on_a_grid(runs):
+    """Both launchers' zoo runs on each member of the (2, 4) grid: member
+    0 prints the train launcher's step, result and trace lines once and
+    writes one metrics row a step, and the serve launcher's tokens and
+    trace lines once; the other members print nothing."""
+    for name, want in (("train_launcher", (
+            "[zoo] step=0 ", "[zoo] final next-token accuracy",
+            "[telemetry] 2 train.step spans")),
+            ("serve_launcher", ("[serve] smollm-135m-reduced",
+                                "[telemetry] trace ->"))):
+        lead, *rest = runs["wide"][name]
+        assert lead["rc"] == 0 and all(m["rc"] == 0 for m in rest)
+        lines = lead["stdout"].splitlines()
+        for key in want:
+            assert sum(x.startswith(key) for x in lines) == 1, (name, key)
+        assert [m["stdout"] for m in rest] == [""] * 7, name
+    rows = open(os.path.join(runs["root"], "wide.jsonl")).read().splitlines()
+    assert len(rows) == 2

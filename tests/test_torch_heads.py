@@ -46,6 +46,7 @@ from repro_torch.api.experiment import paper_model_config
 from repro_torch.api.heads import make_head
 from repro_torch.configs.base import HeadConfig
 from repro_torch.core import baselines as tbl
+from tests.torch_threads import one_thread  # noqa: F401
 
 RINGS = (1, 2, 4)
 BACKENDS = (("ref", "ref"), ("pallas", "kernel"))    # (JAX name, port name)
@@ -63,16 +64,6 @@ STEP = 5
 # projections closer to 0 than this may take either sign in fp32 sums of
 # another order: such rows may land in another bucket than in JAX
 LSH_MARGIN = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """The file's CPU ops are small: on one intra-op thread they run as
-    fast alone and stop contending with the suite's other workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _problem():

@@ -38,6 +38,7 @@ from repro_torch.core import baselines as tbl
 from repro_torch.launch import serve as serve_launcher
 from repro_torch.launch import train as train_launcher
 from tests.test_torch_heads import _jax_draw
+from tests.torch_threads import one_thread  # noqa: F401
 
 RINGS = (1, 2, 4)
 TRAJ_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -215,18 +216,6 @@ def test_selective_refresh_is_the_member_build(results, n):
 NEW_HEADS = ("selective", "mach", "sampled", "csoft")
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for a launcher's small ops: beside the other
-    test processes a pool of threads waits on busy cores (the sampled
-    head's run took 13.5 s at eight threads there, 0.15 s at one)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("head", NEW_HEADS)
 def test_train_launcher_head_on_the_cpu(head, tmp_path, capsys):
     metrics = tmp_path / "m.jsonl"
@@ -245,7 +234,6 @@ def test_train_launcher_head_on_the_cpu(head, tmp_path, capsys):
         assert '"sample_frac": 0.25' in rows[-1]
 
 
-@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("head", NEW_HEADS)
 def test_serve_launcher_head_on_the_cpu(head, capsys):
     base = ["--system", "paper", "--device", "cpu", "--classes", "512",

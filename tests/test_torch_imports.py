@@ -1,7 +1,8 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-nothing of JAX or of the JAX package, its configs match the JAX package's
-field for field, and its entry points run on the card unless the caller
-asks for the CPU."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py``, the port's
+examples (``examples/*_torch.py``) and scripts (``scripts/check_docs_torch.py``,
+``scripts/smoke_torch_legs.py``) import nothing of JAX or of the JAX
+package, its configs match the JAX package's field for field, and its
+entry points run on the card unless the caller asks for the CPU."""
 import ast
 import dataclasses
 import os
@@ -25,6 +26,14 @@ from repro_torch.serving import IVFIndex
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
+# the port's scripts beside the package, each importable by path
+PORT_SCRIPTS = ("examples/quickstart_torch.py",
+                "examples/train_sku_cnn_torch.py",
+                "examples/serve_lm_torch.py", "scripts/check_docs_torch.py",
+                "scripts/smoke_torch_legs.py")
+# a subprocess's CPU ops on one thread: the test run's workers share the
+# cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
 KNN_MODULES = ("repro_torch.core.knn_graph", "repro_torch.core.knn_softmax",
                "repro_torch.kernels.sparse_ce",
                "repro_torch.kernels.knn_dist_topk")
@@ -49,14 +58,19 @@ SLICE_MODULES = (KNN_MODULES + IVF_MODULES + ZOO_MODULES + CKPT_MODULES
 
 
 def test_importing_the_port_loads_no_jax():
-    """A fresh interpreter imports every module of the port and
-    ``chip_smoke`` and finds neither JAX nor the JAX package loaded."""
+    """A fresh interpreter imports every module of the port,
+    ``chip_smoke`` and the port's examples and scripts, and finds neither
+    JAX nor the JAX package loaded."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "import repro_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"for i, path in enumerate({PORT_SCRIPTS!r}):\n"
+        f"    spec = importlib.util.spec_from_file_location(\n"
+        f"        f'script{{i}}', {str(ROOT)!r} + '/' + path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -67,7 +81,7 @@ def test_importing_the_port_loads_no_jax():
         "print('modules', len([m for m in sys.modules "
         "if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src"), str(ROOT)]))
+        [str(ROOT / "src"), str(ROOT)]), **ONE_THREAD)
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -105,7 +119,7 @@ def test_checkpoints_need_neither_msgpack_nor_zstandard(tmp_path):
         "exp.trainer._snapshot())\n"
         "assert cmp['bitwise'], cmp\n"
         "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD)
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -128,7 +142,8 @@ def _imports(path: Path):
 
 
 def test_no_source_of_the_port_imports_jax():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + [ROOT / p for p in PORT_SCRIPTS])
     assert len(files) > 30
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
            if m.split(".")[0] in FORBIDDEN]

@@ -64,6 +64,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.launch import serve as serve_launcher
 from repro_torch.serving import IVFIndex
 from repro_torch.serving import index as tix
+from tests.torch_threads import one_thread  # noqa: F401
 
 RINGS = (1, 2)
 BACKENDS = (("ref", "ref"), ("pallas", "kernel"))    # (JAX name, port name)
@@ -76,7 +77,6 @@ FIT_CASES = {"random": (512, 16, 0, False),
 # the serve path: clustered rows, a batch of B queries of which NQ are real
 CLASSES, FEAT, B, NQ, K = 512, 16, 8, 6, 5
 HEADS = ("full", "knn")
-
 
 def _head_cfg(impl, backend="ref"):
     return dict(softmax_impl=impl, backend=backend, knn_k=8, knn_kprime=16,

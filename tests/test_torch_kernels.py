@@ -24,9 +24,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ce_softmax as tce
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import topk_dc as tdc
+from tests.torch_threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-
 
 def _ce_problem(seed, b, d, v):
     rng = np.random.default_rng(seed)

@@ -54,6 +54,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import sparse_ce as tsp
 from repro_torch.launch import serve as serve_launcher
 from repro_torch.launch import train as train_launcher
+from tests.torch_threads import one_thread  # noqa: F401
 
 RINGS = (1, 2, 4)
 BACKENDS = (("ref", "ref"), ("pallas", "kernel"))    # (JAX name, port name)
@@ -70,16 +71,6 @@ FCCS = dict(eta0=0.4, t_warm=2, b0=16, b_min=16, b_max=64, t_ini=2,
 TRAIN = dict(optimizer="lars")
 KNN_HEAD = dict(softmax_impl="knn", knn_k=8, knn_kprime=16, active_frac=0.1,
                 rebuild_every=3, knn_pad_random=False)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """The file's CPU ops are small: on one intra-op thread they run as
-    fast alone and stop contending with the suite's other workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _problem():

@@ -37,6 +37,7 @@ from repro_torch.optim import (adam, apply_updates, assign, lars, scale,
                                sgd, tree_leaves)
 from repro_torch.train import gspmd as tgspmd
 from repro_torch.train import hybrid as thybrid
+from tests.torch_threads import one_thread  # noqa: F401
 
 FAMILIES = {"dense": "smollm_135m", "moe": "qwen3_moe_30b_a3b",
             "ssm": "mamba2_370m", "hybrid": "hymba_1_5b",
@@ -148,7 +149,6 @@ def test_remat_is_bit_equal_to_none(family):
     """Each family at ``reduced()``: the loss (with the moe family's router
     loss) and every gradient with each layer checkpointed equal those
     without, bit for bit, while the backward keeps fewer bytes."""
-    torch.set_num_threads(1)
     cfg = tbase.get_model_config(FAMILIES[family], reduced=True)
     assert cfg.family == family
     params = lm.init_model(torch.Generator().manual_seed(0), cfg)
@@ -337,7 +337,6 @@ def test_fit_in_place_is_bit_equal_to_the_old_update(trainer, monkeypatch):
     with the in-place update against the same runs through the old
     ``apply_updates`` + ``assign``: histories and every param and moment
     bit-equal."""
-    torch.set_num_threads(1)
     run = _paper_fit if trainer == "paper" else _zoo_fit
     hist, leaves = run()
     _old_formula(monkeypatch, thybrid if trainer == "paper" else tgspmd)

@@ -42,6 +42,7 @@ from repro_torch.launch import dryrun
 from repro_torch.optim import tree_leaves, tree_map
 from repro_torch.roofline.counter import WorkCounter
 from repro_torch.train import hybrid
+from tests.torch_threads import one_thread  # noqa: F401
 
 RINGS = (1, 2, 4)
 # (trunk, head, n_micro, dgc)
@@ -104,17 +105,6 @@ def _results():
             jax_fits[n] = _jax_fit(n)
             port[n] = pool.submit(_port_ring, n, jax_fits[n])
         return jax_fits, {n: f.result() for n, f in port.items()}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for the ring of one and the rest of this
-    module's small ops in this process, beside the spawned rings and the
-    JAX fits."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -26,12 +26,12 @@ from repro_torch.optim import tree_leaves
 from repro_torch.resilience import (FaultPlan, SimulatedFault, fault_hook,
                                     kill_and_recover, tree_compare)
 from repro_torch.telemetry import Tracer
+from tests.torch_threads import one_thread  # noqa: F401
 
 RINGS = (1, 2)
 HEAD = dict(backend="ref", knn_k=8, knn_kprime=16, active_frac=0.25,
             rebuild_every=5, sampled_n=64, mach_b=64, mach_r=2, csoft_b=64,
             csoft_r=2)
-
 
 def _spec(head, *, dgc=False, trunk="feats", batch=16):
     return {"head": dict(HEAD, softmax_impl=head),

@@ -29,9 +29,9 @@ from repro_torch.core import sparsify as sp
 from repro_torch.data import synthetic
 from repro_torch.models import lm, resnet
 from repro_torch.optim import tree_map
+from tests.torch_threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-5)
-
 
 def _to_torch(tree):
     return tree_map(lambda a: torch.from_numpy(np.array(a)),

@@ -22,6 +22,7 @@ import torch
 from repro_torch import dist, testing
 from repro_torch.launch import serve as serve_launcher
 from repro_torch.launch import train as train_launcher
+from tests.torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN = ["--device", "cpu", "--classes", "512", "--feat-dim", "32",
@@ -51,16 +52,6 @@ def _lines(out: str, key: str) -> list:
 def _losses(path) -> list:
     return [json.loads(line)["loss"] for line in
             open(path).read().splitlines()]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for the launchers run in this process (the
-    ring of one); the spawned members and torchrun's run at one too."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -43,6 +43,7 @@ from repro_torch.roofline import analysis as tanalysis
 from repro_torch.roofline import report as treport
 from repro_torch.roofline.counter import WorkCounter
 from repro_torch.telemetry import ledger as tledger
+from tests.torch_threads import one_thread  # noqa: F401
 
 RING = 4
 CLASSES, BATCH, FEAT, HW = 64, 16, 16, 32
@@ -54,7 +55,6 @@ STEP_CASES = ([("feats", h, b, m) for h in ("full", "knn")
 # ---------------------------------------------------------------------------
 # the ledger
 # ---------------------------------------------------------------------------
-
 
 def _grid():
     for n_dev in (1, 4, 8):

@@ -32,6 +32,7 @@ from repro.core import sharded_softmax as jss
 from repro.train import hybrid as jhybrid
 from repro_torch import dist, testing
 from repro_torch.launch import serve as port_launcher
+from tests.torch_threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 RINGS = (1, 2)
@@ -43,7 +44,6 @@ B, D, K, NQ, CHUNK = 8, 16, 5, 5, 128
 BODY_CASES = {"dense": (600, 0), "padded": (640, 600)}   # (rows, n_valid)
 # facade: the paper system at a small width
 CLASSES, FEAT, TOPK = 512, 32, 5
-
 
 def _body_inputs(case):
     v, n_valid = BODY_CASES[case]

@@ -40,12 +40,12 @@ from repro_torch.configs import base as tbase
 from repro_torch.models import layers as tlayers
 from repro_torch.models import ssm as tssm
 from repro_torch.models.layers import ParamDict
+from tests.torch_threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)        # fp32, sums in another order
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5       # gradients: atol of each leaf's max
 SCAN_TOL = dict(rtol=1e-4, atol=1e-5)   # chunked scan vs recurrence
 ARCHS = ["mamba2_370m", "hymba_1_5b"]
-
 
 def _cfgs(arch):
     return (dataclasses.replace(jbase.get_model_config(arch, reduced=True),

@@ -46,6 +46,7 @@ from repro_torch.core import pipeline as tpipe
 from repro_torch.core import sharded_softmax as tss
 from repro_torch.launch import train as port_launcher
 from repro_torch.optim import optimizers as topt
+from tests.torch_threads import one_thread  # noqa: F401
 
 RINGS = (1, 2, 4)
 BACKENDS = (("ref", "ref"), ("pallas", "kernel"))    # (JAX name, port name)
@@ -368,18 +369,6 @@ def test_fit_on_the_cpu_moves_weights_and_version():
     assert 0.0 <= exp.evaluate() <= 1.0
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for the test: the launcher's small convolutions
-    run under a second alone, but ~300 s beside five other busy test
-    processes, whose cores their thread pools wait on."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.mark.usefixtures("one_thread")
 def test_train_launcher_on_the_cpu(tmp_path, capsys):
     metrics, trace = tmp_path / "m.jsonl", tmp_path / "t.json"
     rc = port_launcher.main([
@@ -397,8 +386,7 @@ def test_train_launcher_on_the_cpu(tmp_path, capsys):
                                    ["--trunk", "cnn", "--dgc"],
                                    ["--trunk", "cnn", "--dgc", "--backend",
                                     "ref"]])
-def test_train_launcher_cnn_and_dgc_on_the_cpu(extra, tmp_path, capsys,
-                                               one_thread):
+def test_train_launcher_cnn_and_dgc_on_the_cpu(extra, tmp_path, capsys):
     """The reduced ResNet trunk and DGC through the launcher: exit 0, a
     printed accuracy in [0, 1], a metrics row a step."""
     metrics = tmp_path / "m.jsonl"
@@ -427,7 +415,6 @@ def test_train_launcher_cnn_and_dgc_on_the_cpu(extra, tmp_path, capsys,
     (["--backend", "pallas"], None),
     (["--steps", "0"], None),
 ])
-@pytest.mark.usefixtures("one_thread")
 def test_train_launcher_rejects_unported_args(argv, queue, capsys):
     if queue == "train":
         rc = port_launcher.main(argv + [

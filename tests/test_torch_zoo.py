@@ -55,22 +55,13 @@ from repro_torch.launch import serve as serve_launcher
 from repro_torch.models import decoder as tdec
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
+from tests.torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-5             # fp32: the same arithmetic, sums in another order
 DECODE_TOL = 5e-4      # tests/test_decode.py's bound on decode vs forward
 DENSE = ["smollm_135m", "qwen3_1_7b", "gemma_2b", "phi3_mini_3_8b"]
 BACKENDS = ["ref", "kernel"]
 S = 17                 # deliberately not a multiple of any tile
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """The file's CPU ops are small: on one intra-op thread they run as
-    fast alone and stop contending with the suite's other workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _np(t):

@@ -48,6 +48,7 @@ from repro_torch.elastic import reshard_zoo_snapshot
 from repro_torch.launch import train as train_launcher
 from repro_torch.resilience import kill_and_recover, tree_compare
 from tests.test_torch_zoo_train import jax_zoo_on_ring
+from tests.torch_threads import one_thread  # noqa: F401
 
 STEPS = 2
 HEAD = dict(backend="ref", knn_k=8, knn_kprime=16, active_frac=0.25,
@@ -57,16 +58,6 @@ HEADS = ("full", "knn", "selective", "mach", "sampled", "csoft")
 # tests/test_resilience.py's ZOO_EQUIVALENCE
 ZOO_EQUIVALENCE = {"full": "bitwise", "knn": "bitwise",
                    "sampled": "bitwise", "csoft": "bitwise"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """The file's CPU ops are small: on one intra-op thread they run as
-    fast alone and stop contending with the suite's other workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _spec(head, arch="smollm_135m", **kw):

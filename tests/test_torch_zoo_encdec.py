@@ -57,6 +57,7 @@ from repro_torch.models import lm as tlm
 from tests.test_torch_zoo_checkpoint import _payload
 from tests.test_torch_zoo_moe import jax_ckpt_restore, jax_ckpt_save
 from tests.test_torch_zoo_train import jax_zoo_on_ring
+from tests.torch_threads import one_thread  # noqa: F401
 
 ARCH = "whisper_tiny"
 BACKENDS = ("ref", "kernel")
@@ -364,13 +365,7 @@ def _port_ring(n, start, saved, root):
                                             os.path.join(root, "port"),
                                             saved[1]), {}))
         keys.append(("ckpt",))
-    threads = torch.get_num_threads()
-    if n == 1:
-        torch.set_num_threads(1)
-    try:
-        per_rank = dist.spawn_ring(testing.run_all, n, cases)
-    finally:
-        torch.set_num_threads(threads)
+    per_rank = dist.spawn_ring(testing.run_all, n, cases)
     return {key: [r[i] for r in per_rank] for i, key in enumerate(keys)}
 
 

@@ -50,6 +50,7 @@ from repro_torch.configs import base as tbase
 from repro_torch.models import decoder as tdec
 from repro_torch.models import lm as tlm
 from tests.test_torch_zoo_train import jax_zoo_on_ring
+from tests.torch_threads import one_thread  # noqa: F401
 
 ARCHS = ["mamba2_370m", "hymba_1_5b"]
 BACKENDS = ("ref", "kernel")
@@ -358,13 +359,7 @@ def _port_ring(n, starts):
                               dict(arch=arch, prompts=prompts,
                                    gen=SERVE["gen"], backend=backend)))
                 keys.append(("serve", arch, n, backend))
-    threads = torch.get_num_threads()
-    if n == 1:
-        torch.set_num_threads(1)
-    try:
-        per_rank = dist.spawn_ring(testing.run_all, n, cases)
-    finally:
-        torch.set_num_threads(threads)
+    per_rank = dist.spawn_ring(testing.run_all, n, cases)
     return {key: [r[i] for r in per_rank] for i, key in enumerate(keys)}
 
 

@@ -63,6 +63,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models.layers import ParamDict
 from tests.test_torch_zoo_checkpoint import _payload
 from tests.test_torch_zoo_train import jax_zoo_on_ring
+from tests.torch_threads import one_thread  # noqa: F401
 
 ARCHS = ["qwen3_moe_30b_a3b", "kimi_k2_1t_a32b", "chameleon_34b"]
 SERVED = ("qwen3_moe_30b_a3b", "chameleon_34b")
@@ -596,14 +597,8 @@ def _ring_cases(n, starts, saved, root):
 
 def _port_ring(n, pairs):
     """The cases ``pairs`` on one ring of n. {key: members}."""
-    threads = torch.get_num_threads()
-    if n == 1:
-        torch.set_num_threads(1)
-    try:
-        per_rank = dist.spawn_ring(testing.run_all, n,
-                                   [case for _, case in pairs])
-    finally:
-        torch.set_num_threads(threads)
+    per_rank = dist.spawn_ring(testing.run_all, n,
+                               [case for _, case in pairs])
     return {key: [r[i] for r in per_rank] for i, (key, _) in enumerate(pairs)}
 
 
@@ -664,19 +659,6 @@ def _runs(root):
     for p in own.values():
         p.shutdown(wait=False)
     return out
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for this module's work in this process: its
-    ops are small, and beside the JAX processes ``started`` keeps busy a
-    pool of threads waits on their cores (every test passes at either
-    count; ``test_every_head_trains_evaluates_and_serves`` took 127 s at
-    eight threads beside them, 3 s at one)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -63,6 +63,7 @@ from repro_torch.models import layers as tlayers
 from repro_torch.optim import tree_leaves, tree_map
 from repro_torch.train import gspmd as tgspmd
 from tests.test_torch_heads import _jax_draw
+from tests.torch_threads import one_thread  # noqa: F401
 
 ARCH = "smollm_135m"
 BATCH, SEQ, STEPS, LR = 4, 8, 3, 0.1
@@ -267,13 +268,7 @@ def _port_ring(n, starts, grads):
     cases.append(("zoo_grads", (g["tree"], {"softmax_impl": "full"}),
                   dict(arch=ARCH, inputs=g["inputs"])))
     keys.append(("grads", n))
-    threads = torch.get_num_threads()
-    if n == 1:                     # in this process: on one thread
-        torch.set_num_threads(1)
-    try:
-        per_rank = dist.spawn_ring(testing.run_all, n, cases)
-    finally:
-        torch.set_num_threads(threads)
+    per_rank = dist.spawn_ring(testing.run_all, n, cases)
     return {key: [r[i] for r in per_rank] for i, key in enumerate(keys)}
 
 
